@@ -1,0 +1,135 @@
+"""The port's CUDA attention kernels against their plain PyTorch version, on
+the card. Skipped where torch has no CUDA device; on a machine with one,
+run ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
+(``--noconftest``: the suite's conftest imports jax, which the GPU machine
+need not have).
+
+Tolerances: float32 with TF32 off 1e-5 (1e-4 at head width 512, a
+512-term f32 dot per logit), bfloat16 2e-2 (probabilities are rounded to
+bf16 before P.V, so one rounding flip moves an output by ~2^-8).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from protein_redesign_tpu_torch.ops import attention as A  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(R, N, H, C, dtype, device, seed=0, masked_rows=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(R, N, H, C, generator=g).to(device, dtype) for _ in range(3))
+    mask = (torch.rand(R, N, generator=g) > 0.2).float()
+    mask[:masked_rows] = 0.0  # fully masked rows: uniform weights
+    bias = torch.randn(R, H, N, N, generator=g).to(device, dtype)
+    return q, k, v, mask.to(device), bias
+
+
+def _tol(dtype, C):
+    if dtype == torch.bfloat16:
+        return 2e-2
+    return 1e-4 if C >= 512 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [16, 45, 192])
+@pytest.mark.parametrize("C", [8, 16, 64])
+def test_rows_kernel_matches_plain(device, dtype, N, C):
+    q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, masked_rows=2)
+    before = A.LAUNCHES["rows_attention"]
+    out = A.rows_attention(q, k, v, mask, 0.35)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["rows_attention"] == before + 1
+    ref = A.attention_reference(q, k, v, mask, None, 0.35)
+    tol = _tol(dtype, C)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    # fully masked rows give the mean of v
+    mean_v = v[:2].float().mean(1, keepdim=True).expand_as(out[:2])
+    torch.testing.assert_close(out[:2].float(), mean_v, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask_bias", "bias"])
+@pytest.mark.parametrize("C", [16, 512])
+def test_tiled_kernel_matches_plain(device, dtype, with_mask, C):
+    q, k, v, mask, bias = _inputs(2, 70, 4, C, dtype, device, seed=1)
+    m = mask if with_mask else None
+    out = A.tiled_attention(q, k, v, m, bias, 1.0 / C ** 0.5)
+    torch.cuda.synchronize()
+    ref = A.attention_reference(q, k, v, m, bias, 1.0 / C ** 0.5)
+    tol = _tol(dtype, C)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_strided_operands(device):
+    """The 'ending' triangle layout: k and v read through strides."""
+    N, H, C = 40, 4, 16
+    q, k, v, mask, _ = _inputs(N, N, H, C, torch.float32, device, seed=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))  # swapped pair axes, no copy
+    assert not kt.is_contiguous()
+    out = A.rows_attention(qt, kt, vt, mask, 0.25)
+    ref = A.attention_reference(qt.contiguous(), kt.contiguous(), vt.contiguous(), mask,
+                                None, 0.25)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["rows_attention", "tiled_attention"])
+def test_more_rows_than_a_grid_dimension_holds(device, name):
+    """R above 65535 (the bound of grid.y and grid.z): rows share grid.x
+    with the query tiles."""
+    q, k, v, mask, bias = _inputs(70000, 20, 1, 4, torch.float32, device, seed=4)
+    if name == "rows_attention":
+        out, ref = A.rows_attention(q, k, v, mask, 0.5), A.attention_reference(
+            q, k, v, mask, None, 0.5)
+    else:
+        out, ref = A.tiled_attention(q, k, v, mask, bias, 0.5), A.attention_reference(
+            q, k, v, mask, bias, 0.5)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_rejects(device):
+    q, k, v, mask, bias = _inputs(2, 16, 2, 8, torch.float32, device)
+    with pytest.raises(NotImplementedError):
+        A.rows_attention(q.requires_grad_(), k, v, mask, 0.5)
+    wide = torch.zeros(2, 16, 1, 516, device=device)
+    with pytest.raises(ValueError):
+        A.tiled_attention(wide, wide, wide, None, torch.zeros(2, 1, 16, 16, device=device), 1.0)
+    with pytest.raises(TypeError):
+        A.rows_attention(q.detach().half(), k.half(), v.half(), mask, 0.5)
+
+
+def test_denoiser_kernel_route_matches_plain(device):
+    from protein_redesign_tpu.config import ModelConfig
+    from protein_redesign_tpu_torch.models.denoiser import Denoiser
+
+    cfg = ModelConfig(single_dim=32, pair_dim=16, head_dim=8, num_heads=2, num_blocks=2,
+                      dtype="float32")
+    torch.manual_seed(0)
+    mod = Denoiser(cfg).to(device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    single = torch.randn(2, 40, 32, generator=g).to(device)
+    pair = torch.randn(2, 40, 40, 16, generator=g).to(device)
+    mask = (torch.arange(40) < 33).float().expand(2, 40).to(device)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        kernel = mod(single, pair, mask)
+        assert A.LAUNCHES == {"rows_attention": 4, "tiled_attention": 3}
+        with A.plain_route():
+            plain = mod(single, pair, mask)
+        assert A.LAUNCHES == {"rows_attention": 4, "tiled_attention": 3}
+    for a, b in zip(kernel, plain):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
