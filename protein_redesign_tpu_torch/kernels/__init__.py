@@ -1,11 +1,12 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. ``nvcc`` compiles them
-for Hopper (``sm_90a``) into a shared library under ``_build/`` on first use,
-named by a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. The library is bound with ``ctypes``:
-every pointer and the stream are ``c_void_p``, and each entry point returns
-its ``cudaGetLastError()``.
+The sources under ``csrc/`` have a plain C interface. On first use ``nvcc``
+compiles each of them for Hopper (``sm_90a``), one process per source, all
+started together, and links the objects into one shared library under
+``_build/``, named by a hash of the sources, the shared header and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is. The
+library is bound with ``ctypes``: every pointer and the stream are
+``c_void_p``, and each entry point returns its ``cudaGetLastError()``.
 
 Nothing is built or loaded at import time: the CPU tests import every module
 of the port on machines without ``nvcc``.
@@ -25,13 +26,12 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention.cu",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+SOURCES = ("attention.cu", "attention_bwd.cu")
+HEADERS = ("common.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 
 
 class KernelLibrary:
@@ -52,6 +52,10 @@ class KernelLibrary:
             [ptr] * 6 + [i32] * 5 + [f32] + strides + [ptr]
         )
         lib.prd_tiled_attention.restype = i32
+        lib.prd_rows_attention_bwd.argtypes = (
+            [ptr] * 9 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
+        )
+        lib.prd_rows_attention_bwd.restype = i32
         lib.prd_error_string.argtypes = [i32]
         lib.prd_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -81,9 +85,9 @@ def find_nvcc() -> str:
 
 def _source_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -98,17 +102,27 @@ def build() -> KernelLibrary:
     if not target.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objects = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+            procs = [
+                subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", obj, str(CSRC_DIR / src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objects)
+            ]
+            logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+            log = "".join(logs)
+            if any(proc.returncode != 0 for proc in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            so = Path(tmp) / "lib.so"
+            proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(so), *objects],
+                                  capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            # atomic: concurrent builders never see half a file
+            os.replace(so, target)
         build_seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, target)  # atomic: concurrent builders never see half a file
         log_path.write_text(log)
     log = log_path.read_text() if log_path.exists() else ""
     _LIBRARY = KernelLibrary(target, build_seconds, log)

@@ -37,44 +37,12 @@
 // contiguous [R, H, N, N] in the input type; out is contiguous [R, N, H, C].
 // Each entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kMaskFill = -32768.0f;  // -2^15, the reference's padding fill
 constexpr int kTK = 32;                 // keys per tile: one key per lane
 constexpr int kRPW = 4;                 // query rows per warp
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Strides {
-  long long r, n, h;
-};
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float cast(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 cast(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // kTK rows of one head's K or V into shared memory as f32, rows past N zeroed.
 template <typename T>

@@ -5,6 +5,10 @@ The reference quirks stay: SPAttention applies no key-padding mask, its
 per-head width is single_dim, and its residual wraps the normed input;
 OuterProductUpdate divides by the mask outer product + 1e-3; the pair is
 symmetrised as 0.5 * (P + P^T) at the end.
+
+With ``cfg.remat`` and grad enabled, each FoldingBlock is checkpointed
+(`denoiser.py:665`'s ``nn.remat``): the backward recomputes the block's
+forward, launching its attention kernels a second time.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from protein_redesign_tpu.config import ModelConfig
 
@@ -238,7 +243,11 @@ class Denoiser(nn.Module):
         single = self.SPAAttnBlock(single, pair, mask)
         if self.cfg.pair_stream_bf16:
             pair = pair.to(torch.bfloat16)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.folding_blocks:
-            single, pair = block(single, pair, mask)
+            if remat:
+                single, pair = checkpoint(block, single, pair, mask, use_reentrant=False)
+            else:
+                single, pair = block(single, pair, mask)
         pair = pair.to(self.dtype)
         return single, 0.5 * (pair + pair.transpose(-2, -3))

@@ -1,8 +1,8 @@
 """Beta schedules and the diffusion-schedule table (port of
 ``protein_redesign_tpu/models/diffusion.py``): computed in float64 with
 numpy, stored as float32 tensors. The table holds the quantities the DDPM
-step reads; the JAX table's others belong to the samplers and the training
-loss that are not ported yet.
+step and the training loss read; the JAX table's others belong to the
+samplers that are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,11 +37,12 @@ def get_betas(n_timestep: int, schedule: str) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM step's schedule quantities as float32 tensors [T]."""
+    """The DDPM step's and the loss's schedule quantities as float32 tensors [T]."""
 
     alphas: torch.Tensor
     sqrt_alphas: torch.Tensor
     sqrt_betas: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
 
     @staticmethod
@@ -57,5 +58,6 @@ class DiffusionSchedule:
             alphas=f32(alphas),
             sqrt_alphas=f32(np.sqrt(alphas)),
             sqrt_betas=f32(np.sqrt(betas)),
+            sqrt_alphas_cumprod=f32(np.sqrt(np.cumprod(alphas))),
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - np.cumprod(alphas))),
         )

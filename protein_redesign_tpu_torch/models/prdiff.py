@@ -1,15 +1,20 @@
-"""ProteinReDiff network, inference batch preparation and the DDPM sampler
-(port of ``protein_redesign_tpu/models/prdiff.py``).
+"""ProteinReDiff network, batch preparation, the training loss and the DDPM
+sampler (port of ``protein_redesign_tpu/models/prdiff.py``).
 
-The sampler is a Python loop over timesteps. Every random draw (mask
-scores, initial coordinates and sequence, each step's noise) comes from a
-``torch.Generator`` or is injected through ``SamplerNoise``, so a test can
-feed the port exactly what the JAX sampler drew.
+The sampler is a Python loop over timesteps. Every random draw comes from a
+``torch.Generator`` or is injected, through ``SamplerNoise`` for the sampler
+(mask scores, initial coordinates and sequence, each step's noise) and
+``TrainNoise`` for the loss (masking policy and fractions, mask scores,
+timesteps, noise), so a test can feed the port exactly what the JAX package
+drew. The loss keeps the reference's quirky reductions
+(`tests/test_loss_semantics.py`): KL and CE summed to scalars and broadcast
+onto every sample, and (seq_pred + 1) / 2 fed to the CE as logits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,7 +36,7 @@ from .layers import (
     SinusoidalProjection,
     TransitionMLP,
 )
-from .masking import random_mask
+from .masking import random_mask, spatial_mask
 
 Batch = Dict[str, torch.Tensor]
 NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
@@ -39,9 +44,8 @@ NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for config fields outside the ported
-    slice (DDPM generation with the Gaussian sequence channel)."""
+    slice (DDPM generation and training with the Gaussian sequence channel)."""
     unsupported = [
-        (cfg.training_mode, "training_mode: training is not ported yet"),
         (cfg.self_cond, "self_cond: self-conditioning is not ported yet"),
         (cfg.seq_process != "gaussian",
          f"seq_process={cfg.seq_process!r}: only 'gaussian' is ported"),
@@ -172,14 +176,64 @@ class ProteinReDiffNet(nn.Module):
         return noise_pred, seq_pred
 
 
+@dataclasses.dataclass
+class TrainNoise:
+    """Draws the training loss would otherwise take from its generator, as
+    the JAX package draws them (`prdiff.py:371-394, 438-462, 633-636`)."""
+
+    rt: Optional[torch.Tensor] = None           # scalar U(0, 1): masking policy
+    p: Optional[torch.Tensor] = None            # scalar U(0.1, mask_prob): fraction bound
+    rand_u: Optional[torch.Tensor] = None       # scalar U(0, 1): random fraction is rand_u * p
+    rand_scores: Optional[torch.Tensor] = None  # [B * N] U(0, 1): random-mask scores
+    spatial_u: Optional[torch.Tensor] = None    # scalar U(0, 1): spatial fraction is spatial_u * p
+    t: Optional[torch.Tensor] = None            # [B] timesteps in [0, num_steps)
+    noise_z: Optional[torch.Tensor] = None      # [B, N, 3] N(0, 1), before mean removal
+    noise_seq: Optional[torch.Tensor] = None    # [B, N, 21] N(0, 1), before mean removal
+
+
+def _uniform(value: Optional[torch.Tensor], like: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    if value is not None:
+        return value.to(like.device, torch.float32)
+    return torch.rand((), generator=generator, device=like.device)
+
+
+def _training_masks(batch: Batch, mask_prob: float, noise: TrainNoise,
+                    generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training masking policy (`prdiff.py:371-394`): random masking of
+    a U(0, 1) * p fraction when rt < 0.3, spatial masking around the ligand
+    when 0.3 <= rt < 0.5, else none; p ~ U(0.1, mask_prob)."""
+    residue_mask = batch["residue_mask"]
+    rt = _uniform(noise.rt, residue_mask, generator)
+    if noise.p is not None:
+        p = noise.p.to(residue_mask.device, torch.float32)
+    else:
+        p = 0.1 + _uniform(None, residue_mask, generator) * (mask_prob - 0.1)
+    p_rand = _uniform(noise.rand_u, residue_mask, generator) * p
+    rand_extra, rand_inv = random_mask(residue_mask, p_rand, noise.rand_scores, generator)
+    spat_extra, spat_inv = spatial_mask(
+        batch["residue_atom_pos"][:, :, 1], residue_mask, batch["atom_pos"], batch["atom_mask"],
+        p, noise.spatial_u, generator,
+    )
+    use_rand, use_spatial = rt < 0.3, (rt >= 0.3) & (rt < 0.5)
+    extra_mask = torch.where(use_rand, rand_extra,
+                             torch.where(use_spatial, spat_extra, residue_mask))
+    inv_mask = torch.where(use_rand, rand_inv,
+                           torch.where(use_spatial, spat_inv, torch.zeros_like(residue_mask)))
+    return extra_mask, inv_mask
+
+
 def prepare_batch(
     batch: Batch,
     mask_prob: float,
     mask_scores: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    training: bool = False,
+    train_noise: Optional[TrainNoise] = None,
 ) -> Batch:
-    """Inference branch of `prdiff.py:334-411`: ±1 one-hot, merged nm
-    coordinates and the random masking of ``mask_prob`` of the residues."""
+    """`prdiff.py:334-411`: ±1 one-hot, merged nm coordinates and the
+    sequence masking: the training policy draw, or (inference) a fixed
+    ``mask_prob`` fraction of the residues."""
     batch = dict(batch)
     atom_pos = batch["atom_pos"]
     atom_mask = batch["atom_mask"]
@@ -189,7 +243,11 @@ def prepare_batch(
 
     one_hot = F.one_hot(residue_type.long(), NUM_CLASSES).float() * 2.0 - 1.0
     pos = atom_mask[..., None] * atom_pos + residue_mask[..., None] * residue_ca_pos
-    extra_mask, inv_mask = random_mask(residue_mask, mask_prob, mask_scores, generator)
+    if training:
+        extra_mask, inv_mask = _training_masks(batch, mask_prob, train_noise or TrainNoise(),
+                                               generator)
+    else:
+        extra_mask, inv_mask = random_mask(residue_mask, mask_prob, mask_scores, generator)
 
     batch["residue_esm"] = batch["residue_esm"] * extra_mask[..., None]
     batch["residue_type_masked"] = residue_type * extra_mask.to(residue_type.dtype)
@@ -199,6 +257,130 @@ def prepare_batch(
     batch["x"] = angstrom_to_nanometre(pos)
     batch["residue_and_atom_mask"] = atom_mask + residue_mask
     return batch
+
+
+@functools.lru_cache(maxsize=8)
+def schedule_on(num_steps: int, schedule: str, device: str) -> DiffusionSchedule:
+    """The schedule table on a device, built once per (steps, kind, device)."""
+    return DiffusionSchedule.create(num_steps, schedule, device=device)
+
+
+def q_sample(
+    sched: DiffusionSchedule,
+    x: torch.Tensor,
+    seq: torch.Tensor,
+    t: torch.Tensor,
+    noise_z: torch.Tensor,
+    noise_seq: torch.Tensor,
+    batch: Batch,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward noising with known-residue clamping (``q``, `prdiff.py:414-436`)."""
+    extra = batch["residue_extra_mask"][..., None]
+    inv = batch["residue_inv_extra_mask"][..., None]
+    sac = sched.sqrt_alphas_cumprod[t][:, None, None]
+    s1mac = sched.sqrt_one_minus_alphas_cumprod[t][:, None, None]
+    z_t = sac * x + s1mac * noise_z
+    seq_t = sac * seq + s1mac * noise_seq
+    seq_t = extra * seq + inv * seq_t
+    t1 = torch.clamp(t - 1, min=0)
+    sac1 = sched.sqrt_alphas_cumprod[t1][:, None, None]
+    s1mac1 = sched.sqrt_one_minus_alphas_cumprod[t1][:, None, None]
+    seq_t1 = sac1 * seq + s1mac1 * noise_seq
+    return z_t, seq_t, seq_t1, t1
+
+
+def _label_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0]
+
+
+def diffusion_loss(
+    net: ProteinReDiffNet,
+    sched: DiffusionSchedule,
+    batch: Batch,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    t: torch.Tensor,
+    noise_z: torch.Tensor,
+    noise_seq: torch.Tensor,
+) -> torch.Tensor:
+    """Per-sample loss [B] (`prdiff.py:438-524`, Gaussian sequence channel):
+    masked coordinate MSE per sample plus, in ``loss_mode="reference"``, KL
+    and CE summed to scalars and broadcast onto every sample; in
+    ``"per_position"``, per-sample self-normalized terms. ``noise_z`` and
+    ``noise_seq`` are raw standard normals."""
+    seq = batch["residue_one_hot"]
+    residue_mask = batch["residue_mask"]
+    noise_z = remove_mean(noise_z, mask)
+    noise_seq = remove_mean(noise_seq, residue_mask)
+    z_t, seq_t, seq_t1, t1 = q_sample(sched, x, seq, t, noise_z, noise_seq, batch)
+    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t)
+    sac1 = sched.sqrt_alphas_cumprod[t1][:, None, None]
+    s1mac1 = sched.sqrt_one_minus_alphas_cumprod[t1][:, None, None]
+    seq_pred_t1 = sac1 * seq_pred + s1mac1 * noise_seq
+
+    mse = torch.sum(mask[..., None] * torch.square(noise_pred - noise_z), dim=(-1, -2))
+    rm = residue_mask[..., None]
+    log_p = F.log_softmax(seq_pred_t1, dim=-1) * rm
+    q_tgt = torch.softmax(seq_t1, dim=-1) * rm
+    # F.kl_div(input, target) = target * (log(target) - input), 0 log 0 := 0
+    kl = torch.where(
+        q_tgt > 0, q_tgt * (torch.log(torch.where(q_tgt > 0, q_tgt, 1.0)) - log_p),
+        -q_tgt * log_p,
+    )
+    labels = batch["residue_type"].long()
+
+    if net.cfg.loss_mode == "per_position":
+        num_nodes = torch.clamp(torch.sum(mask > 0.5, dim=-1), min=1)
+        num_res = torch.clamp(torch.sum(residue_mask, dim=-1), min=1.0)
+        sel = batch["residue_inv_extra_mask"] * (labels != 0)
+        ce = torch.sum(_label_nll(seq_pred, labels) * sel, dim=-1) / torch.clamp(
+            torch.sum(sel, dim=-1), min=1.0
+        )
+        return mse / num_nodes + torch.sum(kl, dim=(-1, -2)) / num_res + ce
+
+    nll = _label_nll((seq_pred + 1.0) / 2.0, labels)
+    nll = torch.where(labels == 0, 0.0, nll) * mask
+    return mse + torch.sum(kl) + torch.sum(nll)
+
+
+def loss(
+    net: ProteinReDiffNet,
+    batch: Batch,
+    reduction: str = "mean",
+    noise: Optional[TrainNoise] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Scalar training/validation loss (`prdiff.py:589-646`), with the
+    training masking policy as both the JAX train and eval steps take it;
+    ``reduction="none"`` returns the per-sample [B] vector instead of its
+    mean (validation weights only a padded batch's real rows)."""
+    cfg = net.cfg
+    if cfg.loss_mode not in ("reference", "per_position"):
+        raise ValueError(f"loss_mode must be 'reference' or 'per_position', got {cfg.loss_mode!r}")
+    noise = noise or TrainNoise()
+    batch = prepare_batch(batch, cfg.mask_prob, generator=generator, training=True,
+                          train_noise=noise)
+    x = batch["x"]
+    mask = batch["residue_and_atom_mask"]
+    B = x.shape[0]
+    sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(x.device))
+    t = noise.t
+    if t is None:
+        t = torch.randint(0, cfg.num_steps, (B,), generator=generator, device=x.device)
+    noise_z = noise.noise_z
+    if noise_z is None:
+        noise_z = _normal(x.shape, x, generator)
+    noise_seq = noise.noise_seq
+    if noise_seq is None:
+        noise_seq = _normal(batch["residue_one_hot"].shape, x, generator)
+    per_sample = diffusion_loss(net, sched, batch, x, mask, t.to(x.device).long(),
+                                noise_z.to(x), noise_seq.to(x))
+    if cfg.loss_mode == "reference":
+        per_sample = per_sample / torch.sum(mask > 0.5, dim=-1)
+    mean = per_sample.mean()
+    if reduction == "none":
+        return per_sample, {"loss": mean}
+    return mean, {"loss": mean}
 
 
 @dataclasses.dataclass
@@ -302,8 +484,7 @@ def sample(
     t = T-1 .. 0. Returns (positions in Å, residue-masked seq logits)."""
     cfg = net.cfg
     mask_prob = cfg.mask_prob if mask_prob is None else mask_prob
-    sched = DiffusionSchedule.create(cfg.num_steps, cfg.diffusion_schedule,
-                                     device=batch["residue_mask"].device)
+    sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(batch["residue_mask"].device))
     batch, carry = sample_init(batch, mask_prob, generator, noise)
     x = batch["x"]
     for i, t in enumerate(range(cfg.num_steps - 1, -1, -1)):

@@ -12,20 +12,30 @@ kernels the denoiser's main path runs:
 - ``tiled_attention`` (K2) <- ``_tiled_attention_impl`` / ``_attn_kernel`` /
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
+- ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
+  ``_make_rowhead_bwd_kernel``: the flash backward of K1.
+
+Gradients follow the JAX ``custom_vjp`` pair ``_fwd``/``_bwd`` (:1425/:1454)
+with ``kernel_bwd`` on, the training default: K1's backward is K7, and K2's
+is the plain recompute through ``attention_reference`` under autograd (the
+JAX einsum VJP, :1509-1519: its dbias is [R, H, N, N] anyway, so the JAX
+package has no backward kernel for it either).
 
 Public functions keep the JAX layout: q, k, v are [R, N, H, C], mask [R, N],
 bias [R, H, N, N]. A wrapper given CPU tensors runs the plain version; given
-CUDA tensors it launches its kernel or raises. The kernels read q, k and v
-through their strides (head dimension contiguous, so the swapped "ending"
+CUDA tensors it launches its kernel or raises. The kernels read q, k, v and
+dO through their strides (head dimension contiguous, so the swapped "ending"
 triangle layout needs no copy); the wrapper makes the mask (f32) and the bias
-contiguous. Only inference is covered: a CUDA input that requires grad raises.
+contiguous.
 
 The port's attention plan has no size gates yet (those of the JAX
 package's ``resolve_attention_plan``, ``protein_redesign_tpu/models/
 denoiser.py:497``, were measured on a TPU): every model attention goes
-through ``gated_attention_core`` to the kernel wrappers. Inside ``plain_route()`` it runs the plain version on any
-device instead; that block exists to compare the kernels with the plain
-version on the card, and nothing on the main path enters it.
+through ``gated_attention_core`` to the kernel wrappers. Inside
+``plain_route()`` it runs the plain version on any device instead, forward
+and backward (autograd of ``attention_reference``); that block exists to
+compare the kernels with the plain version on the card, and nothing on the
+main path enters it.
 """
 
 from __future__ import annotations
@@ -40,10 +50,11 @@ MAX_HEAD_DIM = 512
 MAX_HEADS = 65535  # grid.y
 # One block per (row, 16-query tile) at most, in grid.x's 2^31 - 1 blocks.
 MIN_QUERY_TILE, MAX_BLOCKS = 16, 2**31 - 1
+MAX_BWD_HEAD_DIM = 32  # K7 keeps a row's vectors in registers
 
 # Launches of each kernel since the last reset. A wrapper adds one where it
 # launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {"rows_attention": 0, "tiled_attention": 0}
+LAUNCHES: Dict[str, int] = {"rows_attention": 0, "tiled_attention": 0, "rows_attention_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_ROUTE = False  # set only inside plain_route()
@@ -88,6 +99,29 @@ def attention_reference(
     return out.to(v.dtype)
 
 
+def rows_attention_bwd_reference(q, k, v, mask, dout, scale: float):
+    """Plain version of K7: (dq, dk, dv) of masked attention without bias
+    given dO [R, N, H, C], with the Pallas kernel's roundings
+    (`_make_rowhead_bwd_kernel`): f32 probabilities, dv from probabilities
+    rounded to v's dtype, dS = P(dP - rowsum(dP P)) zeroed at masked keys
+    and rounded to q's dtype, f32 sums, outputs in the input dtype. dq is
+    taken through the pre-scaled q and multiplied by the dtype-rounded
+    scale, as ``_bwd`` does (`jnp.swapaxes(dqt, 1, 2) * scale`)."""
+    w = weak_scalar(scale, q.dtype)
+    qt = (q * w).float()
+    logits = torch.einsum("rihc,rjhc->rhij", qt, k.float())
+    masked = mask[:, None, None, :] < 0.5
+    probs = torch.softmax(torch.where(masked, NEG_INF, logits), dim=-1)
+    g = dout.float()
+    dv = torch.einsum("rhij,rihc->rjhc", probs.to(v.dtype).float(), g).to(v.dtype)
+    dp = torch.einsum("rihc,rjhc->rhij", g, v.float())
+    ds = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+    ds = torch.where(masked, 0.0, ds).to(q.dtype).float()
+    dqt = torch.einsum("rhij,rjhc->rihc", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("rhij,rihc->rjhc", ds, qt).to(k.dtype)
+    return dqt * w, dk, dv
+
+
 def _check(q, k, v, mask, bias) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be [R, N, H, C], got {tuple(q.shape)}")
@@ -109,10 +143,6 @@ def _check(q, k, v, mask, bias) -> None:
     for name, t in tensors:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"{name} requires grad: the attention kernels have no backward yet"
-            )
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"attention kernels take float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v), ("bias", bias)):
@@ -161,6 +191,36 @@ def _launch(name: str, q, k, v, mask, bias, scale: float) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(q, k, v, mask, dout, scale: float):
+    from ..kernels import build
+
+    _check(q, k, v, mask, None)
+    R, N, H, C = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must match q: got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    if C > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"rows attention backward takes head width up to {MAX_BWD_HEAD_DIM}, "
+                         f"got {C}")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    lib = build()
+    mask = mask.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty((R, N, H, C), dtype=q.dtype, device=q.device) for _ in range(3))
+    stats = torch.empty((3, R, H, N), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
+    w = weak_scalar(scale, q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.lib.prd_rows_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            _DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream,
+        )
+    lib.check(code, "rows_attention_bwd")
+    LAUNCHES["rows_attention_bwd"] += 1
+    return dq * w, dk, dv
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     """True when the input lies on the CPU (plain version); False for CUDA
     (kernel); raises for any other device."""
@@ -172,24 +232,76 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"attention runs on cpu or cuda tensors, got {device}")
 
 
+def rows_attention_bwd(q, k, v, mask: torch.Tensor, dout: torch.Tensor, scale: float):
+    """K7: (dq, dk, dv) of ``rows_attention`` given dO; dq is with respect
+    to the unscaled q."""
+    if _on_cpu(q):
+        return rows_attention_bwd_reference(q, k, v, mask, dout, scale)
+    return _launch_bwd(q, k, v, mask, dout, scale)
+
+
+class _RowsAttention(torch.autograd.Function):
+    """K1 forward, K7 backward (the JAX ``_fwd``/``_bwd`` with ``kernel_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        if _on_cpu(q):
+            return attention_reference(q, k, v, mask, None, scale)
+        return _launch("rows_attention", q, k, v, mask, None, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = rows_attention_bwd(q, k, v, mask, dout, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _TiledAttention(torch.autograd.Function):
+    """K2 forward; backward by the plain recompute under autograd (the JAX
+    einsum VJP), which also gives dbias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bias, scale):
+        ctx.save_for_backward(q, k, v, mask, bias)
+        ctx.scale = scale
+        if _on_cpu(q):
+            return attention_reference(q, k, v, mask, bias, scale)
+        return _launch("tiled_attention", q, k, v, mask, bias, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, bias = ctx.saved_tensors
+        wanted = [i for i in (0, 1, 2, 4) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [q, k, v, mask, bias]
+            for i in wanted:
+                inputs[i] = inputs[i].detach().requires_grad_()
+            out = attention_reference(*inputs, ctx.scale)
+            grads = torch.autograd.grad(out, [inputs[i] for i in wanted], dout)
+        result = [None] * 6
+        for i, grad in zip(wanted, grads):
+            result[i] = grad
+        return tuple(result)
+
+
 def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """K1: masked attention without bias. q, k, v [R, N, H, C]; mask [R, N]."""
+    """K1: masked attention without bias. q, k, v [R, N, H, C]; mask [R, N].
+    Differentiable: the backward is K7."""
     if mask is None:
         raise ValueError("rows_attention needs a key mask")
-    if _on_cpu(q):
-        return attention_reference(q, k, v, mask, None, scale)
-    return _launch("rows_attention", q, k, v, mask, None, scale)
+    return _RowsAttention.apply(q, k, v, mask, scale)
 
 
 def tiled_attention(q, k, v, mask: Optional[torch.Tensor], bias: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N]."""
+    """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N].
+    Differentiable: the backward is the plain recompute."""
     if bias is None:
         raise ValueError("tiled_attention needs a bias; masked attention without one "
                          "is rows_attention's")
-    if _on_cpu(q):
-        return attention_reference(q, k, v, mask, bias, scale)
-    return _launch("tiled_attention", q, k, v, mask, bias, scale)
+    return _TiledAttention.apply(q, k, v, mask, bias, scale)
 
 
 def fused_attention(q, k, v, mask, bias, scale: float) -> torch.Tensor:

@@ -5,9 +5,11 @@
 parameter tree (numpy arrays) and returns the port's ``state_dict`` under the
 reference names, transposing Dense kernels, splitting the fused embedding
 tables per feature, mapping LayerNorm ``scale`` to ``weight`` and adding the
-two constant buffers. ``load_checkpoint`` reads what the port's generate CLI
-accepts: a directory with ``config.json`` and ``model.pt``, or a reference
-Lightning ``.ckpt``.
+two constant buffers. ``train_state_from_jax`` carries a whole JAX train
+state (weights, EMA, Adam moments, counters) onto the port's. ``load_checkpoint``
+reads what the port's generate CLI accepts: a directory with ``config.json``
+and ``model.pt``, a train checkpoint directory of the port's train CLI (EMA
+weights of the lowest-val_loss step), or a reference Lightning ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import json
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +27,9 @@ from protein_redesign_tpu.chem.features import ATOM_FEATURE_SIZES, BOND_FEATURE_
 from protein_redesign_tpu.config import ModelConfig
 
 from ..models.layers import rbf_centers, sinusoidal_weights
+
+if TYPE_CHECKING:
+    from ..parallel.train_step import TrainState
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -109,6 +114,27 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig) -> StateDic
     return sd
 
 
+def train_state_from_jax(state: "TrainState", tree: Mapping[str, Any]) -> None:
+    """Load a JAX ``TrainState`` given as numpy trees, ``{"params",
+    "ema_params", "mu", "nu", "count", "step", "ema_updates"}`` (Adam's
+    moments and count from ``optax.ScaleByAdamState``), into the port's
+    ``TrainState``: weights, EMA copy and Adam state under the same names."""
+    cfg = state.net.cfg
+    state.net.load_state_dict(state_dict_from_jax(tree["params"], cfg))
+    state.ema.load_state_dict(state_dict_from_jax(tree["ema_params"], cfg))
+    mu = state_dict_from_jax(tree["mu"], cfg)
+    nu = state_dict_from_jax(tree["nu"], cfg)
+    opt = state.optimizer
+    for name, p in state.net.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(tree["count"])),
+            "exp_avg": mu[name].to(p),
+            "exp_avg_sq": nu[name].to(p),
+        }
+    state.step = int(tree["step"])
+    state.ema_updates = int(tree["ema_updates"])
+
+
 def config_from_dict(cfg_dict: Mapping[str, Any]) -> ModelConfig:
     """ModelConfig from a config.json dict; unknown keys are dropped with a
     warning, as the JAX checkpoint loader does."""
@@ -129,10 +155,15 @@ def save_checkpoint(directory: Union[str, Path], state_dict: Mapping[str, torch.
 
 
 def load_checkpoint(path: Union[str, Path], **overrides: Any) -> Tuple[StateDict, ModelConfig]:
-    """(state_dict, config) from a ``config.json`` + ``model.pt`` directory
-    or a reference Lightning ``.ckpt`` (EMA weights preferred, as
-    `utils/convert.py:147-169` reads them)."""
+    """(state_dict, config) from a ``config.json`` + ``model.pt`` directory,
+    a train checkpoint directory (EMA weights of its best step, as the JAX
+    generate CLI loads one) or a reference Lightning ``.ckpt`` (EMA weights
+    preferred, as `utils/convert.py:147-169` reads them)."""
     path = Path(path)
+    if path.is_dir() and not (path / "model.pt").exists():
+        from .checkpoint import load_ema_weights
+
+        return load_ema_weights(path, **overrides)
     if path.is_dir():
         cfg_dict = json.loads((path / "config.json").read_text())
         cfg_dict.update(overrides)

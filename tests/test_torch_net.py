@@ -107,7 +107,7 @@ def test_forward_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("training_mode", True), ("self_cond", True), ("seq_process", "absorbing"),
+    ("param_dtype", "bfloat16"), ("self_cond", True), ("seq_process", "absorbing"),
     ("seq_reverse", "ancestral"), ("fast_softmax", True), ("attn_chunk", 64),
     ("sequence_parallel", True), ("use_pallas_trimul", True),
     ("use_pallas_transition", True), ("use_pallas_outer", True),
