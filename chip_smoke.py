@@ -50,9 +50,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    or K7), its device time by kernel group; then the train CLI at bucket
    1024, --dtype float32, batch 1, 2 optimizer steps: s per optimizer step,
    peak memory and exact launch counts.
+13. Fused kernels vs plain: K8 (fused gated triangle attention, starting and
+   ending view), K9 (triangle multiplication, both modes), K10 (transition,
+   single_fc and pair_fc) and K11 (OuterLinear) against their plain versions
+   at bucket 192, B=2 (147 nodes valid), in f32 and bf16, with the kernel's,
+   the plain version's and the unfused module route's bf16 time and the
+   kernel's bound.
+14. The fused configuration (the four switches use_pallas_{trimul,transition,
+   outer,fused_gated} on): the paper-width bf16 forward at bucket 192, B=2,
+   kernel route against plain route, exactly 24 K8, 24 K9, 24 K10, 12 K11,
+   13 K2 and no K1 per forward, and its device time by kernel group; the
+   forward at bucket 512, B=1 (K9's N^3); the f32 whole gradient at 192,
+   kernel vs plain route (48 K8, 48 K9, 48 K10, 24 K11, 25 K2, no K1 or K7
+   per micro-step); the generate CLI with the four flags at bucket 192, B=2,
+   64 DDPM steps; the train CLI with the four flags at bucket 192, 2
+   optimizer steps.
 
-Each main path (phases 5, 8, 10 and 12's train CLI) runs with every launch
-count set to 0 just before it and read just after. Every kernel's time and
+Each main path (phases 5, 8, 10, 12's train CLI and 14's generate and train
+CLIs) runs with every launch count set to 0 just before it and read just
+after. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype and the bytes moved once over 3.35 TB/s.
@@ -95,7 +111,10 @@ SOURCES = {"rows_attention": CSRC + "attention.cu", "tiled_attention": CSRC + "a
            "rows_attention_bwd": CSRC + "attention_bwd.cu",
            "rows_attention_kchunk": CSRC + "attention_kchunk.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_kchunk.cu",
-           "rows_attention_kchunk_bwd": CSRC + "attention_kchunk_bwd.cu"}
+           "rows_attention_kchunk_bwd": CSRC + "attention_kchunk_bwd.cu",
+           "fused_gated_rows_attention": CSRC + "fused_gated.cu",
+           "triangle_multiply": CSRC + "trimul.cu", "fused_transition": CSRC + "transition.cu",
+           "fused_outer_linear": CSRC + "outer.cu"}
 REPLACES = {
     "rows_attention": "protein_redesign_tpu/ops/pallas_attention.py:725",
     "tiled_attention": "protein_redesign_tpu/ops/pallas_attention.py:1315",
@@ -103,7 +122,16 @@ REPLACES = {
     "rows_attention_kchunk": "protein_redesign_tpu/ops/pallas_attention.py:320",
     "rows_attention_kchunk_stats": "protein_redesign_tpu/ops/pallas_attention.py:426",
     "rows_attention_kchunk_bwd": "protein_redesign_tpu/ops/pallas_attention.py:583",
+    "fused_gated_rows_attention": "protein_redesign_tpu/ops/pallas_attention.py:1164",
+    "triangle_multiply": "protein_redesign_tpu/ops/pallas_trimul.py:145",
+    "fused_transition": "protein_redesign_tpu/ops/pallas_transition.py:71",
+    "fused_outer_linear": "protein_redesign_tpu/ops/pallas_outer.py:72",
 }
+# The fused-kernel configuration: the JAX CLIs' four switches, all on.
+FUSED = ("use_pallas_trimul", "use_pallas_transition", "use_pallas_outer", "use_pallas_fused_gated")
+FUSED_NAMES = ("fused_gated_rows_attention", "triangle_multiply", "fused_transition",
+               "fused_outer_linear")
+FUSED_BUCKET_LARGE = (512, 460)  # one forward at bucket 512: 460 residues + imatinib
 # Dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16 on the
 # tensor cores, f32 outside them (TF32 off), HBM bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -119,28 +147,35 @@ LONG_STEPS = 3  # DDPM steps of the generate run at bucket 2048
 # dS to bf16 before the dq and dk sums, as the Pallas kernel does, while the
 # plain route's autograd keeps dS in f32.
 GRAD_REL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
-# Per micro-step at remat: 2 triangle attentions x 12 blocks in the forward
-# and again in the recompute (K1), 12 single attentions + SPAttention in the
-# forward and the 12 again in the recompute (K2), one K7 per K1 of the forward.
-MICRO_STEP_LAUNCHES = {"rows_attention": 48, "tiled_attention": 25, "rows_attention_bwd": 24}
-EVAL_LAUNCHES = {"rows_attention": 24, "tiled_attention": 13, "rows_attention_bwd": 0}
-
-
-def long_micro_step_launches(blocks: int) -> dict:
-    """The same in the K-chunk regime (f32 at bucket 1024): K5 in the forward
-    and the recompute, K6 once per triangle attention."""
-    return {"rows_attention_kchunk_stats": 4 * blocks, "rows_attention_kchunk_bwd": 2 * blocks,
-            "tiled_attention": 2 * blocks + 1}
-
-
-def long_eval_launches(blocks: int) -> dict:
-    """One forward without a gradient in the K-chunk regime: K3."""
-    return {"rows_attention_kchunk": 2 * blocks, "tiled_attention": blocks + 1}
 
 
 def launch_record(**counts) -> dict:
     """A whole launch record: the given counts and 0 for every other kernel."""
     return {**{name: 0 for name in REPLACES}, **counts}
+
+
+def forward_launches(cfg, remat: bool = False, kchunk: bool = False) -> dict:
+    """Launches of one forward (``remat``: of one micro-step, whose backward
+    recomputes every block's forward). K2 for the single attentions and
+    SPAttention. With the four fused switches: K8 for both triangle
+    attentions, K9 for both triangle multiplications, K10 for single_fc and
+    pair_fc, K11 for outer_linear. Without them the triangle attentions take
+    K1 and, in a micro-step, K7 per K1 of the forward; in the K-chunk regime
+    (``kchunk``) K3 without a gradient, else K5 and one K6 per attention."""
+    k, blocks = (2 if remat else 1), cfg.num_blocks
+    counts = {"tiled_attention": k * blocks + 1}
+    if cfg.use_pallas_fused_gated:
+        counts.update({name: 2 * k * blocks for name in FUSED_NAMES[:3]},
+                      fused_outer_linear=k * blocks)
+    elif kchunk:
+        counts["rows_attention_kchunk_stats" if remat else "rows_attention_kchunk"] = 2 * k * blocks
+        if remat:
+            counts["rows_attention_kchunk_bwd"] = 2 * blocks
+    else:
+        counts["rows_attention"] = 2 * k * blocks
+        if remat:
+            counts["rows_attention_bwd"] = 2 * blocks
+    return launch_record(**counts)
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
@@ -294,19 +329,23 @@ def phase_kernels() -> dict:
     return record
 
 
-def perturbed_net(cfg, seed: int = 0):
-    """Seeded init plus seeded noise on every parameter (the 'final' and
+def perturb(module, seed: int):
+    """``module`` with seeded noise on every parameter (the 'final' and
     'gating' layers start at zero and would hide a wrong kernel)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            std = 0.5 / math.sqrt(p.shape[-1]) if p.dim() == 2 else 0.1
+            p.add_(torch.randn(p.shape, generator=g) * std)
+    return module
+
+
+def perturbed_net(cfg, seed: int = 0):
+    """ProteinReDiffNet's seeded init plus seeded noise on every parameter."""
     from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
 
     torch.manual_seed(seed)
-    net = ProteinReDiffNet(cfg)
-    g = torch.Generator().manual_seed(seed + 1)
-    with torch.no_grad():
-        for p in net.parameters():
-            std = 0.5 / math.sqrt(p.shape[-1]) if p.dim() == 2 else 0.1
-            p.add_(torch.randn(p.shape, generator=g) * std)
-    return net
+    return perturb(ProteinReDiffNet(cfg), seed + 1)
 
 
 def complex_batch(runner, batch_rows: int = 2):
@@ -317,7 +356,7 @@ def complex_batch(runner, batch_rows: int = 2):
     return runner.collate([complex_data(protein, ligand, esm)] * batch_rows)
 
 
-def phase_forward(net) -> None:
+def phase_forward(net, tag: str = "forward") -> None:
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
     from protein_redesign_tpu_torch.ops import attention as A
@@ -347,30 +386,32 @@ def phase_forward(net) -> None:
         launches = dict(A.LAUNCHES)
         noise_p, seq_p = forward(True)
         torch.cuda.synchronize()
-        blocks = net.cfg.num_blocks
-        expected = launch_record(rows_attention=2 * blocks, tiled_attention=blocks + 1)
+        expected = forward_launches(net.cfg)
         if launches != expected:
             raise AssertionError(f"launches per forward {launches} != {expected}")
         for name, a, b in (("noise_pred", noise_k, noise_p), ("seq_pred", seq_k, seq_p)):
             if a.shape != b.shape or not torch.isfinite(a).all():
                 raise AssertionError(f"{name}: shape {tuple(a.shape)} or non-finite values")
             rel = float((a - b).norm() / b.norm())
-            print(f"[forward] {name} {tuple(a.shape)}: ||kernel - plain|| / ||plain|| = "
+            print(f"[{tag}] {name} {tuple(a.shape)}: ||kernel - plain|| / ||plain|| = "
                   f"{rel:.3e} (tol {FORWARD_REL_TOL:g})")
             if not rel <= FORWARD_REL_TOL:
                 raise AssertionError(f"{name}: relative error {rel} > {FORWARD_REL_TOL}")
         kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 2, 5), cuda_ms(lambda: forward(True), 2, 5)
         busy = device_time_by_group(lambda: forward(False))
-    print(f"[forward] paper width, bf16, B={B}, bucket {bucket}: kernel route {kernel_ms:.2f} ms, "
-          f"plain route {plain_ms:.2f} ms per forward; launches per forward {launches}")
+    print(f"[{tag}] paper width, bf16, B={B}, bucket {bucket}: kernel route {kernel_ms:.2f} ms, "
+          f"plain route {plain_ms:.2f} ms per forward; launches per forward "
+          f"{ {k: v for k, v in launches.items() if v} }")
     total = sum(busy.values())
-    print(f"[forward] kernel route, device time per forward from torch.profiler: {total:.2f} ms busy "
+    print(f"[{tag}] kernel route, device time per forward from torch.profiler: {total:.2f} ms busy "
           f"({1 - total / kernel_ms:.1%} of the CUDA-event time idle); "
           + ", ".join(f"{k} {v:.2f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
 
 
 # Device-time groups, matched on the CUDA kernel's name, in order.
-GROUPS = (("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
+GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
+          ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
+          ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
           ("rows_attention", "K1 rows_attention"), ("tiled_attention", "K2 tiled_attention"),
@@ -400,7 +441,7 @@ def device_time_by_group(fn, iters: int = 5) -> dict:
     return groups
 
 
-def phase_generate(net) -> dict:
+def phase_generate(net, flags=(), tag: str = "generate") -> dict:
     from protein_redesign_tpu_torch.cli.generate import main
     from protein_redesign_tpu_torch.ops import attention as A
     from protein_redesign_tpu_torch.utils.weights import save_checkpoint
@@ -409,7 +450,8 @@ def phase_generate(net) -> dict:
         tmp = Path(tmp)
         save_checkpoint(tmp / "ckpt", net.state_dict(), net.cfg)
         argv = ["-c", str(tmp / "ckpt"), "-o", str(tmp / "out"), "-p", SEQUENCE, "-l", LIGAND,
-                "-n", "2", "--batch_size", "2", "--num_steps", str(STEPS), "--device", "cuda"]
+                "-n", "2", "--batch_size", "2", "--num_steps", str(STEPS), "--device", "cuda",
+                *flags]
         A.reset_launch_counts()
         began = time.perf_counter()
         timings = main(argv)
@@ -425,16 +467,16 @@ def phase_generate(net) -> dict:
         raise AssertionError(f"sample_protein.pdb: {len(coords)} CA records or non-finite coordinates")
     if sdf.count("$$$$") != 2 or len(scores) != 2:
         raise AssertionError("sample_ligand.sdf or sample_tmscores.txt incomplete")
-    batches = len(timings)
-    blocks = net.cfg.num_blocks
-    expected = launch_record(rows_attention=STEPS * 2 * blocks * batches,
-                             tiled_attention=STEPS * (blocks + 1) * batches)
+    forwards = STEPS * len(timings)
+    cfg = net.cfg.replace(**{f.lstrip("-"): True for f in flags})
+    expected = {k: forwards * v for k, v in forward_launches(cfg).items()}
     if launches != expected:
         raise AssertionError(f"generate launches {launches} != {expected}")
     for bucket, rows, steps, seconds in timings:
-        print(f"[generate] bucket {bucket}, {rows} samples per batch: {steps} DDPM steps in "
+        print(f"[{tag}] bucket {bucket}, {rows} samples per batch: {steps} DDPM steps in "
               f"{seconds:.3f} s = {seconds / steps:.4f} s/step")
-    print(f"[generate] main() wall {wall:.2f} s; TM-scores {scores}; launches {launches}")
+    print(f"[{tag}] main() wall {wall:.2f} s; TM-scores {scores}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
     return launches
 
 
@@ -572,8 +614,9 @@ def phase_grad(seed: int) -> None:
         with A.plain_route():
             loss_p = micro_step(net, batch, noise)
         grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
-        if launches != launch_record(**MICRO_STEP_LAUNCHES):
-            raise AssertionError(f"launches per micro-step {launches} != {MICRO_STEP_LAUNCHES}")
+        expected = forward_launches(net.cfg, remat=True)
+        if launches != expected:
+            raise AssertionError(f"launches per micro-step {launches} != {expected}")
         rel = float((grads_k - grads_p).norm() / grads_p.norm())
         finite = bool(torch.isfinite(grads_k).all() and torch.isfinite(loss_k))
         B, N = batch["residue_mask"].shape
@@ -601,11 +644,23 @@ def phase_grad(seed: int) -> None:
         del net
 
 
+def write_dataset(directory: Path, split: dict) -> None:
+    """A data directory for the train CLI: PRD_{part}_pdb_ids and the cached
+    complexes of each part ({"train": [...], "val": [...]})."""
+    from protein_redesign_tpu_torch.data.dataset import save_complex_cache
+
+    directory.mkdir(parents=True, exist_ok=True)
+    for part, datas in split.items():
+        ids = [f"{part}{i}" for i in range(len(datas))]
+        (directory / f"PRD_{part}_pdb_ids").write_text("\n".join(ids) + "\n")
+        for pdb_id, data in zip(ids, datas):
+            save_complex_cache(directory / "PDB_processed_cache", pdb_id, data)
+
+
 def phase_train(seed: int) -> dict:
     """The port's train CLI at paper width: 2 optimizer steps at bucket 192,
     then a resume for 2 steps at bucket 384."""
     from protein_redesign_tpu_torch.config import ModelConfig
-    from protein_redesign_tpu_torch.data.dataset import save_complex_cache
     from protein_redesign_tpu_torch.cli.train import main as train
     from protein_redesign_tpu_torch.ops import attention as A
     from protein_redesign_tpu_torch.utils.checkpoint import read_state
@@ -620,13 +675,7 @@ def phase_train(seed: int) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for name, split in splits.items():
-            split["val"] = [val]
-            for part, datas in split.items():
-                ids = [f"{part}{i}" for i in range(len(datas))]
-                (tmp / name).mkdir(exist_ok=True)
-                (tmp / name / f"PRD_{part}_pdb_ids").write_text("\n".join(ids) + "\n")
-                for pdb_id, data in zip(ids, datas):
-                    save_complex_cache(tmp / name / "PDB_processed_cache", pdb_id, data)
+            write_dataset(tmp / name, {**split, "val": [val]})
         run = tmp / "run"
         common = ["--save_dir", str(run), "--batch_size", "2", "--accumulate_grad_batches", "2",
                   "--val_every_steps", "0", "--log_every_steps", "1", "--warmup_steps", "10",
@@ -660,8 +709,8 @@ def phase_train(seed: int) -> dict:
     if final["step"] != 4 or final["ema_updates"] != 4:
         raise AssertionError(f"resumed state {final}")
     micro = 2 * len(steps)
-    expected = launch_record(**{k: micro * MICRO_STEP_LAUNCHES[k] + len(vals) * EVAL_LAUNCHES[k]
-                                for k in MICRO_STEP_LAUNCHES})
+    per_micro, per_eval = forward_launches(ModelConfig(), remat=True), forward_launches(ModelConfig())
+    expected = {k: micro * per_micro[k] + len(vals) * per_eval[k] for k in REPLACES}
     if launches != expected:
         raise AssertionError(f"train launches {launches} != {expected}")
     for m in steps:
@@ -821,7 +870,7 @@ def phase_forward_long(seed: int) -> None:
         torch.cuda.synchronize()
         launches = dict(A.LAUNCHES)
         plain_out = forward(True)
-        expected = launch_record(**long_eval_launches(net.cfg.num_blocks))
+        expected = forward_launches(net.cfg, kchunk=True)
         if launches != expected:
             raise AssertionError(f"launches per forward at 1024 {launches} != {expected}")
         for name, a, b in zip(("noise_pred", "seq_pred"), kernel_out, plain_out):
@@ -859,7 +908,7 @@ def phase_grad_long(seed: int) -> None:
     with A.plain_route():
         loss_p = step()
     grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
-    if launches != launch_record(**long_micro_step_launches(net.cfg.num_blocks)):
+    if launches != forward_launches(net.cfg, remat=True, kchunk=True):
         raise AssertionError(f"launches per micro-step at 1024 {launches}")
     rel = float((grads_k - grads_p).norm() / grads_p.norm())
     print(f"[grad-long] f32, B=1: loss kernel {float(loss_k):.6f}, plain {float(loss_p):.6f}; "
@@ -883,16 +932,13 @@ def phase_train_long(seed: int) -> dict:
     steps and the final validation."""
     from protein_redesign_tpu_torch.cli.train import main as train
     from protein_redesign_tpu_torch.config import ModelConfig
-    from protein_redesign_tpu_torch.data.dataset import save_complex_cache
     from protein_redesign_tpu_torch.ops import attention as A
 
     esm_dim = ModelConfig().esm_dim
-    split = {part: long_complex(seed + s, esm_dim) for part, s in (("train", 22), ("val", 23))}
+    split = {part: [long_complex(seed + s, esm_dim)] for part, s in (("train", 22), ("val", 23))}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for part, data in split.items():
-            (tmp / f"PRD_{part}_pdb_ids").write_text(f"{part}0\n")
-            save_complex_cache(tmp / "PDB_processed_cache", f"{part}0", data)
+        write_dataset(tmp, split)
         run = tmp / "run"
         argv = ["--save_dir", str(run), "--data_dir", str(tmp), "--dtype", "float32",
                 "--batch_size", "1", "--val_every_steps", "0", "--log_every_steps", "1",
@@ -903,7 +949,7 @@ def phase_train_long(seed: int) -> dict:
         torch.cuda.synchronize()
         launches = dict(A.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        blocks = state.net.cfg.num_blocks
+        cfg = state.net.cfg
         del state
         metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     steps = [m for m in metrics if "train_loss" in m]
@@ -914,8 +960,8 @@ def phase_train_long(seed: int) -> dict:
         raise AssertionError(f"metrics.jsonl at {bucket}: {metrics}")
     if not all(math.isfinite(x) for x in [m["train_loss"] for m in steps] + [vals[0]["val_loss"]]):
         raise AssertionError(f"non-finite losses at {bucket}: {metrics}")
-    micro, evaluation = long_micro_step_launches(blocks), long_eval_launches(blocks)
-    expected = launch_record(**{k: 2 * micro.get(k, 0) + evaluation.get(k, 0) for k in REPLACES})
+    micro, evaluation = forward_launches(cfg, remat=True, kchunk=True), forward_launches(cfg, kchunk=True)
+    expected = {k: 2 * micro[k] + evaluation[k] for k in REPLACES}
     if launches != expected:
         raise AssertionError(f"train launches at {bucket} {launches} != {expected}")
     for m in steps:
@@ -923,6 +969,253 @@ def phase_train_long(seed: int) -> dict:
               f"grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s per optimizer step")
     print(f"[train-long] val_loss {vals[0]['val_loss']:.4f}; peak device memory {peak:.2f} GiB; "
           f"launches {launches}")
+    return launches
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors if t is not None))
+
+
+def fused_bound(name: str, args: tuple, out) -> dict:
+    """The bound of one fused kernel call on these inputs: each input read
+    once and the output written once; the operations this data needs (K8: a
+    query against its row's unmasked keys; K9: the contraction over each
+    complex's valid nodes; the projections and MLPs over every position)."""
+    if name == "fused_gated_rows_attention":
+        x, mask, wq, *_, H = args
+        N, D = x.shape[-2:]
+        HC, positions = wq.shape[0], x.numel() // D
+        pairs = N * float(mask.sum())
+        flops = 4 * (HC // H) * H * pairs + 2 * positions * D * 5 * HC
+    elif name == "triangle_multiply":
+        pair, mask = args[:2]
+        B, N, _, D = pair.shape
+        nodes = torch.diagonal(mask, dim1=-2, dim2=-1).sum(-1)
+        flops = 2 * B * N * N * D * 6 * D + 2 * D * float((nodes ** 3).sum())
+    elif name == "fused_transition":
+        x, w1, _, w2 = args[:4]
+        flops = 2 * (x.numel() // x.shape[-1]) * w1.shape[0] * (w1.shape[1] + w2.shape[0])
+    else:
+        x, w, _ = args
+        B, N, S = x.shape
+        flops = 2 * B * N * N * S * w.shape[0]
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    return bound(flops, _nbytes(*tensors, out), out.dtype)
+
+
+def phase_fused_kernels() -> dict:
+    """K8-K11 against their plain versions at the fused configuration's shapes
+    at bucket 192, B=2 (147 nodes valid): f32 and bf16 errors; the kernel's,
+    the plain version's and the unfused module route's time in both; the
+    record (bf16) keeps K8's starting view, K9 outgoing, K10 pair_fc."""
+    from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
+    from protein_redesign_tpu_torch.models.layers import GatedAttention, TransitionMLP
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import outer as O
+    from protein_redesign_tpu_torch.ops import transition as T
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    N, n_valid, tol = 192, 147, {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
+    record = {name: {"max_abs_err": 0.0, "library_ms": None} for name in FUSED_NAMES}
+    node = (torch.arange(N, device="cuda") < n_valid).float()
+    mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        g = torch.Generator("cuda").manual_seed(300 + seed)
+        pair = torch.randn(2, N, N, 64, generator=g, device="cuda").to(dtype)
+        single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
+        cases = []
+        ga = perturb(GatedAttention(64, 16, 4, dtype), 310).to("cuda")
+        gw = (ga.q_proj.weight, ga.k_proj.weight, ga.v_proj.weight, ga.gate_proj.weight,
+              ga.gate_proj.bias, ga.out_proj.weight, ga.out_proj.bias, 4)
+        for view, x, m in (("starting", pair, mask2d),
+                           ("ending", pair.transpose(1, 2), mask2d.transpose(1, 2))):
+            cases.append(("fused_gated_rows_attention", view, A.fused_gated,
+                          A.fused_gated_reference, (x, m, *gw), lambda x=x, m=m: ga(x, m)))
+        for mode in ("outgoing", "incoming"):
+            tm = perturb(TriangleMultiplication(64, mode, dtype=dtype), 320).to("cuda")
+            tw = (tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight, tm.ab_proj.bias,
+                  tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight, tm.out_proj.bias)
+            cases.append(("triangle_multiply", mode, lambda *a, mode=mode: M.trimul(*a, mode),
+                          lambda *a, mode=mode: M.trimul_reference(*a, mode), (pair, mask2d, *tw),
+                          lambda tm=tm: tm(pair, mask2d)))
+        for view, x, dim in (("pair_fc", pair, 64), ("single_fc", single, 512)):
+            mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
+            cases.append(("fused_transition", view, T.transition, T.transition_reference,
+                          (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
+                          lambda mlp=mlp, x=x: mlp(x)))
+        ol = perturb(OuterLinear(512, 64, factored=True, dtype=dtype), 340).to("cuda")
+        cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
+                      (single, ol.linear.weight, ol.linear.bias), lambda: ol(single)))
+        label = str(dtype).replace("torch.", "")
+        with torch.inference_mode():
+            for name, view, kernel, plain, args, unfused in cases:
+                got, want = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                rel = float((got.float() - want.float()).norm() / want.float().norm())
+                err = float((got.float() - want.float()).abs().max())
+                if not (torch.isfinite(got).all() and rel <= tol[dtype]):
+                    raise AssertionError(f"{name} {view} {label}: relative error {rel} > "
+                                         f"{tol[dtype]}")
+                ms = cuda_ms(lambda: kernel(*args))
+                plain_ms, unfused_ms = cuda_ms(lambda: plain(*args)), cuda_ms(unfused)
+                rec = record[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                b = fused_bound(name, args, got)
+                print(f"[fused-kernels] {name} ({view}) {label}: ||kernel - plain|| / ||plain|| "
+                      f"{rel:.3e} (tol {tol[dtype]:g}), max abs err {err:.3e}; kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} ms; bound "
+                      f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                if dtype == torch.bfloat16 and view in ("starting", "outgoing", "pair_fc",
+                                                        "factored route"):
+                    rec.update(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, **b)
+    return record
+
+
+def fused_net(dtype: str = "bfloat16", **overrides):
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    return perturbed_net(ModelConfig(dtype=dtype, **{f: True for f in FUSED}, **overrides))
+
+
+def phase_fused_forward_large(seed: int) -> None:
+    """The fused configuration's bf16 forward at bucket 512, B=1: kernel
+    route against plain route, launches, device time by kernel group."""
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    net = fused_net().to("cuda").eval()
+    N, residues = FUSED_BUCKET_LARGE
+    data = synthetic_complex(long_sequence(seed + 30, residues), seed + 30, net.cfg.esm_dim)
+    batch = prepare_batch(collated([data], N), 0.3,
+                          generator=torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    z = torch.randn(1, N, 3, generator=g, device="cuda")
+    seq_t = torch.randn(1, N, 21, generator=g, device="cuda")
+    mask, t = batch["residue_and_atom_mask"], torch.tensor([40], device="cuda")
+
+    def forward(plain: bool):
+        if not plain:
+            return net(batch, z, seq_t, mask, t)
+        with A.plain_route():
+            return net(batch, z, seq_t, mask, t)
+
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        kernel_out = forward(False)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        plain_out = forward(True)
+        if launches != forward_launches(net.cfg):
+            raise AssertionError(f"fused launches per forward at {N} {launches}")
+        for name, a, b in zip(("noise_pred", "seq_pred"), kernel_out, plain_out):
+            rel = float((a - b).norm() / b.norm())
+            print(f"[fused-forward-512] {name} {tuple(a.shape)}: ||kernel - plain|| / ||plain|| = "
+                  f"{rel:.3e} (tol {FORWARD_REL_TOL:g})")
+            if not (torch.isfinite(a).all() and rel <= FORWARD_REL_TOL):
+                raise AssertionError(f"{name} at {N}: relative error {rel}")
+        kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 1, 3), cuda_ms(lambda: forward(True), 1, 3)
+        busy = device_time_by_group(lambda: forward(False), iters=3)
+    total = sum(busy.values())
+    print(f"[fused-forward-512] bf16, B=1, {residues + IMATINIB_ATOMS} nodes: kernel route "
+          f"{kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms per forward; device busy {total:.2f} ms "
+          f"({1 - total / kernel_ms:.1%} idle); "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+
+
+def phase_fused_grad(seed: int) -> None:
+    """The fused configuration's f32 whole parameter gradient at bucket 192,
+    B=2, kernel route against plain route; then the bf16 micro-step's time
+    and device time by kernel group."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    for dtype in ("float32", "bfloat16"):
+        net = fused_net(dtype, training_mode=True, mask_prob=0.5).to("cuda")
+        batch = collated([synthetic_complex(SEQUENCE, seed + s, net.cfg.esm_dim) for s in (1, 2)],
+                         192)
+        noise = fixed_noise(batch, seed)
+        step = lambda: micro_step(net, batch, noise)  # noqa: E731
+        if dtype == "float32":
+            A.reset_launch_counts()
+            loss_k = step()
+            torch.cuda.synchronize()
+            launches = dict(A.LAUNCHES)
+            grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+            with A.plain_route():
+                loss_p = step()
+            grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+            expected = forward_launches(net.cfg, remat=True)
+            if launches != expected:
+                raise AssertionError(f"fused launches per micro-step {launches} != {expected}")
+            rel = float((grads_k - grads_p).norm() / grads_p.norm())
+            print(f"[fused-grad] f32, B=2, bucket 192: loss kernel {float(loss_k):.6f}, plain "
+                  f"{float(loss_p):.6f}; ||grad_kernel - grad_plain|| / ||grad_plain|| = {rel:.3e} "
+                  f"(tol {GRAD_REL_TOL['float32']:g}); launches per micro-step "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            if not (torch.isfinite(grads_k).all() and rel <= GRAD_REL_TOL["float32"]):
+                raise AssertionError(f"fused f32 gradient: relative error {rel}")
+        else:
+            kernel_ms = cuda_ms(step, 1, 3)
+            with A.plain_route():
+                plain_ms = cuda_ms(step, 1, 3)
+            busy = device_time_by_group(step, iters=3)
+            total = sum(busy.values())
+            print(f"[fused-grad] bf16 micro-step (loss + backward, remat), B=2, bucket 192: kernel "
+                  f"route {kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms; kernel route device "
+                  f"time {total:.2f} ms busy ({1 - total / kernel_ms:.1%} idle); "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in
+                              sorted(busy.items(), key=lambda kv: -kv[1])))
+        del net
+
+
+def phase_fused_train(seed: int) -> dict:
+    """The train CLI with the four switches at bucket 192, batch 2 x 2
+    micro-batches: 2 optimizer steps and the final validation."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config
+
+    esm_dim = ModelConfig().esm_dim
+    split = {"train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (40, 41)],
+             "val": [synthetic_complex(SEQUENCE, seed + 42, esm_dim)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp, split)
+        run = tmp / "run"
+        argv = ["--save_dir", str(run), "--data_dir", str(tmp), "--batch_size", "2",
+                "--accumulate_grad_batches", "2", "--val_every_steps", "0", "--log_every_steps", "1",
+                "--warmup_steps", "10", "--seed", str(seed), "--device", "cuda", "--max_steps", "2",
+                *[f"--{f}" for f in FUSED]]
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        state = train(argv)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = state.net.cfg
+        del state
+        metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        saved = sorted(p.name for p in (run / "checkpoints" / "2").iterdir())
+        saved_cfg = read_config(run / "checkpoints" / "2")
+    steps = [m for m in metrics if "train_loss" in m]
+    vals = [m for m in metrics if "val_loss" in m]
+    if [m["step"] for m in steps] != [1, 2] or len(vals) != 1:
+        raise AssertionError(f"fused train metrics.jsonl: {metrics}")
+    if not all(math.isfinite(x) for x in [m["train_loss"] for m in steps] + [vals[0]["val_loss"]]):
+        raise AssertionError(f"fused train: non-finite losses {metrics}")
+    if saved != ["config.json", "ema.pt", "optimizer.pt", "params.pt", "state.json"] or not all(
+            getattr(saved_cfg, f) for f in FUSED):
+        raise AssertionError(f"fused train checkpoint {saved}, config {saved_cfg}")
+    micro, evaluation = forward_launches(cfg, remat=True), forward_launches(cfg)
+    expected = {k: 4 * micro[k] + evaluation[k] for k in REPLACES}
+    if launches != expected:
+        raise AssertionError(f"fused train launches {launches} != {expected}")
+    for m in steps:
+        print(f"[fused-train] step {m['step']} bucket {int(m['bucket'])}: loss {m['train_loss']:.4f}, "
+              f"grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s per optimizer step "
+              f"(2 micro-batches of 2)")
+    print(f"[fused-train] val_loss {vals[0]['val_loss']:.4f}; peak device memory {peak:.2f} GiB; "
+          f"checkpoint with the four switches; launches {({k: v for k, v in launches.items() if v})}")
     return launches
 
 
@@ -952,11 +1245,23 @@ def main() -> None:
     phase_forward_long(args.seed)
     phase_grad_long(args.seed)
     train_long = phase_train_long(args.seed)
+    record.update(phase_fused_kernels())
+    net = fused_net().to("cuda").eval()
+    phase_forward(net, tag="fused-forward")
+    del net
+    phase_fused_forward_large(args.seed)
+    phase_fused_grad(args.seed)
+    net = perturbed_net(ModelConfig()).to("cuda").eval()
+    fused_generate = phase_generate(net, flags=[f"--{f}" for f in FUSED], tag="fused-generate")
+    del net
+    phase_fused_train(args.seed)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
-    # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024
+    # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
+    # K8-K11 on generation with the four switches at 192
     launches.update(rows_attention_kchunk=long_launches["rows_attention_kchunk"],
                     rows_attention_kchunk_stats=train_long["rows_attention_kchunk_stats"],
-                    rows_attention_kchunk_bwd=train_long["rows_attention_kchunk_bwd"])
+                    rows_attention_kchunk_bwd=train_long["rows_attention_kchunk_bwd"],
+                    **{k: fused_generate[k] for k in FUSED_NAMES})
     loaded = sorted(m for m in ("jax", "flax", "protein_redesign_tpu") if m in sys.modules)
     if loaded:
         raise AssertionError(f"the port's run imported {loaded}")

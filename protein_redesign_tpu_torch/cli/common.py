@@ -5,7 +5,8 @@ and ``softmax_np`` are copied from ``protein_redesign_tpu/cli/common.py``
 (:54-57, :59-73, :83-121, :124-130, :199-204), whose module imports jax.
 ``add_esm_args`` and ``add_sampler_args`` (:207-323) are copied with the same
 flags; ``check_supported_args`` rejects the values outside the ported
-slice. ``SamplingRunner`` is a plain runner: complexes are grouped by padding
+slice, and the fused-kernel switches override the checkpoint's config only
+when given (:337-343). ``SamplingRunner`` is a plain runner: complexes are grouped by padding
 bucket, collated, and sampled batch by batch with the DDPM sampler.
 """
 
@@ -128,12 +129,16 @@ _UNPORTED_FLAGS = {
 }
 _UNPORTED_SWITCHES = {
     "use_pallas": "the port's attention always takes its CUDA kernels on a GPU",
-    "use_pallas_trimul": "the fused triangle-multiplication kernel is not ported yet",
-    "use_pallas_transition": "the fused transition kernel is not ported yet",
-    "use_pallas_outer": "the fused OuterLinear kernel is not ported yet",
-    "use_pallas_fused_gated": "the fused gated-attention kernel is not ported yet",
-    "use_pallas_bwd": "training is not ported yet",
     "trimul_dmajor": "the channel-major triangle-multiplication layout is not ported",
+}
+# The JAX CLI's kernel switches that the port takes. Each sets its config
+# field only when given, so a checkpoint trained with a fused kernel keeps it.
+KERNEL_SWITCHES = {
+    "use_pallas_trimul": "the fused triangle multiplication (kernel K9)",
+    "use_pallas_transition": "the fused LN + MLP transition (kernel K10)",
+    "use_pallas_outer": "the fused OuterLinear (kernel K11)",
+    "use_pallas_fused_gated": "the fused gated triangle attention (kernel K8)",
+    "use_pallas_bwd": "the rows-attention backward kernel: the port's default, so no effect",
 }
 
 
@@ -153,6 +158,9 @@ def add_sampler_args(parser) -> None:
         parser.add_argument(f"--{flag}", type=kind, default=None, help=f"not ported: {why}")
     for flag, why in _UNPORTED_SWITCHES.items():
         parser.add_argument(f"--{flag}", action="store_true", help=f"not ported: {why}")
+    for flag, what in KERNEL_SWITCHES.items():
+        parser.add_argument(f"--{flag}", action="store_true",
+                            help=f"{what}; unset keeps the checkpoint config's value")
     parser.add_argument("--sample_guard", action=BooleanOptionalAction, default=None)
     parser.add_argument("--outer_factored", action=BooleanOptionalAction, default=None)
     parser.add_argument("--pair_stream_bf16", action=BooleanOptionalAction, default=None)
@@ -187,6 +195,9 @@ def sampler_cfg_overrides(args) -> Dict:
     for flag in ("outer_factored", "sample_guard", "pair_stream_bf16"):
         if getattr(args, flag, None) is not None:
             overrides[flag] = bool(getattr(args, flag))
+    for flag in KERNEL_SWITCHES:
+        if getattr(args, flag, False):
+            overrides[flag] = True
     return overrides
 
 

@@ -26,7 +26,8 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention.cu", "attention_bwd.cu", "attention_kchunk.cu", "attention_kchunk_bwd.cu")
+SOURCES = ("attention.cu", "attention_bwd.cu", "attention_kchunk.cu", "attention_kchunk_bwd.cu",
+           "fused_gated.cu", "trimul.cu", "transition.cu", "outer.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
@@ -64,6 +65,14 @@ class KernelLibrary:
             [ptr] * 11 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
         )
         lib.prd_rows_attention_kchunk_bwd.restype = i32
+        lib.prd_fused_gated.argtypes = [ptr] * 9 + [i32] * 7 + [f32] + [i64] * 3 + [ptr]
+        lib.prd_fused_gated.restype = i32
+        lib.prd_trimul.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+        lib.prd_trimul.restype = i32
+        lib.prd_transition.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.prd_transition.restype = i32
+        lib.prd_outer.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.prd_outer.restype = i32
         lib.prd_error_string.argtypes = [i32]
         lib.prd_error_string.restype = ctypes.c_char_p
         self.lib = lib

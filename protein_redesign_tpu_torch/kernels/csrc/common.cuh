@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels (attention.cu, attention_bwd.cu,
-// attention_kchunk.cu, attention_kchunk_bwd.cu).
+// attention_kchunk.cu, attention_kchunk_bwd.cu) and the fused kernels
+// (fused_gated.cu, trimul.cu, transition.cu, outer.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +71,52 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base, long long
       if (SCALE) x = Io<T>::round(x * scale);
     }
     dst[j * dst_stride + c] = x;
+  }
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
+
+// The warp's LayerNorm (no affine, eps 1e-5, f32 statistics) of one D-wide
+// row in device memory, rounded to T, written as a column of a transposed tile
+// in shared memory: dst[d * ld]. A dead row (live false, warp-uniform) writes
+// zeros. The fused kernels' projection tiles (transition.cu, trimul.cu,
+// fused_gated.cu) keep the normed rows transposed, so that tile_4x4 reads
+// four rows with one 16-byte load.
+template <typename T>
+__device__ __forceinline__ void layer_norm_to_column(const T* row, bool live, int D, float* dst,
+                                                     int ld) {
+  const int lane = threadIdx.x & 31;
+  if (!live) {
+    for (int d = lane; d < D; d += 32) dst[d * ld] = 0.f;
+    return;
+  }
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += Io<T>::load(row + d);
+  const float mu = warp_sum(s) / (float)D;
+  float sq = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float t = Io<T>::load(row + d) - mu;
+    sq = fmaf(t, t, sq);
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / (float)D + 1e-5f);
+  for (int d = lane; d < D; d += 32) dst[d * ld] = Io<T>::round((Io<T>::load(row + d) - mu) * rstd);
+}
+
+// acc[i][j] += sum_k A[k * lda + i] * B[k * ldb + j] over k < K for a 4 x 4
+// register tile, A and B in shared memory at 16-byte aligned addresses (lda
+// and ldb multiples of 4): 16 FMAs per two 16-byte loads.
+__device__ __forceinline__ void tile_4x4(float (&acc)[4][4], const float* A, int lda,
+                                         const float* B, int ldb, int K) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(A + k * lda);
+    const float4 b = *reinterpret_cast<const float4*>(B + k * ldb);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 

@@ -1,0 +1,216 @@
+// Hand-written Hopper (sm_90a) fused transition: LN -> W1 + b1 -> ReLU -> W2 (+ b2).
+//
+// Replaces the Pallas TPU kernel K10 of protein_redesign_tpu/ops/pallas_transition.py,
+// _fused_transition_impl (:71) -> _kernel (:33), behind the switch
+// use_pallas_transition: FoldingBlock's single_fc (512 -> 2048 -> 512 over B*N
+// rows) and pair_fc (64 -> 256 -> 64 over B*N*N rows) at paper width.
+//
+// Per row: x^ = LN(x) rounded to T; h = ReLU(x^ W1 + b1) rounded to T;
+// out = h W2 (+ b2) in T. Sums, biases and statistics in f32 (T = float: f32
+// throughout, as the Pallas kernel in interpret mode).
+//
+// What bounds it: 2 M Hd (D + Dout) operations against one read of x and one
+// write of out, so the operations at the card's rate for T. This kernel runs
+// them on the CUDA cores in f32 (tensor cores are later work), and what its
+// design buys is the fusion: the LN copy and the [M, Hd] hidden activations
+// never reach device memory (the unfused route writes and reads both).
+//
+// Layout of the work: one block of 256 threads per tile of 64 rows and, for
+// an output wider than 64, per 64-unit chunk of the hidden dimension. The
+// tile's LN rows sit in shared memory transposed ([D][64], a warp per row).
+// Both products run as 64 x 64 tiles: thread (rg, cg) keeps a 4 x 4 register
+// tile (rows 4 rg.., columns 4 cg..) and adds 16 FMAs per two 16-byte shared
+// loads (tile_4x4). The hidden chunk x^ W1 streams W1 in 64 x 64 slabs, goes
+// through ReLU and rounding into shared memory (transposed) and multiplies the
+// chunk's 64 rows of W2, 64 output columns at a time. With Dout <= 64 a block
+// runs every hidden chunk and keeps its outputs in registers; with a wider
+// output (single_fc, 384 rows at bucket 192, B = 2: only 6 row tiles) blocks
+// split the hidden dimension, add their partial outputs into an f32 scratch
+// with atomics, and a second kernel adds b2 and rounds to T.
+//
+// Layout: x contiguous [M, D]; w1t [D, Hd] and w2t [Hd, Dout] in T (the flax
+// kernels' layout); b1 [Hd] and b2 [Dout] f32 (b2 may be null); out
+// contiguous [M, Dout]; out32 a zeroed f32 [M, Dout] scratch when Dout > 64.
+// The entry point returns cudaGetLastError().
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kT = 64;         // rows, hidden units and output columns per tile
+constexpr int kLd = kT + 4;    // row stride of the transposed tiles
+constexpr int kSmemFixed = kT * kT + kT * kLd + kT * kT;  // w1s, hsT, w2s (floats)
+
+template <typename T, bool SPLIT>
+__global__ void __launch_bounds__(kThreads)
+    transition_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
+                      const float* __restrict__ b1, const T* __restrict__ w2t,
+                      const float* __restrict__ b2, T* __restrict__ out,
+                      float* __restrict__ out32, long long M, int D, int Hd, int Dout) {
+  extern __shared__ __align__(16) float smem[];
+  float* xsT = smem;             // [D][kLd]: the tile's LN rows, transposed
+  float* w1s = xsT + D * kLd;    // [kT][kT]: a 64 x 64 slab of W1
+  float* hsT = w1s + kT * kT;    // [kT][kLd]: the hidden chunk, transposed
+  float* w2s = hsT + kT * kLd;   // [kT][kT]: the chunk's rows of W2, 64 columns
+
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4, cg = tid & 15;
+  const int warp = tid >> 5;
+  const long long m0 = (long long)blockIdx.x * kT;
+  const int rows = (int)min((long long)kT, M - m0);
+  for (int r = warp; r < kT; r += kThreads / 32)
+    layer_norm_to_column<T>(x + (m0 + r) * D, r < rows, D, xsT + r, kLd);
+
+  float acc[4][4];  // the outputs (!SPLIT), kept over the hidden chunks
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  const int c_begin = SPLIT ? blockIdx.y : 0;
+  const int c_end = SPLIT ? blockIdx.y + 1 : (Hd + kT - 1) / kT;
+  for (int chunk = c_begin; chunk < c_end; ++chunk) {
+    const int h0 = chunk * kT;
+    float h[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kT) {
+      __syncthreads();  // the LN rows are in; the previous slab's reads are done
+      for (int e = tid; e < kT * kT; e += kThreads) {
+        const int dd = e / kT, j = e - dd * kT;
+        w1s[e] = d0 + dd < D && h0 + j < Hd ? Io<T>::load(w1t + (long long)(d0 + dd) * Hd + h0 + j)
+                                            : 0.f;
+      }
+      __syncthreads();
+      tile_4x4(h, xsT + d0 * kLd + rg * 4, kLd, w1s + cg * 4, kT, min(kT, D - d0));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int hj = h0 + cg * 4 + j;
+        hsT[(cg * 4 + j) * kLd + rg * 4 + i] =
+            hj < Hd ? Io<T>::round(fmaxf(h[i][j] + b1[hj], 0.f)) : 0.f;
+      }
+    for (int c0 = 0; c0 < Dout; c0 += kT) {
+      __syncthreads();  // hsT is in; the previous W2 slab's reads are done
+      for (int e = tid; e < kT * kT; e += kThreads) {
+        const int j = e / kT, c = e - j * kT;
+        w2s[e] = h0 + j < Hd && c0 + c < Dout
+                     ? Io<T>::load(w2t + (long long)(h0 + j) * Dout + c0 + c)
+                     : 0.f;
+      }
+      __syncthreads();
+      if (SPLIT) {
+        float o[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+        tile_4x4(o, hsT + rg * 4, kLd, w2s + cg * 4, kT, kT);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg * 4 + i;
+          if (r >= rows) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + cg * 4 + j;
+            if (c < Dout) atomicAdd(out32 + (m0 + r) * Dout + c, o[i][j]);
+          }
+        }
+      } else {
+        tile_4x4(acc, hsT + rg * 4, kLd, w2s + cg * 4, kT, kT);
+      }
+    }
+    __syncthreads();  // hsT's reads are done before the next chunk writes it
+  }
+
+  if (!SPLIT) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg * 4 + i;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = cg * 4 + j;
+        if (c < Dout) {
+          const float bias = b2 != nullptr ? b2[c] : 0.f;
+          out[(m0 + r) * Dout + c] = Io<T>::cast(acc[i][j] + bias);
+        }
+      }
+    }
+  }
+}
+
+// out = round(out32 + b2) for the split blocks' sums.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    transition_finish_kernel(const float* __restrict__ out32, const float* __restrict__ b2,
+                             T* __restrict__ out, long long n, int Dout) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e < n) out[e] = Io<T>::cast(out32[e] + (b2 != nullptr ? b2[e % Dout] : 0.f));
+}
+
+template <typename T, bool SPLIT>
+cudaError_t launch(const void* x, const void* w1t, const float* b1, const void* w2t,
+                   const float* b2, void* out, float* out32, long long M, int D, int Hd,
+                   int Dout, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)D * kLd + kSmemFixed);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const long long tiles = (M + kT - 1) / kT;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kern = transition_kernel<T, SPLIT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((unsigned)tiles, SPLIT ? (Hd + kT - 1) / kT : 1);
+  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w1t),
+                                         b1, static_cast<const T*>(w2t), b2, static_cast<T*>(out),
+                                         out32, M, D, Hd, Dout);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !SPLIT) return e;
+  const long long n = M * Dout;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  transition_finish_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      out32, b2, static_cast<T*>(out), n, Dout);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* x, const void* w1t, const float* b1, const void* w2t,
+                     const float* b2, void* out, float* out32, long long M, int D, int Hd,
+                     int Dout, cudaStream_t stream) {
+  if (Dout <= kT) return launch<T, false>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+  if (out32 == nullptr) return cudaErrorInvalidValue;
+  return launch<T, true>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K10 over M rows. Takes the transposed LN tile [D][68] and three 64 x 64
+// tiles (f32) within the block's shared memory (232448 bytes): D <= 650.
+// out32: a zeroed f32 [M, Dout] scratch, needed when Dout > 64.
+int prd_transition(const void* x, const void* w1t, const void* b1, const void* w2t,
+                   const void* b2, void* out, void* out32, int dtype, int M, int D, int Hd,
+                   int Dout, void* stream) {
+  const bool ok = (dtype == 0 || dtype == 1) && M > 0 && D > 0 && Hd > 0 && Dout > 0 &&
+                  x != nullptr && b1 != nullptr;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto bias1 = static_cast<const float*>(b1);
+  const auto bias2 = static_cast<const float*>(b2);
+  const auto sums = static_cast<float*>(out32);
+  if (dtype == 0)
+    return (int)dispatch<float>(x, w1t, bias1, w2t, bias2, out, sums, M, D, Hd, Dout, s);
+  return (int)dispatch<__nv_bfloat16>(x, w1t, bias1, w2t, bias2, out, sums, M, D, Hd, Dout, s);
+}
+
+}  // extern "C"

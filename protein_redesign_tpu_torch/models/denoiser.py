@@ -22,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.attention import weak_scalar
+from ..ops.outer import fused_outer_linear
+from ..ops.trimul import triangle_multiply
 from .layers import GatedAttention, LayerNorm, PRLinear, TransitionMLP, attention_core
 
 
@@ -30,12 +32,12 @@ class TriangleAttention(nn.Module):
     rows (`denoiser.py:44-75`)."""
 
     def __init__(self, pair_dim: int, head_dim: int, num_heads: int, mode: str,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_gated: bool = False):
         super().__init__()
         if mode not in ("starting", "ending"):
             raise ValueError(f"Invalid mode: {mode}")
         self.mode = mode
-        self.attn = GatedAttention(pair_dim, head_dim, num_heads, dtype)
+        self.attn = GatedAttention(pair_dim, head_dim, num_heads, dtype, fused_gated=fused_gated)
 
     def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor) -> torch.Tensor:
         if self.mode == "ending":
@@ -48,17 +50,19 @@ class TriangleAttention(nn.Module):
 
 
 class TriangleMultiplication(nn.Module):
-    """Gated triangle multiplicative update (`denoiser.py:83-181`), the
-    plain einsum path. ``fast_accum`` keeps the [N, N, D] product in the
-    compute dtype instead of f32."""
+    """Gated triangle multiplicative update (`denoiser.py:83-181`).
+    ``fast_accum`` keeps the einsum path's [N, N, D] product in the compute
+    dtype instead of f32. ``fused`` (``cfg.use_pallas_trimul``): the whole
+    op as one kernel (K9, ``triangle_multiply``) on the same parameters;
+    it ignores ``fast_accum``, as the JAX fused path does."""
 
     def __init__(self, pair_dim: int, mode: str, fast_accum: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
         super().__init__()
         if mode not in ("outgoing", "incoming"):
             raise ValueError(f"Invalid mode: {mode}")
         D = pair_dim
-        self.mode, self.fast_accum, self.dtype = mode, fast_accum, dtype
+        self.mode, self.fast_accum, self.dtype, self.fused = mode, fast_accum, dtype, fused
         self.norm = LayerNorm(D, dtype=dtype)
         self.ab_gate = PRLinear(D, 2 * D, init="gating", dtype=dtype)
         self.ab_proj = PRLinear(D, 2 * D, init="default", dtype=dtype)
@@ -67,6 +71,13 @@ class TriangleMultiplication(nn.Module):
         self.out_proj = PRLinear(D, D, init="final", dtype=dtype)
 
     def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return triangle_multiply(
+                pair.to(self.dtype), mask_2d.to(self.dtype),
+                self.ab_gate.weight, self.ab_gate.bias, self.ab_proj.weight, self.ab_proj.bias,
+                self.out_gate.weight, self.out_gate.bias, self.out_proj.weight,
+                self.out_proj.bias, self.mode,
+            )
         acc = self.dtype if self.fast_accum else torch.float32
         pair = self.norm(pair)
         ab = mask_2d[..., None] * (torch.sigmoid(self.ab_gate(pair)) * self.ab_proj(pair))
@@ -84,16 +95,21 @@ class OuterLinear(nn.Module):
     """Pair update from single: Linear(cat[x_i * x_j, x_i - x_j])
     (`denoiser.py:184-251`). ``factored`` computes the same Linear as
     (x_i * x_j) W1 + u_i - u_j + b with u = x W2, without the
-    [N, N, 2S] concat."""
+    [N, N, 2S] concat. ``fused`` (``cfg.use_pallas_outer``, which takes
+    precedence over ``factored``): the same function as one kernel (K11,
+    ``fused_outer_linear``) on the same parameters."""
 
     def __init__(self, single_dim: int, pair_dim: int, factored: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
         super().__init__()
         self.factored, self.dtype, self.single_dim = factored, dtype, single_dim
+        self.fused = fused
         self.norm = LayerNorm(single_dim, dtype=dtype)
         self.linear = PRLinear(2 * single_dim, pair_dim, init="final", dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return fused_outer_linear(x.to(self.dtype), self.linear.weight, self.linear.bias)
         S = self.single_dim
         x = self.norm(x)
         if self.factored:
@@ -184,7 +200,12 @@ class OuterProductUpdate(nn.Module):
 
 
 class FoldingBlock(nn.Module):
-    """One denoiser block (`denoiser.py:368-457`)."""
+    """One denoiser block (`denoiser.py:368-457`). The four fused-kernel
+    switches route its modules as the JAX block does (`denoiser.py:676-688`):
+    ``use_pallas_transition`` single_fc and pair_fc (K10),
+    ``use_pallas_outer`` outer_linear (K11), ``use_pallas_trimul`` both
+    triangle multiplications (K9), ``use_pallas_fused_gated`` both triangle
+    attentions (K8)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -195,13 +216,21 @@ class FoldingBlock(nn.Module):
             LayerNorm(P, dtype=dtype), PRLinear(P, H, init="normal", dtype=dtype)
         )
         self.single_attn = GatedAttention(S, C, H, dtype)
-        self.single_fc = TransitionMLP(S, S * cfg.transition_factor, S, dtype=dtype)
-        self.outer_linear = OuterLinear(S, P, factored=cfg.outer_factored, dtype=dtype)
-        self.pair_mul_outgoing = TriangleMultiplication(P, "outgoing", fast_accum, dtype)
-        self.pair_mul_incoming = TriangleMultiplication(P, "incoming", fast_accum, dtype)
-        self.pair_attn_starting = TriangleAttention(P, C, H, "starting", dtype)
-        self.pair_attn_ending = TriangleAttention(P, C, H, "ending", dtype)
-        self.pair_fc = TransitionMLP(P, P * cfg.transition_factor, P, dtype=dtype)
+        transition, trimul = cfg.use_pallas_transition, cfg.use_pallas_trimul
+        self.single_fc = TransitionMLP(S, S * cfg.transition_factor, S, dtype=dtype,
+                                       fused=transition)
+        self.outer_linear = OuterLinear(S, P, factored=cfg.outer_factored, dtype=dtype,
+                                        fused=cfg.use_pallas_outer)
+        self.pair_mul_outgoing = TriangleMultiplication(P, "outgoing", fast_accum, dtype,
+                                                        fused=trimul)
+        self.pair_mul_incoming = TriangleMultiplication(P, "incoming", fast_accum, dtype,
+                                                        fused=trimul)
+        self.pair_attn_starting = TriangleAttention(P, C, H, "starting", dtype,
+                                                    fused_gated=cfg.use_pallas_fused_gated)
+        self.pair_attn_ending = TriangleAttention(P, C, H, "ending", dtype,
+                                                  fused_gated=cfg.use_pallas_fused_gated)
+        self.pair_fc = TransitionMLP(P, P * cfg.transition_factor, P, dtype=dtype,
+                                     fused=transition)
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

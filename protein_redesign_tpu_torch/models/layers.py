@@ -20,7 +20,14 @@ from torch import nn
 # masked_softmax is defined beside the plain attention that uses it and is
 # re-exported here, where the JAX package's layer vocabulary has it.
 from ..chem.features import ATOM_FEATURE_SIZES, BOND_FEATURE_SIZES
-from ..ops.attention import gated_attention_core, masked_softmax, weak_scalar  # noqa: F401
+from ..ops.attention import (  # noqa: F401
+    ROWS_KCHUNK_MIN_N,
+    fused_gated_rows_attention,
+    gated_attention_core,
+    masked_softmax,
+    weak_scalar,
+)
+from ..ops.transition import fused_transition
 
 TRUNC_STD_CORRECTION = 0.87962566103423978
 
@@ -189,12 +196,19 @@ def attention_core(
 
 class GatedAttention(nn.Module):
     """Per-head gated MHA with optional additive bias (`layers.py:327-429`)
-    over any leading dims; the input's second-to-last axis is the sequence."""
+    over any leading dims; the input's second-to-last axis is the sequence.
+
+    ``fused_gated`` (``cfg.use_pallas_fused_gated``): with a mask, no bias and
+    N < ROWS_KCHUNK_MIN_N, the whole module runs as one kernel (K8,
+    ``fused_gated_rows_attention``) on the same parameters, as the JAX
+    module's fused path does (`layers.py:359-403`); the port has no
+    attention-plan size gates, so it engages at every such N."""
 
     def __init__(self, dim: int, head_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_gated: bool = False):
         super().__init__()
         self.head_dim, self.num_heads, self.dtype = head_dim, num_heads, dtype
+        self.fused_gated = fused_gated
         hc = head_dim * num_heads
         self.norm = LayerNorm(dim, dtype=dtype)
         self.q_proj = PRLinear(dim, hc, bias=False, init="glorot", dtype=dtype)
@@ -206,6 +220,13 @@ class GatedAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         H, C = self.num_heads, self.head_dim
+        if (self.fused_gated and attn_bias is None and mask is not None
+                and x.shape[-2] < ROWS_KCHUNK_MIN_N):
+            return fused_gated_rows_attention(
+                x.to(self.dtype), mask, self.q_proj.weight, self.k_proj.weight,
+                self.v_proj.weight, self.gate_proj.weight, self.gate_proj.bias,
+                self.out_proj.weight, self.out_proj.bias, H,
+            )
         x = self.norm(x)
 
         def heads(y: torch.Tensor) -> torch.Tensor:
@@ -222,13 +243,22 @@ class GatedAttention(nn.Module):
 
 class TransitionMLP(nn.Sequential):
     """LN -> expand -> ReLU -> contract with a 'final'-init output
-    (`layers.py:432-473`); indices 1 and 3 carry the reference names."""
+    (`layers.py:432-473`); indices 1 and 3 carry the reference names.
+    ``fused`` (``cfg.use_pallas_transition``): the whole transition as one
+    kernel (K10, ``fused_transition``) on the same parameters."""
 
     def __init__(self, dim: int, hidden: int, out: int, out_bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
         super().__init__(
             LayerNorm(dim, dtype=dtype),
             PRLinear(dim, hidden, init="relu", dtype=dtype),
             nn.ReLU(),
             PRLinear(hidden, out, bias=out_bias, init="final", dtype=dtype),
         )
+        self.fused, self.dtype = fused, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return fused_transition(x.to(self.dtype), self[1].weight, self[1].bias,
+                                    self[3].weight, self[3].bias)
+        return super().forward(x)

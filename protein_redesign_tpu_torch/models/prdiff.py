@@ -53,12 +53,6 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.fast_softmax, "fast_softmax: the bf16-softmax kernel variant is not ported yet"),
         (cfg.attn_chunk > 0, "attn_chunk>0: query-chunked attention is not ported yet"),
         (cfg.sequence_parallel, "sequence_parallel: not ported yet"),
-        (cfg.use_pallas_trimul, "use_pallas_trimul: the fused triangle kernel is not ported yet"),
-        (cfg.use_pallas_transition,
-         "use_pallas_transition: the fused transition kernel is not ported yet"),
-        (cfg.use_pallas_outer, "use_pallas_outer: the fused OuterLinear kernel is not ported yet"),
-        (cfg.use_pallas_fused_gated,
-         "use_pallas_fused_gated: the fused gated-attention kernel is not ported yet"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}: only float32"),
         (cfg.dtype not in ("float32", "bfloat16"),
          f"dtype={cfg.dtype!r}: only float32 and bfloat16"),

@@ -23,6 +23,14 @@ kernels the denoiser's main path runs:
   log s.
 - ``rows_attention_kchunk_bwd`` (K6) <- ``_kchunk_grid_cn_grads_call`` /
   ``_make_rowhead_kchunk_grid_cn_bwd_kernel``: dq, dk, dv from those stats.
+- ``fused_gated_rows_attention`` (K8) <- ``fused_gated_rows_attention``
+  (:1142) / ``_fused_gated_impl`` / ``_make_fused_gated_kernel``: the whole
+  no-bias GatedAttention (LN, projections, masked softmax, gate,
+  out-projection), the switch ``use_pallas_fused_gated``; its backward
+  differentiates the plain version ``fused_gated_reference``, as
+  ``_fused_gated_bwd`` (:1227) differentiates ``_fused_gated_reference``.
+  It computes in the input's dtype (f32 throughout in float32), where the
+  TPU kernel rounds its operands to bf16 even in an f32 model.
 
 Triangle attention has two regimes, chosen by ``kchunk_select`` as the JAX
 ``_kchunk_select`` (:681) chooses them: below the switch (N < 2048 in bf16,
@@ -55,6 +63,7 @@ with the plain versions on the card; nothing on the main path enters it.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Iterator, Optional
 
 import torch
@@ -83,6 +92,9 @@ PLAIN_BLOCK_ELEMS = 1 << 26
 LAUNCHES: Dict[str, int] = {
     "rows_attention": 0, "tiled_attention": 0, "rows_attention_bwd": 0,
     "rows_attention_kchunk": 0, "rows_attention_kchunk_stats": 0, "rows_attention_kchunk_bwd": 0,
+    # the fused kernels: K8 here, K9-K11 in ops/trimul.py, transition.py, outer.py
+    "fused_gated_rows_attention": 0, "triangle_multiply": 0, "fused_transition": 0,
+    "fused_outer_linear": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,6 +104,42 @@ _PLAIN_ROUTE = False  # set only inside plain_route()
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def plain_route_active() -> bool:
+    """True inside ``plain_route()``."""
+    return _PLAIN_ROUTE
+
+
+def layer_norm_f32(x: torch.Tensor) -> torch.Tensor:
+    """Non-affine LayerNorm over the last axis in f32, eps 1e-5 (the fused
+    kernels' ``_ln``)."""
+    return torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), eps=1e-5)
+
+
+def plain_vjp(plain, saved, needs_input_grad, dout, *static):
+    """Gradients of ``plain(*saved, *static)`` for the inputs that need one
+    (None elsewhere; a mask gets None, its gradient being zero where it is
+    defined): the backward of K2 and of the fused kernels, which
+    differentiate their plain version, as the JAX VJPs differentiate their
+    reference math."""
+    wanted = [i for i, t in enumerate(saved) if t is not None and needs_input_grad[i]]
+    inputs = list(saved)
+    with torch.enable_grad():
+        for i in wanted:
+            inputs[i] = inputs[i].detach().requires_grad_()
+        out = plain(*inputs, *static)
+        grads = torch.autograd.grad(out, [inputs[i] for i in wanted], dout,
+                                    allow_unused=True) if wanted else ()
+    result = [None] * len(saved)
+    for i, grad in zip(wanted, grads):
+        result[i] = grad
+    return result
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def weak_scalar(value: float, dtype: torch.dtype) -> float:
@@ -531,18 +579,9 @@ class _TiledAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, mask, bias = ctx.saved_tensors
-        wanted = [i for i in (0, 1, 2, 4) if ctx.needs_input_grad[i]]
-        with torch.enable_grad():
-            inputs = [q, k, v, mask, bias]
-            for i in wanted:
-                inputs[i] = inputs[i].detach().requires_grad_()
-            out = attention_reference(*inputs, ctx.scale)
-            grads = torch.autograd.grad(out, [inputs[i] for i in wanted], dout)
-        result = [None] * 6
-        for i, grad in zip(wanted, grads):
-            result[i] = grad
-        return tuple(result)
+        grads = plain_vjp(attention_reference, ctx.saved_tensors, ctx.needs_input_grad, dout,
+                          ctx.scale)
+        return (*grads, None)
 
 
 def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
@@ -574,11 +613,136 @@ def fused_attention(q, k, v, mask, bias, scale: float) -> torch.Tensor:
     return tiled_attention(q, k, v, mask, bias, scale)
 
 
+def fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> torch.Tensor:
+    """Plain version of K8, the whole no-bias GatedAttention on x [..., N, D]
+    with a key mask broadcastable to [..., N]: LN without affine (f32),
+    q = x Wq / sqrt(C), k, v and the gate sigmoid(x Wg + bg) per head,
+    masked f32 softmax, o = P v, sigmoid gate * o, out-projection summed
+    over heads plus bo. The Pallas kernel's roundings in the input's dtype:
+    the LN output, q (scaled in f32), k, v, the probabilities and the gated
+    output rounded to it, the gate and all sums f32, the output in it."""
+    dt = x.dtype
+    H, HC = num_heads, wq.shape[0]
+    C = HC // H
+    xl = layer_norm_f32(x).to(dt).float()
+
+    def proj(w):
+        return xl @ w.to(dt).float().t()
+
+    def heads(y):
+        return y.reshape(y.shape[:-1] + (H, C)).float()
+
+    q = heads((proj(wq) * (1.0 / math.sqrt(C))).to(dt))
+    k = heads(proj(wk).to(dt))
+    v = heads(proj(wv).to(dt))
+    gate = torch.sigmoid(proj(wg) + bg.float())
+    logits = torch.einsum("...ihc,...jhc->...hij", q, k)
+    probs = masked_softmax(logits, mask[..., None, None, :])
+    o = torch.einsum("...hij,...jhc->...ihc", probs.to(dt).float(), v)
+    gated = (gate * o.reshape(o.shape[:-2] + (HC,))).to(dt).float()
+    return (gated @ wo.to(dt).float().t() + bo.float()).to(dt)
+
+
+# fused_gated.cu: two output channels per lane (D <= 64), one head channel
+# per lane in P.V (C <= 32), the projection weights [D, 4 H C] and the
+# out-projection [H C, D] in shared memory (f32).
+MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 64, 32, 128
+
+
+def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> torch.Tensor:
+    from ..kernels import build
+
+    if not x.is_cuda or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the fused gated attention kernel takes CUDA float32 or bfloat16, got "
+                        f"{x.dtype} on {x.device}")
+    if x.dim() < 2:
+        raise ValueError(f"x must be [..., N, D], got {tuple(x.shape)}")
+    N, D = x.shape[-2:]
+    HC = wq.shape[0]
+    H = num_heads
+    C = HC // H if H > 0 else 0
+    if not (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 4 == 0
+            and H * C == HC and HC <= MAX_FUSED_WIDTH):
+        raise ValueError(f"the fused gated attention kernel takes D up to {MAX_FUSED_PAIR_DIM}, "
+                         f"head width a multiple of 4 up to {MAX_FUSED_HEAD_DIM} and H*C up to "
+                         f"{MAX_FUSED_WIDTH}; got D={D}, H={H}, H*C={HC}")
+    for name, w, shape in (("wq", wq, (HC, D)), ("wk", wk, (HC, D)), ("wv", wv, (HC, D)),
+                           ("wg", wg, (HC, D)), ("bg", bg, (HC,)), ("wo", wo, (D, HC)),
+                           ("bo", bo, (D,))):
+        if w.shape != shape or w.device != x.device:
+            raise ValueError(f"{name} must be {shape} on {x.device}, got {tuple(w.shape)} on "
+                             f"{w.device}")
+    # [R1, R2, N, D] rows read through their strides: the "ending" triangle
+    # attention's transposed view [B, j, i, D] needs no copy
+    x4 = x.reshape((-1,) + x.shape[-3:]) if x.dim() >= 3 else x[None]
+    if x4.dim() == 3:
+        x4 = x4[None]
+    if x4.stride(-1) != 1:
+        x4 = x4.contiguous()
+    R1, R2 = x4.shape[:2]
+    R = R1 * R2
+    if R == 0 or N == 0 or -(-N // 32) * R > MAX_BLOCKS:
+        raise ValueError(f"fused gated attention grid: R={R} rows of N={N}")
+    lib = build()
+    dt = x.dtype
+    maskf = torch.broadcast_to(mask, x.shape[:-1]).reshape(R, N).to(torch.float32).contiguous()
+    w_in = torch.cat([wq, wk, wv, wg]).to(dt).t().contiguous()  # [D, 4 H C]: q | k | v | gate
+    bg_f, bo_f = bg.float().contiguous(), bo.float().contiguous()
+    wo_t = wo.to(dt).t().contiguous()  # [H C, D]
+    qkv = torch.empty((3, R, N, HC), dtype=dt, device=x.device)  # scratch: q (scaled), k, v
+    gate = torch.empty((R, N, HC), dtype=torch.float32, device=x.device)
+    out = torch.empty(x4.shape, dtype=dt, device=x.device)
+    with torch.cuda.device(x.device):
+        code = lib.lib.prd_fused_gated(
+            x4.data_ptr(), maskf.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(), wo_t.data_ptr(),
+            bo_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[dt], R1, R2, N, D, H, C, 1.0 / math.sqrt(C),
+            *x4.stride()[:3], stream_of(x),
+        )
+    lib.check(code, "fused_gated_rows_attention")
+    LAUNCHES["fused_gated_rows_attention"] += 1
+    return out.reshape(x.shape)
+
+
+def fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> torch.Tensor:
+    """K8: the plain version for a CPU tensor, the kernel for a CUDA one."""
+    if _on_cpu(x):
+        return fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads)
+    return _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads)
+
+
+class _FusedGated(torch.autograd.Function):
+    """K8 forward; backward by autograd of the plain version
+    (``_fused_gated_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads):
+        ctx.save_for_backward(x, mask, wq, wk, wv, wg, bg, wo, bo)
+        ctx.num_heads = num_heads
+        fn = fused_gated_reference if _PLAIN_ROUTE else fused_gated
+        return fn(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors  # once: remat's checkpoint unpacks each tensor once
+        grads = plain_vjp(fused_gated_reference, saved, ctx.needs_input_grad, dout,
+                          ctx.num_heads)
+        return (*grads, None)
+
+
+def fused_gated_rows_attention(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int):
+    """The whole no-bias GatedAttention as one kernel (K8), differentiable:
+    x [..., N, D] rows (pre-LN), mask broadcastable to [..., N], weights in
+    the torch Linear layout (wq, wk, wv, wg [H C, D], wo [D, H C])."""
+    return _FusedGated.apply(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads)
+
+
 @contextlib.contextmanager
 def plain_route() -> Iterator[None]:
-    """Inside this block ``gated_attention_core`` runs the plain version on
-    CUDA tensors too. For comparing the kernels with it (tests and
-    chip_smoke.py); process-wide, not per thread."""
+    """Inside this block ``gated_attention_core`` and the fused kernels' entry
+    points (K8-K11) run the plain versions on CUDA tensors too. For comparing
+    the kernels with them (tests and chip_smoke.py); process-wide, not per
+    thread."""
     global _PLAIN_ROUTE
     outer, _PLAIN_ROUTE = _PLAIN_ROUTE, True
     try:

@@ -52,7 +52,7 @@ def test_generate_writes_outputs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--sampler", "ddim"], ["--fast_softmax"],
-                                  ["--seq_reverse", "ancestral"], ["--use_pallas_trimul"],
+                                  ["--seq_reverse", "ancestral"], ["--trimul_dmajor"],
                                   ["--ddim_steps", "50"], ["--use_pallas"],
                                   ["--pallas_auto_min_n", "384"], ["--num_workers", "2"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):

@@ -399,3 +399,208 @@ def test_denoiser_kchunk_grad_route_matches_plain(device, kchunk_regime):
         grads.append(torch.cat([q.grad.flatten() for q in mod.parameters()]))
     kernel, plain = grads
     assert float((kernel - plain).norm() / plain.norm()) <= 1e-5
+
+
+# The fused kernels K8-K11 against their plain versions: relative norm of the
+# difference, 1e-5 in float32 and 2e-2 in bfloat16 (the kernels sum in another
+# order; in bf16 the rounded operands then round differently).
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _randn(*shape, seed=0, scale=1.0, device="cuda"):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g)).to(device)
+
+
+def _pair_mask(B, N, device, masked_rows=0, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = (torch.rand(B, N, generator=g) > 0.2).float()
+    m2 = m[:, :, None] * m[:, None, :]
+    m2[0, :masked_rows] = 0.0
+    return m2.to(device)
+
+
+def _linear(out_dim, in_dim, device, seed):
+    return (_randn(out_dim, in_dim, seed=seed, scale=in_dim ** -0.5, device=device),
+            _randn(out_dim, seed=seed + 1, scale=0.3, device=device))
+
+
+@DTYPES
+@pytest.mark.parametrize("D,Hd,Dout,M,with_b2", [(64, 256, 64, 1000, True), (512, 2048, 512, 37, True),
+                                                 (16, 64, 24, 5, False), (40, 72, 100, 130, False),
+                                                 (96, 100, 70, 70, True)])
+def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2):
+    from protein_redesign_tpu_torch.ops import transition as T
+
+    x = _randn(M, D, seed=1, device=device).to(dtype)
+    w1, b1 = _linear(Hd, D, device, 2)
+    w2, b2 = _linear(Dout, Hd, device, 4)
+    b2 = b2 if with_b2 else None
+    before = A.LAUNCHES["fused_transition"]
+    got = T.transition(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_transition"] == before + 1
+    assert got.dtype == dtype and got.shape == (M, Dout)
+    assert _rel(got, T.transition_reference(x, w1, b1, w2, b2)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("B,N,S,D", [(2, 45, 64, 64), (1, 130, 512, 64), (1, 7, 16, 8)])
+def test_outer_kernel_matches_plain(device, dtype, B, N, S, D):
+    from protein_redesign_tpu_torch.ops import outer as O
+
+    x = _randn(B, N, S, seed=5, device=device).to(dtype)
+    w, b = _linear(D, 2 * S, device, 6)
+    got = O.outer(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, N, D)
+    assert _rel(got, O.outer_reference(x, w, b)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("mode", ["outgoing", "incoming"])
+@pytest.mark.parametrize("B,N,D", [(2, 45, 64), (1, 40, 16), (1, 17, 24)])
+def test_trimul_kernel_matches_plain(device, dtype, mode, B, N, D):
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    pair = _randn(B, N, N, D, seed=7, device=device).to(dtype)
+    mask = _pair_mask(B, N, device, masked_rows=3)
+    ws = [*_linear(2 * D, D, device, 8), *_linear(2 * D, D, device, 10),
+          *_linear(D, D, device, 12), *_linear(D, D, device, 14)]
+    got = M.trimul(pair, mask, *ws, mode)
+    torch.cuda.synchronize()
+    assert _rel(got, M.trimul_reference(pair, mask, *ws, mode)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("view", ["starting", "ending"])
+@pytest.mark.parametrize("N,D,H,C", [(45, 64, 4, 16), (40, 16, 2, 8), (20, 24, 3, 32)])
+def test_fused_gated_kernel_matches_plain(device, dtype, view, N, D, H, C):
+    pair = _randn(2, N, N, D, seed=15, device=device).to(dtype)
+    mask = _pair_mask(2, N, device, masked_rows=3)
+    if view == "ending":  # the transposed view TriangleAttention hands in, read through strides
+        pair, mask = pair.transpose(1, 2), mask.transpose(1, 2)
+    ws = [_randn(H * C, D, seed=16 + i, scale=D ** -0.5, device=device) for i in range(4)]
+    ws += [_randn(H * C, seed=20, scale=0.3, device=device), *_linear(D, H * C, device, 21)]
+    got = A.fused_gated(pair, mask, *ws, H)
+    torch.cuda.synchronize()
+    want = A.fused_gated_reference(pair, mask, *ws, H)
+    assert _rel(got, want) <= FUSED_TOL[dtype]
+    if view == "starting":  # fully masked rows attend uniformly, as the plain softmax does
+        assert _rel(got[0, :3], want[0, :3]) <= FUSED_TOL[dtype]
+
+
+def _fused_case(name, device):
+    """(differentiable entry point, plain version, inputs, launch counter)."""
+    from protein_redesign_tpu_torch.ops import outer as O
+    from protein_redesign_tpu_torch.ops import transition as T
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    if name == "transition":
+        return (T.fused_transition, T.transition_reference,
+                [_randn(30, 16, seed=1, device=device), *_linear(64, 16, device, 2),
+                 *_linear(16, 64, device, 4)], "fused_transition")
+    if name == "outer":
+        return (O.fused_outer_linear, O.outer_reference,
+                [_randn(2, 12, 16, seed=5, device=device), *_linear(8, 32, device, 6)],
+                "fused_outer_linear")
+    if name == "trimul":
+        ws = [*_linear(16, 8, device, 8), *_linear(16, 8, device, 10), *_linear(8, 8, device, 12),
+              *_linear(8, 8, device, 14)]
+        return (lambda *a: M.triangle_multiply(*a, "outgoing"),
+                lambda *a: M.trimul_reference(*a, "outgoing"),
+                [_randn(2, 12, 12, 8, seed=7, device=device), _pair_mask(2, 12, device), *ws],
+                "triangle_multiply")
+    ws = [_randn(8, 8, seed=16 + i, scale=8 ** -0.5, device=device) for i in range(4)]
+    ws += [_randn(8, seed=20, scale=0.3, device=device), *_linear(8, 8, device, 21)]
+    return (lambda *a: A.fused_gated_rows_attention(*a, 2),
+            lambda *a: A.fused_gated_reference(*a, 2),
+            [_randn(2, 12, 12, 8, seed=15, device=device), _pair_mask(2, 12, device, 2), *ws],
+            "fused_gated_rows_attention")
+
+
+@pytest.mark.parametrize("name", ["transition", "outer", "trimul", "fused_gated"])
+def test_fused_autograd_launches_kernel(device, name):
+    """The forward launches the kernel once; the backward (autograd of the
+    plain version, no kernel) matches autograd of the plain version."""
+    fn, plain, inputs, counter = _fused_case(name, device)
+    needs = [t.dim() > 0 and not (name in ("trimul", "fused_gated") and i == 1)
+             for i, t in enumerate(inputs)]
+    grads = []
+    for use_plain in (False, True):
+        leaves = [t.clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+        A.reset_launch_counts()
+        out = (plain if use_plain else fn)(*leaves)
+        out.backward(torch.ones_like(out))
+        torch.cuda.synchronize()
+        assert A.LAUNCHES == (_launches() if use_plain else _launches(**{counter: 1}))
+        grads.append([t.grad for t, n in zip(leaves, needs) if n])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_fused_wrappers_reject(device):
+    from protein_redesign_tpu_torch.ops import outer as O
+    from protein_redesign_tpu_torch.ops import transition as T
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    with pytest.raises(ValueError):  # pair width beyond 64
+        ws = [*_linear(256, 128, device, 0), *_linear(256, 128, device, 0),
+              *_linear(128, 128, device, 0), *_linear(128, 128, device, 0)]
+        M.trimul(torch.zeros(1, 4, 4, 128, device=device), torch.ones(1, 4, 4, device=device),
+                 *ws, "outgoing")
+    with pytest.raises(ValueError):  # output channels beyond 64
+        O.outer(torch.zeros(1, 4, 8, device=device), *_linear(72, 16, device, 0))
+    with pytest.raises(ValueError):  # 64 LN rows of width 1024 exceed shared memory
+        T.transition(torch.zeros(3, 1024, device=device), *_linear(16, 1024, device, 0),
+                     *_linear(8, 16, device, 0))
+    ws = [torch.zeros(2 * 64, 16, device=device) for _ in range(4)]
+    with pytest.raises(ValueError):  # head width 64 beyond 32
+        A.fused_gated(torch.zeros(1, 4, 4, 16, device=device), torch.ones(1, 4, 4, device=device),
+                      *ws, torch.zeros(128, device=device), torch.zeros(16, 128, device=device),
+                      torch.zeros(16, device=device), 2)
+    with pytest.raises(TypeError):
+        O.outer(torch.zeros(1, 4, 8, device=device).half(), *_linear(8, 16, device, 0))
+
+
+def test_denoiser_fused_route_matches_plain(device):
+    """A remat'd denoiser with the four switches: each fused kernel once per
+    module in the forward and again in the recompute, K2 as before, no K1 or
+    K7; forward and whole gradient against the plain route."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.denoiser import Denoiser
+
+    cfg = ModelConfig(single_dim=32, pair_dim=16, head_dim=8, num_heads=2, num_blocks=2,
+                      dtype="float32", remat=True, use_pallas_trimul=True,
+                      use_pallas_transition=True, use_pallas_outer=True,
+                      use_pallas_fused_gated=True)
+    torch.manual_seed(0)
+    mod = Denoiser(cfg).to(device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    single = _randn(2, 40, 32, seed=3, device=device)
+    pair = _randn(2, 40, 40, 16, seed=4, device=device)
+    mask = (torch.arange(40) < 33).float().expand(2, 40).to(device)
+    outs, grads = [], []
+    for plain in (False, True):
+        mod.zero_grad()
+        A.reset_launch_counts()
+        with A.plain_route() if plain else torch.enable_grad():
+            s, p = mod(single, pair, mask)
+            (s.square().sum() + p.square().sum()).backward()
+        expected = _launches() if plain else _launches(
+            fused_gated_rows_attention=8, triangle_multiply=8, fused_transition=8,
+            fused_outer_linear=4, tiled_attention=5)
+        assert A.LAUNCHES == expected
+        outs.append((s.detach(), p.detach()))
+        grads.append(torch.cat([q.grad.flatten() for q in mod.parameters()]))
+    for a, b in zip(*outs):
+        assert _rel(a, b) <= 1e-5
+    kernel, plain = grads
+    assert float((kernel - plain).norm() / plain.norm()) <= 1e-5
