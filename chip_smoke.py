@@ -65,10 +65,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    per micro-step); the generate CLI with the four flags at bucket 192, B=2,
    64 DDPM steps; the train CLI with the four flags at bucket 192, 2
    optimizer steps.
+15. Serving (K1 fast, the bf16-softmax triangle attention of a checkpoint
+   trained with --no-use_pallas_bwd and served with --fast_softmax): K1 fast
+   against its plain version at bucket 192 (R = 384) in f32 and bf16, with
+   its time, the plain version's, K1's, SDPA's and its bound; the train CLI
+   with --no-use_pallas_bwd --fast_softmax on phase 8's data at bucket 192,
+   2 optimizer steps (48 K1 fast and no K1 or K7 per micro-step); the serve
+   CLI on that checkpoint with --sampler ddim --ddim_steps 50 over a
+   1000-step schedule, --batch_size 2 --warmup_buckets 192, over a JSONL
+   file of three requests (lysozyme 1-110 + imatinib with 2 samples, the
+   same with a 5-frame trajectory, one over --max_nodes that must come back
+   as an error line): 24 x 50 K1 fast and 13 x 50 K2 launches per sampled
+   batch, no K1 or K7, the output files and s per DDIM step; one request to
+   the serve CLI in TCP mode (--port 0) in a process of its own; the
+   paper-width fast forward against its plain route, by kernel group.
 
-Each main path (phases 5, 8, 10, 12's train CLI and 14's generate and train
-CLIs) runs with every launch count set to 0 just before it and read just
-after. Every kernel's time and
+Each main path (phases 5, 8, 10, 12's train CLI, 14's generate and train
+CLIs and 15's train and serve CLIs) runs with every launch count set to 0
+just before it and read just after. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype and the bytes moved once over 3.35 TB/s.
@@ -81,9 +95,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -107,7 +124,8 @@ SEQUENCE = (  # the first 110 residues of T4 lysozyme
 LIGAND = "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1"  # imatinib
 STEPS = 64
 CSRC = "protein_redesign_tpu_torch/kernels/csrc/"
-SOURCES = {"rows_attention": CSRC + "attention.cu", "tiled_attention": CSRC + "attention.cu",
+SOURCES = {"rows_attention": CSRC + "attention.cu", "rows_attention_fast": CSRC + "attention.cu",
+           "tiled_attention": CSRC + "attention.cu",
            "rows_attention_bwd": CSRC + "attention_bwd.cu",
            "rows_attention_kchunk": CSRC + "attention_kchunk.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_kchunk.cu",
@@ -117,6 +135,7 @@ SOURCES = {"rows_attention": CSRC + "attention.cu", "tiled_attention": CSRC + "a
            "fused_outer_linear": CSRC + "outer.cu"}
 REPLACES = {
     "rows_attention": "protein_redesign_tpu/ops/pallas_attention.py:725",
+    "rows_attention_fast": "protein_redesign_tpu/ops/pallas_attention.py:725",
     "tiled_attention": "protein_redesign_tpu/ops/pallas_attention.py:1315",
     "rows_attention_bwd": "protein_redesign_tpu/ops/pallas_attention.py:834",
     "rows_attention_kchunk": "protein_redesign_tpu/ops/pallas_attention.py:320",
@@ -147,6 +166,9 @@ LONG_STEPS = 3  # DDPM steps of the generate run at bucket 2048
 # dS to bf16 before the dq and dk sums, as the Pallas kernel does, while the
 # plain route's autograd keeps dS in f32.
 GRAD_REL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# The serving path: DDIM steps over a schedule of SERVE_SCHEDULE steps, and
+# the residues of the request over --max_nodes (with imatinib 237 nodes).
+SERVE_STEPS, SERVE_SCHEDULE, SERVE_OVERSIZED = 50, 1000, 200
 
 
 def launch_record(**counts) -> dict:
@@ -160,8 +182,10 @@ def forward_launches(cfg, remat: bool = False, kchunk: bool = False) -> dict:
     SPAttention. With the four fused switches: K8 for both triangle
     attentions, K9 for both triangle multiplications, K10 for single_fc and
     pair_fc, K11 for outer_linear. Without them the triangle attentions take
-    K1 and, in a micro-step, K7 per K1 of the forward; in the K-chunk regime
-    (``kchunk``) K3 without a gradient, else K5 and one K6 per attention."""
+    K1 and, in a micro-step, K7 per K1 of the forward; with use_pallas_bwd
+    off they take K1 fast where fast_softmax is on, and no K7; in the
+    K-chunk regime (``kchunk``) K3 without a gradient, else K5 and one K6
+    per attention."""
     k, blocks = (2 if remat else 1), cfg.num_blocks
     counts = {"tiled_attention": k * blocks + 1}
     if cfg.use_pallas_fused_gated:
@@ -172,8 +196,9 @@ def forward_launches(cfg, remat: bool = False, kchunk: bool = False) -> dict:
         if remat:
             counts["rows_attention_kchunk_bwd"] = 2 * blocks
     else:
-        counts["rows_attention"] = 2 * k * blocks
-        if remat:
+        fast = cfg.fast_softmax and not cfg.use_pallas_bwd
+        counts["rows_attention_fast" if fast else "rows_attention"] = 2 * k * blocks
+        if remat and cfg.use_pallas_bwd:
             counts["rows_attention_bwd"] = 2 * blocks
     return launch_record(**counts)
 
@@ -414,6 +439,7 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
+          ("rows_attention_fast", "K1 fast rows_attention_fast"),
           ("rows_attention", "K1 rows_attention"), ("tiled_attention", "K2 tiled_attention"),
           ("layer_norm", "layer_norm"), ("gemm", "gemm/bmm"), ("nvjet", "gemm/bmm"),
           ("xmma", "gemm/bmm"), ("softmax", "softmax"), ("copy", "copy/cast"))
@@ -1219,6 +1245,212 @@ def phase_fused_train(seed: int) -> dict:
     return launches
 
 
+def phase_fast_kernel() -> dict:
+    """K1 fast against its plain version at bucket 192, B=2 (R = 384, 147
+    nodes valid) in f32 and bf16, both to TOL_BF16 (p is rounded to bf16 in
+    both dtypes), with the kernel's, the plain version's, K1's and SDPA's
+    time on the same inputs; the record keeps bf16."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    rec = {"max_abs_err": 0.0}
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        q, k, v, mask, _ = _attention_case(384, 192, 4, 16, dtype, 147, True, False, True,
+                                           400 + seed)
+        scale = 0.25
+        kernel = lambda: A.rows_attention_fast(q, k, v, mask, scale)  # noqa: E731
+        plain = lambda: A.rows_attention_fast_reference(q, k, v, mask, scale)  # noqa: E731
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - TOL_BF16 * ref.float().abs()).max())
+        if not (out.dtype == dtype and torch.isfinite(out).all() and excess <= TOL_BF16):
+            raise AssertionError(f"rows_attention_fast {dtype}: max abs err {err} > tol {TOL_BF16}")
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        k1_ms = cuda_ms(lambda: A.rows_attention(q, k, v, mask, scale))
+        label = str(dtype).replace("torch.", "")
+        print(f"[fast-kernel] rows_attention_fast R=384 H=4 N=192 C=16 {label} (147 valid): "
+              f"max_abs_err {err:.3e} (tol {TOL_BF16:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if dtype == torch.bfloat16:
+            rec.update(ms=ms, plain_ms=plain_ms, **attention_bound(q, mask, None, 2, 4))
+            rec["library_ms"] = library_ms(q, k, v, mask, None, scale)
+            print(f"[fast-kernel] at the record's shape: bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}), library {rec['library_ms']} ms")
+    return rec
+
+
+def _fast_train(tmp: Path, seed: int) -> Path:
+    """The train CLI with --no-use_pallas_bwd --fast_softmax on phase 8's
+    data at bucket 192: 2 optimizer steps of 2 x 2 micro-batches and the
+    final validation. Returns the checkpoint directory."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config
+
+    esm_dim = ModelConfig().esm_dim
+    write_dataset(tmp / "data", {
+        "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
+        "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+    run = tmp / "run"
+    argv = ["--save_dir", str(run), "--data_dir", str(tmp / "data"), "--batch_size", "2",
+            "--accumulate_grad_batches", "2", "--val_every_steps", "0", "--log_every_steps", "1",
+            "--warmup_steps", "10", "--seed", str(seed), "--device", "cuda", "--max_steps", "2",
+            "--no-use_pallas_bwd", "--fast_softmax"]
+    A.reset_launch_counts()
+    state = train(argv)
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    cfg = state.net.cfg
+    del state
+    metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    saved_cfg = read_config(run / "checkpoints" / "2")
+    steps = [m for m in metrics if "train_loss" in m]
+    vals = [m for m in metrics if "val_loss" in m]
+    if [m["step"] for m in steps] != [1, 2] or len(vals) != 1:
+        raise AssertionError(f"fast train metrics.jsonl: {metrics}")
+    if not all(math.isfinite(x) for x in [m["train_loss"] for m in steps] + [vals[0]["val_loss"]]):
+        raise AssertionError(f"fast train: non-finite losses {metrics}")
+    if not saved_cfg.fast_softmax or saved_cfg.use_pallas_bwd:
+        raise AssertionError(f"fast train checkpoint config {saved_cfg}")
+    micro, evaluation = forward_launches(cfg, remat=True), forward_launches(cfg)
+    if micro["rows_attention_fast"] != 48 or micro["rows_attention"] or micro["rows_attention_bwd"]:
+        raise AssertionError(f"fast train: expected 48 K1 fast and no K1 or K7 per micro-step, "
+                             f"got {micro}")
+    expected = {k: 4 * micro[k] + evaluation[k] for k in REPLACES}
+    if launches != expected:
+        raise AssertionError(f"fast train launches {launches} != {expected}")
+    for m in steps:
+        print(f"[serve-train] step {m['step']} bucket {int(m['bucket'])}: loss "
+              f"{m['train_loss']:.4f}, grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s "
+              f"per optimizer step (2 micro-batches of 2)")
+    print(f"[serve-train] --no-use_pallas_bwd --fast_softmax: val_loss {vals[0]['val_loss']:.4f}; "
+          f"launches {({k: v for k, v in launches.items() if v})}")
+    return run / "checkpoints"
+
+
+def _serve_jsonl(tmp: Path, ckpt: Path, seed: int) -> dict:
+    """The serve CLI over a JSONL file of three requests; returns its launches."""
+    from protein_redesign_tpu_torch.cli.serve import main as serve
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    request = {"protein": SEQUENCE, "ligand": LIGAND, "num_samples": 2}
+    requests = [{**request, "id": "lysozyme", "seed": 1},
+                {**request, "id": "lysozyme-trajectory", "seed": 2, "trajectory": 5},
+                {**request, "id": "oversized", "num_samples": 1,
+                 "protein": long_sequence(seed + 50, SERVE_OVERSIZED)}]
+    reqs, results = tmp / "requests.jsonl", tmp / "results.jsonl"
+    reqs.write_text("".join(json.dumps(r) + "\n" for r in requests))
+    argv = ["-c", str(ckpt), "-o", str(tmp / "served"), "--num_steps", str(SERVE_SCHEDULE),
+            "--fast_softmax", "--sampler", "ddim", "--ddim_steps", str(SERVE_STEPS),
+            "--batch_size", "2", "--warmup_buckets", "192", "--input", str(reqs),
+            "--output", str(results), "--device", "cuda"]
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    runner = serve(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - began
+    launches = dict(A.LAUNCHES)
+    lines = [json.loads(line) for line in results.read_text().splitlines()]
+    if [line["id"] for line in lines] != [r["id"] for r in requests]:
+        raise AssertionError(f"serve: responses {lines}")
+    plain, movie, oversized = lines
+    for line in (plain, movie):
+        if "error" in line or len(line["sequences"]) != 2 or not all(
+                0.0 <= x <= 1.0 for x in line["tmscores"]):
+            raise AssertionError(f"serve: response {line}")
+        for path in line["pdb_files"] + line["sdf_files"] + line.get("trajectory_files", []):
+            if not Path(path).is_file() or not Path(path).stat().st_size:
+                raise AssertionError(f"serve: missing output {path}")
+        for path in line["pdb_files"]:
+            # CA records; non-finite values are looked for by name (the
+            # 2-step checkpoint can put coordinates past the 8-column fields)
+            atoms = [a[30:].lower() for a in Path(path).read_text().splitlines()
+                     if a.startswith("ATOM")]
+            if len(atoms) != len(SEQUENCE) or any("nan" in a or "inf" in a for a in atoms):
+                raise AssertionError(f"serve: {path} has {len(atoms)} CA records or non-finite")
+    frames = [Path(path).read_text().count("MODEL") for path in movie["trajectory_files"]]
+    if frames != [5, 5] or "max_nodes" not in oversized.get("error", ""):
+        raise AssertionError(f"serve: trajectory frames {frames}, oversized {oversized}")
+    batches = len(runner.timings)  # the warm-up batch and one per request
+    blocks = runner.net.cfg.num_blocks
+    expected = launch_record(rows_attention_fast=batches * SERVE_STEPS * 2 * blocks,
+                             tiled_attention=batches * SERVE_STEPS * (blocks + 1))
+    if batches != 3 or launches != expected:
+        raise AssertionError(f"serve launches {launches} over {batches} batches != {expected}")
+    for bucket, rows, steps, seconds in runner.timings:
+        print(f"[serve] bucket {bucket}, {rows} samples per batch: {steps} DDIM steps in "
+              f"{seconds:.3f} s = {seconds / steps:.4f} s/step")
+    print(f"[serve] main() wall {wall:.2f} s (startup, warm-up and 3 requests); TM-scores "
+          f"{plain['tmscores']} / {movie['tmscores']}; oversized: {oversized['error'][:60]}...; "
+          f"launches {({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def _serve_tcp(tmp: Path, ckpt: Path) -> None:
+    """One request to the serve CLI in TCP mode (--port 0), in a process of
+    its own, which is stopped afterwards."""
+    argv = [sys.executable, "-m", "protein_redesign_tpu_torch.cli.serve", "-c", str(ckpt),
+            "-o", str(tmp / "tcp"), "--num_steps", str(SERVE_SCHEDULE), "--fast_softmax",
+            "--sampler", "ddim", "--ddim_steps", str(SERVE_STEPS), "--port", "0",
+            "--device", "cuda"]
+    began = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, stderr=subprocess.PIPE, text=True)
+    log, ports = [], []
+    listening = threading.Event()
+
+    def drain():
+        for line in proc.stderr:
+            log.append(line)
+            found = re.search(r"listening on [^:]+:(\d+)", line)
+            if found:
+                ports.append(int(found.group(1)))
+                listening.set()
+        listening.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        if not listening.wait(600) or not ports:
+            raise AssertionError("serve --port 0 did not start: " + "".join(log[-20:]))
+        ready = time.perf_counter() - began
+        request = {"id": "tcp", "protein": SEQUENCE, "ligand": LIGAND, "num_samples": 1, "seed": 3}
+        sent = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", ports[0]), timeout=600) as conn:
+            stream = conn.makefile("rw")
+            stream.write(json.dumps(request) + "\n")
+            stream.flush()
+            response = json.loads(stream.readline())
+        latency = time.perf_counter() - sent
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+    if "error" in response or len(response["sequences"]) != 1 or not Path(
+            response["pdb_files"][0]).is_file():
+        raise AssertionError(f"serve --port: response {response}")
+    print(f"[serve-tcp] listening after {ready:.1f} s (process start, checkpoint, ESM backend); "
+          f"one request (1 sample, {SERVE_STEPS} DDIM steps, first at this bucket) answered in "
+          f"{latency:.2f} s; TM-score {response['tmscores']}")
+
+
+def phase_serving(seed: int) -> dict:
+    """Phase 15's train CLI, serve CLI and TCP request on one checkpoint;
+    returns the serve CLI's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = _fast_train(tmp, seed)
+        launches = _serve_jsonl(tmp, ckpt, seed)
+        _serve_tcp(tmp, ckpt)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
@@ -1255,12 +1487,18 @@ def main() -> None:
     fused_generate = phase_generate(net, flags=[f"--{f}" for f in FUSED], tag="fused-generate")
     del net
     phase_fused_train(args.seed)
+    record["rows_attention_fast"] = phase_fast_kernel()
+    served = phase_serving(args.seed)
+    net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False)).to("cuda").eval()
+    phase_forward(net, tag="fast-forward")
+    del net
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
-    # K8-K11 on generation with the four switches at 192
+    # K8-K11 on generation with the four switches at 192, K1 fast on serving
     launches.update(rows_attention_kchunk=long_launches["rows_attention_kchunk"],
                     rows_attention_kchunk_stats=train_long["rows_attention_kchunk_stats"],
                     rows_attention_kchunk_bwd=train_long["rows_attention_kchunk_bwd"],
+                    rows_attention_fast=served["rows_attention_fast"],
                     **{k: fused_generate[k] for k in FUSED_NAMES})
     loaded = sorted(m for m in ("jax", "flax", "protein_redesign_tpu") if m in sys.modules)
     if loaded:

@@ -6,8 +6,10 @@ and ``softmax_np`` are copied from ``protein_redesign_tpu/cli/common.py``
 ``add_esm_args`` and ``add_sampler_args`` (:207-323) are copied with the same
 flags; ``check_supported_args`` rejects the values outside the ported
 slice, and the fused-kernel switches override the checkpoint's config only
-when given (:337-343). ``SamplingRunner`` is a plain runner: complexes are grouped by padding
-bucket, collated, and sampled batch by batch with the DDPM sampler.
+when given (:337-343). ``SamplingRunner`` is the JAX runner (:405-796)
+without segments, the mesh and the wire format: complexes are grouped by
+padding bucket, collated, and sampled batch by batch with the DDPM or DDIM
+sampler, optionally padded to a full batch and with trajectory frames.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from ..chem.protein import RESIDUE_TYPES, Protein, protein_from_pdb_file, protei
 from ..config import DataConfig
 from ..data.collate import collate_fn, numeric_batch, pick_bucket
 from ..data.featurize import ligand_to_data, protein_to_data
-from ..models.prdiff import ProteinReDiffNet, sample
+from ..models.prdiff import ProteinReDiffNet, sample, sample_ddim
+from ..ops.geometry import nanometre_to_angstrom
 
 RESIDUE_TYPES_NEW = ["X"] + RESIDUE_TYPES
 
@@ -113,13 +116,11 @@ def add_esm_args(parser) -> None:
                              "when weights are unavailable")
 
 
-# The JAX CLI's flags for what the port does not take over yet: the ddim
-# samplers, segmented sampling, the TPU plan's kernel switches and the data
-# loader's workers. They parse, so a JAX command line reads the same, and
-# check_supported_args raises on any value given.
+# The JAX CLI's flags for what the port does not take over yet: the
+# parallel-in-time sampler, segmented sampling, the TPU plan's kernel
+# switches and the data loader's workers. They parse, so a JAX command line
+# reads the same, and check_supported_args raises on any value given.
 _UNPORTED_FLAGS = {
-    "ddim_steps": (int, "the ddim samplers are not ported"),
-    "eta": (float, "the ddim samplers are not ported"),
     "window": (int, "ddim_parallel is not ported"),
     "ptol": (float, "ddim_parallel is not ported"),
     "coarse_init": (int, "ddim_parallel is not ported"),
@@ -138,7 +139,7 @@ KERNEL_SWITCHES = {
     "use_pallas_transition": "the fused LN + MLP transition (kernel K10)",
     "use_pallas_outer": "the fused OuterLinear (kernel K11)",
     "use_pallas_fused_gated": "the fused gated triangle attention (kernel K8)",
-    "use_pallas_bwd": "the rows-attention backward kernel: the port's default, so no effect",
+    "use_pallas_bwd": "the rows-attention backward kernel (K7), the port's default",
 }
 
 
@@ -146,7 +147,11 @@ def add_sampler_args(parser) -> None:
     """The JAX CLI's sampler flags; values outside the ported slice are
     rejected by ``check_supported_args``."""
     parser.add_argument("--sampler", type=str, default="ddpm",
-                        choices=("ddpm", "ddim", "ddim_parallel"))
+                        choices=("ddpm", "ddim", "ddim_parallel"),
+                        help="ddim: accelerated subsequence sampling; ddim_parallel is not ported")
+    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--eta", type=float, default=0.0,
+                        help="DDIM stochasticity (ddim sampler only)")
     parser.add_argument("--seq_reverse", type=str, default="reference",
                         choices=("reference", "ancestral"))
     parser.add_argument("--reveal_schedule", type=str, default="linear",
@@ -169,9 +174,8 @@ def add_sampler_args(parser) -> None:
 def check_supported_args(args) -> None:
     """NotImplementedError for flags outside the ported slice."""
     unsupported = [
-        (args.sampler != "ddpm", f"--sampler {args.sampler}: only ddpm is ported"),
+        (args.sampler == "ddim_parallel", "--sampler ddim_parallel: not ported yet"),
         (args.esm_backend != "torch", "--esm_backend jax: the port runs no jax"),
-        (getattr(args, "save_trajectory", 0) != 0, "--save_trajectory: not ported yet"),
         (getattr(args, "num_devices", 1) > 1, "--num_devices > 1: not ported yet"),
     ]
     unsupported += [(getattr(args, f, None) is not None, f"--{f}: {why}")
@@ -201,6 +205,12 @@ def sampler_cfg_overrides(args) -> Dict:
     return overrides
 
 
+def runner_sampler_kwargs(args) -> Dict:
+    """SamplingRunner kwargs from the sampler flags (`cli/common.py:378-384`,
+    without ddim_parallel's and the segments' options)."""
+    return dict(sampler=args.sampler, ddim_steps=args.ddim_steps, eta=args.eta)
+
+
 def apply_serving_defaults(cfg, args):
     """pair_stream_bf16 on for wide-head (head_dim >= 64) inference unless
     the flag was given (`cli/common.py:356-375`)."""
@@ -215,17 +225,40 @@ def apply_serving_defaults(cfg, args):
 
 class SamplingRunner:
     """Groups complexes by padding bucket and samples each group with the
-    DDPM sampler on ``device``, drawing from one seeded generator."""
+    DDPM or DDIM sampler on ``device``.
+
+    ``buckets`` restricts the padding ladder (default: every DataConfig
+    rung). ``pad_to_batch`` repeats a group's last complex until it holds
+    ``batch_size``, so every batch at a bucket has one shape (the serve
+    CLI's mode). ``eta`` applies to the ddim sampler only."""
 
     def __init__(self, net: ProteinReDiffNet, device: torch.device, batch_size: int = 1,
-                 mask_prob: Optional[float] = None):
+                 mask_prob: Optional[float] = None, buckets: Optional[Sequence[int]] = None,
+                 sampler: str = "ddpm", ddim_steps: int = 50, eta: float = 0.0,
+                 pad_to_batch: bool = False):
+        if sampler == "ddim_parallel":
+            raise NotImplementedError("the ddim_parallel sampler is not ported yet")
+        if sampler not in ("ddpm", "ddim"):
+            raise ValueError(f"Unknown sampler: {sampler}")
+        if sampler == "ddpm" and eta != 0.0:
+            raise ValueError(
+                "--eta only applies to the ddim sampler (the ddpm ancestral sampler has its own "
+                "fixed noise schedule and silently ignoring the flag would be misleading)"
+            )
         self.net = net
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.mask_prob = net.cfg.mask_prob if mask_prob is None else mask_prob
-        self.buckets = tuple(DataConfig().buckets)
+        self.buckets = tuple(DataConfig().buckets if buckets is None else buckets)
+        self.sampler, self.ddim_steps, self.eta = sampler, ddim_steps, eta
+        self.pad_to_batch = pad_to_batch
         self.timings: List[Tuple[int, int, int, float]] = []
         self._warned_nonfinite = False
+
+    def step_count(self) -> int:
+        """Steps of the sampler's loop: the schedule's length for ddpm, the
+        tau grid's for ddim."""
+        return self.net.cfg.num_steps if self.sampler == "ddpm" else self.ddim_steps
 
     def collate(self, group: Sequence[Dict]) -> Tuple[int, Dict[str, torch.Tensor]]:
         """(bucket, padded batch on the device) for featurized complexes."""
@@ -238,28 +271,61 @@ class SamplingRunner:
             batch[k] = (t.float() if t.is_floating_point() else t).to(self.device)
         return bucket, batch
 
-    def run(self, datas: Sequence[Dict], seed: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    def _sample(self, batch, mask_prob: float, generator, frames: int):
+        """One batch: (positions, seq logits) and, with ``frames`` K, the
+        coordinates in Å after every T/K steps [K, B, N, 3] (else None)."""
+        captured = []
+        every = self.step_count() // frames if frames else 0
+
+        def on_step(i, carry):
+            if (i + 1) % every == 0:
+                captured.append(nanometre_to_angstrom(carry[0]).cpu().numpy())
+
+        hook = on_step if frames else None
+        if self.sampler == "ddim":
+            out = sample_ddim(self.net, batch, self.ddim_steps, self.eta, mask_prob, generator,
+                              on_step=hook)
+        else:
+            out = sample(self.net, batch, mask_prob, generator, on_step=hook)
+        return out, (np.stack(captured) if frames else None)
+
+    def run(self, datas: Sequence[Dict], seed: int, mask_prob: Optional[float] = None,
+            trajectory: int = 0) -> List[Tuple[np.ndarray, ...]]:
         """Per input (positions [n, 3] Å, seq logits [n, 21]), trimmed to
-        each complex's node count. Appends (bucket, rows, steps, seconds)
-        per sampled batch to ``self.timings``."""
+        each complex's node count, drawn from one generator seeded with
+        ``seed``. ``mask_prob`` overrides the runner's for this call.
+        ``trajectory=K`` adds per input K coordinate frames [K, n, 3] in Å,
+        taken after every T/K steps of the sampler's loop (K must divide the
+        step count T); the last is the final pre-readout state, and the
+        sample is the same with or without them. Appends (bucket, rows,
+        steps, seconds) per sampled batch to ``self.timings``."""
+        T = self.step_count()
+        if trajectory < 0 or (trajectory and T % trajectory):
+            raise ValueError(f"trajectory frames ({trajectory}) must be a positive divisor of the "
+                             f"sampler's step count ({T})")
+        mask_prob = self.mask_prob if mask_prob is None else mask_prob
         generator = torch.Generator(device=self.device).manual_seed(seed)
         sizes = [d["num_atoms"] + d["num_residues"] for d in datas]
         order = sorted(range(len(datas)), key=lambda i: pick_bucket(sizes[i], self.buckets))
-        results: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [None] * len(datas)
+        results: List[Optional[Tuple[np.ndarray, ...]]] = [None] * len(datas)
         for start in range(0, len(order), self.batch_size):
             idxs = order[start: start + self.batch_size]
-            bucket, batch = self.collate([datas[i] for i in idxs])
+            group = [datas[i] for i in idxs]
+            if self.pad_to_batch:
+                group += [group[-1]] * (self.batch_size - len(group))
+            bucket, batch = self.collate(group)
             began = time.perf_counter()
-            pos, logits = sample(self.net, batch, self.mask_prob, generator)
+            (pos, logits), frames = self._sample(batch, mask_prob, generator, trajectory)
             pos, logits = pos.cpu().numpy(), logits.cpu().numpy()  # waits for the device
-            self.timings.append(
-                (bucket, len(idxs), self.net.cfg.num_steps, time.perf_counter() - began)
-            )
+            self.timings.append((bucket, len(group), T, time.perf_counter() - began))
             if not self._warned_nonfinite and not (
                 np.isfinite(pos).all() and np.isfinite(logits).all()
             ):
                 self._warned_nonfinite = True
                 warnings.warn("sampler returned non-finite positions/logits", RuntimeWarning)
             for row, i in enumerate(idxs):
-                results[i] = (pos[row, : sizes[i]], logits[row, : sizes[i]])
+                n = sizes[i]
+                results[i] = (pos[row, :n], logits[row, :n]) + (
+                    (frames[:, row, :n],) if trajectory else ()
+                )
         return results  # type: ignore[return-value]

@@ -2,13 +2,18 @@
 
     python -m protein_redesign_tpu_torch.cli.generate \\
         -c <ckpt_dir or reference .ckpt> -o out/ -p <pdb-or-sequence> \\
-        -l <sdf/mol2/SMILES/*> -n 8 [--num_steps 1000] [--mask_prob 0.3] [-r ref.pdb]
+        -l <sdf/mol2/SMILES/*> -n 8 [--num_steps 1000] [--mask_prob 0.3] [-r ref.pdb] \\
+        [--sampler ddim --ddim_steps 50 --eta 0] [--save_trajectory K] [--fast_softmax]
 
 ``-c`` is a directory holding ``config.json`` and ``model.pt``, or a
 reference Lightning ``.ckpt`` (EMA weights preferred). Outputs, as the JAX
 CLI writes them: sample_protein.pdb (multi-model), sample_ligand.sdf and
 sample_tmscores.txt, the samples rigidly aligned to the reference (or the
-first sample) with mirror-trial TM-align.
+first sample) with mirror-trial TM-align; with ``--save_trajectory K`` also
+sample_trajectory_<i>.pdb per sample, K denoising frames as one MODEL each.
+``--fast_softmax`` runs triangle attention through K1 fast where the
+checkpoint's config has ``use_pallas_bwd: false``, as the JAX package does;
+otherwise it changes only the triangle product's accumulator.
 """
 
 from __future__ import annotations
@@ -40,8 +45,12 @@ def main(argv=None):
     parser.add_argument("-n", "--num_samples", type=int, required=True)
     parser.add_argument("-r", "--ref_path", type=Path)
     add_sampler_args(parser)
-    parser.add_argument("--fast_softmax", action="store_true")
-    parser.add_argument("--save_trajectory", type=int, default=0, metavar="K")
+    parser.add_argument("--fast_softmax", action="store_true",
+                        help="bf16 attention softmax (K1 fast) for a checkpoint whose config "
+                             "has use_pallas_bwd false")
+    parser.add_argument("--save_trajectory", type=int, default=0, metavar="K",
+                        help="also write sample_trajectory_<i>.pdb per sample: K denoising "
+                             "frames (K must divide the sampler's step count)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to sample on (cuda or cpu)")
     args = parser.parse_args(argv)
@@ -61,6 +70,7 @@ def main(argv=None):
         complex_data,
         load_protein_arg,
         parse_ligand_arg,
+        runner_sampler_kwargs,
         sampler_cfg_overrides,
         update_pos,
         update_seq,
@@ -97,14 +107,24 @@ def main(argv=None):
         print("ESM-2 weights unavailable: residue_esm is zero")
     ref_protein = protein_from_pdb_file(args.ref_path) if args.ref_path else None
 
-    runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob)
-    results = runner.run([data] * args.num_samples, seed=args.seed)
+    runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob,
+                            **runner_sampler_kwargs(args))
+    results = runner.run([data] * args.num_samples, seed=args.seed,
+                         trajectory=args.save_trajectory)
     for bucket, rows, steps, seconds in runner.timings:
-        print(f"sampled {rows} at bucket {bucket}: {steps} steps in {seconds:.3f} s "
-              f"({seconds / steps:.4f} s/step)")
+        print(f"sampled {rows} at bucket {bucket}: {steps} {args.sampler} steps in "
+              f"{seconds:.3f} s ({seconds / steps:.4f} s/step)")
 
     sample_proteins, sample_ligands, tmscores = [], [], []
-    for pos, seq_prob in results:
+    for sample_idx, result in enumerate(results):
+        pos, seq_prob = result[0], result[1]
+        if args.save_trajectory:
+            # the raw diffusion states share the sampler's zero-centred frame:
+            # no TM-align fit, unlike the final samples below
+            frame_proteins = [update_seq(update_pos(protein, ligand, frame)[0], seq_prob)
+                              for frame in result[2]]
+            proteins_to_pdb_file(frame_proteins,
+                                 args.output_dir / f"sample_trajectory_{sample_idx}.pdb")
         sample_protein, sample_ligand = update_pos(protein, ligand, pos)
         sample_protein = update_seq(sample_protein, seq_prob)
         if ref_protein is None:

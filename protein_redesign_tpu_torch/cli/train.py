@@ -15,6 +15,13 @@ the host time from the step's start to its metrics read back, at every
 ``<save_dir>/checkpoints`` at each validation, at the end, and on
 SIGTERM/SIGINT. Each step draws from a generator seeded by (seed, step), so
 a resumed run takes the draws an unbroken one would.
+
+``--no-use_pallas_bwd`` keeps the K1 forward and differentiates triangle
+attention through the plain VJP of the f32 reference instead of K7;
+``--fast_softmax`` with it runs K1 fast in the forward. Both persist in the
+checkpoint's ``config.json``: a checkpoint trained with
+``--no-use_pallas_bwd`` is what a sampling CLI's ``--fast_softmax`` serves
+through K1 fast.
 """
 
 from __future__ import annotations
@@ -44,8 +51,6 @@ _REJECTED = (
                           "chip_smoke.py profiles a step with torch.profiler"),
     (lambda a: a.use_pallas, "--use_pallas: the port's attention always takes its CUDA "
                              "kernels on a GPU"),
-    (lambda a: not a.use_pallas_bwd, "--no-use_pallas_bwd: the port's rows-attention "
-                                     "backward is always its kernel"),
     (lambda a: a.trimul_dmajor, "--trimul_dmajor: the channel-major layout is not ported"),
 )
 

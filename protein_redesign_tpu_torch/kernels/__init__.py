@@ -49,6 +49,8 @@ class KernelLibrary:
             [ptr] * 5 + [i32] * 5 + [f32] + strides + [ptr]
         )
         lib.prd_rows_attention.restype = i32
+        lib.prd_rows_attention_fast.argtypes = lib.prd_rows_attention.argtypes
+        lib.prd_rows_attention_fast.restype = i32
         lib.prd_tiled_attention.argtypes = (
             [ptr] * 6 + [i32] * 5 + [f32] + strides + [ptr]
         )

@@ -1,9 +1,12 @@
 // Hand-written Hopper (sm_90a) kernels for the denoiser's attention family.
 //
-// Replaces two Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py:
+// Replaces two Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py,
+// the first in both of its variants:
 //
 //   rows_attention_kernel   <- _rows_attention_impl / _make_rowhead_kernel
-//                              (triangle attention: key mask, no bias)
+//                              (triangle attention: key mask, no bias);
+//   rows_attention_fast_kernel <- the same with fast=True
+//                              (cfg.fast_softmax, serving: bf16 softmax)
 //   tiled_attention_kernel  <- _tiled_attention_impl / _attn_kernel and
 //                              _attn_kernel_nomask (single attention and
 //                              SPAttention: additive [R,H,N,N] bias, key mask
@@ -31,6 +34,15 @@
 // each (row, head) slice of K and V is a few KB and stays in L2 across its
 // q-tiles. Tensor cores (wgmma), TMA and a single-pass online softmax are
 // left for later work.
+//
+// K1 fast (attention_body with FAST) reproduces the Pallas body's bf16
+// softmax point by point: logits rounded to bf16 after the -2^15 fill, m the
+// max of those, e = bf16(exp(bf16(l - m))), s = bf16(sum of e in f32) and
+// p = bf16(e / s).
+// An online sum cannot round each term against the final max, so it makes
+// three passes over the key tiles instead of two: the max, the sum, then p
+// and P.V. The extra pass recomputes the logits once more (about 1.5x K1's
+// logit work); what bounds it is the same issue rate.
 //
 // Layout: q, k, v are [R, N, H, C] with the head dimension contiguous and the
 // other strides given in elements; mask is contiguous f32 [R, N]; bias is
@@ -93,9 +105,12 @@ __device__ __forceinline__ void row_logits(const float* q_rows, const float* k_r
   }
 }
 
+__device__ __forceinline__ float bf16_round(float x) { return Io<__nv_bfloat16>::round(x); }
+
 // One block: NWARPS * kRPW query rows of one (row, head). CPL = head-dim
-// values per lane in the P.V accumulator (C <= 32 * CPL).
-template <typename T, int CPL, int NWARPS, bool HAS_MASK, bool HAS_BIAS>
+// values per lane in the P.V accumulator (C <= 32 * CPL). FAST: K1 fast.
+
+template <typename T, int CPL, int NWARPS, bool HAS_MASK, bool HAS_BIAS, bool FAST>
 __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T* __restrict__ k,
                                                const T* __restrict__ v,
                                                const float* __restrict__ mask,
@@ -136,48 +151,82 @@ __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T*
   const float* q_rows = q_s + row0 * C;
   const float* k_row = k_s + lane * k_stride;
 
-  // Pass 1: per-lane running max and sum over the lane's keys.
   float m[kRPW], s[kRPW];
 #pragma unroll
   for (int rr = 0; rr < kRPW; ++rr) {
     m[rr] = neg_inf();
     s[rr] = 0.f;
   }
-  for (int k0 = 0; k0 < N; k0 += kTK) {
-    __syncthreads();
-    load_tile(k_base, ks.n, k_s, k_stride, k0, N, C);
-    __syncthreads();
-    const int j = k0 + lane;
-    if (j < N) {
-      float l[kRPW];
-      row_logits<T, HAS_MASK, HAS_BIAS>(q_rows, k_row, C, mask_row, bias_head, qi0, j, N, l);
+  if constexpr (FAST) {
+    // Pass 1: the row max of the bf16-rounded logits.
+    for (int k0 = 0; k0 < N; k0 += kTK) {
+      __syncthreads();
+      load_tile(k_base, ks.n, k_s, k_stride, k0, N, C);
+      __syncthreads();
+      const int j = k0 + lane;
+      if (j < N) {
+        float l[kRPW];
+        row_logits<T, HAS_MASK, HAS_BIAS>(q_rows, k_row, C, mask_row, bias_head, qi0, j, N, l);
 #pragma unroll
-      for (int rr = 0; rr < kRPW; ++rr) {
-        if (l[rr] > m[rr]) {
-          s[rr] = s[rr] * expf(m[rr] - l[rr]) + 1.f;
-          m[rr] = l[rr];
-        } else {
-          s[rr] += expf(l[rr] - m[rr]);
+        for (int rr = 0; rr < kRPW; ++rr) m[rr] = fmaxf(m[rr], bf16_round(l[rr]));
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) m[rr] = warp_max(m[rr]);
+    // Pass 2: s = bf16(sum of bf16(exp(bf16(l - m)))), summed in f32.
+    for (int k0 = 0; k0 < N; k0 += kTK) {
+      __syncthreads();
+      load_tile(k_base, ks.n, k_s, k_stride, k0, N, C);
+      __syncthreads();
+      const int j = k0 + lane;
+      if (j < N) {
+        float l[kRPW];
+        row_logits<T, HAS_MASK, HAS_BIAS>(q_rows, k_row, C, mask_row, bias_head, qi0, j, N, l);
+#pragma unroll
+        for (int rr = 0; rr < kRPW; ++rr)
+          s[rr] += bf16_round(expf(bf16_round(bf16_round(l[rr]) - m[rr])));
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) s[rr] = bf16_round(warp_sum(s[rr]));
+  } else {
+    // Pass 1: per-lane running max and sum over the lane's keys.
+    for (int k0 = 0; k0 < N; k0 += kTK) {
+      __syncthreads();
+      load_tile(k_base, ks.n, k_s, k_stride, k0, N, C);
+      __syncthreads();
+      const int j = k0 + lane;
+      if (j < N) {
+        float l[kRPW];
+        row_logits<T, HAS_MASK, HAS_BIAS>(q_rows, k_row, C, mask_row, bias_head, qi0, j, N, l);
+#pragma unroll
+        for (int rr = 0; rr < kRPW; ++rr) {
+          if (l[rr] > m[rr]) {
+            s[rr] = s[rr] * expf(m[rr] - l[rr]) + 1.f;
+            m[rr] = l[rr];
+          } else {
+            s[rr] += expf(l[rr] - m[rr]);
+          }
         }
       }
     }
-  }
-  // Combine the lanes: every lane ends with the row's max and sum.
+    // Combine the lanes: every lane ends with the row's max and sum.
 #pragma unroll
-  for (int rr = 0; rr < kRPW; ++rr) {
+    for (int rr = 0; rr < kRPW; ++rr) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(kFull, m[rr], off);
-      const float so = __shfl_xor_sync(kFull, s[rr], off);
-      const float mn = fmaxf(m[rr], mo);
-      const float a = m[rr] == neg_inf() ? 0.f : s[rr] * expf(m[rr] - mn);
-      const float b = mo == neg_inf() ? 0.f : so * expf(mo - mn);
-      m[rr] = mn;
-      s[rr] = a + b;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float mo = __shfl_xor_sync(kFull, m[rr], off);
+        const float so = __shfl_xor_sync(kFull, s[rr], off);
+        const float mn = fmaxf(m[rr], mo);
+        const float a = m[rr] == neg_inf() ? 0.f : s[rr] * expf(m[rr] - mn);
+        const float b = mo == neg_inf() ? 0.f : so * expf(mo - mn);
+        m[rr] = mn;
+        s[rr] = a + b;
+      }
     }
   }
 
-  // Pass 2: recompute the logits, normalise, accumulate P.V in f32.
+  // Last pass: recompute the logits, normalise, accumulate P.V in f32.
   float acc[kRPW][CPL];
 #pragma unroll
   for (int rr = 0; rr < kRPW; ++rr)
@@ -193,7 +242,14 @@ __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T*
     if (j < N) {
       row_logits<T, HAS_MASK, HAS_BIAS>(q_rows, k_row, C, mask_row, bias_head, qi0, j, N, p);
 #pragma unroll
-      for (int rr = 0; rr < kRPW; ++rr) p[rr] = Io<T>::round(expf(p[rr] - m[rr]) / s[rr]);
+      for (int rr = 0; rr < kRPW; ++rr) {
+        if constexpr (FAST) {
+          const float e = bf16_round(expf(bf16_round(bf16_round(p[rr]) - m[rr])));
+          p[rr] = Io<T>::round(bf16_round(e / s[rr]));
+        } else {
+          p[rr] = Io<T>::round(expf(p[rr] - m[rr]) / s[rr]);
+        }
+      }
     } else {
 #pragma unroll
       for (int rr = 0; rr < kRPW; ++rr) p[rr] = 0.f;
@@ -235,8 +291,19 @@ __global__ void __launch_bounds__(NWARPS * 32)
                           const T* __restrict__ v, const float* __restrict__ mask,
                           T* __restrict__ out, int N, int H, int C, float scale, Strides qs,
                           Strides ks, Strides vs) {
-  attention_body<T, CPL, NWARPS, true, false>(q, k, v, mask, nullptr, out, N, H, C, scale, qs, ks,
-                                              vs);
+  attention_body<T, CPL, NWARPS, true, false, false>(q, k, v, mask, nullptr, out, N, H, C, scale,
+                                                     qs, ks, vs);
+}
+
+// K1 fast: a kernel of its own name, so a profile tells it from K1.
+template <typename T, int CPL, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+    rows_attention_fast_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const float* __restrict__ mask,
+                               T* __restrict__ out, int N, int H, int C, float scale, Strides qs,
+                               Strides ks, Strides vs) {
+  attention_body<T, CPL, NWARPS, true, false, true>(q, k, v, mask, nullptr, out, N, H, C, scale,
+                                                    qs, ks, vs);
 }
 
 template <typename T, int CPL, int NWARPS, bool HAS_MASK, bool HAS_BIAS>
@@ -245,8 +312,8 @@ __global__ void __launch_bounds__(NWARPS * 32)
                            const T* __restrict__ v, const float* __restrict__ mask,
                            const T* __restrict__ bias, T* __restrict__ out, int N, int H, int C,
                            float scale, Strides qs, Strides ks, Strides vs) {
-  attention_body<T, CPL, NWARPS, HAS_MASK, HAS_BIAS>(q, k, v, mask, bias, out, N, H, C, scale, qs,
-                                                     ks, vs);
+  attention_body<T, CPL, NWARPS, HAS_MASK, HAS_BIAS, false>(q, k, v, mask, bias, out, N, H, C,
+                                                            scale, qs, ks, vs);
 }
 
 struct Args {
@@ -262,7 +329,8 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int CPL, bool ROWS, bool HAS_MASK, bool HAS_BIAS>
+// ROWS: K1 (FAST: K1 fast); else K2.
+template <typename T, int CPL, bool ROWS, bool HAS_MASK, bool HAS_BIAS, bool FAST>
 cudaError_t launch(const Args& a) {
   constexpr int NWARPS = CPL <= 2 ? 8 : 4;
   constexpr int TQ = NWARPS * kRPW;
@@ -276,7 +344,8 @@ cudaError_t launch(const Args& a) {
   const float* mask = static_cast<const float*>(a.mask);
   T* out = static_cast<T*>(a.out);
   if constexpr (ROWS) {
-    auto kern = rows_attention_kernel<T, CPL, NWARPS>;
+    auto kern = FAST ? rows_attention_fast_kernel<T, CPL, NWARPS>
+                     : rows_attention_kernel<T, CPL, NWARPS>;
     if (smem > 48 * 1024) {
       const cudaError_t e =
           cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -297,19 +366,19 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool ROWS, bool HAS_MASK, bool HAS_BIAS>
+template <typename T, bool ROWS, bool HAS_MASK, bool HAS_BIAS, bool FAST>
 cudaError_t dispatch_width(const Args& a) {
-  if (a.C <= 32) return launch<T, 1, ROWS, HAS_MASK, HAS_BIAS>(a);
-  if (a.C <= 64) return launch<T, 2, ROWS, HAS_MASK, HAS_BIAS>(a);
-  if (a.C <= 128) return launch<T, 4, ROWS, HAS_MASK, HAS_BIAS>(a);
-  if (a.C <= 256) return launch<T, 8, ROWS, HAS_MASK, HAS_BIAS>(a);
-  return launch<T, 16, ROWS, HAS_MASK, HAS_BIAS>(a);
+  if (a.C <= 32) return launch<T, 1, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  if (a.C <= 64) return launch<T, 2, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  if (a.C <= 128) return launch<T, 4, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  if (a.C <= 256) return launch<T, 8, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  return launch<T, 16, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
 }
 
-template <bool ROWS, bool HAS_MASK, bool HAS_BIAS>
+template <bool ROWS, bool HAS_MASK, bool HAS_BIAS, bool FAST = false>
 cudaError_t dispatch_type(int dtype, const Args& a) {
-  if (dtype == 0) return dispatch_width<float, ROWS, HAS_MASK, HAS_BIAS>(a);
-  return dispatch_width<__nv_bfloat16, ROWS, HAS_MASK, HAS_BIAS>(a);
+  if (dtype == 0) return dispatch_width<float, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  return dispatch_width<__nv_bfloat16, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
 }
 
 bool valid(int dtype, const Args& a) {
@@ -332,6 +401,19 @@ int prd_rows_attention(const void* q, const void* k, const void* v, const void* 
                static_cast<cudaStream_t>(stream)};
   if (!valid(dtype, a) || mask == nullptr) return (int)cudaErrorInvalidValue;
   return (int)dispatch_type<true, true, false>(dtype, a);
+}
+
+// K1 fast: K1 with the softmax rounded as bf16 (cfg.fast_softmax).
+int prd_rows_attention_fast(const void* q, const void* k, const void* v, const void* mask,
+                            void* out, int dtype, int R, int N, int H, int C, float scale,
+                            long long q_sr, long long q_sn, long long q_sh, long long k_sr,
+                            long long k_sn, long long k_sh, long long v_sr, long long v_sn,
+                            long long v_sh, void* stream) {
+  const Args a{q, k, v, mask, nullptr, out, R, N, H, C, scale,
+               {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh},
+               static_cast<cudaStream_t>(stream)};
+  if (!valid(dtype, a) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_type<true, true, false, true>(dtype, a);
 }
 
 // K2: attention with an additive bias and an optional key mask (single

@@ -32,12 +32,14 @@ class TriangleAttention(nn.Module):
     rows (`denoiser.py:44-75`)."""
 
     def __init__(self, pair_dim: int, head_dim: int, num_heads: int, mode: str,
-                 dtype: torch.dtype = torch.float32, fused_gated: bool = False):
+                 dtype: torch.dtype = torch.float32, fused_gated: bool = False,
+                 fast: bool = False, kernel_bwd: bool = True):
         super().__init__()
         if mode not in ("starting", "ending"):
             raise ValueError(f"Invalid mode: {mode}")
         self.mode = mode
-        self.attn = GatedAttention(pair_dim, head_dim, num_heads, dtype, fused_gated=fused_gated)
+        self.attn = GatedAttention(pair_dim, head_dim, num_heads, dtype, fused_gated=fused_gated,
+                                   fast=fast, kernel_bwd=kernel_bwd)
 
     def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor) -> torch.Tensor:
         if self.mode == "ending":
@@ -205,17 +207,20 @@ class FoldingBlock(nn.Module):
     ``use_pallas_transition`` single_fc and pair_fc (K10),
     ``use_pallas_outer`` outer_linear (K11), ``use_pallas_trimul`` both
     triangle multiplications (K9), ``use_pallas_fused_gated`` both triangle
-    attentions (K8)."""
+    attentions (K8). ``fast`` and ``kernel_bwd`` (``cfg.fast_softmax`` and
+    ``cfg.use_pallas_bwd``, taken once by the Denoiser) go to the attentions."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, fast: bool = False,
+                 kernel_bwd: bool = True):
         super().__init__()
         S, P = cfg.single_dim, cfg.pair_dim
         H, C = cfg.num_heads, cfg.head_dim
-        fast_accum = cfg.fast_softmax or cfg.pair_stream_bf16
+        fast_accum = fast or cfg.pair_stream_bf16
         self.attn_bias = nn.Sequential(
             LayerNorm(P, dtype=dtype), PRLinear(P, H, init="normal", dtype=dtype)
         )
-        self.single_attn = GatedAttention(S, C, H, dtype)
+        flags = dict(fast=fast, kernel_bwd=kernel_bwd)
+        self.single_attn = GatedAttention(S, C, H, dtype, **flags)
         transition, trimul = cfg.use_pallas_transition, cfg.use_pallas_trimul
         self.single_fc = TransitionMLP(S, S * cfg.transition_factor, S, dtype=dtype,
                                        fused=transition)
@@ -226,9 +231,9 @@ class FoldingBlock(nn.Module):
         self.pair_mul_incoming = TriangleMultiplication(P, "incoming", fast_accum, dtype,
                                                         fused=trimul)
         self.pair_attn_starting = TriangleAttention(P, C, H, "starting", dtype,
-                                                    fused_gated=cfg.use_pallas_fused_gated)
+                                                    fused_gated=cfg.use_pallas_fused_gated, **flags)
         self.pair_attn_ending = TriangleAttention(P, C, H, "ending", dtype,
-                                                  fused_gated=cfg.use_pallas_fused_gated)
+                                                  fused_gated=cfg.use_pallas_fused_gated, **flags)
         self.pair_fc = TransitionMLP(P, P * cfg.transition_factor, P, dtype=dtype,
                                      fused=transition)
 
@@ -260,8 +265,10 @@ class Denoiser(nn.Module):
             factored=cfg.outer_factored, dtype=dtype,
         )
         self.SPAAttnBlock = SPAttention(cfg.single_dim, cfg.pair_dim, cfg.num_heads, dtype)
+        # the attention flags, taken once (`denoiser.py:652, 677, 687`)
+        fast, kernel_bwd = cfg.fast_softmax, cfg.use_pallas_bwd
         self.folding_blocks = nn.ModuleList(
-            FoldingBlock(cfg, dtype) for _ in range(cfg.num_blocks)
+            FoldingBlock(cfg, dtype, fast, kernel_bwd) for _ in range(cfg.num_blocks)
         )
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor,

@@ -1,8 +1,8 @@
 """Beta schedules and the diffusion-schedule table (port of
 ``protein_redesign_tpu/models/diffusion.py``): computed in float64 with
 numpy, stored as float32 tensors. The table holds the quantities the DDPM
-step and the training loss read; the JAX table's others belong to the
-samplers that are not ported yet.
+and DDIM steps and the training loss read; the JAX table's others belong to
+the samplers that are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ def get_betas(n_timestep: int, schedule: str) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The DDPM step's and the loss's schedule quantities as float32 tensors [T]."""
+    """The samplers' and the loss's schedule quantities as float32 tensors [T]."""
 
     alphas: torch.Tensor
+    alphas_cumprod: torch.Tensor
     sqrt_alphas: torch.Tensor
     sqrt_betas: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
@@ -56,6 +57,7 @@ class DiffusionSchedule:
 
         return DiffusionSchedule(
             alphas=f32(alphas),
+            alphas_cumprod=f32(np.cumprod(alphas)),
             sqrt_alphas=f32(np.sqrt(alphas)),
             sqrt_betas=f32(np.sqrt(betas)),
             sqrt_alphas_cumprod=f32(np.sqrt(np.cumprod(alphas))),

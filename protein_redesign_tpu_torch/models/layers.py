@@ -175,9 +175,12 @@ def attention_core(
     mask: Optional[torch.Tensor],       # broadcastable to [..., N]
     attn_bias: Optional[torch.Tensor],  # [..., H, N, N]
     scale: float,
+    fast: bool = False,
+    kernel_bwd: bool = True,
 ) -> torch.Tensor:
     """Row-flatten the leading dims and run ``gated_attention_core``
-    (`layers.py:276-324`)."""
+    (`layers.py:276-324`); ``fast`` and ``kernel_bwd`` are
+    ``cfg.fast_softmax`` and ``cfg.use_pallas_bwd``."""
     lead = query.shape[:-3]
     N, H, C = query.shape[-3:]
     R = math.prod(lead)
@@ -190,7 +193,7 @@ def attention_core(
     biasf = None
     if attn_bias is not None:
         biasf = torch.broadcast_to(attn_bias, lead + (H, N, N)).reshape(R, H, N, N)
-    out = gated_attention_core(qf, kf, vf, maskf, biasf, scale)
+    out = gated_attention_core(qf, kf, vf, maskf, biasf, scale, fast, kernel_bwd)
     return out.reshape(lead + (N, H, C))
 
 
@@ -202,13 +205,15 @@ class GatedAttention(nn.Module):
     N < ROWS_KCHUNK_MIN_N, the whole module runs as one kernel (K8,
     ``fused_gated_rows_attention``) on the same parameters, as the JAX
     module's fused path does (`layers.py:359-403`); the port has no
-    attention-plan size gates, so it engages at every such N."""
+    attention-plan size gates, so it engages at every such N. ``fast`` and
+    ``kernel_bwd`` go to ``gated_attention_core`` (K8 ignores them)."""
 
     def __init__(self, dim: int, head_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32, fused_gated: bool = False):
+                 dtype: torch.dtype = torch.float32, fused_gated: bool = False,
+                 fast: bool = False, kernel_bwd: bool = True):
         super().__init__()
         self.head_dim, self.num_heads, self.dtype = head_dim, num_heads, dtype
-        self.fused_gated = fused_gated
+        self.fused_gated, self.fast, self.kernel_bwd = fused_gated, fast, kernel_bwd
         hc = head_dim * num_heads
         self.norm = LayerNorm(dim, dtype=dtype)
         self.q_proj = PRLinear(dim, hc, bias=False, init="glorot", dtype=dtype)
@@ -235,7 +240,7 @@ class GatedAttention(nn.Module):
         query, key, value = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
         gate = torch.sigmoid(heads(self.gate_proj(x)))
         out = attention_core(
-            query, key, value, mask, attn_bias, 1.0 / math.sqrt(C)
+            query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast, self.kernel_bwd
         ).to(self.dtype)
         out = gate * out
         return self.out_proj(out.reshape(out.shape[:-2] + (H * C,)))

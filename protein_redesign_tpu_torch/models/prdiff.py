@@ -1,8 +1,8 @@
 """ProteinReDiff network, batch preparation, the training loss and the DDPM
-sampler (port of ``protein_redesign_tpu/models/prdiff.py``).
+and DDIM samplers (port of ``protein_redesign_tpu/models/prdiff.py``).
 
-The sampler is a Python loop over timesteps. Every random draw comes from a
-``torch.Generator`` or is injected, through ``SamplerNoise`` for the sampler
+Each sampler is a Python loop over timesteps. Every random draw comes from a
+``torch.Generator`` or is injected, through ``SamplerNoise`` for the samplers
 (mask scores, initial coordinates and sequence, each step's noise) and
 ``TrainNoise`` for the loss (masking policy and fractions, mask scores,
 timesteps, noise), so a test can feed the port exactly what the JAX package
@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,14 +44,14 @@ NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for config fields outside the ported
-    slice (DDPM generation and training with the Gaussian sequence channel)."""
+    slice (DDPM and DDIM generation and training with the Gaussian sequence
+    channel)."""
     unsupported = [
         (cfg.self_cond, "self_cond: self-conditioning is not ported yet"),
         (cfg.seq_process != "gaussian",
          f"seq_process={cfg.seq_process!r}: only 'gaussian' is ported"),
         (cfg.seq_reverse != "reference",
          f"seq_reverse={cfg.seq_reverse!r}: only 'reference' is ported"),
-        (cfg.fast_softmax, "fast_softmax: the bf16-softmax kernel variant is not ported yet"),
         (cfg.attn_chunk > 0, "attn_chunk>0: query-chunked attention is not ported yet"),
         (cfg.sequence_parallel, "sequence_parallel: not ported yet"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}: only float32"),
@@ -378,13 +379,13 @@ def loss(
 
 @dataclasses.dataclass
 class SamplerNoise:
-    """Draws the DDPM sampler would otherwise take from its generator: raw
+    """Draws a sampler would otherwise take from its generator: raw
     uniforms and standard normals, before any masking or mean removal."""
 
     mask_scores: Optional[torch.Tensor] = None  # [B * N]
     z0: Optional[torch.Tensor] = None           # [B, N, 3]
     s0: Optional[torch.Tensor] = None           # [B, N, 21]
-    steps: Optional[torch.Tensor] = None        # [T, B, N, 3], loop order t = T-1 .. 0
+    steps: Optional[torch.Tensor] = None        # [T, B, N, 3] in loop order (DDIM: [S, ...])
 
 
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -465,6 +466,31 @@ def sample_finish(batch: Batch, carry: Carry) -> Tuple[torch.Tensor, torch.Tenso
     )
 
 
+StepHook = Optional[Callable[[int, Carry], None]]
+
+
+def _sampler_loop(net: ProteinReDiffNet, batch: Batch, mask_prob: Optional[float],
+                  generator: Optional[torch.Generator], noise: Optional[SamplerNoise],
+                  num_steps: int, step: Callable[[Batch, Carry, int, torch.Tensor], Carry],
+                  on_step: StepHook) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sample_init, ``num_steps`` calls of ``step(batch, carry, i, noise_i)``
+    with each step's raw normal drawn (or injected) before it, and
+    sample_finish. ``on_step(i, carry)`` sees the carry after step i; it
+    changes nothing of the sample."""
+    mask_prob = net.cfg.mask_prob if mask_prob is None else mask_prob
+    batch, carry = sample_init(batch, mask_prob, generator, noise)
+    x = batch["x"]
+    for i in range(num_steps):
+        if noise is not None and noise.steps is not None:
+            step_noise = noise.steps[i]
+        else:
+            step_noise = _normal(x.shape, x, generator)
+        carry = step(batch, carry, i, step_noise)
+        if on_step is not None:
+            on_step(i, carry)
+    return sample_finish(batch, carry)
+
+
 @torch.inference_mode()
 def sample(
     net: ProteinReDiffNet,
@@ -472,18 +498,95 @@ def sample(
     mask_prob: Optional[float] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[SamplerNoise] = None,
+    on_step: StepHook = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DDPM ancestral sampler (`prdiff.py:669-687`) as a loop over
     t = T-1 .. 0. Returns (positions in Å, residue-masked seq logits)."""
     cfg = net.cfg
-    mask_prob = cfg.mask_prob if mask_prob is None else mask_prob
     sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(batch["residue_mask"].device))
-    batch, carry = sample_init(batch, mask_prob, generator, noise)
+    T = cfg.num_steps
+
+    def step(b, carry, i, step_noise):
+        return gaussian_step(net, sched, b, carry, T - 1 - i, step_noise)
+
+    return _sampler_loop(net, batch, mask_prob, generator, noise, T, step, on_step)
+
+
+def ddim_taus(num_steps: int, ddim_steps: int) -> np.ndarray:
+    """The descending DDIM timestep subsequence tau_0 > ... > tau_{S-1} = 0,
+    computed in f64 numpy as the JAX package does (``ddim_taus_np``,
+    `prdiff.py:222-232`), int32."""
+    return np.round(np.linspace(num_steps - 1, 0, ddim_steps)).astype(np.int32)
+
+
+def ddim_tau_grid(num_steps: int, ddim_steps: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The tau grid and its shifted companion, -1 at the end for the x0
+    endpoint (alpha_bar_prev 1) (`prdiff.py:235-243`)."""
+    taus = ddim_taus(num_steps, ddim_steps)
+    return taus, np.concatenate([taus[1:], np.array([-1], np.int32)])
+
+
+def ddim_coord_update(z_t: torch.Tensor, noise_pred: torch.Tensor, mask: torch.Tensor,
+                      a_t: torch.Tensor, a_prev: torch.Tensor, eta: float,
+                      step_noise: torch.Tensor) -> torch.Tensor:
+    """One DDIM coordinate update (Song et al. 2021 eq. 12;
+    ``_ddim_coord_update``, `prdiff.py:1136-1168`); ``step_noise`` is the
+    raw standard normal."""
+    x0_pred = remove_mean((z_t - torch.sqrt(1.0 - a_t) * noise_pred) / torch.sqrt(a_t), mask)
+    # max(., 0): with a repeated tau (ddim_steps > T) a_t / a_prev can round
+    # to just above 1 and the bare sqrt gives NaN even at eta = 0
+    sigma = (eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_t))
+             * torch.sqrt(torch.clamp(1.0 - a_t / a_prev, min=0.0)))
+    dir_coeff = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0))
+    noise = remove_mean(step_noise.to(z_t), mask)
+    return torch.sqrt(a_prev) * x0_pred + dir_coeff * noise_pred + sigma * noise
+
+
+def ddim_step(
+    net: ProteinReDiffNet,
+    sched: DiffusionSchedule,
+    batch: Batch,
+    carry: Carry,
+    tau: int,
+    tau_prev: int,
+    eta: float,
+    step_noise: torch.Tensor,
+) -> Carry:
+    """One DDIM step with the reference sequence recurrence
+    (``_ddim_gaussian_step_fn``, `prdiff.py:1082-1134`, seq_reverse='reference')."""
+    z_t, seq_t, _ = carry
     x = batch["x"]
-    for i, t in enumerate(range(cfg.num_steps - 1, -1, -1)):
-        if noise is not None and noise.steps is not None:
-            step_noise = noise.steps[i]
-        else:
-            step_noise = _normal(x.shape, x, generator)
-        carry = gaussian_step(net, sched, batch, carry, t, step_noise)
-    return sample_finish(batch, carry)
+    mask = batch["residue_and_atom_mask"]
+    t = torch.full((x.shape[0],), tau, dtype=torch.long, device=x.device)
+    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t)
+    a_t = sched.alphas_cumprod[tau]
+    a_prev = sched.alphas_cumprod[tau_prev] if tau_prev >= 0 else torch.ones_like(a_t)
+    z_next = ddim_coord_update(z_t, noise_pred, mask, a_t, a_prev, eta, step_noise)
+    seq_next = torch.softmax(seq_pred, dim=-1) * 2.0 - 1.0
+    enabled = net.cfg.sample_guard
+    return guard(z_next, enabled), guard(seq_next, enabled), seq_pred
+
+
+@torch.inference_mode()
+def sample_ddim(
+    net: ProteinReDiffNet,
+    batch: Batch,
+    ddim_steps: int = 50,
+    eta: float = 0.0,
+    mask_prob: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[SamplerNoise] = None,
+    on_step: StepHook = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DDIM sampler over a ``ddim_steps``-long subsequence of the trained
+    schedule (``sample_ddim``, `prdiff.py:1024-1055`): the DDPM sampler's
+    initialisation and readout, one step per tau. ``noise.steps`` holds
+    one raw normal per tau (drawn at eta 0 too, as the JAX sampler does)."""
+    cfg = net.cfg
+    sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(batch["residue_mask"].device))
+    taus, taus_prev = ddim_tau_grid(cfg.num_steps, ddim_steps)
+
+    def step(b, carry, i, step_noise):
+        return ddim_step(net, sched, b, carry, int(taus[i]), int(taus_prev[i]), eta, step_noise)
+
+    return _sampler_loop(net, batch, mask_prob, generator, noise, ddim_steps, step, on_step)

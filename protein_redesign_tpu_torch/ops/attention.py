@@ -9,6 +9,9 @@ kernels the denoiser's main path runs:
 
 - ``rows_attention`` (K1) <- ``_rows_attention_impl`` / ``_make_rowhead_kernel``:
   key mask, no bias (triangle attention).
+- ``rows_attention_fast`` (K1 fast) <- the same with ``fast=True``
+  (``cfg.fast_softmax``, serving): the f32 logits rounded to bf16 after the
+  -2^15 fill and the softmax taken in bf16 (`pallas_attention.py:103-130`).
 - ``tiled_attention`` (K2) <- ``_tiled_attention_impl`` / ``_attn_kernel`` /
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
@@ -37,7 +40,13 @@ Triangle attention has two regimes, chosen by ``kchunk_select`` as the JAX
 N < 1024 in f32) K1 forward and K7 backward; at or above it K3 when no input
 needs a gradient, else K5 forward, which keeps (out, m, log s) for the
 backward, and K6 backward, as the JAX ``_fwd``/``_bwd`` (:1425/:1454) do with
-``kernel_bwd`` on, the training default. K2's backward is the plain
+``kernel_bwd`` on, the training default. With ``kernel_bwd`` off
+(``cfg.use_pallas_bwd`` False) the forward is K1, or K1 fast where
+``fast_softmax`` is set, below the switch and K3 at or above it, and the
+backward is the plain VJP of the f32 ``attention_reference`` in both regimes
+(JAX ``_bwd`` :1461-1519). ``fast`` reaches K1 fast only there: with
+``kernel_bwd`` on, the JAX package drops it (:1291-1294, :1449-1450), and
+the K-chunk regime and K2 ignore it. K2's backward is the plain
 recompute through ``attention_reference`` under autograd (the JAX einsum VJP,
 :1509-1519: its dbias is [R, H, N, N] anyway, so the JAX package has no
 backward kernel for it either).
@@ -64,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from typing import Dict, Iterator, Optional
 
 import torch
@@ -90,7 +100,7 @@ PLAIN_BLOCK_ELEMS = 1 << 26
 # Launches of each kernel since the last reset. A wrapper adds one where it
 # launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {
-    "rows_attention": 0, "tiled_attention": 0, "rows_attention_bwd": 0,
+    "rows_attention": 0, "rows_attention_fast": 0, "tiled_attention": 0, "rows_attention_bwd": 0,
     "rows_attention_kchunk": 0, "rows_attention_kchunk_stats": 0, "rows_attention_kchunk_bwd": 0,
     # the fused kernels: K8 here, K9-K11 in ops/trimul.py, transition.py, outer.py
     "fused_gated_rows_attention": 0, "triangle_multiply": 0, "fused_transition": 0,
@@ -99,6 +109,7 @@ LAUNCHES: Dict[str, int] = {
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_ROUTE = False  # set only inside plain_route()
+_WARNED: set = set()  # the plain-VJP warnings already given in this process
 
 
 def reset_launch_counts() -> None:
@@ -172,6 +183,24 @@ def attention_reference(
     if bias is not None:
         logits = logits + bias.float()
     probs = masked_softmax(logits, None if mask is None else mask[:, None, None, :])
+    out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def rows_attention_fast_reference(q, k, v, mask, scale: float) -> torch.Tensor:
+    """Plain version of K1 fast: masked attention without bias whose softmax
+    runs in bf16, with the Pallas body's rounding points (`_make_rowhead_kernel`
+    with ``fast``, then ``jax.nn.softmax`` on bf16 logits): the scaled q
+    rounded to the input dtype, f32 logits, the -2^15 fill, the logits
+    rounded to bf16; m = max, e = exp(l - m) and p = e / sum(e), each a bf16
+    op (the sum accumulated in f32, then rounded); p cast to v's dtype (its
+    bf16 values kept in an f32 model), P.V accumulated in f32, the output
+    in the input dtype."""
+    qs = q * weak_scalar(scale, q.dtype)
+    logits = torch.einsum("rihc,rjhc->rhij", qs.float(), k.float())
+    logits = torch.where(mask[:, None, None, :] < 0.5, NEG_INF, logits).to(torch.bfloat16)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e / e.float().sum(-1, keepdim=True).to(torch.bfloat16)
     out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
@@ -370,8 +399,8 @@ def _launch(name: str, q, k, v, mask, bias, scale: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         common = (_DTYPE_CODES[q.dtype], R, N, H, C, weak_scalar(scale, q.dtype), *strides, stream)
-        if name == "rows_attention":
-            code = lib.lib.prd_rows_attention(
+        if name != "tiled_attention":  # K1 or K1 fast
+            code = getattr(lib.lib, f"prd_{name}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 *common,
             )
@@ -496,6 +525,17 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"attention runs on cpu or cuda tensors, got {device}")
 
 
+def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """K1 fast: ``rows_attention_fast_reference``'s function; the plain
+    version for CPU tensors, the kernel for CUDA ones (same bounds as K1).
+    Forward only: its callers differentiate the f32 reference instead."""
+    if mask is None:
+        raise ValueError("rows_attention_fast needs a key mask")
+    if _on_cpu(q):
+        return rows_attention_fast_reference(q, k, v, mask, scale)
+    return _launch("rows_attention_fast", q, k, v, mask, None, scale)
+
+
 def rows_attention_bwd(q, k, v, mask: torch.Tensor, dout: torch.Tensor, scale: float):
     """K7: (dq, dk, dv) of ``rows_attention`` given dO; dq is with respect
     to the unscaled q."""
@@ -563,6 +603,50 @@ class _RowsAttention(torch.autograd.Function):
             bwd = rows_attention_kchunk_bwd_reference if ctx.plain else rows_attention_kchunk_bwd
             dq, dk, dv = bwd(*saved[:4], dout, *saved[4:], ctx.scale)
         return dq, dk, dv, None, None, None
+
+
+def _warn_plain_vjp(fast: bool) -> None:
+    """The JAX ``_bwd``'s warning (:1469-1483), once per process for each text."""
+    message = (
+        "fused_attention: differentiating through the CUDA forward kernel with the plain "
+        "VJP backward (re-materializes the attention logits in device memory). For "
+        "training, set use_pallas_bwd=True (the default) so the backward runs the "
+        "flash-style kernels."
+        + (" Note: fast_softmax is on, so these gradients are gradients of the f32 "
+           "reference forward, NOT of the bf16 fast forward actually evaluated (serving "
+           "lever)." if fast else "")
+    )
+    if message not in _WARNED:
+        _WARNED.add(message)
+        warnings.warn(message, stacklevel=3)
+
+
+class _RowsAttentionPlainVjp(torch.autograd.Function):
+    """Triangle attention with ``kernel_bwd`` off, as the JAX ``_fwd``/``_bwd``
+    take it: K1 fast (``fast``) or K1 below the K-chunk switch, K3 at or
+    above it; the backward is the plain VJP of the f32 ``attention_reference``
+    in both regimes. ``plain_route()`` takes the plain forwards on any device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, fast):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale, ctx.fast = scale, fast
+        if kchunk_select(q.shape[1], q.dtype) > 0:
+            fn = rows_attention_kchunk_reference if _PLAIN_ROUTE else rows_attention_kchunk
+        elif fast:
+            fn = rows_attention_fast_reference if _PLAIN_ROUTE else rows_attention_fast
+        elif _PLAIN_ROUTE or _on_cpu(q):
+            return attention_reference(q, k, v, mask, None, scale)
+        else:
+            return _launch("rows_attention", q, k, v, mask, None, scale)
+        return fn(q, k, v, mask, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        _warn_plain_vjp(ctx.fast)
+        grads = plain_vjp(attention_reference, ctx.saved_tensors, ctx.needs_input_grad, dout,
+                          None, ctx.scale)
+        return (*grads, None, None)
 
 
 class _TiledAttention(torch.autograd.Function):
@@ -751,11 +835,18 @@ def plain_route() -> Iterator[None]:
         _PLAIN_ROUTE = outer
 
 
-def gated_attention_core(q, k, v, mask, bias, scale: float) -> torch.Tensor:
+def gated_attention_core(q, k, v, mask, bias, scale: float, fast: bool = False,
+                         kernel_bwd: bool = True) -> torch.Tensor:
     """Every model attention: the kernel route, or the plain version inside
-    ``plain_route()`` (in the K-chunk regime through ``_RowsAttention``,
-    which reads the block itself); inputs row-flattened as above."""
-    kchunk = bias is None and mask is not None and kchunk_select(q.shape[1], q.dtype) > 0
+    ``plain_route()`` (in the K-chunk regime, and with ``kernel_bwd`` off,
+    through the autograd Functions, which read the block themselves); inputs
+    row-flattened as above. ``kernel_bwd`` (``cfg.use_pallas_bwd``) off sends
+    masked attention without a bias through ``_RowsAttentionPlainVjp``, and
+    only there does ``fast`` (``cfg.fast_softmax``) select K1 fast."""
+    rows = bias is None and mask is not None
+    if rows and not kernel_bwd:
+        return _RowsAttentionPlainVjp.apply(q, k, v, mask, scale, fast)
+    kchunk = rows and kchunk_select(q.shape[1], q.dtype) > 0
     if _PLAIN_ROUTE and not kchunk:
         return attention_reference(q, k, v, mask, bias, scale)
     return fused_attention(q, k, v, mask, bias, scale)

@@ -1,5 +1,5 @@
 """The port's generate CLI at tiny width on the CPU: it writes the three
-output files, and a fresh process that imports every port module and runs
+output files (and, with ``--save_trajectory``, the DDIM frames), and a fresh process that imports every port module and runs
 it never imports jax, flax or the JAX package ``protein_redesign_tpu``
 (checked in a subprocess, because this suite's conftest imports jax)."""
 
@@ -51,9 +51,27 @@ def test_generate_writes_outputs(tmp_path, monkeypatch):
     assert len(scores) == 2 and all(0.0 <= s <= 1.0 for s in scores)
 
 
-@pytest.mark.parametrize("flag", [["--sampler", "ddim"], ["--fast_softmax"],
+def test_generate_ddim_with_trajectories(tmp_path, monkeypatch, capsys):
+    """--sampler ddim with --save_trajectory K and --fast_softmax: K frames
+    per sample in sample_trajectory_<i>.pdb and seconds per DDIM step."""
+    from protein_redesign_tpu_torch.cli.generate import main
+
+    monkeypatch.setenv("PRD_DISABLE_ESM", "1")
+    for name in ("USE_TF", "USE_FLAX"):
+        monkeypatch.setenv(name, "0")
+    _checkpoint(tmp_path / "ckpt")
+    out = tmp_path / "out"
+    main(["-c", str(tmp_path / "ckpt"), "-o", str(out), *ARGS, "--sampler", "ddim",
+          "--ddim_steps", "2", "--save_trajectory", "2", "--fast_softmax"])
+    for i in range(2):
+        assert (out / f"sample_trajectory_{i}.pdb").read_text().count("MODEL") == 2
+    assert (out / "sample_protein.pdb").read_text().count("MODEL") == 2
+    assert "2 ddim steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--sampler", "ddim_parallel"], ["--window", "8"],
                                   ["--seq_reverse", "ancestral"], ["--trimul_dmajor"],
-                                  ["--ddim_steps", "50"], ["--use_pallas"],
+                                  ["--ptol", "1e-3"], ["--use_pallas"],
                                   ["--pallas_auto_min_n", "384"], ["--num_workers", "2"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):
     from protein_redesign_tpu_torch.cli.generate import main

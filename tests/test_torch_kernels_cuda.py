@@ -94,7 +94,7 @@ def test_strided_operands(device):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["rows_attention", "tiled_attention"])
+@pytest.mark.parametrize("name", ["rows_attention", "tiled_attention", "rows_attention_fast"])
 def test_more_rows_than_a_grid_dimension_holds(device, name):
     """R above 65535 (the bound of grid.y and grid.z): rows share grid.x
     with the query tiles."""
@@ -102,10 +102,45 @@ def test_more_rows_than_a_grid_dimension_holds(device, name):
     if name == "rows_attention":
         out, ref = A.rows_attention(q, k, v, mask, 0.5), A.attention_reference(
             q, k, v, mask, None, 0.5)
+    elif name == "rows_attention_fast":
+        out, ref = A.rows_attention_fast(q, k, v, mask, 0.5), A.rows_attention_fast_reference(
+            q, k, v, mask, 0.5)
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+        return
     else:
         out, ref = A.tiled_attention(q, k, v, mask, bias, 0.5), A.attention_reference(
             q, k, v, mask, bias, 0.5)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [16, 45, 192])
+@pytest.mark.parametrize("C", [8, 16, 64])
+def test_rows_fast_kernel_matches_plain(device, dtype, N, C):
+    """K1 fast against its plain version: the same bf16 rounding points, the
+    f32 logits summed in another order (a flip of a bf16 rounding moves a
+    probability by 2^-8), so 2e-2 in both dtypes."""
+    q, k, v, mask, _ = _inputs(6, N, 4, C, dtype, device, masked_rows=2)
+    q = 3.0 * q  # logits of |l| ~ 5 at C = 16
+    before = A.LAUNCHES["rows_attention_fast"]
+    out = A.rows_attention_fast(q, k, v, mask, 0.25)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["rows_attention_fast"] == before + 1
+    ref = A.rows_attention_fast_reference(q, k, v, mask, 0.25)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_rows_fast_strided_operands(device):
+    """K1 fast in the 'ending' triangle layout: k and v read through strides."""
+    N, H, C = 40, 4, 16
+    q, k, v, mask, _ = _inputs(N, N, H, C, torch.bfloat16, device, seed=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))
+    assert not kt.is_contiguous()
+    out = A.rows_attention_fast(qt, kt, vt, mask, 0.25)
+    ref = A.rows_attention_fast_reference(qt.contiguous(), kt.contiguous(), vt.contiguous(),
+                                          mask, 0.25)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_wrapper_rejects(device):
@@ -120,6 +155,10 @@ def test_wrapper_rejects(device):
         A.tiled_attention(wide, wide, wide, None, torch.zeros(2, 1, 16, 16, device=device), 1.0)
     with pytest.raises(TypeError):
         A.rows_attention(q.detach().half(), k.half(), v.half(), mask, 0.5)
+    with pytest.raises(ValueError):
+        A.rows_attention_fast(q, k, v, mask.cpu(), 0.5)
+    with pytest.raises(TypeError):
+        A.rows_attention_fast(q.half(), k.half(), v.half(), mask, 0.5)
 
 
 def test_denoiser_kernel_route_matches_plain(device):
@@ -146,6 +185,42 @@ def test_denoiser_kernel_route_matches_plain(device):
         assert A.LAUNCHES == _launches(rows_attention=4, tiled_attention=3)
     for a, b in zip(kernel, plain):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_denoiser_fast_route_matches_plain(device):
+    """fast_softmax with use_pallas_bwd off: both triangle attentions of each
+    block take K1 fast, in the forward and under autograd, and no K7 runs
+    (the backward is the plain VJP)."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.denoiser import Denoiser
+
+    cfg = ModelConfig(single_dim=32, pair_dim=16, head_dim=8, num_heads=2, num_blocks=2,
+                      dtype="bfloat16", fast_softmax=True, use_pallas_bwd=False)
+    torch.manual_seed(0)
+    mod = Denoiser(cfg).to(device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    single = torch.randn(2, 40, 32, generator=g).to(device)
+    pair = torch.randn(2, 40, 40, 16, generator=g).to(device)
+    mask = (torch.arange(40) < 33).float().expand(2, 40).to(device)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        kernel = mod(single, pair, mask)
+        assert A.LAUNCHES == _launches(rows_attention_fast=4, tiled_attention=3)
+        with A.plain_route():
+            plain = mod(single, pair, mask)
+        assert A.LAUNCHES == _launches(rows_attention_fast=4, tiled_attention=3)
+    for a, b in zip(kernel, plain):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=3e-2 * scale, rtol=3e-2)
+    A.reset_launch_counts()
+    with pytest.warns(UserWarning, match="fast_softmax is on"):
+        sum(o.float().sum() for o in mod(single, pair.requires_grad_(), mask)).backward()
+    # remat (on by default): the backward recomputes each block's forward
+    assert A.LAUNCHES["rows_attention_fast"] == 8 and A.LAUNCHES["rows_attention_bwd"] == 0
+    assert torch.isfinite(pair.grad).all()
 
 
 def _assert_grads_close(got, want, dtype):
