@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    protein_redesign_tpu_torch/kernels/_build; prints the build time.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
-   of both from CUDA events.
+   of both from CUDA events; in bf16 K2 runs its tensor-core body
+   (attention_mma.cu), timed beside its CUDA-core body, at C = 16 and at
+   SPAttention's C = 512, with SDPA and the bound at both.
 4. Whole forward: ProteinReDiffNet at paper width (ModelConfig(), bf16)
    with seeded, perturbed weights, B=2 at bucket 192, kernel route against
    plain route, and exactly 24 rows-kernel and 13 tiled-kernel launches per
@@ -21,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 x 13 kernel launches.
 6. K7 vs plain: the rows-attention backward kernel against its plain
    version at buckets 192 and 384 (147 and 360 nodes valid, so padded rows
-   are fully masked), f32 and bf16, with both times.
+   are fully masked), f32 and bf16, H=4 x C=16 and H=1 x C=64 (the wide
+   layout), with both times.
 7. Whole-net gradient: the training loss's parameter gradients at paper
    width, B=2, bucket 192, kernel route against plain route, in f32 and
    bf16, with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
@@ -34,6 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps at 192, then a resume from the written checkpoint for 2 steps at
    384; finite losses, metrics.jsonl, checkpoint files and exact launch
    counts; seconds per optimizer step and peak device memory per bucket.
+   Then the h64x1 layout (--head_dim 64 --num_heads 1, the JAX package's
+   recommended training layout): the whole gradient of a micro-step, kernel
+   route (K1 and K7 at C = 64) against plain route, at bucket 192 in f32 and
+   bf16 and at 384 in bf16, and the train CLI at 192 for 2 optimizer steps.
 9. K-chunk kernels vs plain: K3 and K5 at bucket 2048 in bf16 (R = 2048)
    and at 1024 in f32 (R = 1024), K6 at 1024 in f32, each against its plain
    version on the same inputs (the plain versions take rows in blocks, so
@@ -66,19 +73,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 DDPM steps; the train CLI with the four flags at bucket 192, 2
    optimizer steps.
 15. Serving (K1 fast, the bf16-softmax triangle attention of a checkpoint
-   trained with --no-use_pallas_bwd and served with --fast_softmax): K1 fast
-   against its plain version at bucket 192 (R = 384) in f32 and bf16, with
-   its time, the plain version's, K1's, SDPA's and its bound; the train CLI
-   with --no-use_pallas_bwd --fast_softmax on phase 8's data at bucket 192,
-   2 optimizer steps (48 K1 fast and no K1 or K7 per micro-step); the serve
-   CLI on that checkpoint with --sampler ddim --ddim_steps 50 over a
-   1000-step schedule, --batch_size 2 --warmup_buckets 192, over a JSONL
-   file of three requests (lysozyme 1-110 + imatinib with 2 samples, the
-   same with a 5-frame trajectory, one over --max_nodes that must come back
-   as an error line): 24 x 50 K1 fast and 13 x 50 K2 launches per sampled
-   batch, no K1 or K7, the output files and s per DDIM step; one request to
-   the serve CLI in TCP mode (--port 0) in a process of its own; the
-   paper-width fast forward against its plain route, by kernel group.
+   trained with --no-use_pallas_bwd and served with --fast_softmax, where
+   the attention plan takes Pallas: inference from bucket 384): K1 fast
+   against its plain version, its tensor-core body in bf16 at buckets 384
+   (R = 768) and 192 (R = 384), its CUDA-core body in f32 at 192, with the
+   share of outputs that differ, its time, the CUDA-core body's, the plain
+   version's, K1's, SDPA's and its bound; the train CLI with
+   --no-use_pallas_bwd --fast_softmax on phase 8's data at bucket 192, 2
+   optimizer steps (the training plan takes XLA: bf16-logit attention, no
+   attention kernel); the serve CLI on that checkpoint with --sampler ddim
+   --ddim_steps 50 over a 1000-step schedule, --batch_size 2
+   --warmup_buckets 192,384, over a JSONL file of four requests (lysozyme
+   1-110 + imatinib with 2 samples, the same with a 5-frame trajectory, a
+   seeded 330-residue sequence + imatinib at bucket 384, one over
+   --max_nodes that must come back as an error line): no attention kernel
+   in the batches at 192 (bf16-logit attention), 24 x 50 K1 fast and 13 x
+   50 K2 launches per batch at 384, the output files and s per DDIM step;
+   one request to the serve CLI in TCP mode (--port 0) in a process of its
+   own; the paper-width fast forward at 192 and 384 against its plain
+   route, by kernel group.
 
 Each main path (phases 5, 8, 10, 12's train CLI, 14's generate and train
 CLIs and 15's train and serve CLIs) runs with every launch count set to 0
@@ -124,8 +137,10 @@ SEQUENCE = (  # the first 110 residues of T4 lysozyme
 LIGAND = "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1"  # imatinib
 STEPS = 64
 CSRC = "protein_redesign_tpu_torch/kernels/csrc/"
-SOURCES = {"rows_attention": CSRC + "attention.cu", "rows_attention_fast": CSRC + "attention.cu",
-           "tiled_attention": CSRC + "attention.cu",
+# K2 and K1 fast run their tensor-core bodies on the (bf16) main path
+SOURCES = {"rows_attention": CSRC + "attention.cu",
+           "rows_attention_fast": CSRC + "attention_mma.cu",
+           "tiled_attention": CSRC + "attention_mma.cu",
            "rows_attention_bwd": CSRC + "attention_bwd.cu",
            "rows_attention_kchunk": CSRC + "attention_kchunk.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_kchunk.cu",
@@ -168,7 +183,13 @@ LONG_STEPS = 3  # DDPM steps of the generate run at bucket 2048
 GRAD_REL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 # The serving path: DDIM steps over a schedule of SERVE_SCHEDULE steps, and
 # the residues of the request over --max_nodes (with imatinib 237 nodes).
-SERVE_STEPS, SERVE_SCHEDULE, SERVE_OVERSIZED = 50, 1000, 200
+# The serve CLI warms buckets 192 and 384; its requests are lysozyme (147
+# nodes), a seeded SERVE_LONG-residue sequence (367 nodes, bucket 384) and one
+# over --max_nodes (384, the largest warmed bucket; 397 nodes).
+SERVE_STEPS, SERVE_SCHEDULE, SERVE_LONG, SERVE_OVERSIZED = 50, 1000, 330, 360
+# The JAX package's recommended training layout, one head of width 64
+# (`protein_redesign_tpu/models/denoiser.py:513-519`): K1 and K7 at C = 64.
+H64 = dict(head_dim=64, num_heads=1)
 
 
 def launch_record(**counts) -> dict:
@@ -176,17 +197,28 @@ def launch_record(**counts) -> dict:
     return {**{name: 0 for name in REPLACES}, **counts}
 
 
-def forward_launches(cfg, remat: bool = False, kchunk: bool = False) -> dict:
-    """Launches of one forward (``remat``: of one micro-step, whose backward
-    recomputes every block's forward). K2 for the single attentions and
-    SPAttention. With the four fused switches: K8 for both triangle
-    attentions, K9 for both triangle multiplications, K10 for single_fc and
-    pair_fc, K11 for outer_linear. Without them the triangle attentions take
-    K1 and, in a micro-step, K7 per K1 of the forward; with use_pallas_bwd
-    off they take K1 fast where fast_softmax is on, and no K7; in the
-    K-chunk regime (``kchunk``) K3 without a gradient, else K5 and one K6
-    per attention."""
+def forward_launches(cfg, remat: bool = False, kchunk: bool = False, n: int = 192) -> dict:
+    """Launches of one forward at bucket ``n`` (``remat``: of one
+    micro-step, whose backward recomputes every block's forward). K2 for the
+    single attentions and SPAttention. With the four fused switches: K8 for
+    both triangle attentions, K9 for both triangle multiplications, K10 for
+    single_fc and pair_fc, K11 for outer_linear. Without them the triangle
+    attentions take K1 and, in a micro-step, K7 per K1 of the forward; with
+    use_pallas_bwd off they take K1 fast where fast_softmax is on and the
+    attention plan takes Pallas, and no K7; in the K-chunk regime
+    (``kchunk``) K3 without a gradient, else K5 and one K6 per attention.
+    Where the plan leaves Pallas with fast_softmax on in a bf16 model, every
+    attention computes the bf16-logit attention: no attention kernel runs."""
+    from protein_redesign_tpu_torch.models.denoiser import resolve_attention_plan
+
     k, blocks = (2 if remat else 1), cfg.num_blocks
+    use_pallas, _ = resolve_attention_plan(cfg, n)
+    if cfg.fast_softmax and not use_pallas and cfg.dtype == "bfloat16":
+        counts = {}
+        if cfg.use_pallas_fused_gated:  # K9-K11 stay; K8 gives way to the bf16 logits
+            counts.update({name: 2 * k * blocks for name in FUSED_NAMES[1:3]},
+                          fused_outer_linear=k * blocks)
+        return launch_record(**counts)
     counts = {"tiled_attention": k * blocks + 1}
     if cfg.use_pallas_fused_gated:
         counts.update({name: 2 * k * blocks for name in FUSED_NAMES[:3]},
@@ -196,7 +228,7 @@ def forward_launches(cfg, remat: bool = False, kchunk: bool = False) -> dict:
         if remat:
             counts["rows_attention_kchunk_bwd"] = 2 * blocks
     else:
-        fast = cfg.fast_softmax and not cfg.use_pallas_bwd
+        fast = cfg.fast_softmax and use_pallas and not cfg.use_pallas_bwd
         counts["rows_attention_fast" if fast else "rows_attention"] = 2 * k * blocks
         if remat and cfg.use_pallas_bwd:
             counts["rows_attention_bwd"] = 2 * blocks
@@ -214,6 +246,36 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 3):
+    """ms of device time per call of ``fn``, summed over the kernels it
+    launches (torch.profiler): the kernel alone, without the host's launch
+    path, which bounds a small kernel's CUDA-event time. None where the
+    profiler recorded no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
+
+
+def body_times(name, q, k, v, mask, bias, scale) -> str:
+    """K2's or K1 fast's two bodies on the same bf16 inputs, each one launch
+    without autograd: CUDA-event ms per call and device ms per call."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    parts = []
+    for mma, label in ((True, "tensor-core"), (False, "CUDA-core")):
+        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma)  # noqa: E731
+        dev = device_ms(fn)
+        dev = "not measured" if dev is None else f"{dev:.4f} ms"
+        parts.append(f"{label} body {cuda_ms(fn):.4f} ms, on the device {dev}")
+    return "; ".join(parts)
 
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
@@ -240,10 +302,10 @@ def attention_bound(q, mask, bias, products: int, operands: int, extra_bytes: fl
 
 def library_ms(q, k, v, mask, bias, scale, dout=None):
     """ms of one torch.nn.functional.scaled_dot_product_attention call on the
-    same inputs (the memory-efficient backend; the key mask as an additive
-    -2^15 term), forward and backward when ``dout`` is given: the library
-    yardstick, which the port never calls. None where the backend refuses
-    the inputs."""
+    same inputs (the memory-efficient backend, or the cuDNN one where it
+    refuses the inputs; the key mask as an additive -2^15 term), forward and
+    backward when ``dout`` is given: the library yardstick, which the port
+    never calls. None where both refuse the inputs."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -259,13 +321,18 @@ def library_ms(q, k, v, mask, bias, scale, dout=None):
         if dout is not None:
             torch.autograd.grad(out, (qt, kt, vt), dout.transpose(1, 2))
 
-    try:
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return cuda_ms(call, 1, 3)
-    except RuntimeError as e:
-        print(f"[library] scaled_dot_product_attention refused {tuple(q.shape)} {q.dtype}: "
-              f"{str(e).splitlines()[0]}")
-        return None
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                ms = cuda_ms(call, 1, 3)
+        except RuntimeError as e:
+            print(f"[library] scaled_dot_product_attention ({backend.name}) refused "
+                  f"{tuple(q.shape)} {q.dtype}: {str(e).splitlines()[0][:160]}")
+            continue
+        if backend != SDPBackend.EFFICIENT_ATTENTION:
+            print(f"[library] {tuple(q.shape)} {q.dtype}: timed the {backend.name} backend")
+        return ms
+    return None
 
 
 def phase_device() -> tuple:
@@ -310,6 +377,11 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
 
 
 def phase_kernels() -> dict:
+    """K1 and K2 against their plain version at buckets 192 and 512, in f32
+    and bf16 (K2 at C = 16, the single attention, and C = 512, SPAttention).
+    In bf16, K2 runs its tensor-core body; its CUDA-core body (f32's, kept
+    for this comparison) is timed on the same inputs, with SDPA and the
+    bound at both widths."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     cases = []
@@ -338,19 +410,23 @@ def phase_kernels() -> dict:
             raise AssertionError(f"{name} R={R} N={N} C={C} {dtype}: max abs err {err} > tol {tol}")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         label = str(dtype).replace("torch.", "")
+        body = ""
+        if name == "tiled_attention" and dtype == torch.bfloat16:
+            body = f" (tensor cores; {body_times(name, q, k, v, mask, bias, scale)})"
         print(f"[kernels] {name} R={R} H=4 N={N} C={C} {label} mask={with_mask} "
               f"bias={with_bias}: max_abs_err {err:.3e} (tol {tol:g}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms{body}, plain {plain_ms:.4f} ms")
         rec = record[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        # the JSON record carries the main path's own shape: bucket 192, bf16,
-        # and for tiled_attention the single-attention call (C=16)
-        if N == 192 and dtype == torch.bfloat16 and C == 16:
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
-            rec.update(attention_bound(q, mask, bias, products=2, operands=4))
-            rec["library_ms"] = library_ms(q, k, v, mask, bias, scale)
-            print(f"[kernels] {name} at the record's shape: bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']}), library {rec['library_ms']} ms")
+        if N == 192 and dtype == torch.bfloat16:
+            at = attention_bound(q, mask, bias, products=2, operands=4)
+            lib_ms = library_ms(q, k, v, mask, bias, scale)
+            # the JSON record carries the main path's own shape: bucket 192,
+            # bf16, and for tiled_attention the single-attention call (C=16)
+            if C == 16:
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+            print(f"[kernels] {name} C={C} at bucket 192, bf16: bound {at['bound_ms']:.4f} ms "
+                  f"({at['bound_by']}), library {lib_ms} ms")
     return record
 
 
@@ -373,23 +449,27 @@ def perturbed_net(cfg, seed: int = 0):
     return perturb(ProteinReDiffNet(cfg), seed + 1)
 
 
-def complex_batch(runner, batch_rows: int = 2):
+def complex_batch(runner, batch_rows: int = 2, sequence: str = SEQUENCE):
     from protein_redesign_tpu_torch.cli.common import complex_data, load_protein_arg, parse_ligand_arg
 
-    protein, ligand = load_protein_arg(SEQUENCE), parse_ligand_arg(LIGAND)
+    protein, ligand = load_protein_arg(sequence), parse_ligand_arg(LIGAND)
     esm = np.zeros((len(protein.aatype), runner.net.cfg.esm_dim), np.float32)
     return runner.collate([complex_data(protein, ligand, esm)] * batch_rows)
 
 
-def phase_forward(net, tag: str = "forward") -> None:
+def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
+    """The net's forward at ``bucket`` (192: lysozyme and imatinib; 384: a
+    seeded SERVE_LONG-residue sequence and imatinib), B=2, kernel route
+    against plain route, its exact launches and device time by group."""
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
     from protein_redesign_tpu_torch.ops import attention as A
 
     runner = SamplingRunner(net, "cuda")
-    bucket, batch = complex_batch(runner)
-    if bucket != 192:
-        raise AssertionError(f"the smoke complex landed in bucket {bucket}, not 192")
+    sequence = SEQUENCE if bucket == 192 else long_sequence(51, SERVE_LONG)
+    landed, batch = complex_batch(runner, sequence=sequence)
+    if landed != bucket:
+        raise AssertionError(f"the smoke complex landed in bucket {landed}, not {bucket}")
     batch = prepare_batch(batch, 0.3, generator=torch.Generator("cuda").manual_seed(0))
     B, N = batch["residue_mask"].shape
     g = torch.Generator("cuda").manual_seed(1)
@@ -411,7 +491,7 @@ def phase_forward(net, tag: str = "forward") -> None:
         launches = dict(A.LAUNCHES)
         noise_p, seq_p = forward(True)
         torch.cuda.synchronize()
-        expected = forward_launches(net.cfg)
+        expected = forward_launches(net.cfg, n=bucket)
         if launches != expected:
             raise AssertionError(f"launches per forward {launches} != {expected}")
         for name, a, b in (("noise_pred", noise_k, noise_p), ("seq_pred", seq_k, seq_p)):
@@ -439,8 +519,11 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
+          ("rows_attention_fast_mma", "K1 fast rows_attention_fast (tensor cores)"),
           ("rows_attention_fast", "K1 fast rows_attention_fast"),
-          ("rows_attention", "K1 rows_attention"), ("tiled_attention", "K2 tiled_attention"),
+          ("rows_attention", "K1 rows_attention"),
+          ("tiled_attention_mma", "K2 tiled_attention (tensor cores)"),
+          ("tiled_attention", "K2 tiled_attention"),
           ("layer_norm", "layer_norm"), ("gemm", "gemm/bmm"), ("nvjet", "gemm/bmm"),
           ("xmma", "gemm/bmm"), ("softmax", "softmax"), ("copy", "copy/cast"))
 
@@ -507,17 +590,20 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
 
 
 def phase_k7() -> dict:
-    """K7 against its plain version on the main path's shapes (B=2, H=4, C=16)."""
+    """K7 against its plain version on the main path's shapes (B=2, H=4,
+    C=16) and on the h64x1 layout's (H=1, C=64: the wide layout)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
-    for seed, (N, n_valid) in enumerate(((192, 147), (384, 360))):
+    shapes = [(N, n_valid, H, C) for H, C in ((4, 16), (1, 64))
+              for N, n_valid in ((192, 147), (384, 360))]
+    for seed, (N, n_valid, H, C) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, _ = _attention_case(2 * N, N, 4, 16, dtype, n_valid, True, False,
+            q, k, v, mask, _ = _attention_case(2 * N, N, H, C, dtype, n_valid, True, False,
                                                True, 100 + seed)
             g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(seed),
                             device="cuda").to(dtype)
-            scale = 0.25
+            scale = 1.0 / math.sqrt(C)
             kernel = lambda: A.rows_attention_bwd(q, k, v, mask, g, scale)  # noqa: E731
             plain = lambda: A.rows_attention_bwd_reference(q, k, v, mask, g, scale)  # noqa: E731
             got, want = kernel(), plain()
@@ -538,16 +624,17 @@ def phase_k7() -> dict:
                 raise AssertionError("K7: fully masked rows have nonzero dq or dk")
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             label = str(dtype).replace("torch.", "")
-            print(f"[k7] rows_attention_bwd R={2 * N} H=4 N={N} C=16 {label} ({n_valid} valid): "
+            print(f"[k7] rows_attention_bwd R={2 * N} H={H} N={N} C={C} {label} ({n_valid} valid): "
                   f"max abs err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tol:g} "
                   f"x max(1, max|grad|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
             if N == 192 and dtype == torch.bfloat16:
-                rec["ms"], rec["plain_ms"] = ms, plain_ms
-                rec.update(attention_bound(q, mask, None, products=5, operands=7))
-                rec["library_ms"] = library_ms(q, k, v, mask, None, scale, dout=g)
-                print(f"[k7] at the record's shape: bound {rec['bound_ms']:.4f} ms "
-                      f"({rec['bound_by']}), library (forward + backward) {rec['library_ms']} ms")
+                at = attention_bound(q, mask, None, products=5, operands=7)
+                lib_ms = library_ms(q, k, v, mask, None, scale, dout=g)
+                if C == 16:  # the record's shape
+                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+                print(f"[k7] H={H} C={C} at bucket 192, bf16: bound {at['bound_ms']:.4f} ms "
+                      f"({at['bound_by']}), library (forward + backward) {lib_ms} ms")
     return rec
 
 
@@ -747,6 +834,79 @@ def phase_train(seed: int) -> dict:
         print(f"[train] bucket {bucket}: peak device memory {peak:.2f} GiB")
     print(f"[train] val_loss {[round(m['val_loss'], 4) for m in vals]}; checkpoints {sorted(saved)}; "
           f"resumed to step {final['step']}; launches {launches}")
+    return launches
+
+
+def phase_h64(seed: int) -> dict:
+    """The h64x1 layout (one head of width 64) in training: the whole
+    parameter gradient of one micro-step, kernel route (K1 and K7 at C = 64)
+    against plain route, at bucket 192 in f32 and bf16 and at 384 in bf16;
+    then the train CLI with --head_dim 64 --num_heads 1 at bucket 192, 2
+    optimizer steps of 2 x 2 micro-batches, with exact launch counts."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    esm_dim = ModelConfig().esm_dim
+    short = [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (1, 2)]
+    long = [synthetic_complex(long_sequence(seed + s), seed + s, esm_dim) for s in (3, 4)]
+    for dtype, bucket, datas in (("float32", 192, short), ("bfloat16", 192, short),
+                                 ("bfloat16", 384, long)):
+        net = perturbed_net(ModelConfig(dtype=dtype, training_mode=True, mask_prob=0.5, **H64),
+                            seed).to("cuda")
+        batch = collated(datas, bucket)
+        noise = fixed_noise(batch, seed)
+        A.reset_launch_counts()
+        loss_k = micro_step(net, batch, noise)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+        with A.plain_route():
+            loss_p = micro_step(net, batch, noise)
+        grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+        if launches != forward_launches(net.cfg, remat=True, n=bucket):
+            raise AssertionError(f"h64x1 launches per micro-step {launches}")
+        rel = float((grads_k - grads_p).norm() / grads_p.norm())
+        step_ms = cuda_ms(lambda: micro_step(net, batch, noise), 1, 2)
+        print(f"[h64] head_dim 64 x 1 head, {dtype}, B=2, bucket {bucket}: loss kernel "
+              f"{float(loss_k):.6f}, plain {float(loss_p):.6f}; ||grad_kernel - grad_plain|| / "
+              f"||grad_plain|| = {rel:.3e} (tol {GRAD_REL_TOL[dtype]:g}); micro-step "
+              f"{step_ms:.1f} ms; launches {({k: v for k, v in launches.items() if v})}")
+        if not (torch.isfinite(grads_k).all() and rel <= GRAD_REL_TOL[dtype]):
+            raise AssertionError(f"h64x1 {dtype} gradient at {bucket}: relative error {rel}")
+        del net
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp, {"train": [synthetic_complex(SEQUENCE, seed + s, esm_dim)
+                                      for s in (10, 11)],
+                            "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+        run = tmp / "run"
+        argv = ["--save_dir", str(run), "--data_dir", str(tmp), "--batch_size", "2",
+                "--accumulate_grad_batches", "2", "--val_every_steps", "0",
+                "--log_every_steps", "1", "--warmup_steps", "10", "--seed", str(seed),
+                "--device", "cuda", "--max_steps", "2", "--head_dim", "64", "--num_heads", "1"]
+        A.reset_launch_counts()
+        state = train(argv)
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        cfg = state.net.cfg
+        del state
+        metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [m for m in metrics if "train_loss" in m]
+    vals = [m for m in metrics if "val_loss" in m]
+    if (cfg.head_dim, cfg.num_heads) != (64, 1) or [m["step"] for m in steps] != [1, 2] or len(
+            vals) != 1 or not all(math.isfinite(m["train_loss"]) for m in steps):
+        raise AssertionError(f"h64x1 train: {cfg.head_dim} x {cfg.num_heads}, metrics {metrics}")
+    micro, evaluation = forward_launches(cfg, remat=True), forward_launches(cfg)
+    expected = {k: 4 * micro[k] + evaluation[k] for k in REPLACES}
+    if launches != expected or not launches["rows_attention_bwd"]:
+        raise AssertionError(f"h64x1 train launches {launches} != {expected}")
+    for m in steps:
+        print(f"[h64-train] step {m['step']} bucket {int(m['bucket'])}: loss "
+              f"{m['train_loss']:.4f}, grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s "
+              f"per optimizer step (2 micro-batches of 2)")
+    print(f"[h64-train] --head_dim 64 --num_heads 1: val_loss {vals[0]['val_loss']:.4f}; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
     return launches
 
 
@@ -1246,15 +1406,18 @@ def phase_fused_train(seed: int) -> dict:
 
 
 def phase_fast_kernel() -> dict:
-    """K1 fast against its plain version at bucket 192, B=2 (R = 384, 147
-    nodes valid) in f32 and bf16, both to TOL_BF16 (p is rounded to bf16 in
-    both dtypes), with the kernel's, the plain version's, K1's and SDPA's
-    time on the same inputs; the record keeps bf16."""
+    """K1 fast against its plain version, to TOL_BF16 (p is rounded to bf16
+    in both dtypes): in bf16 its tensor-core body at bucket 384 (R = 768,
+    360 nodes valid; its serving shape) and 192 (R = 384, 147 valid), with
+    the share of output elements that differ from the plain version and the
+    CUDA-core body's, the plain version's, K1's and SDPA's time on the same
+    inputs; in f32 its CUDA-core body at 192. The record keeps bf16 at 384."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
-    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
-        q, k, v, mask, _ = _attention_case(384, 192, 4, 16, dtype, 147, True, False, True,
+    cases = ((384, 360, torch.bfloat16), (192, 147, torch.bfloat16), (192, 147, torch.float32))
+    for seed, (N, n_valid, dtype) in enumerate(cases):
+        q, k, v, mask, _ = _attention_case(2 * N, N, 4, 16, dtype, n_valid, True, False, True,
                                            400 + seed)
         scale = 0.25
         kernel = lambda: A.rows_attention_fast(q, k, v, mask, scale)  # noqa: E731
@@ -1266,18 +1429,25 @@ def phase_fast_kernel() -> dict:
         excess = float((diff - TOL_BF16 * ref.float().abs()).max())
         if not (out.dtype == dtype and torch.isfinite(out).all() and excess <= TOL_BF16):
             raise AssertionError(f"rows_attention_fast {dtype}: max abs err {err} > tol {TOL_BF16}")
+        differ = float((out != ref).float().mean())
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         k1_ms = cuda_ms(lambda: A.rows_attention(q, k, v, mask, scale))
         label = str(dtype).replace("torch.", "")
-        print(f"[fast-kernel] rows_attention_fast R=384 H=4 N=192 C=16 {label} (147 valid): "
-              f"max_abs_err {err:.3e} (tol {TOL_BF16:g}); kernel {ms:.4f} ms, plain "
+        body = "CUDA cores"
+        if dtype == torch.bfloat16:
+            body = "tensor cores; " + body_times("rows_attention_fast", q, k, v, mask, None, scale)
+        print(f"[fast-kernel] rows_attention_fast R={2 * N} H=4 N={N} C=16 {label} "
+              f"({n_valid} valid): max_abs_err {err:.3e} (tol {TOL_BF16:g}), {differ:.2e} of the "
+              f"outputs differ from the plain version; kernel {ms:.4f} ms ({body}), plain "
               f"{plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if dtype == torch.bfloat16:
-            rec.update(ms=ms, plain_ms=plain_ms, **attention_bound(q, mask, None, 2, 4))
-            rec["library_ms"] = library_ms(q, k, v, mask, None, scale)
-            print(f"[fast-kernel] at the record's shape: bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']}), library {rec['library_ms']} ms")
+            at = attention_bound(q, mask, None, 2, 4)
+            lib_ms = library_ms(q, k, v, mask, None, scale)
+            if N == 384:
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+            print(f"[fast-kernel] R={2 * N} N={N}: bound {at['bound_ms']:.4f} ms "
+                  f"({at['bound_by']}), library {lib_ms} ms")
     return rec
 
 
@@ -1315,10 +1485,11 @@ def _fast_train(tmp: Path, seed: int) -> Path:
         raise AssertionError(f"fast train: non-finite losses {metrics}")
     if not saved_cfg.fast_softmax or saved_cfg.use_pallas_bwd:
         raise AssertionError(f"fast train checkpoint config {saved_cfg}")
+    # training without use_pallas_bwd: the plan takes XLA at every bucket,
+    # so with fast_softmax the bf16 model's attentions are bf16-logit ones
     micro, evaluation = forward_launches(cfg, remat=True), forward_launches(cfg)
-    if micro["rows_attention_fast"] != 48 or micro["rows_attention"] or micro["rows_attention_bwd"]:
-        raise AssertionError(f"fast train: expected 48 K1 fast and no K1 or K7 per micro-step, "
-                             f"got {micro}")
+    if any(micro.values()) or any(evaluation.values()):
+        raise AssertionError(f"fast train: expected no attention kernel, got {micro}")
     expected = {k: 4 * micro[k] + evaluation[k] for k in REPLACES}
     if launches != expected:
         raise AssertionError(f"fast train launches {launches} != {expected}")
@@ -1327,7 +1498,8 @@ def _fast_train(tmp: Path, seed: int) -> Path:
               f"{m['train_loss']:.4f}, grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s "
               f"per optimizer step (2 micro-batches of 2)")
     print(f"[serve-train] --no-use_pallas_bwd --fast_softmax: val_loss {vals[0]['val_loss']:.4f}; "
-          f"launches {({k: v for k, v in launches.items() if v})}")
+          f"no attention kernel launched (the training plan's bf16-logit attention); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
     return run / "checkpoints"
 
 
@@ -1339,13 +1511,14 @@ def _serve_jsonl(tmp: Path, ckpt: Path, seed: int) -> dict:
     request = {"protein": SEQUENCE, "ligand": LIGAND, "num_samples": 2}
     requests = [{**request, "id": "lysozyme", "seed": 1},
                 {**request, "id": "lysozyme-trajectory", "seed": 2, "trajectory": 5},
+                {**request, "id": "long", "seed": 3, "protein": long_sequence(seed + 51, SERVE_LONG)},
                 {**request, "id": "oversized", "num_samples": 1,
                  "protein": long_sequence(seed + 50, SERVE_OVERSIZED)}]
     reqs, results = tmp / "requests.jsonl", tmp / "results.jsonl"
     reqs.write_text("".join(json.dumps(r) + "\n" for r in requests))
     argv = ["-c", str(ckpt), "-o", str(tmp / "served"), "--num_steps", str(SERVE_SCHEDULE),
             "--fast_softmax", "--sampler", "ddim", "--ddim_steps", str(SERVE_STEPS),
-            "--batch_size", "2", "--warmup_buckets", "192", "--input", str(reqs),
+            "--batch_size", "2", "--warmup_buckets", "192,384", "--input", str(reqs),
             "--output", str(results), "--device", "cuda"]
     A.reset_launch_counts()
     began = time.perf_counter()
@@ -1356,8 +1529,8 @@ def _serve_jsonl(tmp: Path, ckpt: Path, seed: int) -> dict:
     lines = [json.loads(line) for line in results.read_text().splitlines()]
     if [line["id"] for line in lines] != [r["id"] for r in requests]:
         raise AssertionError(f"serve: responses {lines}")
-    plain, movie, oversized = lines
-    for line in (plain, movie):
+    plain, movie, long, oversized = lines
+    for line in (plain, movie, long):
         if "error" in line or len(line["sequences"]) != 2 or not all(
                 0.0 <= x <= 1.0 for x in line["tmscores"]):
             raise AssertionError(f"serve: response {line}")
@@ -1369,22 +1542,31 @@ def _serve_jsonl(tmp: Path, ckpt: Path, seed: int) -> dict:
             # 2-step checkpoint can put coordinates past the 8-column fields)
             atoms = [a[30:].lower() for a in Path(path).read_text().splitlines()
                      if a.startswith("ATOM")]
-            if len(atoms) != len(SEQUENCE) or any("nan" in a or "inf" in a for a in atoms):
+            residues = SERVE_LONG if line is long else len(SEQUENCE)
+            if len(atoms) != residues or any("nan" in a or "inf" in a for a in atoms):
                 raise AssertionError(f"serve: {path} has {len(atoms)} CA records or non-finite")
     frames = [Path(path).read_text().count("MODEL") for path in movie["trajectory_files"]]
     if frames != [5, 5] or "max_nodes" not in oversized.get("error", ""):
         raise AssertionError(f"serve: trajectory frames {frames}, oversized {oversized}")
-    batches = len(runner.timings)  # the warm-up batch and one per request
-    blocks = runner.net.cfg.num_blocks
-    expected = launch_record(rows_attention_fast=batches * SERVE_STEPS * 2 * blocks,
-                             tiled_attention=batches * SERVE_STEPS * (blocks + 1))
-    if batches != 3 or launches != expected:
-        raise AssertionError(f"serve launches {launches} over {batches} batches != {expected}")
+    # a warm-up batch per bucket and one per request; only the batches at 384
+    # take the Pallas plan (K1 fast, K2): at 192 the bf16-logit attention
+    buckets = [t[0] for t in runner.timings]
+    per_forward = {n: forward_launches(runner.net.cfg, n=n) for n in (192, 384)}
+    if any(per_forward[192].values()):
+        raise AssertionError(f"serve: the 192 batches would launch {per_forward[192]}")
+    expected = launch_record(**{k: SERVE_STEPS * sum(per_forward[n][k] for n in buckets)
+                                for k in REPLACES})
+    if sorted(buckets) != [192, 192, 192, 384, 384] or launches != expected:
+        raise AssertionError(f"serve launches {launches} over batches at {buckets} != {expected}")
+    print(f"[serve] the 192 batches launched no K1 fast and no K2; each batch at 384 "
+          f"{SERVE_STEPS} x {per_forward[384]['rows_attention_fast']} K1 fast and "
+          f"{SERVE_STEPS} x {per_forward[384]['tiled_attention']} K2")
     for bucket, rows, steps, seconds in runner.timings:
         print(f"[serve] bucket {bucket}, {rows} samples per batch: {steps} DDIM steps in "
               f"{seconds:.3f} s = {seconds / steps:.4f} s/step")
-    print(f"[serve] main() wall {wall:.2f} s (startup, warm-up and 3 requests); TM-scores "
-          f"{plain['tmscores']} / {movie['tmscores']}; oversized: {oversized['error'][:60]}...; "
+    print(f"[serve] main() wall {wall:.2f} s (startup, warm-up and 4 requests); TM-scores "
+          f"{plain['tmscores']} / {movie['tmscores']} / {long['tmscores']}; oversized: "
+          f"{oversized['error'][:60]}...; "
           f"launches {({k: v for k, v in launches.items() if v})}")
     return launches
 
@@ -1470,6 +1652,7 @@ def main() -> None:
     del net
     phase_grad(args.seed)
     launches = phase_train(args.seed)
+    phase_h64(args.seed)
     record.update(phase_kchunk_kernels())
     net = perturbed_net(ModelConfig()).to("cuda").eval()
     long_launches = phase_generate_long(net)
@@ -1491,6 +1674,7 @@ def main() -> None:
     served = phase_serving(args.seed)
     net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False)).to("cuda").eval()
     phase_forward(net, tag="fast-forward")
+    phase_forward(net, tag="fast-forward-384", bucket=384)
     del net
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,

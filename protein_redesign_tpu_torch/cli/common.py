@@ -125,7 +125,7 @@ _UNPORTED_FLAGS = {
     "ptol": (float, "ddim_parallel is not ported"),
     "coarse_init": (int, "ddim_parallel is not ported"),
     "sample_segments": (int, "segmented sampling is not ported"),
-    "pallas_auto_min_n": (int, "the port's attention plan has no size gates"),
+    "pallas_auto_min_n": (int, "the port takes the checkpoint config's value"),
     "num_workers": (int, "the port collates in the sampling process"),
 }
 _UNPORTED_SWITCHES = {

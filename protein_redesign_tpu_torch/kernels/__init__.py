@@ -26,9 +26,9 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("attention.cu", "attention_bwd.cu", "attention_kchunk.cu", "attention_kchunk_bwd.cu",
-           "fused_gated.cu", "trimul.cu", "transition.cu", "outer.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_kchunk.cu",
+           "attention_kchunk_bwd.cu", "fused_gated.cu", "trimul.cu", "transition.cu", "outer.cu")
+HEADERS = ("common.cuh", "mma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -55,6 +55,10 @@ class KernelLibrary:
             [ptr] * 6 + [i32] * 5 + [f32] + strides + [ptr]
         )
         lib.prd_tiled_attention.restype = i32
+        lib.prd_tiled_attention_mma.argtypes = [ptr] * 6 + [i32] * 4 + [f32] + strides + [ptr]
+        lib.prd_tiled_attention_mma.restype = i32
+        lib.prd_rows_attention_fast_mma.argtypes = [ptr] * 5 + [i32] * 4 + [f32] + strides + [ptr]
+        lib.prd_rows_attention_fast_mma.restype = i32
         lib.prd_rows_attention_bwd.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
         )

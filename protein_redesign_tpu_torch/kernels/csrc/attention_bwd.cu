@@ -37,9 +37,22 @@
 // Both recompute each logit with the same dot-product order, so P, dP and
 // delta agree bit for bit between them. Shared memory is O(32 * C) and there
 // is no bound on N. A thread keeps its row's vectors in registers (3C floats
-// for dq, 4C for dk/dv), which bounds C at 32. The products run on the CUDA
-// cores in f32: issue-bound (FMAs plus broadcast shared-memory loads), about
-// 10 FMAs of C per (query, key) pair in all; tensor cores are later work.
+// for dq, 4C for dk/dv), which bounds this layout at C = 32. The products run
+// on the CUDA cores in f32: issue-bound (FMAs plus broadcast shared-memory
+// loads), about 10 FMAs of C per (query, key) pair in all; tensor cores are
+// later work.
+//
+// Wider heads (32 < C <= 128, the h64 layouts) take the K6 layout instead,
+// the same passes and outputs: each warp holds 4 query (or key) rows with the
+// lanes on the head channels, 4 C / 32 accumulators per lane and row, and
+// rows staged in shared memory (O((TQ + 64) C) floats):
+//   rows_attention_bwd_wide_dq_kernel: lane j of a 32-key tile computes its
+//     logit and dP against the warp's 4 queries (dot_smem); passes (1) and
+//     (2) reduce over the lanes, pass (3) broadcasts each dS by a shuffle
+//     into the channel accumulators of dqt.
+//   rows_attention_bwd_wide_dkdv_kernel: the same with the roles of queries
+//     and keys swapped, reading m, s and delta from the scratch.
+// The logit and dP dot products run in the same order in both kernels.
 //
 // Layout: q, k, v and dO are [R, N, H, C] with the head dimension contiguous
 // and the other strides given in elements; mask is contiguous f32 [R, N];
@@ -304,6 +317,311 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kRPW = 4;  // rows per warp in the wide kernels
+
+// The wide layout's 4 x CPL channel accumulators of a warp (channel
+// lane + 32 t) into rows first .. first + 3 of a contiguous [R, N, H, C] output.
+template <typename T, int CPL>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&acc)[kRPW][CPL],
+                                           int r, int first, int N, int H, int h, int C,
+                                           int lane) {
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) {
+    const int row = first + rr;
+    if (row >= N) continue;
+    T* dst = out + (((long long)r * N + row) * H + h) * C;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int c = lane + 32 * t;
+      if (c < C) dst[c] = Io<T>::cast(acc[rr][t]);
+    }
+  }
+}
+
+template <typename T, int CPL, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+    rows_attention_bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                      const T* __restrict__ v, const float* __restrict__ mask,
+                                      const T* __restrict__ g, T* __restrict__ dq,
+                                      float* __restrict__ stats, int R, int N, int H, int C,
+                                      float scale, Strides qs, Strides ks, Strides vs,
+                                      Strides gs) {
+  constexpr int TQ = NWARPS * kRPW;
+  extern __shared__ __align__(16) float smem[];
+  const int stride = C + 4;  // padded K/V rows: conflict-free float4 reads by lane
+  float* q_s = smem;                  // [TQ][C]
+  float* g_s = q_s + TQ * C;          // [TQ][C]
+  float* k_s = g_s + TQ * C;          // [kTile][C + 4]
+  float* v_s = k_s + kTile * stride;  // [kTile][C + 4]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tiles = (N + TQ - 1) / TQ;
+  const int r = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - r * tiles) * TQ;
+  const int h = blockIdx.y;
+  const T* k_base = k + r * ks.r + h * ks.h;
+  const T* v_base = v + r * vs.r + h * vs.h;
+  const float* mask_row = mask + (long long)r * N;
+
+  stage_rows<T, true>(q + r * qs.r + h * qs.h, qs.n, q0, TQ, N, C, scale, q_s, C);
+  stage_rows<T, false>(g + r * gs.r + h * gs.h, gs.n, q0, TQ, N, C, 1.f, g_s, C);
+
+  const int row0 = warp * kRPW;
+  float m[kRPW], s[kRPW];
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) {
+    m[rr] = neg_inf();
+    s[rr] = 0.f;
+  }
+
+  // Pass 1: per-lane running max and sum of exp, then combined over the lanes.
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();
+    stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
+    __syncthreads();
+    const int j = k0 + lane;
+    if (j < N) {
+      const bool masked = mask_row[j] < 0.5f;
+#pragma unroll
+      for (int rr = 0; rr < kRPW; ++rr) {
+        const float l = masked ? kMaskFill
+                               : dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
+        if (l > m[rr]) {
+          s[rr] = s[rr] * expf(m[rr] - l) + 1.f;
+          m[rr] = l;
+        } else {
+          s[rr] += expf(l - m[rr]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float mo = __shfl_xor_sync(kFull, m[rr], off);
+      const float so = __shfl_xor_sync(kFull, s[rr], off);
+      const float mn = fmaxf(m[rr], mo);
+      const float a = m[rr] == neg_inf() ? 0.f : s[rr] * expf(m[rr] - mn);
+      const float b = mo == neg_inf() ? 0.f : so * expf(mo - mn);
+      m[rr] = mn;
+      s[rr] = a + b;
+    }
+  }
+
+  // Pass 2: delta = sum_j dP_ij P_ij, over the lanes.
+  float delta[kRPW];
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) delta[rr] = 0.f;
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();
+    stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
+    stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+    __syncthreads();
+    const int j = k0 + lane;
+    if (j < N) {
+      const bool masked = mask_row[j] < 0.5f;
+#pragma unroll
+      for (int rr = 0; rr < kRPW; ++rr) {
+        const float l = masked ? kMaskFill
+                               : dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
+        const float p = expf(l - m[rr]) / s[rr];
+        delta[rr] = fmaf(dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C), p, delta[rr]);
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) delta[rr] = warp_sum(delta[rr]);
+
+  // Pass 3: dqt = dS k, dS broadcast from the key's lane.
+  float acc[kRPW][CPL];
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr)
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) acc[rr][t] = 0.f;
+  for (int k0 = 0; k0 < N; k0 += kTile) {
+    __syncthreads();
+    stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
+    stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+    __syncthreads();
+    const int j = k0 + lane;
+    const bool keep = j < N && mask_row[j] >= 0.5f;  // dS is zero at masked keys
+    float ds[kRPW];
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      ds[rr] = 0.f;
+      if (keep) {
+        const float l = dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
+        const float p = expf(l - m[rr]) / s[rr];
+        const float dp = dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C);
+        ds[rr] = Io<T>::round(p * (dp - delta[rr]));
+      }
+    }
+    const int nk = min(kTile, N - k0);
+    for (int jj = 0; jj < nk; ++jj) {
+      const float* k_row = k_s + jj * stride;
+      float kv[CPL];
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const int c = lane + 32 * t;
+        kv[t] = c < C ? k_row[c] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRPW; ++rr) {
+        const float d = __shfl_sync(kFull, ds[rr], jj);
+#pragma unroll
+        for (int t = 0; t < CPL; ++t) acc[rr][t] = fmaf(d, kv[t], acc[rr][t]);
+      }
+    }
+  }
+  store_rows<T, CPL>(dq, acc, r, q0 + row0, N, H, h, C, lane);
+  if (lane == 0) {
+    const long long rhn = (long long)R * H * N;
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      const int qi = q0 + row0 + rr;
+      if (qi >= N) continue;
+      const long long idx = ((long long)r * H + h) * N + qi;
+      stats[idx] = m[rr];
+      stats[rhn + idx] = s[rr];
+      stats[2 * rhn + idx] = delta[rr];
+    }
+  }
+}
+
+template <typename T, int CPL, int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32)
+    rows_attention_bwd_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                        const T* __restrict__ v, const float* __restrict__ mask,
+                                        const T* __restrict__ g, const float* __restrict__ stats,
+                                        T* __restrict__ dk, T* __restrict__ dv, int R, int N,
+                                        int H, int C, float scale, Strides qs, Strides ks,
+                                        Strides vs, Strides gs) {
+  constexpr int TK = NWARPS * kRPW;
+  extern __shared__ __align__(16) float smem[];
+  const int stride = C + 4;  // padded q/dO rows: conflict-free float4 reads by lane
+  float* k_s = smem;                  // [TK][C]
+  float* v_s = k_s + TK * C;          // [TK][C]
+  float* q_s = v_s + TK * C;          // [kTile][C + 4]
+  float* g_s = q_s + kTile * stride;  // [kTile][C + 4]
+  float* m_s = g_s + kTile * stride;  // [kTile]
+  float* s_s = m_s + kTile;           // [kTile]
+  float* d_s = s_s + kTile;           // [kTile]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tiles = (N + TK - 1) / TK;
+  const int r = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - r * tiles) * TK;
+  const int h = blockIdx.y;
+  const T* q_base = q + r * qs.r + h * qs.h;
+  const T* g_base = g + r * gs.r + h * gs.h;
+  const long long rhn = (long long)R * H * N;
+  const float* m_row = stats + ((long long)r * H + h) * N;
+
+  stage_rows<T, false>(k + r * ks.r + h * ks.h, ks.n, j0, TK, N, C, 1.f, k_s, C);
+  stage_rows<T, false>(v + r * vs.r + h * vs.h, vs.n, j0, TK, N, C, 1.f, v_s, C);
+
+  const int row0 = warp * kRPW;
+  bool masked[kRPW];
+  float dkr[kRPW][CPL], dvr[kRPW][CPL];
+#pragma unroll
+  for (int rr = 0; rr < kRPW; ++rr) {
+    const int j = j0 + row0 + rr;
+    masked[rr] = j >= N || mask[(long long)r * N + j] < 0.5f;
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) dkr[rr][t] = dvr[rr][t] = 0.f;
+  }
+
+  for (int i0 = 0; i0 < N; i0 += kTile) {
+    __syncthreads();
+    stage_rows<T, true>(q_base, qs.n, i0, kTile, N, C, scale, q_s, stride);
+    stage_rows<T, false>(g_base, gs.n, i0, kTile, N, C, 1.f, g_s, stride);
+    if (threadIdx.x < kTile) {
+      const int qi = i0 + threadIdx.x;
+      const bool ok = qi < N;
+      m_s[threadIdx.x] = ok ? m_row[qi] : 0.f;
+      s_s[threadIdx.x] = ok ? m_row[rhn + qi] : 1.f;
+      d_s[threadIdx.x] = ok ? m_row[2 * rhn + qi] : 0.f;
+    }
+    __syncthreads();
+    const bool live = i0 + lane < N;
+    const float* q_row = q_s + lane * stride;
+    const float* g_row = g_s + lane * stride;
+    float pv[kRPW], ds[kRPW];
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      pv[rr] = ds[rr] = 0.f;
+      if (!live) continue;
+      const float l = masked[rr] ? kMaskFill : dot_smem(q_row, k_s + (row0 + rr) * C, C);
+      const float p = expf(l - m_s[lane]) / s_s[lane];
+      pv[rr] = Io<T>::round(p);
+      if (!masked[rr]) {
+        const float dp = dot_smem(g_row, v_s + (row0 + rr) * C, C);
+        ds[rr] = Io<T>::round(p * (dp - d_s[lane]));
+      }
+    }
+    const int ni = min(kTile, N - i0);
+    for (int ii = 0; ii < ni; ++ii) {
+      float qv[CPL], gv[CPL];
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const int c = lane + 32 * t;
+        qv[t] = c < C ? q_s[ii * stride + c] : 0.f;
+        gv[t] = c < C ? g_s[ii * stride + c] : 0.f;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRPW; ++rr) {
+        const float p = __shfl_sync(kFull, pv[rr], ii);
+        const float d = __shfl_sync(kFull, ds[rr], ii);
+#pragma unroll
+        for (int t = 0; t < CPL; ++t) {
+          dvr[rr][t] = fmaf(p, gv[t], dvr[rr][t]);
+          dkr[rr][t] = fmaf(d, qv[t], dkr[rr][t]);
+        }
+      }
+    }
+  }
+  store_rows<T, CPL>(dk, dkr, r, j0 + row0, N, H, h, C, lane);
+  store_rows<T, CPL>(dv, dvr, r, j0 + row0, N, H, h, C, lane);
+}
+
+template <typename Kernel, typename... Params>
+cudaError_t launch_wide_one(Kernel kern, int rows_per_block, size_t smem, int threads,
+                            const Args& a, Params... params) {
+  const long long blocks = (long long)((a.N + rows_per_block - 1) / rows_per_block) * a.R;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3((unsigned)blocks, a.H), threads, smem, a.stream>>>(params...);
+  return cudaGetLastError();
+}
+
+// The wide layout (32 < C <= 128): 4 x CPL accumulators per lane and row.
+template <typename T, int CPL>
+cudaError_t launch_wide(const Args& a) {
+  constexpr int NWARPS = CPL <= 2 ? 8 : 4;
+  constexpr int ROWS = NWARPS * kRPW;
+  const size_t smem = sizeof(float) * (size_t)(2 * ROWS * a.C + 2 * kTile * (a.C + 4) + 3 * kTile);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* g = static_cast<const T*>(a.g);
+  const cudaError_t e = launch_wide_one(
+      rows_attention_bwd_wide_dq_kernel<T, CPL, NWARPS>, ROWS, smem, NWARPS * 32, a, q, k, v,
+      a.mask, g, static_cast<T*>(a.dq), a.stats, a.R, a.N, a.H, a.C, a.scale, a.qs, a.ks, a.vs,
+      a.gs);
+  if (e != cudaSuccess) return e;
+  return launch_wide_one(rows_attention_bwd_wide_dkdv_kernel<T, CPL, NWARPS>, ROWS, smem,
+                         NWARPS * 32, a, q, k, v, a.mask, g, (const float*)a.stats,
+                         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.R, a.N, a.H, a.C,
+                         a.scale, a.qs, a.ks, a.vs, a.gs);
+}
+
 template <typename T, int CP>
 cudaError_t launch(const Args& a) {
   const long long blocks = (long long)((a.N + kThreads - 1) / kThreads) * a.R;
@@ -327,15 +645,18 @@ cudaError_t launch(const Args& a) {
 template <typename T>
 cudaError_t dispatch_width(const Args& a) {
   if (a.C <= 16) return launch<T, 16>(a);
-  return launch<T, 32>(a);
+  if (a.C <= 32) return launch<T, 32>(a);
+  if (a.C <= 64) return launch_wide<T, 2>(a);
+  return launch_wide<T, 4>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K7: dq (w.r.t. the pre-scaled q), dk and dv of rows attention. stats is
-// caller-allocated f32 scratch of 3 * R * H * N values.
+// K7: dq (w.r.t. the pre-scaled q), dk and dv of rows attention, C up to 128
+// (a multiple of 4 above 32). stats is caller-allocated f32 scratch of
+// 3 * R * H * N values.
 int prd_rows_attention_bwd(const void* q, const void* k, const void* v, const void* mask,
                            const void* dout, void* dq, void* dk, void* dv, void* stats, int dtype,
                            int R, int N, int H, int C, float scale, long long q_sr,
@@ -347,7 +668,8 @@ int prd_rows_attention_bwd(const void* q, const void* k, const void* v, const vo
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}, {g_sr, g_sn, g_sh},
                static_cast<cudaStream_t>(stream)};
   const bool ok = (dtype == 0 || dtype == 1) && R > 0 && N > 0 && H > 0 && H <= 65535 &&
-                  C > 0 && C <= 32 && mask != nullptr && stats != nullptr;
+                  C > 0 && C <= 128 && (C <= 32 || C % 4 == 0) && mask != nullptr &&
+                  stats != nullptr;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_width<float>(a);
   return (int)dispatch_width<__nv_bfloat16>(a);

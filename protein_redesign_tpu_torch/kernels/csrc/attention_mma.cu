@@ -1,0 +1,577 @@
+// Hand-written Hopper (sm_90a) tensor-core bodies of two attention kernels, for
+// bf16 inputs. They replace, for bf16, the CUDA-core bodies of attention.cu
+// (kept there for float32, where TF32 would break the 1e-5 parity, and for a
+// head width that is not a multiple of 8):
+//
+//   tiled_attention_mma_kernel    <- _tiled_attention_impl / _attn_kernel and
+//                                    _attn_kernel_nomask (K2: single attention
+//                                    and SPAttention, additive [R,H,N,N] bias,
+//                                    key mask optional)
+//   rows_attention_fast_mma_kernel <- _rows_attention_impl with fast=True
+//                                    (K1 fast: triangle attention with the
+//                                    softmax rounded as bf16, cfg.fast_softmax)
+//
+// of protein_redesign_tpu/ops/pallas_attention.py.
+//
+// What bounds them. At the main path's shapes the work is small matrix
+// products (head width 16: one mma depth step) around a softmax, so the
+// CUDA-core bodies were bound by issue rate: f32 FMAs from shared memory,
+// ~0.5% of the card. Here every product runs on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 sums): a warp owns 16 query rows,
+// its Q fragments are loaded by ldmatrix from a tile staged once, K and V
+// tiles are staged by cp.async, double-buffered, and shared by the block's
+// 4 warps (64 queries). What remains on the CUDA cores is the softmax's
+// elementwise work (exp, the bf16 roundings of K1 fast, the division), which
+// bounds K1 fast; K2 at head width 16 reads mostly its bias, which it reads
+// once, straight into the logit fragments.
+//
+// K2 takes one pass of online softmax in f32 over 64-key tiles (32 or 16
+// for wide heads): S = Q K^T by mma, plus the bias, the -2^15 fill at masked
+// keys (after the bias, as the reference does), -inf past N; running max m
+// and sum l per row; p = exp(S - m) rounded to bf16 in registers is P.V's A
+// fragment. The reference rounds the normalised probabilities instead, so
+// the two differ by bf16 roundings (held to 2e-2). A fully masked row has
+// all logits -2^15 and gives the mean of v. Wide heads (SPAttention's C =
+// single_dim = 512) are split over C: grid.z takes 64-channel slices of the
+// output, each block recomputing the logits over the full C, so no block
+// holds more than 64 output channels per row in registers.
+//
+// K1 fast keeps its function point by point (rows_attention_fast_reference):
+// logits rounded to bf16 after the fill; m = the max of those; e =
+// bf16(exp(bf16(l - m))); s = bf16(sum of e in f32); p = bf16(e / s); P.V in
+// f32. Per-term rounding against the final max needs the final max, so it
+// makes three passes over 32-key tiles (max; sum; p and P.V), each
+// computing Q K^T by mma; the bf16 p enters the P.V mma exactly. The logits'
+// f32 sums run in another order than the plain einsum's, so a logit that
+// lies next to a bf16 rounding midpoint could round the other way, and with a
+// logit of |l| ~ 8 one such flip moves p by 3%. So a logit within kNear f32
+// ulps of a midpoint is recomputed as the CUDA-core body computed it, one
+// f32 FMA chain over the channels in order (the plain einsum's f32 sums agree
+// with it bit for bit at these widths); about 1 logit in 512 takes that path,
+// one at a time through one copy of the chain, apart from the elementwise loop.
+// What can still differ is the f32 sum of e, so the kernel is held to 2e-2
+// and not to bit equality.
+//
+// Layout: q, k, v are [R, N, H, C] bf16 with the head dimension contiguous,
+// the other strides given in elements, every row 16-byte aligned (C and the
+// strides multiples of 8, checked by the wrapper); mask is contiguous f32
+// [R, N]; bias contiguous bf16 [R, H, N, N]; out contiguous [R, N, H, C].
+// Shared memory: 2 (64 + 2 BK) (CP + 8) + 4 BK (CS + 8) bytes, CP = C
+// rounded up to 16, CS the 16..64-channel slice; at most 227 KB bounds C.
+// Each entry point returns cudaGetLastError() after its launch.
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kTQ = 16 * kWarps;  // queries per block: 16 rows per warp
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const float* mask;
+  const bf16* bias;
+  bf16* out;
+  int R, N, H, C;
+  float scale;
+  Strides qs, ks, vs;
+};
+
+// The block's query tile into shared memory, multiplied by the scale and
+// rounded to bf16 (the pre-scaled q), rows past N and channels past C zero.
+__device__ __forceinline__ void stage_q(const Args& a, const bf16* q_base, int q0, int CP, int ld,
+                                        bf16* q_s) {
+  const int chunks = CP / 8;
+  for (int e = threadIdx.x; e < kTQ * chunks; e += blockDim.x) {
+    const int i = e / chunks;
+    const int c = (e - i * chunks) * 8;
+    const int qi = q0 + i;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (qi < a.N && c < a.C) {
+      raw = *reinterpret_cast<const uint4*>(q_base + (long long)qi * a.qs.n + c);
+      bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) x[t] = __float2bfloat16_rn(__bfloat162float(x[t]) * a.scale);
+    }
+    *reinterpret_cast<uint4*>(q_s + i * ld + c) = raw;
+  }
+}
+
+// Rows [k0, k0 + rows) and channels [c0, c0 + width) of one head of K or V
+// into shared memory by cp.async (row stride ld); rows past N and channels
+// past C are zero-filled.
+__device__ __forceinline__ void stage_keys(const bf16* base, long long stride_n, int k0, int rows,
+                                           int N, int C, int c0, int width, int ld, bf16* dst) {
+  const int chunks = width / 8;
+  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+    const int j = e / chunks;
+    const int cc = (e - j * chunks) * 8;
+    const int key = k0 + j;
+    const bool ok = key < N && c0 + cc < C;
+    cp_async16(dst + j * ld + cc, ok ? base + (long long)key * stride_n + c0 + cc : base, ok);
+  }
+}
+
+// S = Q K^T for the warp's 16 query rows (q_w, row stride ld) against the BK
+// keys of a staged tile (k_t, row stride ld), over CP channels.
+template <int NS>
+__device__ __forceinline__ void logits_mma(const bf16* q_w, const bf16* k_t, int ld, int CP,
+                                           int lane, float (&s)[NS][4]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int kc = 0; kc < CP; kc += 16) {
+    unsigned a[4];
+    load_a_frag(a, q_w, ld, kc, lane);
+#pragma unroll
+    for (int np = 0; np < NS / 2; ++np) {
+      unsigned b[4];
+      load_bt_frags(b, k_t, ld, np * 16, kc, lane);
+      mma_bf16_16816(s[2 * np], a, b[0], b[1]);
+      mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += P V for the warp's 16 rows: P in the S fragments (already final
+// bf16 values or rounded here), V the staged tile's channel slice (row
+// stride ld), NT n-tiles of 8 channels.
+template <int NS, int NT>
+__device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const bf16* v_t, int ld, int lane,
+                                       float (&acc)[NT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int cp = 0; cp < NT / 2; ++cp) {
+      unsigned b[4];
+      load_b_frags(b, v_t, ld, kk * 16, cp * 16, lane);
+      mma_bf16_16816(acc[2 * cp], a, b[0], b[1]);
+      mma_bf16_16816(acc[2 * cp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// True when x lies within kNear f32 ulps of a midpoint between two bf16
+// values, where the order of an f32 sum can decide its bf16 rounding.
+constexpr unsigned kNear = 64;
+__device__ __forceinline__ bool near_bf16_midpoint(float x) {
+  return (__float_as_uint(x) & 0xffffu) - (0x8000u - kNear) <= 2 * kNear;
+}
+
+// One logit as a chain of f32 FMAs over the channels in order. Rows are
+// 16-byte aligned and C a multiple of 8: 8 channels per pair of 16-byte loads.
+__device__ __forceinline__ float logit_chain(const bf16* q_row, const bf16* k_row, int C) {
+  float acc = 0.f;
+  for (int c = 0; c < C; c += 8) {
+    const uint4 qv = *reinterpret_cast<const uint4*>(q_row + c);
+    const uint4 kv = *reinterpret_cast<const uint4*>(k_row + c);
+    const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) acc = fmaf(__bfloat162float(qe[t]), __bfloat162float(ke[t]), acc);
+  }
+  return acc;
+}
+
+// The block's position: grid.x walks (row r, query tile) with the tiles of a
+// row adjacent (rows bounded by grid.x's 2^31 - 1 blocks), grid.y the head,
+// grid.z the output channel slice.
+struct Block {
+  int r, q0, h, cs0;
+};
+
+__device__ __forceinline__ Block block_of(int N, int CS) {
+  const int tiles = (N + kTQ - 1) / kTQ;
+  Block b;
+  b.r = blockIdx.x / tiles;
+  b.q0 = (blockIdx.x - b.r * tiles) * kTQ;
+  b.h = blockIdx.y;
+  b.cs0 = blockIdx.z * CS;
+  return b;
+}
+
+// The warp's output rows (g and g + 8 of its 16) from the accumulators,
+// each divided by its row's divisor (1 for K1 fast).
+template <int NT>
+__device__ __forceinline__ void store_out(const Args& a, const Block& b, int row_a,
+                                          const float (&acc)[NT][4], float div_a, float div_b,
+                                          int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = b.cs0 + n * 8 + tig * 2;
+    if (c >= a.C) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_a + 8 * half;
+      if (row >= a.N) continue;
+      const float d = half ? div_b : div_a;
+      bf16* dst = a.out + (((long long)b.r * a.N + row) * a.H + b.h) * a.C + c;
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(acc[n][2 * half] / d, acc[n][2 * half + 1] / d);
+    }
+  }
+}
+
+template <bool HAS_MASK, int BK, int NT>
+__global__ void __launch_bounds__(kWarps * 32) tiled_attention_mma_kernel(const Args a) {
+  constexpr int NS = BK / 8;  // n-tiles of 8 keys in a key tile
+  constexpr int CS = 8 * NT;  // output channels of the block's slice
+  constexpr int VS = CS + 8;  // V tile row stride
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = a.N, C = a.C;
+  const int CP = (C + 15) & ~15, QS = CP + 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kTQ][QS]
+  bf16* k_s = q_s + kTQ * QS;                      // [2][BK][QS]
+  bf16* v_s = k_s + 2 * BK * QS;                   // [2][BK][VS]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Block b = block_of(N, CS);
+  const bf16* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
+  const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
+  const float* mask_row = HAS_MASK ? a.mask + (long long)b.r * N : nullptr;
+  const bf16* bias_head = a.bias + ((long long)b.r * a.H + b.h) * N * N;
+
+  stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  const int tiles = (N + BK - 1) / BK;
+  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
+  stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
+  cp_async_commit();
+
+  const int row_a = b.q0 + warp * 16 + (lane >> 2);  // this thread's rows: row_a, row_a + 8
+  const bf16* bias_a = bias_head + (long long)row_a * N;
+  const bf16* bias_b = bias_a + 8LL * N;
+  float m_a = neg_inf(), m_b = neg_inf(), l_a = 0.f, l_b = 0.f;
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
+      stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
+                 v_s + (buf ^ 1) * BK * VS);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[NS][4];
+    logits_mma<NS>(q_s + warp * 16 * QS, k_s + buf * BK * QS, QS, CP, lane, s);
+    // bias, then the fill at masked keys; keys past N drop out
+    const int k0 = t * BK;
+    float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + n * 8 + (lane & 3) * 2 + e;
+        float la = neg_inf(), lb = neg_inf();
+        if (j < N) {
+          la = s[n][e] + (row_a < N ? __bfloat162float(bias_a[j]) : 0.f);
+          lb = s[n][2 + e] + (row_a + 8 < N ? __bfloat162float(bias_b[j]) : 0.f);
+          if (HAS_MASK && mask_row[j] < 0.5f) la = lb = kMaskFill;
+        }
+        s[n][e] = la;
+        s[n][2 + e] = lb;
+        mx_a = fmaxf(mx_a, la);
+        mx_b = fmaxf(mx_b, lb);
+      }
+    }
+    // one step of online softmax: the tile always holds key k0 < N, so the
+    // new max is finite and the first step's rescale is exp(-inf) = 0
+    mx_a = quad_max(mx_a);
+    mx_b = quad_max(mx_b);
+    const float alpha_a = expf(m_a - mx_a), alpha_b = expf(m_b - mx_b);
+    m_a = mx_a;
+    m_b = mx_b;
+    l_a *= alpha_a;
+    l_b *= alpha_b;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha_a;
+      acc[n][1] *= alpha_a;
+      acc[n][2] *= alpha_b;
+      acc[n][3] *= alpha_b;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = expf(s[n][0] - m_a);
+      s[n][1] = expf(s[n][1] - m_a);
+      s[n][2] = expf(s[n][2] - m_b);
+      s[n][3] = expf(s[n][3] - m_b);
+      l_a += s[n][0] + s[n][1];
+      l_b += s[n][2] + s[n][3];
+    }
+    pv_mma<NS, NT>(s, v_s + buf * BK * VS, VS, lane, acc);
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+  }
+  store_out<NT>(a, b, row_a, acc, quad_sum(l_a), quad_sum(l_b), lane);
+}
+
+// K1 fast's per-row state across its passes, for this thread's two rows
+// (g and g + 8 of the warp's 16: _a and _b).
+template <int NT>
+struct FastRows {
+  float m_a, m_b, s_a, s_b;
+  float acc[NT][4];
+};
+
+// One of K1 fast's passes over every key tile (PASS 0: the row max of the
+// bf16 logits; 1: the sum of their rounded exp; 2: p and P.V), each its own
+// instantiation, so a pass's unrolled loop holds only its own arithmetic.
+template <int PASS, int BK, int NT>
+__device__ __forceinline__ void fast_pass(const Args& a, const Block& b, const bf16* q_w,
+                                          bf16* k_s, bf16* v_s, int CP, FastRows<NT>& st,
+                                          int lane) {
+  constexpr int NS = BK / 8, CS = 8 * NT, VS = CS + 8;
+  const int N = a.N, C = a.C, QS = CP + 8;
+  const bf16* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
+  const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
+  const float* mask_row = a.mask + (long long)b.r * N;
+  const int tiles = (N + BK - 1) / BK;
+  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
+  if (PASS == 2) stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
+      if (PASS == 2)
+        stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
+                   v_s + (buf ^ 1) * BK * VS);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* k_t = k_s + buf * BK * QS;
+    float s[NS][4];
+    logits_mma<NS>(q_w, k_t, QS, CP, lane, s);
+    // this thread's key columns: their mask values, loaded together up front
+    const int k0 = t * BK + (lane & 3) * 2;
+    bool live[NS][2], keep[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + n * 8 + e;
+        live[n][e] = j < N;
+        keep[n][e] = mask_row[min(j, N - 1)] >= 0.5f;
+      }
+    }
+    // the logits after the fill, -inf past N (weight 0); a bit per logit
+    // that lies next to a bf16 rounding midpoint
+    unsigned near = 0;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float l = neg_inf();
+        if (live[n][e & 1]) {
+          l = kMaskFill;
+          if (keep[n][e & 1]) {
+            l = s[n][e];
+            near |= (unsigned)near_bf16_midpoint(l) << (4 * n + e);
+          }
+        }
+        s[n][e] = l;
+      }
+    }
+    // rare: those logits again in the plain version's order, one at a time
+    // through one copy of the chain, selected back into their registers
+    while (near) {
+      const int i = __ffs(near) - 1;
+      near &= near - 1;
+      const int n = i >> 2, e = i & 3;
+      const float l = logit_chain(q_w + ((lane >> 2) + 8 * (e >> 1)) * QS,
+                                  k_t + (n * 8 + (lane & 3) * 2 + (e & 1)) * QS, C);
+#pragma unroll
+      for (int j = 0; j < 4 * NS; ++j)
+        if (j == i) s[j >> 2][j & 3] = l;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = bf16_round(s[n][e]);  // the logit rounded to bf16
+        if (PASS == 0) {
+          s[n][e] = l;
+        } else {
+          const float ex = bf16_round(expf(bf16_round(l - (e < 2 ? st.m_a : st.m_b))));
+          s[n][e] = PASS == 1 ? ex : bf16_round(__fdiv_rn(ex, e < 2 ? st.s_a : st.s_b));
+        }
+      }
+    }
+    if (PASS == 0) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        st.m_a = fmaxf(st.m_a, fmaxf(s[n][0], s[n][1]));
+        st.m_b = fmaxf(st.m_b, fmaxf(s[n][2], s[n][3]));
+      }
+    } else if (PASS == 1) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        st.s_a += s[n][0] + s[n][1];
+        st.s_b += s[n][2] + s[n][3];
+      }
+    } else {
+      pv_mma<NS, NT>(s, v_s + buf * BK * VS, VS, lane, st.acc);  // p is bf16: exact
+    }
+    __syncthreads();  // the next tile's loads overwrite this buffer
+  }
+}
+
+template <int BK, int NT>
+__global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(const Args a) {
+  constexpr int CS = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int CP = (a.C + 15) & ~15, QS = CP + 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kTQ * QS;
+  bf16* v_s = k_s + 2 * BK * QS;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Block b = block_of(a.N, CS);
+  stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  const bf16* q_w = q_s + warp * 16 * QS;
+  FastRows<NT> st;
+  st.m_a = st.m_b = neg_inf();
+  st.s_a = st.s_b = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) st.acc[n][0] = st.acc[n][1] = st.acc[n][2] = st.acc[n][3] = 0.f;
+
+  fast_pass<0, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  st.m_a = quad_max(st.m_a);
+  st.m_b = quad_max(st.m_b);
+  fast_pass<1, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  st.s_a = bf16_round(quad_sum(st.s_a));
+  st.s_b = bf16_round(quad_sum(st.s_b));
+  fast_pass<2, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
+}
+
+// Keys per tile and 8-channel n-tiles per output slice, by the padded width:
+// narrow heads take 64-key tiles and a slice as wide as the head; wide heads
+// 64-channel slices and shorter key tiles, to stay within shared memory.
+// K1 fast takes 32-key tiles at narrow heads too (launch_fast): its passes
+// keep more values live per logit, and shorter tiles fit more blocks on an SM.
+int key_tile(int CP) { return CP <= 128 ? 64 : (CP <= 512 ? 32 : 16); }
+int slice_tiles(int CP) { return CP <= 16 ? 2 : (CP <= 32 ? 4 : 8); }
+
+size_t smem_bytes(int C, int BK) {
+  const int CP = (C + 15) & ~15;
+  const int CS = 8 * slice_tiles(CP);
+  return sizeof(bf16) * ((size_t)(kTQ + 2 * BK) * (CP + 8) + 2 * (size_t)BK * (CS + 8));
+}
+
+constexpr size_t kMaxSmem = 227 * 1024;
+
+template <typename Kernel>
+cudaError_t launch_kernel(Kernel kern, int BK, const Args& a, cudaStream_t stream) {
+  const int CP = (a.C + 15) & ~15;
+  const int CS = 8 * slice_tiles(CP);
+  const long long blocks = (long long)((a.N + kTQ - 1) / kTQ) * a.R;
+  const int slices = (a.C + CS - 1) / CS;
+  if (blocks > 0x7fffffffLL || slices > 65535) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(a.C, BK);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3((unsigned)blocks, a.H, slices), kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool HAS_MASK>
+cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
+  const int CP = (a.C + 15) & ~15;
+  if (CP <= 16) return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 64, 2>, 64, a, stream);
+  if (CP <= 32) return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 64, 4>, 64, a, stream);
+  if (CP <= 128) return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 64, 8>, 64, a, stream);
+  if (CP <= 512) return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 32, 8>, 32, a, stream);
+  return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 16, 8>, 16, a, stream);
+}
+
+cudaError_t launch_fast(const Args& a, cudaStream_t stream) {
+  const int CP = (a.C + 15) & ~15;
+  if (CP <= 16) return launch_kernel(rows_attention_fast_mma_kernel<32, 2>, 32, a, stream);
+  if (CP <= 32) return launch_kernel(rows_attention_fast_mma_kernel<32, 4>, 32, a, stream);
+  if (CP <= 512) return launch_kernel(rows_attention_fast_mma_kernel<32, 8>, 32, a, stream);
+  return launch_kernel(rows_attention_fast_mma_kernel<16, 8>, 16, a, stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
+
+bool valid(const Args& a) {
+  const bool strides = a.qs.r % 8 == 0 && a.qs.n % 8 == 0 && a.qs.h % 8 == 0 &&
+                       a.ks.r % 8 == 0 && a.ks.n % 8 == 0 && a.ks.h % 8 == 0 &&
+                       a.vs.r % 8 == 0 && a.vs.n % 8 == 0 && a.vs.h % 8 == 0;
+  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % 8 == 0 && strides &&
+         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         smem_bytes(a.C, key_tile((a.C + 15) & ~15)) <= kMaxSmem;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2 on the tensor cores (bf16): attention with an additive bias and an
+// optional key mask. C a multiple of 8 up to the shared-memory bound.
+int prd_tiled_attention_mma(const void* q, const void* k, const void* v, const void* mask,
+                            const void* bias, void* out, int R, int N, int H, int C, float scale,
+                            long long q_sr, long long q_sn, long long q_sh, long long k_sr,
+                            long long k_sn, long long k_sh, long long v_sr, long long v_sn,
+                            long long v_sh, void* stream) {
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const float*>(mask),
+               static_cast<const bf16*>(bias), static_cast<bf16*>(out), R, N, H, C, scale,
+               {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
+  if (!valid(a) || bias == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(mask != nullptr ? launch_tiled<true>(a, s) : launch_tiled<false>(a, s));
+}
+
+// K1 fast on the tensor cores (bf16): masked attention without bias, the
+// softmax rounded as bf16. C a multiple of 8 up to the shared-memory bound.
+int prd_rows_attention_fast_mma(const void* q, const void* k, const void* v, const void* mask,
+                                void* out, int R, int N, int H, int C, float scale,
+                                long long q_sr, long long q_sn, long long q_sh, long long k_sr,
+                                long long k_sn, long long k_sh, long long v_sr, long long v_sn,
+                                long long v_sh, void* stream) {
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
+               static_cast<bf16*>(out), R, N, H, C, scale,
+               {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
+  if (!valid(a) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_fast(a, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,0 +1,103 @@
+// Tensor-core building blocks for the sm_90a kernels (attention_mma.cu):
+// cp.async staging, ldmatrix fragment loads and mma.sync m16n8k16 with bf16
+// operands and f32 accumulators, in inline PTX.
+//
+// Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
+// l of a warp with g = l / 4 and t = l % 4 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"):
+//   A (16 x 16, row-major), 4 registers of two bf16 each:
+//     a0 = A[g][2t..2t+1]   a1 = A[g+8][2t..2t+1]
+//     a2 = A[g][2t+8..]     a3 = A[g+8][2t+8..]
+//   B (16 x 8, k x n), 2 registers: b0 = B[2t..2t+1][g], b1 = B[2t+8..][g]
+//   C, D (16 x 8, f32), 4 registers: c0, c1 = C[g][2t], C[g][2t+1];
+//     c2, c3 = C[g+8][2t], C[g+8][2t+1]
+// So the D fragments of two neighbouring n-tiles of a product S = Q K^T are,
+// packed to bf16 pairs, the A fragment of P for the product P V over those
+// 16 keys (flash attention's register reuse).
+//
+// ldmatrix.x4 loads four 8 x 8 b16 matrices from shared memory, lane l giving
+// the address of row l % 8 of matrix l / 8 (16 bytes each, 16-byte aligned);
+// lane l receives row g, elements 2t and 2t + 1 of each matrix, or with .trans
+// the transposed element pair (rows 2t and 2t + 1 of column g).
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers; with ok false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most PENDING of this thread's committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += A B on the tensor cores: bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 and packed, lo in the low half (the lower column).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The A fragment of rows [0, 16) and columns [k0, k0 + 16) of a row-major
+// bf16 tile in shared memory with row stride ld (elements).
+__device__ __forceinline__ void load_a_frag(unsigned (&a)[4], const __nv_bfloat16* tile, int ld,
+                                            int k0, int lane) {
+  ldmatrix_x4(a, tile + (lane & 15) * ld + k0 + (lane >> 4) * 8);
+}
+
+// B fragments of S = A X^T for two n-tiles: X rows [n0, n0 + 16) (keys) and
+// columns [k0, k0 + 16) of a row-major bf16 tile with row stride ld. b[0], b[1]
+// serve n-tile n0, b[2], b[3] n-tile n0 + 8.
+__device__ __forceinline__ void load_bt_frags(unsigned (&b)[4], const __nv_bfloat16* tile, int ld,
+                                              int n0, int k0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + ((lane >> 4) << 3) + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// B fragments of O = P X for two n-tiles: X rows [k0, k0 + 16) (keys) and
+// columns [n0, n0 + 16) of a row-major bf16 tile with row stride ld. b[0], b[1]
+// serve columns n0..n0 + 7, b[2], b[3] columns n0 + 8..n0 + 15.
+__device__ __forceinline__ void load_b_frags(unsigned (&b)[4], const __nv_bfloat16* tile, int ld,
+                                             int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
+}  // namespace

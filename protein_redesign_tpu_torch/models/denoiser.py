@@ -9,6 +9,12 @@ symmetrised as 0.5 * (P + P^T) at the end.
 With ``cfg.remat`` and grad enabled, each FoldingBlock is checkpointed
 (`denoiser.py:665`'s ``nn.remat``): the backward recomputes the block's
 forward, launching its attention kernels a second time.
+
+``resolve_attention_plan`` is a copy of the JAX package's decision
+(`denoiser.py:470-617`). The Denoiser resolves it once per forward from the
+padded complex axis, as the JAX one does (:638), and hands ``use_pallas`` to
+every attention; the port reads it only for ``fast_softmax`` (see
+``ops.attention.gated_attention_core``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,73 @@ from ..ops.trimul import triangle_multiply
 from .layers import GatedAttention, LayerNorm, PRLinear, TransitionMLP, attention_core
 
 
+# --- copied from protein_redesign_tpu/models/denoiser.py (:470-617) ---------
+# The JAX attention plan, its thresholds measured on a TPU (v5e): the port
+# mirrors the decision, not its speed, because where it leaves Pallas the
+# fast_softmax flag computes another function (bf16 logits in XLA).
+PALLAS_TRAIN_MAX_N = 2048  # kernel ceiling for training (inclusive)
+PALLAS_INFER_MAX_N = 2048  # kernel ceiling for inference (inclusive)
+# From this size up, non-kernel plans chunk queries where the unchunked
+# logits would not fit (the port computes the same function unchunked).
+LONGCTX_CHUNK_MIN_N = 768
+
+
+def resolve_attention_plan(cfg: ModelConfig, n: int) -> Tuple[bool, int]:
+    """(use_pallas, attn_chunk) for a padded complex axis of n.
+
+    Explicit settings win: ``cfg.use_pallas`` forces the kernel,
+    ``cfg.attn_chunk`` forces query-chunked attention. Otherwise: plain XLA
+    below ``pallas_auto_min_n`` (384); the kernel for narrow heads
+    (head_dim < 32) at inference, and in training with ``use_pallas_bwd``,
+    up to the ceilings; for wide heads (head_dim >= 64) within their
+    measured range (training 384..512, or ..1024 single-head; inference
+    from 512, or 384 with the bf16 pair stream or several heads); heads of
+    32..63, sequence parallelism and training without ``use_pallas_bwd``
+    keep XLA; from 768 up, query chunks of 128 in training and where the
+    unchunked logits would pass ~4 GB."""
+    if cfg.use_pallas:
+        return True, 0
+    if cfg.attn_chunk > 0:
+        return False, cfg.attn_chunk
+    if cfg.pallas_auto_min_n <= 0:
+        return False, 0
+    inference = not cfg.training_mode and not cfg.sequence_parallel
+    trainable = (
+        cfg.training_mode
+        and cfg.use_pallas_bwd
+        and not cfg.sequence_parallel
+        and n <= PALLAS_TRAIN_MAX_N
+    )
+    ceiling = (PALLAS_INFER_MAX_N if inference else PALLAS_TRAIN_MAX_N) + 1
+    if (
+        (inference or trainable)
+        and cfg.head_dim < 32
+        and cfg.pallas_auto_min_n <= n < ceiling
+    ):
+        return True, 0
+    wide_infer_min = (
+        384 if (cfg.pair_stream_bf16 or cfg.num_heads > 1) else 512
+    )
+    wide_max_n = 1024 if cfg.num_heads == 1 else 512
+    if (
+        (inference or trainable)
+        and cfg.head_dim >= 64
+        and n <= wide_max_n
+        and n >= max(cfg.pallas_auto_min_n, wide_infer_min if inference else 384)
+    ):
+        return True, 0
+    if n >= LONGCTX_CHUNK_MIN_N:
+        chunk = 128 if n % 128 == 0 else 0
+        if cfg.training_mode or cfg.sequence_parallel:
+            return False, chunk
+        bpe = 2 if cfg.dtype == "bfloat16" else 4
+        logits_gb = cfg.num_heads * n**3 * bpe / 1e9  # B=1 heuristic
+        if logits_gb > 4.0:
+            return False, chunk
+    return False, 0
+# --- end of copy -------------------------------------------------------------
+
+
 class TriangleAttention(nn.Module):
     """Row-wise ('starting') or column-wise ('ending') attention over pair
     rows (`denoiser.py:44-75`)."""
@@ -41,11 +114,12 @@ class TriangleAttention(nn.Module):
         self.attn = GatedAttention(pair_dim, head_dim, num_heads, dtype, fused_gated=fused_gated,
                                    fast=fast, kernel_bwd=kernel_bwd)
 
-    def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor) -> torch.Tensor:
+    def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor,
+                use_pallas: bool = True) -> torch.Tensor:
         if self.mode == "ending":
             pair = pair.transpose(-2, -3)
             mask_2d = mask_2d.transpose(-1, -2)
-        out = self.attn(pair, mask_2d)
+        out = self.attn(pair, mask_2d, use_pallas=use_pallas)
         if self.mode == "ending":
             out = out.transpose(-2, -3)
         return out
@@ -141,12 +215,14 @@ class _SPAHeads(nn.Module):
 
 class SPAttention(nn.Module):
     """AF2 single attention with pair bias (`denoiser.py:254-314`): per-head
-    width single_dim, no padding mask, residual on the normed input."""
+    width single_dim, no padding mask, residual on the normed input.
+    ``fast`` (``cfg.fast_softmax``) and the plan's ``use_pallas`` go to the
+    attention, as the JAX module's ``fast_softmax`` and ``use_pallas`` do."""
 
     def __init__(self, single_dim: int, pair_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fast: bool = False):
         super().__init__()
-        self.single_dim, self.num_heads, self.dtype = single_dim, num_heads, dtype
+        self.single_dim, self.num_heads, self.dtype, self.fast = single_dim, num_heads, dtype, fast
         self.layer_norm_m = LayerNorm(single_dim, affine=True, dtype=dtype)
         self.linear_z = nn.Sequential(
             LayerNorm(pair_dim, affine=True, dtype=dtype),
@@ -154,7 +230,8 @@ class SPAttention(nn.Module):
         )
         self.mha = _SPAHeads(single_dim, num_heads, dtype)
 
-    def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor,
+                use_pallas: bool = True) -> torch.Tensor:
         del mask  # accepted but unused, as in the reference
         H, C = self.num_heads, self.single_dim
         m = self.layer_norm_m(single)
@@ -167,7 +244,7 @@ class SPAttention(nn.Module):
         k = heads(self.mha.linear_k(m))
         v = heads(self.mha.linear_v(m))
         g = torch.sigmoid(heads(self.mha.linear_g(m)))
-        o = attention_core(q, k, v, None, bias, 1.0).to(self.dtype)
+        o = attention_core(q, k, v, None, bias, 1.0, self.fast, use_pallas=use_pallas).to(self.dtype)
         o = (g * o).reshape(o.shape[:-2] + (H * C,))
         return m + self.mha.linear_o(o)
 
@@ -208,7 +285,8 @@ class FoldingBlock(nn.Module):
     ``use_pallas_outer`` outer_linear (K11), ``use_pallas_trimul`` both
     triangle multiplications (K9), ``use_pallas_fused_gated`` both triangle
     attentions (K8). ``fast`` and ``kernel_bwd`` (``cfg.fast_softmax`` and
-    ``cfg.use_pallas_bwd``, taken once by the Denoiser) go to the attentions."""
+    ``cfg.use_pallas_bwd``, taken once by the Denoiser) go to the attentions,
+    and so does the plan's ``use_pallas``, resolved once per forward."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, fast: bool = False,
                  kernel_bwd: bool = True):
@@ -237,17 +315,17 @@ class FoldingBlock(nn.Module):
         self.pair_fc = TransitionMLP(P, P * cfg.transition_factor, P, dtype=dtype,
                                      fused=transition)
 
-    def forward(self, single: torch.Tensor, pair: torch.Tensor,
-                mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor,
+                use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         mask_2d = mask[..., :, None] * mask[..., None, :]
         attn_bias = torch.movedim(self.attn_bias(pair), -1, -3)  # [..., H, i, j]
-        single = single + self.single_attn(single, mask, attn_bias)
+        single = single + self.single_attn(single, mask, attn_bias, use_pallas)
         single = single + self.single_fc(single)
         pair = pair + self.outer_linear(single)
         pair = pair + self.pair_mul_outgoing(pair, mask_2d)
         pair = pair + self.pair_mul_incoming(pair, mask_2d)
-        pair = pair + self.pair_attn_starting(pair, mask_2d)
-        pair = pair + self.pair_attn_ending(pair, mask_2d)
+        pair = pair + self.pair_attn_starting(pair, mask_2d, use_pallas)
+        pair = pair + self.pair_attn_ending(pair, mask_2d, use_pallas)
         pair = pair + self.pair_fc(pair)
         return single, pair
 
@@ -264,7 +342,8 @@ class Denoiser(nn.Module):
             cfg.single_dim, cfg.pair_dim, cfg.single_dim // 4,
             factored=cfg.outer_factored, dtype=dtype,
         )
-        self.SPAAttnBlock = SPAttention(cfg.single_dim, cfg.pair_dim, cfg.num_heads, dtype)
+        self.SPAAttnBlock = SPAttention(cfg.single_dim, cfg.pair_dim, cfg.num_heads, dtype,
+                                        fast=cfg.fast_softmax)
         # the attention flags, taken once (`denoiser.py:652, 677, 687`)
         fast, kernel_bwd = cfg.fast_softmax, cfg.use_pallas_bwd
         self.folding_blocks = nn.ModuleList(
@@ -273,16 +352,18 @@ class Denoiser(nn.Module):
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        use_pallas, _ = resolve_attention_plan(self.cfg, single.shape[-2])
         mask_2d = mask[..., :, None] * mask[..., None, :]
         pair = pair + mask_2d[..., None] * self.opm(single, mask)
-        single = self.SPAAttnBlock(single, pair, mask)
+        single = self.SPAAttnBlock(single, pair, mask, use_pallas)
         if self.cfg.pair_stream_bf16:
             pair = pair.to(torch.bfloat16)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.folding_blocks:
             if remat:
-                single, pair = checkpoint(block, single, pair, mask, use_reentrant=False)
+                single, pair = checkpoint(block, single, pair, mask, use_pallas,
+                                          use_reentrant=False)
             else:
-                single, pair = block(single, pair, mask)
+                single, pair = block(single, pair, mask, use_pallas)
         pair = pair.to(self.dtype)
         return single, 0.5 * (pair + pair.transpose(-2, -3))

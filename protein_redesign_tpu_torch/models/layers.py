@@ -177,10 +177,12 @@ def attention_core(
     scale: float,
     fast: bool = False,
     kernel_bwd: bool = True,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """Row-flatten the leading dims and run ``gated_attention_core``
     (`layers.py:276-324`); ``fast`` and ``kernel_bwd`` are
-    ``cfg.fast_softmax`` and ``cfg.use_pallas_bwd``."""
+    ``cfg.fast_softmax`` and ``cfg.use_pallas_bwd``, ``use_pallas`` the
+    attention plan's decision."""
     lead = query.shape[:-3]
     N, H, C = query.shape[-3:]
     R = math.prod(lead)
@@ -193,7 +195,7 @@ def attention_core(
     biasf = None
     if attn_bias is not None:
         biasf = torch.broadcast_to(attn_bias, lead + (H, N, N)).reshape(R, H, N, N)
-    out = gated_attention_core(qf, kf, vf, maskf, biasf, scale, fast, kernel_bwd)
+    out = gated_attention_core(qf, kf, vf, maskf, biasf, scale, fast, kernel_bwd, use_pallas)
     return out.reshape(lead + (N, H, C))
 
 
@@ -204,9 +206,12 @@ class GatedAttention(nn.Module):
     ``fused_gated`` (``cfg.use_pallas_fused_gated``): with a mask, no bias and
     N < ROWS_KCHUNK_MIN_N, the whole module runs as one kernel (K8,
     ``fused_gated_rows_attention``) on the same parameters, as the JAX
-    module's fused path does (`layers.py:359-403`); the port has no
-    attention-plan size gates, so it engages at every such N. ``fast`` and
-    ``kernel_bwd`` go to ``gated_attention_core`` (K8 ignores them)."""
+    module's fused path does (`layers.py:359-403`). The port reads the
+    attention plan only for ``fast``, so K8 engages at every such N, except
+    where the plan leaves Pallas (``use_pallas`` False) with ``fast`` on in
+    a bf16 model: the JAX module computes the bf16-logit attention there.
+    ``fast``, ``kernel_bwd`` and ``use_pallas`` go to ``gated_attention_core``
+    (K8 ignores them)."""
 
     def __init__(self, dim: int, head_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, fused_gated: bool = False,
@@ -223,9 +228,11 @@ class GatedAttention(nn.Module):
         self.out_proj = PRLinear(hc, dim, init="final", dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_bias: Optional[torch.Tensor] = None,
+                use_pallas: bool = True) -> torch.Tensor:
         H, C = self.num_heads, self.head_dim
-        if (self.fused_gated and attn_bias is None and mask is not None
+        bf16_logits = self.fast and not use_pallas and self.dtype == torch.bfloat16
+        if (self.fused_gated and not bf16_logits and attn_bias is None and mask is not None
                 and x.shape[-2] < ROWS_KCHUNK_MIN_N):
             return fused_gated_rows_attention(
                 x.to(self.dtype), mask, self.q_proj.weight, self.k_proj.weight,
@@ -240,7 +247,8 @@ class GatedAttention(nn.Module):
         query, key, value = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
         gate = torch.sigmoid(heads(self.gate_proj(x)))
         out = attention_core(
-            query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast, self.kernel_bwd
+            query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast, self.kernel_bwd,
+            use_pallas,
         ).to(self.dtype)
         out = gate * out
         return self.out_proj(out.reshape(out.shape[:-2] + (H * C,)))

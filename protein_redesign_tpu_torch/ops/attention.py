@@ -15,6 +15,11 @@ kernels the denoiser's main path runs:
 - ``tiled_attention`` (K2) <- ``_tiled_attention_impl`` / ``_attn_kernel`` /
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
+
+K2 and K1 fast have two bodies: on bf16 inputs with C a multiple of 8 a
+tensor-core one (``attention_mma.cu``: mma.sync, ldmatrix, cp.async), else
+the CUDA-core one of ``attention.cu`` (f32, where TF32 would break the 1e-5
+parity).
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -58,10 +63,12 @@ dO through their strides (head dimension contiguous, so the swapped "ending"
 triangle layout needs no copy); the wrapper makes the mask (f32) and the bias
 contiguous.
 
-The port's attention plan has no size gates yet (those of the JAX
-package's ``resolve_attention_plan``, ``protein_redesign_tpu/models/
-denoiser.py:497``, were measured on a TPU): every model attention goes
-through ``gated_attention_core`` to the kernel wrappers. Inside
+The port reads the JAX package's attention plan (``resolve_attention_plan``,
+copied into ``models/denoiser.py``) only where it changes the function:
+with ``fast_softmax`` on, where the plan leaves Pallas, a bf16 model's
+attentions compute ``attention_reference_fast`` (plain tensor ops, as the
+JAX package computes them in XLA). Everywhere else every model attention
+goes through ``gated_attention_core`` to the kernel wrappers, at every N. Inside
 ``plain_route()`` it runs the plain versions on any device instead: autograd
 of ``attention_reference`` below the switch, and the plain K3, K5 and K6 at
 or above it (their memory is O(N * chunk), where autograd of the reference
@@ -79,11 +86,14 @@ from typing import Dict, Iterator, Optional
 import torch
 
 NEG_INF = -(2.0**15)  # the reference's padding fill (`pallas_attention.py:33`)
-MAX_HEAD_DIM = 512
+MAX_HEAD_DIM = 512  # the CUDA-core bodies: C / 32 accumulators per lane and query
+# The tensor-core bodies of K2 and K1 fast (attention_mma.cu, bf16, C a
+# multiple of 8): 64 queries and two K and V tiles per block in shared memory.
+MMA_SMEM_BYTES = 227 * 1024
 MAX_HEADS = 65535  # grid.y
 # One block per (row, 16-query tile) at most, in grid.x's 2^31 - 1 blocks.
 MIN_QUERY_TILE, MAX_BLOCKS = 16, 2**31 - 1
-MAX_BWD_HEAD_DIM = 32  # K7 keeps a row's vectors in registers
+MAX_BWD_HEAD_DIM = 128  # K7: rows in registers to C = 32, then 4 x C / 32 accumulators per lane
 MAX_KCHUNK_HEAD_DIM = 128  # K3, K5, K6: 4 x C / 32 accumulators per lane
 
 # The K-chunk switch points and chunk target of the JAX package
@@ -183,6 +193,32 @@ def attention_reference(
     if bias is not None:
         logits = logits + bias.float()
     probs = masked_softmax(logits, None if mask is None else mask[:, None, None, :])
+    out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def attention_reference_fast(q, k, v, mask: Optional[torch.Tensor],
+                             bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """The bf16-logit attention: ``_attention_reference(..., fast_softmax=True)``
+    (`pallas_attention.py:1242-1261`), the function the JAX package evaluates
+    in XLA wherever its attention plan leaves Pallas and ``cfg.fast_softmax``
+    is on. Every step runs in q's dtype: the logits gemm of the pre-scaled q
+    (f32 sums, rounded once), the bias added, the -2^15 fill, then max, exp
+    and the division, the sum accumulated in f32 and rounded; P cast to v's
+    dtype and P.V accumulated in f32. For f32 inputs this is
+    ``attention_reference``'s function. Plain tensor ops on any device, and
+    differentiable by autograd, as JAX differentiates the same function
+    there. Where the JAX plan also chunks queries (``attn_chunk``, N >= 768)
+    this computes the same function unchunked."""
+    dt = q.dtype
+    qs = q * weak_scalar(scale, dt)
+    logits = torch.einsum("rihc,rjhc->rhij", qs.float(), k.float()).to(dt)
+    if bias is not None:
+        logits = logits + bias.to(dt)
+    if mask is not None:
+        logits = logits.masked_fill(mask[:, None, None, :] < 0.5, NEG_INF)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e / e.float().sum(-1, keepdim=True).to(dt)
     out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
@@ -347,7 +383,33 @@ def rows_attention_kchunk_bwd_reference(q, k, v, mask, dout, out, m, logs, scale
     return dq * w, dk, dv
 
 
-def _check(q, k, v, mask, bias) -> None:
+def mma_smem_bytes(C: int) -> int:
+    """Shared memory of a tensor-core block (``smem_bytes`` in attention_mma.cu):
+    64 query rows and two tiles of BK keys of the padded width CP = C rounded
+    up to 16, plus two V tiles of the CS-channel output slice, in bf16."""
+    cp = -(-C // 16) * 16
+    bk = 64 if cp <= 128 else (32 if cp <= 512 else 16)
+    cs = 16 if cp <= 16 else (32 if cp <= 32 else 64)
+    return 2 * ((64 + 2 * bk) * (cp + 8) + 2 * bk * (cs + 8))
+
+
+def _takes_mma(name: str, q: torch.Tensor) -> bool:
+    """K2 and K1 fast run their tensor-core body on bf16 inputs whose head
+    width is a multiple of 8 (an mma operand row is 8 bf16), else the
+    CUDA-core body; K1 keeps its CUDA-core body."""
+    return (name != "rows_attention" and q.dtype == torch.bfloat16 and q.dim() == 4
+            and q.shape[-1] % 8 == 0)
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if every [.., C] row starts on 16 bytes (cp.async and 16-byte
+    loads), else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+        return t
+    return t.contiguous() if not t.is_contiguous() else t.clone()
+
+
+def _check(q, k, v, mask, bias, mma: bool = False) -> None:
     if q.dim() != 4:
         raise ValueError(f"q must be [R, N, H, C], got {tuple(q.shape)}")
     R, N, H, C = q.shape
@@ -373,7 +435,11 @@ def _check(q, k, v, mask, bias) -> None:
     for name, t in (("k", k), ("v", v), ("bias", bias)):
         if t is not None and t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-    if not (0 < C <= MAX_HEAD_DIM and C % 4 == 0):
+    if mma:
+        if not (0 < C and C % 8 == 0 and mma_smem_bytes(C) <= MMA_SMEM_BYTES):
+            raise ValueError(f"head width {C} unsupported by the tensor-core body: need a "
+                             f"multiple of 8 whose tiles fit {MMA_SMEM_BYTES} bytes")
+    elif not (0 < C <= MAX_HEAD_DIM and C % 4 == 0):
         raise ValueError(f"head width {C} unsupported: need a multiple of 4 up to {MAX_HEAD_DIM}")
     if R == 0 or N == 0 or H == 0:
         raise ValueError(f"empty attention: R={R}, N={N}, H={H}")
@@ -384,22 +450,36 @@ def _check(q, k, v, mask, bias) -> None:
             raise ValueError(f"{name} must be contiguous along the head dimension")
 
 
-def _launch(name: str, q, k, v, mask, bias, scale: float) -> torch.Tensor:
+def _launch(name: str, q, k, v, mask, bias, scale: float,
+            mma: Optional[bool] = None) -> torch.Tensor:
+    """Launch K1, K1 fast or K2 (``name``); ``mma`` None picks the body by
+    ``_takes_mma``, False forces the CUDA-core body."""
     from ..kernels import build
 
-    _check(q, k, v, mask, bias)
+    mma = _takes_mma(name, q) if mma is None else mma
+    _check(q, k, v, mask, bias, mma)
     lib = build()
     R, N, H, C = q.shape
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
     if bias is not None:
         bias = bias.contiguous()
+    if mma:
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
     out = torch.empty((R, N, H, C), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        common = (_DTYPE_CODES[q.dtype], R, N, H, C, weak_scalar(scale, q.dtype), *strides, stream)
-        if name != "tiled_attention":  # K1 or K1 fast
+        w = weak_scalar(scale, q.dtype)
+        common = (_DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream)
+        if mma:
+            fn = getattr(lib.lib, f"prd_{name}_mma")
+            tensors = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       None if mask is None else mask.data_ptr()]
+            if name == "tiled_attention":
+                tensors.append(bias.data_ptr())
+            code = fn(*tensors, out.data_ptr(), R, N, H, C, w, *strides, stream)
+        elif name != "tiled_attention":  # K1 or K1 fast
             code = getattr(lib.lib, f"prd_{name}")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                 *common,
@@ -525,9 +605,19 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"attention runs on cpu or cuda tensors, got {device}")
 
 
+def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool) -> torch.Tensor:
+    """One launch of K2 (``name`` "tiled_attention") or K1 fast
+    ("rows_attention_fast") on CUDA tensors through the body ``mma`` names,
+    without autograd: in bf16 the CUDA-core body (``mma`` False), which the
+    tensor-core one replaced, stays callable only to time the two side by
+    side."""
+    return _launch(name, q, k, v, mask, bias, scale, mma=mma)
+
+
 def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """K1 fast: ``rows_attention_fast_reference``'s function; the plain
-    version for CPU tensors, the kernel for CUDA ones (same bounds as K1).
+    version for CPU tensors, the kernel for CUDA ones: the tensor-core body
+    in bf16 with C a multiple of 8, else the CUDA-core body (C <= 512).
     Forward only: its callers differentiate the f32 reference instead."""
     if mask is None:
         raise ValueError("rows_attention_fast needs a key mask")
@@ -680,8 +770,10 @@ def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
 
 def tiled_attention(q, k, v, mask: Optional[torch.Tensor], bias: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N].
-    Differentiable: the backward is the plain recompute."""
+    """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N];
+    on CUDA the tensor-core body in bf16 with C a multiple of 8 (any C
+    whose tiles fit shared memory, up to 1168), else the CUDA-core body
+    (C <= 512). Differentiable: the backward is the plain recompute."""
     if bias is None:
         raise ValueError("tiled_attention needs a bias; masked attention without one "
                          "is rows_attention's")
@@ -836,13 +928,23 @@ def plain_route() -> Iterator[None]:
 
 
 def gated_attention_core(q, k, v, mask, bias, scale: float, fast: bool = False,
-                         kernel_bwd: bool = True) -> torch.Tensor:
+                         kernel_bwd: bool = True, use_pallas: bool = True) -> torch.Tensor:
     """Every model attention: the kernel route, or the plain version inside
     ``plain_route()`` (in the K-chunk regime, and with ``kernel_bwd`` off,
     through the autograd Functions, which read the block themselves); inputs
-    row-flattened as above. ``kernel_bwd`` (``cfg.use_pallas_bwd``) off sends
-    masked attention without a bias through ``_RowsAttentionPlainVjp``, and
-    only there does ``fast`` (``cfg.fast_softmax``) select K1 fast."""
+    row-flattened as above. ``use_pallas`` is the attention plan's decision
+    (``models.denoiser.resolve_attention_plan``); the port reads it only for
+    ``fast`` (``cfg.fast_softmax``), where it changes the function. Where
+    the plan leaves Pallas, ``fast`` computes ``attention_reference_fast``
+    on bf16 inputs, every attention alike, and nothing else on f32 inputs,
+    as the JAX ``_attention_reference`` does. Under the Pallas plan
+    ``kernel_bwd`` (``cfg.use_pallas_bwd``) off sends masked attention
+    without a bias through ``_RowsAttentionPlainVjp``, and only there does
+    ``fast`` select K1 fast."""
+    if fast and not use_pallas:
+        if q.dtype == torch.bfloat16:
+            return attention_reference_fast(q, k, v, mask, bias, scale)
+        fast = False  # f32: the flag leaves the function as it is
     rows = bias is None and mask is not None
     if rows and not kernel_bwd:
         return _RowsAttentionPlainVjp.apply(q, k, v, mask, scale, fast)

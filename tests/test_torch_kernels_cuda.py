@@ -145,8 +145,8 @@ def test_rows_fast_strided_operands(device):
 
 def test_wrapper_rejects(device):
     q, k, v, mask, bias = _inputs(2, 16, 2, 8, torch.float32, device)
-    with pytest.raises(ValueError):  # K7 keeps a row in registers: C <= 32
-        wide_q = torch.zeros(2, 16, 1, 64, device=device)
+    with pytest.raises(ValueError):  # K7: 4 x C / 32 accumulators per lane, C <= 128
+        wide_q = torch.zeros(2, 16, 1, 132, device=device)
         A.rows_attention_bwd(wide_q, wide_q, wide_q, mask, wide_q, 0.5)
     with pytest.raises(ValueError):
         A.rows_attention(q, k, v, mask.cpu(), 0.5)
@@ -188,14 +188,15 @@ def test_denoiser_kernel_route_matches_plain(device):
 
 
 def test_denoiser_fast_route_matches_plain(device):
-    """fast_softmax with use_pallas_bwd off: both triangle attentions of each
-    block take K1 fast, in the forward and under autograd, and no K7 runs
-    (the backward is the plain VJP)."""
+    """fast_softmax with use_pallas_bwd off under the Pallas plan
+    (use_pallas, as the JAX plan at N >= 384): both triangle attentions of
+    each block take K1 fast, in the forward and under autograd, and no K7
+    runs (the backward is the plain VJP)."""
     from protein_redesign_tpu_torch.config import ModelConfig
     from protein_redesign_tpu_torch.models.denoiser import Denoiser
 
     cfg = ModelConfig(single_dim=32, pair_dim=16, head_dim=8, num_heads=2, num_blocks=2,
-                      dtype="bfloat16", fast_softmax=True, use_pallas_bwd=False)
+                      dtype="bfloat16", fast_softmax=True, use_pallas_bwd=False, use_pallas=True)
     torch.manual_seed(0)
     mod = Denoiser(cfg).to(device)
     with torch.no_grad():
@@ -232,7 +233,7 @@ def _assert_grads_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N", [16, 45, 192])
-@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("C", [8, 16, 32, 48, 64, 128])
 def test_rows_bwd_kernel_matches_plain(device, dtype, N, C):
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, seed=5, masked_rows=2)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(device, dtype)
@@ -679,3 +680,156 @@ def test_denoiser_fused_route_matches_plain(device):
         assert _rel(a, b) <= 1e-5
     kernel, plain = grads
     assert float((kernel - plain).norm() / plain.norm()) <= 1e-5
+
+
+# The tensor-core bodies of K2 and K1 fast (attention_mma.cu), bf16 only:
+# K2's online softmax rounds p against the running max where the plain
+# version rounds the normalised probabilities, and both sum the logits in
+# another order than the einsum, so 2e-2 as every bf16 kernel here.
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask_bias", "bias"])
+@pytest.mark.parametrize("N", [1, 33, 147, 192, 520])
+@pytest.mark.parametrize("C", [16, 64, 512, 640])
+def test_tiled_mma_matches_plain(device, with_mask, N, C):
+    q, k, v, mask, bias = _inputs(2, N, 4, C, torch.bfloat16, device, seed=30, masked_rows=1)
+    m = mask if with_mask else None
+    before = A.LAUNCHES["tiled_attention"]
+    out = A.tiled_attention(q, k, v, m, bias, 1.0 / C ** 0.5)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["tiled_attention"] == before + 1
+    ref = A.attention_reference(q, k, v, m, bias, 1.0 / C ** 0.5)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    if with_mask:  # row 0 masks every key: the mean of v
+        mean_v = v[:1].float().mean(1, keepdim=True).expand_as(out[:1])
+        torch.testing.assert_close(out[:1].float(), mean_v, atol=2e-2, rtol=2e-2)
+
+
+def test_tiled_mma_strided_and_many_rows(device):
+    """K2's tensor-core body on the 'ending' layout (k and v read through
+    strides) and with R = 70000 rows (above grid.y and grid.z's 65535)."""
+    N, H, C = 40, 4, 16
+    q, k, v, mask, bias = _inputs(N, N, H, C, torch.bfloat16, device, seed=31, masked_rows=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))
+    assert not kt.is_contiguous()
+    out = A.tiled_attention(qt, kt, vt, mask, bias, 0.25)
+    ref = A.attention_reference(qt.contiguous(), kt.contiguous(), vt.contiguous(), mask, bias,
+                                0.25)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    q, k, v, mask, bias = _inputs(70000, 20, 1, 8, torch.bfloat16, device, seed=32)
+    out = A.tiled_attention(q, k, v, mask, bias, 0.5)
+    ref = A.attention_reference(q, k, v, mask, bias, 0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_tiled_f32_and_cuda_core_body(device):
+    """f32 K2 keeps its CUDA-core body at 1e-5; the bf16 CUDA-core body,
+    kept for timing against the tensor-core one, still matches."""
+    q, k, v, mask, bias = _inputs(2, 70, 4, 16, torch.float32, device, seed=33)
+    out = A.tiled_attention(q, k, v, mask, bias, 0.25)
+    ref = A.attention_reference(q, k, v, mask, bias, 0.25)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    qb, kb, vb, bb = (t.to(torch.bfloat16) for t in (q, k, v, bias))
+    for name, b in (("tiled_attention", bb), ("rows_attention_fast", None)):
+        got = A.attention_body(name, qb, kb, vb, mask, b, 0.25, mma=False)
+        want = (A.attention_reference(qb, kb, vb, mask, b, 0.25) if b is not None
+                else A.rows_attention_fast_reference(qb, kb, vb, mask, 0.25))
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    wide = torch.zeros(2, 16, 1, 1176, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # the tiles of C = 1176 exceed shared memory
+        A.tiled_attention(wide, wide, wide, None,
+                          torch.zeros(2, 1, 16, 16, device=device, dtype=torch.bfloat16), 1.0)
+
+
+@pytest.mark.parametrize("N", [192, 384])
+def test_rows_fast_mma_matches_plain(device, N):
+    """K1 fast's tensor-core body at the serving buckets (R = 2N, H = 4, C =
+    16, padded rows fully masked): the same rounding points as the plain
+    version, the logits summed in another order, so a bf16 rounding flips
+    now and then: 2e-2, and the flips stay rare."""
+    q, k, v, mask, _ = _inputs(2 * N, N, 4, 16, torch.bfloat16, device, seed=34, masked_rows=3)
+    q = 3.0 * q
+    before = A.LAUNCHES["rows_attention_fast"]
+    out = A.rows_attention_fast(q, k, v, mask, 0.25)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["rows_attention_fast"] == before + 1
+    ref = A.rows_attention_fast_reference(q, k, v, mask, 0.25)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert float((out != ref).float().mean()) < 0.05
+    wide = A.rows_attention_fast(q[:8].repeat(1, 1, 1, 8), k[:8].repeat(1, 1, 1, 8),
+                                 v[:8].repeat(1, 1, 1, 8), mask[:8], 0.1)  # C = 128
+    want = A.rows_attention_fast_reference(q[:8].repeat(1, 1, 1, 8), k[:8].repeat(1, 1, 1, 8),
+                                           v[:8].repeat(1, 1, 1, 8), mask[:8], 0.1)
+    torch.testing.assert_close(wide.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _paper_denoiser(device, **fields):
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.denoiser import Denoiser
+
+    cfg = ModelConfig(**fields)
+    torch.manual_seed(0)
+    mod = Denoiser(cfg).to(device)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.add_(0.5 / p.shape[-1] ** 0.5 * torch.randn_like(p) if p.dim() == 2
+                   else 0.1 * torch.randn_like(p))
+    return mod, cfg
+
+
+def _trunk_inputs(cfg, N, n_valid, device, B=2):
+    g = torch.Generator(device="cpu").manual_seed(N)
+    single = torch.randn(B, N, cfg.single_dim, generator=g).to(device)
+    pair = torch.randn(B, N, N, cfg.pair_dim, generator=g).to(device)
+    mask = (torch.arange(N) < n_valid).float().expand(B, N).to(device)
+    return single, pair, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N,n_valid", [(192, 147), (384, 360)])
+def test_h64x1_train_step_matches_plain(device, dtype, N, n_valid):
+    """An h64x1 training step of the trunk (paper widths, 4 blocks, remat),
+    kernel route against plain route: K1 and K7 at C = 64, under the whole
+    gradient gates of PERF.md section 2 (f32 5e-4, bf16 5e-2)."""
+    mod, cfg = _paper_denoiser(device, head_dim=64, num_heads=1, num_blocks=4, dtype=dtype,
+                               training_mode=True, remat=True)
+    single, pair, mask = _trunk_inputs(cfg, N, n_valid, device)
+    grads = []
+    for plain in (False, True):
+        mod.zero_grad()
+        A.reset_launch_counts()
+        with A.plain_route() if plain else torch.enable_grad():
+            s, p = mod(single, pair, mask)
+            (s.float().square().mean() + p.float().square().mean()).backward()
+        if not plain:
+            assert A.LAUNCHES == _launches(rows_attention=16, rows_attention_bwd=8,
+                                           tiled_attention=9)
+        grads.append(torch.cat([q.grad.flatten().float() for q in mod.parameters()]))
+    kernel, plain = grads
+    assert torch.isfinite(kernel).all()
+    rel = float((kernel - plain).norm() / plain.norm())
+    assert rel <= (5e-4 if dtype == "float32" else 5e-2), rel
+
+
+@pytest.mark.parametrize("N,use_pallas_bwd,launches", [
+    (192, False, {}), (192, True, {}),
+    (384, False, {"rows_attention_fast": 24, "tiled_attention": 13}),
+])
+def test_fast_plan_routes_on_the_card(device, N, use_pallas_bwd, launches):
+    """The attention plan with fast_softmax on, at paper width in bf16 (B =
+    2): at bucket 192 the JAX plan takes XLA, so every attention computes
+    the bf16-logit attention and no K1 fast or K2 launches; at 384 (Pallas,
+    inference, use_pallas_bwd off) the 24 triangle attentions take K1 fast
+    and the 13 others K2. Against the plain route at 2e-2 relative norm."""
+    mod, cfg = _paper_denoiser(device, dtype="bfloat16", fast_softmax=True,
+                               use_pallas_bwd=use_pallas_bwd)
+    single, pair, mask = _trunk_inputs(cfg, N, N - 30, device)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        got = mod(single, pair, mask)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES == _launches(**launches)
+        with A.plain_route():
+            want = mod(single, pair, mask)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= 2e-2

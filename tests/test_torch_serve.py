@@ -161,13 +161,26 @@ def test_serve_trajectory_request(ckpt, tmp_path):
 
 def test_serve_ddim_fast_softmax(ckpt, tmp_path, monkeypatch):
     """--sampler ddim with --fast_softmax on a use_pallas_bwd-false
-    checkpoint: every DDIM step's triangle attentions take K1 fast."""
+    checkpoint whose attention plan takes Pallas at the request's bucket
+    (pallas_auto_min_n 16): every DDIM step's triangle attentions take K1
+    fast. At the default pallas_auto_min_n (384) the plan takes XLA there,
+    and the f32 model computes its attentions as without the flag."""
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.utils.weights import save_checkpoint
+
     calls = []
     real = A.rows_attention_fast_reference
     monkeypatch.setattr(A, "rows_attention_fast_reference",
                         lambda *a: calls.append(1) or real(*a))
-    (resp,) = _serve(ckpt, tmp_path, [{**REQ, "id": "d", "seed": 5}], "--num_steps", "8",
-                     "--sampler", "ddim", "--ddim_steps", "2", "--eta", "1.0", "--fast_softmax")
+    flags = ("--num_steps", "8", "--sampler", "ddim", "--ddim_steps", "2", "--eta", "1.0",
+             "--fast_softmax")
+    (resp,) = _serve(ckpt, tmp_path, [{**REQ, "id": "x", "seed": 5}], *flags)
+    assert len(resp["sequences"]) == 1 and "error" not in resp
+    assert not calls
+    cfg = TINY.replace(use_pallas_bwd=False, pallas_auto_min_n=16)
+    torch.manual_seed(0)
+    save_checkpoint(tmp_path / "pallas", ProteinReDiffNet(cfg).state_dict(), cfg)
+    (resp,) = _serve(tmp_path / "pallas", tmp_path, [{**REQ, "id": "d", "seed": 5}], *flags)
     assert len(resp["sequences"]) == 1 and "error" not in resp
     assert len(calls) == 2 * 2 * TINY.num_blocks  # steps x triangle attentions
 
