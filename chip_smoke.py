@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    protein_redesign_tpu_torch/kernels/_build; prints the build time.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
-   of both from CUDA events; in bf16 K2 runs its tensor-core body
-   (attention_mma.cu), timed beside its CUDA-core body, at C = 16 and at
-   SPAttention's C = 512, with SDPA and the bound at both.
+   of both from CUDA events; in bf16 K1 and K2 run their tensor-core bodies
+   (attention_mma.cu), each timed beside its CUDA-core body (CUDA events and
+   device time), K2 at C = 16 and at SPAttention's C = 512, with SDPA and the
+   bound (K1 at both buckets).
 4. Whole forward: ProteinReDiffNet at paper width (ModelConfig(), bf16)
    with seeded, perturbed weights, B=2 at bucket 192, kernel route against
    plain route, and exactly 24 rows-kernel and 13 tiled-kernel launches per
@@ -45,7 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and at 1024 in f32 (R = 1024), K6 at 1024 in f32, each against its plain
    version on the same inputs (the plain versions take rows in blocks, so
    their memory stays bounded), with the kernel's time, its bound and the
-   library call's time.
+   library call's time; K3 in bf16 runs its tensor-core body, timed beside
+   its CUDA-core body, and the bf16 outputs are held to TOL_BF16 of each
+   element plus TOL_BF16 of the output's RMS.
 10. Generation at 2048: the generate CLI at bucket 2048, bf16, B=1, a seeded
    2000-residue sequence and imatinib, 3 DDPM steps: s/step, peak memory,
    finite outputs, exactly 24 K3, 13 K2 and no K1 launch per forward.
@@ -60,9 +63,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. Fused kernels vs plain: K8 (fused gated triangle attention, starting and
    ending view), K9 (triangle multiplication, both modes), K10 (transition,
    single_fc and pair_fc) and K11 (OuterLinear) against their plain versions
-   at bucket 192, B=2 (147 nodes valid), in f32 and bf16, with the kernel's,
-   the plain version's and the unfused module route's bf16 time and the
-   kernel's bound.
+   at bucket 192, B=2 (147 nodes valid), in f32 and bf16 (and bf16 at pair
+   width 128), with the kernel's, the plain version's and the unfused module
+   route's time and the kernel's bound.
 14. The fused configuration (the four switches use_pallas_{trimul,transition,
    outer,fused_gated} on): the paper-width bf16 forward at bucket 192, B=2,
    kernel route against plain route, exactly 24 K8, 24 K9, 24 K10, 12 K11,
@@ -92,6 +95,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    one request to the serve CLI in TCP mode (--port 0) in a process of its
    own; the paper-width fast forward at 192 and 384 against its plain
    route, by kernel group.
+16. Wide configurations: two configurations past the kernels' former bounds
+   (the four switches at AlphaFold2's pair_dim 128 in bf16: K8, K9 and K11
+   at D = 128; f32 with single_dim 768: K2's CUDA-core body at C = 768), 2
+   blocks, the forward at bucket 192, B=2: exact launch counts of every
+   kernel, against the plain route, and both routes' forward time.
 
 Each main path (phases 5, 8, 10, 12's train CLI, 14's generate and train
 CLIs and 15's train and serve CLIs) runs with every launch count set to 0
@@ -99,8 +107,8 @@ just before it and read just after. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype and the bytes moved once over 3.35 TB/s.
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+The last three lines of standard output are the kernels' JSON record, the
+card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -137,12 +145,12 @@ SEQUENCE = (  # the first 110 residues of T4 lysozyme
 LIGAND = "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1"  # imatinib
 STEPS = 64
 CSRC = "protein_redesign_tpu_torch/kernels/csrc/"
-# K2 and K1 fast run their tensor-core bodies on the (bf16) main path
-SOURCES = {"rows_attention": CSRC + "attention.cu",
+# K1, K1 fast, K2 and K3 run their tensor-core bodies on the (bf16) main path
+SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "rows_attention_fast": CSRC + "attention_mma.cu",
            "tiled_attention": CSRC + "attention_mma.cu",
            "rows_attention_bwd": CSRC + "attention_bwd.cu",
-           "rows_attention_kchunk": CSRC + "attention_kchunk.cu",
+           "rows_attention_kchunk": CSRC + "attention_mma.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_kchunk.cu",
            "rows_attention_kchunk_bwd": CSRC + "attention_kchunk_bwd.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated.cu",
@@ -235,6 +243,13 @@ def forward_launches(cfg, remat: bool = False, kchunk: bool = False, n: int = 19
     return launch_record(**counts)
 
 
+def main_path_launches() -> dict:
+    """The launch counts of the main path just run."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    return dict(A.LAUNCHES)
+
+
 def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     for _ in range(warmup):
         fn()
@@ -248,33 +263,37 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 3):
-    """ms of device time per call of ``fn``, summed over the kernels it
-    launches (torch.profiler): the kernel alone, without the host's launch
-    path, which bounds a small kernel's CUDA-event time. None where the
-    profiler recorded no device time."""
+def device_ms(fn, iters: int = 3) -> float:
+    """ms of device time per call of ``fn``: CUDA events around ``iters``
+    calls queued behind a spin on the card (``torch.cuda._sleep``, ~0.05 s),
+    so that the events time the kernels back to back and not the host's
+    launch path, which bounds a small kernel's CUDA-event time. (A short
+    torch.profiler window loses kernels once the process has run a while:
+    K1 at 192 read 0.079, 0.052, 0.026 ms, then nothing, through phase 7.)"""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3 if us else None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def body_times(name, q, k, v, mask, bias, scale) -> str:
-    """K2's or K1 fast's two bodies on the same bf16 inputs, each one launch
-    without autograd: CUDA-event ms per call and device ms per call."""
+    """The two bodies of K1, K1 fast, K2 or K3 on the same bf16 inputs, each
+    one launch without autograd: CUDA-event ms per call and device ms per
+    call."""
     from protein_redesign_tpu_torch.ops import attention as A
 
+    iters = 2 if name == "rows_attention_kchunk" else 10  # its CUDA-core body: ~0.45 s a call
     parts = []
     for mma, label in ((True, "tensor-core"), (False, "CUDA-core")):
-        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma)  # noqa: E731
-        dev = device_ms(fn)
-        dev = "not measured" if dev is None else f"{dev:.4f} ms"
-        parts.append(f"{label} body {cuda_ms(fn):.4f} ms, on the device {dev}")
+        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma=mma)  # noqa: E731
+        parts.append(f"{label} body {cuda_ms(fn, 1, iters):.4f} ms, on the device "
+                     f"{device_ms(fn, min(iters, 3)):.4f} ms")
     return "; ".join(parts)
 
 
@@ -379,9 +398,9 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
 def phase_kernels() -> dict:
     """K1 and K2 against their plain version at buckets 192 and 512, in f32
     and bf16 (K2 at C = 16, the single attention, and C = 512, SPAttention).
-    In bf16, K2 runs its tensor-core body; its CUDA-core body (f32's, kept
-    for this comparison) is timed on the same inputs, with SDPA and the
-    bound at both widths."""
+    In bf16, K1 and K2 run their tensor-core bodies; their CUDA-core bodies
+    (f32's, kept for this comparison) are timed on the same inputs, with
+    SDPA and the bound (K1 at both buckets, K2 at 192 at both widths)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     cases = []
@@ -411,21 +430,21 @@ def phase_kernels() -> dict:
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         label = str(dtype).replace("torch.", "")
         body = ""
-        if name == "tiled_attention" and dtype == torch.bfloat16:
+        if dtype == torch.bfloat16:
             body = f" (tensor cores; {body_times(name, q, k, v, mask, bias, scale)})"
         print(f"[kernels] {name} R={R} H=4 N={N} C={C} {label} mask={with_mask} "
               f"bias={with_bias}: max_abs_err {err:.3e} (tol {tol:g}); "
               f"kernel {ms:.4f} ms{body}, plain {plain_ms:.4f} ms")
         rec = record[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if N == 192 and dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and (N == 192 or name == "rows_attention"):
             at = attention_bound(q, mask, bias, products=2, operands=4)
             lib_ms = library_ms(q, k, v, mask, bias, scale)
             # the JSON record carries the main path's own shape: bucket 192,
             # bf16, and for tiled_attention the single-attention call (C=16)
-            if C == 16:
+            if C == 16 and N == 192:
                 rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
-            print(f"[kernels] {name} C={C} at bucket 192, bf16: bound {at['bound_ms']:.4f} ms "
+            print(f"[kernels] {name} C={C} at bucket {N}, bf16: bound {at['bound_ms']:.4f} ms "
                   f"({at['bound_by']}), library {lib_ms} ms")
     return record
 
@@ -488,7 +507,7 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
         A.reset_launch_counts()
         noise_k, seq_k = forward(False)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         noise_p, seq_p = forward(True)
         torch.cuda.synchronize()
         expected = forward_launches(net.cfg, n=bucket)
@@ -516,6 +535,8 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
 # Device-time groups, matched on the CUDA kernel's name, in order.
 GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
+          ("rows_attention_kchunk_mma", "K3 rows_attention_kchunk (tensor cores)"),
+          ("rows_attention_mma", "K1 rows_attention (tensor cores)"),
           ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
@@ -565,7 +586,7 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
         began = time.perf_counter()
         timings = main(argv)
         wall = time.perf_counter() - began
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         out = tmp / "out"
         pdb = (out / "sample_protein.pdb").read_text()
         sdf = (out / "sample_ligand.sdf").read_text()
@@ -722,7 +743,7 @@ def phase_grad(seed: int) -> None:
         A.reset_launch_counts()
         loss_k = micro_step(net, batch, noise)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
         with A.plain_route():
             loss_p = micro_step(net, batch, noise)
@@ -803,7 +824,7 @@ def phase_train(seed: int) -> dict:
             torch.cuda.synchronize()
             peaks[bucket] = torch.cuda.max_memory_allocated() / 2**30
             del state
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
         saved = {p.name: sorted(f.name for f in p.iterdir())
                  for p in (run / "checkpoints").iterdir()}
@@ -859,7 +880,7 @@ def phase_h64(seed: int) -> dict:
         A.reset_launch_counts()
         loss_k = micro_step(net, batch, noise)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
         with A.plain_route():
             loss_p = micro_step(net, batch, noise)
@@ -888,7 +909,7 @@ def phase_h64(seed: int) -> dict:
         A.reset_launch_counts()
         state = train(argv)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         cfg = state.net.cfg
         del state
         metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
@@ -910,19 +931,28 @@ def phase_h64(seed: int) -> dict:
     return launches
 
 
-def _check_close(what: str, got, want, tol: float) -> float:
-    """Max abs error of ``got`` against ``want``, held to tol x max(1, max|want|)."""
-    diff = (got.float() - want.float()).abs()
-    err, limit = float(diff.max()), tol * max(1.0, float(want.float().abs().max()))
-    if not (torch.isfinite(got).all() and err <= limit):
-        raise AssertionError(f"{what}: max abs err {err} > {limit}")
+def _check_close(what: str, got, want, tol: float, to_scale: bool = False) -> float:
+    """Max abs error of ``got`` against ``want``, held to tol x max(1, max|want|);
+    ``to_scale``: each element to tol x (|want| + RMS(want)) instead, for bf16
+    outputs much smaller than 1 (K3 and K5 at N = 2048: |out| ~ 0.03)."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    if to_scale:
+        rms = float(want.square().mean().sqrt())
+        excess, limit = float((diff - tol * want.abs()).max()), tol * rms
+    else:
+        excess, limit = err, tol * max(1.0, float(want.abs().max()))
+    if not (torch.isfinite(got).all() and excess <= limit):
+        raise AssertionError(f"{what}: max abs err {err}, beyond the limit by {excess - limit}")
     return err
 
 
 def phase_kchunk_kernels() -> dict:
     """K3 and K5 at bucket 2048 (bf16) and 1024 (f32), K6 at 1024 (f32),
     against their plain versions at B=1 (R = N rows) with the long paths'
-    valid node counts, so the padded rows are fully masked."""
+    valid node counts, so the padded rows are fully masked. K3 in bf16 runs
+    its tensor-core body; its CUDA-core body is timed on the same inputs."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     names = ("rows_attention_kchunk", "rows_attention_kchunk_stats", "rows_attention_kchunk_bwd")
@@ -961,7 +991,8 @@ def phase_kchunk_kernels() -> dict:
             for part, a, b in zip(parts, got, want):
                 # the stats are f32 whatever the operands: held to 1e-5
                 t = tol if part in ("out", "dq", "dk", "dv") else TOL_F32
-                errs.append(_check_close(f"{name} {part} N={N} {label}", a, b, t))
+                errs.append(_check_close(f"{name} {part} N={N} {label}", a, b, t,
+                                         to_scale=part == "out" and dtype == torch.bfloat16))
             if dout is not None and (torch.count_nonzero(got[0][n_valid:])
                                      or torch.count_nonzero(got[1][n_valid:])):
                 raise AssertionError(f"{name}: fully masked rows have nonzero dq or dk")
@@ -974,9 +1005,12 @@ def phase_kchunk_kernels() -> dict:
                 bound_rec = attention_bound(q, mask, None, products, operands, extra)
                 yardstick = library_ms(q, k, v, mask, None, scale, dout=dout)
                 rec.update(ms=ms, plain_ms=plain_ms, library_ms=yardstick, **bound_rec)
+            bodies = ""
+            if name == "rows_attention_kchunk" and dtype == torch.bfloat16:
+                bodies = f" (tensor cores; {body_times(name, q, k, v, mask, None, scale)})"
             print(f"[kchunk] {name} R={N} H=4 N={N} C=16 {label} ({n_valid} valid): max abs err "
                   + "/".join(f"{e:.3e}" for e in errs) + f" ({'/'.join(parts[:len(errs)])}); "
-                  f"kernel {ms:.3f} ms, "
+                  f"kernel {ms:.3f} ms{bodies}, "
                   f"plain {plain_ms:.3f} ms"
                   + ("" if bound_rec is None else f"; bound {bound_rec['bound_ms']:.3f} ms "
                      f"({bound_rec['bound_by']}), library {yardstick} ms"))
@@ -1001,7 +1035,7 @@ def phase_generate_long(net) -> dict:
         A.reset_launch_counts()
         timings = main(argv)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         pdb = (tmp / "out" / "sample_protein.pdb").read_text()
         scores = (tmp / "out" / "sample_tmscores.txt").read_text().split()
@@ -1054,7 +1088,7 @@ def phase_forward_long(seed: int) -> None:
         A.reset_launch_counts()
         kernel_out = forward(False)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         plain_out = forward(True)
         expected = forward_launches(net.cfg, kchunk=True)
         if launches != expected:
@@ -1088,7 +1122,7 @@ def phase_grad_long(seed: int) -> None:
     A.reset_launch_counts()
     loss_k = step()
     torch.cuda.synchronize()
-    launches = dict(A.LAUNCHES)
+    launches = main_path_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
     with A.plain_route():
@@ -1133,7 +1167,7 @@ def phase_train_long(seed: int) -> dict:
         A.reset_launch_counts()
         state = train(argv)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         cfg = state.net.cfg
         del state
@@ -1193,7 +1227,8 @@ def phase_fused_kernels() -> dict:
     """K8-K11 against their plain versions at the fused configuration's shapes
     at bucket 192, B=2 (147 nodes valid): f32 and bf16 errors; the kernel's,
     the plain version's and the unfused module route's time in both; the
-    record (bf16) keeps K8's starting view, K9 outgoing, K10 pair_fc."""
+    record (bf16) keeps K8's starting view, K9 outgoing, K10 pair_fc. Then
+    the same in bf16 at AlphaFold2's pair width 128 (outside the record)."""
     from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
     from protein_redesign_tpu_torch.models.layers import GatedAttention, TransitionMLP
     from protein_redesign_tpu_torch.ops import attention as A
@@ -1205,12 +1240,13 @@ def phase_fused_kernels() -> dict:
     record = {name: {"max_abs_err": 0.0, "library_ms": None} for name in FUSED_NAMES}
     node = (torch.arange(N, device="cuda") < n_valid).float()
     mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
-    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+    widths = ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128))
+    for seed, (dtype, D) in enumerate(widths):
         g = torch.Generator("cuda").manual_seed(300 + seed)
-        pair = torch.randn(2, N, N, 64, generator=g, device="cuda").to(dtype)
+        pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
         single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
         cases = []
-        ga = perturb(GatedAttention(64, 16, 4, dtype), 310).to("cuda")
+        ga = perturb(GatedAttention(D, 16, 4, dtype), 310).to("cuda")
         gw = (ga.q_proj.weight, ga.k_proj.weight, ga.v_proj.weight, ga.gate_proj.weight,
               ga.gate_proj.bias, ga.out_proj.weight, ga.out_proj.bias, 4)
         for view, x, m in (("starting", pair, mask2d),
@@ -1218,21 +1254,21 @@ def phase_fused_kernels() -> dict:
             cases.append(("fused_gated_rows_attention", view, A.fused_gated,
                           A.fused_gated_reference, (x, m, *gw), lambda x=x, m=m: ga(x, m)))
         for mode in ("outgoing", "incoming"):
-            tm = perturb(TriangleMultiplication(64, mode, dtype=dtype), 320).to("cuda")
+            tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 320).to("cuda")
             tw = (tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight, tm.ab_proj.bias,
                   tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight, tm.out_proj.bias)
             cases.append(("triangle_multiply", mode, lambda *a, mode=mode: M.trimul(*a, mode),
                           lambda *a, mode=mode: M.trimul_reference(*a, mode), (pair, mask2d, *tw),
                           lambda tm=tm: tm(pair, mask2d)))
-        for view, x, dim in (("pair_fc", pair, 64), ("single_fc", single, 512)):
+        for view, x, dim in (("pair_fc", pair, D), ("single_fc", single, 512)):
             mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
             cases.append(("fused_transition", view, T.transition, T.transition_reference,
                           (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
                           lambda mlp=mlp, x=x: mlp(x)))
-        ol = perturb(OuterLinear(512, 64, factored=True, dtype=dtype), 340).to("cuda")
+        ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 340).to("cuda")
         cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
                       (single, ol.linear.weight, ol.linear.bias), lambda: ol(single)))
-        label = str(dtype).replace("torch.", "")
+        label = str(dtype).replace("torch.", "") + ("" if D == 64 else f", D={D}")
         with torch.inference_mode():
             for name, view, kernel, plain, args, unfused in cases:
                 got, want = kernel(*args), plain(*args)
@@ -1251,8 +1287,8 @@ def phase_fused_kernels() -> dict:
                       f"{rel:.3e} (tol {tol[dtype]:g}), max abs err {err:.3e}; kernel {ms:.4f} ms, "
                       f"plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} ms; bound "
                       f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-                if dtype == torch.bfloat16 and view in ("starting", "outgoing", "pair_fc",
-                                                        "factored route"):
+                if dtype == torch.bfloat16 and D == 64 and view in (
+                        "starting", "outgoing", "pair_fc", "factored route"):
                     rec.update(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, **b)
     return record
 
@@ -1289,7 +1325,7 @@ def phase_fused_forward_large(seed: int) -> None:
         A.reset_launch_counts()
         kernel_out = forward(False)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         plain_out = forward(True)
         if launches != forward_launches(net.cfg):
             raise AssertionError(f"fused launches per forward at {N} {launches}")
@@ -1324,7 +1360,7 @@ def phase_fused_grad(seed: int) -> None:
             A.reset_launch_counts()
             loss_k = step()
             torch.cuda.synchronize()
-            launches = dict(A.LAUNCHES)
+            launches = main_path_launches()
             grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
             with A.plain_route():
                 loss_p = step()
@@ -1376,7 +1412,7 @@ def phase_fused_train(seed: int) -> dict:
         A.reset_launch_counts()
         state = train(argv)
         torch.cuda.synchronize()
-        launches = dict(A.LAUNCHES)
+        launches = main_path_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         cfg = state.net.cfg
         del state
@@ -1472,7 +1508,7 @@ def _fast_train(tmp: Path, seed: int) -> Path:
     A.reset_launch_counts()
     state = train(argv)
     torch.cuda.synchronize()
-    launches = dict(A.LAUNCHES)
+    launches = main_path_launches()
     cfg = state.net.cfg
     del state
     metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
@@ -1525,7 +1561,7 @@ def _serve_jsonl(tmp: Path, ckpt: Path, seed: int) -> dict:
     runner = serve(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - began
-    launches = dict(A.LAUNCHES)
+    launches = main_path_launches()
     lines = [json.loads(line) for line in results.read_text().splitlines()]
     if [line["id"] for line in lines] != [r["id"] for r in requests]:
         raise AssertionError(f"serve: responses {lines}")
@@ -1633,6 +1669,62 @@ def phase_serving(seed: int) -> dict:
     return launches
 
 
+# Configurations past the kernels' former bounds, with the launches of one
+# 2-block forward at bucket 192: the four switches at AlphaFold2's pair width
+# 128 (K8, K9 and K11 at D = 128; K10 on both transitions) and an f32 model
+# with single_dim 768 (SPAttention's head width: K2's CUDA-core body at
+# C = 768).
+WIDE_CONFIGS = (
+    ("pair_dim 128, four switches, bf16",
+     dict(pair_dim=128, dtype="bfloat16", **{f: True for f in FUSED}),
+     dict(fused_gated_rows_attention=4, triangle_multiply=4, fused_outer_linear=2,
+          tiled_attention=3, fused_transition=4), FORWARD_REL_TOL),
+    ("single_dim 768, f32", dict(single_dim=768, dtype="float32"),
+     dict(rows_attention=4, tiled_attention=3), FORWARD_REL_TOL_F32),
+)
+
+
+def phase_wide(seed: int) -> None:
+    """The WIDE_CONFIGS configurations' forward at bucket 192, B=2, 2 blocks:
+    exact launch counts, and the kernel route against the plain route."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    for tag, fields, expected, tol in WIDE_CONFIGS:
+        net = perturbed_net(ModelConfig(num_blocks=2, **fields), seed).to("cuda").eval()
+        _, batch = complex_batch(SamplingRunner(net, "cuda"))
+        batch = prepare_batch(batch, 0.3, generator=torch.Generator("cuda").manual_seed(0))
+        B, N = batch["residue_mask"].shape
+        g = torch.Generator("cuda").manual_seed(1)
+        z = torch.randn(B, N, 3, generator=g, device="cuda")
+        seq_t = torch.randn(B, N, 21, generator=g, device="cuda")
+        mask, t = batch["residue_and_atom_mask"], torch.tensor([5, 40], device="cuda")
+        forward = lambda: net(batch, z, seq_t, mask, t)  # noqa: E731
+        with torch.inference_mode():
+            A.reset_launch_counts()
+            kernel_out = forward()
+            torch.cuda.synchronize()
+            launches = dict(A.LAUNCHES)
+            kernel_ms = cuda_ms(forward, 1, 3)
+            with A.plain_route():
+                plain_out = forward()
+                plain_ms = cuda_ms(forward, 1, 3)
+        if launches != launch_record(**expected):
+            raise AssertionError(f"{tag}: launches {launches}")
+        rels = []
+        for name, a, b in zip(("noise_pred", "seq_pred"), kernel_out, plain_out):
+            rels.append(float((a.float() - b.float()).norm() / b.float().norm()))
+            if not (torch.isfinite(a).all() and rels[-1] <= tol):
+                raise AssertionError(f"{tag} {name}: relative error {rels[-1]} > {tol}")
+        print(f"[wide] {tag}, 2 blocks, B={B}, bucket {N}: launches "
+              f"{({k: v for k, v in launches.items() if v})}; ||kernel - plain|| / ||plain|| = "
+              f"{rels[0]:.3e} / {rels[1]:.3e} (tol {tol:g}); forward {kernel_ms:.2f} ms, plain "
+              f"route {plain_ms:.2f} ms")
+        del net
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
@@ -1676,6 +1768,7 @@ def main() -> None:
     phase_forward(net, tag="fast-forward")
     phase_forward(net, tag="fast-forward-384", bucket=384)
     del net
+    phase_wide(args.seed)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving

@@ -59,6 +59,10 @@ class KernelLibrary:
         lib.prd_tiled_attention_mma.restype = i32
         lib.prd_rows_attention_fast_mma.argtypes = [ptr] * 5 + [i32] * 4 + [f32] + strides + [ptr]
         lib.prd_rows_attention_fast_mma.restype = i32
+        lib.prd_rows_attention_mma.argtypes = lib.prd_rows_attention_fast_mma.argtypes
+        lib.prd_rows_attention_mma.restype = i32
+        lib.prd_rows_attention_kchunk_mma.argtypes = lib.prd_rows_attention_fast_mma.argtypes
+        lib.prd_rows_attention_kchunk_mma.restype = i32
         lib.prd_rows_attention_bwd.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
         )

@@ -1,4 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels for the denoiser's attention family.
+// Hand-written Hopper (sm_90a) kernels for the denoiser's attention family:
+// their CUDA-core bodies, which serve float32 inputs and bf16 inputs whose
+// head width is not a multiple of 8 (bf16 with a multiple of 8 takes the
+// tensor-core bodies of attention_mma.cu, for K1, K1 fast and K2 alike; the
+// bf16 bodies here stay callable to time the two side by side).
 //
 // Replaces two Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py,
 // the first in both of its variants:
@@ -28,12 +32,15 @@
 //   pass 1: running row max and sum of exp over all key tiles;
 //   pass 2: p = exp(l - m) / s, rounded to the input type, times V.
 // Shared memory is O(TQ*C + 32*C) whatever N is, so there is no bound on N;
-// C is bounded at 512 by the per-thread accumulator (C/32 values per lane
-// and query row). The products run on the CUDA cores in f32, so the kernels
+// C is bounded at 1024 by the per-thread accumulator (C/32 values per lane
+// and query row). Above C = 512 (SPAttention at single_dim 768 or 1024) the
+// last pass stages a tile's V into K's buffer once its logits are taken, so
+// a block's q, K and V tiles still fit 227 KB. The products run on the CUDA cores in f32, so the kernels
 // are bound by issue rate (shared-memory loads and FMAs), not by HBM bytes:
 // each (row, head) slice of K and V is a few KB and stays in L2 across its
-// q-tiles. Tensor cores (wgmma), TMA and a single-pass online softmax are
-// left for later work.
+// q-tiles. In bf16 the tensor-core bodies of attention_mma.cu take these
+// kernels' place (mma.sync; K2 in one pass of online softmax); f32 needs
+// another plan than TF32, which would break the 1e-5 parity.
 //
 // K1 fast (attention_body with FAST) reproduces the Pallas body's bf16
 // softmax point by point: logits rounded to bf16 after the -2^15 fill, m the
@@ -109,6 +116,7 @@ __device__ __forceinline__ float bf16_round(float x) { return Io<__nv_bfloat16>:
 
 // One block: NWARPS * kRPW query rows of one (row, head). CPL = head-dim
 // values per lane in the P.V accumulator (C <= 32 * CPL). FAST: K1 fast.
+// SHARE_KV (CPL > 16): V is staged into K's buffer after the logits.
 
 template <typename T, int CPL, int NWARPS, bool HAS_MASK, bool HAS_BIAS, bool FAST>
 __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T* __restrict__ k,
@@ -118,11 +126,12 @@ __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T*
                                                int N, int H, int C, float scale, Strides qs,
                                                Strides ks, Strides vs) {
   constexpr int TQ = NWARPS * kRPW;
+  constexpr bool SHARE_KV = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int k_stride = C + 4;  // padded K rows: conflict-free float4 reads by lane
-  float* q_s = smem;                   // [TQ][C]
-  float* k_s = q_s + TQ * C;           // [kTK][C + 4]
-  float* v_s = k_s + kTK * k_stride;   // [kTK][C]
+  float* q_s = smem;                                     // [TQ][C]
+  float* k_s = q_s + TQ * C;                             // [kTK][C + 4]
+  float* v_s = SHARE_KV ? k_s : k_s + kTK * k_stride;  // [kTK][C]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -235,7 +244,7 @@ __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T*
   for (int k0 = 0; k0 < N; k0 += kTK) {
     __syncthreads();
     load_tile(k_base, ks.n, k_s, k_stride, k0, N, C);
-    load_tile(v_base, vs.n, v_s, C, k0, N, C);
+    if constexpr (!SHARE_KV) load_tile(v_base, vs.n, v_s, C, k0, N, C);
     __syncthreads();
     const int j = k0 + lane;
     float p[kRPW];
@@ -253,6 +262,11 @@ __device__ __forceinline__ void attention_body(const T* __restrict__ q, const T*
     } else {
 #pragma unroll
       for (int rr = 0; rr < kRPW; ++rr) p[rr] = 0.f;
+    }
+    if constexpr (SHARE_KV) {
+      __syncthreads();  // every warp's logits have read K's tile
+      load_tile(v_base, vs.n, v_s, C, k0, N, C);
+      __syncthreads();
     }
     const int nk = min(kTK, N - k0);
     for (int jj = 0; jj < nk; ++jj) {
@@ -334,7 +348,8 @@ template <typename T, int CPL, bool ROWS, bool HAS_MASK, bool HAS_BIAS, bool FAS
 cudaError_t launch(const Args& a) {
   constexpr int NWARPS = CPL <= 2 ? 8 : 4;
   constexpr int TQ = NWARPS * kRPW;
-  const size_t smem = sizeof(float) * (size_t)(TQ * a.C + kTK * (a.C + 4) + kTK * a.C);
+  const size_t smem =
+      sizeof(float) * (size_t)(TQ * a.C + kTK * (a.C + 4) + (CPL > 16 ? 0 : kTK * a.C));
   const long long blocks = (long long)((a.N + TQ - 1) / TQ) * a.R;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, a.H);
@@ -372,7 +387,8 @@ cudaError_t dispatch_width(const Args& a) {
   if (a.C <= 64) return launch<T, 2, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
   if (a.C <= 128) return launch<T, 4, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
   if (a.C <= 256) return launch<T, 8, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
-  return launch<T, 16, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  if (a.C <= 512) return launch<T, 16, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
+  return launch<T, 32, ROWS, HAS_MASK, HAS_BIAS, FAST>(a);
 }
 
 template <bool ROWS, bool HAS_MASK, bool HAS_BIAS, bool FAST = false>
@@ -383,7 +399,7 @@ cudaError_t dispatch_type(int dtype, const Args& a) {
 
 bool valid(int dtype, const Args& a) {
   return (dtype == 0 || dtype == 1) && a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 &&
-         a.C > 0 && a.C <= 512 && a.C % 4 == 0;
+         a.C > 0 && a.C <= 1024 && a.C % 4 == 0;
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
-// Hand-written Hopper (sm_90a) tensor-core bodies of two attention kernels, for
-// bf16 inputs. They replace, for bf16, the CUDA-core bodies of attention.cu
-// (kept there for float32, where TF32 would break the 1e-5 parity, and for a
-// head width that is not a multiple of 8):
+// Hand-written Hopper (sm_90a) tensor-core bodies of four attention kernels,
+// for bf16 inputs with a head width that is a multiple of 8. They replace,
+// for those inputs, the CUDA-core bodies of attention.cu and
+// attention_kchunk.cu (kept there for float32, where TF32 would break the
+// 1e-5 parity, and for other head widths):
 //
 //   tiled_attention_mma_kernel    <- _tiled_attention_impl / _attn_kernel and
 //                                    _attn_kernel_nomask (K2: single attention
@@ -10,6 +11,11 @@
 //   rows_attention_fast_mma_kernel <- _rows_attention_impl with fast=True
 //                                    (K1 fast: triangle attention with the
 //                                    softmax rounded as bf16, cfg.fast_softmax)
+//   rows_attention_mma_kernel     <- _rows_attention_impl / _make_rowhead_kernel
+//                                    (K1: triangle attention, key mask, no bias)
+//   rows_attention_kchunk_mma_kernel <- _rows_attention_kchunk_grid_cn /
+//                                    _make_rowhead_kchunk_grid_cn_kernel (K3: K1's
+//                                    function by online softmax, N >= 2048)
 //
 // of protein_redesign_tpu/ops/pallas_attention.py.
 //
@@ -52,12 +58,34 @@
 // What can still differ is the f32 sum of e, so the kernel is held to 2e-2
 // and not to bit equality.
 //
+// K3 keeps the function of its plain version (_kchunk_forward_block): f32
+// logits of the pre-scaled q, -2^15 at masked keys, -inf past N, a running
+// max from -inf, p = exp(l - m') in f32 summed into s and rounded to bf16
+// only for P.V, acc rescaled by exp(m - m'), out = acc / s at the end: K2's
+// one pass without the bias. K1 keeps the Pallas body's (softmax of the f32
+// logits, probs.astype(v.dtype), P.V in f32): pass 1 takes the row max and
+// sum online, pass 2 recomputes the logits and rounds p = exp(l - m) / s to
+// bf16 for P.V, the same normalised P that K7's backward recomputes. Both
+// take exp as exp2(l log2 e - m log2 e), one FFMA and one SFU op per logit
+// (f32 ulps from expf, before the bf16 rounding). At head width 16 the
+// products are one mma depth step, so the per-logit elementwise work sets
+// the pace: the exp (16 per SM and clock), then about five f32 operations;
+// the key tile's mask is read once per warp by ballot, and a tile whose keys
+// are all kept skips the fill. The passes are latency-bound, so the warps
+// in flight set the pace: launch bounds cap the registers to fit 24 warps a
+// SM (kRowsMinBlocks; uncapped, ~130 registers fit only 12, and the passes
+// ran markedly slower). K3 takes 128 queries per block up to C = 128 (a (row,
+// head)'s K and V are read from L2 once per query tile; on the H100 at
+// N = 2048, C = 16 it ran 20.08 ms against 22.03 at 64), 64 above (shared
+// memory). K5 (the row stats) stays on attention_kchunk.cu.
+//
 // Layout: q, k, v are [R, N, H, C] bf16 with the head dimension contiguous,
 // the other strides given in elements, every row 16-byte aligned (C and the
 // strides multiples of 8, checked by the wrapper); mask is contiguous f32
 // [R, N]; bias contiguous bf16 [R, H, N, N]; out contiguous [R, N, H, C].
-// Shared memory: 2 (64 + 2 BK) (CP + 8) + 4 BK (CS + 8) bytes, CP = C
-// rounded up to 16, CS the 16..64-channel slice; at most 227 KB bounds C.
+// Shared memory: 2 (TQ + 2 BK) (CP + 8) + 4 BK (CS + 8) bytes, TQ the block's
+// queries (64; K3 128 up to CP = 128, else 64), CP = C rounded up to 16, CS the 16..64-channel
+// slice; at most 227 KB bounds C.
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include "common.cuh"
@@ -82,12 +110,13 @@ struct Args {
   Strides qs, ks, vs;
 };
 
-// The block's query tile into shared memory, multiplied by the scale and
+// The block's TQ-query tile into shared memory, multiplied by the scale and
 // rounded to bf16 (the pre-scaled q), rows past N and channels past C zero.
+template <int TQ = kTQ>
 __device__ __forceinline__ void stage_q(const Args& a, const bf16* q_base, int q0, int CP, int ld,
                                         bf16* q_s) {
   const int chunks = CP / 8;
-  for (int e = threadIdx.x; e < kTQ * chunks; e += blockDim.x) {
+  for (int e = threadIdx.x; e < TQ * chunks; e += blockDim.x) {
     const int i = e / chunks;
     const int c = (e - i * chunks) * 8;
     const int qi = q0 + i;
@@ -202,11 +231,12 @@ struct Block {
   int r, q0, h, cs0;
 };
 
+template <int TQ = kTQ>
 __device__ __forceinline__ Block block_of(int N, int CS) {
-  const int tiles = (N + kTQ - 1) / kTQ;
+  const int tiles = (N + TQ - 1) / TQ;
   Block b;
   b.r = blockIdx.x / tiles;
-  b.q0 = (blockIdx.x - b.r * tiles) * kTQ;
+  b.q0 = (blockIdx.x - b.r * tiles) * TQ;
   b.h = blockIdx.y;
   b.cs0 = blockIdx.z * CS;
   return b;
@@ -476,6 +506,209 @@ __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(co
   store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU in one instruction (-inf gives 0, denormals flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The passes of K1 and K3 over every key tile (rows_pass): ONLINE is K3's
+// one pass (running max, rescaled sum and P.V); STATS K1's first (the row
+// max and sum, no V); NORMALIZED K1's second (p = exp(l - m) / s and P.V).
+enum RowsMode { kOnline = 0, kStats = 1, kNormalized = 2 };
+
+// A thread's two rows (g and g + 8 of its warp's 16: _a and _b): running
+// max, its partial sum over the thread's key columns, the P.V accumulator.
+template <int NT>
+struct RowsState {
+  float m_a, m_b, s_a, s_b;
+  float acc[NT][4];
+};
+
+template <int NT>
+__device__ __forceinline__ void init_rows(RowsState<NT>& st) {
+  st.m_a = st.m_b = neg_inf();
+  st.s_a = st.s_b = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) st.acc[n][0] = st.acc[n][1] = st.acc[n][2] = st.acc[n][3] = 0.f;
+}
+
+// One pass of triangle attention (no bias) over the key tiles of the
+// block's (row, head). The tile's mask is read once per warp, one ballot
+// per 32 keys (bit j: key k0 + j is kept, live: k0 + j < N), and a tile
+// whose keys are all kept skips the fill. Exponentials are exp2 of l log2(e) - m log2(e),
+// one FFMA per logit (FlashAttention-2's form).
+template <int MODE, int BK, int NT>
+__device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const bf16* q_w,
+                                          bf16* k_s, bf16* v_s, int CP, RowsState<NT>& st,
+                                          int lane) {
+  constexpr int NS = BK / 8, CS = 8 * NT, VS = CS + 8, W = (BK + 31) / 32;
+  constexpr bool PV = MODE != kStats;
+  const int N = a.N, C = a.C, QS = CP + 8;
+  const bf16* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
+  const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
+  const float* mask_row = a.mask + (long long)b.r * N;
+  const int tiles = (N + BK - 1) / BK;
+  const int shift = 2 * (lane & 3);  // this thread's first key column in each 8-key n-tile
+  // NORMALIZED: the final max (scaled by log2 e, negated) and 1 / sum
+  float nm_a = -st.m_a * kLog2e, nm_b = -st.m_b * kLog2e;
+  const float inv_a = MODE == kNormalized ? 1.f / st.s_a : 1.f;
+  const float inv_b = MODE == kNormalized ? 1.f / st.s_b : 1.f;
+  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
+  if (PV) stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
+      if (PV)
+        stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
+                   v_s + (buf ^ 1) * BK * VS);
+    }
+    cp_async_commit();
+    // the tile's mask bits, while the copies land
+    const int k0 = t * BK;
+    unsigned keep[W], live[W];
+    bool dense = true;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int j = 32 * w + lane;
+      const bool in = j < BK && k0 + j < N;
+      keep[w] = __ballot_sync(kFull, in && mask_row[k0 + j] >= 0.5f);
+      live[w] = __ballot_sync(kFull, in);
+      const unsigned full = BK - 32 * w >= 32 ? kFull : (1u << (BK - 32 * w)) - 1u;
+      dense = dense && keep[w] == full;
+      keep[w] >>= shift;
+      live[w] >>= shift;
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[NS][4];
+    logits_mma<NS>(q_w, k_s + buf * BK * QS, QS, CP, lane, s);
+    if (!dense) {  // -2^15 at masked keys, -inf past N (weight 0)
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int bit = (n & 3) * 8 + (e & 1);
+          if (!((keep[n >> 2] >> bit) & 1u))
+            s[n][e] = ((live[n >> 2] >> bit) & 1u) ? kMaskFill : neg_inf();
+        }
+      }
+    }
+    if (MODE != kNormalized) {
+      // one step of online softmax: the tile holds key k0 < N, so the new
+      // max is finite and the first step's rescale is exp(-inf) = 0
+      float mx_a = st.m_a, mx_b = st.m_b;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      }
+      mx_a = quad_max(mx_a);
+      mx_b = quad_max(mx_b);
+      const float alpha_a = exp2_approx((st.m_a - mx_a) * kLog2e);
+      const float alpha_b = exp2_approx((st.m_b - mx_b) * kLog2e);
+      st.m_a = mx_a;
+      st.m_b = mx_b;
+      nm_a = -mx_a * kLog2e;
+      nm_b = -mx_b * kLog2e;
+      st.s_a *= alpha_a;
+      st.s_b *= alpha_b;
+      if (MODE == kOnline) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          st.acc[n][0] *= alpha_a;
+          st.acc[n][1] *= alpha_a;
+          st.acc[n][2] *= alpha_b;
+          st.acc[n][3] *= alpha_b;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = exp2_approx(fmaf(s[n][0], kLog2e, nm_a));
+      s[n][1] = exp2_approx(fmaf(s[n][1], kLog2e, nm_a));
+      s[n][2] = exp2_approx(fmaf(s[n][2], kLog2e, nm_b));
+      s[n][3] = exp2_approx(fmaf(s[n][3], kLog2e, nm_b));
+      if (MODE == kNormalized) {  // the normalised probabilities, rounded to bf16 by pv_mma
+        s[n][0] *= inv_a;
+        s[n][1] *= inv_a;
+        s[n][2] *= inv_b;
+        s[n][3] *= inv_b;
+      } else {
+        st.s_a += s[n][0] + s[n][1];
+        st.s_b += s[n][2] + s[n][3];
+      }
+    }
+    if (PV) pv_mma<NS, NT>(s, v_s + buf * BK * VS, VS, lane, st.acc);
+    __syncthreads();  // the next tile's loads overwrite this buffer
+  }
+}
+
+// Blocks of K1 and K3 that must fit on an SM at once, which caps their
+// registers: the passes are latency-bound (each 64-key tile waits on its
+// copies, its ballots and the exp), so warps in flight set the pace. With
+// 64-key tiles: 24 warps a SM (80 registers) for a 16-channel slice, 16
+// (128 registers, no spills) for wider ones; shorter tiles (wide heads) are
+// left uncapped.
+template <int WARPS, int BK, int NT>
+constexpr int kRowsMinBlocks = BK < 64 ? 1 : (NT <= 2 ? 24 : 16) / WARPS;
+
+// K3 in bf16: one pass of online softmax; out = acc / s. WARPS warps of 16
+// queries share each staged K and V tile.
+template <int WARPS, int BK, int NT>
+__global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
+    rows_attention_kchunk_mma_kernel(const Args a) {
+  constexpr int TQ = 16 * WARPS, CS = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int CP = (a.C + 15) & ~15, QS = CP + 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [TQ][QS]
+  bf16* k_s = q_s + TQ * QS;                       // [2][BK][QS]
+  bf16* v_s = k_s + 2 * BK * QS;                   // [2][BK][VS]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Block b = block_of<TQ>(a.N, CS);
+  stage_q<TQ>(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  RowsState<NT> st;
+  init_rows(st);
+  rows_pass<kOnline, BK, NT>(a, b, q_s + warp * 16 * QS, k_s, v_s, CP, st, lane);
+  store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, quad_sum(st.s_a),
+                quad_sum(st.s_b), lane);
+}
+
+// K1 in bf16: the row max and sum online (pass 1), then the normalised
+// probabilities rounded to bf16 times V (pass 2), as the plain version
+// rounds softmax(l) before P.V.
+template <int BK, int NT>
+__global__ void __launch_bounds__(kWarps * 32, kRowsMinBlocks<kWarps, BK, NT>)
+    rows_attention_mma_kernel(const Args a) {
+  constexpr int CS = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int CP = (a.C + 15) & ~15, QS = CP + 8;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kTQ * QS;
+  bf16* v_s = k_s + 2 * BK * QS;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Block b = block_of(a.N, CS);
+  stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  const bf16* q_w = q_s + warp * 16 * QS;
+  RowsState<NT> st;
+  init_rows(st);
+  rows_pass<kStats, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  st.s_a = quad_sum(st.s_a);
+  st.s_b = quad_sum(st.s_b);
+  rows_pass<kNormalized, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
+}
+
 // Keys per tile and 8-channel n-tiles per output slice, by the padded width:
 // narrow heads take 64-key tiles and a slice as wide as the head; wide heads
 // 64-channel slices and shorter key tiles, to stay within shared memory.
@@ -484,29 +717,31 @@ __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(co
 int key_tile(int CP) { return CP <= 128 ? 64 : (CP <= 512 ? 32 : 16); }
 int slice_tiles(int CP) { return CP <= 16 ? 2 : (CP <= 32 ? 4 : 8); }
 
-size_t smem_bytes(int C, int BK) {
+size_t smem_bytes(int C, int BK, int TQ = kTQ) {
   const int CP = (C + 15) & ~15;
   const int CS = 8 * slice_tiles(CP);
-  return sizeof(bf16) * ((size_t)(kTQ + 2 * BK) * (CP + 8) + 2 * (size_t)BK * (CS + 8));
+  return sizeof(bf16) * ((size_t)(TQ + 2 * BK) * (CP + 8) + 2 * (size_t)BK * (CS + 8));
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
-template <typename Kernel>
+// One launch of a kernel whose blocks hold WARPS warps of 16 queries each.
+template <int WARPS = kWarps, typename Kernel>
 cudaError_t launch_kernel(Kernel kern, int BK, const Args& a, cudaStream_t stream) {
+  constexpr int TQ = 16 * WARPS;
   const int CP = (a.C + 15) & ~15;
   const int CS = 8 * slice_tiles(CP);
-  const long long blocks = (long long)((a.N + kTQ - 1) / kTQ) * a.R;
+  const long long blocks = (long long)((a.N + TQ - 1) / TQ) * a.R;
   const int slices = (a.C + CS - 1) / CS;
   if (blocks > 0x7fffffffLL || slices > 65535) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.C, BK);
+  const size_t smem = smem_bytes(a.C, BK, TQ);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3((unsigned)blocks, a.H, slices), kWarps * 32, smem, stream>>>(a);
+  kern<<<dim3((unsigned)blocks, a.H, slices), WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -528,15 +763,38 @@ cudaError_t launch_fast(const Args& a, cudaStream_t stream) {
   return launch_kernel(rows_attention_fast_mma_kernel<16, 8>, 16, a, stream);
 }
 
+cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
+  const int CP = (a.C + 15) & ~15;
+  if (CP <= 16) return launch_kernel(rows_attention_mma_kernel<64, 2>, 64, a, stream);
+  if (CP <= 32) return launch_kernel(rows_attention_mma_kernel<64, 4>, 64, a, stream);
+  if (CP <= 128) return launch_kernel(rows_attention_mma_kernel<64, 8>, 64, a, stream);
+  if (CP <= 512) return launch_kernel(rows_attention_mma_kernel<32, 8>, 32, a, stream);
+  return launch_kernel(rows_attention_mma_kernel<16, 8>, 16, a, stream);
+}
+
+template <int WARPS>
+cudaError_t launch_kchunk(const Args& a, cudaStream_t stream) {
+  const int CP = (a.C + 15) & ~15;
+  if (CP <= 16)
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 2>, 64, a, stream);
+  if (CP <= 32)
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 4>, 64, a, stream);
+  if (CP <= 128)
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 8>, 64, a, stream);
+  if (CP <= 512)
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 32, 8>, 32, a, stream);
+  return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 16, 8>, 16, a, stream);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
 
-bool valid(const Args& a) {
+bool valid(const Args& a, int TQ = kTQ) {
   const bool strides = a.qs.r % 8 == 0 && a.qs.n % 8 == 0 && a.qs.h % 8 == 0 &&
                        a.ks.r % 8 == 0 && a.ks.n % 8 == 0 && a.ks.h % 8 == 0 &&
                        a.vs.r % 8 == 0 && a.vs.n % 8 == 0 && a.vs.h % 8 == 0;
   return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % 8 == 0 && strides &&
          aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-         smem_bytes(a.C, key_tile((a.C + 15) & ~15)) <= kMaxSmem;
+         smem_bytes(a.C, key_tile((a.C + 15) & ~15), TQ) <= kMaxSmem;
 }
 
 }  // namespace
@@ -572,6 +830,41 @@ int prd_rows_attention_fast_mma(const void* q, const void* k, const void* v, con
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
   if (!valid(a) || mask == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch_fast(a, static_cast<cudaStream_t>(stream));
+}
+
+// K1 on the tensor cores (bf16): masked attention without bias, softmax in
+// f32, the normalised probabilities rounded to bf16 for P.V. C a multiple
+// of 8 up to the shared-memory bound.
+int prd_rows_attention_mma(const void* q, const void* k, const void* v, const void* mask,
+                           void* out, int R, int N, int H, int C, float scale, long long q_sr,
+                           long long q_sn, long long q_sh, long long k_sr, long long k_sn,
+                           long long k_sh, long long v_sr, long long v_sn, long long v_sh,
+                           void* stream) {
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
+               static_cast<bf16*>(out), R, N, H, C, scale,
+               {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
+  if (!valid(a) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_rows(a, static_cast<cudaStream_t>(stream));
+}
+
+// K3 on the tensor cores (bf16): K1's function by one pass of online
+// softmax over key tiles; 128 queries per block up to C = 128 (a (row,
+// head)'s K and V are read from L2 once per query tile), 64 above it (shared
+// memory). C a multiple of 8 up to the shared-memory bound.
+int prd_rows_attention_kchunk_mma(const void* q, const void* k, const void* v, const void* mask,
+                                  void* out, int R, int N, int H, int C, float scale,
+                                  long long q_sr, long long q_sn, long long q_sh, long long k_sr,
+                                  long long k_sn, long long k_sh, long long v_sr, long long v_sn,
+                                  long long v_sh, void* stream) {
+  const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
+               static_cast<bf16*>(out), R, N, H, C, scale,
+               {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
+  const bool wide = ((C + 15) & ~15) > 128;
+  if (!valid(a, wide ? 64 : 128) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(wide ? launch_kchunk<4>(a, s) : launch_kchunk<8>(a, s));
 }
 
 }  // extern "C"

@@ -25,24 +25,26 @@
 // 1. fused_gated_project_kernel, one block per 64 row positions: x read
 //    through its strides as [R1, R2, N, D] (the "ending" attention's
 //    transposed view [B, j, i, D] needs no copy), LN into a transposed tile
-//    in shared memory (a warp per row), w_in staged beside it, then 4 x 4
-//    register tiles (4 positions x 4 columns) give q (scaled in f32, then
-//    rounded), k, v (rounded) and the f32 gate, into contiguous scratch
-//    [3, R, N, H C] and [R, N, H C].
+//    in shared memory (a warp per row), then, for each slice of 64 w_in
+//    columns, the slice staged beside it (a whole [D, 4 H C] w_in would not
+//    fit at D = 128) and 4 x 4 register tiles (4 positions x 4 columns) give
+//    q (scaled in f32, then rounded), k, v (rounded) and the f32 gate, into
+//    contiguous scratch [3, R, N, H C] and [R, N, H C].
 // 2. fused_gated_attention_kernel, one block per (row, 32 queries): for each
 //    head, online softmax over key tiles of 32 (as attention_kchunk.cu: a lane
 //    per key for the logits, the running max from -inf, p rounded to T for
 //    P.V, the lanes on the head channels for P.V); then the gated head output
 //    round(g * o / s) is broadcast channel by channel and its out-projection
-//    (W_o in shared memory, the lanes on the output channels) added into
-//    registers, summed over heads. A fully masked row gets uniform
-//    probabilities, as K1 and the reference softmax give.
+//    (W_o in shared memory, the lanes on the output channels, two a lane up
+//    to D = 64, four up to 128) added into registers, summed over heads. A
+//    fully masked row gets uniform probabilities, as K1 and the reference
+//    softmax give.
 //
 // Layout: x [R1, R2, N, D] with D contiguous and element strides (s1, s2, sn);
 // mask contiguous f32 [R, N] (R = R1 R2); w_in [D, 4 H C] in T
 // (q | k | v | gate columns); bg [H C] f32; wo_t [H C, D] in T; bo [D] f32;
-// out contiguous [R, N, D]. Takes D up to 64, C a multiple of 4 up to 32 and
-// H C up to 128. The entry point returns cudaGetLastError().
+// out contiguous [R, N, D]. Takes D up to 128 (AlphaFold2's pair width), C
+// a multiple of 4 up to 32 and H C up to 128. The entry point returns cudaGetLastError().
 
 #include "common.cuh"
 
@@ -54,7 +56,8 @@ constexpr int kLdP = kTP + 4;  // row stride of its transposed LN tile
 constexpr int kTK = 32;    // keys per tile: one key per lane
 constexpr int kRPW = 4;    // queries per warp
 constexpr int kTQ = (kThreads / 32) * kRPW;  // queries per block
-constexpr int kMaxD = 64;  // two output channels per lane
+constexpr int kWC = 64;    // w_in columns per staged slice
+constexpr int kMaxD = 128;  // four output channels per lane
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -65,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) float smem[];
   const int W = 4 * HC;
   float* xsT = smem;           // [D][kLdP]: the tile's LN rows, transposed
-  float* ws = xsT + D * kLdP;  // [D][4 H C]: w_in
+  float* ws = xsT + D * kLdP;  // [D][kWC]: a slice of w_in's columns
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * kTP;
   const int rows = (int)min((long long)kTP, positions - p0);
@@ -76,39 +79,46 @@ __global__ void __launch_bounds__(kThreads)
     const T* src = x + r1 * s1 + (row - r1 * R2) * s2 + (pos - row * N) * sn;
     layer_norm_to_column<T>(src, r < rows, D, xsT + r, kLdP);
   }
-  for (int e = tid; e < D * W; e += kThreads) ws[e] = Io<T>::load(w_in + e);
-  __syncthreads();
-
-  // a unit is 4 positions x 4 columns of [q | k | v | gate]
-  const int units = (kTP / 4) * (W / 4);
-  for (int u = tid; u < units; u += kThreads) {
-    const int pg = u % (kTP / 4), c0 = (u / (kTP / 4)) * 4;
-    float acc[4][4];
+  // a unit is 4 positions x 4 columns of [q | k | v | gate], over slices of kWC columns
+  for (int s0 = 0; s0 < W; s0 += kWC) {
+    const int width = min(kWC, W - s0);
+    __syncthreads();  // the LN tile is in; the previous slice's reads are done
+    for (int e = tid; e < D * width; e += kThreads) {
+      const int d = e / width, c = e - d * width;
+      ws[d * kWC + c] = Io<T>::load(w_in + (long long)d * W + s0 + c);
+    }
+    __syncthreads();
+    const int units = (kTP / 4) * (width / 4);
+    for (int u = tid; u < units; u += kThreads) {
+      const int pg = u % (kTP / 4), cl = (u / (kTP / 4)) * 4, c0 = s0 + cl;
+      float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    tile_4x4(acc, xsT + pg * 4, kLdP, ws + c0, W, D);
-    const int which = c0 / HC;  // 0 q, 1 k, 2 v, 3 gate (HC is a multiple of 4)
-    const int col = c0 - which * HC;
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      tile_4x4(acc, xsT + pg * 4, kLdP, ws + cl, kWC, D);
+      const int which = c0 / HC;  // 0 q, 1 k, 2 v, 3 gate (HC is a multiple of 4)
+      const int col = c0 - which * HC;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (pg * 4 + i >= rows) continue;
-      const long long pos = p0 + pg * 4 + i;
+      for (int i = 0; i < 4; ++i) {
+        if (pg * 4 + i >= rows) continue;
+        const long long pos = p0 + pg * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (which == 3) {
-          gate[pos * HC + col + j] = sigmoid_f(acc[i][j] + bg[col + j]);
-        } else {
-          const float v = which == 0 ? acc[i][j] * scale : acc[i][j];
-          qkv[((long long)which * positions + pos) * HC + col + j] = Io<T>::cast(v);
+        for (int j = 0; j < 4; ++j) {
+          if (which == 3) {
+            gate[pos * HC + col + j] = sigmoid_f(acc[i][j] + bg[col + j]);
+          } else {
+            const float v = which == 0 ? acc[i][j] * scale : acc[i][j];
+            qkv[((long long)which * positions + pos) * HC + col + j] = Io<T>::cast(v);
+          }
         }
       }
     }
   }
 }
 
-template <typename T>
+// DL output channels per lane (D <= 32 DL): wo_s rows are 32 DL wide.
+template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
     fused_gated_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ gate,
                                  const float* __restrict__ mask, const T* __restrict__ wo_t,
@@ -116,9 +126,10 @@ __global__ void __launch_bounds__(kThreads)
                                  int H, int C, long long positions) {
   extern __shared__ __align__(16) float smem[];
   const int HC = H * C;
+  constexpr int DW = 32 * DL;
   const int k_stride = C + 4;  // padded K rows: conflict-free float4 reads by lane
-  float* wo_s = smem;                  // [HC][kMaxD], zero past D
-  float* q_s = wo_s + HC * kMaxD;      // [kTQ][C]
+  float* wo_s = smem;                  // [HC][DW], zero past D
+  float* q_s = wo_s + HC * DW;         // [kTQ][C]
   float* k_s = q_s + kTQ * C;          // [kTK][C + 4]
   float* v_s = k_s + kTK * k_stride;   // [kTK][C]
 
@@ -131,14 +142,16 @@ __global__ void __launch_bounds__(kThreads)
   const float* mask_row = mask + (long long)r * N;
   const int row0 = warp * kRPW;
 
-  for (int e = threadIdx.x; e < HC * kMaxD; e += kThreads) {
-    const int hc = e / kMaxD, d = e - hc * kMaxD;
+  for (int e = threadIdx.x; e < HC * DW; e += kThreads) {
+    const int hc = e / DW, d = e - hc * DW;
     wo_s[e] = d < D ? Io<T>::load(wo_t + (long long)hc * D + d) : 0.f;
   }
 
-  float o_acc[kRPW][2];
+  float o_acc[kRPW][DL];
 #pragma unroll
-  for (int rr = 0; rr < kRPW; ++rr) o_acc[rr][0] = o_acc[rr][1] = 0.f;
+  for (int rr = 0; rr < kRPW; ++rr)
+#pragma unroll
+    for (int t = 0; t < DL; ++t) o_acc[rr][t] = 0.f;
 
   for (int h = 0; h < H; ++h) {
     __syncthreads();  // the previous head's reads are done (and W_o is in)
@@ -193,11 +206,12 @@ __global__ void __launch_bounds__(kThreads)
         const float g = gate[((long long)r * N + qi) * HC + h * C + lane];
         go = Io<T>::round(g * (acc[rr] / total));
       }
-      const float* wo_h = wo_s + h * C * kMaxD;
+      const float* wo_h = wo_s + h * C * DW;
       for (int c = 0; c < C; ++c) {
         const float gc = __shfl_sync(kFull, go, c);
-        o_acc[rr][0] = fmaf(gc, wo_h[c * kMaxD + lane], o_acc[rr][0]);
-        o_acc[rr][1] = fmaf(gc, wo_h[c * kMaxD + lane + 32], o_acc[rr][1]);
+#pragma unroll
+        for (int t = 0; t < DL; ++t)
+          o_acc[rr][t] = fmaf(gc, wo_h[c * DW + lane + 32 * t], o_acc[rr][t]);
       }
     }
   }
@@ -207,8 +221,11 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + row0 + rr;
     if (qi >= N) continue;
     T* out_row = out + ((long long)r * N + qi) * D;
-    if (lane < D) out_row[lane] = Io<T>::cast(o_acc[rr][0] + bo[lane]);
-    if (lane + 32 < D) out_row[lane + 32] = Io<T>::cast(o_acc[rr][1] + bo[lane + 32]);
+#pragma unroll
+    for (int t = 0; t < DL; ++t) {
+      const int d = lane + 32 * t;
+      if (d < D) out_row[d] = Io<T>::cast(o_acc[rr][t] + bo[d]);
+    }
   }
 }
 
@@ -236,7 +253,7 @@ cudaError_t launch(const Args& a) {
   const long long proj_blocks = (positions + kTP - 1) / kTP;
   const long long attn_blocks = R * ((a.N + kTQ - 1) / kTQ);
   if (proj_blocks > 0x7fffffffLL || attn_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t proj_smem = sizeof(float) * (size_t)a.D * (kLdP + 4 * HC);
+  const size_t proj_smem = sizeof(float) * (size_t)a.D * (kLdP + kWC);
   if (proj_smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_gated_project_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)proj_smem);
@@ -247,9 +264,10 @@ cudaError_t launch(const Args& a) {
       a.gate, a.R2, a.N, a.D, HC, a.scale, a.s1, a.s2, a.sn, positions);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  const int DL = a.D > 64 ? 4 : 2;
   const size_t smem =
-      sizeof(float) * ((size_t)HC * kMaxD + kTQ * a.C + kTK * (a.C + 4) + kTK * a.C);
-  auto kern = fused_gated_attention_kernel<T>;
+      sizeof(float) * ((size_t)HC * 32 * DL + kTQ * a.C + kTK * (a.C + 4) + kTK * a.C);
+  auto kern = DL == 4 ? fused_gated_attention_kernel<T, 4> : fused_gated_attention_kernel<T, 2>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
@@ -264,7 +282,7 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// K8 on rows x [R1, R2, N, D]. Takes D up to 64, C a multiple of 4 up to 32
+// K8 on rows x [R1, R2, N, D]. Takes D up to 128, C a multiple of 4 up to 32
 // and H C up to 128.
 int prd_fused_gated(const void* x, const void* mask, const void* w_in, const void* bg,
                     const void* wo_t, const void* bo, void* qkv, void* gate, void* out, int dtype,

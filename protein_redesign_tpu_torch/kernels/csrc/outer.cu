@@ -20,12 +20,14 @@
 //
 // Layout of the work: one block of 256 threads per (b, i, tile of 64 j). Over
 // chunks of 32 s, the block stages the chunk's products P[s][j] (rounded) and
-// W1[s][:] in shared memory; each thread keeps a 4 j x 4 d register tile and
-// adds 16 products per s from two 16-byte shared-memory loads.
+// W1[s][:] in shared memory; each thread keeps a 4 j x 4 d register tile per
+// group of 64 output channels (one group up to D = 64, two up to 128, as
+// AlphaFold2's pair width) and adds 16 products per s and group from two
+// 16-byte shared-memory loads.
 //
 // Layout: xl contiguous [B, N, S] in T; u contiguous [B, N, D] f32; w1t
 // [S, D] in T; bias [D] f32; out contiguous [B, N, N, D] in T. Takes D a
-// multiple of 4 up to 64. The entry point returns cudaGetLastError().
+// multiple of 4 up to 128. The entry point returns cudaGetLastError().
 
 #include "common.cuh"
 
@@ -34,15 +36,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTJ = 64;  // j per block: 16 groups of 4
 constexpr int kKS = 32;  // s per staged chunk
-constexpr int kMaxD = 64;  // 16 groups of 4 channels
+constexpr int kGroup = 64;  // output channels per group: 16 threads of 4
+constexpr int kMaxD = 2 * kGroup;
 
-template <typename T>
+// NG groups of 64 output channels (D <= 64 NG).
+template <typename T, int NG>
 __global__ void __launch_bounds__(kThreads)
     outer_kernel(const T* __restrict__ xl, const float* __restrict__ u,
                  const T* __restrict__ w1t, const float* __restrict__ bias, T* __restrict__ out,
                  int N, int S, int D) {
-  __shared__ __align__(16) float ps[kKS][kTJ];   // round(xl_i[s] * xl_j[s])
-  __shared__ __align__(16) float ws[kKS][kMaxD];  // W1 rows, zero past D
+  constexpr int DW = NG * kGroup;
+  __shared__ __align__(16) float ps[kKS][kTJ];  // round(xl_i[s] * xl_j[s])
+  __shared__ __align__(16) float ws[kKS][DW];   // W1 rows, zero past D
   __shared__ float xi[kKS];
 
   const int b = blockIdx.z, i = blockIdx.y, j0 = blockIdx.x * kTJ;
@@ -50,17 +55,19 @@ __global__ void __launch_bounds__(kThreads)
   const int jg = tid >> 4, dg = tid & 15;
   const T* xb = xl + (long long)b * N * S;
 
-  float acc[4][4];
+  float acc[NG][4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int g = 0; g < NG; ++g)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][a][c] = 0.f;
 
   for (int s0 = 0; s0 < S; s0 += kKS) {
     __syncthreads();  // the previous chunk's reads are done
     if (tid < kKS) xi[tid] = s0 + tid < S ? Io<T>::load(xb + (long long)i * S + s0 + tid) : 0.f;
-    for (int e = tid; e < kKS * kMaxD; e += kThreads) {
-      const int s = e / kMaxD, d = e - s * kMaxD;
+    for (int e = tid; e < kKS * DW; e += kThreads) {
+      const int s = e / DW, d = e - s * DW;
       ws[s][d] = s0 + s < S && d < D ? Io<T>::load(w1t + (long long)(s0 + s) * D + d) : 0.f;
     }
     __syncthreads();  // xi is in
@@ -75,13 +82,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 4
     for (int s = 0; s < kKS; ++s) {
       const float4 pv = *reinterpret_cast<const float4*>(&ps[s][jg * 4]);
-      const float4 wv = *reinterpret_cast<const float4*>(&ws[s][dg * 4]);
       const float p4[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float w4[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int g = 0; g < NG; ++g) {
+        const float4 wv = *reinterpret_cast<const float4*>(&ws[s][g * kGroup + dg * 4]);
+        const float w4[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(p4[a], w4[c], acc[a][c]);
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[g][a][c] = fmaf(p4[a], w4[c], acc[g][a][c]);
+      }
     }
   }
 
@@ -92,10 +102,14 @@ __global__ void __launch_bounds__(kThreads)
     if (j >= N) continue;
     T* o = out + (((long long)b * N + i) * N + j) * D;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int d = dg * 4 + c;
-      if (d < D) o[d] = Io<T>::cast((acc[a][c] + ub[(long long)i * D + d]) + (bias[d] - ub[(long long)j * D + d]));
-    }
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = g * kGroup + dg * 4 + c;
+        if (d < D)
+          o[d] = Io<T>::cast((acc[g][a][c] + ub[(long long)i * D + d]) +
+                             (bias[d] - ub[(long long)j * D + d]));
+      }
   }
 }
 
@@ -103,9 +117,9 @@ template <typename T>
 cudaError_t launch(const void* xl, const float* u, const void* w1t, const float* bias, void* out,
                    int B, int N, int S, int D, cudaStream_t stream) {
   const dim3 grid((N + kTJ - 1) / kTJ, N, B);
-  outer_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(xl), u,
-                                                  static_cast<const T*>(w1t), bias,
-                                                  static_cast<T*>(out), N, S, D);
+  auto kern = D > kGroup ? outer_kernel<T, 2> : outer_kernel<T, 1>;
+  kern<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(xl), u, static_cast<const T*>(w1t),
+                                      bias, static_cast<T*>(out), N, S, D);
   return cudaGetLastError();
 }
 
@@ -113,7 +127,7 @@ cudaError_t launch(const void* xl, const float* u, const void* w1t, const float*
 
 extern "C" {
 
-// K11's product and sums. Takes D a multiple of 4 up to 64 and B, N up to 65535.
+// K11's product and sums. Takes D a multiple of 4 up to 128 and B, N up to 65535.
 int prd_outer(const void* xl, const void* u, const void* w1t, const void* bias, void* out,
               int dtype, int B, int N, int S, int D, void* stream) {
   const bool ok = (dtype == 0 || dtype == 1) && B > 0 && B <= 65535 && N > 0 && N <= 65535 &&

@@ -21,9 +21,11 @@
 //
 // Two kernels, launched back to back by one entry point:
 // 1. trimul_project_kernel, one block per 64 pair positions: LN into a
-//    transposed tile in shared memory (a warp per row), w_in staged beside
-//    it, then 4 x 4 register tiles (4 positions x 4 channels, 16 FMAs per
-//    two 16-byte shared loads) give a, b and the out gate. a and b go to
+//    transposed tile in shared memory (a warp per row), then, for each slice
+//    of 64 channels, that slice's w_in columns staged beside it (a whole
+//    [D, 5D] w_in would not fit at D = 128) and 4 x 4 register tiles (4
+//    positions x 4 channels, 16 FMAs per two 16-byte shared loads) give a,
+//    b and the out gate. a and b go to
 //    channel-major scratch [B, D, N(k), N(i or j)]: for outgoing a[i, k] is
 //    written at [d][k][i], for incoming a[k, i] at [d][k][i], so the main
 //    kernel reads both modes the same way, the i (j) axis contiguous. The
@@ -43,7 +45,9 @@
 // w_in [D, 5D] in T = [gate_a | gate_b | proj_a | proj_b | out_gate] columns;
 // b_in [5D] f32; wop_t [D, D] in T; bop [D] f32; scratch a_t, b_t
 // [B, D, N, N] in T and gate [B, N, N, D] f32; out contiguous [B, N, N, D].
-// Takes D a multiple of 8 up to 64. The entry point returns cudaGetLastError().
+// Takes D a multiple of 8 up to 128 (AlphaFold2's pair width; the main
+// kernel's [D, 16, 16] sum is D / 8 x 8 registers a lane). The entry point
+// returns cudaGetLastError().
 
 #include "common.cuh"
 
@@ -54,6 +58,8 @@ constexpr int kTP = 64;  // pair positions per projection block
 constexpr int kLdP = kTP + 4;  // row stride of its transposed LN tile
 constexpr int kT = 16;   // output tile kT x kT
 constexpr int kTK = 8;   // k per staged slab
+constexpr int kCW = 64;  // channels per staged slice of w_in columns
+constexpr int kMaxD = 128;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -63,65 +69,84 @@ __global__ void __launch_bounds__(kThreads)
                           int mode, int N, int D, long long positions) {
   extern __shared__ __align__(16) float smem[];
   const int W = 5 * D;
-  float* xsT = smem;          // [D][kLdP]: the tile's LN rows, transposed
-  float* ws = xsT + D * kLdP;  // [D][5D]: w_in
+  constexpr int kLdW = 2 * kCW;
+  float* xsT = smem;           // [D][kLdP]: the tile's LN rows, transposed
+  float* ws = xsT + D * kLdP;  // [D][2 kCW]: a slice's gate and projection columns
   const int tid = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * kTP;
   const int rows = (int)min((long long)kTP, positions - p0);
   for (int r = tid >> 5; r < kTP; r += kThreads / 32)
     layer_norm_to_column<T>(pair + (p0 + r) * D, r < rows, D, xsT + r, kLdP);
-  for (int e = tid; e < D * W; e += kThreads) ws[e] = Io<T>::load(w_in + e);
-  __syncthreads();
 
-  // a and b: a unit is 4 positions x 4 channels of [a | b], two tiles (gate, projection)
-  const int ab_units = (kTP / 4) * (2 * D / 4);
-  for (int u = tid; u < ab_units; u += kThreads) {
-    const int pg = u % (kTP / 4), c0 = (u / (kTP / 4)) * 4;
-    float g[4][4], pr[4][4];
+  // a and b: a unit is 4 positions x 4 channels of [a | b], two tiles (gate,
+  // projection), over slices of kCW channels
+  for (int s0 = 0; s0 < 2 * D; s0 += kCW) {
+    const int width = min(kCW, 2 * D - s0);
+    __syncthreads();  // the LN tile is in; the previous slice's reads are done
+    for (int e = tid; e < D * width; e += kThreads) {
+      const int d = e / width, c = e - d * width;
+      ws[d * kLdW + c] = Io<T>::load(w_in + (long long)d * W + s0 + c);
+      ws[d * kLdW + kCW + c] = Io<T>::load(w_in + (long long)d * W + 2 * D + s0 + c);
+    }
+    __syncthreads();
+    const int ab_units = (kTP / 4) * (width / 4);
+    for (int u = tid; u < ab_units; u += kThreads) {
+      const int pg = u % (kTP / 4), cl = (u / (kTP / 4)) * 4, c0 = s0 + cl;
+      float g[4][4], pr[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) g[i][j] = pr[i][j] = 0.f;
-    tile_4x4(g, xsT + pg * 4, kLdP, ws + c0, W, D);
-    tile_4x4(pr, xsT + pg * 4, kLdP, ws + 2 * D + c0, W, D);
+        for (int j = 0; j < 4; ++j) g[i][j] = pr[i][j] = 0.f;
+      tile_4x4(g, xsT + pg * 4, kLdP, ws + cl, kLdW, D);
+      tile_4x4(pr, xsT + pg * 4, kLdP, ws + kCW + cl, kLdW, D);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (pg * 4 + i >= rows) continue;
-      const long long pos = p0 + pg * 4 + i;
-      // pos = (bb, x, y) of the [B, N, N] pair grid
-      const long long bx = pos / N;
-      const int y = (int)(pos - bx * N);
-      const long long bb = bx / N;
-      const int x = (int)(bx - bb * N);
-      const int k = mode == 0 ? y : x;
-      const int ii = mode == 0 ? x : y;
-      const float m = mask[pos];
+      for (int i = 0; i < 4; ++i) {
+        if (pg * 4 + i >= rows) continue;
+        const long long pos = p0 + pg * 4 + i;
+        // pos = (bb, x, y) of the [B, N, N] pair grid
+        const long long bx = pos / N;
+        const int y = (int)(pos - bx * N);
+        const long long bb = bx / N;
+        const int x = (int)(bx - bb * N);
+        const int k = mode == 0 ? y : x;
+        const int ii = mode == 0 ? x : y;
+        const float m = mask[pos];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + j;
-        const float v = sigmoid_f(g[i][j] + b_in[c]) * (pr[i][j] + b_in[2 * D + c]) * m;
-        T* dst = c < D ? a_t : b_t;
-        const int ch = c < D ? c : c - D;
-        dst[((bb * D + ch) * N + k) * N + ii] = Io<T>::cast(v);
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + j;
+          const float v = sigmoid_f(g[i][j] + b_in[c]) * (pr[i][j] + b_in[2 * D + c]) * m;
+          T* dst = c < D ? a_t : b_t;
+          const int ch = c < D ? c : c - D;
+          dst[((bb * D + ch) * N + k) * N + ii] = Io<T>::cast(v);
+        }
       }
     }
   }
-  // the out gate: 4 positions x 4 channels per unit
-  const int og_units = (kTP / 4) * (D / 4);
-  for (int u = tid; u < og_units; u += kThreads) {
-    const int pg = u % (kTP / 4), c0 = (u / (kTP / 4)) * 4;
-    float g[4][4];
+  // the out gate: 4 positions x 4 channels per unit, over slices of kCW channels
+  for (int s0 = 0; s0 < D; s0 += kCW) {
+    const int width = min(kCW, D - s0);
+    __syncthreads();
+    for (int e = tid; e < D * width; e += kThreads) {
+      const int d = e / width, c = e - d * width;
+      ws[d * kLdW + c] = Io<T>::load(w_in + (long long)d * W + 4 * D + s0 + c);
+    }
+    __syncthreads();
+    const int og_units = (kTP / 4) * (width / 4);
+    for (int u = tid; u < og_units; u += kThreads) {
+      const int pg = u % (kTP / 4), cl = (u / (kTP / 4)) * 4, c0 = s0 + cl;
+      float g[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) g[i][j] = 0.f;
-    tile_4x4(g, xsT + pg * 4, kLdP, ws + 4 * D + c0, W, D);
+        for (int j = 0; j < 4; ++j) g[i][j] = 0.f;
+      tile_4x4(g, xsT + pg * 4, kLdP, ws + cl, kLdW, D);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (pg * 4 + i >= rows) continue;
-      float* dst = gate + (p0 + pg * 4 + i) * D + c0;
+      for (int i = 0; i < 4; ++i) {
+        if (pg * 4 + i >= rows) continue;
+        float* dst = gate + (p0 + pg * 4 + i) * D + c0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dst[j] = sigmoid_f(g[i][j] + b_in[4 * D + c0 + j]);
+        for (int j = 0; j < 4; ++j) dst[j] = sigmoid_f(g[i][j] + b_in[4 * D + c0 + j]);
+      }
     }
   }
 }
@@ -202,16 +227,26 @@ __global__ void __launch_bounds__(kThreads)
     const int i = i0 + p / kT, j = j0 + p % kT;
     if (i >= N || j >= N) continue;  // warp-uniform
     float* row = ps + p * kRow;
-    const bool has0 = lane < D, has1 = lane + 32 < D;
-    const float v0 = has0 ? row[lane] : 0.f;
-    const float v1 = has1 ? row[lane + 32] : 0.f;
-    const float mu = warp_sum(v0 + v1) / (float)D;
-    const float t0 = has0 ? v0 - mu : 0.f;
-    const float t1 = has1 ? v1 - mu : 0.f;
-    const float rstd = rsqrtf(warp_sum(t0 * t0 + t1 * t1) / (float)D + 1e-5f);
+    constexpr int kV = (D + 31) / 32;  // channels lane + 32 v per lane
+    float t[kV];
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      t[v] = lane + 32 * v < D ? row[lane + 32 * v] : 0.f;
+      sum += t[v];
+    }
+    const float mu = warp_sum(sum) / (float)D;
+    float sq = 0.f;
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      t[v] = lane + 32 * v < D ? t[v] - mu : 0.f;
+      sq += t[v] * t[v];
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / (float)D + 1e-5f);
     __syncwarp();
-    if (has0) row[lane] = Io<T>::round(t0 * rstd);
-    if (has1) row[lane + 32] = Io<T>::round(t1 * rstd);
+#pragma unroll
+    for (int v = 0; v < kV; ++v)
+      if (lane + 32 * v < D) row[lane + 32 * v] = Io<T>::round(t[v] * rstd);
     __syncwarp();
     const long long pos = ((long long)b * N + i) * N + j;
     for (int e = lane; e < D; e += 32) {
@@ -262,7 +297,7 @@ cudaError_t launch(const Args& a) {
   const long long positions = (long long)a.B * a.N * a.N;
   const long long blocks = (positions + kTP - 1) / kTP;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)a.D * (kLdP + 5 * a.D);
+  const size_t smem = sizeof(float) * (size_t)a.D * (kLdP + 2 * kCW);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         trimul_project_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -281,7 +316,15 @@ cudaError_t launch(const Args& a) {
     case 5: return launch_main<T, 5>(a);
     case 6: return launch_main<T, 6>(a);
     case 7: return launch_main<T, 7>(a);
-    default: return launch_main<T, 8>(a);
+    case 8: return launch_main<T, 8>(a);
+    case 9: return launch_main<T, 9>(a);
+    case 10: return launch_main<T, 10>(a);
+    case 11: return launch_main<T, 11>(a);
+    case 12: return launch_main<T, 12>(a);
+    case 13: return launch_main<T, 13>(a);
+    case 14: return launch_main<T, 14>(a);
+    case 15: return launch_main<T, 15>(a);
+    default: return launch_main<T, 16>(a);
   }
 }
 
@@ -289,13 +332,13 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// K9: mode 0 outgoing, 1 incoming. Takes D a multiple of 8 up to 64, B up to
-// 65535 and N up to 65535 * 16.
+// K9: mode 0 outgoing, 1 incoming. Takes D a multiple of 8 up to 128, B up
+// to 65535 and N up to 65535 * 16.
 int prd_trimul(const void* pair, const void* mask, const void* w_in, const void* b_in,
                const void* wop_t, const void* bop, void* a_t, void* b_t, void* gate, void* out,
                int dtype, int mode, int B, int N, int D, void* stream) {
   const bool ok = (dtype == 0 || dtype == 1) && (mode == 0 || mode == 1) && B > 0 &&
-                  B <= 65535 && N > 0 && (N + kT - 1) / kT <= 65535 && D > 0 && D <= 64 &&
+                  B <= 65535 && N > 0 && (N + kT - 1) / kT <= 65535 && D > 0 && D <= kMaxD &&
                   D % 8 == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   const Args a{pair, static_cast<const float*>(mask), w_in, static_cast<const float*>(b_in),

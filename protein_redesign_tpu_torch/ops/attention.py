@@ -16,10 +16,10 @@ kernels the denoiser's main path runs:
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
 
-K2 and K1 fast have two bodies: on bf16 inputs with C a multiple of 8 a
-tensor-core one (``attention_mma.cu``: mma.sync, ldmatrix, cp.async), else
-the CUDA-core one of ``attention.cu`` (f32, where TF32 would break the 1e-5
-parity).
+K1, K1 fast, K2 and K3 have two bodies (``takes_mma``): on bf16 inputs with
+C a multiple of 8 a tensor-core one (``attention_mma.cu``: mma.sync,
+ldmatrix, cp.async), else the CUDA-core one of ``attention.cu`` or
+``attention_kchunk.cu`` (f32, where TF32 would break the 1e-5 parity).
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -74,6 +74,15 @@ of ``attention_reference`` below the switch, and the plain K3, K5 and K6 at
 or above it (their memory is O(N * chunk), where autograd of the reference
 would hold [R, H, N, N] logits). That block exists to compare the kernels
 with the plain versions on the card; nothing on the main path enters it.
+
+Each kernel's bound (head width, shared memory, grid) is a pure predicate
+of shapes and dtype beside its constant (``attention_fits``, ``bwd_fits``,
+``kchunk_fits``, ``fused_gated_fits``; ``trimul_fits``, ``transition_fits``
+and ``outer_fits`` in their modules). Each wrapper reads its predicate
+before it launches and raises ValueError on CUDA tensors past the bound;
+``rows_attention`` reads K7's before the forward, so a backward K7 cannot
+take fails before anything launches. No shape on CUDA tensors takes a plain
+version instead of a kernel.
 """
 
 from __future__ import annotations
@@ -86,15 +95,93 @@ from typing import Dict, Iterator, Optional
 import torch
 
 NEG_INF = -(2.0**15)  # the reference's padding fill (`pallas_attention.py:33`)
-MAX_HEAD_DIM = 512  # the CUDA-core bodies: C / 32 accumulators per lane and query
-# The tensor-core bodies of K2 and K1 fast (attention_mma.cu, bf16, C a
-# multiple of 8): 64 queries and two K and V tiles per block in shared memory.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tensor-core bodies (attention_mma.cu: K1, K1 fast, K2, K3; bf16, C a
+# multiple of 8): a block's queries and two K and V tiles in shared memory.
 MMA_SMEM_BYTES = 227 * 1024
+MMA_BODIES = ("rows_attention", "rows_attention_fast", "tiled_attention", "rows_attention_kchunk")
+# K3's tensor-core body takes 128 queries per block up to head width 128 (a
+# (row, head)'s K and V are read from L2 once per query tile), 64 above it
+# (shared memory).
+KCHUNK_MMA_QUERIES, KCHUNK_MMA_WIDE_QUERIES = 128, 64
+
 MAX_HEADS = 65535  # grid.y
 # One block per (row, 16-query tile) at most, in grid.x's 2^31 - 1 blocks.
 MIN_QUERY_TILE, MAX_BLOCKS = 16, 2**31 - 1
+
+
+def mma_smem_bytes(C: int, queries: int = 64) -> int:
+    """Shared memory of a tensor-core block (``smem_bytes`` in attention_mma.cu):
+    ``queries`` query rows and two tiles of BK keys of the padded width CP = C
+    rounded up to 16, plus two V tiles of the CS-channel output slice, in bf16."""
+    cp = -(-C // 16) * 16
+    bk = 64 if cp <= 128 else (32 if cp <= 512 else 16)
+    cs = 16 if cp <= 16 else (32 if cp <= 32 else 64)
+    return 2 * ((queries + 2 * bk) * (cp + 8) + 2 * bk * (cs + 8))
+
+
+def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
+    """The body of kernel ``name`` for head width C in ``dtype``: K1, K1 fast,
+    K2 and K3 run their tensor-core body in bf16 when C is a multiple of 8
+    (an mma operand row is 8 bf16) whose tiles fit shared memory, else
+    their CUDA-core body (f32, where TF32 would break the 1e-5 parity); K5,
+    K6 and K7 have a CUDA-core body only."""
+    queries = kchunk_queries(C) if name == "rows_attention_kchunk" else 64
+    return (name in MMA_BODIES and dtype == torch.bfloat16 and C > 0 and C % 8 == 0
+            and mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES)
+
+
+def kchunk_queries(C: int) -> int:
+    """Queries per block of K3's tensor-core body at head width C."""
+    return KCHUNK_MMA_QUERIES if C <= 128 else KCHUNK_MMA_WIDE_QUERIES
+
+
+# The bound predicates below read shapes and dtype only. A dtype the kernels
+# do not take (neither float32 nor bfloat16) is not a bound: the kernel
+# wrappers raise TypeError for it.
+
+
+def grid_fits(R: int, N: int, H: int) -> bool:
+    """Whether R rows of N queries and H heads fit the attention kernels' grids."""
+    return R > 0 and N > 0 and 0 < H <= MAX_HEADS and -(-N // MIN_QUERY_TILE) * R <= MAX_BLOCKS
+
+
+def width_fits(C: int, max_width: int) -> bool:
+    """A CUDA-core body's head width: a multiple of 4 (16-byte loads) up to
+    ``max_width``."""
+    return 0 < C <= max_width and C % 4 == 0
+
+
+MAX_HEAD_DIM = 1024  # the CUDA-core bodies: C / 32 accumulators per lane and query
+
+
+def attention_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
+    """Whether K1, K1 fast or K2 (``name``) takes [R, N, H, C] operands of
+    ``dtype``: the tensor-core body's shared memory, else the CUDA-core
+    body's C <= MAX_HEAD_DIM, a multiple of 4."""
+    return grid_fits(R, N, H) and (takes_mma(name, dtype, C)
+                                   or width_fits(C, MAX_HEAD_DIM))
+
+
 MAX_BWD_HEAD_DIM = 128  # K7: rows in registers to C = 32, then 4 x C / 32 accumulators per lane
-MAX_KCHUNK_HEAD_DIM = 128  # K3, K5, K6: 4 x C / 32 accumulators per lane
+
+
+def bwd_fits(R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
+    """Whether K7 takes the backward of [R, N, H, C] operands of ``dtype``."""
+    return grid_fits(R, N, H) and width_fits(C, MAX_BWD_HEAD_DIM)
+
+
+MAX_KCHUNK_HEAD_DIM = 128  # K3 (f32), K5, K6: 4 x C / 32 accumulators per lane
+
+
+def kchunk_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
+    """Whether K3 (``name`` "rows_attention_kchunk"), K5 or K6 takes
+    [R, N, H, C] operands of ``dtype``: K3's tensor-core body's shared
+    memory, else the CUDA-core body's C <= MAX_KCHUNK_HEAD_DIM."""
+    return grid_fits(R, N, H) and (takes_mma(name, dtype, C)
+                                   or width_fits(C, MAX_KCHUNK_HEAD_DIM))
+
 
 # The K-chunk switch points and chunk target of the JAX package
 # (`pallas_attention.py:140-147`, KCHUNK :147), without its environment
@@ -117,7 +204,6 @@ LAUNCHES: Dict[str, int] = {
     "fused_outer_linear": 0,
 }
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PLAIN_ROUTE = False  # set only inside plain_route()
 _WARNED: set = set()  # the plain-VJP warnings already given in this process
 
@@ -383,24 +469,6 @@ def rows_attention_kchunk_bwd_reference(q, k, v, mask, dout, out, m, logs, scale
     return dq * w, dk, dv
 
 
-def mma_smem_bytes(C: int) -> int:
-    """Shared memory of a tensor-core block (``smem_bytes`` in attention_mma.cu):
-    64 query rows and two tiles of BK keys of the padded width CP = C rounded
-    up to 16, plus two V tiles of the CS-channel output slice, in bf16."""
-    cp = -(-C // 16) * 16
-    bk = 64 if cp <= 128 else (32 if cp <= 512 else 16)
-    cs = 16 if cp <= 16 else (32 if cp <= 32 else 64)
-    return 2 * ((64 + 2 * bk) * (cp + 8) + 2 * bk * (cs + 8))
-
-
-def _takes_mma(name: str, q: torch.Tensor) -> bool:
-    """K2 and K1 fast run their tensor-core body on bf16 inputs whose head
-    width is a multiple of 8 (an mma operand row is 8 bf16), else the
-    CUDA-core body; K1 keeps its CUDA-core body."""
-    return (name != "rows_attention" and q.dtype == torch.bfloat16 and q.dim() == 4
-            and q.shape[-1] % 8 == 0)
-
-
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` if every [.., C] row starts on 16 bytes (cp.async and 16-byte
     loads), else a contiguous copy."""
@@ -409,7 +477,9 @@ def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
 
-def _check(q, k, v, mask, bias, mma: bool = False) -> None:
+def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
+    """The operands' layout, devices and dtypes; ``fits`` is the kernel's
+    bound predicate on their shape, ``bound`` what it requires."""
     if q.dim() != 4:
         raise ValueError(f"q must be [R, N, H, C], got {tuple(q.shape)}")
     R, N, H, C = q.shape
@@ -427,6 +497,8 @@ def _check(q, k, v, mask, bias, mma: bool = False) -> None:
             raise ValueError(
                 f"bias must be [R, H, N, N] = {(R, H, N, N)}, got {tuple(bias.shape)}"
             )
+    if not fits:
+        raise ValueError(f"head width {C} unsupported: {bound}")
     for name, t in tensors:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be on {q.device}, got {t.device}")
@@ -435,29 +507,31 @@ def _check(q, k, v, mask, bias, mma: bool = False) -> None:
     for name, t in (("k", k), ("v", v), ("bias", bias)):
         if t is not None and t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-    if mma:
-        if not (0 < C and C % 8 == 0 and mma_smem_bytes(C) <= MMA_SMEM_BYTES):
-            raise ValueError(f"head width {C} unsupported by the tensor-core body: need a "
-                             f"multiple of 8 whose tiles fit {MMA_SMEM_BYTES} bytes")
-    elif not (0 < C <= MAX_HEAD_DIM and C % 4 == 0):
-        raise ValueError(f"head width {C} unsupported: need a multiple of 4 up to {MAX_HEAD_DIM}")
-    if R == 0 or N == 0 or H == 0:
-        raise ValueError(f"empty attention: R={R}, N={N}, H={H}")
-    if H > MAX_HEADS or -(-N // MIN_QUERY_TILE) * R > MAX_BLOCKS:
-        raise ValueError(f"attention grid too large: R={R}, N={N}, H={H}")
+    if not grid_fits(R, N, H):
+        raise ValueError(f"attention grid: R={R}, N={N}, H={H} must be non-empty, with H up to "
+                         f"{MAX_HEADS} and ceil(N / {MIN_QUERY_TILE}) R up to {MAX_BLOCKS}")
     for name, t in tensors[:3]:
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous along the head dimension")
 
 
+_MMA_BOUND = f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} bytes"
+
+
 def _launch(name: str, q, k, v, mask, bias, scale: float,
             mma: Optional[bool] = None) -> torch.Tensor:
     """Launch K1, K1 fast or K2 (``name``); ``mma`` None picks the body by
-    ``_takes_mma``, False forces the CUDA-core body."""
+    ``takes_mma``, False forces the CUDA-core body."""
     from ..kernels import build
 
-    mma = _takes_mma(name, q) if mma is None else mma
-    _check(q, k, v, mask, bias, mma)
+    C = q.shape[-1]
+    auto = takes_mma(name, q.dtype, C)
+    mma = auto if mma is None else mma
+    if mma:
+        _check(q, k, v, mask, bias, auto, _MMA_BOUND)
+    else:
+        _check(q, k, v, mask, bias, width_fits(C, MAX_HEAD_DIM),
+               f"the CUDA-core body needs a multiple of 4 up to {MAX_HEAD_DIM}")
     lib = build()
     R, N, H, C = q.shape
     if mask is not None:
@@ -499,13 +573,12 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
 def _launch_bwd(q, k, v, mask, dout, scale: float):
     from ..kernels import build
 
-    _check(q, k, v, mask, None)
+    C = q.shape[-1]
+    _check(q, k, v, mask, None, width_fits(C, MAX_BWD_HEAD_DIM),
+           f"rows attention backward takes a multiple of 4 up to {MAX_BWD_HEAD_DIM}")
     R, N, H, C = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must match q: got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
-    if C > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"rows attention backward takes head width up to {MAX_BWD_HEAD_DIM}, "
-                         f"got {C}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     lib = build()
@@ -526,35 +599,49 @@ def _launch_bwd(q, k, v, mask, dout, scale: float):
     return dq * w, dk, dv
 
 
-def _check_kchunk(q, k, v, mask) -> None:
+def _check_kchunk(q, k, v, mask, mma: bool = False) -> None:
     C = q.shape[-1]
-    if C > MAX_KCHUNK_HEAD_DIM:
-        raise ValueError(f"K-chunked rows attention takes head width up to "
-                         f"{MAX_KCHUNK_HEAD_DIM}, got {C}")
-    _check(q, k, v, mask, None)
+    if mma:
+        _check(q, k, v, mask, None, takes_mma("rows_attention_kchunk", q.dtype, C), _MMA_BOUND)
+    else:
+        _check(q, k, v, mask, None, width_fits(C, MAX_KCHUNK_HEAD_DIM),
+               f"K-chunked rows attention takes a multiple of 4 up to {MAX_KCHUNK_HEAD_DIM}")
 
 
-def _launch_kchunk(q, k, v, mask, scale: float, stats: bool):
-    """K3 (``stats`` False) or K5: out, plus m and log s [R, H, N] f32."""
+def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool] = None):
+    """K3 (``stats`` False) or K5: out, plus m and log s [R, H, N] f32. K3
+    picks its body by ``takes_mma`` where ``mma`` is None (False forces the
+    CUDA-core body)."""
     from ..kernels import build
 
-    _check_kchunk(q, k, v, mask)
+    name = "rows_attention_kchunk_stats" if stats else "rows_attention_kchunk"
+    if mma is None:
+        mma = takes_mma(name, q.dtype, q.shape[-1])
+    _check_kchunk(q, k, v, mask, mma)
     lib = build()
     R, N, H, C = q.shape
     mask = mask.to(torch.float32).contiguous()
+    if mma:
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
     out = torch.empty((R, N, H, C), dtype=q.dtype, device=q.device)
     m = logs = None
     if stats:
         m, logs = (torch.empty((R, H, N), dtype=torch.float32, device=q.device) for _ in range(2))
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    name = "rows_attention_kchunk_stats" if stats else "rows_attention_kchunk"
+    w = weak_scalar(scale, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.lib.prd_rows_attention_kchunk(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            None if m is None else m.data_ptr(), None if logs is None else logs.data_ptr(),
-            _DTYPE_CODES[q.dtype], R, N, H, C, weak_scalar(scale, q.dtype), *strides, stream,
-        )
+        if mma:
+            code = lib.lib.prd_rows_attention_kchunk_mma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                R, N, H, C, w, *strides, stream,
+            )
+        else:
+            code = lib.lib.prd_rows_attention_kchunk(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                None if m is None else m.data_ptr(), None if logs is None else logs.data_ptr(),
+                _DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream,
+            )
     lib.check(code, name)
     LAUNCHES[name] += 1
     return (out, m, logs) if stats else out
@@ -606,18 +693,21 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool) -> torch.Tensor:
-    """One launch of K2 (``name`` "tiled_attention") or K1 fast
-    ("rows_attention_fast") on CUDA tensors through the body ``mma`` names,
+    """One launch of K1 (``name`` "rows_attention"), K1 fast
+    ("rows_attention_fast"), K2 ("tiled_attention") or K3
+    ("rows_attention_kchunk") on CUDA tensors through the body ``mma`` names,
     without autograd: in bf16 the CUDA-core body (``mma`` False), which the
     tensor-core one replaced, stays callable only to time the two side by
     side."""
+    if name == "rows_attention_kchunk":
+        return _launch_kchunk(q, k, v, mask, scale, stats=False, mma=mma)
     return _launch(name, q, k, v, mask, bias, scale, mma=mma)
 
 
 def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """K1 fast: ``rows_attention_fast_reference``'s function; the plain
     version for CPU tensors, the kernel for CUDA ones: the tensor-core body
-    in bf16 with C a multiple of 8, else the CUDA-core body (C <= 512).
+    in bf16 with C a multiple of 8, else the CUDA-core body (C <= 1024).
     Forward only: its callers differentiate the f32 reference instead."""
     if mask is None:
         raise ValueError("rows_attention_fast needs a key mask")
@@ -761,10 +851,16 @@ class _TiledAttention(torch.autograd.Function):
 def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """Masked attention without bias (triangle attention), by regime: K1
     below the switch, K3 or K5 at or above it. q, k, v [R, N, H, C]; mask
-    [R, N]. Differentiable: the backward is K7 or K6."""
+    [R, N]. Differentiable: the backward is K7 or K6. On CUDA tensors that
+    need a gradient below the switch, a shape K7 cannot take (``bwd_fits``)
+    raises before the forward launches."""
     if mask is None:
         raise ValueError("rows_attention needs a key mask")
     stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if (stats and q.dim() == 4 and not _on_cpu(q) and not _PLAIN_ROUTE
+            and kchunk_select(q.shape[1], q.dtype) == 0 and not bwd_fits(*q.shape, q.dtype)):
+        raise ValueError(f"rows attention backward (K7) takes a head width that is a multiple "
+                         f"of 4 up to {MAX_BWD_HEAD_DIM}; got q {tuple(q.shape)}")
     return _RowsAttention.apply(q, k, v, mask, scale, stats)
 
 
@@ -773,7 +869,7 @@ def tiled_attention(q, k, v, mask: Optional[torch.Tensor], bias: torch.Tensor,
     """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N];
     on CUDA the tensor-core body in bf16 with C a multiple of 8 (any C
     whose tiles fit shared memory, up to 1168), else the CUDA-core body
-    (C <= 512). Differentiable: the backward is the plain recompute."""
+    (C <= 1024). Differentiable: the backward is the plain recompute."""
     if bias is None:
         raise ValueError("tiled_attention needs a bias; masked attention without one "
                          "is rows_attention's")
@@ -819,10 +915,19 @@ def fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -
     return (gated @ wo.to(dt).float().t() + bo.float()).to(dt)
 
 
-# fused_gated.cu: two output channels per lane (D <= 64), one head channel
-# per lane in P.V (C <= 32), the projection weights [D, 4 H C] and the
-# out-projection [H C, D] in shared memory (f32).
-MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 64, 32, 128
+# fused_gated.cu: up to four output channels per lane (D <= 128), one head
+# channel per lane in P.V (C <= 32), 64-column slices of the projection
+# weights and the out-projection [H C, D] in shared memory (f32).
+MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 128, 32, 128
+
+
+def fused_gated_fits(R: int, N: int, D: int, H: int, C: int, dtype: torch.dtype) -> bool:
+    """Whether K8 takes R rows of N positions of width D in ``dtype`` with H
+    heads of width C: D, C and H C within MAX_FUSED_*, C a multiple of 4,
+    one block per (row, 32 queries) in grid.x."""
+    return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 4 == 0
+            and 0 < H * C <= MAX_FUSED_WIDTH
+            and R > 0 and N > 0 and -(-N // 32) * R <= MAX_BLOCKS)
 
 
 def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> torch.Tensor:
@@ -837,11 +942,12 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     HC = wq.shape[0]
     H = num_heads
     C = HC // H if H > 0 else 0
-    if not (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 4 == 0
-            and H * C == HC and HC <= MAX_FUSED_WIDTH):
+    R = math.prod(x.shape[:-2])
+    if not (H * C == HC and fused_gated_fits(R, N, D, H, C, x.dtype)):
         raise ValueError(f"the fused gated attention kernel takes D up to {MAX_FUSED_PAIR_DIM}, "
-                         f"head width a multiple of 4 up to {MAX_FUSED_HEAD_DIM} and H*C up to "
-                         f"{MAX_FUSED_WIDTH}; got D={D}, H={H}, H*C={HC}")
+                         f"head width a multiple of 4 up to {MAX_FUSED_HEAD_DIM}, H*C up to "
+                         f"{MAX_FUSED_WIDTH} and ceil(N / 32) rows up to {MAX_BLOCKS}; got "
+                         f"{R} rows, N={N}, D={D}, H={H}, H*C={HC}")
     for name, w, shape in (("wq", wq, (HC, D)), ("wk", wk, (HC, D)), ("wv", wv, (HC, D)),
                            ("wg", wg, (HC, D)), ("bg", bg, (HC,)), ("wo", wo, (D, HC)),
                            ("bo", bo, (D,))):
@@ -856,9 +962,6 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     if x4.stride(-1) != 1:
         x4 = x4.contiguous()
     R1, R2 = x4.shape[:2]
-    R = R1 * R2
-    if R == 0 or N == 0 or -(-N // 32) * R > MAX_BLOCKS:
-        raise ValueError(f"fused gated attention grid: R={R} rows of N={N}")
     lib = build()
     dt = x.dtype
     maskf = torch.broadcast_to(mask, x.shape[:-1]).reshape(R, N).to(torch.float32).contiguous()

@@ -37,7 +37,13 @@ from .attention import (
     stream_of,
 )
 
-MAX_PAIR_DIM = 64  # outer.cu: 16 threads of 4 output channels each
+MAX_PAIR_DIM = 128  # outer.cu: 16 threads of 4 output channels in each of two groups of 64
+
+
+def outer_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
+    """Whether K11 takes x [B, N, S] in ``dtype`` with D output channels: D a
+    multiple of 4 up to MAX_PAIR_DIM, B and N from 1 to 65535."""
+    return 0 < D <= MAX_PAIR_DIM and D % 4 == 0 and 0 < B <= 65535 and 0 < N <= 65535
 
 
 def _split(x: torch.Tensor, w: torch.Tensor):
@@ -70,11 +76,9 @@ def _launch(x, w, b) -> torch.Tensor:
     if w.shape != (D, 2 * S) or b.shape != (D,):
         raise ValueError(f"OuterLinear weight must be [D, 2S] = [D, {2 * S}] with bias [D], got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
-    if not (0 < D <= MAX_PAIR_DIM and D % 4 == 0):
+    if not outer_fits(B, N, D, x.dtype):
         raise ValueError(f"the OuterLinear kernel takes a pair width that is a multiple of 4 up "
-                         f"to {MAX_PAIR_DIM}, got {D}")
-    if B == 0 or N == 0 or B > 65535 or N > 65535:
-        raise ValueError(f"OuterLinear grid: B={B} and N={N} must be 1 to 65535")
+                         f"to {MAX_PAIR_DIM}, B and N from 1 to 65535; got B={B}, N={N}, D={D}")
     for name, t in (("w", w), ("b", b)):
         if t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")

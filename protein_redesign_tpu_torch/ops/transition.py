@@ -48,6 +48,13 @@ def smem_bytes(D: int) -> int:
     return 4 * (68 * D + 64 * 64 + 64 * 68 + 64 * 64)
 
 
+def transition_fits(M: int, D: int, Hd: int, Dout: int, dtype: torch.dtype) -> bool:
+    """Whether K10 takes M rows of width D in ``dtype``, hidden width Hd and
+    Dout outputs: the row tile's smem_bytes(D) within MAX_SMEM (D up to
+    670), 1 to 2^31 - 1 rows."""
+    return 0 < D and 0 < Hd and 0 < Dout and smem_bytes(D) <= MAX_SMEM and 0 < M <= 2**31 - 1
+
+
 def transition_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: Optional[torch.Tensor]) -> torch.Tensor:
     """Plain version of K10 on x [..., D]."""
@@ -72,17 +79,16 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
             b2 is not None and b2.shape != (Dout,)):
         raise ValueError(f"transition shapes: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
-    if not (0 < D and 0 < Dout and Hd > 0 and smem_bytes(D) <= MAX_SMEM):
+    lead = x.shape[:-1]
+    M = x.numel() // D if D else 0
+    if not transition_fits(M, D, Hd, Dout, x.dtype):
         raise ValueError(f"the transition kernel takes {MAX_SMEM} bytes of shared memory for its "
-                         f"row tile, so D up to 670; got D={D}: {smem_bytes(D)} bytes")
+                         f"row tile, so D up to 670, and 1 to 2^31 - 1 rows; got D={D} "
+                         f"({smem_bytes(D)} bytes), {M} rows")
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-    lead = x.shape[:-1]
     x2 = x.reshape(-1, D).contiguous()
-    M = x2.shape[0]
-    if M == 0 or M > 2**31 - 1:
-        raise ValueError(f"the transition kernel takes 1 to 2^31 - 1 rows, got {M}")
     lib = build()
     dt = x.dtype
     w1t = w1.to(dt).t().contiguous()  # [D, Hd]

@@ -41,8 +41,14 @@ from .attention import (
 )
 
 MODES = ("outgoing", "incoming")
-MAX_PAIR_DIM = 64  # trimul.cu: 8 warps of D / 8 channels, two values per lane in the epilogue
+MAX_PAIR_DIM = 128  # trimul.cu: 8 warps of D / 8 channels, D / 32 values per lane in the epilogue
 MAX_N = 65535 * 16  # grid.y: one block per 16 x 16 output tile
+
+
+def trimul_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
+    """Whether K9 takes a [B, N, N, D] pair in ``dtype``: D a multiple of 8
+    up to MAX_PAIR_DIM, B up to 65535 and N up to MAX_N."""
+    return 0 < D <= MAX_PAIR_DIM and D % 8 == 0 and 0 < B <= 65535 and 0 < N <= MAX_N
 
 
 def trimul_reference(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str):
@@ -80,11 +86,10 @@ def _launch(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str) -> tor
     B, N, _, D = pair.shape
     if mask_2d.shape != (B, N, N):
         raise ValueError(f"mask_2d must be [B, N, N] = {(B, N, N)}, got {tuple(mask_2d.shape)}")
-    if not (0 < D <= MAX_PAIR_DIM and D % 8 == 0):
+    if not trimul_fits(B, N, D, pair.dtype):
         raise ValueError(f"the triangle kernel takes a pair width that is a multiple of 8 up to "
-                         f"{MAX_PAIR_DIM}, got {D}")
-    if B == 0 or N == 0 or B > 65535 or N > MAX_N:
-        raise ValueError(f"triangle grid: B={B} must be 1 to 65535 and N={N} 1 to {MAX_N}")
+                         f"{MAX_PAIR_DIM}, B from 1 to 65535 and N from 1 to {MAX_N}; got "
+                         f"B={B}, N={N}, D={D}")
     shapes = {"ab_gate": (wg, bg, 2 * D), "ab_proj": (wp, bp, 2 * D), "out_gate": (wog, bog, D),
               "out_proj": (wop, bop, D)}
     for name, (w, b, out_dim) in shapes.items():

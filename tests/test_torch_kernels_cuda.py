@@ -150,9 +150,12 @@ def test_wrapper_rejects(device):
         A.rows_attention_bwd(wide_q, wide_q, wide_q, mask, wide_q, 0.5)
     with pytest.raises(ValueError):
         A.rows_attention(q, k, v, mask.cpu(), 0.5)
-    wide = torch.zeros(2, 16, 1, 516, device=device)
-    with pytest.raises(ValueError):
+    wide = torch.zeros(2, 16, 1, 1028, device=device)
+    with pytest.raises(ValueError):  # the CUDA-core body takes C <= 1024
         A.tiled_attention(wide, wide, wide, None, torch.zeros(2, 1, 16, 16, device=device), 1.0)
+    with pytest.raises(ValueError, match="K7"):  # raised before the forward launches K1
+        wide_q = torch.zeros(2, 16, 1, 132, device=device, requires_grad=True)
+        A.rows_attention(wide_q, wide_q, wide_q, mask, 0.5)
     with pytest.raises(TypeError):
         A.rows_attention(q.detach().half(), k.half(), v.half(), mask, 0.5)
     with pytest.raises(ValueError):
@@ -348,7 +351,10 @@ def test_kchunk_kernels_match_plain(device, dtype, N, C):
     ref, ref_m, ref_logs = A.rows_attention_kchunk_reference(q, k, v, mask, 0.35, stats=True)
     tol = _tol(dtype, C)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(out_s, out, atol=0, rtol=0)
+    if A.takes_mma("rows_attention_kchunk", dtype, C):  # K3 on the tensor cores, K5 not
+        torch.testing.assert_close(out_s.float(), ref.float(), atol=tol, rtol=tol)
+    else:  # one CUDA-core body
+        torch.testing.assert_close(out_s, out, atol=0, rtol=0)
     torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(logs, ref_logs, atol=1e-5, rtol=1e-5)
     mean_v = v[:2].float().mean(1, keepdim=True).expand_as(out[:2])
@@ -526,7 +532,8 @@ def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2)
 
 
 @DTYPES
-@pytest.mark.parametrize("B,N,S,D", [(2, 45, 64, 64), (1, 130, 512, 64), (1, 7, 16, 8)])
+@pytest.mark.parametrize("B,N,S,D", [(2, 45, 64, 64), (1, 130, 512, 64), (1, 7, 16, 8),
+                                     (1, 33, 128, 128), (2, 20, 32, 96)])
 def test_outer_kernel_matches_plain(device, dtype, B, N, S, D):
     from protein_redesign_tpu_torch.ops import outer as O
 
@@ -540,7 +547,8 @@ def test_outer_kernel_matches_plain(device, dtype, B, N, S, D):
 
 @DTYPES
 @pytest.mark.parametrize("mode", ["outgoing", "incoming"])
-@pytest.mark.parametrize("B,N,D", [(2, 45, 64), (1, 40, 16), (1, 17, 24)])
+@pytest.mark.parametrize("B,N,D", [(2, 45, 64), (1, 40, 16), (1, 17, 24), (1, 33, 128),
+                                   (1, 20, 72)])
 def test_trimul_kernel_matches_plain(device, dtype, mode, B, N, D):
     from protein_redesign_tpu_torch.ops import trimul as M
 
@@ -555,7 +563,8 @@ def test_trimul_kernel_matches_plain(device, dtype, mode, B, N, D):
 
 @DTYPES
 @pytest.mark.parametrize("view", ["starting", "ending"])
-@pytest.mark.parametrize("N,D,H,C", [(45, 64, 4, 16), (40, 16, 2, 8), (20, 24, 3, 32)])
+@pytest.mark.parametrize("N,D,H,C", [(45, 64, 4, 16), (40, 16, 2, 8), (20, 24, 3, 32),
+                                     (33, 128, 4, 32), (20, 96, 4, 16)])
 def test_fused_gated_kernel_matches_plain(device, dtype, view, N, D, H, C):
     pair = _randn(2, N, N, D, seed=15, device=device).to(dtype)
     mask = _pair_mask(2, N, device, masked_rows=3)
@@ -625,13 +634,13 @@ def test_fused_wrappers_reject(device):
     from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
-    with pytest.raises(ValueError):  # pair width beyond 64
-        ws = [*_linear(256, 128, device, 0), *_linear(256, 128, device, 0),
-              *_linear(128, 128, device, 0), *_linear(128, 128, device, 0)]
-        M.trimul(torch.zeros(1, 4, 4, 128, device=device), torch.ones(1, 4, 4, device=device),
+    with pytest.raises(ValueError):  # pair width beyond 128
+        ws = [*_linear(272, 136, device, 0), *_linear(272, 136, device, 0),
+              *_linear(136, 136, device, 0), *_linear(136, 136, device, 0)]
+        M.trimul(torch.zeros(1, 4, 4, 136, device=device), torch.ones(1, 4, 4, device=device),
                  *ws, "outgoing")
-    with pytest.raises(ValueError):  # output channels beyond 64
-        O.outer(torch.zeros(1, 4, 8, device=device), *_linear(72, 16, device, 0))
+    with pytest.raises(ValueError):  # output channels beyond 128
+        O.outer(torch.zeros(1, 4, 8, device=device), *_linear(132, 16, device, 0))
     with pytest.raises(ValueError):  # 64 LN rows of width 1024 exceed shared memory
         T.transition(torch.zeros(3, 1024, device=device), *_linear(16, 1024, device, 0),
                      *_linear(8, 16, device, 0))
@@ -833,3 +842,137 @@ def test_fast_plan_routes_on_the_card(device, N, use_pallas_bwd, launches):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= 2e-2
+
+
+# The tensor-core bodies of K1 and K3 (attention_mma.cu), bf16 with C a
+# multiple of 8: K1 rounds the normalised probabilities to bf16 as the plain
+# version does (the logits summed in another order), K3 rounds p against
+# the running max as its plain version does; 2e-2 as every bf16 kernel here,
+# relative to each element and, for the absolute part, to the output's RMS
+# (at N = 2048 a typical |out| is ~0.03, so an absolute 2e-2 would pass an
+# error as large as the output).
+def _close_to_scale(got, want, tol=2e-2):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=tol,
+                               atol=tol * float(want.square().mean().sqrt()))
+
+
+def _check_body(name, q, k, v, mask, scale, masked_rows):
+    before = A.LAUNCHES[name]
+    if name == "rows_attention":
+        out = A.rows_attention(q, k, v, mask, scale)
+        ref = A.attention_reference(q, k, v, mask, None, scale)
+    else:
+        out = A.rows_attention_kchunk(q, k, v, mask, scale)
+        ref = A.rows_attention_kchunk_reference(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES[name] == before + 1
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    _close_to_scale(out, ref)
+    if masked_rows:  # fully masked rows: the mean of v
+        mean_v = v[:masked_rows].float().mean(1, keepdim=True).expand_as(out[:masked_rows])
+        _close_to_scale(out[:masked_rows], mean_v)
+
+
+@pytest.mark.parametrize("N", [16, 147, 192, 384])
+@pytest.mark.parametrize("C", [8, 16, 64, 128, 256])
+def test_rows_mma_matches_plain(device, N, C):
+    assert A.takes_mma("rows_attention", torch.bfloat16, C)
+    q, k, v, mask, _ = _inputs(6, N, 2, C, torch.bfloat16, device, seed=40, masked_rows=2)
+    _check_body("rows_attention", q, k, v, mask, 1.0 / C ** 0.5, 2)
+
+
+@pytest.mark.parametrize("N", [256, 2048])
+@pytest.mark.parametrize("C", [8, 16, 64, 128, 256])
+def test_kchunk_mma_matches_plain(device, N, C):
+    assert A.takes_mma("rows_attention_kchunk", torch.bfloat16, C)
+    q, k, v, mask, _ = _inputs(4 if N == 2048 else 6, N, 2, C, torch.bfloat16, device, seed=41,
+                               masked_rows=1)
+    _check_body("rows_attention_kchunk", q, k, v, mask, 1.0 / C ** 0.5, 1)
+
+
+@pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
+def test_rows_and_kchunk_mma_strided_and_many_rows(device, name):
+    """The 'ending' layout (k and v read through strides), and R = 70000
+    rows (above grid.y and grid.z's 65535)."""
+    N, H, C = 40, 4, 16
+    q, k, v, mask, _ = _inputs(N, N, H, C, torch.bfloat16, device, seed=42, masked_rows=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))
+    assert not kt.is_contiguous()
+    dense = [x.contiguous() for x in (qt, kt, vt)]
+    got = A.attention_body(name, qt, kt, vt, mask, None, 0.25, mma=True)
+    want = A.attention_body(name, *dense, mask, None, 0.25, mma=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    ref = A.attention_reference(*dense, mask, None, 0.25)
+    _close_to_scale(got, ref)
+    q, k, v, mask, _ = _inputs(70000, 20, 1, 8, torch.bfloat16, device, seed=43, masked_rows=3)
+    _check_body(name, q, k, v, mask, 0.5, 3)
+
+
+@pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
+def test_rows_and_kchunk_bodies_stay_callable(device, name):
+    """Both bodies of K1 and K3 in bf16 (the CUDA-core one kept to time it
+    against the tensor-core one), and f32 on the CUDA-core body at 1e-5."""
+    q, k, v, mask, _ = _inputs(4, 100, 2, 16, torch.float32, device, seed=44, masked_rows=1)
+    ref = A.attention_reference(q, k, v, mask, None, 0.3)
+    got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=False)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    refb = A.attention_reference(qb, kb, vb, mask, None, 0.3)
+    for mma in (False, True):
+        got = A.attention_body(name, qb, kb, vb, mask, None, 0.3, mma=mma)
+        _close_to_scale(got, refb)
+    with pytest.raises(ValueError):  # the tensor-core body takes bf16 only
+        A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
+
+
+FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pallas_outer=True,
+                     use_pallas_fused_gated=True)
+
+
+@pytest.mark.parametrize("fields,launches,tol", [
+    (dict(pair_dim=128, dtype="bfloat16", **FOUR_SWITCHES),
+     dict(fused_gated_rows_attention=4, triangle_multiply=4, fused_outer_linear=2,
+          tiled_attention=3, fused_transition=4), 2e-2),
+    (dict(single_dim=768, dtype="float32"), dict(rows_attention=4, tiled_attention=3), 5e-4),
+], ids=["pair_dim_128_fused", "f32_single_dim_768"])
+def test_wide_configurations_run_the_kernels_on_the_card(device, fields, launches, tol):
+    """Two configurations past the kernels' former bounds: the four switches
+    at AlphaFold2's pair width 128 (K8, K9 and K11 now take D <= 128) and an
+    f32 model with single_dim 768 (SPAttention's head width; K2's CUDA-core
+    body now takes C <= 1024). Every module launches its kernel, and the
+    forward holds to the plain route (bf16 2e-2, f32 5e-4 relative norm)."""
+    mod, cfg = _paper_denoiser(device, num_blocks=2, **fields)
+    single, pair, mask = _trunk_inputs(cfg, 64, 50, device)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        got = mod(single, pair, mask)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES == _launches(**launches)
+        with A.plain_route():
+            want = mod(single, pair, mask)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).norm() / b.float().norm()) <= tol
+
+
+@pytest.mark.parametrize("name", ["tiled_attention", "rows_attention"])
+@pytest.mark.parametrize("C", [516, 768, 1024])
+def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
+    """K2 and K1 in f32 past C = 512, where the last pass stages V into K's
+    buffer: against the plain version at 1e-4 (the wide-head f32 tolerance),
+    fully masked rows included; C = 1028 is refused."""
+    q, k, v, mask, bias = _inputs(2, 70, 1, C, torch.float32, device, seed=50, masked_rows=1)
+    scale = C ** -0.5
+    if name == "tiled_attention":
+        out = A.tiled_attention(q, k, v, mask, bias, scale)
+        ref = A.attention_reference(q, k, v, mask, bias, scale)
+    else:
+        out = A.rows_attention(q, k, v, mask, scale)
+        ref = A.attention_reference(q, k, v, mask, None, scale)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    wide = torch.zeros(2, 16, 1, 1028, device=device)
+    wide_bias = torch.zeros(2, 1, 16, 16, device=device) if name == "tiled_attention" else None
+    with pytest.raises(ValueError, match="head width 1028"):
+        A.attention_body(name, wide, wide, wide, torch.ones(2, 16, device=device), wide_bias,
+                         1.0, mma=False)

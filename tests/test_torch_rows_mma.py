@@ -1,0 +1,255 @@
+"""The tensor-core bodies of K1 and K3 and the route past the kernels' bounds,
+on the CPU (no card needed).
+
+- The body choice (``ops.attention.takes_mma``) as a pure function of the
+  kernel's name, dtype and head width.
+- K3's tensor-core body streams keys in tiles of 64, where the JAX K3 takes
+  chunks of 256: the plain online softmax (``_kchunk_forward_block``) at 64
+  keys a tile against the JAX ``_rows_attention_kchunk_grid_cn`` (Pallas in
+  interpret mode, chunk 256) in bf16, within 2e-2 of max |out| (one flip of
+  a bf16 rounding of p).
+- Each bound predicate at its edge: accepted at the bound, refused past it.
+- The routes that read them never take a plain version on CUDA tensors: a
+  shape within a widened bound (f32 heads up to 1024) reaches the kernel, a
+  backward past K7's bound raises before the forward launches (the device
+  check patched, the launch recorded), and on the CPU every width takes the
+  plain version (1e-5 in f32). A fused configuration with pair width 72
+  (past the old bound of K8, K9 and K11) runs all four fused wrappers and
+  matches the JAX package with the same switches at the f32 net tolerance of
+  ``tests/test_torch_fused.py`` (1e-4).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from test_torch_fused import FUSED_CFG, _count_fused_calls  # noqa: E402
+from test_torch_net import make_batch, perturbed_params  # noqa: E402
+
+import protein_redesign_tpu.ops.pallas_attention as pa  # noqa: E402
+from protein_redesign_tpu.models.prdiff import ProteinReDiffModel  # noqa: E402
+from protein_redesign_tpu_torch.models import prdiff as P  # noqa: E402
+from protein_redesign_tpu_torch.ops import attention as A  # noqa: E402
+from protein_redesign_tpu_torch.ops import outer as O  # noqa: E402
+from protein_redesign_tpu_torch.ops import transition as T  # noqa: E402
+from protein_redesign_tpu_torch.ops import trimul as M  # noqa: E402
+from protein_redesign_tpu_torch.utils.weights import state_dict_from_jax  # noqa: E402
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+# the body choice ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
+@pytest.mark.parametrize("C,dtype,mma", [
+    (8, BF16, True), (16, BF16, True), (64, BF16, True), (1168, BF16, True),
+    (1176, BF16, False), (12, BF16, False), (4, BF16, False), (16, F32, False),
+    (64, F32, False),
+])
+def test_k1_and_k3_body_choice(name, C, dtype, mma):
+    """bf16 with C a multiple of 8 up to the shared-memory bound: the
+    tensor-core body; otherwise, and in f32, the CUDA-core body."""
+    assert A.takes_mma(name, dtype, C) is mma
+    queries = A.kchunk_queries(C) if name == "rows_attention_kchunk" else 64
+    assert (A.mma_smem_bytes(C, queries) <= A.MMA_SMEM_BYTES) is (C <= 1168)
+
+
+@pytest.mark.parametrize("C,queries", [(8, 128), (128, 128), (136, 64), (1168, 64)])
+def test_k3_query_tile_by_head_width(C, queries):
+    """K3's tensor-core body: 128 queries per block up to C = 128, 64 above
+    (128 would not fit shared memory at the widest heads)."""
+    assert A.kchunk_queries(C) == queries
+    assert A.mma_smem_bytes(1168, 128) > A.MMA_SMEM_BYTES
+
+
+@pytest.mark.parametrize("name", ["rows_attention_kchunk_stats", "rows_attention_kchunk_bwd",
+                                  "rows_attention_bwd"])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype):
+    assert not any(A.takes_mma(name, dtype, C) for C in (8, 16, 64, 128))
+
+
+# K3's key tile -----------------------------------------------------------------
+
+
+def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
+    R, N, H, C, scale = 4, 256, 2, 16, 0.25
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(R, N, H, C).astype(np.float32) for _ in range(3))
+    mask = (rng.rand(R, N) > 0.3).astype(np.float32)
+    mask[2] = 0.0  # a fully masked row
+    tq, tk, tv = (torch.from_numpy(x).to(BF16) for x in (q, k, v))
+    out, _, _ = A._kchunk_forward_block(tq, tk, tv, torch.from_numpy(mask),
+                                        A.weak_scalar(scale, BF16), 64)
+    jq, jk, jv = (jnp.swapaxes(jnp.asarray(x, jnp.bfloat16), 1, 2) for x in (q, k, v))
+    want = pa._rows_attention_kchunk_grid_cn(jq * scale, jk, jv, jnp.asarray(mask), 256,
+                                             pa._kchunk_rb(R), True)
+    want = np.asarray(jnp.swapaxes(want, 1, 2), np.float32)
+    got = out.float().numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+    np.testing.assert_allclose(got[2], np.broadcast_to(tv[2].float().numpy().mean(0), got[2].shape),
+                               atol=2e-2, rtol=2e-2)
+
+
+# the bound predicates ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("fits,args,ok", [
+    # K1 and K2: the CUDA-core body's C <= 1024 (f32), the tensor-core body's
+    # shared memory (bf16, multiples of 8)
+    (A.attention_fits, ("rows_attention", 2, 16, 4, 1024, F32), True),
+    (A.attention_fits, ("rows_attention", 2, 16, 4, 1028, F32), False),
+    (A.attention_fits, ("tiled_attention", 2, 16, 1, 768, F32), True),
+    (A.attention_fits, ("tiled_attention", 2, 16, 1, 516, BF16), True),
+    (A.attention_fits, ("tiled_attention", 2, 16, 4, 1168, BF16), True),
+    (A.attention_fits, ("tiled_attention", 2, 16, 4, 1176, BF16), False),
+    (A.attention_fits, ("rows_attention", 2, 16, A.MAX_HEADS, 16, F32), True),
+    (A.attention_fits, ("rows_attention", 2, 16, A.MAX_HEADS + 1, 16, F32), False),
+    (A.attention_fits, ("rows_attention", A.MAX_BLOCKS, 16, 4, 16, F32), True),
+    (A.attention_fits, ("rows_attention", A.MAX_BLOCKS, 17, 4, 16, F32), False),
+    # K7: C <= 128
+    (A.bwd_fits, (2, 16, 4, 128, BF16), True),
+    (A.bwd_fits, (2, 16, 4, 132, BF16), False),
+    # K3: the tensor-core body in bf16; K3 in f32, K5 and K6: C <= 128
+    (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 1168, BF16), True),
+    (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 132, F32), False),
+    (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 128, BF16), True),
+    (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 136, BF16), False),
+    # K8: D <= 128, C <= 32, H C <= 128
+    (A.fused_gated_fits, (4, 16, 128, 4, 32, BF16), True),
+    (A.fused_gated_fits, (4, 16, 132, 4, 16, BF16), False),
+    (A.fused_gated_fits, (4, 16, 64, 2, 36, BF16), False),
+    (A.fused_gated_fits, (4, 16, 64, 5, 32, BF16), False),
+    # K9: D a multiple of 8 up to 128
+    (M.trimul_fits, (2, 16, 128, BF16), True),
+    (M.trimul_fits, (2, 16, 136, BF16), False),
+    (M.trimul_fits, (2, 16, 124, BF16), False),
+    # K10: the row tile's shared memory, D up to 670
+    (T.transition_fits, (100, 670, 256, 670, F32), True),
+    (T.transition_fits, (100, 671, 256, 671, F32), False),
+    # K11: D a multiple of 4 up to 128
+    (O.outer_fits, (2, 16, 128, BF16), True),
+    (O.outer_fits, (2, 16, 132, BF16), False),
+])
+def test_bound_predicate_edges(fits, args, ok):
+    assert fits(*args) is ok
+
+
+# the routes --------------------------------------------------------------------
+
+
+def _qkv(R, N, H, C, seed=0, requires_grad=False):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(R, N, H, C, generator=g).requires_grad_(requires_grad)
+               for _ in range(3))
+    mask = (torch.rand(R, N, generator=g) > 0.2).float()
+    return q, k, v, mask
+
+
+@pytest.fixture
+def as_if_on_cuda(monkeypatch):
+    """The routes as they run on CUDA tensors: ``_on_cpu`` answers False and
+    ``_launch`` (K1, K1 fast, K2) records the kernel it was asked for and
+    returns the plain version's output, so no card is needed."""
+    launched = []
+
+    def launch(name, q, k, v, mask, bias, scale, mma=None):
+        launched.append((name, q.shape[-1]))
+        if name == "rows_attention_fast":
+            return A.rows_attention_fast_reference(q, k, v, mask, scale)
+        return A.attention_reference(q, k, v, mask, bias, scale)
+
+    monkeypatch.setattr(A, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(A, "_launch", launch)
+    return launched
+
+
+@pytest.mark.parametrize("C", [768, 1024])
+def test_wide_f32_heads_reach_the_kernel(as_if_on_cuda, C):
+    """f32 SPAttention at single_dim 768 or 1024: K2's CUDA-core body takes
+    it, so the route launches K2 (and K1 for a triangle attention that wide)
+    and takes no plain version."""
+    q, k, v, mask = _qkv(2, 6, 1, C)
+    bias = torch.randn(2, 1, 6, 6, generator=torch.Generator().manual_seed(1))
+    out = A.tiled_attention(q, k, v, None, bias, C ** -0.5)
+    A.rows_attention(q, k, v, mask, C ** -0.5)
+    assert as_if_on_cuda == [("tiled_attention", C), ("rows_attention", C)]
+    torch.testing.assert_close(out, A.attention_reference(q, k, v, None, bias, C ** -0.5),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_rows_attention_raises_before_launch_past_k7(as_if_on_cuda):
+    """Below the switch K7 takes C <= 128: a gradient at C = 136 raises
+    before K1 launches; without a gradient K1 takes the shape."""
+    q, k, v, mask = _qkv(2, 8, 1, 136, requires_grad=True)
+    with pytest.raises(ValueError, match="K7"):
+        A.rows_attention(q, k, v, mask, 0.1)
+    assert as_if_on_cuda == []
+    with torch.no_grad():
+        A.rows_attention(q, k, v, mask, 0.1)
+    assert as_if_on_cuda == [("rows_attention", 136)]
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["k1", "k1_fast"])
+def test_plain_vjp_route_launches_past_the_old_bound(as_if_on_cuda, fast):
+    """With use_pallas_bwd off, K1 and K1 fast at C = 520 (past the old
+    512) launch their kernel."""
+    q, k, v, mask = _qkv(2, 10, 1, 520)
+    out = A.gated_attention_core(q, k, v, mask, None, 0.1, fast=fast, kernel_bwd=False)
+    name = "rows_attention_fast" if fast else "rows_attention"
+    assert as_if_on_cuda == [(name, 520)]
+    want = (A.rows_attention_fast_reference(q, k, v, mask, 0.1) if fast
+            else A.attention_reference(q, k, v, mask, None, 0.1))
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("C,grad", [(1028, False), (136, True)])
+def test_cpu_tensors_take_the_plain_version_at_any_width(C, grad):
+    """On the CPU the wrappers take their plain versions whatever the bound:
+    K2 past 1024, and a triangle attention with a gradient past K7's 128."""
+    A.reset_launch_counts()
+    q, k, v, mask = _qkv(2, 6, 1, C, requires_grad=grad)
+    bias = torch.randn(2, 1, 6, 6, generator=torch.Generator().manual_seed(2))
+    out = A.tiled_attention(q, k, v, mask, bias, 0.1) + A.rows_attention(q, k, v, mask, 0.1)
+    want = (A.attention_reference(q, k, v, mask, bias, 0.1)
+            + A.attention_reference(q, k, v, mask, None, 0.1))
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    if grad:
+        out.sum().backward()
+        assert torch.isfinite(q.grad).all()
+    assert not any(A.LAUNCHES.values())
+
+
+def test_fused_configuration_at_pair_width_72_matches_jax(monkeypatch):
+    """The four switches at pair width 72 (past the old bound of K8, K9 and
+    K11, 64): every fused wrapper runs, once per module call. The forward
+    against the JAX model with the same switches (its Pallas kernels in
+    interpret mode, which take any width)."""
+    cfg = FUSED_CFG.replace(pair_dim=72)
+    calls = _count_fused_calls(monkeypatch)
+    batch = make_batch(B=2, seed=8)
+    params = perturbed_params(cfg, seed=8)
+    rng = np.random.RandomState(18)
+    B, N = batch["residue_mask"].shape
+    z = rng.randn(B, N, 3).astype(np.float32)
+    seq_t = rng.randn(B, N, 21).astype(np.float32)
+    mask = batch["atom_mask"] + batch["residue_mask"]
+    t = rng.randint(0, cfg.num_steps, (B,))
+    j_noise, j_seq = ProteinReDiffModel(cfg).apply(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(z),
+        jnp.asarray(seq_t), jnp.asarray(mask), jnp.asarray(t, jnp.int32),
+    )
+    net = P.ProteinReDiffNet(cfg)
+    net.load_state_dict(state_dict_from_jax(params, cfg))
+    with torch.no_grad():
+        noise, seq = net({k: torch.from_numpy(v) for k, v in batch.items()}, torch.from_numpy(z),
+                         torch.from_numpy(seq_t), torch.from_numpy(mask), torch.from_numpy(t))
+    blocks = cfg.num_blocks
+    assert calls == {"fused_gated": 2 * blocks, "trimul": 2 * blocks,
+                     "transition": 2 * blocks, "outer": blocks}
+    np.testing.assert_allclose(noise.numpy(), np.asarray(j_noise), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(seq.numpy(), np.asarray(j_seq), atol=1e-4, rtol=1e-4)
