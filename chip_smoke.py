@@ -24,8 +24,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 x 13 kernel launches.
 6. K7 vs plain: the rows-attention backward kernel against its plain
    version at buckets 192 and 384 (147 and 360 nodes valid, so padded rows
-   are fully masked), f32 and bf16, H=4 x C=16 and H=1 x C=64 (the wide
-   layout), with both times.
+   are fully masked), f32 (CUDA-core body) and bf16 (tensor-core body,
+   attention_bwd_mma.cu), H=4 x C=16 and H=1 x C=64 (the h64x1 layout), with
+   both times; in bf16 the CUDA-core body timed beside the tensor-core one,
+   SDPA's forward + backward and the bound at both buckets and widths.
 7. Whole-net gradient: the training loss's parameter gradients at paper
    width, B=2, bucket 192, kernel route against plain route, in f32 and
    bf16, with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
@@ -46,8 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and at 1024 in f32 (R = 1024), K6 at 1024 in f32, each against its plain
    version on the same inputs (the plain versions take rows in blocks, so
    their memory stays bounded), with the kernel's time, its bound and the
-   library call's time; K3 in bf16 runs its tensor-core body, timed beside
-   its CUDA-core body, and the bf16 outputs are held to TOL_BF16 of each
+   library call's time; K3 and K5 run their tensor-core bodies (bf16:
+   attention_mma.cu; f32: 3xTF32, attention_tf32.cu), each timed beside its
+   CUDA-core body, and the bf16 outputs are held to TOL_BF16 of each
    element plus TOL_BF16 of the output's RMS.
 10. Generation at 2048: the generate CLI at bucket 2048, bf16, B=1, a seeded
    2000-residue sequence and imatinib, 3 DDPM steps: s/step, peak memory,
@@ -55,11 +58,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. Forward at 1024: the f32 net at bucket 1024, B=1, kernel route against
    plain route (24 K3 and 13 K2 per forward), with the kernel route's device
    time by kernel group.
-12. Gradient and training at 1024: one f32 micro-step's whole parameter
-   gradient, kernel route against plain route (48 K5, 24 K6, 25 K2, no K1
-   or K7), its device time by kernel group; then the train CLI at bucket
-   1024, --dtype float32, batch 1, 2 optimizer steps: s per optimizer step,
-   peak memory and exact launch counts.
+12. Gradient and training at 1024 and 2048: one f32 micro-step's whole
+   parameter gradient at 1024, kernel route against plain route (48 K5, 24
+   K6, 25 K2, no K1 or K7), its device time by kernel group; one bf16
+   micro-step at 2048, B=1, paper widths with num_blocks cut to 2 for the
+   time limit (8 K5 on its tensor-core body, 4 K6, 5 K2), kernel route
+   against plain route; then the train CLI at bucket 1024, --dtype float32,
+   batch 1, 2 optimizer steps: s per optimizer step, peak memory and exact
+   launch counts.
 13. Fused kernels vs plain: K8 (fused gated triangle attention, starting and
    ending view), K9 (triangle multiplication, both modes), K10 (transition,
    single_fc and pair_fc) and K11 (OuterLinear) against their plain versions
@@ -106,7 +112,9 @@ CLIs and 15's train and serve CLIs) runs with every launch count set to 0
 just before it and read just after. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
-over the card's peak for the dtype and the bytes moved once over 3.35 TB/s.
+over the card's peak for the dtype (f32: 3xTF32 on the tensor cores) and
+the bytes moved once over 3.35 TB/s; beside it the exponentials' floor,
+one per logit at 16 per SM and clock.
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -114,6 +122,7 @@ card's name and power limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -145,13 +154,14 @@ SEQUENCE = (  # the first 110 residues of T4 lysozyme
 LIGAND = "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1"  # imatinib
 STEPS = 64
 CSRC = "protein_redesign_tpu_torch/kernels/csrc/"
-# K1, K1 fast, K2 and K3 run their tensor-core bodies on the (bf16) main path
+# K1, K1 fast, K2, K3 and K7 run their tensor-core bodies on the (bf16) main
+# path; K5's record is the f32 training path at 1024, on its 3xTF32 body
 SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "rows_attention_fast": CSRC + "attention_mma.cu",
            "tiled_attention": CSRC + "attention_mma.cu",
-           "rows_attention_bwd": CSRC + "attention_bwd.cu",
+           "rows_attention_bwd": CSRC + "attention_bwd_mma.cu",
            "rows_attention_kchunk": CSRC + "attention_mma.cu",
-           "rows_attention_kchunk_stats": CSRC + "attention_kchunk.cu",
+           "rows_attention_kchunk_stats": CSRC + "attention_tf32.cu",
            "rows_attention_kchunk_bwd": CSRC + "attention_kchunk_bwd.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated.cu",
            "triangle_multiply": CSRC + "trimul.cu", "fused_transition": CSRC + "transition.cu",
@@ -175,9 +185,14 @@ FUSED_NAMES = ("fused_gated_rows_attention", "triangle_multiply", "fused_transit
                "fused_outer_linear")
 FUSED_BUCKET_LARGE = (512, 460)  # one forward at bucket 512: 460 residues + imatinib
 # Dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16 on the
-# tensor cores, f32 outside them (TF32 off), HBM bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# tensor cores; f32 products at f32 accuracy the fastest way the card has,
+# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s) for one,
+# 165 TFLOP/s (f32 FMAs outside them give 67); HBM bandwidth.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# The exponentials' floor: 16 a clock on each SM (the SFU), at the card's
+# maximum SM clock.
+EXP_PER_SM_CLOCK = 16
 # The long-context paths: (bucket, residues of a seeded sequence); with
 # imatinib's 37 atoms 2037 and 997 nodes, so the padded rows are fully masked.
 LONG_GENERATE, LONG_TRAIN, IMATINIB_ATOMS = (2048, 2000), (1024, 960), 37
@@ -198,6 +213,9 @@ SERVE_STEPS, SERVE_SCHEDULE, SERVE_LONG, SERVE_OVERSIZED = 50, 1000, 330, 360
 # The JAX package's recommended training layout, one head of width 64
 # (`protein_redesign_tpu/models/denoiser.py:513-519`): K1 and K7 at C = 64.
 H64 = dict(head_dim=64, num_heads=1)
+# The bf16 micro-step at bucket 2048 (phase 12): paper widths, depth cut to
+# two FoldingBlocks for the time limit.
+GRAD_2048_BLOCKS = 2
 
 
 def launch_record(**counts) -> dict:
@@ -282,16 +300,17 @@ def device_ms(fn, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def body_times(name, q, k, v, mask, bias, scale) -> str:
-    """The two bodies of K1, K1 fast, K2 or K3 on the same bf16 inputs, each
-    one launch without autograd: CUDA-event ms per call and device ms per
-    call."""
+def body_times(name, q, k, v, mask, bias, scale, dout=None) -> str:
+    """The two bodies of K1, K1 fast, K2, K3, K5 or K7 (``dout`` given) on
+    the same inputs (bf16; K3 and K5 in f32 too), each one launch without
+    autograd: CUDA-event ms per call and device ms per call."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    iters = 2 if name == "rows_attention_kchunk" else 10  # its CUDA-core body: ~0.45 s a call
+    iters = 2 if name in A.KCHUNK_FORWARDS else 10  # their CUDA-core bodies: up to ~0.45 s a call
     parts = []
     for mma, label in ((True, "tensor-core"), (False, "CUDA-core")):
-        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma=mma)  # noqa: E731
+        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma=mma,  # noqa: E731
+                                      dout=dout)
         parts.append(f"{label} body {cuda_ms(fn, 1, iters):.4f} ms, on the device "
                      f"{device_ms(fn, min(iters, 3)):.4f} ms")
     return "; ".join(parts)
@@ -303,6 +322,26 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
     ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return 1e6 * float(out.strip().splitlines()[0])
+
+
+def exp_floor_ms(q, mask) -> float:
+    """The exponentials' floor of an attention function on q's shape: one
+    exp per (query, unmasked key, head) logit at EXP_PER_SM_CLOCK a clock on
+    every SM, at the maximum SM clock."""
+    R, N, H, C = q.shape
+    pairs = N * float(mask.sum()) if mask is not None else float(R * N * N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs * H / (EXP_PER_SM_CLOCK * sms * max_sm_clock_hz()) * 1e3
 
 
 def attention_bound(q, mask, bias, products: int, operands: int, extra_bytes: float = 0.0):
@@ -364,7 +403,8 @@ def phase_device() -> tuple:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; max SM clock "
+          f"{max_sm_clock_hz() / 1e6:.0f} MHz")
     return name, smi
 
 
@@ -535,10 +575,15 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
 # Device-time groups, matched on the CUDA kernel's name, in order.
 GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
+          ("rows_attention_kchunk_mma_kernel<true", "K5 rows_attention_kchunk_stats (mma)"),
           ("rows_attention_kchunk_mma", "K3 rows_attention_kchunk (tensor cores)"),
+          ("rows_attention_kchunk_tf32x3_kernel<true", "K5 rows_attention_kchunk_stats (3xTF32)"),
+          ("rows_attention_kchunk_tf32x3", "K3 rows_attention_kchunk (3xTF32)"),
           ("rows_attention_mma", "K1 rows_attention (tensor cores)"),
           ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
+          ("rows_attention_bwd_dq_mma", "K7 rows_attention_bwd (tensor cores)"),
+          ("rows_attention_bwd_dkdv_mma", "K7 rows_attention_bwd (tensor cores)"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
           ("rows_attention_fast_mma", "K1 fast rows_attention_fast (tensor cores)"),
           ("rows_attention_fast", "K1 fast rows_attention_fast"),
@@ -612,7 +657,9 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
 
 def phase_k7() -> dict:
     """K7 against its plain version on the main path's shapes (B=2, H=4,
-    C=16) and on the h64x1 layout's (H=1, C=64: the wide layout)."""
+    C=16) and on the h64x1 layout's (H=1, C=64), at buckets 192 and 384: f32
+    on the CUDA-core body, bf16 on the tensor-core body, timed beside its
+    CUDA-core body, SDPA (forward + backward) and the bound."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
@@ -649,13 +696,15 @@ def phase_k7() -> dict:
                   f"max abs err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tol:g} "
                   f"x max(1, max|grad|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
-            if N == 192 and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 at = attention_bound(q, mask, None, products=5, operands=7)
                 lib_ms = library_ms(q, k, v, mask, None, scale, dout=g)
-                if C == 16:  # the record's shape
+                if C == 16 and N == 192:  # the record's shape
                     rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
-                print(f"[k7] H={H} C={C} at bucket 192, bf16: bound {at['bound_ms']:.4f} ms "
-                      f"({at['bound_by']}), library (forward + backward) {lib_ms} ms")
+                bodies = body_times("rows_attention_bwd", q, k, v, mask, None, scale, dout=g)
+                print(f"[k7] H={H} C={C} at bucket {N}, bf16 ({bodies}): bound "
+                      f"{at['bound_ms']:.4f} ms ({at['bound_by']}), exp floor "
+                      f"{exp_floor_ms(q, mask):.4f} ms, library (forward + backward) {lib_ms} ms")
     return rec
 
 
@@ -951,8 +1000,9 @@ def _check_close(what: str, got, want, tol: float, to_scale: bool = False) -> fl
 def phase_kchunk_kernels() -> dict:
     """K3 and K5 at bucket 2048 (bf16) and 1024 (f32), K6 at 1024 (f32),
     against their plain versions at B=1 (R = N rows) with the long paths'
-    valid node counts, so the padded rows are fully masked. K3 in bf16 runs
-    its tensor-core body; its CUDA-core body is timed on the same inputs."""
+    valid node counts, so the padded rows are fully masked. K3 and K5 run
+    their tensor-core bodies (bf16; f32 in 3xTF32); their CUDA-core bodies
+    are timed on the same inputs, each with the bound and SDPA's time."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     names = ("rows_attention_kchunk", "rows_attention_kchunk_stats", "rows_attention_kchunk_bwd")
@@ -999,21 +1049,21 @@ def phase_kchunk_kernels() -> dict:
             ms, plain_ms = cuda_ms(kernel, 1, 3), cuda_ms(plain, 1, 2)
             rec = record[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+            # the record: K3 on generation at 2048 (bf16), K5 and K6 on
+            # training at 1024 (f32); the other lines are printed
             at_record = (name == "rows_attention_kchunk") == (dtype == torch.bfloat16)
-            yardstick = bound_rec = None
+            bound_rec = attention_bound(q, mask, None, products, operands, extra)
+            yardstick = library_ms(q, k, v, mask, None, scale, dout=dout)
             if at_record:
-                bound_rec = attention_bound(q, mask, None, products, operands, extra)
-                yardstick = library_ms(q, k, v, mask, None, scale, dout=dout)
                 rec.update(ms=ms, plain_ms=plain_ms, library_ms=yardstick, **bound_rec)
             bodies = ""
-            if name == "rows_attention_kchunk" and dtype == torch.bfloat16:
+            if dout is None:  # K3 and K5: both bodies
                 bodies = f" (tensor cores; {body_times(name, q, k, v, mask, None, scale)})"
             print(f"[kchunk] {name} R={N} H=4 N={N} C=16 {label} ({n_valid} valid): max abs err "
                   + "/".join(f"{e:.3e}" for e in errs) + f" ({'/'.join(parts[:len(errs)])}); "
-                  f"kernel {ms:.3f} ms{bodies}, "
-                  f"plain {plain_ms:.3f} ms"
-                  + ("" if bound_rec is None else f"; bound {bound_rec['bound_ms']:.3f} ms "
-                     f"({bound_rec['bound_by']}), library {yardstick} ms"))
+                  f"kernel {ms:.3f} ms{bodies}, plain {plain_ms:.3f} ms; bound "
+                  f"{bound_rec['bound_ms']:.3f} ms ({bound_rec['bound_by']}), exp floor "
+                  f"{exp_floor_ms(q, mask):.3f} ms, library {yardstick} ms")
     return record
 
 
@@ -1145,6 +1195,53 @@ def phase_grad_long(seed: int) -> None:
           f"plain route {plain_ms:.1f} ms; peak device memory {peak:.2f} GiB; kernel route "
           f"device busy {total:.1f} ms ({1 - total / kernel_ms:.1%} idle); "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+
+
+def phase_grad_2048(seed: int) -> None:
+    """One bf16 micro-step at bucket 2048, B=1: paper widths, num_blocks cut
+    to GRAD_2048_BLOCKS for the time limit; the whole parameter gradient,
+    kernel route (K5 on its tensor-core body, K6, K2) against plain route,
+    exact launch counts, and its time."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    cfg = ModelConfig(training_mode=True, mask_prob=0.5, num_blocks=GRAD_2048_BLOCKS)
+    net = perturbed_net(cfg, seed).to("cuda")
+    bucket, residues = LONG_GENERATE
+    batch = collated([synthetic_complex(long_sequence(seed + 24, residues), seed + 24,
+                                        net.cfg.esm_dim)], bucket)
+    noise = fixed_noise(batch, seed)
+    step = lambda: micro_step(net, batch, noise)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    loss_k = step()
+    torch.cuda.synchronize()
+    launches = main_path_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+    with A.plain_route():
+        loss_p = step()
+    grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+    expected = forward_launches(net.cfg, remat=True, kchunk=True)
+    if launches != expected:
+        raise AssertionError(f"launches per micro-step at {bucket} {launches} != {expected}")
+    rel = float((grads_k - grads_p).norm() / grads_p.norm())
+    finite = bool(torch.isfinite(grads_k).all() and torch.isfinite(loss_k))
+    print(f"[grad-2048] bf16, B=1, {GRAD_2048_BLOCKS} blocks: loss kernel {float(loss_k):.6f}, "
+          f"plain {float(loss_p):.6f}; ||grad_kernel - grad_plain|| / ||grad_plain|| = {rel:.3e} "
+          f"(tol {GRAD_REL_TOL['bfloat16']:g}); launches per micro-step {launches}")
+    if not (finite and rel <= GRAD_REL_TOL["bfloat16"]):
+        raise AssertionError(f"bf16 gradient at {bucket}: finite={finite}, relative error {rel}")
+    kernel_ms = cuda_ms(step, 0, 1)
+    with A.plain_route():
+        plain_ms = cuda_ms(step, 0, 1)
+    busy = device_time_by_group(step, iters=1)
+    total = sum(busy.values())
+    print(f"[grad-2048] micro-step (loss + backward, remat): kernel route {kernel_ms:.1f} ms, "
+          f"plain route {plain_ms:.1f} ms; peak device memory {peak:.2f} GiB; kernel route "
+          f"device busy {total:.1f} ms ({1 - total / kernel_ms:.1%} idle); "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+    del net
 
 
 def phase_train_long(seed: int) -> dict:
@@ -1751,6 +1848,7 @@ def main() -> None:
     del net
     phase_forward_long(args.seed)
     phase_grad_long(args.seed)
+    phase_grad_2048(args.seed)
     train_long = phase_train_long(args.seed)
     record.update(phase_fused_kernels())
     net = fused_net().to("cuda").eval()

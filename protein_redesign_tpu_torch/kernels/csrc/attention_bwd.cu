@@ -1,4 +1,8 @@
-// Hand-written Hopper (sm_90a) flash backward of the rows attention kernel.
+// Hand-written Hopper (sm_90a) flash backward of the rows attention kernel,
+// the CUDA-core body: float32, and bf16 at head widths that are not a
+// multiple of 8 (bf16 otherwise takes the tensor-core body of
+// attention_bwd_mma.cu). It stays callable (ops.attention.attention_body) to
+// time it beside that one.
 //
 // Replaces the Pallas TPU kernel of protein_redesign_tpu/ops/pallas_attention.py
 //
@@ -39,8 +43,7 @@
 // is no bound on N. A thread keeps its row's vectors in registers (3C floats
 // for dq, 4C for dk/dv), which bounds this layout at C = 32. The products run
 // on the CUDA cores in f32: issue-bound (FMAs plus broadcast shared-memory
-// loads), about 10 FMAs of C per (query, key) pair in all; tensor cores are
-// later work.
+// loads), about 10 FMAs of C per (query, key) pair in all.
 //
 // Wider heads (32 < C <= 128, the h64 layouts) take the K6 layout instead,
 // the same passes and outputs: each warp holds 4 query (or key) rows with the

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) K-chunked rows attention: one pass of online
 // softmax over key tiles, optionally emitting the row softmax stats. This is
-// the CUDA-core body: K3 in float32 (and in bf16 at a head width that is not
-// a multiple of 8; bf16 otherwise takes rows_attention_kchunk_mma_kernel in
-// attention_mma.cu), and K5 in both dtypes.
+// the CUDA-core body of K3 and K5, for head widths that are not a multiple of
+// 8 (C = 4 mod 8) in both dtypes; at multiples of 8 bf16 takes
+// rows_attention_kchunk_mma_kernel (attention_mma.cu) and f32
+// rows_attention_kchunk_tf32x3_kernel (attention_tf32.cu). It stays callable
+// (ops.attention.attention_body) to time it beside them.
 //
 // Replaces these Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py:
 //
@@ -39,8 +41,8 @@
 // so there is no bound on N. No CN transpose: the TPU kernel transposed to
 // [R, H, C, N] to avoid lane padding, which this card does not have. The
 // products run on the CUDA cores in f32, bound by the instruction rate of
-// the shuffles and FMAs (not by bytes). K3 in bf16 runs on the tensor cores
-// (attention_mma.cu); K5, and f32, would need another plan than TF32.
+// the shuffles and FMAs (not by bytes); the tensor-core bodies replace it
+// wherever an mma operand row fits the head.
 //
 // Layout: q, k, v are [R, N, H, C] with the head dimension contiguous and
 // the other strides given in elements; mask is contiguous f32 [R, N]; out is

@@ -1,8 +1,8 @@
-// Hand-written Hopper (sm_90a) tensor-core bodies of four attention kernels,
+// Hand-written Hopper (sm_90a) tensor-core bodies of five attention kernels,
 // for bf16 inputs with a head width that is a multiple of 8. They replace,
 // for those inputs, the CUDA-core bodies of attention.cu and
-// attention_kchunk.cu (kept there for float32, where TF32 would break the
-// 1e-5 parity, and for other head widths):
+// attention_kchunk.cu (kept there for float32 and for other head widths; K3
+// and K5 in float32 take attention_tf32.cu):
 //
 //   tiled_attention_mma_kernel    <- _tiled_attention_impl / _attn_kernel and
 //                                    _attn_kernel_nomask (K2: single attention
@@ -14,10 +14,16 @@
 //   rows_attention_mma_kernel     <- _rows_attention_impl / _make_rowhead_kernel
 //                                    (K1: triangle attention, key mask, no bias)
 //   rows_attention_kchunk_mma_kernel <- _rows_attention_kchunk_grid_cn /
-//                                    _make_rowhead_kchunk_grid_cn_kernel (K3: K1's
+//     <STATS = false>                _make_rowhead_kchunk_grid_cn_kernel (K3: K1's
 //                                    function by online softmax, N >= 2048)
+//   rows_attention_kchunk_mma_kernel <- _kchunk_grid_cn_stats_call /
+//     <STATS = true>                 _make_rowhead_kchunk_grid_cn_stats_kernel (K5:
+//                                    K3 plus the row max m and log s, the
+//                                    training forward)
 //
-// of protein_redesign_tpu/ops/pallas_attention.py.
+// of protein_redesign_tpu/ops/pallas_attention.py. The building blocks they
+// share with K7's tensor-core body (attention_bwd_mma.cu) are in
+// attention_mma.cuh.
 //
 // What bounds them. At the main path's shapes the work is small matrix
 // products (head width 16: one mma depth step) around a softmax, so the
@@ -77,126 +83,23 @@
 // ran markedly slower). K3 takes 128 queries per block up to C = 128 (a (row,
 // head)'s K and V are read from L2 once per query tile; on the H100 at
 // N = 2048, C = 16 it ran 20.08 ms against 22.03 at 64), 64 above (shared
-// memory). K5 (the row stats) stays on attention_kchunk.cu.
+// memory). K5 is K3's body with STATS: at the end one lane a row writes m
+// (the running max) and log s, f32 [R, H, N], kept split; its output is
+// K3's bit for bit. A fully masked row gets m = -2^15 and log s = log N.
 //
 // Layout: q, k, v are [R, N, H, C] bf16 with the head dimension contiguous,
 // the other strides given in elements, every row 16-byte aligned (C and the
 // strides multiples of 8, checked by the wrapper); mask is contiguous f32
 // [R, N]; bias contiguous bf16 [R, H, N, N]; out contiguous [R, N, H, C].
 // Shared memory: 2 (TQ + 2 BK) (CP + 8) + 4 BK (CS + 8) bytes, TQ the block's
-// queries (64; K3 128 up to CP = 128, else 64), CP = C rounded up to 16, CS the 16..64-channel
-// slice; at most 227 KB bounds C.
+// queries (64; K3 and K5 128 up to CP = 128, else 64), CP = C rounded up to
+// 16, CS the 16..64-channel slice; at most 227 KB bounds C.
 // Each entry point returns cudaGetLastError() after its launch.
 
-#include "common.cuh"
-#include "mma.cuh"
+
+#include "attention_mma.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kTQ = 16 * kWarps;  // queries per block: 16 rows per warp
-
-struct Args {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* mask;
-  const bf16* bias;
-  bf16* out;
-  int R, N, H, C;
-  float scale;
-  Strides qs, ks, vs;
-};
-
-// The block's TQ-query tile into shared memory, multiplied by the scale and
-// rounded to bf16 (the pre-scaled q), rows past N and channels past C zero.
-template <int TQ = kTQ>
-__device__ __forceinline__ void stage_q(const Args& a, const bf16* q_base, int q0, int CP, int ld,
-                                        bf16* q_s) {
-  const int chunks = CP / 8;
-  for (int e = threadIdx.x; e < TQ * chunks; e += blockDim.x) {
-    const int i = e / chunks;
-    const int c = (e - i * chunks) * 8;
-    const int qi = q0 + i;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < a.N && c < a.C) {
-      raw = *reinterpret_cast<const uint4*>(q_base + (long long)qi * a.qs.n + c);
-      bf16* x = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) x[t] = __float2bfloat16_rn(__bfloat162float(x[t]) * a.scale);
-    }
-    *reinterpret_cast<uint4*>(q_s + i * ld + c) = raw;
-  }
-}
-
-// Rows [k0, k0 + rows) and channels [c0, c0 + width) of one head of K or V
-// into shared memory by cp.async (row stride ld); rows past N and channels
-// past C are zero-filled.
-__device__ __forceinline__ void stage_keys(const bf16* base, long long stride_n, int k0, int rows,
-                                           int N, int C, int c0, int width, int ld, bf16* dst) {
-  const int chunks = width / 8;
-  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
-    const int j = e / chunks;
-    const int cc = (e - j * chunks) * 8;
-    const int key = k0 + j;
-    const bool ok = key < N && c0 + cc < C;
-    cp_async16(dst + j * ld + cc, ok ? base + (long long)key * stride_n + c0 + cc : base, ok);
-  }
-}
-
-// S = Q K^T for the warp's 16 query rows (q_w, row stride ld) against the BK
-// keys of a staged tile (k_t, row stride ld), over CP channels.
-template <int NS>
-__device__ __forceinline__ void logits_mma(const bf16* q_w, const bf16* k_t, int ld, int CP,
-                                           int lane, float (&s)[NS][4]) {
-#pragma unroll
-  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  for (int kc = 0; kc < CP; kc += 16) {
-    unsigned a[4];
-    load_a_frag(a, q_w, ld, kc, lane);
-#pragma unroll
-    for (int np = 0; np < NS / 2; ++np) {
-      unsigned b[4];
-      load_bt_frags(b, k_t, ld, np * 16, kc, lane);
-      mma_bf16_16816(s[2 * np], a, b[0], b[1]);
-      mma_bf16_16816(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc += P V for the warp's 16 rows: P in the S fragments (already final
-// bf16 values or rounded here), V the staged tile's channel slice (row
-// stride ld), NT n-tiles of 8 channels.
-template <int NS, int NT>
-__device__ __forceinline__ void pv_mma(const float (&p)[NS][4], const bf16* v_t, int ld, int lane,
-                                       float (&acc)[NT][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NS / 2; ++kk) {
-    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int cp = 0; cp < NT / 2; ++cp) {
-      unsigned b[4];
-      load_b_frags(b, v_t, ld, kk * 16, cp * 16, lane);
-      mma_bf16_16816(acc[2 * cp], a, b[0], b[1]);
-      mma_bf16_16816(acc[2 * cp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -222,47 +125,6 @@ __device__ __forceinline__ float logit_chain(const bf16* q_row, const bf16* k_ro
     for (int t = 0; t < 8; ++t) acc = fmaf(__bfloat162float(qe[t]), __bfloat162float(ke[t]), acc);
   }
   return acc;
-}
-
-// The block's position: grid.x walks (row r, query tile) with the tiles of a
-// row adjacent (rows bounded by grid.x's 2^31 - 1 blocks), grid.y the head,
-// grid.z the output channel slice.
-struct Block {
-  int r, q0, h, cs0;
-};
-
-template <int TQ = kTQ>
-__device__ __forceinline__ Block block_of(int N, int CS) {
-  const int tiles = (N + TQ - 1) / TQ;
-  Block b;
-  b.r = blockIdx.x / tiles;
-  b.q0 = (blockIdx.x - b.r * tiles) * TQ;
-  b.h = blockIdx.y;
-  b.cs0 = blockIdx.z * CS;
-  return b;
-}
-
-// The warp's output rows (g and g + 8 of its 16) from the accumulators,
-// each divided by its row's divisor (1 for K1 fast).
-template <int NT>
-__device__ __forceinline__ void store_out(const Args& a, const Block& b, int row_a,
-                                          const float (&acc)[NT][4], float div_a, float div_b,
-                                          int lane) {
-  const int tig = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = b.cs0 + n * 8 + tig * 2;
-    if (c >= a.C) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row_a + 8 * half;
-      if (row >= a.N) continue;
-      const float d = half ? div_b : div_a;
-      bf16* dst = a.out + (((long long)b.r * a.N + row) * a.H + b.h) * a.C + c;
-      *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(acc[n][2 * half] / d, acc[n][2 * half + 1] / d);
-    }
-  }
 }
 
 template <bool HAS_MASK, int BK, int NT>
@@ -506,150 +368,6 @@ __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(co
   store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the SFU in one instruction (-inf gives 0, denormals flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The passes of K1 and K3 over every key tile (rows_pass): ONLINE is K3's
-// one pass (running max, rescaled sum and P.V); STATS K1's first (the row
-// max and sum, no V); NORMALIZED K1's second (p = exp(l - m) / s and P.V).
-enum RowsMode { kOnline = 0, kStats = 1, kNormalized = 2 };
-
-// A thread's two rows (g and g + 8 of its warp's 16: _a and _b): running
-// max, its partial sum over the thread's key columns, the P.V accumulator.
-template <int NT>
-struct RowsState {
-  float m_a, m_b, s_a, s_b;
-  float acc[NT][4];
-};
-
-template <int NT>
-__device__ __forceinline__ void init_rows(RowsState<NT>& st) {
-  st.m_a = st.m_b = neg_inf();
-  st.s_a = st.s_b = 0.f;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) st.acc[n][0] = st.acc[n][1] = st.acc[n][2] = st.acc[n][3] = 0.f;
-}
-
-// One pass of triangle attention (no bias) over the key tiles of the
-// block's (row, head). The tile's mask is read once per warp, one ballot
-// per 32 keys (bit j: key k0 + j is kept, live: k0 + j < N), and a tile
-// whose keys are all kept skips the fill. Exponentials are exp2 of l log2(e) - m log2(e),
-// one FFMA per logit (FlashAttention-2's form).
-template <int MODE, int BK, int NT>
-__device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const bf16* q_w,
-                                          bf16* k_s, bf16* v_s, int CP, RowsState<NT>& st,
-                                          int lane) {
-  constexpr int NS = BK / 8, CS = 8 * NT, VS = CS + 8, W = (BK + 31) / 32;
-  constexpr bool PV = MODE != kStats;
-  const int N = a.N, C = a.C, QS = CP + 8;
-  const bf16* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
-  const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
-  const float* mask_row = a.mask + (long long)b.r * N;
-  const int tiles = (N + BK - 1) / BK;
-  const int shift = 2 * (lane & 3);  // this thread's first key column in each 8-key n-tile
-  // NORMALIZED: the final max (scaled by log2 e, negated) and 1 / sum
-  float nm_a = -st.m_a * kLog2e, nm_b = -st.m_b * kLog2e;
-  const float inv_a = MODE == kNormalized ? 1.f / st.s_a : 1.f;
-  const float inv_b = MODE == kNormalized ? 1.f / st.s_b : 1.f;
-  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
-  if (PV) stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < tiles) {
-      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
-      if (PV)
-        stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
-                   v_s + (buf ^ 1) * BK * VS);
-    }
-    cp_async_commit();
-    // the tile's mask bits, while the copies land
-    const int k0 = t * BK;
-    unsigned keep[W], live[W];
-    bool dense = true;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const int j = 32 * w + lane;
-      const bool in = j < BK && k0 + j < N;
-      keep[w] = __ballot_sync(kFull, in && mask_row[k0 + j] >= 0.5f);
-      live[w] = __ballot_sync(kFull, in);
-      const unsigned full = BK - 32 * w >= 32 ? kFull : (1u << (BK - 32 * w)) - 1u;
-      dense = dense && keep[w] == full;
-      keep[w] >>= shift;
-      live[w] >>= shift;
-    }
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[NS][4];
-    logits_mma<NS>(q_w, k_s + buf * BK * QS, QS, CP, lane, s);
-    if (!dense) {  // -2^15 at masked keys, -inf past N (weight 0)
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int bit = (n & 3) * 8 + (e & 1);
-          if (!((keep[n >> 2] >> bit) & 1u))
-            s[n][e] = ((live[n >> 2] >> bit) & 1u) ? kMaskFill : neg_inf();
-        }
-      }
-    }
-    if (MODE != kNormalized) {
-      // one step of online softmax: the tile holds key k0 < N, so the new
-      // max is finite and the first step's rescale is exp(-inf) = 0
-      float mx_a = st.m_a, mx_b = st.m_b;
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-      }
-      mx_a = quad_max(mx_a);
-      mx_b = quad_max(mx_b);
-      const float alpha_a = exp2_approx((st.m_a - mx_a) * kLog2e);
-      const float alpha_b = exp2_approx((st.m_b - mx_b) * kLog2e);
-      st.m_a = mx_a;
-      st.m_b = mx_b;
-      nm_a = -mx_a * kLog2e;
-      nm_b = -mx_b * kLog2e;
-      st.s_a *= alpha_a;
-      st.s_b *= alpha_b;
-      if (MODE == kOnline) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          st.acc[n][0] *= alpha_a;
-          st.acc[n][1] *= alpha_a;
-          st.acc[n][2] *= alpha_b;
-          st.acc[n][3] *= alpha_b;
-        }
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = exp2_approx(fmaf(s[n][0], kLog2e, nm_a));
-      s[n][1] = exp2_approx(fmaf(s[n][1], kLog2e, nm_a));
-      s[n][2] = exp2_approx(fmaf(s[n][2], kLog2e, nm_b));
-      s[n][3] = exp2_approx(fmaf(s[n][3], kLog2e, nm_b));
-      if (MODE == kNormalized) {  // the normalised probabilities, rounded to bf16 by pv_mma
-        s[n][0] *= inv_a;
-        s[n][1] *= inv_a;
-        s[n][2] *= inv_b;
-        s[n][3] *= inv_b;
-      } else {
-        st.s_a += s[n][0] + s[n][1];
-        st.s_b += s[n][2] + s[n][3];
-      }
-    }
-    if (PV) pv_mma<NS, NT>(s, v_s + buf * BK * VS, VS, lane, st.acc);
-    __syncthreads();  // the next tile's loads overwrite this buffer
-  }
-}
-
 // Blocks of K1 and K3 that must fit on an SM at once, which caps their
 // registers: the passes are latency-bound (each 64-key tile waits on its
 // copies, its ballots and the exp), so warps in flight set the pace. With
@@ -659,11 +377,14 @@ __device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const b
 template <int WARPS, int BK, int NT>
 constexpr int kRowsMinBlocks = BK < 64 ? 1 : (NT <= 2 ? 24 : 16) / WARPS;
 
-// K3 in bf16: one pass of online softmax; out = acc / s. WARPS warps of 16
-// queries share each staged K and V tile.
-template <int WARPS, int BK, int NT>
+// K3 and K5 in bf16: one pass of online softmax; out = acc / s. WARPS warps
+// of 16 queries share each staged K and V tile. STATS (K5) also writes the
+// row max m and log s, f32 [R, H, N], kept split; the output is K3's bit for
+// bit.
+template <bool STATS, int WARPS, int BK, int NT>
 __global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
-    rows_attention_kchunk_mma_kernel(const Args a) {
+    rows_attention_kchunk_mma_kernel(const Args a, float* __restrict__ m_out,
+                                     float* __restrict__ logs_out) {
   constexpr int TQ = 16 * WARPS, CS = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int CP = (a.C + 15) & ~15, QS = CP + 8;
@@ -678,8 +399,20 @@ __global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
   RowsState<NT> st;
   init_rows(st);
   rows_pass<kOnline, BK, NT>(a, b, q_s + warp * 16 * QS, k_s, v_s, CP, st, lane);
-  store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, quad_sum(st.s_a),
-                quad_sum(st.s_b), lane);
+  const float s_a = quad_sum(st.s_a), s_b = quad_sum(st.s_b);
+  const int row_a = b.q0 + warp * 16 + (lane >> 2);
+  store_out<NT>(a, b, row_a, st.acc, s_a, s_b, lane);
+  if (STATS && (lane & 3) == 0 && b.cs0 == 0) {  // one lane per row, one channel slice
+    const long long base = ((long long)b.r * a.H + b.h) * a.N;
+    if (row_a < a.N) {
+      m_out[base + row_a] = st.m_a;
+      logs_out[base + row_a] = logf(s_a);
+    }
+    if (row_a + 8 < a.N) {
+      m_out[base + row_a + 8] = st.m_b;
+      logs_out[base + row_a + 8] = logf(s_b);
+    }
+  }
 }
 
 // K1 in bf16: the row max and sum online (pass 1), then the normalised
@@ -725,9 +458,11 @@ size_t smem_bytes(int C, int BK, int TQ = kTQ) {
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// One launch of a kernel whose blocks hold WARPS warps of 16 queries each.
-template <int WARPS = kWarps, typename Kernel>
-cudaError_t launch_kernel(Kernel kern, int BK, const Args& a, cudaStream_t stream) {
+// One launch of a kernel whose blocks hold WARPS warps of 16 queries each;
+// ``extra`` follows the Args.
+template <int WARPS = kWarps, typename Kernel, typename... Extra>
+cudaError_t launch_kernel(Kernel kern, int BK, const Args& a, cudaStream_t stream,
+                          Extra... extra) {
   constexpr int TQ = 16 * WARPS;
   const int CP = (a.C + 15) & ~15;
   const int CS = 8 * slice_tiles(CP);
@@ -741,7 +476,7 @@ cudaError_t launch_kernel(Kernel kern, int BK, const Args& a, cudaStream_t strea
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<dim3((unsigned)blocks, a.H, slices), WARPS * 32, smem, stream>>>(a);
+  kern<<<dim3((unsigned)blocks, a.H, slices), WARPS * 32, smem, stream>>>(a, extra...);
   return cudaGetLastError();
 }
 
@@ -772,18 +507,23 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   return launch_kernel(rows_attention_mma_kernel<16, 8>, 16, a, stream);
 }
 
-template <int WARPS>
-cudaError_t launch_kchunk(const Args& a, cudaStream_t stream) {
+template <bool STATS, int WARPS>
+cudaError_t launch_kchunk(const Args& a, cudaStream_t stream, float* m, float* logs) {
   const int CP = (a.C + 15) & ~15;
   if (CP <= 16)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 2>, 64, a, stream);
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 2>, 64, a,
+                                stream, m, logs);
   if (CP <= 32)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 4>, 64, a, stream);
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 4>, 64, a,
+                                stream, m, logs);
   if (CP <= 128)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 64, 8>, 64, a, stream);
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 8>, 64, a,
+                                stream, m, logs);
   if (CP <= 512)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 32, 8>, 32, a, stream);
-  return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<WARPS, 16, 8>, 16, a, stream);
+    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 32, 8>, 32, a,
+                                stream, m, logs);
+  return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 16, 8>, 16, a,
+                              stream, m, logs);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
@@ -848,23 +588,31 @@ int prd_rows_attention_mma(const void* q, const void* k, const void* v, const vo
   return (int)launch_rows(a, static_cast<cudaStream_t>(stream));
 }
 
-// K3 on the tensor cores (bf16): K1's function by one pass of online
-// softmax over key tiles; 128 queries per block up to C = 128 (a (row,
-// head)'s K and V are read from L2 once per query tile), 64 above it (shared
-// memory). C a multiple of 8 up to the shared-memory bound.
+// K3 (m and logs null) or K5 (both given) on the tensor cores (bf16): K1's
+// function by one pass of online softmax over key tiles, K5 also writing the
+// row max m and log s (f32 [R, H, N]); 128 queries per block up to C = 128
+// (a (row, head)'s K and V are read from L2 once per query tile), 64 above it
+// (shared memory). C a multiple of 8 up to the shared-memory bound.
 int prd_rows_attention_kchunk_mma(const void* q, const void* k, const void* v, const void* mask,
-                                  void* out, int R, int N, int H, int C, float scale,
-                                  long long q_sr, long long q_sn, long long q_sh, long long k_sr,
-                                  long long k_sn, long long k_sh, long long v_sr, long long v_sn,
-                                  long long v_sh, void* stream) {
+                                  void* out, void* m, void* logs, int R, int N, int H, int C,
+                                  float scale, long long q_sr, long long q_sn, long long q_sh,
+                                  long long k_sr, long long k_sn, long long k_sh, long long v_sr,
+                                  long long v_sn, long long v_sh, void* stream) {
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
                static_cast<bf16*>(out), R, N, H, C, scale,
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
   const bool wide = ((C + 15) & ~15) > 128;
-  if (!valid(a, wide ? 64 : 128) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (!valid(a, wide ? 64 : 128) || mask == nullptr || (m == nullptr) != (logs == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(wide ? launch_kchunk<4>(a, s) : launch_kchunk<8>(a, s));
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(logs);
+  if (m != nullptr)
+    return (int)(wide ? launch_kchunk<true, 4>(a, s, mf, lf)
+                      : launch_kchunk<true, 8>(a, s, mf, lf));
+  return (int)(wide ? launch_kchunk<false, 4>(a, s, mf, lf)
+                    : launch_kchunk<false, 8>(a, s, mf, lf));
 }
 
 }  // extern "C"

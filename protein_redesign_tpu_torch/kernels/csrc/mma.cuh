@@ -1,6 +1,7 @@
-// Tensor-core building blocks for the sm_90a kernels (attention_mma.cu):
-// cp.async staging, ldmatrix fragment loads and mma.sync m16n8k16 with bf16
-// operands and f32 accumulators, in inline PTX.
+// Tensor-core building blocks for the sm_90a kernels (attention_mma.cu,
+// attention_bwd_mma.cu, attention_tf32.cu): cp.async staging, ldmatrix
+// fragment loads, mma.sync m16n8k16 with bf16 operands and f32 accumulators,
+// and mma.sync m16n8k8 in 3xTF32 for f32 operands, in inline PTX.
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
 // l of a warp with g = l / 4 and t = l % 4 (PTX ISA, "Matrix Fragments for
@@ -98,6 +99,57 @@ __device__ __forceinline__ void load_bt_frags(unsigned (&b)[4], const __nv_bfloa
 __device__ __forceinline__ void load_b_frags(unsigned (&b)[4], const __nv_bfloat16* tile, int ld,
                                              int k0, int n0, int lane) {
   ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
+// f32 products on the tensor cores in 3xTF32 (attention_tf32.cu). Fragments
+// of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 for lane l, g = l / 4,
+// t = l % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k8"), one 32-bit element
+// a register, no ldmatrix for them:
+//   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8, k x n): b0 = B[t][g], b1 = B[t+4][g]
+//   C, D (16 x 8, f32): as for m16n8k16.
+// An f32 x splits into x = big + small with big = tf32(x) and small =
+// tf32(x - big) (round to nearest, ties away), x - big exact in f32; the
+// product a b is taken as a_small b_big + a_big b_small + a_big b_big with
+// f32 sums, small terms first, dropping a_small b_small: within about 2^-21
+// of |a b|, where one TF32 product of the rounded operands misses by 2^-10.
+
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += A B on the tensor cores: tf32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                              unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in 3xTF32, A and B given split (big, small). The three products
+// go into a fresh fragment, which is then added to d in f32 (round to
+// nearest): the tensor cores' own f32 sums truncate, so a long sum kept in
+// one fragment (a P.V accumulator over a thousand keys) would drift toward
+// zero by an ulp a step.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&a_big)[4],
+                                           const unsigned (&a_small)[4], unsigned b_big0,
+                                           unsigned b_big1, unsigned b_small0,
+                                           unsigned b_small1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32_1688(t, a_small, b_big0, b_big1);
+  mma_tf32_1688(t, a_big, b_small0, b_small1);
+  mma_tf32_1688(t, a_big, b_big0, b_big1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
 }
 
 }  // namespace

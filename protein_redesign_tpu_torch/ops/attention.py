@@ -16,10 +16,14 @@ kernels the denoiser's main path runs:
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
 
-K1, K1 fast, K2 and K3 have two bodies (``takes_mma``): on bf16 inputs with
-C a multiple of 8 a tensor-core one (``attention_mma.cu``: mma.sync,
-ldmatrix, cp.async), else the CUDA-core one of ``attention.cu`` or
-``attention_kchunk.cu`` (f32, where TF32 would break the 1e-5 parity).
+K1, K1 fast, K2, K3, K5 and K7 have two bodies (``takes_mma``): on bf16
+inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``,
+K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async), else the
+CUDA-core one of ``attention.cu``, ``attention_kchunk.cu`` or
+``attention_bwd.cu``. K3 and K5 in f32 with C a multiple of 8 take a
+tensor-core body too (``takes_tf32x3``, ``attention_tf32.cu``): every
+product in 3xTF32, three TF32 products of split operands, which keeps the
+1e-5 parity that one TF32 product would break. K6 has a CUDA-core body only.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -97,10 +101,13 @@ import torch
 NEG_INF = -(2.0**15)  # the reference's padding fill (`pallas_attention.py:33`)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The tensor-core bodies (attention_mma.cu: K1, K1 fast, K2, K3; bf16, C a
-# multiple of 8): a block's queries and two K and V tiles in shared memory.
+# The tensor-core bodies (attention_mma.cu: K1, K1 fast, K2, K3, K5;
+# attention_bwd_mma.cu: K7; bf16, C a multiple of 8): a block's queries and
+# two K and V tiles in shared memory.
 MMA_SMEM_BYTES = 227 * 1024
-MMA_BODIES = ("rows_attention", "rows_attention_fast", "tiled_attention", "rows_attention_kchunk")
+MMA_BODIES = ("rows_attention", "rows_attention_fast", "tiled_attention", "rows_attention_kchunk",
+              "rows_attention_kchunk_stats", "rows_attention_bwd")
+KCHUNK_FORWARDS = ("rows_attention_kchunk", "rows_attention_kchunk_stats")  # K3, K5
 # K3's tensor-core body takes 128 queries per block up to head width 128 (a
 # (row, head)'s K and V are read from L2 once per query tile), 64 above it
 # (shared memory).
@@ -121,15 +128,60 @@ def mma_smem_bytes(C: int, queries: int = 64) -> int:
     return 2 * ((queries + 2 * bk) * (cp + 8) + 2 * bk * (cs + 8))
 
 
+def _padded_tiles(C: int) -> int:
+    """8-channel n-tiles of the padded head of K7's and the f32 body's
+    kernels: the least power of two covering C (CP = 8 of them)."""
+    nt = 1
+    while 8 * nt < C:
+        nt *= 2
+    return nt
+
+
+def bwd_mma_smem_bytes(C: int) -> int:
+    """Shared memory of K7's tensor-core kernels (``dkdv_smem`` in
+    attention_bwd_mma.cu, the larger of the two): 2 x 64 rows staged once and
+    two buffers of two tiles of 64 rows (32 above CP = 64), CP + 8 bf16
+    each, CP = C padded to 16, 32, 64 or 128, plus three f32 stats a tile row."""
+    nt = max(2, _padded_tiles(C))
+    tile = 64 if nt <= 8 else 32
+    return 2 * (2 * 64 + 4 * tile) * (8 * nt + 8) + 4 * 6 * tile
+
+
+def tf32x3_smem_bytes(C: int) -> int:
+    """Shared memory of the f32 tensor-core body of K3 and K5 (``tf32x3_smem``
+    in attention_tf32.cu): 128 queries and two buffers of 64 keys (32 from
+    CP = 32 on) of K and V, CP + 4 floats a row, CP = C padded to 8, 16, 32,
+    64 or 128."""
+    nt = _padded_tiles(C)
+    return 4 * (128 + 4 * (64 if nt <= 2 else 32)) * (8 * nt + 4)
+
+
 def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
-    """The body of kernel ``name`` for head width C in ``dtype``: K1, K1 fast,
-    K2 and K3 run their tensor-core body in bf16 when C is a multiple of 8
-    (an mma operand row is 8 bf16) whose tiles fit shared memory, else
-    their CUDA-core body (f32, where TF32 would break the 1e-5 parity); K5,
-    K6 and K7 have a CUDA-core body only."""
-    queries = kchunk_queries(C) if name == "rows_attention_kchunk" else 64
-    return (name in MMA_BODIES and dtype == torch.bfloat16 and C > 0 and C % 8 == 0
-            and mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES)
+    """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
+    in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
+    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K7 in bf16
+    when C is a multiple of 8 up to MAX_BWD_HEAD_DIM (its accumulators hold
+    the whole head). Else the CUDA-core body, or in f32 the 3xTF32 body where
+    ``takes_tf32x3``; K6 has a CUDA-core body only."""
+    if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
+        return False
+    if name == "rows_attention_bwd":
+        return C <= MAX_BWD_HEAD_DIM and bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
+    queries = kchunk_queries(C) if name in KCHUNK_FORWARDS else 64
+    return mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES
+
+
+def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
+    """Whether K3 or K5 (``name``) runs its f32 tensor-core body (3xTF32,
+    attention_tf32.cu) at head width C in ``dtype``: f32 with C a multiple
+    of 8 up to MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head)."""
+    return (name in KCHUNK_FORWARDS and dtype == torch.float32 and C > 0 and C % 8 == 0
+            and C <= MAX_KCHUNK_HEAD_DIM and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
+
+
+def takes_tensor_cores(name: str, dtype: torch.dtype, C: int) -> bool:
+    """Whether kernel ``name`` runs a tensor-core body (bf16 or 3xTF32)."""
+    return takes_mma(name, dtype, C) or takes_tf32x3(name, dtype, C)
 
 
 def kchunk_queries(C: int) -> int:
@@ -164,22 +216,32 @@ def attention_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype
                                    or width_fits(C, MAX_HEAD_DIM))
 
 
-MAX_BWD_HEAD_DIM = 128  # K7: rows in registers to C = 32, then 4 x C / 32 accumulators per lane
+# K7: the CUDA-core body holds rows in registers to C = 32, then 4 x C / 32
+# accumulators per lane; the tensor-core body a warp's 16 rows of the whole
+# head's gradients (C / 2 accumulators a thread)
+MAX_BWD_HEAD_DIM = 128
 
 
 def bwd_fits(R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
-    """Whether K7 takes the backward of [R, N, H, C] operands of ``dtype``."""
-    return grid_fits(R, N, H) and width_fits(C, MAX_BWD_HEAD_DIM)
+    """Whether K7 takes the backward of [R, N, H, C] operands of ``dtype``:
+    the tensor-core body's shared memory (bf16, multiples of 8), else the
+    CUDA-core body's C <= MAX_BWD_HEAD_DIM, a multiple of 4."""
+    return grid_fits(R, N, H) and (takes_mma("rows_attention_bwd", dtype, C)
+                                   or width_fits(C, MAX_BWD_HEAD_DIM))
 
 
-MAX_KCHUNK_HEAD_DIM = 128  # K3 (f32), K5, K6: 4 x C / 32 accumulators per lane
+# K3, K5 and K6 on the CUDA cores: 4 x C / 32 accumulators per lane; K3 and
+# K5 in f32 on the tensor cores: a warp's 16 rows of the whole head's output
+# (C / 2 accumulators a thread)
+MAX_KCHUNK_HEAD_DIM = 128
 
 
 def kchunk_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K3 (``name`` "rows_attention_kchunk"), K5 or K6 takes
-    [R, N, H, C] operands of ``dtype``: K3's tensor-core body's shared
-    memory, else the CUDA-core body's C <= MAX_KCHUNK_HEAD_DIM."""
-    return grid_fits(R, N, H) and (takes_mma(name, dtype, C)
+    [R, N, H, C] operands of ``dtype``: the bf16 tensor-core body's shared
+    memory (K3, K5), the 3xTF32 body's (K3, K5 in f32), else the CUDA-core
+    body's C <= MAX_KCHUNK_HEAD_DIM."""
+    return grid_fits(R, N, H) and (takes_tensor_cores(name, dtype, C)
                                    or width_fits(C, MAX_KCHUNK_HEAD_DIM))
 
 
@@ -515,7 +577,8 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
             raise ValueError(f"{name} must be contiguous along the head dimension")
 
 
-_MMA_BOUND = f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} bytes"
+_MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
+              f"bytes (K7 and the f32 body up to {MAX_BWD_HEAD_DIM})")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
@@ -570,54 +633,67 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
     return out
 
 
-def _launch_bwd(q, k, v, mask, dout, scale: float):
+def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
+    """Launch K7; ``mma`` None picks the body by ``takes_mma``, False forces
+    the CUDA-core body."""
     from ..kernels import build
 
     C = q.shape[-1]
-    _check(q, k, v, mask, None, width_fits(C, MAX_BWD_HEAD_DIM),
-           f"rows attention backward takes a multiple of 4 up to {MAX_BWD_HEAD_DIM}")
+    auto = takes_mma("rows_attention_bwd", q.dtype, C)
+    mma = auto if mma is None else mma
+    if mma:
+        _check(q, k, v, mask, None, auto, _MMA_BOUND)
+    else:
+        _check(q, k, v, mask, None, width_fits(C, MAX_BWD_HEAD_DIM),
+               f"rows attention backward takes a multiple of 4 up to {MAX_BWD_HEAD_DIM}")
     R, N, H, C = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must match q: got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    if mma:
+        q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
     lib = build()
     mask = mask.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty((R, N, H, C), dtype=q.dtype, device=q.device) for _ in range(3))
     stats = torch.empty((3, R, H, N), dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
     w = weak_scalar(scale, q.dtype)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.lib.prd_rows_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            _DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream,
-        )
+        if mma:
+            code = lib.lib.prd_rows_attention_bwd_mma(*pointers, R, N, H, C, w, *strides, stream)
+        else:
+            code = lib.lib.prd_rows_attention_bwd(*pointers, _DTYPE_CODES[q.dtype], R, N, H, C, w,
+                                                  *strides, stream)
     lib.check(code, "rows_attention_bwd")
     LAUNCHES["rows_attention_bwd"] += 1
     return dq * w, dk, dv
 
 
-def _check_kchunk(q, k, v, mask, mma: bool = False) -> None:
+def _check_kchunk(q, k, v, mask, name: str = "rows_attention_kchunk_bwd",
+                  tensor_cores: bool = False) -> None:
     C = q.shape[-1]
-    if mma:
-        _check(q, k, v, mask, None, takes_mma("rows_attention_kchunk", q.dtype, C), _MMA_BOUND)
+    if tensor_cores:
+        _check(q, k, v, mask, None, takes_tensor_cores(name, q.dtype, C), _MMA_BOUND)
     else:
         _check(q, k, v, mask, None, width_fits(C, MAX_KCHUNK_HEAD_DIM),
                f"K-chunked rows attention takes a multiple of 4 up to {MAX_KCHUNK_HEAD_DIM}")
 
 
 def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool] = None):
-    """K3 (``stats`` False) or K5: out, plus m and log s [R, H, N] f32. K3
-    picks its body by ``takes_mma`` where ``mma`` is None (False forces the
-    CUDA-core body)."""
+    """K3 (``stats`` False) or K5: out, plus m and log s [R, H, N] f32. The
+    body by ``takes_tensor_cores`` where ``mma`` is None: the bf16 one
+    (attention_mma.cu) or in f32 the 3xTF32 one (attention_tf32.cu); False
+    forces the CUDA-core body."""
     from ..kernels import build
 
     name = "rows_attention_kchunk_stats" if stats else "rows_attention_kchunk"
     if mma is None:
-        mma = takes_mma(name, q.dtype, q.shape[-1])
-    _check_kchunk(q, k, v, mask, mma)
+        mma = takes_tensor_cores(name, q.dtype, q.shape[-1])
+    _check_kchunk(q, k, v, mask, name, mma)
     lib = build()
     R, N, H, C = q.shape
     mask = mask.to(torch.float32).contiguous()
@@ -632,10 +708,11 @@ def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mma:
-            code = lib.lib.prd_rows_attention_kchunk_mma(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                R, N, H, C, w, *strides, stream,
-            )
+            fn = (lib.lib.prd_rows_attention_kchunk_mma if q.dtype == torch.bfloat16
+                  else lib.lib.prd_rows_attention_kchunk_tf32x3)
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                      None if m is None else m.data_ptr(),
+                      None if logs is None else logs.data_ptr(), R, N, H, C, w, *strides, stream)
         else:
             code = lib.lib.prd_rows_attention_kchunk(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
@@ -692,15 +769,18 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"attention runs on cpu or cuda tensors, got {device}")
 
 
-def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool) -> torch.Tensor:
+def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout=None):
     """One launch of K1 (``name`` "rows_attention"), K1 fast
-    ("rows_attention_fast"), K2 ("tiled_attention") or K3
-    ("rows_attention_kchunk") on CUDA tensors through the body ``mma`` names,
-    without autograd: in bf16 the CUDA-core body (``mma`` False), which the
-    tensor-core one replaced, stays callable only to time the two side by
-    side."""
-    if name == "rows_attention_kchunk":
-        return _launch_kchunk(q, k, v, mask, scale, stats=False, mma=mma)
+    ("rows_attention_fast"), K2 ("tiled_attention"), K3
+    ("rows_attention_kchunk"), K5 ("rows_attention_kchunk_stats") or K7
+    ("rows_attention_bwd", given ``dout``) on CUDA tensors through the body
+    ``mma`` names, without autograd: the CUDA-core body (``mma`` False),
+    which a tensor-core one replaced (bf16; K3 and K5 in f32 too), stays
+    callable only to time the two side by side."""
+    if name == "rows_attention_bwd":
+        return _launch_bwd(q, k, v, mask, dout, scale, mma=mma)
+    if name in KCHUNK_FORWARDS:
+        return _launch_kchunk(q, k, v, mask, scale, stats=name != "rows_attention_kchunk", mma=mma)
     return _launch(name, q, k, v, mask, bias, scale, mma=mma)
 
 

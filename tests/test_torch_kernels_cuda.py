@@ -238,6 +238,10 @@ def _assert_grads_close(got, want, dtype):
 @pytest.mark.parametrize("N", [16, 45, 192])
 @pytest.mark.parametrize("C", [8, 16, 32, 48, 64, 128])
 def test_rows_bwd_kernel_matches_plain(device, dtype, N, C):
+    """K7 against its plain version: in bf16 its tensor-core body
+    (attention_bwd_mma.cu, every C here a multiple of 8), in f32 its
+    CUDA-core body."""
+    assert A.takes_mma("rows_attention_bwd", dtype, C) == (dtype == torch.bfloat16)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, seed=5, masked_rows=2)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(device, dtype)
     before = A.LAUNCHES["rows_attention_bwd"]
@@ -261,6 +265,38 @@ def test_rows_bwd_strided_operands(device):
     ref = A.rows_attention_bwd_reference(*(x.contiguous() for x in (qt, kt, vt)), mask,
                                          gt.contiguous(), 0.25)
     _assert_grads_close(grads, ref, torch.float32)
+
+
+@pytest.mark.parametrize("C", [16, 64])
+def test_rows_bwd_mma_strided_operands(device, C):
+    """K7's tensor-core body in the 'ending' triangle layout: q, k, v and dO
+    read through strides, fully masked rows included."""
+    N, H = 40, 4 if C == 16 else 1
+    q, k, v, mask, _ = _inputs(N, N, H, C, torch.bfloat16, device, seed=7, masked_rows=3)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(device, torch.bfloat16)
+    qt, kt, vt, gt = (x.transpose(0, 1) for x in (q, k, v, g))
+    assert not kt.is_contiguous()
+    grads = A.rows_attention_bwd(qt, kt, vt, mask, gt, 0.25)
+    ref = A.rows_attention_bwd_reference(*(x.contiguous() for x in (qt, kt, vt)), mask,
+                                         gt.contiguous(), 0.25)
+    _assert_grads_close(grads, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [16, 64])
+def test_rows_bwd_bodies_agree(device, C):
+    """K7's two bodies on the same bf16 inputs (N = 192, 147 nodes valid),
+    each against the plain version: the CUDA-core one stays callable
+    (attention_body) for timing beside the tensor-core one."""
+    N, H = 192, 4 if C == 16 else 1
+    q, k, v, _, _ = _inputs(2 * N, N, H, C, torch.bfloat16, device, seed=19)
+    node = (torch.arange(N, device=device) < 147).float()
+    mask = (node[:, None] * node[None, :]).repeat(2, 1)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(20)).to(device, torch.bfloat16)
+    ref = A.rows_attention_bwd_reference(q, k, v, mask, g, 0.25)
+    for mma in (True, False):
+        grads = A.attention_body("rows_attention_bwd", q, k, v, mask, None, 0.25, mma=mma, dout=g)
+        _assert_grads_close(grads, ref, torch.bfloat16)
+        assert torch.count_nonzero(grads[0][147:N]) == 0  # row 0's padded queries
 
 
 @pytest.mark.parametrize("name", ["rows_attention", "tiled_attention"])
@@ -340,7 +376,12 @@ def kchunk_regime(monkeypatch):
 @pytest.mark.parametrize("N", [16, 45, 200])
 @pytest.mark.parametrize("C", [8, 16, 64, 128])
 def test_kchunk_kernels_match_plain(device, dtype, N, C):
-    """K3 and K5 against their plain version, with fully masked rows."""
+    """K3 and K5 against their plain version, with fully masked rows: both on
+    their tensor-core body (bf16: attention_mma.cu; f32: 3xTF32,
+    attention_tf32.cu, every C here a multiple of 8), one body, so K5's
+    output is K3's bit for bit."""
+    name = "rows_attention_kchunk_stats"
+    assert A.takes_tensor_cores(name, dtype, C) and A.takes_tensor_cores(name[:-6], dtype, C)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, seed=11, masked_rows=2)
     before = dict(A.LAUNCHES)
     out = A.rows_attention_kchunk(q, k, v, mask, 0.35)
@@ -351,10 +392,7 @@ def test_kchunk_kernels_match_plain(device, dtype, N, C):
     ref, ref_m, ref_logs = A.rows_attention_kchunk_reference(q, k, v, mask, 0.35, stats=True)
     tol = _tol(dtype, C)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    if A.takes_mma("rows_attention_kchunk", dtype, C):  # K3 on the tensor cores, K5 not
-        torch.testing.assert_close(out_s.float(), ref.float(), atol=tol, rtol=tol)
-    else:  # one CUDA-core body
-        torch.testing.assert_close(out_s, out, atol=0, rtol=0)
+    torch.testing.assert_close(out_s, out, atol=0, rtol=0)
     torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(logs, ref_logs, atol=1e-5, rtol=1e-5)
     mean_v = v[:2].float().mean(1, keepdim=True).expand_as(out[:2])
@@ -381,7 +419,8 @@ def test_kchunk_bwd_kernel_matches_plain(device, dtype, N, C):
 
 
 def test_kchunk_strided_operands(device):
-    """The 'ending' triangle layout: K3, K5 and K6 read through strides."""
+    """The 'ending' triangle layout: K3, K5 (f32: the 3xTF32 body) and K6
+    read through strides."""
     N, H, C = 40, 4, 16
     q, k, v, mask, _ = _inputs(N, N, H, C, torch.float32, device, seed=14)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(15)).to(device)
@@ -398,17 +437,30 @@ def test_kchunk_strided_operands(device):
 
 def test_kchunk_offsets_past_2_31_elements(device):
     """One operand of more than 2^31 elements: offsets are 64-bit. The last
-    rows, whose elements lie past 2^31, against the plain version."""
+    rows, whose elements lie past 2^31, against the plain version: K3, K5
+    (its stats too) and K7, each on its bf16 tensor-core body."""
     R, N, H, C = 70000, 64, 4, 128
     assert R * N * H * C > 2**31
     g = torch.Generator(device=device).manual_seed(16)
     q, k, v = (torch.randn(R, N, H, C, generator=g, device=device, dtype=torch.bfloat16)
                for _ in range(3))
     mask = torch.ones(R, N, device=device)
-    out = A.rows_attention_kchunk(q, k, v, mask, 0.1)
     tail = slice(R - 3, R)
+    out = A.rows_attention_kchunk(q, k, v, mask, 0.1)
     ref = A.rows_attention_kchunk_reference(q[tail], k[tail], v[tail], mask[tail], 0.1)
     torch.testing.assert_close(out[tail].float(), ref.float(), atol=2e-2, rtol=2e-2)
+    out_s, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, 0.1)
+    torch.testing.assert_close(out_s[tail], out[tail], atol=0, rtol=0)
+    del out, out_s
+    _, ref_m, ref_logs = A.rows_attention_kchunk_reference(q[tail], k[tail], v[tail], mask[tail],
+                                                           0.1, stats=True)
+    torch.testing.assert_close(m[tail], ref_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logs[tail], ref_logs, atol=1e-5, rtol=1e-5)
+    del m, logs
+    dout = torch.randn(R, N, H, C, generator=g, device=device, dtype=torch.bfloat16)
+    grads = A.rows_attention_bwd(q, k, v, mask, dout, 0.1)
+    want = A.rows_attention_bwd_reference(q[tail], k[tail], v[tail], mask[tail], dout[tail], 0.1)
+    _assert_grads_close([t[tail] for t in grads], want, torch.bfloat16)
 
 
 def test_kchunk_autograd_launches_kernels(device, kchunk_regime):
@@ -891,6 +943,47 @@ def test_kchunk_mma_matches_plain(device, N, C):
     _check_body("rows_attention_kchunk", q, k, v, mask, 1.0 / C ** 0.5, 1)
 
 
+@pytest.mark.parametrize("N", [256, 2048])
+@pytest.mark.parametrize("C", [8, 16, 64, 128, 256])
+def test_kchunk_stats_mma_matches_plain(device, N, C):
+    """K5 on K3's bf16 tensor-core body: its output K3's bit for bit, m and
+    log s within 1e-5 of the plain version (64-key tiles against its chunks
+    of 256), a fully masked row at m = -2^15 and log s = log N."""
+    assert A.takes_mma("rows_attention_kchunk_stats", torch.bfloat16, C)
+    q, k, v, mask, _ = _inputs(4 if N == 2048 else 6, N, 2, C, torch.bfloat16, device, seed=41,
+                               masked_rows=1)
+    scale = 1.0 / C ** 0.5
+    out, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, scale)
+    torch.testing.assert_close(out, A.rows_attention_kchunk(q, k, v, mask, scale), atol=0, rtol=0)
+    ref, ref_m, ref_logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+    _close_to_scale(out, ref)
+    torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logs, ref_logs, atol=1e-5, rtol=1e-5)
+    assert (m[0] == A.NEG_INF).all()
+    torch.testing.assert_close(logs[0], torch.full_like(logs[0], float(N)).log(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", [45, 256, 1024])
+@pytest.mark.parametrize("C", [8, 16, 64, 128])
+def test_kchunk_tf32x3_matches_plain(device, N, C):
+    """K3 and K5 in f32 on their 3xTF32 body, up to the f32 switch (N =
+    1024), a fully masked row included: out, m and log s within 1e-5 of the
+    plain version (TF32 off), K5's output K3's bit for bit."""
+    assert A.takes_tf32x3("rows_attention_kchunk_stats", torch.float32, C)
+    q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=45, masked_rows=1)
+    scale = 1.0 / C ** 0.5
+    out = A.rows_attention_kchunk(q, k, v, mask, scale)
+    out_s, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, scale)
+    ref, ref_m, ref_logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out_s, out, atol=0, rtol=0)
+    torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logs, ref_logs, atol=1e-5, rtol=1e-5)
+    mean_v = v[:1].mean(1, keepdim=True).expand_as(out[:1])
+    torch.testing.assert_close(out[:1], mean_v, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
 def test_rows_and_kchunk_mma_strided_and_many_rows(device, name):
     """The 'ending' layout (k and v read through strides), and R = 70000
@@ -912,7 +1005,9 @@ def test_rows_and_kchunk_mma_strided_and_many_rows(device, name):
 @pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
 def test_rows_and_kchunk_bodies_stay_callable(device, name):
     """Both bodies of K1 and K3 in bf16 (the CUDA-core one kept to time it
-    against the tensor-core one), and f32 on the CUDA-core body at 1e-5."""
+    against the tensor-core one), and f32 on the CUDA-core body at 1e-5; in
+    f32, K3's tensor-core body is the 3xTF32 one (1e-5 too), while K1 has
+    none."""
     q, k, v, mask, _ = _inputs(4, 100, 2, 16, torch.float32, device, seed=44, masked_rows=1)
     ref = A.attention_reference(q, k, v, mask, None, 0.3)
     got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=False)
@@ -922,8 +1017,12 @@ def test_rows_and_kchunk_bodies_stay_callable(device, name):
     for mma in (False, True):
         got = A.attention_body(name, qb, kb, vb, mask, None, 0.3, mma=mma)
         _close_to_scale(got, refb)
-    with pytest.raises(ValueError):  # the tensor-core body takes bf16 only
-        A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
+    if name == "rows_attention_kchunk":
+        got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        with pytest.raises(ValueError):  # K1's tensor-core body takes bf16 only
+            A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
 
 
 FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pallas_outer=True,

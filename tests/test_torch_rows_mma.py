@@ -1,8 +1,9 @@
-"""The tensor-core bodies of K1 and K3 and the route past the kernels' bounds,
-on the CPU (no card needed).
+"""The tensor-core bodies of K1, K3, K5 and K7 and the route past the
+kernels' bounds, on the CPU (no card needed).
 
-- The body choice (``ops.attention.takes_mma``) as a pure function of the
-  kernel's name, dtype and head width.
+- The body choice (``ops.attention.takes_mma`` for bf16, ``takes_tf32x3``
+  for K3 and K5 in f32) as a pure function of the kernel's name, dtype and
+  head width.
 - K3's tensor-core body streams keys in tiles of 64, where the JAX K3 takes
   chunks of 256: the plain online softmax (``_kchunk_forward_block``) at 64
   keys a tile against the JAX ``_rows_attention_kchunk_grid_cn`` (Pallas in
@@ -50,8 +51,8 @@ BF16, F32 = torch.bfloat16, torch.float32
     (64, F32, False),
 ])
 def test_k1_and_k3_body_choice(name, C, dtype, mma):
-    """bf16 with C a multiple of 8 up to the shared-memory bound: the
-    tensor-core body; otherwise, and in f32, the CUDA-core body."""
+    """bf16 with C a multiple of 8 up to the shared-memory bound: the bf16
+    tensor-core body; otherwise not (f32 K3 is ``takes_tf32x3``'s)."""
     assert A.takes_mma(name, dtype, C) is mma
     queries = A.kchunk_queries(C) if name == "rows_attention_kchunk" else 64
     assert (A.mma_smem_bytes(C, queries) <= A.MMA_SMEM_BYTES) is (C <= 1168)
@@ -65,11 +66,35 @@ def test_k3_query_tile_by_head_width(C, queries):
     assert A.mma_smem_bytes(1168, 128) > A.MMA_SMEM_BYTES
 
 
-@pytest.mark.parametrize("name", ["rows_attention_kchunk_stats", "rows_attention_kchunk_bwd",
-                                  "rows_attention_bwd"])
-@pytest.mark.parametrize("dtype", [BF16, F32])
-def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype):
-    assert not any(A.takes_mma(name, dtype, C) for C in (8, 16, 64, 128))
+def _body(name, dtype, C):
+    if A.takes_mma(name, dtype, C):
+        return "bf16 mma"
+    return "3xtf32" if A.takes_tf32x3(name, dtype, C) else "cuda cores"
+
+
+@pytest.mark.parametrize("name,dtype,C,body", [
+    # K5 and K7 in bf16: the tensor cores at C a multiple of 8
+    *[(name, BF16, C, "bf16 mma") for name in ("rows_attention_kchunk_stats", "rows_attention_bwd")
+      for C in (8, 16, 64, 128)],
+    ("rows_attention_kchunk_stats", BF16, 12, "cuda cores"),
+    ("rows_attention_bwd", BF16, 12, "cuda cores"),
+    # K7 in f32: the CUDA cores
+    *[("rows_attention_bwd", F32, C, "cuda cores") for C in (8, 16, 64, 128)],
+    # K3 and K5 in f32: 3xTF32 at C a multiple of 8, else the CUDA cores
+    *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats")
+      for C in (8, 16, 64, 128)],
+    ("rows_attention_kchunk", F32, 12, "cuda cores"),
+    ("rows_attention_kchunk_stats", F32, 20, "cuda cores"),
+    # K6: the CUDA cores in both dtypes
+    *[("rows_attention_kchunk_bwd", dtype, C, "cuda cores") for dtype in (BF16, F32)
+      for C in (8, 16, 64, 128)],
+])
+def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
+    """Which body K5, K6 and K7 (and K3 in f32) take: K5 and K7 the bf16
+    tensor cores (attention_mma.cu, attention_bwd_mma.cu), K3 and K5 in f32
+    the 3xTF32 body (attention_tf32.cu), at C a multiple of 8; K6, K7 in f32
+    and every other width keep their CUDA-core body."""
+    assert _body(name, dtype, C) == body
 
 
 # K3's key tile -----------------------------------------------------------------
@@ -118,7 +143,7 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 1168, BF16), True),
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 132, F32), False),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 128, BF16), True),
-    (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 136, BF16), False),
+    (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1176, BF16), False),
     # K8: D <= 128, C <= 32, H C <= 128
     (A.fused_gated_fits, (4, 16, 128, 4, 32, BF16), True),
     (A.fused_gated_fits, (4, 16, 132, 4, 16, BF16), False),
@@ -134,6 +159,22 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     # K11: D a multiple of 4 up to 128
     (O.outer_fits, (2, 16, 128, BF16), True),
     (O.outer_fits, (2, 16, 132, BF16), False),
+    # K5 on the bf16 tensor cores: K3's shared memory
+    (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1168, BF16), True),
+    # K7: the tensor-core body in bf16 at multiples of 8 up to 128, the
+    # CUDA-core body at multiples of 4 (and in f32)
+    (A.takes_mma, ("rows_attention_bwd", BF16, 128), True),
+    (A.takes_mma, ("rows_attention_bwd", BF16, 136), False),
+    (A.bwd_fits, (2, 16, 4, 124, BF16), True),
+    (A.bwd_fits, (2, 16, 4, 128, F32), True),
+    (A.bwd_fits, (2, 16, 4, 132, F32), False),
+    # K3 and K5 in f32: 3xTF32 at multiples of 8 up to 128
+    (A.takes_tf32x3, ("rows_attention_kchunk", F32, 128), True),
+    (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk", F32, 124), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk", BF16, 16), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 16), False),
+    (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
 ])
 def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
