@@ -13,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    of both from CUDA events; in bf16 K1 and K2 run their tensor-core bodies
    (attention_mma.cu), each timed beside its CUDA-core body (CUDA events and
    device time), K2 at C = 16 and at SPAttention's C = 512, with SDPA and the
-   bound (K1 at both buckets).
+   bound (K1 at both buckets, and SDPA in f32 for K1's f32 CUDA-core body).
 4. Whole forward: ProteinReDiffNet at paper width (ModelConfig(), bf16)
    with seeded, perturbed weights, B=2 at bucket 192, kernel route against
    plain route, and exactly 24 rows-kernel and 13 tiled-kernel launches per
@@ -24,10 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 x 13 kernel launches.
 6. K7 vs plain: the rows-attention backward kernel against its plain
    version at buckets 192 and 384 (147 and 360 nodes valid, so padded rows
-   are fully masked), f32 (CUDA-core body) and bf16 (tensor-core body,
-   attention_bwd_mma.cu), H=4 x C=16 and H=1 x C=64 (the h64x1 layout), with
-   both times; in bf16 the CUDA-core body timed beside the tensor-core one,
-   SDPA's forward + backward and the bound at both buckets and widths.
+   are fully masked), f32 (3xTF32 tensor-core body, attention_bwd_tf32.cu)
+   and bf16 (tensor-core body, attention_bwd_mma.cu), H=4 x C=16 and H=1 x
+   C=64 (the h64x1 layout), with both times; in both dtypes the CUDA-core
+   body timed beside the tensor-core one, SDPA's forward + backward in the
+   same dtype and the bound at both buckets and widths.
 7. Whole-net gradient: the training loss's parameter gradients at paper
    width, B=2, bucket 192, kernel route against plain route, in f32 and
    bf16, with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
@@ -44,14 +45,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    recommended training layout): the whole gradient of a micro-step, kernel
    route (K1 and K7 at C = 64) against plain route, at bucket 192 in f32 and
    bf16 and at 384 in bf16, and the train CLI at 192 for 2 optimizer steps.
-9. K-chunk kernels vs plain: K3 and K5 at bucket 2048 in bf16 (R = 2048)
-   and at 1024 in f32 (R = 1024), K6 at 1024 in f32, each against its plain
-   version on the same inputs (the plain versions take rows in blocks, so
-   their memory stays bounded), with the kernel's time, its bound and the
-   library call's time; K3 and K5 run their tensor-core bodies (bf16:
-   attention_mma.cu; f32: 3xTF32, attention_tf32.cu), each timed beside its
-   CUDA-core body, and the bf16 outputs are held to TOL_BF16 of each
-   element plus TOL_BF16 of the output's RMS.
+9. K-chunk kernels vs plain: K3, K5 and K6 at bucket 2048 in bf16 (R =
+   2048) and at 1024 in f32 (R = 1024), each against its plain version on
+   the same inputs (the plain versions take rows in blocks, so their memory
+   stays bounded), with the kernel's time, its bound and the library call's
+   time; all three run their tensor-core bodies (bf16: attention_mma.cu,
+   K6 attention_bwd_mma.cu; f32: 3xTF32, attention_tf32.cu, K6
+   attention_bwd_tf32.cu), each timed beside its CUDA-core body; in bf16
+   K3's and K5's outputs and K6's gradients are held to TOL_BF16 of each
+   element plus TOL_BF16 of the tensor's RMS (at N = 2048 they are ~0.03, so
+   an absolute TOL_BF16 would pass a K6 that left out delta), in f32 to
+   TOL_F32 of max(1, max |x|); K6 with exact zeros in dq and dk on the fully
+   masked rows.
 10. Generation at 2048: the generate CLI at bucket 2048, bf16, B=1, a seeded
    2000-residue sequence and imatinib, 3 DDPM steps: s/step, peak memory,
    finite outputs, exactly 24 K3, 13 K2 and no K1 launch per forward.
@@ -62,7 +67,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameter gradient at 1024, kernel route against plain route (48 K5, 24
    K6, 25 K2, no K1 or K7), its device time by kernel group; one bf16
    micro-step at 2048, B=1, paper widths with num_blocks cut to 2 for the
-   time limit (8 K5 on its tensor-core body, 4 K6, 5 K2), kernel route
+   time limit (8 K5 and 4 K6 on their tensor-core bodies, 5 K2), kernel route
    against plain route; then the train CLI at bucket 1024, --dtype float32,
    batch 1, 2 optimizer steps: s per optimizer step, peak memory and exact
    launch counts.
@@ -155,14 +160,15 @@ LIGAND = "Cc1ccc(NC(=O)c2ccc(CN3CCN(C)CC3)cc2)cc1Nc1nccc(-c2cccnc2)n1"  # imatin
 STEPS = 64
 CSRC = "protein_redesign_tpu_torch/kernels/csrc/"
 # K1, K1 fast, K2, K3 and K7 run their tensor-core bodies on the (bf16) main
-# path; K5's record is the f32 training path at 1024, on its 3xTF32 body
+# path; K5's and K6's record is the f32 training path at 1024, on their
+# 3xTF32 bodies
 SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "rows_attention_fast": CSRC + "attention_mma.cu",
            "tiled_attention": CSRC + "attention_mma.cu",
            "rows_attention_bwd": CSRC + "attention_bwd_mma.cu",
            "rows_attention_kchunk": CSRC + "attention_mma.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_tf32.cu",
-           "rows_attention_kchunk_bwd": CSRC + "attention_kchunk_bwd.cu",
+           "rows_attention_kchunk_bwd": CSRC + "attention_bwd_tf32.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated.cu",
            "triangle_multiply": CSRC + "trimul.cu", "fused_transition": CSRC + "transition.cu",
            "fused_outer_linear": CSRC + "outer.cu"}
@@ -300,17 +306,19 @@ def device_ms(fn, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def body_times(name, q, k, v, mask, bias, scale, dout=None) -> str:
-    """The two bodies of K1, K1 fast, K2, K3, K5 or K7 (``dout`` given) on
-    the same inputs (bf16; K3 and K5 in f32 too), each one launch without
-    autograd: CUDA-event ms per call and device ms per call."""
+def body_times(name, q, k, v, mask, bias, scale, **backward) -> str:
+    """The two bodies of K1, K1 fast, K2, K3, K5, K7 (``dout`` given) or K6
+    (``dout``, ``out``, ``m`` and ``logs`` given) on the same inputs (bf16;
+    K3, K5, K6 and K7 in f32 too), each one launch without autograd:
+    CUDA-event ms per call and device ms per call."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    iters = 2 if name in A.KCHUNK_FORWARDS else 10  # their CUDA-core bodies: up to ~0.45 s a call
+    # the K-chunk CUDA-core bodies: up to ~0.45 s a call (K6 in bf16 at 2048 ~1.2 s)
+    iters = 2 if name in A.KCHUNK_FORWARDS + ("rows_attention_kchunk_bwd",) else 10
     parts = []
     for mma, label in ((True, "tensor-core"), (False, "CUDA-core")):
         fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma=mma,  # noqa: E731
-                                      dout=dout)
+                                      **backward)
         parts.append(f"{label} body {cuda_ms(fn, 1, iters):.4f} ms, on the device "
                      f"{device_ms(fn, min(iters, 3)):.4f} ms")
     return "; ".join(parts)
@@ -477,6 +485,10 @@ def phase_kernels() -> dict:
               f"kernel {ms:.4f} ms{body}, plain {plain_ms:.4f} ms")
         rec = record[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if name == "rows_attention" and dtype == torch.float32:  # K1's f32 CUDA-core body
+            print(f"[kernels] {name} C={C} at bucket {N}, f32: bound "
+                  f"{attention_bound(q, mask, bias, products=2, operands=4)['bound_ms']:.4f} ms, "
+                  f"library (f32) {library_ms(q, k, v, mask, bias, scale)} ms")
         if dtype == torch.bfloat16 and (N == 192 or name == "rows_attention"):
             at = attention_bound(q, mask, bias, products=2, operands=4)
             lib_ms = library_ms(q, k, v, mask, bias, scale)
@@ -575,6 +587,7 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
 # Device-time groups, matched on the CUDA kernel's name, in order.
 GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
+          ("rows_attention_kchunk_bwd_d", "K6 rows_attention_kchunk_bwd (tensor cores)"),
           ("rows_attention_kchunk_mma_kernel<true", "K5 rows_attention_kchunk_stats (mma)"),
           ("rows_attention_kchunk_mma", "K3 rows_attention_kchunk (tensor cores)"),
           ("rows_attention_kchunk_tf32x3_kernel<true", "K5 rows_attention_kchunk_stats (3xTF32)"),
@@ -584,6 +597,8 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
           ("rows_attention_bwd_dq_mma", "K7 rows_attention_bwd (tensor cores)"),
           ("rows_attention_bwd_dkdv_mma", "K7 rows_attention_bwd (tensor cores)"),
+          ("rows_attention_bwd_dq_tf32x3", "K7 rows_attention_bwd (3xTF32)"),
+          ("rows_attention_bwd_dkdv_tf32x3", "K7 rows_attention_bwd (3xTF32)"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
           ("rows_attention_fast_mma", "K1 fast rows_attention_fast (tensor cores)"),
           ("rows_attention_fast", "K1 fast rows_attention_fast"),
@@ -658,8 +673,8 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
 def phase_k7() -> dict:
     """K7 against its plain version on the main path's shapes (B=2, H=4,
     C=16) and on the h64x1 layout's (H=1, C=64), at buckets 192 and 384: f32
-    on the CUDA-core body, bf16 on the tensor-core body, timed beside its
-    CUDA-core body, SDPA (forward + backward) and the bound."""
+    on the 3xTF32 body, bf16 on the bf16 tensor-core body, each timed beside
+    its CUDA-core body, SDPA (forward + backward, same dtype) and the bound."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
@@ -696,15 +711,15 @@ def phase_k7() -> dict:
                   f"max abs err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tol:g} "
                   f"x max(1, max|grad|)); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
-            if dtype == torch.bfloat16:
-                at = attention_bound(q, mask, None, products=5, operands=7)
-                lib_ms = library_ms(q, k, v, mask, None, scale, dout=g)
-                if C == 16 and N == 192:  # the record's shape
-                    rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
-                bodies = body_times("rows_attention_bwd", q, k, v, mask, None, scale, dout=g)
-                print(f"[k7] H={H} C={C} at bucket {N}, bf16 ({bodies}): bound "
-                      f"{at['bound_ms']:.4f} ms ({at['bound_by']}), exp floor "
-                      f"{exp_floor_ms(q, mask):.4f} ms, library (forward + backward) {lib_ms} ms")
+            at = attention_bound(q, mask, None, products=5, operands=7)
+            lib_ms = library_ms(q, k, v, mask, None, scale, dout=g)
+            if dtype == torch.bfloat16 and C == 16 and N == 192:  # the record's shape
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+            bodies = body_times("rows_attention_bwd", q, k, v, mask, None, scale, dout=g)
+            print(f"[k7] H={H} C={C} at bucket {N}, {label} ({bodies}): bound "
+                  f"{at['bound_ms']:.4f} ms ({at['bound_by']}), exp floor "
+                  f"{exp_floor_ms(q, mask):.4f} ms, library (forward + backward, {label}) "
+                  f"{lib_ms} ms")
     return rec
 
 
@@ -983,7 +998,8 @@ def phase_h64(seed: int) -> dict:
 def _check_close(what: str, got, want, tol: float, to_scale: bool = False) -> float:
     """Max abs error of ``got`` against ``want``, held to tol x max(1, max|want|);
     ``to_scale``: each element to tol x (|want| + RMS(want)) instead, for bf16
-    outputs much smaller than 1 (K3 and K5 at N = 2048: |out| ~ 0.03)."""
+    tensors much smaller than 1 (at N = 2048 K3's and K5's outputs and K6's
+    gradients are ~0.03)."""
     want = want.float()
     diff = (got.float() - want).abs()
     err = float(diff.max())
@@ -998,11 +1014,12 @@ def _check_close(what: str, got, want, tol: float, to_scale: bool = False) -> fl
 
 
 def phase_kchunk_kernels() -> dict:
-    """K3 and K5 at bucket 2048 (bf16) and 1024 (f32), K6 at 1024 (f32),
-    against their plain versions at B=1 (R = N rows) with the long paths'
-    valid node counts, so the padded rows are fully masked. K3 and K5 run
-    their tensor-core bodies (bf16; f32 in 3xTF32); their CUDA-core bodies
-    are timed on the same inputs, each with the bound and SDPA's time."""
+    """K3, K5 and K6 at bucket 2048 (bf16) and 1024 (f32), against their
+    plain versions at B=1 (R = N rows) with the long paths' valid node
+    counts, so the padded rows are fully masked. All run their tensor-core
+    bodies (bf16; f32 in 3xTF32); their CUDA-core bodies are timed on the
+    same inputs, each with the bound, the exp floor and SDPA's time (K6:
+    forward + backward)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     names = ("rows_attention_kchunk", "rows_attention_kchunk_stats", "rows_attention_kchunk_bwd")
@@ -1022,16 +1039,14 @@ def phase_kchunk_kernels() -> dict:
              lambda: A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True),
              2, 4, 8.0 * N * 4 * N, None),
         ]
-        if dtype == torch.float32:
-            g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(seed),
-                            device="cuda").to(dtype)
-            out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
-            cases.append((
-                "rows_attention_kchunk_bwd",
-                lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
-                lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
-                                                              scale),
-                5, 8, 8.0 * N * 4 * N, g))
+        g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(seed),
+                        device="cuda").to(dtype)
+        out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+        cases.append((
+            "rows_attention_kchunk_bwd",
+            lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
+            lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs, scale),
+            5, 8, 8.0 * N * 4 * N, g))
         for name, kernel, plain, products, operands, extra, dout in cases:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -1042,7 +1057,7 @@ def phase_kchunk_kernels() -> dict:
                 # the stats are f32 whatever the operands: held to 1e-5
                 t = tol if part in ("out", "dq", "dk", "dv") else TOL_F32
                 errs.append(_check_close(f"{name} {part} N={N} {label}", a, b, t,
-                                         to_scale=part == "out" and dtype == torch.bfloat16))
+                                         to_scale=t == TOL_BF16))
             if dout is not None and (torch.count_nonzero(got[0][n_valid:])
                                      or torch.count_nonzero(got[1][n_valid:])):
                 raise AssertionError(f"{name}: fully masked rows have nonzero dq or dk")
@@ -1050,15 +1065,15 @@ def phase_kchunk_kernels() -> dict:
             rec = record[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
             # the record: K3 on generation at 2048 (bf16), K5 and K6 on
-            # training at 1024 (f32); the other lines are printed
+            # training at 1024 (f32); the other lines are printed (K6 at 2048
+            # in bf16 is the 2-block micro-step's, phase 12)
             at_record = (name == "rows_attention_kchunk") == (dtype == torch.bfloat16)
             bound_rec = attention_bound(q, mask, None, products, operands, extra)
             yardstick = library_ms(q, k, v, mask, None, scale, dout=dout)
             if at_record:
                 rec.update(ms=ms, plain_ms=plain_ms, library_ms=yardstick, **bound_rec)
-            bodies = ""
-            if dout is None:  # K3 and K5: both bodies
-                bodies = f" (tensor cores; {body_times(name, q, k, v, mask, None, scale)})"
+            stats = {} if dout is None else dict(dout=dout, out=out, m=m, logs=logs)
+            bodies = f" (tensor cores; {body_times(name, q, k, v, mask, None, scale, **stats)})"
             print(f"[kchunk] {name} R={N} H=4 N={N} C=16 {label} ({n_valid} valid): max abs err "
                   + "/".join(f"{e:.3e}" for e in errs) + f" ({'/'.join(parts[:len(errs)])}); "
                   f"kernel {ms:.3f} ms{bodies}, plain {plain_ms:.3f} ms; bound "

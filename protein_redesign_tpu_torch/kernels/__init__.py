@@ -27,9 +27,9 @@ from typing import Optional
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bwd_mma.cu",
-           "attention_kchunk.cu", "attention_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
-           "trimul.cu", "transition.cu", "outer.cu")
-HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh")
+           "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
+           "attention_kchunk_bwd.cu", "fused_gated.cu", "trimul.cu", "transition.cu", "outer.cu")
+HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -76,6 +76,8 @@ class KernelLibrary:
             [ptr] * 9 + [i32] * 4 + [f32] + strides + [i64] * 3 + [ptr]
         )
         lib.prd_rows_attention_bwd_mma.restype = i32
+        lib.prd_rows_attention_bwd_tf32x3.argtypes = lib.prd_rows_attention_bwd_mma.argtypes
+        lib.prd_rows_attention_bwd_tf32x3.restype = i32
         lib.prd_rows_attention_kchunk.argtypes = (
             [ptr] * 7 + [i32] * 5 + [f32] + strides + [ptr]
         )
@@ -84,6 +86,14 @@ class KernelLibrary:
             [ptr] * 11 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
         )
         lib.prd_rows_attention_kchunk_bwd.restype = i32
+        lib.prd_rows_attention_kchunk_bwd_mma.argtypes = (
+            [ptr] * 11 + [i32] * 4 + [f32] + strides + [i64] * 3 + [ptr]
+        )
+        lib.prd_rows_attention_kchunk_bwd_mma.restype = i32
+        lib.prd_rows_attention_kchunk_bwd_tf32x3.argtypes = (
+            lib.prd_rows_attention_kchunk_bwd_mma.argtypes
+        )
+        lib.prd_rows_attention_kchunk_bwd_tf32x3.restype = i32
         lib.prd_fused_gated.argtypes = [ptr] * 9 + [i32] * 7 + [f32] + [i64] * 3 + [ptr]
         lib.prd_fused_gated.restype = i32
         lib.prd_trimul.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]

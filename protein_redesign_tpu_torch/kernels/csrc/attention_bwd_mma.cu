@@ -1,12 +1,18 @@
 // Hand-written Hopper (sm_90a) tensor-core body of the rows attention flash
 // backward, for bf16 inputs with a head width that is a multiple of 8 up to
 // 128. It replaces, for those inputs, the CUDA-core kernels of
-// attention_bwd.cu (kept there for float32 and for other head widths):
+// attention_bwd.cu and attention_kchunk_bwd.cu (kept there for other head
+// widths; f32 takes attention_bwd_tf32.cu):
 //
 //   rows_attention_bwd_dq_mma_kernel,   <- _rows_attention_bwd_impl /
 //   rows_attention_bwd_dkdv_mma_kernel     _make_rowhead_bwd_kernel (K7)
+//   rows_attention_kchunk_bwd_dq_mma_kernel,   <- _kchunk_grid_cn_grads_call /
+//   rows_attention_kchunk_bwd_dkdv_mma_kernel     _make_rowhead_kchunk_grid_cn_
+//                                                 bwd_kernel (K6)
 //
-// of protein_redesign_tpu/ops/pallas_attention.py. The function is K7's
+// of protein_redesign_tpu/ops/pallas_attention.py. K6 computes K7's third
+// dq pass and its dk/dv pass with the stats given (STATS_IN, below). The
+// function is K7's
 // (attention_bwd.cu's header, rows_attention_bwd_reference): per (row, head),
 // qt = q * scale rounded to bf16, logits with -2^15 at masked keys, P =
 // softmax in f32, dv = bf16(P)^T dO, dP = dO V^T, delta = rowsum(dP o P),
@@ -39,6 +45,15 @@
 //     log2 e = -inf and 1 / s = 0, which makes their P^T exactly 0: they add
 //     nothing to dk or dv.
 //
+// K6 (STATS_IN) takes the stats from outside: K5's row max m and log s,
+// kept split, and the caller's delta = rowsum(dO o O), f32 [R, H, N] each
+// (attention_kchunk_bwd.cu's header). Its dq kernel skips passes 1 and 2
+// and runs pass 3 once with -m log2 e and exp(-log s) (load_stats,
+// attention_mma.cuh), writing no scratch; its dk/dv kernel reads the same
+// three tensors. So K6 takes one exponential per logit in each kernel, two
+// in all, where K7 takes four. A fully masked row has m = -2^15 and log s =
+// log N: its P is uniform, exactly, as in K7.
+//
 // The two kernels compute each logit in transposed operand order (q K^T
 // against K q^T), so unlike attention_bwd.cu's kernels they need not agree
 // bit for bit on P: the dk/dv kernel takes m and s from the scratch, and
@@ -62,7 +77,10 @@
 namespace {
 
 // The backward's operands: q, k, v, the mask, the shapes, scale and strides
-// in a (a.out unused), dO and its strides, the gradients and the scratch.
+// in a (a.out unused), dO and its strides, the gradients and the stats that
+// the dk/dv kernel (and K6's dq kernel) reads, [R, H, N] each: K7's m, s and
+// delta, the rows of its scratch that its dq kernel writes, or K6's m, log s
+// and delta, read only.
 struct BwdArgs {
   Args a;
   const bf16* g;
@@ -70,7 +88,9 @@ struct BwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* stats;  // [3, R, H, N]: m, s, delta
+  float* m;
+  float* s;
+  float* delta;
 };
 
 // Keys (dq kernel) or queries (dk/dv kernel) per streamed tile: 64, or 32
@@ -85,13 +105,13 @@ template <int NT>
 constexpr int kBwdMinBlocks = NT <= 2 ? 4 : (NT <= 8 ? 3 : 2);
 
 // Passes 2 (DQ false: delta) and 3 (DQ true: dqt += dS K) of the dq kernel
-// over every key tile, with the row stats m and 1 / s of this thread's two
-// rows (_a, _b). delta_a, delta_b are the thread's partial sums (pass 2) or
-// the rows' final delta (pass 3).
+// over every key tile, with the row stats -m log2 e and the normaliser of
+// this thread's two rows (_a, _b). delta_a, delta_b are the thread's partial
+// sums (pass 2) or the rows' final delta (pass 3).
 template <bool DQ, int BK, int NT>
 __device__ __forceinline__ void dq_pass(const BwdArgs& ba, const Block& b, const bf16* q_w,
-                                        const bf16* g_w, bf16* k_s, bf16* v_s, float m_a,
-                                        float m_b, float inv_a, float inv_b, float& delta_a,
+                                        const bf16* g_w, bf16* k_s, bf16* v_s, float nm_a,
+                                        float nm_b, float inv_a, float inv_b, float& delta_a,
                                         float& delta_b, float (&acc)[NT][4], int lane) {
   constexpr int NS = BK / 8, CP = 8 * NT, QS = CP + 8;
   const Args& a = ba.a;
@@ -100,7 +120,6 @@ __device__ __forceinline__ void dq_pass(const BwdArgs& ba, const Block& b, const
   const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
   const float* mask_row = a.mask + (long long)b.r * N;
   const int tiles = (N + BK - 1) / BK;
-  const float nm_a = -m_a * kLog2e, nm_b = -m_b * kLog2e;
   stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
   stage_keys(v_base, a.vs.n, 0, BK, N, C, 0, CP, QS, v_s);
   cp_async_commit();
@@ -142,9 +161,10 @@ __device__ __forceinline__ void dq_pass(const BwdArgs& ba, const Block& b, const
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
-    rows_attention_bwd_dq_mma_kernel(const BwdArgs ba) {
+// The dq kernel: a block of 64 queries of one (row, head). STATS_IN (K6):
+// the rows' stats from ba.m, ba.s (log s) and ba.delta, pass 3 only.
+template <int NT, bool STATS_IN>
+__device__ __forceinline__ void dq_kernel(const BwdArgs& ba) {
   constexpr int BK = kBwdTile<NT>, CP = 8 * NT, QS = CP + 8;
   const Args& a = ba.a;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -157,60 +177,58 @@ __global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
   const int warp = threadIdx.x >> 5;
   const Block b = block_of(a.N, CP);
   stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
-  // dO joins pass 1's first copy group
+  // dO joins the first pass's first copy group
   stage_keys(ba.g + b.r * ba.gs.r + b.h * ba.gs.h, ba.gs.n, b.q0, kTQ, a.N, a.C, 0, CP, QS, g_s);
   const bf16* q_w = q_s + warp * 16 * QS;
   const bf16* g_w = g_s + warp * 16 * QS;
+  const int row_a = b.q0 + warp * 16 + (lane >> 2);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  if (STATS_IN) {
+    const long long base = ((long long)b.r * a.H + b.h) * a.N;
+    const RowStats ra = load_stats<true>(ba.m, ba.s, ba.delta, base + row_a, row_a < a.N);
+    const RowStats rb = load_stats<true>(ba.m, ba.s, ba.delta, base + row_a + 8, row_a + 8 < a.N);
+    float d_a = ra.delta, d_b = rb.delta;
+    dq_pass<true, BK, NT>(ba, b, q_w, g_w, k_s, v_s, ra.nm, rb.nm, ra.inv, rb.inv, d_a, d_b, acc,
+                          lane);
+    store_tile<NT>(ba.dq, a.N, a.H, a.C, b, row_a, acc, 1.f, 1.f, lane);
+    return;
+  }
 
   RowsState<2> st;  // pass 1 takes no V: its accumulators stay unused
   init_rows(st);
   rows_pass<kStats, BK, 2>(a, b, q_w, k_s, v_s, CP, st, lane);
   const float s_a = quad_sum(st.s_a), s_b = quad_sum(st.s_b);
   const float inv_a = 1.f / s_a, inv_b = 1.f / s_b;
+  const float nm_a = -st.m_a * kLog2e, nm_b = -st.m_b * kLog2e;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float d_a = 0.f, d_b = 0.f;
-  dq_pass<false, BK, NT>(ba, b, q_w, g_w, k_s, v_s, st.m_a, st.m_b, inv_a, inv_b, d_a, d_b, acc,
-                         lane);
+  dq_pass<false, BK, NT>(ba, b, q_w, g_w, k_s, v_s, nm_a, nm_b, inv_a, inv_b, d_a, d_b, acc, lane);
   d_a = quad_sum(d_a);
   d_b = quad_sum(d_b);
-  dq_pass<true, BK, NT>(ba, b, q_w, g_w, k_s, v_s, st.m_a, st.m_b, inv_a, inv_b, d_a, d_b, acc,
-                        lane);
+  dq_pass<true, BK, NT>(ba, b, q_w, g_w, k_s, v_s, nm_a, nm_b, inv_a, inv_b, d_a, d_b, acc, lane);
 
-  const int row_a = b.q0 + warp * 16 + (lane >> 2);
   store_tile<NT>(ba.dq, a.N, a.H, a.C, b, row_a, acc, 1.f, 1.f, lane);
   if ((lane & 3) == 0) {  // one lane per row
-    const long long rhn = (long long)a.R * a.H * a.N;
     const long long base = ((long long)b.r * a.H + b.h) * a.N;
     const float m[2] = {st.m_a, st.m_b}, s[2] = {s_a, s_b}, d[2] = {d_a, d_b};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row_a + 8 * half;
       if (row >= a.N) continue;
-      ba.stats[base + row] = m[half];
-      ba.stats[rhn + base + row] = s[half];
-      ba.stats[2 * rhn + base + row] = d[half];
+      ba.m[base + row] = m[half];
+      ba.s[base + row] = s[half];
+      ba.delta[base + row] = d[half];
     }
   }
 }
 
-// The stats of query i of a tile as the dk/dv kernel stages them: -m log2 e,
-// 1 / s and delta; -inf, 0 and 0 past N, so that its P^T is exactly 0.
-struct ColStats {
-  float nm, inv, delta;
-};
-
-__device__ __forceinline__ ColStats load_col_stats(const float* m_row, long long rhn, int i,
-                                                   int N) {
-  if (i >= N) return {neg_inf(), 0.f, 0.f};
-  return {-m_row[i] * kLog2e, 1.f / m_row[rhn + i], m_row[2 * rhn + i]};
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
-    rows_attention_bwd_dkdv_mma_kernel(const BwdArgs ba) {
+// The dk/dv kernel: a block of 64 keys of one (row, head); each query's
+// stats from ba.m, ba.s (STATS_IN: log s) and ba.delta.
+template <int NT, bool STATS_IN>
+__device__ __forceinline__ void dkdv_kernel(const BwdArgs& ba) {
   constexpr int BQ = kBwdTile<NT>, NS = BQ / 8, CP = 8 * NT, QS = CP + 8, chunks = CP / 8;
   const Args& a = ba.a;
   const int N = a.N, C = a.C;
@@ -219,15 +237,14 @@ __global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
   bf16* v_s = k_s + kTQ * QS;                      // [kTQ][QS]
   bf16* q_s = v_s + kTQ * QS;                      // [2][BQ][QS] qt
   bf16* g_s = q_s + 2 * BQ * QS;                   // [2][BQ][QS] dO
-  float* st_s = reinterpret_cast<float*>(g_s + 2 * BQ * QS);  // [2][3][BQ]: -m log2 e, 1/s, delta
+  float* st_s = reinterpret_cast<float*>(g_s + 2 * BQ * QS);  // [2][3][BQ]: nm, inv, delta
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const Block b = block_of(N, CP);  // b.q0: the block's first key
   const bf16* q_base = a.q + b.r * a.qs.r + b.h * a.qs.h;
   const bf16* g_base = ba.g + b.r * ba.gs.r + b.h * ba.gs.h;
-  const long long rhn = (long long)a.R * a.H * N;
-  const float* m_row = ba.stats + ((long long)b.r * a.H + b.h) * N;
+  const long long base = ((long long)b.r * a.H + b.h) * N;
   stage_keys(a.k + b.r * a.ks.r + b.h * a.ks.h, a.ks.n, b.q0, kTQ, N, C, 0, CP, QS, k_s);
   stage_keys(a.v + b.r * a.vs.r + b.h * a.vs.h, a.vs.n, b.q0, kTQ, N, C, 0, CP, QS, v_s);
   stage_keys(q_base, a.qs.n, 0, BQ, N, C, 0, CP, QS, q_s);
@@ -239,7 +256,8 @@ __global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
   const bool masked_a = row_a >= N || mask_row[row_a] < 0.5f;
   const bool masked_b = row_a + 8 >= N || mask_row[row_a + 8] < 0.5f;
   const bool stager = threadIdx.x < BQ;  // thread i stages the stats of query i of each tile
-  ColStats cur = stager ? load_col_stats(m_row, rhn, threadIdx.x, N) : ColStats{};
+  RowStats cur{};
+  if (stager) cur = load_stats<STATS_IN>(ba.m, ba.s, ba.delta, base + threadIdx.x, threadIdx.x < N);
 
   float dk[NT][4], dv[NT][4];
 #pragma unroll
@@ -250,11 +268,14 @@ __global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
   const int tiles = (N + BQ - 1) / BQ;
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1, i0 = t * BQ;
-    ColStats next = cur;
+    RowStats next = cur;
     if (t + 1 < tiles) {
       stage_keys(q_base, a.qs.n, i0 + BQ, BQ, N, C, 0, CP, QS, q_s + (buf ^ 1) * BQ * QS);
       stage_keys(g_base, ba.gs.n, i0 + BQ, BQ, N, C, 0, CP, QS, g_s + (buf ^ 1) * BQ * QS);
-      if (stager) next = load_col_stats(m_row, rhn, i0 + BQ + threadIdx.x, N);
+      if (stager) {
+        const int i = i0 + BQ + threadIdx.x;
+        next = load_stats<STATS_IN>(ba.m, ba.s, ba.delta, base + i, i < N);
+      }
     }
     cp_async_commit();
     float* st = st_s + buf * 3 * BQ;
@@ -305,6 +326,30 @@ __global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
   store_tile<NT>(ba.dv, N, a.H, C, b, row_a, dv, 1.f, 1.f, lane);
 }
 
+template <int NT>
+__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
+    rows_attention_bwd_dq_mma_kernel(const BwdArgs ba) {
+  dq_kernel<NT, false>(ba);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
+    rows_attention_bwd_dkdv_mma_kernel(const BwdArgs ba) {
+  dkdv_kernel<NT, false>(ba);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
+    rows_attention_kchunk_bwd_dq_mma_kernel(const BwdArgs ba) {
+  dq_kernel<NT, true>(ba);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kWarps * 32, kBwdMinBlocks<NT>)
+    rows_attention_kchunk_bwd_dkdv_mma_kernel(const BwdArgs ba) {
+  dkdv_kernel<NT, true>(ba);
+}
+
 // Shared memory of the two kernels: 2 x 64 rows staged once and two
 // buffers of two streamed tiles, plus the dk/dv kernel's column stats.
 template <int NT>
@@ -329,20 +374,35 @@ cudaError_t launch_one(Kernel kern, size_t smem, const BwdArgs& ba, unsigned blo
   return cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, bool STATS_IN>
 cudaError_t launch(const BwdArgs& ba, cudaStream_t stream) {
   const long long blocks = (long long)((ba.a.N + kTQ - 1) / kTQ) * ba.a.R;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const cudaError_t e = launch_one(rows_attention_bwd_dq_mma_kernel<NT>, dq_smem<NT>(), ba,
-                                   (unsigned)blocks, stream);
+  const cudaError_t e = launch_one(
+      STATS_IN ? rows_attention_kchunk_bwd_dq_mma_kernel<NT> : rows_attention_bwd_dq_mma_kernel<NT>,
+      dq_smem<NT>(), ba, (unsigned)blocks, stream);
   if (e != cudaSuccess) return e;
-  return launch_one(rows_attention_bwd_dkdv_mma_kernel<NT>, dkdv_smem<NT>(), ba, (unsigned)blocks,
-                    stream);
+  return launch_one(STATS_IN ? rows_attention_kchunk_bwd_dkdv_mma_kernel<NT>
+                             : rows_attention_bwd_dkdv_mma_kernel<NT>,
+                    dkdv_smem<NT>(), ba, (unsigned)blocks, stream);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
-
 bool strides8(const Strides& s) { return s.r % 8 == 0 && s.n % 8 == 0 && s.h % 8 == 0; }
+
+template <bool STATS_IN>
+cudaError_t dispatch_width(const BwdArgs& ba, cudaStream_t stream) {
+  const Args& a = ba.a;
+  const bool ok = a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C <= 128 &&
+                  a.C % 8 == 0 && strides8(a.qs) && strides8(a.ks) && strides8(a.vs) &&
+                  strides8(ba.gs) && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                  aligned16(ba.g) && a.mask != nullptr && ba.m != nullptr && ba.s != nullptr &&
+                  ba.delta != nullptr;
+  if (!ok) return cudaErrorInvalidValue;
+  if (a.C <= 16) return launch<2, STATS_IN>(ba, stream);
+  if (a.C <= 32) return launch<4, STATS_IN>(ba, stream);
+  if (a.C <= 64) return launch<8, STATS_IN>(ba, stream);
+  return launch<16, STATS_IN>(ba, stream);
+}
 
 }  // namespace
 
@@ -357,24 +417,41 @@ int prd_rows_attention_bwd_mma(const void* q, const void* k, const void* v, cons
                                long long q_sh, long long k_sr, long long k_sn, long long k_sh,
                                long long v_sr, long long v_sn, long long v_sh, long long g_sr,
                                long long g_sn, long long g_sh, void* stream) {
+  float* st = static_cast<float*>(stats);
+  const long long rhn = (long long)R * H * N;
   const BwdArgs ba{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
                     nullptr, R, N, H, C, scale, {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh},
                     {v_sr, v_sn, v_sh}},
                    static_cast<const bf16*>(dout), {g_sr, g_sn, g_sh},
                    static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                   static_cast<float*>(stats)};
-  const Args& a = ba.a;
-  const bool ok = R > 0 && N > 0 && H > 0 && H <= 65535 && C > 0 && C <= 128 && C % 8 == 0 &&
-                  strides8(a.qs) && strides8(a.ks) && strides8(a.vs) && strides8(ba.gs) &&
-                  aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
-                  mask != nullptr && stats != nullptr;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 16) return (int)launch<2>(ba, s);
-  if (C <= 32) return (int)launch<4>(ba, s);
-  if (C <= 64) return (int)launch<8>(ba, s);
-  return (int)launch<16>(ba, s);
+                   st, st == nullptr ? nullptr : st + rhn,
+                   st == nullptr ? nullptr : st + 2 * rhn};
+  return (int)dispatch_width<false>(ba, static_cast<cudaStream_t>(stream));
+}
+
+// K6 on the tensor cores (bf16): dqt (w.r.t. the pre-scaled q), dk and dv of
+// the K-chunked rows attention from K5's m and log s and the caller's delta
+// = rowsum(dO o O), all f32 [R, H, N]; C a multiple of 8 up to 128.
+int prd_rows_attention_kchunk_bwd_mma(const void* q, const void* k, const void* v,
+                                      const void* mask, const void* dout, const void* m,
+                                      const void* logs, const void* delta, void* dq, void* dk,
+                                      void* dv, int R, int N, int H, int C, float scale,
+                                      long long q_sr, long long q_sn, long long q_sh,
+                                      long long k_sr, long long k_sn, long long k_sh,
+                                      long long v_sr, long long v_sn, long long v_sh,
+                                      long long g_sr, long long g_sn, long long g_sh,
+                                      void* stream) {
+  const BwdArgs ba{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
+                    nullptr, R, N, H, C, scale, {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh},
+                    {v_sr, v_sn, v_sh}},
+                   static_cast<const bf16*>(dout), {g_sr, g_sn, g_sh},
+                   static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                   static_cast<float*>(const_cast<void*>(m)),
+                   static_cast<float*>(const_cast<void*>(logs)),
+                   static_cast<float*>(const_cast<void*>(delta))};
+  return (int)dispatch_width<true>(ba, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -526,8 +526,6 @@ cudaError_t launch_kchunk(const Args& a, cudaStream_t stream, float* m, float* l
                               stream, m, logs);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
-
 bool valid(const Args& a, int TQ = kTQ) {
   const bool strides = a.qs.r % 8 == 0 && a.qs.n % 8 == 0 && a.qs.h % 8 == 0 &&
                        a.ks.r % 8 == 0 && a.ks.n % 8 == 0 && a.ks.h % 8 == 0 &&

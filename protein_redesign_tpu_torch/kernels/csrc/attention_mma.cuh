@@ -1,9 +1,12 @@
 // The tensor-core building blocks that the bf16 attention kernels share
-// (attention_mma.cu: K1, K1 fast, K2, K3 and K5; attention_bwd_mma.cu: K7):
-// the launch arguments, the staging of query and key tiles, the two products
-// of a flash pass (S = Q K^T and O += P V, 16 rows a warp), the quad
-// reductions over a row's four lanes, the block's position, the output
-// store and the online-softmax pass over every key tile (rows_pass).
+// (attention_mma.cu: K1, K1 fast, K2, K3 and K5; attention_bwd_mma.cu: K6
+// and K7): the launch arguments, the staging of query and key tiles, the two
+// products of a flash pass (S = Q K^T and O += P V, 16 rows a warp), the
+// quad reductions over a row's four lanes, the block's position, the output
+// store, the online-softmax pass over every key tile (rows_pass), the
+// backward's row stats and the entry points' alignment check. The f32
+// bodies (attention_tf32.cuh) take the dtype-free parts: the block, the tile
+// mask, the online-softmax step, the row stats and the alignment check.
 // Included by .cu files only; everything is file-local.
 #pragma once
 
@@ -350,6 +353,28 @@ __device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const b
     if (PV) pv_mma<NS, NT>(s, v_s + buf * BK * VS, VS, lane, st.acc);
     __syncthreads();  // the next tile's loads overwrite this buffer
   }
+}
+
+// Whether an operand starts on 16 bytes (cp.async, 16-byte loads).
+bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
+
+// The softmax stats of one query as the backward kernels stage them: nm =
+// -m log2 e and the normaliser inv, so that p = exp2(l log2 e + nm) inv in
+// one FFMA, one SFU op and one multiply; delta. K7's dq kernel computes m
+// and s (inv = 1 / s). K6 takes K5's m and log s kept split (inv = exp(-log
+// s)): a fully masked row has m = -2^15 and log s = log N, and the folded m +
+// log s would round to f32's spacing of 2^-9 near -2^15 (P off by up to
+// 0.1%), while l log2 e + nm is exactly 0 at l = m = -2^15 (a power of two
+// times log2 e is exact). Past N: -inf, 0 and 0, so that p is exactly 0.
+struct RowStats {
+  float nm, inv, delta;
+};
+
+template <bool LOG_S>
+__device__ __forceinline__ RowStats load_stats(const float* m, const float* s, const float* delta,
+                                               long long i, bool live) {
+  if (!live) return {neg_inf(), 0.f, 0.f};
+  return {-m[i] * kLog2e, LOG_S ? expf(-s[i]) : 1.f / s[i], delta[i]};
 }
 
 }  // namespace

@@ -35,16 +35,10 @@
 // queries (8 warps of 16 rows) staged once, pre-scaled, as f32; 64-key tiles
 // (32 from CP = 32 on) of K and V staged by cp.async, double-buffered; the
 // tile's mask by ballot; one step of online softmax per tile in registers.
-// There is no ldmatrix for 32-bit elements, so fragments are read from
-// shared memory element by element; rows are CP + 4 floats long, which makes every fragment read
-// conflict-free (CP + 4 = 4 mod 8). The P.V product takes P from the S
-// accumulators as they lie: the accumulator of an 8-key n-tile holds keys
-// 2t and 2t + 1 in lane t of each quad, where the A fragment wants keys t and
-// t + 4. A product sums over keys in any order, so P.V numbers the keys of
-// each n-tile so that its k slot t is key 2t and slot t + 4 key 2t + 1; the
-// B fragment reads V's rows in the same order (rows 2t and 2t + 1, also
-// conflict-free at this row length). No shuffle and no round trip through
-// shared memory.
+// The f32 fragment reads, the staging and P.V with P taken from the S
+// accumulators as they lie (each 8-key n-tile's keys renumbered, no shuffle)
+// are attention_tf32.cuh's, which K6's and K7's f32 body
+// (attention_bwd_tf32.cu) shares.
 //
 // Layout: q, k, v are [R, N, H, C] f32 with the head dimension contiguous,
 // the other strides given in elements, every row 16-byte aligned (C and the
@@ -55,7 +49,7 @@
 // 132 KB at C = 128. The entry point returns cudaGetLastError() after its
 // launch.
 
-#include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -78,20 +72,6 @@ constexpr int kF32Warps = 8, kF32TQ = 16 * kF32Warps;
 // split operands take more registers.
 template <int NT>
 constexpr int kF32Keys = NT <= 2 ? 64 : 32;
-
-// Rows [r0, r0 + rows) of one head of a [R, N, H, C] f32 operand into shared
-// memory by cp.async, row stride ld, CP channels; rows past N and channels
-// past C are zero-filled.
-__device__ __forceinline__ void stage_f32(const float* base, long long stride_n, int r0, int rows,
-                                          int N, int C, int CP, int ld, float* dst) {
-  const int chunks = CP / 4;
-  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
-    const int j = e / chunks;
-    const int c = (e - j * chunks) * 4;
-    const bool ok = r0 + j < N && c < C;
-    cp_async16(dst + j * ld + c, ok ? base + (long long)(r0 + j) * stride_n + c : base, ok);
-  }
-}
 
 // Blocks of 8 warps that must fit on an SM at once, which caps registers at
 // 128 up to CP = 32 (16 warps a SM; the split operands and each product's
@@ -117,19 +97,7 @@ __global__ void __launch_bounds__(kF32Warps * 32, kF32MinBlocks<NT>)
   const float* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
   const float* mask_row = a.mask + (long long)b.r * N;
 
-  for (int e = threadIdx.x; e < kF32TQ * (CP / 4); e += blockDim.x) {
-    const int i = e / (CP / 4);
-    const int c = (e - i * (CP / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b.q0 + i < N && c < C) {
-      x = *reinterpret_cast<const float4*>(q_base + (long long)(b.q0 + i) * a.qs.n + c);
-      x.x *= a.scale;
-      x.y *= a.scale;
-      x.z *= a.scale;
-      x.w *= a.scale;
-    }
-    *reinterpret_cast<float4*>(q_s + i * LD + c) = x;
-  }
+  stage_q_f32(q_base, a.qs.n, b.q0, kF32TQ, N, C, CP, LD, a.scale, q_s);
   const int tiles = (N + BK - 1) / BK;
   stage_f32(k_base, a.ks.n, 0, BK, N, C, CP, LD, k_s);
   stage_f32(v_base, a.vs.n, 0, BK, N, C, CP, LD, v_s);
@@ -153,59 +121,17 @@ __global__ void __launch_bounds__(kF32Warps * 32, kF32MinBlocks<NT>)
     const float* k_t = k_s + buf * BK * LD;
     const float* v_t = v_s + buf * BK * LD;
     float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < CP; kc += 8) {  // S = Q K^T
-      unsigned ab[4], as[4];
-      split_tf32(q_w[g * LD + kc + t4], ab[0], as[0]);
-      split_tf32(q_w[(g + 8) * LD + kc + t4], ab[1], as[1]);
-      split_tf32(q_w[g * LD + kc + t4 + 4], ab[2], as[2]);
-      split_tf32(q_w[(g + 8) * LD + kc + t4 + 4], ab[3], as[3]);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const float* k_row = k_t + (n * 8 + g) * LD + kc + t4;
-        unsigned bb0, bs0, bb1, bs1;
-        split_tf32(k_row[0], bb0, bs0);
-        split_tf32(k_row[4], bb1, bs1);
-        mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
-      }
-    }
+    logits_tf32<NS, CP>(q_w, k_t, LD, lane, s);  // S = Q K^T
     apply_fill<NS, BK>(s, tm);
     online_step<true, NS, NT>(s, st, nm_a, nm_b);
     exp_rows<true, NS, NT>(s, st, nm_a, nm_b);
-#pragma unroll
-    for (int kk = 0; kk < NS; ++kk) {  // acc += P V, k slot t = key 2t, slot t + 4 = key 2t + 1
-      unsigned ab[4], as[4];
-      split_tf32(s[kk][0], ab[0], as[0]);
-      split_tf32(s[kk][2], ab[1], as[1]);
-      split_tf32(s[kk][1], ab[2], as[2]);
-      split_tf32(s[kk][3], ab[3], as[3]);
-      const float* v_row = v_t + (kk * 8 + 2 * t4) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        unsigned bb0, bs0, bb1, bs1;
-        split_tf32(v_row[n * 8], bb0, bs0);
-        split_tf32(v_row[LD + n * 8], bb1, bs1);
-        mma_3xtf32(st.acc[n], ab, as, bb0, bb1, bs0, bs1);
-      }
-    }
+    pv_tf32<NS, NT>(s, v_t, LD, lane, st.acc);  // acc += P V
     __syncthreads();  // the next tile's loads overwrite this buffer
   }
 
   const float s_a = quad_sum(st.s_a), s_b = quad_sum(st.s_b);
   const int row_a = b.q0 + warp * 16 + g;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (c >= C) continue;
-    if (row_a < N)
-      *reinterpret_cast<float2*>(a.out + (((long long)b.r * N + row_a) * a.H + b.h) * C + c) =
-          make_float2(st.acc[n][0] / s_a, st.acc[n][1] / s_a);
-    if (row_a + 8 < N)
-      *reinterpret_cast<float2*>(a.out + (((long long)b.r * N + row_a + 8) * a.H + b.h) * C + c) =
-          make_float2(st.acc[n][2] / s_b, st.acc[n][3] / s_b);
-  }
+  store_tile_f32<NT>(a.out, N, a.H, C, b, row_a, st.acc, s_a, s_b, lane);
   if (STATS && t4 == 0) {  // one lane per row
     const long long base = ((long long)b.r * a.H + b.h) * N;
     if (row_a < N) {
@@ -247,10 +173,6 @@ cudaError_t dispatch_width(const F32Args& a, cudaStream_t stream) {
   if (a.C <= 64) return launch<STATS, 8>(a, stream);
   return launch<STATS, 16>(a, stream);
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
-
-bool strides4(const Strides& s) { return s.r % 4 == 0 && s.n % 4 == 0 && s.h % 4 == 0; }
 
 }  // namespace
 

@@ -16,14 +16,15 @@ kernels the denoiser's main path runs:
   ``_attn_kernel_nomask``: additive bias, key mask optional (single attention,
   SPAttention).
 
-K1, K1 fast, K2, K3, K5 and K7 have two bodies (``takes_mma``): on bf16
-inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``,
-K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async), else the
-CUDA-core one of ``attention.cu``, ``attention_kchunk.cu`` or
-``attention_bwd.cu``. K3 and K5 in f32 with C a multiple of 8 take a
-tensor-core body too (``takes_tf32x3``, ``attention_tf32.cu``): every
+K1, K1 fast, K2, K3, K5, K6 and K7 have two bodies (``takes_mma``): on bf16
+inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
+K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async),
+else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
+``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. K3, K5, K6 and K7 in
+f32 with C a multiple of 8 take a tensor-core body too (``takes_tf32x3``;
+``attention_tf32.cu`` forward, ``attention_bwd_tf32.cu`` backward): every
 product in 3xTF32, three TF32 products of split operands, which keeps the
-1e-5 parity that one TF32 product would break. K6 has a CUDA-core body only.
+1e-5 parity that one TF32 product would break.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -102,12 +103,13 @@ NEG_INF = -(2.0**15)  # the reference's padding fill (`pallas_attention.py:33`)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The tensor-core bodies (attention_mma.cu: K1, K1 fast, K2, K3, K5;
-# attention_bwd_mma.cu: K7; bf16, C a multiple of 8): a block's queries and
-# two K and V tiles in shared memory.
+# attention_bwd_mma.cu: K6, K7; bf16, C a multiple of 8): a block's queries
+# and two K and V tiles in shared memory.
 MMA_SMEM_BYTES = 227 * 1024
 MMA_BODIES = ("rows_attention", "rows_attention_fast", "tiled_attention", "rows_attention_kchunk",
-              "rows_attention_kchunk_stats", "rows_attention_bwd")
+              "rows_attention_kchunk_stats", "rows_attention_bwd", "rows_attention_kchunk_bwd")
 KCHUNK_FORWARDS = ("rows_attention_kchunk", "rows_attention_kchunk_stats")  # K3, K5
+BACKWARDS = ("rows_attention_bwd", "rows_attention_kchunk_bwd")  # K7, K6
 # K3's tensor-core body takes 128 queries per block up to head width 128 (a
 # (row, head)'s K and V are read from L2 once per query tile), 64 above it
 # (shared memory).
@@ -138,7 +140,7 @@ def _padded_tiles(C: int) -> int:
 
 
 def bwd_mma_smem_bytes(C: int) -> int:
-    """Shared memory of K7's tensor-core kernels (``dkdv_smem`` in
+    """Shared memory of K6's and K7's tensor-core kernels (``dkdv_smem`` in
     attention_bwd_mma.cu, the larger of the two): 2 x 64 rows staged once and
     two buffers of two tiles of 64 rows (32 above CP = 64), CP + 8 bf16
     each, CP = C padded to 16, 32, 64 or 128, plus three f32 stats a tile row."""
@@ -156,27 +158,42 @@ def tf32x3_smem_bytes(C: int) -> int:
     return 4 * (128 + 4 * (64 if nt <= 2 else 32)) * (8 * nt + 4)
 
 
+def bwd_tf32x3_smem_bytes(C: int) -> int:
+    """Shared memory of K6's and K7's f32 tensor-core kernels (``dkdv_smem``
+    in attention_bwd_tf32.cu, the larger of the two): 2 x 64 rows staged once
+    and two buffers of two tiles of 64 rows (32 from CP = 32 on), CP + 4
+    floats each, CP = C padded to 8, 16, 32, 64 or 128, plus three f32 stats
+    a tile row."""
+    nt = _padded_tiles(C)
+    tile = 64 if nt <= 2 else 32
+    return 4 * ((2 * 64 + 4 * tile) * (8 * nt + 4) + 6 * tile)
+
+
 def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
     in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
-    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K7 in bf16
-    when C is a multiple of 8 up to MAX_BWD_HEAD_DIM (its accumulators hold
-    the whole head). Else the CUDA-core body, or in f32 the 3xTF32 body where
-    ``takes_tf32x3``; K6 has a CUDA-core body only."""
+    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K7 and K6
+    in bf16 when C is a multiple of 8 up to MAX_BWD_HEAD_DIM (their
+    accumulators hold the whole head). Else the CUDA-core body, or in f32
+    the 3xTF32 body where ``takes_tf32x3``."""
     if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
         return False
-    if name == "rows_attention_bwd":
+    if name in BACKWARDS:
         return C <= MAX_BWD_HEAD_DIM and bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
     queries = kchunk_queries(C) if name in KCHUNK_FORWARDS else 64
     return mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES
 
 
 def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
-    """Whether K3 or K5 (``name``) runs its f32 tensor-core body (3xTF32,
-    attention_tf32.cu) at head width C in ``dtype``: f32 with C a multiple
-    of 8 up to MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head)."""
-    return (name in KCHUNK_FORWARDS and dtype == torch.float32 and C > 0 and C % 8 == 0
-            and C <= MAX_KCHUNK_HEAD_DIM and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
+    """Whether K3, K5, K6 or K7 (``name``) runs its f32 tensor-core body
+    (3xTF32: attention_tf32.cu forward, attention_bwd_tf32.cu backward) at
+    head width C in ``dtype``: f32 with C a multiple of 8 up to
+    MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head)."""
+    if dtype != torch.float32 or C <= 0 or C % 8 or C > MAX_KCHUNK_HEAD_DIM:
+        return False
+    if name in BACKWARDS:
+        return bwd_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
+    return name in KCHUNK_FORWARDS and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
 
 
 def takes_tensor_cores(name: str, dtype: torch.dtype, C: int) -> bool:
@@ -224,9 +241,9 @@ MAX_BWD_HEAD_DIM = 128
 
 def bwd_fits(R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K7 takes the backward of [R, N, H, C] operands of ``dtype``:
-    the tensor-core body's shared memory (bf16, multiples of 8), else the
-    CUDA-core body's C <= MAX_BWD_HEAD_DIM, a multiple of 4."""
-    return grid_fits(R, N, H) and (takes_mma("rows_attention_bwd", dtype, C)
+    a tensor-core body's shared memory (bf16 or 3xTF32, multiples of 8),
+    else the CUDA-core body's C <= MAX_BWD_HEAD_DIM, a multiple of 4."""
+    return grid_fits(R, N, H) and (takes_tensor_cores("rows_attention_bwd", dtype, C)
                                    or width_fits(C, MAX_BWD_HEAD_DIM))
 
 
@@ -239,8 +256,8 @@ MAX_KCHUNK_HEAD_DIM = 128
 def kchunk_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K3 (``name`` "rows_attention_kchunk"), K5 or K6 takes
     [R, N, H, C] operands of ``dtype``: the bf16 tensor-core body's shared
-    memory (K3, K5), the 3xTF32 body's (K3, K5 in f32), else the CUDA-core
-    body's C <= MAX_KCHUNK_HEAD_DIM."""
+    memory, the 3xTF32 body's (f32), else the CUDA-core body's C <=
+    MAX_KCHUNK_HEAD_DIM."""
     return grid_fits(R, N, H) and (takes_tensor_cores(name, dtype, C)
                                    or width_fits(C, MAX_KCHUNK_HEAD_DIM))
 
@@ -578,7 +595,7 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (K7 and the f32 body up to {MAX_BWD_HEAD_DIM})")
+              f"bytes (K6, K7 and the f32 bodies up to {MAX_BWD_HEAD_DIM})")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
@@ -634,12 +651,13 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
 
 
 def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
-    """Launch K7; ``mma`` None picks the body by ``takes_mma``, False forces
-    the CUDA-core body."""
+    """Launch K7; ``mma`` None picks the body by ``takes_tensor_cores``: the
+    bf16 one (attention_bwd_mma.cu) or in f32 the 3xTF32 one
+    (attention_bwd_tf32.cu); False forces the CUDA-core body."""
     from ..kernels import build
 
     C = q.shape[-1]
-    auto = takes_mma("rows_attention_bwd", q.dtype, C)
+    auto = takes_tensor_cores("rows_attention_bwd", q.dtype, C)
     mma = auto if mma is None else mma
     if mma:
         _check(q, k, v, mask, None, auto, _MMA_BOUND)
@@ -664,7 +682,9 @@ def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mma:
-            code = lib.lib.prd_rows_attention_bwd_mma(*pointers, R, N, H, C, w, *strides, stream)
+            fn = (lib.lib.prd_rows_attention_bwd_mma if q.dtype == torch.bfloat16
+                  else lib.lib.prd_rows_attention_bwd_tf32x3)
+            code = fn(*pointers, R, N, H, C, w, *strides, stream)
         else:
             code = lib.lib.prd_rows_attention_bwd(*pointers, _DTYPE_CODES[q.dtype], R, N, H, C, w,
                                                   *strides, stream)
@@ -724,20 +744,30 @@ def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool]
     return (out, m, logs) if stats else out
 
 
-def _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale: float):
+def _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale: float,
+                       mma: Optional[bool] = None):
+    """K6: dq, dk, dv from K5's (out, m, log s). The body by
+    ``takes_tensor_cores`` where ``mma`` is None: the bf16 one
+    (attention_bwd_mma.cu) or in f32 the 3xTF32 one (attention_bwd_tf32.cu);
+    False forces the CUDA-core body."""
     from ..kernels import build
 
-    _check_kchunk(q, k, v, mask)
+    name = "rows_attention_kchunk_bwd"
+    if mma is None:
+        mma = takes_tensor_cores(name, q.dtype, q.shape[-1])
+    _check_kchunk(q, k, v, mask, name, mma)
     R, N, H, C = q.shape
-    for name, t in (("dout", dout), ("out", out)):
+    for what, t in (("dout", dout), ("out", out)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q: got {tuple(t.shape)} {t.dtype} on {t.device}")
-    for name, t in (("m", m), ("logs", logs)):
+            raise ValueError(f"{what} must match q: got {tuple(t.shape)} {t.dtype} on {t.device}")
+    for what, t in (("m", m), ("logs", logs)):
         if t.shape != (R, H, N) or t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{name} must be f32 [R, H, N] = {(R, H, N)} on {q.device}, got "
+            raise ValueError(f"{what} must be f32 [R, H, N] = {(R, H, N)} on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    if mma:
+        q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
     lib = build()
     mask = mask.to(torch.float32).contiguous()
     m, logs = m.contiguous(), logs.contiguous()
@@ -745,16 +775,20 @@ def _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale: float):
     dq, dk, dv = (torch.empty((R, N, H, C), dtype=q.dtype, device=q.device) for _ in range(3))
     strides = [s for t in (q, k, v, dout) for s in t.stride()[:3]]
     w = weak_scalar(scale, q.dtype)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
+                m.data_ptr(), logs.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.lib.prd_rows_attention_kchunk_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), dout.data_ptr(),
-            m.data_ptr(), logs.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream,
-        )
-    lib.check(code, "rows_attention_kchunk_bwd")
-    LAUNCHES["rows_attention_kchunk_bwd"] += 1
+        if mma:
+            fn = (lib.lib.prd_rows_attention_kchunk_bwd_mma if q.dtype == torch.bfloat16
+                  else lib.lib.prd_rows_attention_kchunk_bwd_tf32x3)
+            code = fn(*pointers, R, N, H, C, w, *strides, stream)
+        else:
+            code = lib.lib.prd_rows_attention_kchunk_bwd(*pointers, _DTYPE_CODES[q.dtype], R, N,
+                                                         H, C, w, *strides, stream)
+    lib.check(code, name)
+    LAUNCHES[name] += 1
     return dq * w, dk, dv
 
 
@@ -769,16 +803,21 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"attention runs on cpu or cuda tensors, got {device}")
 
 
-def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout=None):
+def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout=None,
+                   out=None, m=None, logs=None):
     """One launch of K1 (``name`` "rows_attention"), K1 fast
     ("rows_attention_fast"), K2 ("tiled_attention"), K3
-    ("rows_attention_kchunk"), K5 ("rows_attention_kchunk_stats") or K7
-    ("rows_attention_bwd", given ``dout``) on CUDA tensors through the body
-    ``mma`` names, without autograd: the CUDA-core body (``mma`` False),
-    which a tensor-core one replaced (bf16; K3 and K5 in f32 too), stays
-    callable only to time the two side by side."""
+    ("rows_attention_kchunk"), K5 ("rows_attention_kchunk_stats"), K7
+    ("rows_attention_bwd", given ``dout``) or K6
+    ("rows_attention_kchunk_bwd", given ``dout`` and K5's ``out``, ``m`` and
+    ``logs``) on CUDA tensors through the body ``mma`` names, without
+    autograd: the CUDA-core body (``mma`` False), which a tensor-core one
+    replaced (bf16; K3, K5, K6 and K7 in f32 too), stays callable only to
+    time the two side by side."""
     if name == "rows_attention_bwd":
         return _launch_bwd(q, k, v, mask, dout, scale, mma=mma)
+    if name == "rows_attention_kchunk_bwd":
+        return _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale, mma=mma)
     if name in KCHUNK_FORWARDS:
         return _launch_kchunk(q, k, v, mask, scale, stats=name != "rows_attention_kchunk", mma=mma)
     return _launch(name, q, k, v, mask, bias, scale, mma=mma)

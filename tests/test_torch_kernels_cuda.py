@@ -236,12 +236,16 @@ def _assert_grads_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N", [16, 45, 192])
-@pytest.mark.parametrize("C", [8, 16, 32, 48, 64, 128])
+@pytest.mark.parametrize("C", [8, 12, 16, 20, 32, 48, 64, 128])
 def test_rows_bwd_kernel_matches_plain(device, dtype, N, C):
-    """K7 against its plain version: in bf16 its tensor-core body
-    (attention_bwd_mma.cu, every C here a multiple of 8), in f32 its
-    CUDA-core body."""
-    assert A.takes_mma("rows_attention_bwd", dtype, C) == (dtype == torch.bfloat16)
+    """K7 against its plain version: C a multiple of 8 on its tensor-core
+    bodies (bf16 attention_bwd_mma.cu, f32 3xTF32 attention_bwd_tf32.cu at
+    1e-5), C = 12 and 20 (4 mod 8) on its CUDA-core body, attention_bwd.cu,
+    which the main path takes at those widths."""
+    tensor_cores = C % 8 == 0
+    assert A.takes_mma("rows_attention_bwd", dtype, C) == (tensor_cores and dtype == torch.bfloat16)
+    assert A.takes_tf32x3("rows_attention_bwd", dtype, C) == (tensor_cores
+                                                               and dtype == torch.float32)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, seed=5, masked_rows=2)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(device, dtype)
     before = A.LAUNCHES["rows_attention_bwd"]
@@ -267,36 +271,60 @@ def test_rows_bwd_strided_operands(device):
     _assert_grads_close(grads, ref, torch.float32)
 
 
-@pytest.mark.parametrize("C", [16, 64])
-def test_rows_bwd_mma_strided_operands(device, C):
-    """K7's tensor-core body in the 'ending' triangle layout: q, k, v and dO
-    read through strides, fully masked rows included."""
-    N, H = 40, 4 if C == 16 else 1
-    q, k, v, mask, _ = _inputs(N, N, H, C, torch.bfloat16, device, seed=7, masked_rows=3)
-    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(device, torch.bfloat16)
+def _backward(name, q, k, v, mask, g, scale, mma=None):
+    """K7 (``name`` "rows_attention_bwd") or K6 on K5's plain stats, and its
+    plain version: (grads, ref). ``mma`` None: the wrapper's own body."""
+    if name == "rows_attention_bwd":
+        ref = A.rows_attention_bwd_reference(q, k, v, mask, g, scale)
+        if mma is None:
+            return A.rows_attention_bwd(q, k, v, mask, g, scale), ref
+        return A.attention_body(name, q, k, v, mask, None, scale, mma=mma, dout=g), ref
+    dense = [x.contiguous() for x in (q, k, v)]
+    out, m, logs = A.rows_attention_kchunk_reference(*dense, mask, scale, stats=True)
+    ref = A.rows_attention_kchunk_bwd_reference(*dense, mask, g.contiguous(), out, m, logs, scale)
+    if mma is None:
+        return A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale), ref
+    return A.attention_body(name, q, k, v, mask, None, scale, mma=mma, dout=g, out=out, m=m,
+                            logs=logs), ref
+
+
+@pytest.mark.parametrize("name", ["rows_attention_bwd", "rows_attention_kchunk_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [12, 16, 64])
+def test_rows_bwd_mma_strided_operands(device, name, dtype, C):
+    """K7's and K6's tensor-core bodies (bf16, and 3xTF32 in f32) in the
+    'ending' triangle layout: q, k, v and dO read through strides, fully
+    masked rows included; at C = 12 their CUDA-core bodies, in the same
+    layout."""
+    assert A.takes_tensor_cores(name, dtype, C) == (C % 8 == 0)
+    N, H = 40, 1 if C == 64 else 4
+    q, k, v, mask, _ = _inputs(N, N, H, C, dtype, device, seed=7, masked_rows=3)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8)).to(device, dtype)
     qt, kt, vt, gt = (x.transpose(0, 1) for x in (q, k, v, g))
     assert not kt.is_contiguous()
-    grads = A.rows_attention_bwd(qt, kt, vt, mask, gt, 0.25)
-    ref = A.rows_attention_bwd_reference(*(x.contiguous() for x in (qt, kt, vt)), mask,
-                                         gt.contiguous(), 0.25)
-    _assert_grads_close(grads, ref, torch.bfloat16)
+    grads, ref = _backward(name, qt, kt, vt, mask, gt, 0.25)
+    _assert_grads_close(grads, ref, dtype)
 
 
+@pytest.mark.parametrize("name", ["rows_attention_bwd", "rows_attention_kchunk_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("C", [16, 64])
-def test_rows_bwd_bodies_agree(device, C):
-    """K7's two bodies on the same bf16 inputs (N = 192, 147 nodes valid),
-    each against the plain version: the CUDA-core one stays callable
-    (attention_body) for timing beside the tensor-core one."""
+def test_rows_bwd_bodies_agree(device, name, dtype, C):
+    """The two bodies of K7 and of K6 on the same inputs (N = 192, 147 nodes
+    valid), each against the plain version, in both dtypes: the CUDA-core one
+    stays callable (attention_body) for timing beside the tensor-core one."""
     N, H = 192, 4 if C == 16 else 1
-    q, k, v, _, _ = _inputs(2 * N, N, H, C, torch.bfloat16, device, seed=19)
+    q, k, v, _, _ = _inputs(2 * N, N, H, C, dtype, device, seed=19)
     node = (torch.arange(N, device=device) < 147).float()
     mask = (node[:, None] * node[None, :]).repeat(2, 1)
-    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(20)).to(device, torch.bfloat16)
-    ref = A.rows_attention_bwd_reference(q, k, v, mask, g, 0.25)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(20)).to(device, dtype)
+    before = A.LAUNCHES[name]
     for mma in (True, False):
-        grads = A.attention_body("rows_attention_bwd", q, k, v, mask, None, 0.25, mma=mma, dout=g)
-        _assert_grads_close(grads, ref, torch.bfloat16)
+        grads, ref = _backward(name, q, k, v, mask, g, 0.25, mma=mma)
+        _assert_grads_close(grads, ref, dtype)
         assert torch.count_nonzero(grads[0][147:N]) == 0  # row 0's padded queries
+        assert torch.count_nonzero(grads[1][147:N]) == 0
+    assert A.LAUNCHES[name] == before + 2
 
 
 @pytest.mark.parametrize("name", ["rows_attention", "tiled_attention"])
@@ -401,10 +429,17 @@ def test_kchunk_kernels_match_plain(device, dtype, N, C):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("N", [16, 45, 200])
-@pytest.mark.parametrize("C", [8, 16, 64, 128])
+@pytest.mark.parametrize("N", [16, 45, 48, 200, 1030])
+@pytest.mark.parametrize("C", [8, 12, 16, 20, 64, 128])
 def test_kchunk_bwd_kernel_matches_plain(device, dtype, N, C):
-    """K6 against its plain version on the same stats."""
+    """K6 against its plain version on the same stats: C a multiple of 8 on
+    its tensor-core bodies (bf16 attention_bwd_mma.cu, f32 3xTF32
+    attention_bwd_tf32.cu at 1e-5), C = 12 and 20 on its CUDA-core body,
+    attention_kchunk_bwd.cu; fully masked rows give exact zeros in dq and
+    dk."""
+    name, tensor_cores = "rows_attention_kchunk_bwd", C % 8 == 0
+    assert A.takes_mma(name, dtype, C) == (tensor_cores and dtype == torch.bfloat16)
+    assert A.takes_tf32x3(name, dtype, C) == (tensor_cores and dtype == torch.float32)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, seed=12, masked_rows=2)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(13)).to(device, dtype)
     out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, 0.35, stats=True)
@@ -438,7 +473,7 @@ def test_kchunk_strided_operands(device):
 def test_kchunk_offsets_past_2_31_elements(device):
     """One operand of more than 2^31 elements: offsets are 64-bit. The last
     rows, whose elements lie past 2^31, against the plain version: K3, K5
-    (its stats too) and K7, each on its bf16 tensor-core body."""
+    (its stats too), K6 and K7, each on its bf16 tensor-core body."""
     R, N, H, C = 70000, 64, 4, 128
     assert R * N * H * C > 2**31
     g = torch.Generator(device=device).manual_seed(16)
@@ -456,11 +491,43 @@ def test_kchunk_offsets_past_2_31_elements(device):
                                                            0.1, stats=True)
     torch.testing.assert_close(m[tail], ref_m, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(logs[tail], ref_logs, atol=1e-5, rtol=1e-5)
-    del m, logs
     dout = torch.randn(R, N, H, C, generator=g, device=device, dtype=torch.bfloat16)
+    out = A.rows_attention_kchunk(q, k, v, mask, 0.1)
+    grads = A.rows_attention_kchunk_bwd(q, k, v, mask, dout, out, m, logs, 0.1)
+    want = A.rows_attention_kchunk_bwd_reference(q[tail], k[tail], v[tail], mask[tail],
+                                                 dout[tail], out[tail], m[tail], logs[tail], 0.1)
+    _assert_grads_close([t[tail] for t in grads], want, torch.bfloat16)
+    del out, m, logs, grads
     grads = A.rows_attention_bwd(q, k, v, mask, dout, 0.1)
     want = A.rows_attention_bwd_reference(q[tail], k[tail], v[tail], mask[tail], dout[tail], 0.1)
     _assert_grads_close([t[tail] for t in grads], want, torch.bfloat16)
+
+
+def test_bwd_f32_offsets_past_2_31_elements(device):
+    """K6 and K7 on their f32 body (3xTF32) with operands and gradients of
+    more than 2^31 elements: offsets are 64-bit. q and k are the two halves
+    of one buffer (v reads q, dO reads k) to fit the card's memory; the last
+    rows, whose elements lie past 2^31, against the plain version."""
+    R, N, H, C = 65540, 64, 4, 128
+    assert R * N * H * C > 2**31
+    assert A.takes_tf32x3("rows_attention_kchunk_bwd", torch.float32, C)
+    assert A.takes_tf32x3("rows_attention_bwd", torch.float32, C)
+    buf = torch.randn(R, N, H, 2 * C, generator=torch.Generator(device=device).manual_seed(17),
+                      device=device)
+    q, k = buf[..., :C], buf[..., C:]
+    v, dout = q, k
+    mask = torch.ones(R, N, device=device)
+    tail = slice(R - 3, R)
+    rows = [x[tail].contiguous() for x in (q, k, v, dout)]
+    out, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, 0.1)
+    grads = A.rows_attention_kchunk_bwd(q, k, v, mask, dout, out, m, logs, 0.1)
+    want = A.rows_attention_kchunk_bwd_reference(*rows[:3], mask[tail], rows[3], out[tail],
+                                                 m[tail], logs[tail], 0.1)
+    _assert_grads_close([t[tail] for t in grads], want, torch.float32)
+    del out, m, logs, grads
+    grads = A.rows_attention_bwd(q, k, v, mask, dout, 0.1)
+    want = A.rows_attention_bwd_reference(*rows[:3], mask[tail], rows[3], 0.1)
+    _assert_grads_close([t[tail] for t in grads], want, torch.float32)
 
 
 def test_kchunk_autograd_launches_kernels(device, kchunk_regime):

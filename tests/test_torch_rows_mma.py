@@ -1,9 +1,9 @@
-"""The tensor-core bodies of K1, K3, K5 and K7 and the route past the
+"""The tensor-core bodies of K1, K3, K5, K6 and K7 and the route past the
 kernels' bounds, on the CPU (no card needed).
 
 - The body choice (``ops.attention.takes_mma`` for bf16, ``takes_tf32x3``
-  for K3 and K5 in f32) as a pure function of the kernel's name, dtype and
-  head width.
+  for K3, K5, K6 and K7 in f32) as a pure function of the kernel's name,
+  dtype and head width.
 - K3's tensor-core body streams keys in tiles of 64, where the JAX K3 takes
   chunks of 256: the plain online softmax (``_kchunk_forward_block``) at 64
   keys a tile against the JAX ``_rows_attention_kchunk_grid_cn`` (Pallas in
@@ -78,22 +78,25 @@ def _body(name, dtype, C):
       for C in (8, 16, 64, 128)],
     ("rows_attention_kchunk_stats", BF16, 12, "cuda cores"),
     ("rows_attention_bwd", BF16, 12, "cuda cores"),
-    # K7 in f32: the CUDA cores
-    *[("rows_attention_bwd", F32, C, "cuda cores") for C in (8, 16, 64, 128)],
+    # K7 in f32: 3xTF32 at C a multiple of 8, else the CUDA cores
+    *[("rows_attention_bwd", F32, C, "3xtf32") for C in (8, 16, 64, 128)],
+    ("rows_attention_bwd", F32, 12, "cuda cores"),
     # K3 and K5 in f32: 3xTF32 at C a multiple of 8, else the CUDA cores
     *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats")
       for C in (8, 16, 64, 128)],
     ("rows_attention_kchunk", F32, 12, "cuda cores"),
     ("rows_attention_kchunk_stats", F32, 20, "cuda cores"),
-    # K6: the CUDA cores in both dtypes
-    *[("rows_attention_kchunk_bwd", dtype, C, "cuda cores") for dtype in (BF16, F32)
-      for C in (8, 16, 64, 128)],
+    # K6: the bf16 tensor cores and 3xTF32 at C a multiple of 8, else the CUDA cores
+    *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
+      for dtype in (BF16, F32) for C in (8, 16, 64, 128)],
+    *[("rows_attention_kchunk_bwd", dtype, 12, "cuda cores") for dtype in (BF16, F32)],
 ])
 def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
-    """Which body K5, K6 and K7 (and K3 in f32) take: K5 and K7 the bf16
-    tensor cores (attention_mma.cu, attention_bwd_mma.cu), K3 and K5 in f32
-    the 3xTF32 body (attention_tf32.cu), at C a multiple of 8; K6, K7 in f32
-    and every other width keep their CUDA-core body."""
+    """Which body K5, K6 and K7 (and K3 in f32) take at C a multiple of 8:
+    K5, K6 and K7 the bf16 tensor cores (attention_mma.cu,
+    attention_bwd_mma.cu), K3, K5, K6 and K7 in f32 the 3xTF32 bodies
+    (attention_tf32.cu, attention_bwd_tf32.cu); every other width keeps its
+    CUDA-core body."""
     assert _body(name, dtype, C) == body
 
 
@@ -173,8 +176,21 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), False),
     (A.takes_tf32x3, ("rows_attention_kchunk", F32, 124), False),
     (A.takes_tf32x3, ("rows_attention_kchunk", BF16, 16), False),
-    (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 16), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 12), False),
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
+    # K6 and K7 (the f32 body too) at the edges: the tensor-core bodies at
+    # multiples of 8 up to 128, the CUDA-core ones at multiples of 4 up to
+    # 128; the bounds accept what they accepted before the f32 bodies came
+    *[(fn, (name, dtype, C), ok)
+      for name in ("rows_attention_kchunk_bwd", "rows_attention_bwd")
+      for C, bf16_ok, f32_ok in ((4, False, False), (8, True, True), (124, False, False),
+                                 (128, True, True), (136, False, False))
+      for fn, dtype, ok in ((A.takes_mma, BF16, bf16_ok), (A.takes_mma, F32, False),
+                            (A.takes_tf32x3, F32, f32_ok), (A.takes_tf32x3, BF16, False))],
+    *[(A.kchunk_fits, ("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype), C <= 128)
+      for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
+    *[(A.bwd_fits, (2, 16, 4, C, dtype), C <= 128)
+      for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
 ])
 def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
