@@ -10,10 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    protein_redesign_tpu_torch/kernels/_build; prints the build time.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
-   of both from CUDA events; in bf16 K1 and K2 run their tensor-core bodies
-   (attention_mma.cu), each timed beside its CUDA-core body (CUDA events and
-   device time), K2 at C = 16 and at SPAttention's C = 512, with SDPA and the
-   bound (K1 at both buckets, and SDPA in f32 for K1's f32 CUDA-core body).
+   of both from CUDA events; K1 and K2 run their tensor-core bodies (bf16
+   attention_mma.cu; f32 3xTF32, K1 attention_tf32.cu, K2
+   attention_tiled_tf32.cu), each timed beside its CUDA-core body (CUDA
+   events and device time), K2 at C = 16 and at SPAttention's C = 512, K1's
+   fully masked rows at the mean of v, with SDPA in the same dtype and the
+   bound for every case.
 4. Whole forward: ProteinReDiffNet at paper width (ModelConfig(), bf16)
    with seeded, perturbed weights, B=2 at bucket 192, kernel route against
    plain route, and exactly 24 rows-kernel and 13 tiled-kernel launches per
@@ -31,9 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    same dtype and the bound at both buckets and widths.
 7. Whole-net gradient: the training loss's parameter gradients at paper
    width, B=2, bucket 192, kernel route against plain route, in f32 and
-   bf16, with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
+   bf16, and in f32 at bucket 512, B=1 (a seeded 460-residue sequence and
+   imatinib), with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
    (remat: 24 + 24 K1, 13 + 12 K2); the kernel route's device time per
-   micro-step by kernel group at buckets 192 and 384 (torch.profiler).
+   micro-step by kernel group (torch.profiler): f32 at 192 and 512, each
+   with K1 and K2 on their 3xTF32 bodies and again on their CUDA-core ones,
+   bf16 at 192 and 384.
 8. Training main path: the port's train CLI at paper width on a mini
    dataset written from --seed (two T4 lysozyme 1-110 + imatinib complexes
    at bucket 192, two ~330-residue synthetic complexes at bucket 384, one
@@ -70,7 +75,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    time limit (8 K5 and 4 K6 on their tensor-core bodies, 5 K2), kernel route
    against plain route; then the train CLI at bucket 1024, --dtype float32,
    batch 1, 2 optimizer steps: s per optimizer step, peak memory and exact
-   launch counts.
+   launch counts; the same at bucket 512 (K1, K7 and K2 in f32, below the
+   switch).
 13. Fused kernels vs plain: K8 (fused gated triangle attention, starting and
    ending view), K9 (triangle multiplication, both modes), K10 (transition,
    single_fc and pair_fc) and K11 (OuterLinear) against their plain versions
@@ -108,13 +114,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    route, by kernel group.
 16. Wide configurations: two configurations past the kernels' former bounds
    (the four switches at AlphaFold2's pair_dim 128 in bf16: K8, K9 and K11
-   at D = 128; f32 with single_dim 768: K2's CUDA-core body at C = 768), 2
+   at D = 128; f32 with single_dim 768: K2's wide 3xTF32 body at C = 768), 2
    blocks, the forward at bucket 192, B=2: exact launch counts of every
    kernel, against the plain route, and both routes' forward time.
 
-Each main path (phases 5, 8, 10, 12's train CLI, 14's generate and train
+Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
 CLIs and 15's train and serve CLIs) runs with every launch count set to 0
-just before it and read just after. Every kernel's time and
+just before it and read just after; the f32 train CLI at 512 gives the
+launches of K1's and K2's f32 entries in the kernels' record. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype (f32: 3xTF32 on the tensor cores) and
@@ -127,6 +134,7 @@ card's name and power limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -172,6 +180,10 @@ SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated.cu",
            "triangle_multiply": CSRC + "trimul.cu", "fused_transition": CSRC + "transition.cu",
            "fused_outer_linear": CSRC + "outer.cu"}
+# K1 and K2 in f32 run their 3xTF32 bodies: the JSON record's own entries,
+# (kernel, source), with the launches of the f32 train CLI at bucket 512
+F32_BODIES = {"rows_attention_f32": ("rows_attention", CSRC + "attention_tf32.cu"),
+              "tiled_attention_f32": ("tiled_attention", CSRC + "attention_tiled_tf32.cu")}
 REPLACES = {
     "rows_attention": "protein_redesign_tpu/ops/pallas_attention.py:725",
     "rows_attention_fast": "protein_redesign_tpu/ops/pallas_attention.py:725",
@@ -222,6 +234,9 @@ H64 = dict(head_dim=64, num_heads=1)
 # The bf16 micro-step at bucket 2048 (phase 12): paper widths, depth cut to
 # two FoldingBlocks for the time limit.
 GRAD_2048_BLOCKS = 2
+# f32 training below the K-chunk switch at bucket 512 (phases 7 and 12):
+# (bucket, residues of a seeded sequence), 497 nodes with imatinib.
+TRAIN_F32_512 = (512, 460)
 
 
 def launch_record(**counts) -> dict:
@@ -309,8 +324,8 @@ def device_ms(fn, iters: int = 3) -> float:
 def body_times(name, q, k, v, mask, bias, scale, **backward) -> str:
     """The two bodies of K1, K1 fast, K2, K3, K5, K7 (``dout`` given) or K6
     (``dout``, ``out``, ``m`` and ``logs`` given) on the same inputs (bf16;
-    K3, K5, K6 and K7 in f32 too), each one launch without autograd:
-    CUDA-event ms per call and device ms per call."""
+    in f32 all but K1 fast), each one launch without autograd: CUDA-event ms
+    per call and device ms per call."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     # the K-chunk CUDA-core bodies: up to ~0.45 s a call (K6 in bf16 at 2048 ~1.2 s)
@@ -446,9 +461,12 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
 def phase_kernels() -> dict:
     """K1 and K2 against their plain version at buckets 192 and 512, in f32
     and bf16 (K2 at C = 16, the single attention, and C = 512, SPAttention).
-    In bf16, K1 and K2 run their tensor-core bodies; their CUDA-core bodies
-    (f32's, kept for this comparison) are timed on the same inputs, with
-    SDPA and the bound (K1 at both buckets, K2 at 192 at both widths)."""
+    Both dtypes run the tensor-core bodies (bf16 attention_mma.cu; f32
+    3xTF32, K1 attention_tf32.cu, K2 attention_tiled_tf32.cu); their
+    CUDA-core bodies are timed on the same inputs, with SDPA in the same
+    dtype and the bound. The record holds the bf16 main path's shape (bucket
+    192, K2 at C = 16) and, for the f32 entries, the f32 training path's
+    (bucket 512, K2 at C = 16)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     cases = []
@@ -457,7 +475,7 @@ def phase_kernels() -> dict:
             cases.append(("rows_attention", bucket, dtype, 2 * bucket, 16, True, False, n_valid))
             cases.append(("tiled_attention", bucket, dtype, 2, 16, True, True, n_valid))
             cases.append(("tiled_attention", bucket, dtype, 2, 512, False, True, n_valid))
-    record = {name: {"max_abs_err": 0.0} for name in REPLACES}
+    record = {name: {"max_abs_err": 0.0} for name in (*REPLACES, *F32_BODIES)}
     for seed, (name, N, dtype, R, C, with_mask, with_bias, n_valid) in enumerate(cases):
         q, k, v, mask, bias = _attention_case(R, N, 4, C, dtype, n_valid, with_mask, with_bias,
                                               name == "rows_attention", seed)
@@ -475,29 +493,29 @@ def phase_kernels() -> dict:
         excess = float((diff - tol * ref.float().abs()).max())
         if not (torch.isfinite(out).all() and excess <= tol):
             raise AssertionError(f"{name} R={R} N={N} C={C} {dtype}: max abs err {err} > tol {tol}")
+        if name == "rows_attention":  # the padded rows are fully masked: the mean of v
+            mean_v = v[N - 1::N].float().mean(1, keepdim=True).expand(-1, N, -1, -1)
+            masked_err = float((out[N - 1::N].float() - mean_v).abs().max())
+            if not masked_err <= tol * (1 + float(mean_v.abs().max())):
+                raise AssertionError(f"{name} N={N} {dtype}: fully masked rows off the mean of v "
+                                     f"by {masked_err}")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         label = str(dtype).replace("torch.", "")
-        body = ""
-        if dtype == torch.bfloat16:
-            body = f" (tensor cores; {body_times(name, q, k, v, mask, bias, scale)})"
         print(f"[kernels] {name} R={R} H=4 N={N} C={C} {label} mask={with_mask} "
-              f"bias={with_bias}: max_abs_err {err:.3e} (tol {tol:g}); "
-              f"kernel {ms:.4f} ms{body}, plain {plain_ms:.4f} ms")
-        rec = record[name]
+              f"bias={with_bias}: max_abs_err {err:.3e} (tol {tol:g}); kernel {ms:.4f} ms "
+              f"(tensor cores; {body_times(name, q, k, v, mask, bias, scale)}), plain "
+              f"{plain_ms:.4f} ms")
+        at = attention_bound(q, mask, bias, products=2, operands=4)
+        lib_ms = library_ms(q, k, v, mask, bias, scale)
+        print(f"[kernels] {name} C={C} at bucket {N}, {label}: bound {at['bound_ms']:.4f} ms "
+              f"({at['bound_by']}), library ({label}) {lib_ms} ms")
+        f32 = dtype == torch.float32
+        rec = record[f"{name}_f32" if f32 else name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if name == "rows_attention" and dtype == torch.float32:  # K1's f32 CUDA-core body
-            print(f"[kernels] {name} C={C} at bucket {N}, f32: bound "
-                  f"{attention_bound(q, mask, bias, products=2, operands=4)['bound_ms']:.4f} ms, "
-                  f"library (f32) {library_ms(q, k, v, mask, bias, scale)} ms")
-        if dtype == torch.bfloat16 and (N == 192 or name == "rows_attention"):
-            at = attention_bound(q, mask, bias, products=2, operands=4)
-            lib_ms = library_ms(q, k, v, mask, bias, scale)
-            # the JSON record carries the main path's own shape: bucket 192,
-            # bf16, and for tiled_attention the single-attention call (C=16)
-            if C == 16 and N == 192:
-                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
-            print(f"[kernels] {name} C={C} at bucket {N}, bf16: bound {at['bound_ms']:.4f} ms "
-                  f"({at['bound_by']}), library {lib_ms} ms")
+        # the JSON record carries the main path's own shape: bf16 at bucket
+        # 192, f32 at 512, and for tiled_attention the single-attention call
+        if C == 16 and N == (512 if f32 else 192):
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
     return record
 
 
@@ -592,6 +610,9 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("rows_attention_kchunk_mma", "K3 rows_attention_kchunk (tensor cores)"),
           ("rows_attention_kchunk_tf32x3_kernel<true", "K5 rows_attention_kchunk_stats (3xTF32)"),
           ("rows_attention_kchunk_tf32x3", "K3 rows_attention_kchunk (3xTF32)"),
+          ("rows_attention_tf32x3", "K1 rows_attention (3xTF32)"),
+          ("tiled_attention_wide_tf32x3", "K2 tiled_attention wide (3xTF32)"),
+          ("tiled_attention_tf32x3", "K2 tiled_attention (3xTF32)"),
           ("rows_attention_mma", "K1 rows_attention (tensor cores)"),
           ("rows_attention_kchunk_d", "K6 rows_attention_kchunk_bwd"),
           ("rows_attention_kchunk", "K3/K5 rows_attention_kchunk"),
@@ -792,11 +813,76 @@ def micro_step(net, batch: dict, noise):
     return value.detach()
 
 
-def phase_grad(seed: int) -> None:
-    """Paper-width parameter gradients, kernel route vs plain route, and the
-    kernel route's time per micro-step, by kernel group, at buckets 192 and 384."""
-    from protein_redesign_tpu_torch.config import ModelConfig
+@contextlib.contextmanager
+def cuda_core_bodies(*names):
+    """Inside the block, kernels ``names`` in f32 take their CUDA-core bodies
+    (attention.cu), the route before their 3xTF32 bodies came, so that a
+    path can be timed on both in one run. Launch counts are the same."""
     from protein_redesign_tpu_torch.ops import attention as A
+
+    takes = A.takes_tf32x3
+    A.takes_tf32x3 = lambda name, dtype, C: name not in names and takes(name, dtype, C)
+    try:
+        yield
+    finally:
+        A.takes_tf32x3 = takes
+
+
+def time_micro_step(tag: str, step, bodies=("tensor-core",)) -> None:
+    """One micro-step's time on the kernel route and the plain route, and the
+    kernel route's device time by kernel group; with "CUDA-core" in
+    ``bodies`` also with K1 and K2 in f32 on their CUDA-core bodies."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    with A.plain_route():
+        plain_ms = cuda_ms(step, 1, 2)
+    for body in bodies:
+        ctx = (cuda_core_bodies("rows_attention", "tiled_attention") if body == "CUDA-core"
+               else contextlib.nullcontext())
+        with ctx:
+            kernel_ms = cuda_ms(step, 1, 3)
+            busy = device_time_by_group(step, iters=3)
+        total = sum(busy.values())
+        print(f"[grad] {tag} (loss + backward, remat), {body} bodies: kernel route "
+              f"{kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms; kernel route device time "
+              f"{total:.2f} ms busy ({1 - total / kernel_ms:.1%} idle); "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+
+
+def grad_check(net, batch: dict, noise, tag: str) -> None:
+    """The whole parameter gradient of one micro-step, kernel route against
+    plain route, and its exact launches."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    A.reset_launch_counts()
+    loss_k = micro_step(net, batch, noise)
+    torch.cuda.synchronize()
+    launches = main_path_launches()
+    grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+    with A.plain_route():
+        loss_p = micro_step(net, batch, noise)
+    grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+    B, N = batch["residue_mask"].shape
+    expected = forward_launches(net.cfg, remat=True, n=N)
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches per micro-step {launches} != {expected}")
+    rel = float((grads_k - grads_p).norm() / grads_p.norm())
+    finite = bool(torch.isfinite(grads_k).all() and torch.isfinite(loss_k))
+    dtype = net.cfg.dtype
+    print(f"[grad] {tag}, {dtype}, B={B}, bucket {N}: loss kernel {float(loss_k):.6f}, "
+          f"plain {float(loss_p):.6f}; ||grad_kernel - grad_plain|| / ||grad_plain|| = "
+          f"{rel:.3e} (tol {GRAD_REL_TOL[dtype]:g}); launches per micro-step {launches}")
+    if not (finite and rel <= GRAD_REL_TOL[dtype]):
+        raise AssertionError(f"{tag} {dtype} gradient: finite={finite}, relative error {rel}")
+
+
+def phase_grad(seed: int) -> None:
+    """Paper-width parameter gradients, kernel route vs plain route, at
+    bucket 192 (B=2) in f32 and bf16 and at 512 (B=1) in f32, below the f32
+    K-chunk switch (K1, K7 and K2 on their tensor-core bodies), and the
+    kernel route's time per micro-step, by kernel group: f32 at 192 and 512
+    on both of K1's and K2's f32 bodies, bf16 at 192 and 384."""
+    from protein_redesign_tpu_torch.config import ModelConfig
 
     for dtype in ("float32", "bfloat16"):
         net = perturbed_net(ModelConfig(dtype=dtype, training_mode=True, mask_prob=0.5),
@@ -804,41 +890,24 @@ def phase_grad(seed: int) -> None:
         batch = collated([synthetic_complex(SEQUENCE, seed + s, net.cfg.esm_dim) for s in (1, 2)],
                          192)
         noise = fixed_noise(batch, seed)
-        A.reset_launch_counts()
-        loss_k = micro_step(net, batch, noise)
-        torch.cuda.synchronize()
-        launches = main_path_launches()
-        grads_k = torch.cat([p.grad.flatten().float() for p in net.parameters()])
-        with A.plain_route():
-            loss_p = micro_step(net, batch, noise)
-        grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
-        expected = forward_launches(net.cfg, remat=True)
-        if launches != expected:
-            raise AssertionError(f"launches per micro-step {launches} != {expected}")
-        rel = float((grads_k - grads_p).norm() / grads_p.norm())
-        finite = bool(torch.isfinite(grads_k).all() and torch.isfinite(loss_k))
-        B, N = batch["residue_mask"].shape
-        print(f"[grad] paper width, {dtype}, B={B}, bucket {N}: loss kernel {float(loss_k):.6f}, "
-              f"plain {float(loss_p):.6f}; ||grad_kernel - grad_plain|| / ||grad_plain|| = "
-              f"{rel:.3e} (tol {GRAD_REL_TOL[dtype]:g}); launches per micro-step {launches}")
-        if not (finite and rel <= GRAD_REL_TOL[dtype]):
-            raise AssertionError(f"{dtype} gradient: finite={finite}, relative error {rel}")
-        if dtype == "bfloat16":
+        grad_check(net, batch, noise, "paper width")
+        if dtype == "float32":
+            time_micro_step("f32 micro-step, B=2, bucket 192",
+                            lambda: micro_step(net, batch, noise), ("tensor-core", "CUDA-core"))
+            bucket, residues = TRAIN_F32_512
+            b = collated([synthetic_complex(long_sequence(seed + 25, residues), seed + 25,
+                                            net.cfg.esm_dim)], bucket)
+            n = fixed_noise(b, seed)
+            grad_check(net, b, n, "paper width")
+            time_micro_step(f"f32 micro-step, B=1, bucket {bucket}", lambda: micro_step(net, b, n),
+                            ("tensor-core", "CUDA-core"))
+        else:
             long_batch = collated([synthetic_complex(long_sequence(seed + s), seed + s,
                                                      net.cfg.esm_dim) for s in (3, 4)], 384)
             for bucket, b in ((192, batch), (384, long_batch)):
                 n = fixed_noise(b, seed)
-                step = lambda: micro_step(net, b, n)  # noqa: E731
-                kernel_ms = cuda_ms(step, 1, 3)
-                with A.plain_route():
-                    plain_ms = cuda_ms(step, 1, 3)
-                busy = device_time_by_group(step, iters=3)
-                total = sum(busy.values())
-                print(f"[grad] bf16 micro-step (loss + backward, remat), B=2, bucket {bucket}: "
-                      f"kernel route {kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms; kernel route "
-                      f"device time {total:.2f} ms busy ({1 - total / kernel_ms:.1%} idle); "
-                      + ", ".join(f"{k} {v:.2f}" for k, v in
-                                  sorted(busy.items(), key=lambda kv: -kv[1])))
+                time_micro_step(f"bf16 micro-step, B=2, bucket {bucket}",
+                                lambda: micro_step(net, b, n))
         del net
 
 
@@ -1259,15 +1328,18 @@ def phase_grad_2048(seed: int) -> None:
     del net
 
 
-def phase_train_long(seed: int) -> dict:
-    """The train CLI at bucket 1024, --dtype float32, batch 1: 2 optimizer
-    steps and the final validation."""
+def phase_train_long(seed: int, shape=LONG_TRAIN) -> dict:
+    """The train CLI at a (bucket, residues) ``shape``, --dtype float32,
+    batch 1: 2 optimizer steps and the final validation. At 1024 the
+    K-chunk regime (K5, K6); at 512 below the switch (K1, K7)."""
     from protein_redesign_tpu_torch.cli.train import main as train
     from protein_redesign_tpu_torch.config import ModelConfig
     from protein_redesign_tpu_torch.ops import attention as A
 
     esm_dim = ModelConfig().esm_dim
-    split = {part: [long_complex(seed + s, esm_dim)] for part, s in (("train", 22), ("val", 23))}
+    bucket, residues = shape
+    split = {part: [synthetic_complex(long_sequence(seed + s, residues), seed + s, esm_dim)]
+             for part, s in (("train", 22), ("val", 23))}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_dataset(tmp, split)
@@ -1286,20 +1358,22 @@ def phase_train_long(seed: int) -> dict:
         metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     steps = [m for m in metrics if "train_loss" in m]
     vals = [m for m in metrics if "val_loss" in m]
-    bucket = LONG_TRAIN[0]
     if [m["step"] for m in steps] != [1, 2] or len(vals) != 1 or any(
             int(m["bucket"]) != bucket for m in steps):
         raise AssertionError(f"metrics.jsonl at {bucket}: {metrics}")
     if not all(math.isfinite(x) for x in [m["train_loss"] for m in steps] + [vals[0]["val_loss"]]):
         raise AssertionError(f"non-finite losses at {bucket}: {metrics}")
-    micro, evaluation = forward_launches(cfg, remat=True, kchunk=True), forward_launches(cfg, kchunk=True)
+    kchunk = A.kchunk_select(bucket, torch.float32) > 0
+    micro = forward_launches(cfg, remat=True, kchunk=kchunk, n=bucket)
+    evaluation = forward_launches(cfg, kchunk=kchunk, n=bucket)
     expected = {k: 2 * micro[k] + evaluation[k] for k in REPLACES}
     if launches != expected:
         raise AssertionError(f"train launches at {bucket} {launches} != {expected}")
     for m in steps:
-        print(f"[train-long] step {m['step']} bucket {bucket}, f32, batch 1: loss {m['train_loss']:.4f}, "
-              f"grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s per optimizer step")
-    print(f"[train-long] val_loss {vals[0]['val_loss']:.4f}; peak device memory {peak:.2f} GiB; "
+        print(f"[train-{bucket}] step {m['step']} bucket {bucket}, f32, batch 1: loss "
+              f"{m['train_loss']:.4f}, grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s "
+              f"per optimizer step")
+    print(f"[train-{bucket}] val_loss {vals[0]['val_loss']:.4f}; peak device memory {peak:.2f} GiB; "
           f"launches {launches}")
     return launches
 
@@ -1784,7 +1858,7 @@ def phase_serving(seed: int) -> dict:
 # Configurations past the kernels' former bounds, with the launches of one
 # 2-block forward at bucket 192: the four switches at AlphaFold2's pair width
 # 128 (K8, K9 and K11 at D = 128; K10 on both transitions) and an f32 model
-# with single_dim 768 (SPAttention's head width: K2's CUDA-core body at
+# with single_dim 768 (SPAttention's head width: K2's wide 3xTF32 body at
 # C = 768).
 WIDE_CONFIGS = (
     ("pair_dim 128, four switches, bf16",
@@ -1865,6 +1939,7 @@ def main() -> None:
     phase_grad_long(args.seed)
     phase_grad_2048(args.seed)
     train_long = phase_train_long(args.seed)
+    train_512 = phase_train_long(args.seed, TRAIN_F32_512)
     record.update(phase_fused_kernels())
     net = fused_net().to("cuda").eval()
     phase_forward(net, tag="fused-forward")
@@ -1898,6 +1973,12 @@ def main() -> None:
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": launches[k], **{key: record[k][key] for key in keys}}
         for k in REPLACES
+    ]
+    # K1 and K2 in f32 on their 3xTF32 bodies: launches on the f32 train CLI at 512
+    kernels += [
+        {"name": k, "route": "cuda", "source": source, "replaces": REPLACES[kernel],
+         "launches": train_512[kernel], **{key: record[k][key] for key in keys}}
+        for k, (kernel, source) in F32_BODIES.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

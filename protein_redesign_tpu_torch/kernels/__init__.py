@@ -28,7 +28,8 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bwd_mma.cu",
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
-           "attention_kchunk_bwd.cu", "fused_gated.cu", "trimul.cu", "transition.cu", "outer.cu")
+           "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu", "trimul.cu",
+           "transition.cu", "outer.cu")
 HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
@@ -62,6 +63,10 @@ class KernelLibrary:
         lib.prd_rows_attention_fast_mma.restype = i32
         lib.prd_rows_attention_mma.argtypes = lib.prd_rows_attention_fast_mma.argtypes
         lib.prd_rows_attention_mma.restype = i32
+        lib.prd_rows_attention_tf32x3.argtypes = lib.prd_rows_attention_fast_mma.argtypes
+        lib.prd_rows_attention_tf32x3.restype = i32
+        lib.prd_tiled_attention_tf32x3.argtypes = lib.prd_tiled_attention_mma.argtypes
+        lib.prd_tiled_attention_tf32x3.restype = i32
         lib.prd_rows_attention_kchunk_mma.argtypes = (
             [ptr] * 7 + [i32] * 4 + [f32] + strides + [ptr]
         )

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the denoiser's attention family:
-// their CUDA-core bodies, which serve float32 inputs and bf16 inputs whose
-// head width is not a multiple of 8 (bf16 with a multiple of 8 takes the
-// tensor-core bodies of attention_mma.cu, for K1, K1 fast and K2 alike; the
-// bf16 bodies here stay callable to time the two side by side).
+// their CUDA-core bodies, which serve inputs whose head width is not a
+// multiple of 8, K1 fast in float32, and K1 in float32 past C = 128. A
+// multiple of 8 takes the tensor-core bodies: in bf16 attention_mma.cu (K1,
+// K1 fast and K2 alike), in float32 3xTF32, attention_tf32.cu (K1, C <= 128)
+// and attention_tiled_tf32.cu (K2, C <= 1024). The bodies here stay
+// callable in both dtypes to time them beside those.
 //
 // Replaces two Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py,
 // the first in both of its variants:
@@ -38,9 +40,10 @@
 // a block's q, K and V tiles still fit 227 KB. The products run on the CUDA cores in f32, so the kernels
 // are bound by issue rate (shared-memory loads and FMAs), not by HBM bytes:
 // each (row, head) slice of K and V is a few KB and stays in L2 across its
-// q-tiles. In bf16 the tensor-core bodies of attention_mma.cu take these
-// kernels' place (mma.sync; K2 in one pass of online softmax); f32 needs
-// another plan than TF32, which would break the 1e-5 parity.
+// q-tiles. The tensor-core bodies take these kernels' place where they
+// can: bf16 in attention_mma.cu (mma.sync; K2 in one pass of online
+// softmax), f32 by three TF32 products per product (3xTF32: one TF32
+// product would break the 1e-5 parity).
 //
 // K1 fast (attention_body with FAST) reproduces the Pallas body's bf16
 // softmax point by point: logits rounded to bf16 after the -2^15 fill, m the

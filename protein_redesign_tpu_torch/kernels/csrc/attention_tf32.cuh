@@ -1,9 +1,11 @@
 // The f32 tensor-core building blocks that the 3xTF32 attention kernels
-// share (attention_tf32.cu: K3 and K5; attention_bwd_tf32.cu: K6 and K7):
-// the staging of f32 tiles, the two products of a flash pass with every
-// product in 3xTF32 (S = A B^T and O += P X, 16 rows a warp), the output
-// store and the entry points' stride check. Included by .cu files only;
-// everything is file-local.
+// share (attention_tf32.cu: K1, K3 and K5; attention_tiled_tf32.cu: K2;
+// attention_bwd_tf32.cu: K6 and K7): the staging of f32 tiles and of a bias
+// tile, the two products of a flash pass with every product in 3xTF32 (S =
+// A B^T and O += P X, 16 rows a warp), the output store, the entry points'
+// stride check, and the one-pass forward body (rows_tf32x3_body) that K1,
+// K3, K5 and K2 at narrow heads run. Included by .cu files only; everything
+// is file-local.
 //
 // There is no ldmatrix for 32-bit elements, so fragments are read from
 // shared memory element by element; rows are CP + 4 floats long (CP = 8 NT
@@ -15,8 +17,10 @@
 // that its k slot t is column 2t and slot t + 4 column 2t + 1; the B
 // fragment reads X's rows in the same order (rows 2t and 2t + 1, also
 // conflict-free at this row length). No shuffle and no round trip through
-// shared memory. Each product goes through mma_3xtf32 (mma.cuh) into a
-// fresh fragment, added to its sum in f32.
+// shared memory. The renumbering is P X's alone: S's accumulator s[n][e]
+// holds the column (key) n 8 + 2t + (e & 1) of row g + 8 (e >> 1), which is
+// where a bias and a mask are applied. Each product goes through mma_3xtf32
+// (mma.cuh) into a fresh fragment, added to its sum in f32.
 #pragma once
 
 #include "attention_mma.cuh"
@@ -34,6 +38,38 @@ __device__ __forceinline__ void stage_f32(const float* base, long long stride_n,
     const int c = (e - j * chunks) * 4;
     const bool ok = r0 + j < N && c < C;
     cp_async16(dst + j * ld + c, ok ? base + (long long)(r0 + j) * stride_n + c : base, ok);
+  }
+}
+
+// 4 bytes from device memory into shared memory (cp.async.ca: the 16-byte
+// form needs 16-byte aligned rows); with ok false the 4 bytes are zeroed.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Rows [q0, q0 + rows) and columns [k0, k0 + cols) of one head's [N, N] f32
+// bias into shared memory by cp.async, row stride ld (cols a multiple of
+// 4); entries past N are zero-filled. vec: every bias row starts on 16 bytes
+// (N a multiple of 4 and an aligned base), so 16-byte copies, else 4-byte.
+__device__ __forceinline__ void stage_bias(const float* head, int N, int q0, int rows, int k0,
+                                           int cols, int ld, bool vec, float* dst) {
+  if (vec) {
+    const int chunks = cols / 4;
+    for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+      const int i = e / chunks;
+      const int c = (e - i * chunks) * 4;
+      const bool ok = q0 + i < N && k0 + c < N;  // N and k0 multiples of 4: all 4 or none
+      cp_async16(dst + i * ld + c, ok ? head + (long long)(q0 + i) * N + k0 + c : head, ok);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+    const int i = e / cols;
+    const int c = e - i * cols;
+    const bool ok = q0 + i < N && k0 + c < N;
+    cp_async4(dst + i * ld + c, ok ? head + (long long)(q0 + i) * N + k0 + c : head, ok);
   }
 }
 
@@ -79,13 +115,16 @@ __device__ __forceinline__ void scale_staged_f32(float* tile, int r0, int rows, 
 }
 
 // S = A B^T for the warp's 16 rows of A (a_w, row stride ld) against the
-// 8 NS rows of a staged tile B (b_t, row stride ld), over CP channels.
-template <int NS, int CP>
+// 8 NS rows of a staged tile B (b_t, row stride ld), over CP channels;
+// ACCUMULATE: S += A B^T (a sum streamed over channel chunks).
+template <int NS, int CP, bool ACCUMULATE = false>
 __device__ __forceinline__ void logits_tf32(const float* a_w, const float* b_t, int ld, int lane,
                                             float (&s)[NS][4]) {
   const int g = lane >> 2, t4 = lane & 3;
+  if (!ACCUMULATE) {
 #pragma unroll
-  for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  }
 #pragma unroll
   for (int kc = 0; kc < CP; kc += 8) {
     unsigned ab[4], as[4];
@@ -102,6 +141,39 @@ __device__ __forceinline__ void logits_tf32(const float* a_w, const float* b_t, 
       mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
     }
   }
+}
+
+// S += the bias at the keys the accumulators hold: row g (g + 8) of the
+// warp's 16 in a staged [rows][ld] bias tile (b_w at the warp's first row),
+// column n 8 + 2t + (e & 1), read as float2 (ld = 8 mod 32: conflict-free).
+template <int NS>
+__device__ __forceinline__ void add_bias(float (&s)[NS][4], const float* b_w, int ld, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const float2 x = *reinterpret_cast<const float2*>(b_w + g * ld + n * 8 + 2 * t4);
+    const float2 y = *reinterpret_cast<const float2*>(b_w + (g + 8) * ld + n * 8 + 2 * t4);
+    s[n][0] += x.x;
+    s[n][1] += x.y;
+    s[n][2] += y.x;
+    s[n][3] += y.y;
+  }
+}
+
+// The key tile [k0, k0 + BK) without a mask: every key below N kept, as
+// tile_mask's bits (attention_mma.cuh).
+template <int BK>
+__device__ __forceinline__ TileMask<BK> tile_live(int k0, int N, int lane) {
+  TileMask<BK> tm;
+  tm.dense = k0 + BK <= N;
+  const int shift = 2 * (lane & 3);
+#pragma unroll
+  for (int w = 0; w < TileMask<BK>::W; ++w) {
+    const int j = 32 * w + lane;
+    tm.live[w] = __ballot_sync(kFull, j < BK && k0 + j < N) >> shift;
+    tm.keep[w] = tm.live[w];
+  }
+  return tm;
 }
 
 // acc += P X for the warp's 16 rows: P in the accumulators of NS 8-column
@@ -151,5 +223,147 @@ __device__ __forceinline__ void store_tile_f32(float* out, int N, int H, int C, 
 
 // Every row of an f32 operand on 16 bytes (cp.async, float4 loads).
 bool strides4(const Strides& s) { return s.r % 4 == 0 && s.n % 4 == 0 && s.h % 4 == 0; }
+
+// Launch arguments of the f32 forward bodies: K1, K3 and K5 (no bias; K5
+// writes m and log s), K2 (bias, mask optional). bias16: every row of the
+// bias starts on 16 bytes.
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* mask;
+  const float* bias;
+  float* out;
+  float* m;
+  float* logs;
+  int R, N, H, C;
+  float scale;
+  Strides qs, ks, vs;
+  bool bias16;
+};
+
+// Keys per tile of the one-pass body: 64, or 32 from CP = 32 on, where the
+// accumulators and the split operands take more registers.
+template <int NT>
+constexpr int kF32Keys = NT <= 2 ? 64 : 32;
+
+// Blocks of WARPS warps that must fit on an SM at once, which caps registers
+// at 128 up to CP = 32 (16 warps a SM; the split operands and each product's
+// fresh fragment spill at 80) and leaves wider heads at 8 warps a SM.
+template <int WARPS, int NT>
+constexpr int kF32MinBlocks = (NT <= 4 ? 16 : 8) / WARPS;
+
+// Shared memory of the one-pass body: 16 WARPS queries and two buffers of
+// BK keys of K and V, CP + 4 floats a row; with BIAS two [16 WARPS][BK + 8]
+// bias tiles.
+template <int WARPS, int NT, bool BIAS>
+constexpr size_t rows_tf32x3_smem() {
+  constexpr int TQ = 16 * WARPS, BK = kF32Keys<NT>;
+  return sizeof(float) * ((size_t)(TQ + 4 * BK) * (8 * NT + 4) + (BIAS ? 2 * TQ * (BK + 8) : 0));
+}
+
+// One pass of online softmax over every key tile of the block's (row, head)
+// (K1, K3, K5 and K2 at C <= 128): a block of 16 WARPS queries staged once,
+// pre-scaled, as f32; BK-key tiles of K and V (and with BIAS the [TQ, BK]
+// bias tile) staged by cp.async, double-buffered; the tile's mask by ballot
+// (HAS_MASK; else only the keys past N drop out); per tile S = Q K^T, plus
+// the bias, the -2^15 fill at masked keys (after the bias, as the reference
+// does), -inf past N, one step of online softmax in registers, acc += P V;
+// out = acc / s. STATS: K5's m and log s, one lane a row.
+template <bool STATS, bool BIAS, bool HAS_MASK, int WARPS, int NT>
+__device__ __forceinline__ void rows_tf32x3_body(const F32Args& a) {
+  constexpr int TQ = 16 * WARPS, BK = kF32Keys<NT>, NS = BK / 8, CP = 8 * NT, LD = CP + 4;
+  constexpr int LDB = BK + 8;
+  extern __shared__ __align__(16) float smem_f[];
+  float* q_s = smem_f;           // [TQ][LD], pre-scaled
+  float* k_s = q_s + TQ * LD;    // [2][BK][LD]
+  float* v_s = k_s + 2 * BK * LD;  // [2][BK][LD]
+  float* b_s = v_s + 2 * BK * LD;  // BIAS: [2][TQ][LDB]
+  const int N = a.N, C = a.C;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const Block b = block_of<TQ>(N, CP);
+  const float* q_base = a.q + b.r * a.qs.r + b.h * a.qs.h;
+  const float* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
+  const float* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
+  const float* mask_row = HAS_MASK ? a.mask + (long long)b.r * N : nullptr;
+  const float* bias_head = BIAS ? a.bias + ((long long)b.r * a.H + b.h) * N * N : nullptr;
+
+  stage_q_f32(q_base, a.qs.n, b.q0, TQ, N, C, CP, LD, a.scale, q_s);
+  const int tiles = (N + BK - 1) / BK;
+  stage_f32(k_base, a.ks.n, 0, BK, N, C, CP, LD, k_s);
+  stage_f32(v_base, a.vs.n, 0, BK, N, C, CP, LD, v_s);
+  if (BIAS) stage_bias(bias_head, N, b.q0, TQ, 0, BK, LDB, a.bias16, b_s);
+  cp_async_commit();
+
+  const float* q_w = q_s + warp * 16 * LD;
+  RowsState<NT> st;
+  init_rows(st);
+  float nm_a = 0.f, nm_b = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      stage_f32(k_base, a.ks.n, (t + 1) * BK, BK, N, C, CP, LD, k_s + (buf ^ 1) * BK * LD);
+      stage_f32(v_base, a.vs.n, (t + 1) * BK, BK, N, C, CP, LD, v_s + (buf ^ 1) * BK * LD);
+      if (BIAS)
+        stage_bias(bias_head, N, b.q0, TQ, (t + 1) * BK, BK, LDB, a.bias16,
+                   b_s + (buf ^ 1) * TQ * LDB);
+    }
+    cp_async_commit();
+    const TileMask<BK> tm =
+        HAS_MASK ? tile_mask<BK>(mask_row, t * BK, N, lane) : tile_live<BK>(t * BK, N, lane);
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[NS][4];
+    logits_tf32<NS, CP>(q_w, k_s + buf * BK * LD, LD, lane, s);  // S = Q K^T
+    if (BIAS) add_bias<NS>(s, b_s + buf * TQ * LDB + warp * 16 * LDB, LDB, lane);
+    apply_fill<NS, BK>(s, tm);
+    online_step<true, NS, NT>(s, st, nm_a, nm_b);
+    exp_rows<true, NS, NT>(s, st, nm_a, nm_b);
+    pv_tf32<NS, NT>(s, v_s + buf * BK * LD, LD, lane, st.acc);  // acc += P V
+    __syncthreads();  // the next tile's loads overwrite this buffer
+  }
+
+  const float s_a = quad_sum(st.s_a), s_b = quad_sum(st.s_b);
+  const int row_a = b.q0 + warp * 16 + g;
+  store_tile_f32<NT>(a.out, N, a.H, C, b, row_a, st.acc, s_a, s_b, lane);
+  if (STATS && t4 == 0) {  // one lane per row
+    const long long base = ((long long)b.r * a.H + b.h) * N;
+    if (row_a < N) {
+      a.m[base + row_a] = st.m_a;
+      a.logs[base + row_a] = logf(s_a);
+    }
+    if (row_a + 8 < N) {
+      a.m[base + row_a + 8] = st.m_b;
+      a.logs[base + row_a + 8] = logf(s_b);
+    }
+  }
+}
+
+// One launch of a forward kernel over blocks of ``queries`` queries: grid.x
+// walks (row, query tile), grid.y the head.
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kern, int threads, int queries, size_t smem, const F32Args& a,
+                       cudaStream_t stream) {
+  const long long blocks = (long long)((a.N + queries - 1) / queries) * a.R;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3((unsigned)blocks, a.H), threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The operands every f32 forward entry point takes: [R, N, H, C] with C a
+// multiple of 8 and 16-byte aligned rows, H within grid.y.
+bool f32_operands_ok(const F32Args& a) {
+  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % 8 == 0 &&
+         strides4(a.qs) && strides4(a.ks) && strides4(a.vs) && aligned16(a.q) &&
+         aligned16(a.k) && aligned16(a.v);
+}
 
 }  // namespace

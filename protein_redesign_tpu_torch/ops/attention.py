@@ -20,11 +20,14 @@ K1, K1 fast, K2, K3, K5, K6 and K7 have two bodies (``takes_mma``): on bf16
 inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
 K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async),
 else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
-``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. K3, K5, K6 and K7 in
-f32 with C a multiple of 8 take a tensor-core body too (``takes_tf32x3``;
-``attention_tf32.cu`` forward, ``attention_bwd_tf32.cu`` backward): every
-product in 3xTF32, three TF32 products of split operands, which keeps the
-1e-5 parity that one TF32 product would break.
+``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. In f32 with C a
+multiple of 8 every kernel but K1 fast takes a tensor-core body too
+(``takes_tf32x3``): K1, K3 and K5 ``attention_tf32.cu`` (one body; C up to
+128), K2 ``attention_tiled_tf32.cu`` (C up to 1024), K6 and K7
+``attention_bwd_tf32.cu`` (C up to 128): every product in 3xTF32, three TF32
+products of split operands, which keeps the 1e-5 parity that one TF32
+product would break. f32 at C = 4 mod 8, and K1 fast in f32, keep the
+CUDA-core bodies.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -149,13 +152,31 @@ def bwd_mma_smem_bytes(C: int) -> int:
     return 2 * (2 * 64 + 4 * tile) * (8 * nt + 8) + 4 * 6 * tile
 
 
-def tf32x3_smem_bytes(C: int) -> int:
-    """Shared memory of the f32 tensor-core body of K3 and K5 (``tf32x3_smem``
-    in attention_tf32.cu): 128 queries and two buffers of 64 keys (32 from
-    CP = 32 on) of K and V, CP + 4 floats a row, CP = C padded to 8, 16, 32,
-    64 or 128."""
+def tf32x3_smem_bytes(C: int, queries: int = 128, bias: bool = False) -> int:
+    """Shared memory of the f32 tensor-core one-pass body of K1, K3, K5 and
+    K2 at C <= 128 (``rows_tf32x3_smem`` in attention_tf32.cuh): ``queries``
+    queries (K3 and K5 128, K1 64 or 128 by N, K2 64) and two buffers of 64
+    keys (32 from CP = 32 on) of K and V, CP + 4 floats a row, CP = C padded
+    to 8, 16, 32, 64 or 128; with ``bias`` two [queries, keys + 8] bias
+    tiles."""
     nt = _padded_tiles(C)
-    return 4 * (128 + 4 * (64 if nt <= 2 else 32)) * (8 * nt + 4)
+    keys = 64 if nt <= 2 else 32
+    return 4 * ((queries + 4 * keys) * (8 * nt + 4) + (2 * queries * (keys + 8) if bias else 0))
+
+
+# K2's f32 tensor-core body at C > 128 (attention_tiled_tf32.cu
+# ``wide_smem``): two stages of 32 queries and 64 keys of 128 channels (132
+# floats a row), and the bias, logits and P's two parts of a [32, 64] tile
+# (68 floats a row), whatever C is.
+TILED_WIDE_TF32X3_SMEM_BYTES = 4 * (2 * (32 + 64) * 132 + 4 * 32 * 68 + 2 * 32)
+
+
+def tiled_tf32x3_smem_bytes(C: int) -> int:
+    """Shared memory of K2's f32 tensor-core body at head width C: the
+    one-pass body with 64 queries and the bias up to C = 128, the wide body
+    above."""
+    return (tf32x3_smem_bytes(C, 64, bias=True) if C <= MAX_KCHUNK_HEAD_DIM
+            else TILED_WIDE_TF32X3_SMEM_BYTES)
 
 
 def bwd_tf32x3_smem_bytes(C: int) -> int:
@@ -185,15 +206,23 @@ def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
 
 
 def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
-    """Whether K3, K5, K6 or K7 (``name``) runs its f32 tensor-core body
-    (3xTF32: attention_tf32.cu forward, attention_bwd_tf32.cu backward) at
-    head width C in ``dtype``: f32 with C a multiple of 8 up to
-    MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head)."""
-    if dtype != torch.float32 or C <= 0 or C % 8 or C > MAX_KCHUNK_HEAD_DIM:
+    """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
+    width C in ``dtype``: f32 with C a multiple of 8, K1, K3 and K5
+    (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
+    MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head), K2
+    (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body streams the
+    head), each within its shared memory. K1 fast in f32 keeps its
+    CUDA-core body."""
+    if dtype != torch.float32 or C <= 0 or C % 8:
+        return False
+    if name == "tiled_attention":
+        return C <= MAX_HEAD_DIM and tiled_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
+    if C > MAX_KCHUNK_HEAD_DIM:
         return False
     if name in BACKWARDS:
         return bwd_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
-    return name in KCHUNK_FORWARDS and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
+    return (name in KCHUNK_FORWARDS + ("rows_attention",)
+            and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
 
 
 def takes_tensor_cores(name: str, dtype: torch.dtype, C: int) -> bool:
@@ -227,9 +256,9 @@ MAX_HEAD_DIM = 1024  # the CUDA-core bodies: C / 32 accumulators per lane and qu
 
 def attention_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K1, K1 fast or K2 (``name``) takes [R, N, H, C] operands of
-    ``dtype``: the tensor-core body's shared memory, else the CUDA-core
-    body's C <= MAX_HEAD_DIM, a multiple of 4."""
-    return grid_fits(R, N, H) and (takes_mma(name, dtype, C)
+    ``dtype``: a tensor-core body's shared memory (bf16 or 3xTF32, multiples
+    of 8), else the CUDA-core body's C <= MAX_HEAD_DIM, a multiple of 4."""
+    return grid_fits(R, N, H) and (takes_tensor_cores(name, dtype, C)
                                    or width_fits(C, MAX_HEAD_DIM))
 
 
@@ -551,7 +580,7 @@ def rows_attention_kchunk_bwd_reference(q, k, v, mask, dout, out, m, logs, scale
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` if every [.., C] row starts on 16 bytes (cp.async and 16-byte
     loads), else a contiguous copy."""
-    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+    if t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3]):
         return t
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
@@ -595,17 +624,20 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (K6, K7 and the f32 bodies up to {MAX_BWD_HEAD_DIM})")
+              f"bytes (K6 and K7 up to {MAX_BWD_HEAD_DIM}; in f32 K2 up to {MAX_HEAD_DIM}, "
+              f"the others up to {MAX_KCHUNK_HEAD_DIM}, K1 fast none)")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
             mma: Optional[bool] = None) -> torch.Tensor:
     """Launch K1, K1 fast or K2 (``name``); ``mma`` None picks the body by
-    ``takes_mma``, False forces the CUDA-core body."""
+    ``takes_tensor_cores``: the bf16 one (attention_mma.cu) or in f32 the
+    3xTF32 one (K1 attention_tf32.cu, K2 attention_tiled_tf32.cu); False
+    forces the CUDA-core body."""
     from ..kernels import build
 
     C = q.shape[-1]
-    auto = takes_mma(name, q.dtype, C)
+    auto = takes_tensor_cores(name, q.dtype, C)
     mma = auto if mma is None else mma
     if mma:
         _check(q, k, v, mask, bias, auto, _MMA_BOUND)
@@ -627,7 +659,8 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
         w = weak_scalar(scale, q.dtype)
         common = (_DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream)
         if mma:
-            fn = getattr(lib.lib, f"prd_{name}_mma")
+            suffix = "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+            fn = getattr(lib.lib, f"prd_{name}_{suffix}")
             tensors = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        None if mask is None else mask.data_ptr()]
             if name == "tiled_attention":
@@ -812,8 +845,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
     ("rows_attention_kchunk_bwd", given ``dout`` and K5's ``out``, ``m`` and
     ``logs``) on CUDA tensors through the body ``mma`` names, without
     autograd: the CUDA-core body (``mma`` False), which a tensor-core one
-    replaced (bf16; K3, K5, K6 and K7 in f32 too), stays callable only to
-    time the two side by side."""
+    replaced (bf16; in f32 all but K1 fast), stays callable only to time the
+    two side by side."""
     if name == "rows_attention_bwd":
         return _launch_bwd(q, k, v, mask, dout, scale, mma=mma)
     if name == "rows_attention_kchunk_bwd":
@@ -986,9 +1019,10 @@ def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
 def tiled_attention(q, k, v, mask: Optional[torch.Tensor], bias: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """K2: attention with a bias [R, H, N, N] and an optional key mask [R, N];
-    on CUDA the tensor-core body in bf16 with C a multiple of 8 (any C
-    whose tiles fit shared memory, up to 1168), else the CUDA-core body
-    (C <= 1024). Differentiable: the backward is the plain recompute."""
+    on CUDA with C a multiple of 8 a tensor-core body, in bf16 (any C whose
+    tiles fit shared memory, up to 1168) or in f32 3xTF32 (up to 1024), else
+    the CUDA-core body (C <= 1024). Differentiable: the backward is the plain
+    recompute."""
     if bias is None:
         raise ValueError("tiled_attention needs a bias; masked attention without one "
                          "is rows_attention's")

@@ -54,8 +54,12 @@ def _tol(dtype, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N", [16, 45, 192])
-@pytest.mark.parametrize("C", [8, 16, 64])
+@pytest.mark.parametrize("C", [8, 12, 16, 64, 128])
 def test_rows_kernel_matches_plain(device, dtype, N, C):
+    """K1 through its wrapper: the tensor-core bodies at C a multiple of 8
+    (bf16 attention_mma.cu, f32 3xTF32 attention_tf32.cu), the CUDA-core
+    body at C = 12."""
+    assert A.takes_tensor_cores("rows_attention", dtype, C) == (C % 8 == 0)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, masked_rows=2)
     before = A.LAUNCHES["rows_attention"]
     out = A.rows_attention(q, k, v, mask, 0.35)
@@ -71,8 +75,12 @@ def test_rows_kernel_matches_plain(device, dtype, N, C):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("with_mask", [True, False], ids=["mask_bias", "bias"])
-@pytest.mark.parametrize("C", [16, 512])
+@pytest.mark.parametrize("C", [16, 20, 64, 512, 768, 1024])
 def test_tiled_kernel_matches_plain(device, dtype, with_mask, C):
+    """K2 through its wrapper: the tensor-core bodies at C a multiple of 8
+    (bf16 attention_mma.cu; f32 attention_tiled_tf32.cu, its one-pass body
+    up to 128 and its wide body above), the CUDA-core body at C = 20."""
+    assert A.takes_tensor_cores("tiled_attention", dtype, C) == (C % 8 == 0)
     q, k, v, mask, bias = _inputs(2, 70, 4, C, dtype, device, seed=1)
     m = mask if with_mask else None
     out = A.tiled_attention(q, k, v, m, bias, 1.0 / C ** 0.5)
@@ -83,7 +91,8 @@ def test_tiled_kernel_matches_plain(device, dtype, with_mask, C):
 
 
 def test_strided_operands(device):
-    """The 'ending' triangle layout: k and v read through strides."""
+    """The 'ending' triangle layout: k and v read through strides (K1 in f32
+    on its 3xTF32 body)."""
     N, H, C = 40, 4, 16
     q, k, v, mask, _ = _inputs(N, N, H, C, torch.float32, device, seed=2)
     qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))  # swapped pair axes, no copy
@@ -92,6 +101,46 @@ def test_strided_operands(device):
     ref = A.attention_reference(qt.contiguous(), kt.contiguous(), vt.contiguous(), mask,
                                 None, 0.25)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name,C", [("tiled_attention", 16), ("tiled_attention", 512),
+                                    ("rows_attention", 16), ("rows_attention", 64)])
+def test_f32_tensor_core_bodies_strided(device, name, C):
+    """K1 and K2 in f32 on their 3xTF32 bodies (K2 at C = 512 on the wide
+    one) in the 'ending' layout, q, k and v read through strides, with the
+    bias of every (query, key, head) drawn on its own, fully masked rows
+    included: the same bits as on contiguous copies, 1e-5 (1e-4 at C = 512)
+    of the plain version."""
+    assert A.takes_tf32x3(name, torch.float32, C)
+    N, H = 40, 2
+    q, k, v, mask, bias = _inputs(N, N, H, C, torch.float32, device, seed=60, masked_rows=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))
+    assert not kt.is_contiguous()
+    dense = [x.contiguous() for x in (qt, kt, vt)]
+    b = bias if name == "tiled_attention" else None
+    got = A.attention_body(name, qt, kt, vt, mask, b, C ** -0.5, mma=True)
+    want = A.attention_body(name, *dense, mask, b, C ** -0.5, mma=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    tol = _tol(torch.float32, C)
+    torch.testing.assert_close(got, A.attention_reference(*dense, mask, b, C ** -0.5),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("name,C", [("rows_attention", 16), ("rows_attention", 128),
+                                    ("tiled_attention", 16), ("tiled_attention", 128),
+                                    ("tiled_attention", 512), ("tiled_attention", 768)])
+@pytest.mark.parametrize("N", [45, 192])
+def test_f32_bodies_agree(device, name, C, N):
+    """K1's and K2's two f32 bodies on the same inputs, the CUDA-core one
+    kept callable to time it beside the 3xTF32 one: within the f32 gate of
+    each other (1e-5, 1e-4 from C = 512), K2 with and without its mask."""
+    q, k, v, mask, bias = _inputs(3, N, 2, C, torch.float32, device, seed=61, masked_rows=1)
+    tol = _tol(torch.float32, C)
+    for m, b in ((mask, bias), (None, bias)) if name == "tiled_attention" else ((mask, None),):
+        tc = A.attention_body(name, q, k, v, m, b, C ** -0.5, mma=True)
+        cc = A.attention_body(name, q, k, v, m, b, C ** -0.5, mma=False)
+        assert torch.isfinite(tc).all()
+        torch.testing.assert_close(tc, cc, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("name", ["rows_attention", "tiled_attention", "rows_attention_fast"])
@@ -850,12 +899,15 @@ def test_tiled_mma_strided_and_many_rows(device):
 
 
 def test_tiled_f32_and_cuda_core_body(device):
-    """f32 K2 keeps its CUDA-core body at 1e-5; the bf16 CUDA-core body,
-    kept for timing against the tensor-core one, still matches."""
+    """f32 K2 on its 3xTF32 body and on its CUDA-core one at 1e-5; the bf16
+    CUDA-core body, kept for timing against the tensor-core one, still
+    matches."""
     q, k, v, mask, bias = _inputs(2, 70, 4, 16, torch.float32, device, seed=33)
-    out = A.tiled_attention(q, k, v, mask, bias, 0.25)
     ref = A.attention_reference(q, k, v, mask, bias, 0.25)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(A.tiled_attention(q, k, v, mask, bias, 0.25), ref, atol=1e-5,
+                               rtol=1e-5)
+    got = A.attention_body("tiled_attention", q, k, v, mask, bias, 0.25, mma=False)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     qb, kb, vb, bb = (t.to(torch.bfloat16) for t in (q, k, v, bias))
     for name, b in (("tiled_attention", bb), ("rows_attention_fast", None)):
         got = A.attention_body(name, qb, kb, vb, mask, b, 0.25, mma=False)
@@ -1073,8 +1125,7 @@ def test_rows_and_kchunk_mma_strided_and_many_rows(device, name):
 def test_rows_and_kchunk_bodies_stay_callable(device, name):
     """Both bodies of K1 and K3 in bf16 (the CUDA-core one kept to time it
     against the tensor-core one), and f32 on the CUDA-core body at 1e-5; in
-    f32, K3's tensor-core body is the 3xTF32 one (1e-5 too), while K1 has
-    none."""
+    f32, the tensor-core body of both is the 3xTF32 one (1e-5 too)."""
     q, k, v, mask, _ = _inputs(4, 100, 2, 16, torch.float32, device, seed=44, masked_rows=1)
     ref = A.attention_reference(q, k, v, mask, None, 0.3)
     got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=False)
@@ -1084,12 +1135,10 @@ def test_rows_and_kchunk_bodies_stay_callable(device, name):
     for mma in (False, True):
         got = A.attention_body(name, qb, kb, vb, mask, None, 0.3, mma=mma)
         _close_to_scale(got, refb)
-    if name == "rows_attention_kchunk":
-        got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
-        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
-    else:
-        with pytest.raises(ValueError):  # K1's tensor-core body takes bf16 only
-            A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
+    got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):  # no tensor-core body at C = 4 mod 8
+        A.attention_body(name, q[..., :12], k[..., :12], v[..., :12], mask, None, 0.3, mma=True)
 
 
 FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pallas_outer=True,
@@ -1105,9 +1154,9 @@ FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pal
 def test_wide_configurations_run_the_kernels_on_the_card(device, fields, launches, tol):
     """Two configurations past the kernels' former bounds: the four switches
     at AlphaFold2's pair width 128 (K8, K9 and K11 now take D <= 128) and an
-    f32 model with single_dim 768 (SPAttention's head width; K2's CUDA-core
-    body now takes C <= 1024). Every module launches its kernel, and the
-    forward holds to the plain route (bf16 2e-2, f32 5e-4 relative norm)."""
+    f32 model with single_dim 768 (SPAttention's head width: K2's wide 3xTF32
+    body). Every module launches its kernel, and the forward holds to the
+    plain route (bf16 2e-2, f32 5e-4 relative norm)."""
     mod, cfg = _paper_denoiser(device, num_blocks=2, **fields)
     single, pair, mask = _trunk_inputs(cfg, 64, 50, device)
     with torch.inference_mode():
@@ -1125,17 +1174,21 @@ def test_wide_configurations_run_the_kernels_on_the_card(device, fields, launche
 @pytest.mark.parametrize("name", ["tiled_attention", "rows_attention"])
 @pytest.mark.parametrize("C", [516, 768, 1024])
 def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
-    """K2 and K1 in f32 past C = 512, where the last pass stages V into K's
-    buffer: against the plain version at 1e-4 (the wide-head f32 tolerance),
-    fully masked rows included; C = 1028 is refused."""
+    """K2 and K1 in f32 past C = 512 on the CUDA-core body, where its last
+    pass stages V into K's buffer, and through the wrapper (K2 at C = 768
+    and 1024 on its wide 3xTF32 body): against the plain version at 1e-4
+    (the wide-head f32 tolerance), fully masked rows included; C = 1028 is
+    refused."""
     q, k, v, mask, bias = _inputs(2, 70, 1, C, torch.float32, device, seed=50, masked_rows=1)
     scale = C ** -0.5
+    b = bias if name == "tiled_attention" else None
+    ref = A.attention_reference(q, k, v, mask, b, scale)
+    out = A.attention_body(name, q, k, v, mask, b, scale, mma=False)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     if name == "tiled_attention":
         out = A.tiled_attention(q, k, v, mask, bias, scale)
-        ref = A.attention_reference(q, k, v, mask, bias, scale)
     else:
         out = A.rows_attention(q, k, v, mask, scale)
-        ref = A.attention_reference(q, k, v, mask, None, scale)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
     wide = torch.zeros(2, 16, 1, 1028, device=device)
     wide_bias = torch.zeros(2, 1, 16, 16, device=device) if name == "tiled_attention" else None

@@ -1,9 +1,10 @@
-"""The tensor-core bodies of K1, K3, K5, K6 and K7 and the route past the
-kernels' bounds, on the CPU (no card needed).
+"""The tensor-core bodies of K1, K2, K3, K5, K6 and K7 and the route past
+the kernels' bounds, on the CPU (no card needed).
 
 - The body choice (``ops.attention.takes_mma`` for bf16, ``takes_tf32x3``
-  for K3, K5, K6 and K7 in f32) as a pure function of the kernel's name,
-  dtype and head width.
+  for K1, K2, K3, K5, K6 and K7 in f32) as a pure function of the kernel's
+  name, dtype and head width; K1's and K2's bound (``attention_fits``)
+  accepts every shape it accepted before their f32 bodies came.
 - K3's tensor-core body streams keys in tiles of 64, where the JAX K3 takes
   chunks of 256: the plain online softmax (``_kchunk_forward_block``) at 64
   keys a tile against the JAX ``_rows_attention_kchunk_grid_cn`` (Pallas in
@@ -98,6 +99,35 @@ def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
     (attention_tf32.cu, attention_bwd_tf32.cu); every other width keeps its
     CUDA-core body."""
     assert _body(name, dtype, C) == body
+
+
+@pytest.mark.parametrize("name", ["rows_attention", "tiled_attention", "rows_attention_fast"])
+@pytest.mark.parametrize("C", [8, 12, 16, 64, 128, 512, 768, 1024, 1028])
+def test_k1_k2_f32_body_choice_and_bound(name, C):
+    """K1 and K2 in f32: the 3xTF32 body at C a multiple of 8, K1 up to 128
+    (its accumulators hold the whole head), K2 up to 1024 (its wide body
+    streams the head); C = 12 and every other width keep the CUDA-core body,
+    whose bound, C <= 1024 a multiple of 4, attention_fits keeps. K1 fast
+    keeps its CUDA-core body in f32."""
+    tf32 = C % 8 == 0 and C <= {"rows_attention": 128, "tiled_attention": 1024}.get(name, 0)
+    assert A.takes_tf32x3(name, F32, C) is tf32
+    assert A.takes_tensor_cores(name, F32, C) is tf32
+    assert _body(name, F32, C) == ("3xtf32" if tf32 else "cuda cores")
+    assert A.attention_fits(name, 2, 16, 4, C, F32) is (C <= 1024)
+    if tf32 and name == "tiled_attention":
+        assert A.tiled_tf32x3_smem_bytes(C) <= A.MMA_SMEM_BYTES
+
+
+def test_k1_k2_bound_accepts_every_shape_it_accepted_before():
+    """attention_fits before the f32 bodies came (grid, and the bf16
+    tensor-core body or the CUDA-core body's width) accepts nothing that it
+    refuses now, over every width up to 1200 in both dtypes."""
+    for name in ("rows_attention", "tiled_attention", "rows_attention_fast"):
+        for dtype in (F32, BF16):
+            for C in range(1, 1201):
+                before = A.grid_fits(2, 16, 4) and (A.takes_mma(name, dtype, C)
+                                                    or A.width_fits(C, A.MAX_HEAD_DIM))
+                assert not before or A.attention_fits(name, 2, 16, 4, C, dtype), (name, dtype, C)
 
 
 # K3's key tile -----------------------------------------------------------------

@@ -25,6 +25,19 @@ exp(-log s) apart. At a fully masked row (l = m = -2^15, log s = log N) the
 exponent is then exactly 0 and P = exp(-log s) within f32 rounding, while
 the folded offset m + log s, rounded to f32's spacing near -2^15, moves P
 by up to 0.1%.
+
+K2's f32 function (``attention_tiled_tf32.cu``: the bias added to the f32
+logits, then the -2^15 fill, online softmax over 64-key tiles, or 32 from
+C = 24 to 128) and K1's (``attention_tf32.cu``, K3's one pass at a query
+tile of 64 or 128) are emulated in the kernels' order of sums: each 8-deep
+step's three products summed into a fresh value that is added to the logit
+or the output in f32, the narrow bodies' P.V over each 8-key step with its
+keys renumbered as the S accumulators hold them (slot t key 2t, slot t + 4
+key 2t + 1), the wide body's (C > 128) in key order from shared memory, the
+bias added at each logit's own key. Against the plain ``attention_reference``
+they meet 1e-5 at C <= 128 and 1e-4 at C = 512 and 768, with a bias drawn
+for every (query, key, head), a mask with a fully masked row, and no mask;
+one TF32 product per product misses at C = 512.
 """
 
 import numpy as np
@@ -221,3 +234,128 @@ def test_3xtf32_keeps_the_backward_within_1e5(name, N, C):
     one = backward_emulated(q, k, v, mask, dout, scale, matmul_tf32, stats)
     assert _grad_excess(one, want) > 0
 
+
+
+# K1 and K2 in f32 -------------------------------------------------------------
+
+PERM = [0, 2, 4, 6, 1, 3, 5, 7]  # P.V's slot t: key 2t; slot t + 4: key 2t + 1
+
+
+def stepwise(a: torch.Tensor, b: torch.Tensor, matmul, renumber: bool = False) -> torch.Tensor:
+    """a @ b as the tensor cores sum it: one product per 8-deep step, each
+    step's result added to the sum in f32 in order; ``renumber`` takes each
+    step's depth in the S accumulators' order (PERM). The depth is padded
+    with zeros to a multiple of 8, as the kernels zero-fill."""
+    pad = -a.shape[-1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        idx = [k0 + j for j in PERM] if renumber else list(range(k0, k0 + 8))
+        out = out + matmul(a[..., idx], b[..., idx, :])
+    return out
+
+
+def key_tile(C: int) -> int:
+    """Keys per tile: the one-pass body's 64 up to C = 16 and 32 to C = 128,
+    the wide body's 64."""
+    return 64 if C <= 16 or C > 128 else 32
+
+
+def attention_emulated(q, k, v, mask, bias, scale: float, matmul, queries: int = 64):
+    """K1's (``bias`` None) or K2's f32 function as the kernels take it:
+    query tiles of ``queries`` rows (each on its own, as the blocks are),
+    q pre-scaled in f32, per key tile S = q k^T stepwise, plus the bias at
+    each logit's key, -2^15 at masked keys, online softmax, acc += P V
+    stepwise (renumbered at C <= 128); out = acc / s."""
+    R, N, H, C = q.shape
+    tile, narrow = key_tile(C), C <= 128
+    qt = (q * scale).permute(0, 2, 1, 3)  # [R, H, N, C]
+    kt, vt = k.permute(0, 2, 3, 1), v.permute(0, 2, 1, 3)  # [R, H, C, N], [R, H, N, C]
+    outs = []
+    for q0 in range(0, N, queries):
+        rows = slice(q0, q0 + queries)
+        n = qt[:, :, rows].shape[2]
+        m = torch.full((R, H, n), float("-inf"))
+        s = torch.zeros((R, H, n))
+        acc = torch.zeros((R, H, n, C))
+        for k0 in range(0, N, tile):
+            keys = slice(k0, k0 + tile)
+            logits = stepwise(qt[:, :, rows], kt[..., keys], matmul)
+            if bias is not None:
+                logits = logits + bias[:, :, rows, keys]
+            if mask is not None:
+                logits = torch.where(mask[:, None, None, keys] < 0.5, A.NEG_INF, logits)
+            m_new = torch.maximum(m, logits.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            s = s * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + stepwise(p, vt[:, :, keys], matmul, renumber=narrow)
+            m = m_new
+        outs.append(acc / s[..., None])
+    return torch.cat(outs, 2).permute(0, 2, 1, 3)
+
+
+def _tiled_inputs(N, C, seed, H=2):
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(2, N, H, C).astype(np.float32)) for _ in range(3))
+    bias = torch.from_numpy(rng.randn(2, H, N, N).astype(np.float32))  # every (query, key, head)
+    mask = torch.from_numpy((rng.rand(2, N) > 0.2).astype(np.float32))
+    mask[0] = 0.0  # row 0 masks every key
+    return q, k, v, mask, bias
+
+
+def _excess_at(got, want, tol: float) -> float:
+    return float(((got - want).abs() - tol - tol * want.abs()).max())
+
+
+@pytest.mark.parametrize("with_mask", [True, False], ids=["mask_bias", "bias"])
+@pytest.mark.parametrize("C,N", [(16, 45), (16, 130), (512, 45), (768, 37)])
+def test_3xtf32_keeps_k2_within_its_gate_where_one_tf32_product_misses(C, N, with_mask):
+    """K2 in emulated 3xTF32 against the plain attention_reference: 1e-5 at
+    C = 16, 1e-4 at C = 512 and 768 (the wide-head f32 gate); the fully
+    masked row gives the mean of v. At C = 512 one TF32 product per product
+    misses 1e-4."""
+    tol = 1e-4 if C >= 512 else TOL
+    q, k, v, mask, bias = _tiled_inputs(N, C, seed=N + C)
+    m = mask if with_mask else None
+    scale = A.weak_scalar(C ** -0.5, torch.float32)
+    want = A.attention_reference(q, k, v, m, bias, C ** -0.5)
+    got = attention_emulated(q, k, v, m, bias, scale, matmul_3xtf32)
+    assert torch.isfinite(got).all() and _excess_at(got, want, tol) <= 0
+    if with_mask:
+        mean_v = v[0].mean(0, keepdim=True).expand_as(got[0])
+        assert _excess_at(got[0], mean_v, tol) <= 0
+    if C == 512:
+        one = attention_emulated(q, k, v, m, bias, scale, matmul_tf32)
+        assert _excess_at(one, want, tol) > 0
+
+
+def test_k2_bias_at_the_accumulators_own_key():
+    """The bias belongs at each logit's own key: the same emulation with the
+    bias taken at P.V's renumbered slot (key 2t where the accumulator holds
+    key t) misses 1e-5 at C = 16 with a bias drawn for every key."""
+    q, k, v, mask, bias = _tiled_inputs(64, 16, seed=7)
+    scale = A.weak_scalar(0.25, torch.float32)
+    want = A.attention_reference(q, k, v, mask, bias, 0.25)
+    assert _excess_at(attention_emulated(q, k, v, mask, bias, scale, matmul_3xtf32), want, TOL) <= 0
+    slots = [k0 + j for k0 in range(0, 64, 8) for j in PERM]
+    wrong = attention_emulated(q, k, v, mask, bias[..., slots], scale, matmul_3xtf32)
+    assert _excess_at(wrong, want, TOL) > 0
+
+
+@pytest.mark.parametrize("queries", [64, 128])
+@pytest.mark.parametrize("C,N", [(8, 45), (16, 130), (64, 70), (128, 45)])
+def test_3xtf32_keeps_k1_within_1e5(C, N, queries):
+    """K1 in f32 on K3's one-pass body at a query tile of 64 or 128 (N not a
+    multiple of it), against the plain two-pass attention_reference within
+    1e-5, the fully masked row at the mean of v; one TF32 product per
+    product misses."""
+    q, k, v, mask = _inputs(N, C, seed=3 * N + C)
+    scale = A.weak_scalar(C ** -0.5, torch.float32)
+    want = A.attention_reference(q, k, v, mask, None, C ** -0.5)
+    got = attention_emulated(q, k, v, mask, None, scale, matmul_3xtf32, queries)
+    assert torch.isfinite(got).all() and _excess(got, want) <= 0
+    assert _excess(got[0], v[0].mean(0, keepdim=True).expand_as(got[0])) <= 0
+    one = attention_emulated(q, k, v, mask, None, scale, matmul_tf32, queries)
+    assert _excess(one, want) > 0
