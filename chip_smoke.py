@@ -7,7 +7,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: CUDA is required; prints the card's name and power limit.
 2. Build: nvcc builds the attention kernels from the sources in the
    checkout (protein_redesign_tpu_torch/kernels/csrc) into
-   protein_redesign_tpu_torch/kernels/_build; prints the build time.
+   protein_redesign_tpu_torch/kernels/_build; prints the build time and
+   ptxas's registers and spills of K8's and K9's tensor-core kernels
+   (fused_gated_mma.cu, trimul_mma.cu), then K8's and K9's device time by
+   CUDA kernel at the fused configuration's shape (torch.profiler, first in
+   the process).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
    of both from CUDA events; K1 and K2 run their tensor-core bodies (bf16
@@ -82,7 +86,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    single_fc and pair_fc) and K11 (OuterLinear) against their plain versions
    at bucket 192, B=2 (147 nodes valid), in f32 and bf16 (and bf16 at pair
    width 128), with the kernel's, the plain version's and the unfused module
-   route's time and the kernel's bound.
+   route's time and the kernel's bound; K8 and K9 on the device on their
+   tensor-core bodies (fused_gated_mma.cu, trimul_mma.cu: mma.sync in bf16,
+   3xTF32 in f32) and on the CUDA-core bodies they replaced, in the same run;
+   K8 at the h64x1 and h64x4 head layouts (bf16, against its plain version
+   and the unfused GatedAttention); K10 at single_fc 768 in both dtypes.
 14. The fused configuration (the four switches use_pallas_{trimul,transition,
    outer,fused_gated} on): the paper-width bf16 forward at bucket 192, B=2,
    kernel route against plain route, exactly 24 K8, 24 K9, 24 K10, 12 K11,
@@ -112,9 +120,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one request to the serve CLI in TCP mode (--port 0) in a process of its
    own; the paper-width fast forward at 192 and 384 against its plain
    route, by kernel group.
-16. Wide configurations: two configurations past the kernels' former bounds
-   (the four switches at AlphaFold2's pair_dim 128 in bf16: K8, K9 and K11
-   at D = 128; f32 with single_dim 768: K2's wide 3xTF32 body at C = 768), 2
+16. Wide configurations: three configurations past the kernels' former
+   bounds (the four switches at AlphaFold2's pair_dim 128 in bf16: K8, K9
+   and K11 at D = 128; f32 with single_dim 768: K2's wide 3xTF32 body at C =
+   768; bf16 single_dim 768 with use_pallas_transition: K10 at D = 768), 2
    blocks, the forward at bucket 192, B=2: exact launch counts of every
    kernel, against the plain route, and both routes' forward time.
 
@@ -177,8 +186,9 @@ SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "rows_attention_kchunk": CSRC + "attention_mma.cu",
            "rows_attention_kchunk_stats": CSRC + "attention_tf32.cu",
            "rows_attention_kchunk_bwd": CSRC + "attention_bwd_tf32.cu",
-           "fused_gated_rows_attention": CSRC + "fused_gated.cu",
-           "triangle_multiply": CSRC + "trimul.cu", "fused_transition": CSRC + "transition.cu",
+           "fused_gated_rows_attention": CSRC + "fused_gated_mma.cu",
+           "triangle_multiply": CSRC + "trimul_mma.cu",
+           "fused_transition": CSRC + "transition.cu",
            "fused_outer_linear": CSRC + "outer.cu"}
 # K1 and K2 in f32 run their 3xTF32 bodies: the JSON record's own entries,
 # (kernel, source), with the launches of the f32 train CLI at bucket 512
@@ -443,6 +453,38 @@ def phase_build() -> None:
               if "spill" in line and not line.strip().startswith("0 bytes stack")]
     if spills:
         print(f"[build] ptxas reports spills in {len(spills)} instantiations")
+    for source in ("fused_gated_mma.cu", "trimul_mma.cu"):
+        for name, regs, stores, loads in ptxas_report(lib.build_log, source):
+            print(f"[build] ptxas {source} {name}: {regs} registers, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads")
+
+
+def ptxas_report(log: str, source: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every entry
+    function ptxas compiled from ``source``, names demangled by c++filt where
+    the machine has it."""
+    section = log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0] if source in log else ""
+    rows, name, spill = [], None, ("?", "?")
+    for line in section.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found:
+            spill = found.groups()
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            rows.append([name, int(found.group(1)), *spill])
+            name, spill = None, ("?", "?")
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", n)
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return [tuple(r) for r in rows]
 
 
 def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask, seed):
@@ -456,6 +498,38 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
         mask = node.expand(R, N).contiguous()
     bias = torch.randn(R, H, N, N, generator=g, device=dev).to(dtype) if with_bias else None
     return q, k, v, (mask if with_mask else None), bias
+
+
+def phase_fused_breakdown() -> None:
+    """K8 and K9 by CUDA kernel at the fused configuration's shape (bucket
+    192, B=2, paper width: K8 h16x4 at D = 64, K9 outgoing), bf16 and f32,
+    seeded random weights: device time per kernel from torch.profiler, run
+    first in the process (a profiler window later in a long run loses
+    kernels)."""
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    N, D, H, C = 192, 64, 4, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator("cuda").manual_seed(350)
+        pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
+        mask = (torch.rand(2, N, N, generator=g, device="cuda") > 0.2).float()
+        gw = [torch.randn(H * C, D, generator=g, device="cuda") * D ** -0.5 for _ in range(4)]
+        gw += [torch.randn(H * C, generator=g, device="cuda"),
+               torch.randn(D, H * C, generator=g, device="cuda") * 0.1,
+               torch.randn(D, generator=g, device="cuda")]
+        tw = []
+        for out_dim in (2 * D, 2 * D, D, D):
+            tw += [torch.randn(out_dim, D, generator=g, device="cuda") * D ** -0.5,
+                   torch.randn(out_dim, generator=g, device="cuda")]
+        label = str(dtype).replace("torch.", "")
+        with torch.inference_mode():
+            for name, fn in (("fused_gated_rows_attention", lambda: A.fused_gated(pair, mask, *gw, H)),
+                             ("triangle_multiply", lambda: M.trimul(pair, mask, *tw, "outgoing"))):
+                parts = device_time_by_kernel(fn)
+                print(f"[fused-breakdown] {name} {label}, device time by kernel: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  sorted(parts.items(), key=lambda kv: -kv[1])))
 
 
 def phase_kernels() -> dict:
@@ -650,6 +724,27 @@ def device_time_by_group(fn, iters: int = 5) -> dict:
     if not groups:
         raise AssertionError("torch.profiler recorded no device time")
     return groups
+
+
+def device_time_by_kernel(fn, iters: int = 5) -> dict:
+    """ms per call of ``fn`` on the card, by CUDA kernel (torch.profiler),
+    names cut to the function and its template arguments."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else e.self_cuda_time_total
+        name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)[:60]
+        kernels[name] = kernels.get(name, 0.0) + us / iters / 1e3
+    return kernels
 
 
 def phase_generate(net, flags=(), tag: str = "generate") -> dict:
@@ -1409,12 +1504,32 @@ def fused_bound(name: str, args: tuple, out) -> dict:
     return bound(flops, _nbytes(*tensors, out), out.dtype)
 
 
+@contextlib.contextmanager
+def fused_cuda_core_bodies():
+    """Inside the block, K8 and K9 take the CUDA-core bodies that their
+    tensor-core ones replaced (fused_gated.cu, trimul.cu), so that both can
+    be timed in one run. Launch counts are the same."""
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    takes_a, takes_m = A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores
+    A.fused_gated_takes_tensor_cores = lambda D, H, C: False
+    M.trimul_takes_tensor_cores = lambda D: False
+    try:
+        yield
+    finally:
+        A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores = takes_a, takes_m
+
+
 def phase_fused_kernels() -> dict:
     """K8-K11 against their plain versions at the fused configuration's shapes
     at bucket 192, B=2 (147 nodes valid): f32 and bf16 errors; the kernel's,
-    the plain version's and the unfused module route's time in both; the
-    record (bf16) keeps K8's starting view, K9 outgoing, K10 pair_fc. Then
-    the same in bf16 at AlphaFold2's pair width 128 (outside the record)."""
+    the plain version's and the unfused module route's time in both; K8 and
+    K9 on the device on their tensor-core bodies and on the CUDA-core bodies
+    those replaced; the record (bf16) keeps K8's starting view, K9 outgoing,
+    K10 pair_fc. Then the same in bf16 at AlphaFold2's pair width 128, K8 at
+    the h64x1 and h64x4 head layouts (bf16) and K10 at single_fc 768 (both
+    dtypes), outside the record."""
     from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
     from protein_redesign_tpu_torch.models.layers import GatedAttention, TransitionMLP
     from protein_redesign_tpu_torch.ops import attention as A
@@ -1426,35 +1541,51 @@ def phase_fused_kernels() -> dict:
     record = {name: {"max_abs_err": 0.0, "library_ms": None} for name in FUSED_NAMES}
     node = (torch.arange(N, device="cuda") < n_valid).float()
     mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
-    widths = ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128))
-    for seed, (dtype, D) in enumerate(widths):
+    # (dtype, pair width, K8's heads x width, single width; the paper's layout
+    # runs every kernel, the others K8 or K10 alone)
+    widths = ((torch.float32, 64, (4, 16), 512), (torch.bfloat16, 64, (4, 16), 512),
+              (torch.bfloat16, 128, (4, 16), 512), (torch.bfloat16, 64, (1, 64), None),
+              (torch.bfloat16, 64, (4, 64), None), (torch.bfloat16, 64, None, 768),
+              (torch.float32, 64, None, 768))
+    for seed, (dtype, D, heads, single_dim) in enumerate(widths):
+        paper = heads == (4, 16) and single_dim == 512
         g = torch.Generator("cuda").manual_seed(300 + seed)
         pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
-        single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
         cases = []
-        ga = perturb(GatedAttention(D, 16, 4, dtype), 310).to("cuda")
-        gw = (ga.q_proj.weight, ga.k_proj.weight, ga.v_proj.weight, ga.gate_proj.weight,
-              ga.gate_proj.bias, ga.out_proj.weight, ga.out_proj.bias, 4)
-        for view, x, m in (("starting", pair, mask2d),
-                           ("ending", pair.transpose(1, 2), mask2d.transpose(1, 2))):
-            cases.append(("fused_gated_rows_attention", view, A.fused_gated,
-                          A.fused_gated_reference, (x, m, *gw), lambda x=x, m=m: ga(x, m)))
-        for mode in ("outgoing", "incoming"):
-            tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 320).to("cuda")
-            tw = (tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight, tm.ab_proj.bias,
-                  tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight, tm.out_proj.bias)
-            cases.append(("triangle_multiply", mode, lambda *a, mode=mode: M.trimul(*a, mode),
-                          lambda *a, mode=mode: M.trimul_reference(*a, mode), (pair, mask2d, *tw),
-                          lambda tm=tm: tm(pair, mask2d)))
-        for view, x, dim in (("pair_fc", pair, D), ("single_fc", single, 512)):
-            mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
-            cases.append(("fused_transition", view, T.transition, T.transition_reference,
-                          (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
-                          lambda mlp=mlp, x=x: mlp(x)))
-        ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 340).to("cuda")
-        cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
-                      (single, ol.linear.weight, ol.linear.bias), lambda: ol(single)))
-        label = str(dtype).replace("torch.", "") + ("" if D == 64 else f", D={D}")
+        if heads is not None:
+            H, C = heads
+            ga = perturb(GatedAttention(D, C, H, dtype), 310).to("cuda")
+            gw = (ga.q_proj.weight, ga.k_proj.weight, ga.v_proj.weight, ga.gate_proj.weight,
+                  ga.gate_proj.bias, ga.out_proj.weight, ga.out_proj.bias, H)
+            for view, x, m in (("starting", pair, mask2d),
+                               ("ending", pair.transpose(1, 2), mask2d.transpose(1, 2))):
+                cases.append(("fused_gated_rows_attention", f"{view}, h{C}x{H}", A.fused_gated,
+                              A.fused_gated_reference, (x, m, *gw),
+                              lambda ga=ga, x=x, m=m: ga(x, m)))
+        if paper:
+            for mode in ("outgoing", "incoming"):
+                tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 320).to("cuda")
+                tw = (tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight, tm.ab_proj.bias,
+                      tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight, tm.out_proj.bias)
+                cases.append(("triangle_multiply", mode, lambda *a, mode=mode: M.trimul(*a, mode),
+                              lambda *a, mode=mode: M.trimul_reference(*a, mode),
+                              (pair, mask2d, *tw), lambda tm=tm: tm(pair, mask2d)))
+        single = None
+        if single_dim is not None:
+            single = torch.randn(2, N, single_dim, generator=g, device="cuda").to(dtype)
+            views = (("pair_fc", pair, D), ("single_fc", single, single_dim)) if paper else (
+                ("single_fc", single, single_dim),)
+            for view, x, dim in views:
+                mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
+                cases.append(("fused_transition", view, T.transition, T.transition_reference,
+                              (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
+                              lambda mlp=mlp, x=x: mlp(x)))
+        if paper:
+            ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 340).to("cuda")
+            cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
+                          (single, ol.linear.weight, ol.linear.bias), lambda ol=ol: ol(single)))
+        label = str(dtype).replace("torch.", "") + ("" if D == 64 else f", D={D}") + (
+            "" if single_dim in (None, 512) else f", single {single_dim}")
         with torch.inference_mode():
             for name, view, kernel, plain, args, unfused in cases:
                 got, want = kernel(*args), plain(*args)
@@ -1469,11 +1600,24 @@ def phase_fused_kernels() -> dict:
                 rec = record[name]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 b = fused_bound(name, args, got)
+                bodies = ""
+                if name in FUSED_NAMES[:2]:  # K8, K9: both bodies on the device
+                    dev = device_ms(lambda: kernel(*args))
+                    bodies = f"; on the device {dev:.4f} ms (tensor-core body)"
+                    core_fits = name == "triangle_multiply" or A.fused_gated_core_fits(D, *heads)
+                    if core_fits:
+                        with fused_cuda_core_bodies():
+                            core = kernel(*args)
+                            core_dev = device_ms(lambda: kernel(*args))
+                        torch.cuda.synchronize()
+                        core_rel = float((core.float() - want.float()).norm() / want.float().norm())
+                        bodies += (f", CUDA-core body {core_dev:.4f} ms (its error {core_rel:.3e}, "
+                                   f"{core_dev / dev:.1f}x the tensor-core body's time)")
                 print(f"[fused-kernels] {name} ({view}) {label}: ||kernel - plain|| / ||plain|| "
-                      f"{rel:.3e} (tol {tol[dtype]:g}), max abs err {err:.3e}; kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} ms; bound "
-                      f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-                if dtype == torch.bfloat16 and D == 64 and view in (
+                      f"{rel:.3e} (tol {tol[dtype]:g}), max abs err {err:.3e}; kernel {ms:.4f} ms"
+                      f"{bodies}, plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} "
+                      f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                if dtype == torch.bfloat16 and paper and D == 64 and view.split(",")[0] in (
                         "starting", "outgoing", "pair_fc", "factored route"):
                     rec.update(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, **b)
     return record
@@ -1633,11 +1777,13 @@ def phase_fast_kernel() -> dict:
     360 nodes valid; its serving shape) and 192 (R = 384, 147 valid), with
     the share of output elements that differ from the plain version and the
     CUDA-core body's, the plain version's, K1's and SDPA's time on the same
-    inputs; in f32 its CUDA-core body at 192. The record keeps bf16 at 384."""
+    inputs; in f32 its CUDA-core body at 384 and 192, with its device time,
+    f32 SDPA's time and its bound. The record keeps bf16 at 384."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
-    cases = ((384, 360, torch.bfloat16), (192, 147, torch.bfloat16), (192, 147, torch.float32))
+    cases = ((384, 360, torch.bfloat16), (192, 147, torch.bfloat16), (384, 360, torch.float32),
+             (192, 147, torch.float32))
     for seed, (N, n_valid, dtype) in enumerate(cases):
         q, k, v, mask, _ = _attention_case(2 * N, N, 4, 16, dtype, n_valid, True, False, True,
                                            400 + seed)
@@ -1655,7 +1801,7 @@ def phase_fast_kernel() -> dict:
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         k1_ms = cuda_ms(lambda: A.rows_attention(q, k, v, mask, scale))
         label = str(dtype).replace("torch.", "")
-        body = "CUDA cores"
+        body = f"CUDA cores, on the device {device_ms(kernel):.4f} ms"
         if dtype == torch.bfloat16:
             body = "tensor cores; " + body_times("rows_attention_fast", q, k, v, mask, None, scale)
         print(f"[fast-kernel] rows_attention_fast R={2 * N} H=4 N={N} C=16 {label} "
@@ -1663,13 +1809,13 @@ def phase_fast_kernel() -> dict:
               f"outputs differ from the plain version; kernel {ms:.4f} ms ({body}), plain "
               f"{plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if dtype == torch.bfloat16:
-            at = attention_bound(q, mask, None, 2, 4)
-            lib_ms = library_ms(q, k, v, mask, None, scale)
-            if N == 384:
-                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
-            print(f"[fast-kernel] R={2 * N} N={N}: bound {at['bound_ms']:.4f} ms "
-                  f"({at['bound_by']}), library {lib_ms} ms")
+        at = attention_bound(q, mask, None, 2, 4)
+        lib_ms = library_ms(q, k, v, mask, None, scale)
+        if dtype == torch.bfloat16 and N == 384:
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+        print(f"[fast-kernel] R={2 * N} N={N} {label}: bound {at['bound_ms']:.4f} ms "
+              f"({at['bound_by']}; exp floor {exp_floor_ms(q, mask):.4f} ms), library "
+              f"({label} SDPA) {lib_ms} ms")
     return rec
 
 
@@ -1857,9 +2003,10 @@ def phase_serving(seed: int) -> dict:
 
 # Configurations past the kernels' former bounds, with the launches of one
 # 2-block forward at bucket 192: the four switches at AlphaFold2's pair width
-# 128 (K8, K9 and K11 at D = 128; K10 on both transitions) and an f32 model
+# 128 (K8, K9 and K11 at D = 128; K10 on both transitions), an f32 model
 # with single_dim 768 (SPAttention's head width: K2's wide 3xTF32 body at
-# C = 768).
+# C = 768) and a bf16 one with the transition switch (K10 at D = 768, past
+# its whole-row tile).
 WIDE_CONFIGS = (
     ("pair_dim 128, four switches, bf16",
      dict(pair_dim=128, dtype="bfloat16", **{f: True for f in FUSED}),
@@ -1867,6 +2014,9 @@ WIDE_CONFIGS = (
           tiled_attention=3, fused_transition=4), FORWARD_REL_TOL),
     ("single_dim 768, f32", dict(single_dim=768, dtype="float32"),
      dict(rows_attention=4, tiled_attention=3), FORWARD_REL_TOL_F32),
+    ("single_dim 768, use_pallas_transition, bf16",
+     dict(single_dim=768, dtype="bfloat16", use_pallas_transition=True),
+     dict(rows_attention=4, tiled_attention=3, fused_transition=4), FORWARD_REL_TOL),
 )
 
 
@@ -1919,6 +2069,7 @@ def main() -> None:
     from protein_redesign_tpu_torch.models.prdiff import ModelConfig
 
     phase_build()
+    phase_fused_breakdown()
     record = phase_kernels()
     record["rows_attention_bwd"] = phase_k7()
     net = perturbed_net(ModelConfig()).to("cuda").eval()

@@ -28,9 +28,9 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bwd_mma.cu",
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
-           "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu", "trimul.cu",
-           "transition.cu", "outer.cu")
-HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh")
+           "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
+           "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu", "outer.cu")
+HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh", "ln_project.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -101,8 +101,12 @@ class KernelLibrary:
         lib.prd_rows_attention_kchunk_bwd_tf32x3.restype = i32
         lib.prd_fused_gated.argtypes = [ptr] * 9 + [i32] * 7 + [f32] + [i64] * 3 + [ptr]
         lib.prd_fused_gated.restype = i32
+        lib.prd_fused_gated_mma.argtypes = lib.prd_fused_gated.argtypes
+        lib.prd_fused_gated_mma.restype = i32
         lib.prd_trimul.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.prd_trimul.restype = i32
+        lib.prd_trimul_mma.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+        lib.prd_trimul_mma.restype = i32
         lib.prd_transition.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.prd_transition.restype = i32
         lib.prd_outer.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]

@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the sm_90a kernels (attention_mma.cu,
-// attention_bwd_mma.cu, attention_tf32.cu): cp.async staging, ldmatrix
+// attention_bwd_mma.cu, attention_tf32.cu, fused_gated_mma.cu,
+// trimul_mma.cu and ln_project.cuh): cp.async staging, ldmatrix
 // fragment loads, mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // and mma.sync m16n8k8 in 3xTF32 for f32 operands, in inline PTX.
 //
@@ -83,6 +84,16 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void load_a_frag(unsigned (&a)[4], const __nv_bfloat16* tile, int ld,
                                             int k0, int lane) {
   ldmatrix_x4(a, tile + (lane & 15) * ld + k0 + (lane >> 4) * 8);
+}
+
+// The A fragment of rows [m0, m0 + 16) and columns [k0, k0 + 16) of A stored
+// transposed, as a row-major bf16 tile [k][m] with row stride ld (ldmatrix
+// .trans: lane l addresses row k0 + l % 8 + 8 (l / 16) at column m0 + 8 ((l /
+// 8) % 2), so that matrices 0..3 are a0..a3).
+__device__ __forceinline__ void load_a_frag_trans(unsigned (&a)[4], const __nv_bfloat16* tile,
+                                                  int ld, int k0, int m0, int lane) {
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * ld + m0 +
+                           ((lane >> 3) & 1) * 8);
 }
 
 // B fragments of S = A X^T for two n-tiles: X rows [n0, n0 + 16) (keys) and

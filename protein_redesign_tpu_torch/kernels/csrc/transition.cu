@@ -16,8 +16,15 @@
 // never reach device memory (the unfused route writes and reads both).
 //
 // Layout of the work: one block of 256 threads per tile of 64 rows and, for
-// an output wider than 64, per 64-unit chunk of the hidden dimension. The
-// tile's LN rows sit in shared memory transposed ([D][64], a warp per row).
+// an output wider than 64, per 64-unit chunk of the hidden dimension. Where
+// they fit (D up to 670: smem_bytes), the tile's LN rows sit in shared
+// memory whole, transposed ([D][68], a warp per row), normalised once per
+// block. Wider rows (single_dim 768) take the streamed layout (STREAM): the
+// block computes each row's mean and rstd once in f32 (the same warp sums),
+// and x^ is normalised and rounded 64 columns at a time into a [64][68] slab
+// beside the W1 slab it multiplies, re-read from x (L2) for every hidden
+// chunk the block runs; that takes any D. The whole-row layout stays where
+// it fits: it reads x once per block and normalises it once.
 // Both products run as 64 x 64 tiles: thread (rg, cg) keeps a 4 x 4 register
 // tile (rows 4 rg.., columns 4 cg..) and adds 16 FMAs per two 16-byte shared
 // loads (tile_4x4). The hidden chunk x^ W1 streams W1 in 64 x 64 slabs, goes
@@ -41,26 +48,57 @@ constexpr int kThreads = 256;
 constexpr int kT = 64;         // rows, hidden units and output columns per tile
 constexpr int kLd = kT + 4;    // row stride of the transposed tiles
 constexpr int kSmemFixed = kT * kT + kT * kLd + kT * kT;  // w1s, hsT, w2s (floats)
+constexpr size_t kMaxSmem = 232448;  // bytes a block can use on the H100
 
-template <typename T, bool SPLIT>
+// Shared memory (bytes) of the whole-row layout, and of the streamed one
+// (a [64][68] slab of x^ and the rows' mean and rstd).
+size_t whole_smem(int D) { return sizeof(float) * ((size_t)D * kLd + kSmemFixed); }
+constexpr size_t kStreamSmem = sizeof(float) * ((size_t)kT * kLd + kSmemFixed + 2 * kT);
+
+template <typename T, bool SPLIT, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
     transition_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
                       const float* __restrict__ b1, const T* __restrict__ w2t,
                       const float* __restrict__ b2, T* __restrict__ out,
                       float* __restrict__ out32, long long M, int D, int Hd, int Dout) {
   extern __shared__ __align__(16) float smem[];
-  float* xsT = smem;             // [D][kLd]: the tile's LN rows, transposed
-  float* w1s = xsT + D * kLd;    // [kT][kT]: a 64 x 64 slab of W1
+  float* xsT = smem;                           // [D][kLd] (STREAM: [kT][kLd]): x^, transposed
+  float* w1s = xsT + (STREAM ? kT : D) * kLd;  // [kT][kT]: a 64 x 64 slab of W1
   float* hsT = w1s + kT * kT;    // [kT][kLd]: the hidden chunk, transposed
   float* w2s = hsT + kT * kLd;   // [kT][kT]: the chunk's rows of W2, 64 columns
+  float* mu_s = w2s + kT * kT;   // STREAM: [kT] row means
+  float* rs_s = mu_s + kT;       // STREAM: [kT] row rstd
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4, cg = tid & 15;
   const int warp = tid >> 5;
+  const int lane = tid & 31;
   const long long m0 = (long long)blockIdx.x * kT;
   const int rows = (int)min((long long)kT, M - m0);
-  for (int r = warp; r < kT; r += kThreads / 32)
-    layer_norm_to_column<T>(x + (m0 + r) * D, r < rows, D, xsT + r, kLd);
+  for (int r = warp; r < kT; r += kThreads / 32) {
+    if (!STREAM) {
+      layer_norm_to_column<T>(x + (m0 + r) * D, r < rows, D, xsT + r, kLd);
+      continue;
+    }
+    // layer_norm_to_column's statistics, kept for the slabs
+    float mu = 0.f, rstd = 0.f;
+    if (r < rows) {
+      const T* row = x + (m0 + r) * D;
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) s += Io<T>::load(row + d);
+      mu = warp_sum(s) / (float)D;
+      float sq = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        const float t = Io<T>::load(row + d) - mu;
+        sq = fmaf(t, t, sq);
+      }
+      rstd = rsqrtf(warp_sum(sq) / (float)D + 1e-5f);
+    }
+    if (lane == 0) {
+      mu_s[r] = mu;
+      rs_s[r] = rstd;
+    }
+  }
 
   float acc[4][4];  // the outputs (!SPLIT), kept over the hidden chunks
 #pragma unroll
@@ -84,8 +122,18 @@ __global__ void __launch_bounds__(kThreads)
         w1s[e] = d0 + dd < D && h0 + j < Hd ? Io<T>::load(w1t + (long long)(d0 + dd) * Hd + h0 + j)
                                             : 0.f;
       }
+      if (STREAM) {  // x^ of columns [d0, d0 + 64), a row's columns along the threads
+        for (int e = tid; e < kT * kT; e += kThreads) {
+          const int r = e / kT, dd = e - r * kT;
+          xsT[dd * kLd + r] =
+              r < rows && d0 + dd < D
+                  ? Io<T>::round((Io<T>::load(x + (m0 + r) * D + d0 + dd) - mu_s[r]) * rs_s[r])
+                  : 0.f;
+        }
+      }
       __syncthreads();
-      tile_4x4(h, xsT + d0 * kLd + rg * 4, kLd, w1s + cg * 4, kT, min(kT, D - d0));
+      tile_4x4(h, (STREAM ? xsT : xsT + d0 * kLd) + rg * 4, kLd, w1s + cg * 4, kT,
+               min(kT, D - d0));
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -154,15 +202,15 @@ __global__ void __launch_bounds__(kThreads)
   if (e < n) out[e] = Io<T>::cast(out32[e] + (b2 != nullptr ? b2[e % Dout] : 0.f));
 }
 
-template <typename T, bool SPLIT>
+template <typename T, bool SPLIT, bool STREAM>
 cudaError_t launch(const void* x, const void* w1t, const float* b1, const void* w2t,
                    const float* b2, void* out, float* out32, long long M, int D, int Hd,
                    int Dout, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)D * kLd + kSmemFixed);
-  if (smem > 232448) return cudaErrorInvalidValue;
+  const size_t smem = STREAM ? kStreamSmem : whole_smem(D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const long long tiles = (M + kT - 1) / kT;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kern = transition_kernel<T, SPLIT>;
+  if (tiles > 0x7fffffffLL || (SPLIT && (Hd + kT - 1) / kT > 65535)) return cudaErrorInvalidValue;
+  auto kern = transition_kernel<T, SPLIT, STREAM>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -186,18 +234,25 @@ template <typename T>
 cudaError_t dispatch(const void* x, const void* w1t, const float* b1, const void* w2t,
                      const float* b2, void* out, float* out32, long long M, int D, int Hd,
                      int Dout, cudaStream_t stream) {
-  if (Dout <= kT) return launch<T, false>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+  const bool stream_rows = whole_smem(D) > kMaxSmem;
+  if (Dout <= kT) {
+    if (stream_rows)
+      return launch<T, false, true>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+    return launch<T, false, false>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+  }
   if (out32 == nullptr) return cudaErrorInvalidValue;
-  return launch<T, true>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+  if (stream_rows)
+    return launch<T, true, true>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
+  return launch<T, true, false>(x, w1t, b1, w2t, b2, out, out32, M, D, Hd, Dout, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K10 over M rows. Takes the transposed LN tile [D][68] and three 64 x 64
-// tiles (f32) within the block's shared memory (232448 bytes): D <= 650.
-// out32: a zeroed f32 [M, Dout] scratch, needed when Dout > 64.
+// K10 over M rows. Takes any D (the whole-row layout up to D = 670, the
+// streamed one past it) and, for Dout > 64, Hd up to 65535 64-unit chunks
+// (grid.y). out32: a zeroed f32 [M, Dout] scratch, needed when Dout > 64.
 int prd_transition(const void* x, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, void* out, void* out32, int dtype, int M, int D, int Hd,
                    int Dout, void* stream) {

@@ -1,0 +1,446 @@
+// Hand-written Hopper (sm_90a) fused triangle multiplication, outgoing and
+// incoming, on the tensor cores: bf16 (mma.sync m16n8k16) and f32 (3xTF32).
+//
+// Replaces the Pallas TPU kernel K9 of protein_redesign_tpu/ops/pallas_trimul.py,
+// fused_triangle_multiply (:145) -> _trimul_kernel (:76), behind the switch
+// use_pallas_trimul: both triangle multiplications of every FoldingBlock.
+// The function is trimul.cu's (the CUDA-core body, kept callable to time the
+// two side by side):
+//
+//   x = LN(pair);  a, b = sigmoid(x Wg + bg) * (x Wp + bp) * mask   (rounded to T)
+//   outgoing: p[i, j, d] = sum_k a[i, k, d] b[j, k, d]
+//   incoming: p[i, j, d] = sum_k a[k, i, d] b[k, j, d]
+//   out = sigmoid(x Wog + bog) * (round(LN_d(p)) Wop + bop)            (in T)
+//
+// Statistics, the contraction, sums, biases and gates in f32; x, a, b, the
+// normed product and the weights rounded to T (T = float: f32 throughout,
+// every product in 3xTF32, the Pallas kernel in interpret mode).
+//
+// What bounds it: at bucket 192, B = 2, D = 64: 3.6 GFLOP of projections
+// (2 B N^2 D 6 D) and 1.8 of contraction (2 B N^3 D), about 5.5 us on the
+// tensor cores in bf16, against ~94 MB of device-memory traffic with the
+// scratch below (~28 us at 3.35 TB/s; much of it stays in the 50 MB L2), so
+// the bytes once the products run on the tensor cores.
+//
+// Three kernels, launched back to back by one entry point:
+// 1. trimul_project_mma_kernel: ln_project.cuh's block, one per 64 pair
+//    positions: LN, x^ rounded to T, [64, D] x [D, 5 D] in 64-column slices.
+//    The wrapper interleaves w_in's gate and projection columns 8 by 8
+//    (gate n-tile 2 i, projection n-tile 2 i + 1 of the same 8 channels), so
+//    one thread holds both factors of a and b; its epilogue writes them
+//    channel-major in the pair's own (x, y) order, [B, D, N, NP] with rows
+//    padded to NP = N rounded up to 8 (the writer of y = N - 1 zeroes the
+//    pad), y contiguous, so that a warp's stores run along y in both modes.
+//    The out gate goes to f32 scratch [B, N, N, D].
+// 2. trimul_contract_kernel: P_d = A_d B_d^T for each (b, d) as a batched
+//    GEMM, one block of 4 warps per 64 x 64 output tile of one channel, k in
+//    stages of 64 (bf16) or 32 (f32) by cp.async, double-buffered. Outgoing
+//    reads a and b as [i][k] and [j][k] (k contiguous: A fragments by
+//    ldmatrix, B fragments as for S = Q K^T); incoming as [k][i] and [k][j]
+//    (A by ldmatrix.trans, B as for O = P V). In f32 the same tiles feed 3xTF32
+//    m16n8k8 fragments element by element, row strides chosen
+//    conflict-free for each orientation. Rows and columns past N are zero
+//    (zero-filled copies, the zeroed pad); masked k contribute 0, because a
+//    and b already carry the mask. The f32 product goes to scratch
+//    [B, D, N, N], channel-major, written along j.
+// 3. trimul_out_mma_kernel: ln_project.cuh's block again over the product:
+//    its loader reads 64 positions of the channel-major product (coalesced
+//    along the positions), LN over d in f32, round(x^) W_op^T on the tensor
+//    cores, + bop, times the out gate, in T.
+// The epilogue of the product is a third GEMM kernel rather than all D
+// channels of an output tile kept in one block (the CUDA-core body's way,
+// whose [D, 16, 16] f32 sum took D / 8 x 8 registers a lane): the product's
+// round trip costs B N^2 D 8 bytes (18.9 MB written and read at 192, about
+// 11 us at 3.35 TB/s, mostly in L2) and each kernel stays one simple tile
+// loop. No kernel is specialised on D, so the registers and spills ptxas
+// reports hold at every D (chip_smoke prints them).
+//
+// Layout: pair contiguous [B, N, N, D] in T; mask contiguous f32 [B, N, N];
+// w_in [D, 5D] in T, columns [gate 8 | proj 8] for each 8 of the 2D a | b
+// channels, then the D out-gate columns; b_in [5D] f32 in the same order;
+// wop_t [D, D] in T; bop [D] f32; scratch a_t, b_t [B, D, N, NP] in T, gate
+// [B, N, N, D] f32, prod [B, D, N, N] f32; out contiguous [B, N, N, D].
+// Takes D a multiple of 8 up to 128. The entry point returns
+// cudaGetLastError().
+
+#include "ln_project.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTmMaxD = 128;
+constexpr int kCt = 64;       // output tile of one channel: kCt x kCt
+constexpr int kCThreads = 128;
+// k per stage: 64 in bf16, 32 in f32 (the stages' static shared memory)
+template <typename T>
+constexpr int kCk = sizeof(T) == 2 ? 64 : 32;
+
+struct TmArgs {
+  const void* pair;
+  const float* mask;
+  const void* w_in;
+  const float* b_in;
+  const void* wop_t;
+  const float* bop;
+  void* a_t;
+  void* b_t;
+  float* gate;
+  float* prod;
+  void* out;
+  int B, N, D;
+};
+
+// ln_project's loader: 64 positions of the contiguous pair [positions, D].
+template <typename T>
+struct PairRows {
+  const T* x;
+  int D;
+
+  __device__ __forceinline__ void operator()(float* raw, int ld, long long p0, int rows) const {
+    // D % 8 == 0: 16-byte rows where x is 16-byte aligned
+    const bool vec = (reinterpret_cast<unsigned long long>(x) & 15u) == 0;
+    lnp_load_rows<T>(raw, ld, D, rows, vec, [&](int p) { return x + (p0 + p) * D; });
+  }
+};
+
+// ln_project's epilogue of the projection. a and b (the gate's 8 columns and
+// the projection's 8 of the same channels, in turn) into [B, D, N, NP]: a
+// thread a position, so that a warp's stores run along y; the out gate into
+// [positions, D]: a thread 8 columns of a position, 32-byte stores along rows.
+template <typename T>
+struct GatedPair {
+  const float* b_in;
+  const float* mask;
+  T* a_t;
+  T* b_t;
+  float* gate;
+  int N, NP, D;
+
+  __device__ __forceinline__ void operator()(const float* tile, long long p0, int rows,
+                                             int c0) const {
+    constexpr int kGroups = kLnpThreads / kLnpRows;  // threads a position
+    const int p = threadIdx.x % kLnpRows;
+    if (c0 < 4 * D && p < rows) {
+      const long long pos = p0 + p;
+      // pos = (bb, x, y) of the [B, N, N] pair grid; B N < 2^32 within trimul_fits
+      const long long bx = pos / N;
+      const int y = (int)(pos - bx * N);
+      const unsigned bb = (unsigned)bx / (unsigned)N;
+      const int x = (int)((unsigned)bx - bb * (unsigned)N);
+      const float m = mask[pos];
+      for (int j = threadIdx.x / kLnpRows; j < kLnpCols / 16; j += kGroups) {
+        const int col = c0 + 16 * j;  // gate columns [col, col + 8), projection [col + 8, col + 16)
+        if (col >= 4 * D) break;
+        float bias[16], v[16];  // the loads before any store
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          bias[e] = b_in[col + e];
+          v[e] = tile[p * kLnpLdT + 16 * j + e];
+        }
+        const int ch = (col >> 4) * 8;  // of the 2D a | b channels
+        T* dst = ch < D ? a_t : b_t;
+        const int c = ch < D ? ch : ch - D;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          T* row = dst + (((long long)bb * D + c + e) * N + x) * NP;
+          row[y] = Io<T>::cast(sigmoid_f(v[e] + bias[e]) * (v[8 + e] + bias[8 + e]) * m);
+          if (y == N - 1)
+            for (int yy = N; yy < NP; ++yy) row[yy] = Io<T>::cast(0.f);
+        }
+      }
+    }
+    if (c0 + kLnpCols <= 4 * D) return;
+    for (int i = threadIdx.x; i < kLnpRows * (kLnpCols / 8); i += kLnpThreads) {
+      const int col = c0 + (i & 7) * 8;
+      if ((i >> 3) >= rows || col < 4 * D || col >= 5 * D) continue;  // D % 8 == 0: whole chunks
+      float o[8];
+      load8(tile + (i >> 3) * kLnpLdT + (i & 7) * 8, o);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = sigmoid_f(o[e] + b_in[col + e]);
+      store8(gate + (p0 + (i >> 3)) * D + col - 4 * D, o);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks) trimul_project_mma_kernel(const TmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_tm[];
+  const long long positions = (long long)a.B * a.N * a.N;
+  const long long p0 = (long long)blockIdx.x * kLnpRows;
+  const int rows = (int)min((long long)kLnpRows, positions - p0);
+  const PairRows<T> load{static_cast<const T*>(a.pair), a.D};
+  const GatedPair<T> epi{a.b_in, a.mask, static_cast<T*>(a.a_t), static_cast<T*>(a.b_t), a.gate,
+                         a.N, (a.N + 7) & ~7, a.D};
+  ln_project<T>(load, static_cast<const T*>(a.w_in), a.D, 5 * a.D, p0, rows, epi, smem_tm);
+}
+
+// The contraction's staged tiles of one stage: [kCt][kCk + pad] (rows i or
+// j, k contiguous: outgoing) or [kCk][kCt + 8] (rows k: incoming). Row
+// strides: bf16 an odd number of 16-byte units (conflict-free ldmatrix);
+// f32 kCk + 4 = 4 mod 8 for [row][k] fragment reads, kCt + 8 = 8 mod 32 for
+// [k][row] ones.
+template <typename T, bool INCOMING>
+struct ContractTile {
+  static constexpr int kLd = INCOMING ? kCt + 8 : kCk<T> + (sizeof(T) == 2 ? 8 : 4);
+  static constexpr int kSize = (INCOMING ? kCk<T> : kCt) * kLd;
+};
+
+// Stage k [k0, k0 + kCk) of the block's rows [r0, r0 + kCt) of one channel
+// plane [N][NP] by cp.async: outgoing rows r, k contiguous; incoming rows k,
+// r contiguous. Rows past N and 16-byte chunks past NP are zero-filled.
+template <typename T, bool INCOMING>
+__device__ __forceinline__ void stage_plane(const T* __restrict__ plane, int N, int NP, int r0,
+                                            int k0, T* dst) {
+  constexpr int kChunk = 16 / sizeof(T);
+  constexpr int kLd = ContractTile<T, INCOMING>::kLd;
+  constexpr int kRows = INCOMING ? kCk<T> : kCt;
+  constexpr int kPerRow = (INCOMING ? kCt : kCk<T>) / kChunk;
+  for (int e = threadIdx.x; e < kRows * kPerRow; e += kCThreads) {
+    const int row = e / kPerRow;
+    const int c = (e - row * kPerRow) * kChunk;
+    const int pr = INCOMING ? k0 + row : r0 + row;  // the plane's row
+    const int pc = INCOMING ? r0 + c : k0 + c;      // its column
+    const bool ok = pr < N && pc < NP;
+    cp_async16(dst + row * kLd + c, ok ? plane + (long long)pr * NP + pc : plane, ok);
+  }
+}
+
+// acc += A B over one stage for the warp's 16 rows (i) and the tile's 64
+// columns (j), bf16.
+template <bool INCOMING>
+__device__ __forceinline__ void contract_stage(const bf16* a_s, const bf16* b_s, int warp,
+                                               int lane, float (&acc)[8][4]) {
+  constexpr int kLd = ContractTile<bf16, INCOMING>::kLd;
+#pragma unroll
+  for (int kc = 0; kc < kCk<bf16>; kc += 16) {
+    unsigned a[4];
+    if (INCOMING)
+      load_a_frag_trans(a, a_s, kLd, kc, warp * 16, lane);
+    else
+      load_a_frag(a, a_s + warp * 16 * kLd, kLd, kc, lane);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      if (INCOMING)
+        load_b_frags(b, b_s, kLd, kc, np * 16, lane);
+      else
+        load_bt_frags(b, b_s, kLd, np * 16, kc, lane);
+      mma_bf16_16816(acc[2 * np], a, b[0], b[1]);
+      mma_bf16_16816(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The same in f32 (3xTF32): element (row, k) of A at a_s[row * kLd + k]
+// (outgoing) or a_s[k * kLd + row] (incoming), of B likewise.
+template <bool INCOMING>
+__device__ __forceinline__ void contract_stage(const float* a_s, const float* b_s, int warp,
+                                               int lane, float (&acc)[8][4]) {
+  constexpr int kLd = ContractTile<float, INCOMING>::kLd;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = warp * 16;
+  auto at = [&](const float* s, int row, int k) {
+    return INCOMING ? s[k * kLd + row] : s[row * kLd + k];
+  };
+#pragma unroll
+  for (int kc = 0; kc < kCk<float>; kc += 8) {
+    unsigned ab[4], as[4];
+    split_tf32(at(a_s, m0 + g, kc + t4), ab[0], as[0]);
+    split_tf32(at(a_s, m0 + g + 8, kc + t4), ab[1], as[1]);
+    split_tf32(at(a_s, m0 + g, kc + t4 + 4), ab[2], as[2]);
+    split_tf32(at(a_s, m0 + g + 8, kc + t4 + 4), ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      unsigned bb0, bs0, bb1, bs1;
+      split_tf32(at(b_s, n * 8 + g, kc + t4), bb0, bs0);
+      split_tf32(at(b_s, n * 8 + g, kc + t4 + 4), bb1, bs1);
+      mma_3xtf32(acc[n], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+template <typename T, bool INCOMING>
+__global__ void __launch_bounds__(kCThreads)
+    trimul_contract_kernel(const T* __restrict__ a_t, const T* __restrict__ b_t,
+                           float* __restrict__ prod, int N, int D) {
+  using Tile = ContractTile<T, INCOMING>;
+  __shared__ __align__(16) T a_s[2][Tile::kSize];
+  __shared__ __align__(16) T b_s[2][Tile::kSize];
+  const int NP = (N + 7) & ~7;
+  const int tiles = (N + kCt - 1) / kCt;
+  const int it = blockIdx.x / tiles;
+  const int i0 = it * kCt, j0 = (blockIdx.x - it * tiles) * kCt;
+  const long long channel = (long long)blockIdx.z * D + blockIdx.y;  // (b, d)
+  const T* a_p = a_t + channel * N * NP;
+  const T* b_p = b_t + channel * N * NP;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int stages = (N + kCk<T> - 1) / kCk<T>;
+  stage_plane<T, INCOMING>(a_p, N, NP, i0, 0, a_s[0]);
+  stage_plane<T, INCOMING>(b_p, N, NP, j0, 0, b_s[0]);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < stages) {
+      stage_plane<T, INCOMING>(a_p, N, NP, i0, (s + 1) * kCk<T>, a_s[buf ^ 1]);
+      stage_plane<T, INCOMING>(b_p, N, NP, j0, (s + 1) * kCk<T>, b_s[buf ^ 1]);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    contract_stage<INCOMING>(a_s[buf], b_s[buf], warp, lane, acc);
+    __syncthreads();  // the next stage's copies overwrite this buffer
+  }
+
+  float* out = prod + channel * N * N;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + warp * 16 + g + 8 * (e >> 1);
+      const int j = j0 + n * 8 + 2 * t4 + (e & 1);
+      if (i < N && j < N) out[(long long)i * N + j] = acc[n][e];
+    }
+  }
+}
+
+// ln_project's loader for the out kernel: 64 positions of the channel-major
+// f32 product [B, D, N, N], read along the positions.
+struct ProductRows {
+  const float* prod;
+  int N, D;
+
+  // A thread a position (one 64-bit division), its group of threads along
+  // d, 16 loads in flight before their stores.
+  __device__ __forceinline__ void operator()(float* raw, int ld, long long p0, int rows) const {
+    constexpr int kStep = kLnpThreads / kLnpRows, kBatch = 16;
+    const long long nn = (long long)N * N;
+    const int p = threadIdx.x % kLnpRows;
+    const long long pos = p0 + p;
+    const long long bb = pos / nn;
+    const float* src = prod + bb * D * nn + (pos - bb * nn);
+    for (int d0 = threadIdx.x / kLnpRows; d0 < D; d0 += kStep * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        v[i] = p < rows && d0 + kStep * i < D ? src[(d0 + kStep * i) * nn] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (d0 + kStep * i < D) raw[p * ld + d0 + kStep * i] = v[i];
+    }
+  }
+};
+
+// ln_project's epilogue of the out kernel: out = gate * (acc + bop) in T, a
+// thread 8 columns of a position, 16- or 32-byte stores along rows.
+template <typename T>
+struct GatedOut {
+  const float* gate;
+  const float* bop;
+  T* out;
+  int D;
+
+  __device__ __forceinline__ void operator()(const float* tile, long long p0, int rows,
+                                             int c0) const {
+    constexpr int kItems = kLnpRows * (kLnpCols / 8) / kLnpThreads;
+    float v[kItems][8], g[kItems][8];  // the loads before any store
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = threadIdx.x + kLnpThreads * k;
+      const int p = i >> 3, col = c0 + (i & 7) * 8;
+      const bool ok = p < rows && col < D;  // D % 8 == 0: the whole chunk
+#pragma unroll
+      for (int e = 0; e < 8; ++e) g[k][e] = 0.f;
+      if (ok) load8(gate + (p0 + p) * D + col, g[k]);
+      load8(tile + p * kLnpLdT + (i & 7) * 8, v[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[k][e] += ok ? bop[col + e] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = threadIdx.x + kLnpThreads * k;
+      const int p = i >> 3, col = c0 + (i & 7) * 8;
+      if (p >= rows || col >= D) continue;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = g[k][e] * v[k][e];
+      store8(out + (p0 + p) * D + col, o);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks) trimul_out_mma_kernel(const TmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_tm[];
+  const long long positions = (long long)a.B * a.N * a.N;
+  const long long p0 = (long long)blockIdx.x * kLnpRows;
+  const int rows = (int)min((long long)kLnpRows, positions - p0);
+  const ProductRows load{a.prod, a.N, a.D};
+  const GatedOut<T> epi{a.gate, a.bop, static_cast<T*>(a.out), a.D};
+  ln_project<T>(load, static_cast<const T*>(a.wop_t), a.D, a.D, p0, rows, epi, smem_tm);
+}
+
+template <typename Kernel>
+cudaError_t launch_rows(Kernel kern, size_t smem, long long blocks, const TmArgs& a,
+                        cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<(unsigned)blocks, kLnpThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const TmArgs& a, bool incoming, cudaStream_t stream) {
+  const long long positions = (long long)a.B * a.N * a.N;
+  const long long blocks = (positions + kLnpRows - 1) / kLnpRows;
+  const long long tiles = (a.N + kCt - 1) / kCt;
+  if (blocks > 0x7fffffffLL || tiles * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = lnp_smem_bytes<T>(a.D);
+  cudaError_t e = launch_rows(trimul_project_mma_kernel<T>, smem, blocks, a, stream);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(tiles * tiles), a.D, a.B);
+  const T* at = static_cast<const T*>(a.a_t);
+  const T* bt = static_cast<const T*>(a.b_t);
+  if (incoming)
+    trimul_contract_kernel<T, true><<<grid, kCThreads, 0, stream>>>(at, bt, a.prod, a.N, a.D);
+  else
+    trimul_contract_kernel<T, false><<<grid, kCThreads, 0, stream>>>(at, bt, a.prod, a.N, a.D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_rows(trimul_out_mma_kernel<T>, smem, blocks, a, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K9 on the tensor cores, dtype 0 f32 (3xTF32), 1 bf16; mode 0 outgoing,
+// 1 incoming. Takes D a multiple of 8 up to 128 and B up to 65535.
+int prd_trimul_mma(const void* pair, const void* mask, const void* w_in, const void* b_in,
+                   const void* wop_t, const void* bop, void* a_t, void* b_t, void* gate,
+                   void* prod, void* out, int dtype, int mode, int B, int N, int D, void* stream) {
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+  };
+  const bool ok = (dtype == 0 || dtype == 1) && (mode == 0 || mode == 1) && B > 0 &&
+                  B <= 65535 && N > 0 && D > 0 && D <= kTmMaxD && D % 8 == 0 && aligned(w_in) &&
+                  aligned(wop_t) && aligned(a_t) && aligned(b_t);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const TmArgs a{pair, static_cast<const float*>(mask), w_in, static_cast<const float*>(b_in),
+                 wop_t, static_cast<const float*>(bop), a_t, b_t, static_cast<float*>(gate),
+                 static_cast<float*>(prod), out, B, N, D};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(a, mode == 1, s);
+  return (int)launch<bf16>(a, mode == 1, s);
+}
+
+}  // extern "C"

@@ -42,7 +42,10 @@ CUDA-core bodies.
 - ``fused_gated_rows_attention`` (K8) <- ``fused_gated_rows_attention``
   (:1142) / ``_fused_gated_impl`` / ``_make_fused_gated_kernel``: the whole
   no-bias GatedAttention (LN, projections, masked softmax, gate,
-  out-projection), the switch ``use_pallas_fused_gated``; its backward
+  out-projection), the switch ``use_pallas_fused_gated``. Two bodies
+  (``fused_gated_takes_tensor_cores``): C a multiple of 8 the tensor-core one
+  (``fused_gated_mma.cu``: mma.sync in bf16, 3xTF32 in f32), C = 4 mod 8
+  the CUDA-core one (``fused_gated.cu``). Its backward
   differentiates the plain version ``fused_gated_reference``, as
   ``_fused_gated_bwd`` (:1227) differentiates ``_fused_gated_reference``.
   It computes in the input's dtype (f32 throughout in float32), where the
@@ -1068,18 +1071,37 @@ def fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -
     return (gated @ wo.to(dt).float().t() + bo.float()).to(dt)
 
 
-# fused_gated.cu: up to four output channels per lane (D <= 128), one head
-# channel per lane in P.V (C <= 32), 64-column slices of the projection
-# weights and the out-projection [H C, D] in shared memory (f32).
-MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 128, 32, 128
+# K8's two bodies. fused_gated_mma.cu (tensor cores, bf16 and 3xTF32): C a
+# multiple of 8 up to 128 (the P.V accumulators hold 64 channels a slice),
+# H C up to 512 and D up to 128 (a warp's [16, D] out-projection sum in
+# registers). fused_gated.cu (CUDA cores, C = 4 mod 8): up to four output
+# channels per lane (D <= 128), one head channel per lane in P.V (C <= 32),
+# the out-projection [H C, D] in shared memory (f32, H C <= 128).
+MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 128, 128, 512
+MAX_FUSED_CORE_HEAD_DIM, MAX_FUSED_CORE_WIDTH = 32, 128
+
+
+def fused_gated_takes_tensor_cores(D: int, H: int, C: int) -> bool:
+    """Whether K8 runs its tensor-core body (fused_gated_mma.cu, either
+    dtype) at pair width D with H heads of width C: C a multiple of 8 up to
+    MAX_FUSED_HEAD_DIM, H C up to MAX_FUSED_WIDTH, D up to
+    MAX_FUSED_PAIR_DIM. Else the CUDA-core body (fused_gated.cu)."""
+    return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 8 == 0
+            and 0 < H * C <= MAX_FUSED_WIDTH)
+
+
+def fused_gated_core_fits(D: int, H: int, C: int) -> bool:
+    """The CUDA-core body's bound: D up to 128, C a multiple of 4 up to 32,
+    H C up to 128."""
+    return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_CORE_HEAD_DIM and C % 4 == 0
+            and 0 < H * C <= MAX_FUSED_CORE_WIDTH)
 
 
 def fused_gated_fits(R: int, N: int, D: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K8 takes R rows of N positions of width D in ``dtype`` with H
-    heads of width C: D, C and H C within MAX_FUSED_*, C a multiple of 4,
-    one block per (row, 32 queries) in grid.x."""
-    return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 4 == 0
-            and 0 < H * C <= MAX_FUSED_WIDTH
+    heads of width C: the tensor-core body's bound, else the CUDA-core
+    body's; one block per (row, 32 queries) in grid.x."""
+    return ((fused_gated_takes_tensor_cores(D, H, C) or fused_gated_core_fits(D, H, C))
             and R > 0 and N > 0 and -(-N // 32) * R <= MAX_BLOCKS)
 
 
@@ -1098,9 +1120,11 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     R = math.prod(x.shape[:-2])
     if not (H * C == HC and fused_gated_fits(R, N, D, H, C, x.dtype)):
         raise ValueError(f"the fused gated attention kernel takes D up to {MAX_FUSED_PAIR_DIM}, "
-                         f"head width a multiple of 4 up to {MAX_FUSED_HEAD_DIM}, H*C up to "
-                         f"{MAX_FUSED_WIDTH} and ceil(N / 32) rows up to {MAX_BLOCKS}; got "
-                         f"{R} rows, N={N}, D={D}, H={H}, H*C={HC}")
+                         f"head width a multiple of 8 up to {MAX_FUSED_HEAD_DIM} with H*C up to "
+                         f"{MAX_FUSED_WIDTH} (or a multiple of 4 up to "
+                         f"{MAX_FUSED_CORE_HEAD_DIM} with H*C up to {MAX_FUSED_CORE_WIDTH}) and "
+                         f"ceil(N / 32) rows up to {MAX_BLOCKS}; got {R} rows, N={N}, D={D}, "
+                         f"H={H}, H*C={HC}")
     for name, w, shape in (("wq", wq, (HC, D)), ("wk", wk, (HC, D)), ("wv", wv, (HC, D)),
                            ("wg", wg, (HC, D)), ("bg", bg, (HC,)), ("wo", wo, (D, HC)),
                            ("bo", bo, (D,))):
@@ -1124,8 +1148,10 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     qkv = torch.empty((3, R, N, HC), dtype=dt, device=x.device)  # scratch: q (scaled), k, v
     gate = torch.empty((R, N, HC), dtype=torch.float32, device=x.device)
     out = torch.empty(x4.shape, dtype=dt, device=x.device)
+    entry = (lib.lib.prd_fused_gated_mma if fused_gated_takes_tensor_cores(D, H, C)
+             else lib.lib.prd_fused_gated)
     with torch.cuda.device(x.device):
-        code = lib.lib.prd_fused_gated(
+        code = entry(
             x4.data_ptr(), maskf.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(), wo_t.data_ptr(),
             bo_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[dt], R1, R2, N, D, H, C, 1.0 / math.sqrt(C),

@@ -37,22 +37,28 @@ from .attention import (
 )
 
 # transition.cu keeps 64 LN rows transposed ([D][68]) and three 64 x 64
-# tiles (f32) in shared memory; outputs wider than 64 split the hidden
-# dimension across blocks and sum in an f32 scratch.
+# tiles (f32) in shared memory where they fit (D up to 670), else a [64][68]
+# slab of them normalised from each row's mean and rstd (any D); outputs
+# wider than 64 split the hidden dimension across blocks (grid.y, up to
+# 65535 chunks of 64) and sum in an f32 scratch.
 MAX_SMEM = 232448  # bytes a block can use on the H100
 SPLIT_OUT_DIM = 64
+MAX_SPLIT_HIDDEN = 64 * 65535
 
 
 def smem_bytes(D: int) -> int:
-    """transition.cu's shared memory for input width D."""
-    return 4 * (68 * D + 64 * 64 + 64 * 68 + 64 * 64)
+    """transition.cu's shared memory for input width D: the whole-row layout
+    where it fits MAX_SMEM, else the streamed one."""
+    whole = 4 * (68 * D + 64 * 64 + 64 * 68 + 64 * 64)
+    return whole if whole <= MAX_SMEM else 4 * (64 * 68 + 64 * 64 + 64 * 68 + 64 * 64 + 2 * 64)
 
 
 def transition_fits(M: int, D: int, Hd: int, Dout: int, dtype: torch.dtype) -> bool:
     """Whether K10 takes M rows of width D in ``dtype``, hidden width Hd and
-    Dout outputs: the row tile's smem_bytes(D) within MAX_SMEM (D up to
-    670), 1 to 2^31 - 1 rows."""
-    return 0 < D and 0 < Hd and 0 < Dout and smem_bytes(D) <= MAX_SMEM and 0 < M <= 2**31 - 1
+    Dout outputs: any D (smem_bytes(D) within MAX_SMEM), Hd up to
+    MAX_SPLIT_HIDDEN when Dout > SPLIT_OUT_DIM, 1 to 2^31 - 1 rows."""
+    return (0 < D and 0 < Hd and 0 < Dout and smem_bytes(D) <= MAX_SMEM
+            and (Dout <= SPLIT_OUT_DIM or Hd <= MAX_SPLIT_HIDDEN) and 0 < M <= 2**31 - 1)
 
 
 def transition_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -82,9 +88,9 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     lead = x.shape[:-1]
     M = x.numel() // D if D else 0
     if not transition_fits(M, D, Hd, Dout, x.dtype):
-        raise ValueError(f"the transition kernel takes {MAX_SMEM} bytes of shared memory for its "
-                         f"row tile, so D up to 670, and 1 to 2^31 - 1 rows; got D={D} "
-                         f"({smem_bytes(D)} bytes), {M} rows")
+        raise ValueError(f"the transition kernel takes 1 to 2^31 - 1 rows and, for outputs "
+                         f"wider than {SPLIT_OUT_DIM}, a hidden width up to {MAX_SPLIT_HIDDEN}; "
+                         f"got D={D}, Hd={Hd}, Dout={Dout}, {M} rows")
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")

@@ -3,7 +3,10 @@ dispatch to its hand-written Hopper kernel.
 
 Port of ``protein_redesign_tpu/ops/pallas_trimul.py``: ``triangle_multiply``
 replaces the Pallas kernel K9 (``fused_triangle_multiply`` :145 ->
-``_trimul_kernel`` :76) with ``kernels/csrc/trimul.cu``; its backward
+``_trimul_kernel`` :76) with ``kernels/csrc/trimul_mma.cu`` (tensor cores:
+mma.sync in bf16, 3xTF32 in f32; ``trimul.cu``, the CUDA-core body it
+replaced, stays callable through ``trimul_takes_tensor_cores`` to time the
+two side by side); its backward
 differentiates the plain version, as ``_tm_bwd`` (:288) differentiates
 ``_reference_impl``. The whole module op:
 
@@ -41,14 +44,34 @@ from .attention import (
 )
 
 MODES = ("outgoing", "incoming")
-MAX_PAIR_DIM = 128  # trimul.cu: 8 warps of D / 8 channels, D / 32 values per lane in the epilogue
-MAX_N = 65535 * 16  # grid.y: one block per 16 x 16 output tile
+# trimul_mma.cu: the LN + projection block's four values of a row a lane, the
+# contraction a block per (b, d, 64 x 64 tile); trimul.cu (CUDA cores): 8 warps
+# of D / 8 channels, D / 32 values per lane in the epilogue
+MAX_PAIR_DIM = 128
+MAX_N = 65535 * 16  # trimul.cu's grid.y: one block per 16 x 16 output tile
+MAX_POSITIONS = 64 * (2**31 - 1)  # one projection block per 64 of the B N^2 positions
 
 
 def trimul_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
     """Whether K9 takes a [B, N, N, D] pair in ``dtype``: D a multiple of 8
-    up to MAX_PAIR_DIM, B up to 65535 and N up to MAX_N."""
-    return 0 < D <= MAX_PAIR_DIM and D % 8 == 0 and 0 < B <= 65535 and 0 < N <= MAX_N
+    up to MAX_PAIR_DIM, B up to 65535, N up to MAX_N and B N^2 up to
+    MAX_POSITIONS."""
+    return (0 < D <= MAX_PAIR_DIM and D % 8 == 0 and 0 < B <= 65535 and 0 < N <= MAX_N
+            and B * N * N <= MAX_POSITIONS)
+
+
+def trimul_takes_tensor_cores(D: int) -> bool:
+    """Whether K9 runs its tensor-core body (trimul_mma.cu, either dtype) at
+    pair width D; the CUDA-core body (trimul.cu) has the same bound and runs
+    only where this is patched to False, to time the two."""
+    return 0 < D <= MAX_PAIR_DIM and D % 8 == 0
+
+
+def _interleaved(gate, proj):
+    """[2D, ...] gate and projection rows as trimul_mma.cu's projection reads
+    them: 8 gate rows, then the same 8 channels' projection rows, in turn."""
+    return torch.stack([gate.reshape(-1, 8, *gate.shape[1:]),
+                        proj.reshape(-1, 8, *proj.shape[1:])], 1).reshape(-1, *gate.shape[1:])
 
 
 def trimul_reference(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str):
@@ -102,21 +125,39 @@ def _launch(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str) -> tor
     dt = pair.dtype
     pair = pair.contiguous()
     mask = mask_2d.to(torch.float32).contiguous()
-    w_in = torch.cat([wg, wp, wog]).to(dt).t().contiguous()  # [D, 5D]: gates | projections | out gate
-    b_in = torch.cat([bg, bp, bog]).float().contiguous()
     wop_t = wop.to(dt).t().contiguous()  # [D, D]
     bop_f = bop.float().contiguous()
-    # scratch: gated a and b channel-major [B, D, N, N] (k-major rows), the out gate f32
-    a_t = torch.empty((B, D, N, N), dtype=dt, device=pair.device)
-    b_t = torch.empty_like(a_t)
-    gate = torch.empty((B, N, N, D), dtype=torch.float32, device=pair.device)
+    gate = torch.empty((B, N, N, D), dtype=torch.float32, device=pair.device)  # the out gate
     out = torch.empty_like(pair)
-    with torch.cuda.device(pair.device):
-        code = lib.lib.prd_trimul(
-            pair.data_ptr(), mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), wop_t.data_ptr(),
-            bop_f.data_ptr(), a_t.data_ptr(), b_t.data_ptr(), gate.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[dt], MODES.index(mode), B, N, D, stream_of(pair),
-        )
+    if trimul_takes_tensor_cores(D):
+        # [D, 5D]: gate and projection columns interleaved 8 by 8, then the out gate
+        w_in = torch.cat([_interleaved(wg, wp), wog]).to(dt).t().contiguous()
+        b_in = torch.cat([_interleaved(bg, bp), bog]).float().contiguous()
+        # scratch: gated a and b channel-major in the pair's (x, y) order, rows
+        # padded to a multiple of 8; the f32 product channel-major
+        a_t = torch.empty((B, D, N, -(-N // 8) * 8), dtype=dt, device=pair.device)
+        b_t = torch.empty_like(a_t)
+        prod = torch.empty((B, D, N, N), dtype=torch.float32, device=pair.device)
+        with torch.cuda.device(pair.device):
+            code = lib.lib.prd_trimul_mma(
+                pair.data_ptr(), mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+                wop_t.data_ptr(), bop_f.data_ptr(), a_t.data_ptr(), b_t.data_ptr(),
+                gate.data_ptr(), prod.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],
+                MODES.index(mode), B, N, D, stream_of(pair),
+            )
+    else:
+        w_in = torch.cat([wg, wp, wog]).to(dt).t().contiguous()  # gates | projections | out gate
+        b_in = torch.cat([bg, bp, bog]).float().contiguous()
+        # scratch: gated a and b channel-major [B, D, N, N] (k-major rows)
+        a_t = torch.empty((B, D, N, N), dtype=dt, device=pair.device)
+        b_t = torch.empty_like(a_t)
+        with torch.cuda.device(pair.device):
+            code = lib.lib.prd_trimul(
+                pair.data_ptr(), mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+                wop_t.data_ptr(), bop_f.data_ptr(), a_t.data_ptr(), b_t.data_ptr(),
+                gate.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt], MODES.index(mode), B, N, D,
+                stream_of(pair),
+            )
     lib.check(code, "triangle_multiply")
     LAUNCHES["triangle_multiply"] += 1
     return out

@@ -103,6 +103,15 @@ def test_transition_matches_pallas(with_b2):
     np.testing.assert_allclose(got, JT._reference_impl(jx, jw1, jb1, jw2, jb2), **TOL)
 
 
+def test_transition_matches_pallas_at_single_dim_768():
+    """single_fc at single_dim 768 (4 x 768 hidden), past the whole-row tile
+    of transition.cu: the plain version against the Pallas kernel."""
+    x, w1, b1, w2, b2 = _transition_case(True, seed=4, M=6, D=768, Hd=3072, Dout=768)
+    got = T.transition(*_t(x, w1, b1, w2, b2)).numpy()
+    jx, jw1, jb1, jw2, jb2 = _j(x, w1.T, b1, w2.T, b2)
+    np.testing.assert_allclose(got, JT._fused_transition_impl(jx, jw1, jb1, jw2, jb2, True), **TOL)
+
+
 def test_transition_bf16_near_reference():
     x, w1, b1, w2, b2 = _transition_case(True, seed=1)
     got = T.transition(*_t(x, dtype=torch.bfloat16), *_t(w1, b1, w2, b2))
@@ -205,6 +214,21 @@ def test_fused_gated_matches_pallas(view):
                         lambda *a: JA._fused_gated_impl(*a, True))
     np.testing.assert_allclose(got, pallas, **TOL)
     np.testing.assert_allclose(got, _jax_gated(x, mask2d, ws, H, JA._fused_gated_reference), **TOL)
+
+
+@pytest.mark.parametrize("view", ["starting", "ending"])
+@pytest.mark.parametrize("H,C", [(1, 64), (4, 64)], ids=["h64x1", "h64x4"])
+def test_fused_gated_matches_pallas_at_h64_layouts(view, H, C):
+    """The h64 head layouts K8's tensor-core body takes (C = 64, one head or
+    four), with fully masked rows, against the Pallas kernel."""
+    x, mask2d, ws, _ = _gated_case(seed=5, N=10, D=16, H=H, C=C)
+    tx, tm = _t(x, mask2d)
+    if view == "ending":
+        tx, tm = tx.transpose(-2, -3), tm.transpose(-1, -2)
+        x, mask2d = np.swapaxes(x, 1, 2).copy(), np.swapaxes(mask2d, 1, 2).copy()
+    got = A.fused_gated(tx, tm, *_t(*ws), H).numpy()
+    pallas = _jax_gated(x, mask2d, ws, H, lambda *a: JA._fused_gated_impl(*a, True))
+    np.testing.assert_allclose(got, pallas, **TOL)
 
 
 def test_fused_gated_fully_masked_rows_attend_uniformly():

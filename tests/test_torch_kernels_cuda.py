@@ -683,7 +683,8 @@ def _linear(out_dim, in_dim, device, seed):
 @DTYPES
 @pytest.mark.parametrize("D,Hd,Dout,M,with_b2", [(64, 256, 64, 1000, True), (512, 2048, 512, 37, True),
                                                  (16, 64, 24, 5, False), (40, 72, 100, 130, False),
-                                                 (96, 100, 70, 70, True)])
+                                                 (96, 100, 70, 70, True), (768, 3072, 768, 37, True),
+                                                 (700, 96, 40, 70, False)])
 def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2):
     from protein_redesign_tpu_torch.ops import transition as T
 
@@ -716,7 +717,8 @@ def test_outer_kernel_matches_plain(device, dtype, B, N, S, D):
 @DTYPES
 @pytest.mark.parametrize("mode", ["outgoing", "incoming"])
 @pytest.mark.parametrize("B,N,D", [(2, 45, 64), (1, 40, 16), (1, 17, 24), (1, 33, 128),
-                                   (1, 20, 72)])
+                                   (1, 20, 72), (1, 130, 64), (2, 64, 16), (1, 70, 128),
+                                   (1, 67, 24), (2, 41, 72)])
 def test_trimul_kernel_matches_plain(device, dtype, mode, B, N, D):
     from protein_redesign_tpu_torch.ops import trimul as M
 
@@ -732,8 +734,13 @@ def test_trimul_kernel_matches_plain(device, dtype, mode, B, N, D):
 @DTYPES
 @pytest.mark.parametrize("view", ["starting", "ending"])
 @pytest.mark.parametrize("N,D,H,C", [(45, 64, 4, 16), (40, 16, 2, 8), (20, 24, 3, 32),
-                                     (33, 128, 4, 32), (20, 96, 4, 16)])
+                                     (33, 128, 4, 32), (20, 96, 4, 16), (45, 64, 1, 64),
+                                     (70, 128, 4, 64), (33, 64, 4, 128), (20, 128, 1, 128),
+                                     (20, 24, 2, 12), (30, 64, 8, 12), (33, 20, 4, 16),
+                                     (130, 64, 4, 16)])
 def test_fused_gated_kernel_matches_plain(device, dtype, view, N, D, H, C):
+    """The tensor-core body at C a multiple of 8 (h16x4, h64x1, h64x4, up to
+    H C = 512), the CUDA-core body at C = 4 mod 8."""
     pair = _randn(2, N, N, D, seed=15, device=device).to(dtype)
     mask = _pair_mask(2, N, device, masked_rows=3)
     if view == "ending":  # the transposed view TriangleAttention hands in, read through strides
@@ -809,16 +816,40 @@ def test_fused_wrappers_reject(device):
                  *ws, "outgoing")
     with pytest.raises(ValueError):  # output channels beyond 128
         O.outer(torch.zeros(1, 4, 8, device=device), *_linear(132, 16, device, 0))
-    with pytest.raises(ValueError):  # 64 LN rows of width 1024 exceed shared memory
-        T.transition(torch.zeros(3, 1024, device=device), *_linear(16, 1024, device, 0),
-                     *_linear(8, 16, device, 0))
-    ws = [torch.zeros(2 * 64, 16, device=device) for _ in range(4)]
-    with pytest.raises(ValueError):  # head width 64 beyond 32
-        A.fused_gated(torch.zeros(1, 4, 4, 16, device=device), torch.ones(1, 4, 4, device=device),
-                      *ws, torch.zeros(128, device=device), torch.zeros(16, 128, device=device),
-                      torch.zeros(16, device=device), 2)
+    hd = T.MAX_SPLIT_HIDDEN + 64  # a split output's hidden chunks beyond grid.y
+    with pytest.raises(ValueError):
+        T.transition(torch.zeros(3, 1, device=device), torch.zeros(1, 1, device=device).expand(hd, 1),
+                     torch.zeros(hd, device=device),
+                     torch.zeros(1, 1, device=device).expand(128, hd))
+    for H, C in ((2, 136), (5, 128), (11, 12)):  # C past 128, H C past 512, C = 4 mod 8 past 128
+        ws = [torch.zeros(H * C, 16, device=device) for _ in range(4)]
+        with pytest.raises(ValueError):
+            A.fused_gated(torch.zeros(1, 4, 4, 16, device=device),
+                          torch.ones(1, 4, 4, device=device), *ws,
+                          torch.zeros(H * C, device=device), torch.zeros(16, H * C, device=device),
+                          torch.zeros(16, device=device), H)
     with pytest.raises(TypeError):
         O.outer(torch.zeros(1, 4, 8, device=device).half(), *_linear(8, 16, device, 0))
+
+
+@DTYPES
+def test_fused_cuda_core_bodies_stay_callable(device, dtype, monkeypatch):
+    """K8 and K9 on their CUDA-core bodies (the predicates patched, as
+    chip_smoke times them) agree with the tensor-core bodies' function."""
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    pair = _randn(2, 45, 45, 64, seed=15, device=device).to(dtype)
+    mask = _pair_mask(2, 45, device, masked_rows=3)
+    ws = [_randn(64, 64, seed=16 + i, scale=0.125, device=device) for i in range(4)]
+    ws += [_randn(64, seed=20, scale=0.3, device=device), *_linear(64, 64, device, 21)]
+    tw = [*_linear(128, 64, device, 8), *_linear(128, 64, device, 10), *_linear(64, 64, device, 12),
+          *_linear(64, 64, device, 14)]
+    monkeypatch.setattr(A, "fused_gated_takes_tensor_cores", lambda D, H, C: False)
+    monkeypatch.setattr(M, "trimul_takes_tensor_cores", lambda D: False)
+    got = A.fused_gated(pair, mask, *ws, 4)
+    assert _rel(got, A.fused_gated_reference(pair, mask, *ws, 4)) <= FUSED_TOL[dtype]
+    got = M.trimul(pair, mask, *tw, "incoming")
+    assert _rel(got, M.trimul_reference(pair, mask, *tw, "incoming")) <= FUSED_TOL[dtype]
 
 
 def test_denoiser_fused_route_matches_plain(device):
@@ -1150,13 +1181,16 @@ FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pal
      dict(fused_gated_rows_attention=4, triangle_multiply=4, fused_outer_linear=2,
           tiled_attention=3, fused_transition=4), 2e-2),
     (dict(single_dim=768, dtype="float32"), dict(rows_attention=4, tiled_attention=3), 5e-4),
-], ids=["pair_dim_128_fused", "f32_single_dim_768"])
+    (dict(single_dim=768, dtype="bfloat16", use_pallas_transition=True),
+     dict(rows_attention=4, tiled_attention=3, fused_transition=4), 2e-2),
+], ids=["pair_dim_128_fused", "f32_single_dim_768", "bf16_single_dim_768_transition"])
 def test_wide_configurations_run_the_kernels_on_the_card(device, fields, launches, tol):
-    """Two configurations past the kernels' former bounds: the four switches
-    at AlphaFold2's pair width 128 (K8, K9 and K11 now take D <= 128) and an
+    """Configurations past the kernels' former bounds: the four switches
+    at AlphaFold2's pair width 128 (K8, K9 and K11 now take D <= 128), an
     f32 model with single_dim 768 (SPAttention's head width: K2's wide 3xTF32
-    body). Every module launches its kernel, and the forward holds to the
-    plain route (bf16 2e-2, f32 5e-4 relative norm)."""
+    body) and a bf16 one with the transition switch (K10 at D = 768). Every
+    module launches its kernel, and the forward holds to the plain route
+    (bf16 2e-2, f32 5e-4 relative norm)."""
     mod, cfg = _paper_denoiser(device, num_blocks=2, **fields)
     single, pair, mask = _trunk_inputs(cfg, 64, 50, device)
     with torch.inference_mode():

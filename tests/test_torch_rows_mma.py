@@ -177,18 +177,20 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 132, F32), False),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 128, BF16), True),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1176, BF16), False),
-    # K8: D <= 128, C <= 32, H C <= 128
+    # K8: D <= 128; the tensor-core body C a multiple of 8 up to 128 with
+    # H C <= 512, the CUDA-core body C = 4 mod 8 up to 32 with H C <= 128
     (A.fused_gated_fits, (4, 16, 128, 4, 32, BF16), True),
     (A.fused_gated_fits, (4, 16, 132, 4, 16, BF16), False),
     (A.fused_gated_fits, (4, 16, 64, 2, 36, BF16), False),
-    (A.fused_gated_fits, (4, 16, 64, 5, 32, BF16), False),
+    (A.fused_gated_fits, (4, 16, 64, 5, 32, BF16), True),
     # K9: D a multiple of 8 up to 128
     (M.trimul_fits, (2, 16, 128, BF16), True),
     (M.trimul_fits, (2, 16, 136, BF16), False),
     (M.trimul_fits, (2, 16, 124, BF16), False),
-    # K10: the row tile's shared memory, D up to 670
+    # K10: any D (the whole-row tile up to 670, the streamed one past it);
+    # outputs wider than 64 split the hidden width over grid.y's 65535 chunks
     (T.transition_fits, (100, 670, 256, 670, F32), True),
-    (T.transition_fits, (100, 671, 256, 671, F32), False),
+    (T.transition_fits, (100, 671, 256, 671, F32), True),
     # K11: D a multiple of 4 up to 128
     (O.outer_fits, (2, 16, 128, BF16), True),
     (O.outer_fits, (2, 16, 132, BF16), False),
@@ -221,6 +223,26 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
     *[(A.bwd_fits, (2, 16, 4, C, dtype), C <= 128)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
+    # K8's tensor-core body: C a multiple of 8 up to 128 with H C <= 512 (the
+    # h64 layouts), past them the CUDA-core body's C = 4 mod 8 up to 32
+    *[(A.fused_gated_fits, (4, 16, D, H, C, dtype), ok)
+      for D, H, C, ok in ((64, 1, 64, True), (128, 4, 64, True), (128, 4, 128, True),
+                          (64, 1, 136, False), (64, 5, 128, False), (64, 65, 8, False),
+                          (64, 9, 12, True), (64, 11, 12, False), (20, 4, 16, True),
+                          (136, 1, 64, False))
+      for dtype in (BF16, F32)],
+    (A.fused_gated_takes_tensor_cores, (64, 4, 16), True),
+    (A.fused_gated_takes_tensor_cores, (64, 9, 12), False),
+    (A.fused_gated_takes_tensor_cores, (64, 4, 128), True),
+    # K9: B N^2 within one projection block per 64 positions
+    (M.trimul_fits, (1, 300_000, 64, BF16), True),
+    (M.trimul_fits, (1, 400_000, 64, BF16), False),
+    (M.trimul_takes_tensor_cores, (72,), True),
+    # K10 past the whole-row tile, and the split output's grid.y
+    (T.transition_fits, (100, 768, 3072, 768, BF16), True),
+    (T.transition_fits, (100, 64, T.MAX_SPLIT_HIDDEN, 128, F32), True),
+    (T.transition_fits, (100, 64, T.MAX_SPLIT_HIDDEN + 1, 128, F32), False),
+    (T.transition_fits, (100, 64, T.MAX_SPLIT_HIDDEN + 1, 64, F32), True),
 ])
 def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
