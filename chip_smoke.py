@@ -8,10 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: nvcc builds the attention kernels from the sources in the
    checkout (protein_redesign_tpu_torch/kernels/csrc) into
    protein_redesign_tpu_torch/kernels/_build; prints the build time and
-   ptxas's registers and spills of K8's and K9's tensor-core kernels
-   (fused_gated_mma.cu, trimul_mma.cu), then K8's and K9's device time by
-   CUDA kernel at the fused configuration's shape (torch.profiler, first in
-   the process).
+   ptxas's registers and spills of K8's, K9's and K10's tensor-core kernels
+   (fused_gated_mma.cu, trimul_mma.cu, transition_mma.cu) and of K1 fast's
+   f32 body (attention_tf32.cu), then K8's, K9's and K10's (pair_fc and
+   single_fc) device time by CUDA kernel at the fused configuration's shape
+   (torch.profiler, first in the process).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
    of both from CUDA events; K1 and K2 run their tensor-core bodies (bf16
@@ -89,8 +90,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    route's time and the kernel's bound; K8 and K9 on the device on their
    tensor-core bodies (fused_gated_mma.cu, trimul_mma.cu: mma.sync in bf16,
    3xTF32 in f32) and on the CUDA-core bodies they replaced, in the same run;
-   K8 at the h64x1 and h64x4 head layouts (bf16, against its plain version
-   and the unfused GatedAttention); K10 at single_fc 768 in both dtypes.
+   K10 likewise (transition_mma.cu, with its layout named, against
+   transition.cu) at pair_fc and single_fc, at pair width 128 in both dtypes
+   and at single_fc 768 in both dtypes; K8 at the h64x1 and h64x4 head
+   layouts (bf16, against its plain version and the unfused GatedAttention).
 14. The fused configuration (the four switches use_pallas_{trimul,transition,
    outer,fused_gated} on): the paper-width bf16 forward at bucket 192, B=2,
    kernel route against plain route, exactly 24 K8, 24 K9, 24 K10, 12 K11,
@@ -103,10 +106,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 15. Serving (K1 fast, the bf16-softmax triangle attention of a checkpoint
    trained with --no-use_pallas_bwd and served with --fast_softmax, where
    the attention plan takes Pallas: inference from bucket 384): K1 fast
-   against its plain version, its tensor-core body in bf16 at buckets 384
-   (R = 768) and 192 (R = 384), its CUDA-core body in f32 at 192, with the
-   share of outputs that differ, its time, the CUDA-core body's, the plain
-   version's, K1's, SDPA's and its bound; the train CLI with
+   against its plain version at buckets 384 (R = 768) and 192 (R = 384),
+   its tensor-core bodies in bf16 (attention_mma.cu) and f32 (3xTF32,
+   attention_tf32.cu), each timed beside its CUDA-core body, with the share
+   of outputs that differ, its time, the plain version's, K1's, SDPA's and
+   its bound; the train CLI with
    --no-use_pallas_bwd --fast_softmax on phase 8's data at bucket 192, 2
    optimizer steps (the training plan takes XLA: bf16-logit attention, no
    attention kernel); the serve CLI on that checkpoint with --sampler ddim
@@ -126,11 +130,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    768; bf16 single_dim 768 with use_pallas_transition: K10 at D = 768), 2
    blocks, the forward at bucket 192, B=2: exact launch counts of every
    kernel, against the plain route, and both routes' forward time.
+17. K1 fast in f32, where a user runs it: the paper-width f32 net with
+   fast_softmax on and use_pallas_bwd off, its forward at bucket 384, B=2,
+   against the plain route (exactly 24 K1 fast, 13 K2, no K1; by kernel
+   group), then one request served from its checkpoint through the serve
+   CLI (--fast_softmax --sampler ddim, 5 DDIM steps, bucket 384): s per
+   step and exact launches; the phase's wall time.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
-CLIs and 15's train and serve CLIs) runs with every launch count set to 0
-just before it and read just after; the f32 train CLI at 512 gives the
-launches of K1's and K2's f32 entries in the kernels' record. Every kernel's time and
+CLIs, 15's train and serve CLIs and 17's serve CLI) runs with every launch
+count set to 0 just before it and read just after; the f32 train CLI at 512
+gives the launches of K1's and K2's f32 entries in the kernels' record, the
+f32 served request K1 fast's. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype (f32: 3xTF32 on the tensor cores) and
@@ -188,12 +199,14 @@ SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "rows_attention_kchunk_bwd": CSRC + "attention_bwd_tf32.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated_mma.cu",
            "triangle_multiply": CSRC + "trimul_mma.cu",
-           "fused_transition": CSRC + "transition.cu",
+           "fused_transition": CSRC + "transition_mma.cu",
            "fused_outer_linear": CSRC + "outer.cu"}
-# K1 and K2 in f32 run their 3xTF32 bodies: the JSON record's own entries,
-# (kernel, source), with the launches of the f32 train CLI at bucket 512
+# K1, K2 and K1 fast in f32 run their 3xTF32 bodies: the JSON record's own
+# entries, (kernel, source), K1's and K2's with the launches of the f32
+# train CLI at bucket 512, K1 fast's with those of the f32 served request
 F32_BODIES = {"rows_attention_f32": ("rows_attention", CSRC + "attention_tf32.cu"),
-              "tiled_attention_f32": ("tiled_attention", CSRC + "attention_tiled_tf32.cu")}
+              "tiled_attention_f32": ("tiled_attention", CSRC + "attention_tiled_tf32.cu"),
+              "rows_attention_fast_f32": ("rows_attention_fast", CSRC + "attention_tf32.cu")}
 REPLACES = {
     "rows_attention": "protein_redesign_tpu/ops/pallas_attention.py:725",
     "rows_attention_fast": "protein_redesign_tpu/ops/pallas_attention.py:725",
@@ -333,9 +346,9 @@ def device_ms(fn, iters: int = 3) -> float:
 
 def body_times(name, q, k, v, mask, bias, scale, **backward) -> str:
     """The two bodies of K1, K1 fast, K2, K3, K5, K7 (``dout`` given) or K6
-    (``dout``, ``out``, ``m`` and ``logs`` given) on the same inputs (bf16;
-    in f32 all but K1 fast), each one launch without autograd: CUDA-event ms
-    per call and device ms per call."""
+    (``dout``, ``out``, ``m`` and ``logs`` given) on the same inputs (bf16
+    or f32), each one launch without autograd: CUDA-event ms per call and
+    device ms per call."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     # the K-chunk CUDA-core bodies: up to ~0.45 s a call (K6 in bf16 at 2048 ~1.2 s)
@@ -453,8 +466,10 @@ def phase_build() -> None:
               if "spill" in line and not line.strip().startswith("0 bytes stack")]
     if spills:
         print(f"[build] ptxas reports spills in {len(spills)} instantiations")
-    for source in ("fused_gated_mma.cu", "trimul_mma.cu"):
+    for source in ("fused_gated_mma.cu", "trimul_mma.cu", "transition_mma.cu", "attention_tf32.cu"):
         for name, regs, stores, loads in ptxas_report(lib.build_log, source):
+            if source == "attention_tf32.cu" and "fast" not in name:
+                continue
             print(f"[build] ptxas {source} {name}: {regs} registers, {stores} bytes spill stores, "
                   f"{loads} bytes spill loads")
 
@@ -501,12 +516,13 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
 
 
 def phase_fused_breakdown() -> None:
-    """K8 and K9 by CUDA kernel at the fused configuration's shape (bucket
-    192, B=2, paper width: K8 h16x4 at D = 64, K9 outgoing), bf16 and f32,
-    seeded random weights: device time per kernel from torch.profiler, run
-    first in the process (a profiler window later in a long run loses
-    kernels)."""
+    """K8, K9 and K10 by CUDA kernel at the fused configuration's shape
+    (bucket 192, B=2, paper width: K8 h16x4 at D = 64, K9 outgoing, K10
+    pair_fc and single_fc), bf16 and f32, seeded random weights: device time
+    per kernel from torch.profiler, run first in the process (a profiler
+    window later in a long run loses kernels)."""
     from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
     N, D, H, C = 192, 64, 4, 16
@@ -522,10 +538,21 @@ def phase_fused_breakdown() -> None:
         for out_dim in (2 * D, 2 * D, D, D):
             tw += [torch.randn(out_dim, D, generator=g, device="cuda") * D ** -0.5,
                    torch.randn(out_dim, generator=g, device="cuda")]
+        single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
+        mlps = {}
+        for view, dim in (("pair_fc", D), ("single_fc", 512)):
+            mlps[view] = (torch.randn(4 * dim, dim, generator=g, device="cuda") * dim ** -0.5,
+                          torch.randn(4 * dim, generator=g, device="cuda"),
+                          torch.randn(dim, 4 * dim, generator=g, device="cuda") * (4 * dim) ** -0.5,
+                          torch.randn(dim, generator=g, device="cuda"))
         label = str(dtype).replace("torch.", "")
         with torch.inference_mode():
             for name, fn in (("fused_gated_rows_attention", lambda: A.fused_gated(pair, mask, *gw, H)),
-                             ("triangle_multiply", lambda: M.trimul(pair, mask, *tw, "outgoing"))):
+                             ("triangle_multiply", lambda: M.trimul(pair, mask, *tw, "outgoing")),
+                             ("fused_transition pair_fc",
+                              lambda: T.transition(pair, *mlps["pair_fc"])),
+                             ("fused_transition single_fc",
+                              lambda: T.transition(single, *mlps["single_fc"]))):
                 parts = device_time_by_kernel(fn)
                 print(f"[fused-breakdown] {name} {label}, device time by kernel: "
                       + ", ".join(f"{k} {v:.4f} ms" for k, v in
@@ -620,10 +647,12 @@ def complex_batch(runner, batch_rows: int = 2, sequence: str = SEQUENCE):
     return runner.collate([complex_data(protein, ligand, esm)] * batch_rows)
 
 
-def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
+def phase_forward(net, tag: str = "forward", bucket: int = 192,
+                  tol: float = FORWARD_REL_TOL) -> None:
     """The net's forward at ``bucket`` (192: lysozyme and imatinib; 384: a
     seeded SERVE_LONG-residue sequence and imatinib), B=2, kernel route
-    against plain route, its exact launches and device time by group."""
+    against plain route within ``tol``, its exact launches and device time
+    by group."""
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
     from protein_redesign_tpu_torch.ops import attention as A
@@ -662,12 +691,13 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
                 raise AssertionError(f"{name}: shape {tuple(a.shape)} or non-finite values")
             rel = float((a - b).norm() / b.norm())
             print(f"[{tag}] {name} {tuple(a.shape)}: ||kernel - plain|| / ||plain|| = "
-                  f"{rel:.3e} (tol {FORWARD_REL_TOL:g})")
-            if not rel <= FORWARD_REL_TOL:
-                raise AssertionError(f"{name}: relative error {rel} > {FORWARD_REL_TOL}")
+                  f"{rel:.3e} (tol {tol:g})")
+            if not rel <= tol:
+                raise AssertionError(f"{name}: relative error {rel} > {tol}")
         kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 2, 5), cuda_ms(lambda: forward(True), 2, 5)
         busy = device_time_by_group(lambda: forward(False))
-    print(f"[{tag}] paper width, bf16, B={B}, bucket {bucket}: kernel route {kernel_ms:.2f} ms, "
+    print(f"[{tag}] paper width, {net.cfg.dtype}, B={B}, bucket {bucket}: kernel route "
+          f"{kernel_ms:.2f} ms, "
           f"plain route {plain_ms:.2f} ms per forward; launches per forward "
           f"{ {k: v for k, v in launches.items() if v} }")
     total = sum(busy.values())
@@ -678,6 +708,7 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192) -> None:
 
 # Device-time groups, matched on the CUDA kernel's name, in order.
 GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
+          ("transition_mma", "K10 transition (tensor cores)"),
           ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
           ("rows_attention_kchunk_bwd_d", "K6 rows_attention_kchunk_bwd (tensor cores)"),
           ("rows_attention_kchunk_mma_kernel<true", "K5 rows_attention_kchunk_stats (mma)"),
@@ -696,6 +727,7 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("rows_attention_bwd_dkdv_tf32x3", "K7 rows_attention_bwd (3xTF32)"),
           ("rows_attention_bwd", "K7 rows_attention_bwd"),
           ("rows_attention_fast_mma", "K1 fast rows_attention_fast (tensor cores)"),
+          ("rows_attention_fast_tf32x3", "K1 fast rows_attention_fast (3xTF32)"),
           ("rows_attention_fast", "K1 fast rows_attention_fast"),
           ("rows_attention", "K1 rows_attention"),
           ("tiled_attention_mma", "K2 tiled_attention (tensor cores)"),
@@ -1506,30 +1538,35 @@ def fused_bound(name: str, args: tuple, out) -> dict:
 
 @contextlib.contextmanager
 def fused_cuda_core_bodies():
-    """Inside the block, K8 and K9 take the CUDA-core bodies that their
-    tensor-core ones replaced (fused_gated.cu, trimul.cu), so that both can
-    be timed in one run. Launch counts are the same."""
+    """Inside the block, K8, K9 and K10 take the CUDA-core bodies that their
+    tensor-core ones replaced (fused_gated.cu, trimul.cu, transition.cu), so
+    that both can be timed in one run. Launch counts are the same."""
     from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
-    takes_a, takes_m = A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores
+    takes = (A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores,
+             T.transition_takes_tensor_cores)
     A.fused_gated_takes_tensor_cores = lambda D, H, C: False
     M.trimul_takes_tensor_cores = lambda D: False
+    T.transition_takes_tensor_cores = lambda D, Hd, Dout, dtype: False
     try:
         yield
     finally:
-        A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores = takes_a, takes_m
+        (A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores,
+         T.transition_takes_tensor_cores) = takes
 
 
 def phase_fused_kernels() -> dict:
     """K8-K11 against their plain versions at the fused configuration's shapes
     at bucket 192, B=2 (147 nodes valid): f32 and bf16 errors; the kernel's,
-    the plain version's and the unfused module route's time in both; K8 and
-    K9 on the device on their tensor-core bodies and on the CUDA-core bodies
-    those replaced; the record (bf16) keeps K8's starting view, K9 outgoing,
-    K10 pair_fc. Then the same in bf16 at AlphaFold2's pair width 128, K8 at
-    the h64x1 and h64x4 head layouts (bf16) and K10 at single_fc 768 (both
-    dtypes), outside the record."""
+    the plain version's and the unfused module route's time in both; K8, K9
+    and K10 on the device on their tensor-core bodies and on the CUDA-core
+    bodies those replaced; the record (bf16) keeps K8's starting view, K9
+    outgoing, K10 pair_fc. Then the same in bf16 at AlphaFold2's pair width
+    128 (K10's pair_fc there in f32 too), K8 at the h64x1 and h64x4 head
+    layouts (bf16) and K10 at single_fc 768 (both dtypes), outside the
+    record."""
     from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
     from protein_redesign_tpu_torch.models.layers import GatedAttention, TransitionMLP
     from protein_redesign_tpu_torch.ops import attention as A
@@ -1544,9 +1581,9 @@ def phase_fused_kernels() -> dict:
     # (dtype, pair width, K8's heads x width, single width; the paper's layout
     # runs every kernel, the others K8 or K10 alone)
     widths = ((torch.float32, 64, (4, 16), 512), (torch.bfloat16, 64, (4, 16), 512),
-              (torch.bfloat16, 128, (4, 16), 512), (torch.bfloat16, 64, (1, 64), None),
-              (torch.bfloat16, 64, (4, 64), None), (torch.bfloat16, 64, None, 768),
-              (torch.float32, 64, None, 768))
+              (torch.bfloat16, 128, (4, 16), 512), (torch.float32, 128, None, None),
+              (torch.bfloat16, 64, (1, 64), None), (torch.bfloat16, 64, (4, 64), None),
+              (torch.bfloat16, 64, None, 768), (torch.float32, 64, None, 768))
     for seed, (dtype, D, heads, single_dim) in enumerate(widths):
         paper = heads == (4, 16) and single_dim == 512
         g = torch.Generator("cuda").manual_seed(300 + seed)
@@ -1573,13 +1610,14 @@ def phase_fused_kernels() -> dict:
         single = None
         if single_dim is not None:
             single = torch.randn(2, N, single_dim, generator=g, device="cuda").to(dtype)
-            views = (("pair_fc", pair, D), ("single_fc", single, single_dim)) if paper else (
-                ("single_fc", single, single_dim),)
-            for view, x, dim in views:
-                mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
-                cases.append(("fused_transition", view, T.transition, T.transition_reference,
-                              (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
-                              lambda mlp=mlp, x=x: mlp(x)))
+        views = (("pair_fc", pair, D), ("single_fc", single, single_dim)) if paper else (
+            ("single_fc", single, single_dim),) if single_dim is not None else (
+            ("pair_fc", pair, D),) if heads is None else ()
+        for view, x, dim in views:
+            mlp = perturb(TransitionMLP(dim, 4 * dim, dim, dtype=dtype), 330).to("cuda")
+            cases.append(("fused_transition", view, T.transition, T.transition_reference,
+                          (x, mlp[1].weight, mlp[1].bias, mlp[3].weight, mlp[3].bias),
+                          lambda mlp=mlp, x=x: mlp(x)))
         if paper:
             ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 340).to("cuda")
             cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
@@ -1601,10 +1639,16 @@ def phase_fused_kernels() -> dict:
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 b = fused_bound(name, args, got)
                 bodies = ""
-                if name in FUSED_NAMES[:2]:  # K8, K9: both bodies on the device
+                if name in FUSED_NAMES[:3]:  # K8, K9, K10: both bodies on the device
                     dev = device_ms(lambda: kernel(*args))
-                    bodies = f"; on the device {dev:.4f} ms (tensor-core body)"
-                    core_fits = name == "triangle_multiply" or A.fused_gated_core_fits(D, *heads)
+                    layout = ""
+                    if name == "fused_transition":
+                        w1, w2 = args[1], args[3]
+                        layout = ", " + T.transition_layout(w1.shape[1], w1.shape[0], w2.shape[0],
+                                                            dtype) + " layout"
+                    bodies = f"; on the device {dev:.4f} ms (tensor-core body{layout})"
+                    core_fits = (name != "fused_gated_rows_attention"
+                                 or A.fused_gated_core_fits(D, *heads))
                     if core_fits:
                         with fused_cuda_core_bodies():
                             core = kernel(*args)
@@ -1773,15 +1817,17 @@ def phase_fused_train(seed: int) -> dict:
 
 def phase_fast_kernel() -> dict:
     """K1 fast against its plain version, to TOL_BF16 (p is rounded to bf16
-    in both dtypes): in bf16 its tensor-core body at bucket 384 (R = 768,
-    360 nodes valid; its serving shape) and 192 (R = 384, 147 valid), with
-    the share of output elements that differ from the plain version and the
-    CUDA-core body's, the plain version's, K1's and SDPA's time on the same
-    inputs; in f32 its CUDA-core body at 384 and 192, with its device time,
-    f32 SDPA's time and its bound. The record keeps bf16 at 384."""
+    in both dtypes), at bucket 384 (R = 768, 360 nodes valid; its serving
+    shape) and 192 (R = 384, 147 valid), in bf16 and f32: its tensor-core
+    body (bf16 attention_mma.cu, f32 3xTF32 attention_tf32.cu) timed beside
+    its CUDA-core body, with the share of output elements that differ from
+    the plain version (in f32: past the f32 sums' TOL_F32, the bf16 rounding
+    flips) and the plain version's, K1's and SDPA's time on the same inputs
+    and the bound. The record keeps bf16 at 384, its f32 entry f32 at 384."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     rec = {"max_abs_err": 0.0}
+    rec_f32 = {"max_abs_err": 0.0}
     cases = ((384, 360, torch.bfloat16), (192, 147, torch.bfloat16), (384, 360, torch.float32),
              (192, 147, torch.float32))
     for seed, (N, n_valid, dtype) in enumerate(cases):
@@ -1797,26 +1843,30 @@ def phase_fast_kernel() -> dict:
         excess = float((diff - TOL_BF16 * ref.float().abs()).max())
         if not (out.dtype == dtype and torch.isfinite(out).all() and excess <= TOL_BF16):
             raise AssertionError(f"rows_attention_fast {dtype}: max abs err {err} > tol {TOL_BF16}")
-        differ = float((out != ref).float().mean())
+        bf16 = dtype == torch.bfloat16
+        moved = (out != ref) if bf16 else diff > TOL_F32 * (1 + ref.float().abs())
+        differ = f"{float(moved.float().mean()):.2e} of the outputs differ from the plain version"
+        if not bf16:
+            differ += f" past {TOL_F32:g}"
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         k1_ms = cuda_ms(lambda: A.rows_attention(q, k, v, mask, scale))
         label = str(dtype).replace("torch.", "")
-        body = f"CUDA cores, on the device {device_ms(kernel):.4f} ms"
-        if dtype == torch.bfloat16:
-            body = "tensor cores; " + body_times("rows_attention_fast", q, k, v, mask, None, scale)
+        body = ("tensor cores; " if bf16 else "3xTF32; ") + body_times(
+            "rows_attention_fast", q, k, v, mask, None, scale)
         print(f"[fast-kernel] rows_attention_fast R={2 * N} H=4 N={N} C=16 {label} "
-              f"({n_valid} valid): max_abs_err {err:.3e} (tol {TOL_BF16:g}), {differ:.2e} of the "
-              f"outputs differ from the plain version; kernel {ms:.4f} ms ({body}), plain "
-              f"{plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+              f"({n_valid} valid): max_abs_err {err:.3e} (tol {TOL_BF16:g}), {differ}; kernel "
+              f"{ms:.4f} ms ({body}), plain {plain_ms:.4f} ms, K1 on the same inputs "
+              f"{k1_ms:.4f} ms")
+        r = rec if bf16 else rec_f32
+        r["max_abs_err"] = max(r["max_abs_err"], err)
         at = attention_bound(q, mask, None, 2, 4)
         lib_ms = library_ms(q, k, v, mask, None, scale)
-        if dtype == torch.bfloat16 and N == 384:
-            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
+        if N == 384:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **at)
         print(f"[fast-kernel] R={2 * N} N={N} {label}: bound {at['bound_ms']:.4f} ms "
               f"({at['bound_by']}; exp floor {exp_floor_ms(q, mask):.4f} ms), library "
               f"({label} SDPA) {lib_ms} ms")
-    return rec
+    return {"rows_attention_fast": rec, "rows_attention_fast_f32": rec_f32}
 
 
 def _fast_train(tmp: Path, seed: int) -> Path:
@@ -2001,6 +2051,77 @@ def phase_serving(seed: int) -> dict:
     return launches
 
 
+# DDIM steps of the request served from the f32 fast-softmax checkpoint.
+F32_SERVE_STEPS = 5
+
+
+def phase_fast_f32(seed: int) -> dict:
+    """K1 fast in f32 where a user runs it: the paper-width f32 net with
+    fast_softmax on and use_pallas_bwd off (the attention plan takes Pallas
+    from bucket 384), its forward at bucket 384, B=2, against the plain route
+    (exactly 24 K1 fast, 13 K2 and no K1; by kernel group), held to
+    FORWARD_REL_TOL_F32: both routes round the softmax to bf16 at the same
+    points, and only a logit that the order of the f32 sums rounds the other
+    way differs; then its checkpoint (utils.weights.save_checkpoint) served
+    through the serve CLI with --fast_softmax --sampler ddim, warmed at 384,
+    one request of a seeded SERVE_LONG-residue sequence and imatinib (2
+    samples, bucket 384) over F32_SERVE_STEPS DDIM steps: s per step and
+    exact launches (24 K1 fast per forward). Returns the serve CLI's
+    launches."""
+    from protein_redesign_tpu_torch.cli.serve import main as serve
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.weights import save_checkpoint
+
+    began = time.perf_counter()
+    cfg = ModelConfig(dtype="float32", fast_softmax=True, use_pallas_bwd=False)
+    net = perturbed_net(cfg, seed).to("cuda").eval()
+    per_forward = forward_launches(cfg, n=384)
+    if per_forward["rows_attention_fast"] != 2 * cfg.num_blocks or per_forward["rows_attention"]:
+        raise AssertionError(f"the f32 fast forward at 384 would launch {per_forward}")
+    phase_forward(net, tag="fast-f32-forward-384", bucket=384, tol=FORWARD_REL_TOL_F32)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_checkpoint(tmp / "ckpt", net.state_dict(), net.cfg)
+        del net
+        request = {"id": "long-f32", "protein": long_sequence(seed + 51, SERVE_LONG),
+                   "ligand": LIGAND, "num_samples": 2, "seed": 4}
+        reqs, results = tmp / "requests.jsonl", tmp / "results.jsonl"
+        reqs.write_text(json.dumps(request) + "\n")
+        argv = ["-c", str(tmp / "ckpt"), "-o", str(tmp / "served"), "--num_steps",
+                str(SERVE_SCHEDULE), "--fast_softmax", "--sampler", "ddim", "--ddim_steps",
+                str(F32_SERVE_STEPS), "--batch_size", "2", "--warmup_buckets", "384",
+                "--input", str(reqs), "--output", str(results), "--device", "cuda"]
+        A.reset_launch_counts()
+        served = time.perf_counter()
+        runner = serve(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - served
+        launches = main_path_launches()
+        line = json.loads(results.read_text().splitlines()[0])
+        if "error" in line or len(line["sequences"]) != 2 or not all(
+                0.0 <= x <= 1.0 for x in line["tmscores"]) or not all(
+                Path(f).is_file() for f in line["pdb_files"] + line["sdf_files"]):
+            raise AssertionError(f"f32 serve: response {line}")
+    if runner.net.cfg.dtype != "float32":
+        raise AssertionError(f"f32 serve: the checkpoint loaded as {runner.net.cfg.dtype}")
+    buckets = [t[0] for t in runner.timings]  # the warm-up batch and the request's
+    per_forward = forward_launches(runner.net.cfg, n=384)
+    expected = launch_record(**{k: F32_SERVE_STEPS * len(buckets) * per_forward[k]
+                                for k in REPLACES})
+    if buckets != [384, 384] or launches != expected:
+        raise AssertionError(f"f32 serve launches {launches} over batches at {buckets} != "
+                             f"{expected}")
+    for bucket, rows, steps, seconds in runner.timings:
+        print(f"[fast-f32-serve] bucket {bucket}, {rows} samples per batch: {steps} DDIM steps "
+              f"in {seconds:.3f} s = {seconds / steps:.4f} s/step")
+    print(f"[fast-f32-serve] f32 checkpoint with --fast_softmax: main() wall {wall:.2f} s "
+          f"(startup, warm-up and 1 request); TM-scores {line['tmscores']}; launches "
+          f"{({k: v for k, v in launches.items() if v})}; phase wall "
+          f"{time.perf_counter() - began:.1f} s")
+    return launches
+
+
 # Configurations past the kernels' former bounds, with the launches of one
 # 2-block forward at bucket 192: the four switches at AlphaFold2's pair width
 # 128 (K8, K9 and K11 at D = 128; K10 on both transitions), an f32 model
@@ -2101,8 +2222,9 @@ def main() -> None:
     fused_generate = phase_generate(net, flags=[f"--{f}" for f in FUSED], tag="fused-generate")
     del net
     phase_fused_train(args.seed)
-    record["rows_attention_fast"] = phase_fast_kernel()
+    record.update(phase_fast_kernel())
     served = phase_serving(args.seed)
+    served_f32 = phase_fast_f32(args.seed)
     net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False)).to("cuda").eval()
     phase_forward(net, tag="fast-forward")
     phase_forward(net, tag="fast-forward-384", bucket=384)
@@ -2125,10 +2247,14 @@ def main() -> None:
          "launches": launches[k], **{key: record[k][key] for key in keys}}
         for k in REPLACES
     ]
-    # K1 and K2 in f32 on their 3xTF32 bodies: launches on the f32 train CLI at 512
+    # K1 and K2 in f32 on their 3xTF32 bodies: launches on the f32 train CLI
+    # at 512; K1 fast in f32 on the f32 served request
+    f32_launches = {"rows_attention_f32": train_512["rows_attention"],
+                    "tiled_attention_f32": train_512["tiled_attention"],
+                    "rows_attention_fast_f32": served_f32["rows_attention_fast"]}
     kernels += [
         {"name": k, "route": "cuda", "source": source, "replaces": REPLACES[kernel],
-         "launches": train_512[kernel], **{key: record[k][key] for key in keys}}
+         "launches": f32_launches[k], **{key: record[k][key] for key in keys}}
         for k, (kernel, source) in F32_BODIES.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bwd_mma.cu",
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
            "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
-           "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu", "outer.cu")
+           "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu",
+           "transition_mma.cu", "outer.cu")
 HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh", "ln_project.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
@@ -65,6 +66,8 @@ class KernelLibrary:
         lib.prd_rows_attention_mma.restype = i32
         lib.prd_rows_attention_tf32x3.argtypes = lib.prd_rows_attention_fast_mma.argtypes
         lib.prd_rows_attention_tf32x3.restype = i32
+        lib.prd_rows_attention_fast_tf32x3.argtypes = lib.prd_rows_attention_fast_mma.argtypes
+        lib.prd_rows_attention_fast_tf32x3.restype = i32
         lib.prd_tiled_attention_tf32x3.argtypes = lib.prd_tiled_attention_mma.argtypes
         lib.prd_tiled_attention_tf32x3.restype = i32
         lib.prd_rows_attention_kchunk_mma.argtypes = (
@@ -109,6 +112,10 @@ class KernelLibrary:
         lib.prd_trimul_mma.restype = i32
         lib.prd_transition.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.prd_transition.restype = i32
+        lib.prd_transition_mma.argtypes = lib.prd_transition.argtypes
+        lib.prd_transition_mma.restype = i32
+        lib.prd_transition_mma_layout.argtypes = [i32] * 4
+        lib.prd_transition_mma_layout.restype = i32
         lib.prd_outer.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.prd_outer.restype = i32
         lib.prd_error_string.argtypes = [i32]

@@ -1,7 +1,8 @@
 // LayerNorm + projection on the tensor cores: the block that the fused
 // kernels' LN -> Linear stages share (fused_gated_mma.cu: K8's q, k, v and
 // gate projection; trimul_mma.cu: K9's gated a, b and out-gate projection
-// and its out-projection of the normed product).
+// and its out-projection of the normed product). transition_mma.cu (K10)
+// takes its operand traits (LnpOperand) and unpack16.
 //
 // One block of kLnpThreads threads (4 warps) takes kLnpRows = 64 positions:
 //   0. the first two 64-column slices of the weight W [D, Wc] (T, row-major)

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for the sm_90a kernels (attention_mma.cu,
 // attention_bwd_mma.cu, attention_tf32.cu, fused_gated_mma.cu,
-// trimul_mma.cu and ln_project.cuh): cp.async staging, ldmatrix
+// trimul_mma.cu, transition_mma.cu and ln_project.cuh): cp.async staging, ldmatrix
 // fragment loads, mma.sync m16n8k16 with bf16 operands and f32 accumulators,
 // and mma.sync m16n8k8 in 3xTF32 for f32 operands, in inline PTX.
 //

@@ -1,6 +1,7 @@
-"""Time variants of the f32 tensor-core bodies' launch constants on the card.
+"""Time variants of the tensor-core bodies' launch constants on the card.
 
-    python -m protein_redesign_tpu_torch.kernels.variants [k1] [k5] [k6]
+    python -m protein_redesign_tpu_torch.kernels.variants [k1] [k5] [k6] [k1fast] [k10]
+        [k10rows]
 
 Each 3xTF32 body fixes a few constants. K5's forward (``csrc/attention_tf32.cu``
 and the body it shares in ``attention_tf32.cuh``): the warps of a block
@@ -22,6 +23,23 @@ queued behind a spin on the card, the variants in turns (ABBA...), the
 median of the rounds. Each variant's outputs are held to the shipped one's
 (1e-5). It prints ptxas's registers and spills for the instantiations at C
 = 16, the card's name and power limit, and one line per variant and shape.
+
+K1 fast's f32 body (``attention_tf32.cu``, ``k1fast``): its logits kept in
+shared memory where they fit (``fast_stores_logits``) against recomputing
+them from K in each of its three passes, at K1's phase-3 shapes (N = 192
+and 384 of 147 and 360 valid). K10's split layout (``transition_mma.cu``,
+``k10``, single_fc at bucket 192: M = 384, 512 -> 2048 -> 512 and 768 ->
+3072 -> 768, both dtypes): the depth of its slab ring (``kRing``), the
+block's rows (``split_warps``: 64 where they fit, else 32), and, to time
+them alone, a build that stores its partial sums in place of adding them
+(its outputs are wrong and not compared). K10's times include zeroing its
+f32 scratch, as the wrapper does; its outputs are held to the shipped
+build's at 1e-5 in f32 and 2e-2 in bf16 (the scratch's atomics sum in an
+order that changes from run to run). K10's rows layout (``k10rows``,
+pair_fc at bucket 192: M = 73,728, 64 -> 256 -> 64): 8 warps a block
+against 16 in bf16, W2's pair of f32 values as one 8-byte load or two 4-byte
+ones in the f32 second product, and, to time its parts, builds without the
+LayerNorm, the first or the second product (timing only).
 """
 
 from __future__ import annotations
@@ -45,6 +63,19 @@ PTR, I32, F32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lon
 
 # the shape of K5 and K6: (R, N, nodes valid)
 KCHUNK_SHAPE = (1024, 1024, 997)
+# K10's scratch: added to (shipped), or overwritten (timing only)
+ATOMIC = "atomicAdd(reinterpret_cast<float4*>(p), v);"
+STORE = "*reinterpret_cast<float4*>(p) = v;"
+TIMING_ONLY = "timing only"
+# K10's rows layout: its LayerNorm and its second product, kept or left out
+LN_CALL = "    ln_in_place<T>(a_w, ldx, D, lane);\n"
+PROD_OUT = "      prod_out<NO>(h, w2_s + c * kHid, ld2, lane, acc);\n"
+PROD_HIDDEN = "      prod_hidden(a_w, ldx, w1_s + c * kHid * lda, lda, DP, lane, h);\n"
+RESIDENT = "8"
+W2_PAIR = ("const float2 w = *reinterpret_cast<const float2*>(w2 + (n * 8 + g) * ld2 + kk * 8 "
+           "+ 2 * t4);")
+W2_TWO = ("const float* w_p = w2 + (n * 8 + g) * ld2 + kk * 8 + 2 * t4; "
+          "const float2 w = make_float2(w_p[0], w_p[1]);")
 # the blocks a SM of K5's variants, as kF32MinBlocks<WARPS, NT>: 128
 # registers (16 warps a SM) up to CP = 32, or 80 (24 warps) at CP <= 16
 MIN_BLOCKS_128 = "(NT <= 4 ? 16 : 8) / WARPS"
@@ -99,6 +130,66 @@ BODIES = {
             ("32-row tiles, 3 blocks a SM (168 registers)", "32", "NT <= 4 ? 3 : 2"),
         ),
     ),
+    "k1fast": dict(
+        source="attention_tf32.cu",
+        edits=(("attention_tf32.cu",
+                r"bool fast_stores_logits\(size_t smem\) \{ return [^;]+; \}",
+                "bool fast_stores_logits(size_t smem) {{ return {}; }}"),),
+        kernels=("rows_attention_fast_tf32x3_kernelILb1ELi2E",
+                 "rows_attention_fast_tf32x3_kernelILb0ELi2E"),
+        shapes=((384, 192, 147), (768, 384, 360)),
+        variants=(
+            ("shipped: logits kept in shared memory where they fit", "smem <= 227 * 1024"),
+            ("logits recomputed from K in each pass", "false"),
+        ),
+    ),
+    "k10": dict(
+        source="transition_mma.cu",
+        edits=(("transition_mma.cu", r"constexpr int kRing = \d+;", "constexpr int kRing = {};"),
+               ("transition_mma.cu", r"return split_smem<T>\(D, 4\) <= kMaxSmem \? 4",
+                "return split_smem<T>(D, 4) <= kMaxSmem && {} ? 4"),
+               ("transition_mma.cu",
+                r"__device__ __forceinline__ void add4\(float\* p, float4 v\) \{\n  [^\n]*\n\}",
+                "__device__ __forceinline__ void add4(float* p, float4 v) {{\n  {}\n}}")),
+        kernels=("transition_mma_split_kernelI13__nv_bfloat16Li4EE",
+                 "transition_mma_split_kernelIfLi4EE"),
+        shapes=((torch.bfloat16, 384, 512, 2048, 512), (torch.float32, 384, 512, 2048, 512),
+                (torch.bfloat16, 384, 768, 3072, 768), (torch.float32, 384, 768, 3072, 768)),
+        variants=(
+            ("shipped: a ring of 3 slabs, 64-row blocks where they fit", "3", "true", ATOMIC),
+            ("a ring of 2 slabs (double buffering)", "2", "true", ATOMIC),
+            ("a ring of 4 slabs", "4", "true", ATOMIC),
+            ("32-row blocks at every width", "3", "false", ATOMIC),
+            (f"{TIMING_ONLY}: partial sums stored, not added", "3", "true", STORE),
+        ),
+    ),
+    "k10rows": dict(
+        source="transition_mma.cu",
+        edits=(("transition_mma.cu", r"constexpr int kResidentWarps = [^;]+;",
+                "constexpr int kResidentWarps = {};"),
+               ("transition_mma.cu", r"    ln_in_place<T>\(a_w, ldx, D, lane\);\n", "{}"),
+               ("transition_mma.cu",
+                r"      prod_out<NO>\(h, w2_s \+ c \* kHid, ld2, lane, acc\);\n", "{}"),
+               ("transition_mma.cu",
+                r"      prod_hidden\(a_w, ldx, w1_s \+ c \* kHid \* lda, lda, DP, lane, h\);\n",
+                "{}"),
+               ("transition_mma.cu",
+                r"const float2 w = \*reinterpret_cast<const float2\*>\(w2 \+ \(n \* 8 \+ g\) \* ld2 "
+                r"\+ kk \* 8 \+ 2 \* t4\);", "{}")),
+        kernels=("transition_mma_rows_kernelI13__nv_bfloat16Li8ELi8EE",
+                 "transition_mma_rows_kernelIfLi8ELi8EE"),
+        shapes=((torch.bfloat16, 73728, 64, 256, 64), (torch.float32, 73728, 64, 256, 64)),
+        variants=(
+            ("shipped: 8 warps a block", RESIDENT, LN_CALL, PROD_OUT, PROD_HIDDEN, W2_PAIR),
+            ("16 warps a block in bf16", "sizeof(T) == 2 ? 16 : 8", LN_CALL, PROD_OUT,
+             PROD_HIDDEN, W2_PAIR),
+            ("f32 second product: W2's pair as two 4-byte loads", RESIDENT, LN_CALL, PROD_OUT,
+             PROD_HIDDEN, W2_TWO),
+            (f"{TIMING_ONLY}: no LayerNorm", RESIDENT, "", PROD_OUT, PROD_HIDDEN, W2_PAIR),
+            (f"{TIMING_ONLY}: no second product", RESIDENT, LN_CALL, "", PROD_HIDDEN, W2_PAIR),
+            (f"{TIMING_ONLY}: no first product", RESIDENT, LN_CALL, PROD_OUT, "", W2_PAIR),
+        ),
+    ),
 }
 
 
@@ -132,11 +223,23 @@ def ptxas_line(log: str, kernel: str) -> str:
     return "not found"
 
 
-def inputs(R: int, N: int, n_valid: int):
-    """q, k, v, dO, the rows mask, and K5's out, m and log s with the
-    delta = rowsum(dO o O) that K6 takes, from the shipped kernels."""
+def inputs(name: str, shape):
+    """The body's inputs at one shape: for K10 x, W1, b1, W2, b2 (seeded)
+    and its output and f32 scratch; for the attention bodies q, k, v, dO,
+    the rows mask, and K5's out, m and log s with the delta = rowsum(dO o O)
+    that K6 takes, from the shipped kernels."""
     from ..ops import attention as A
 
+    if name.startswith("k10"):
+        dtype, M, D, Hd, Dout = shape
+        g = torch.Generator(device="cuda").manual_seed(210)
+        x = torch.randn(M, D, generator=g, device="cuda").to(dtype)
+        w1 = (torch.randn(Hd, D, generator=g, device="cuda") * D ** -0.5).to(dtype)
+        w2 = (torch.randn(Dout, Hd, generator=g, device="cuda") * Hd ** -0.5).to(dtype)
+        b1, b2 = (0.3 * torch.randn(n, generator=g, device="cuda") for n in (Hd, Dout))
+        return (x, w1, b1, w2, b2, torch.empty(M, Dout, dtype=dtype, device="cuda"),
+                torch.zeros(M, Dout, device="cuda"))
+    R, N, n_valid = shape
     g = torch.Generator(device="cuda").manual_seed(200)
     q, k, v, dout = (torch.randn(R, N, H, C, generator=g, device="cuda") for _ in range(4))
     node = (torch.arange(N, device="cuda") < n_valid).float()
@@ -147,12 +250,27 @@ def inputs(R: int, N: int, n_valid: int):
 
 def make_call(name: str, lib, tensors):
     """The variant's call and the outputs it writes."""
+    stream = torch.cuda.current_stream().cuda_stream
+    if name.startswith("k10"):
+        x, w1, b1, w2, b2, out, out32 = tensors
+        fn = lib.prd_transition_mma
+        fn.argtypes = [PTR] * 7 + [I32] * 5 + [PTR]
+        fn.restype = I32
+        args = (*(t.data_ptr() for t in tensors), int(x.dtype == torch.bfloat16), x.shape[0],
+                x.shape[1], w1.shape[0], w2.shape[0], stream)
+
+        def call_k10():
+            out32.zero_()
+            code = fn(*args)
+            if code:
+                raise RuntimeError(f"launch failed: CUDA error {code}")
+
+        return call_k10, (out,)
     q, k, v, dout, mask, m, logs, delta = tensors
     R, N = q.shape[:2]
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    stream = torch.cuda.current_stream().cuda_stream
-    if name == "k1":
-        fn = lib.prd_rows_attention_tf32x3
+    if name in ("k1", "k1fast"):
+        fn = lib.prd_rows_attention_tf32x3 if name == "k1" else lib.prd_rows_attention_fast_tf32x3
         fn.argtypes = [PTR] * 5 + [I32] * 4 + [F32] + [I64] * 9 + [PTR]
         outs = (torch.empty_like(q),)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), outs[0].data_ptr(),
@@ -180,18 +298,22 @@ def make_call(name: str, lib, tensors):
     return call, outs
 
 
-def time_variants(name: str, libs, tensors):
-    """Each variant's ms per call on the device at one shape, in turns."""
+def time_variants(name: str, libs, tensors, labels):
+    """Each variant's ms per call on the device at one shape, in turns; each
+    variant's outputs (but a timing-only one's) held to the shipped one's."""
     fns, outs = [], []
     for lib in libs:
         call, written = make_call(name, lib, tensors)
         call()
         torch.cuda.synchronize()
         fns.append(call)
-        outs.append(written)
-    for written in outs[1:]:
+        outs.append(tuple(t.clone() for t in written))
+    tol = 2e-2 if tensors[0].dtype == torch.bfloat16 else 1e-5
+    for written, label in zip(outs[1:], labels[1:]):
+        if label.startswith(TIMING_ONLY):
+            continue
         for got, want in zip(written, outs[0]):
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
     times = [[] for _ in libs]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for r in range(ROUNDS):
@@ -220,10 +342,16 @@ def run(name: str, nvcc: str) -> None:
         if any(p.returncode for p in procs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
         libs = [ctypes.CDLL(str(d / "lib.so")) for d in dirs]
-        for R, N, n_valid in body["shapes"]:
-            times = time_variants(name, libs, inputs(R, N, n_valid))
-            print(f"{name.upper()} f32, R={R} N={N} H={H} C={C} ({n_valid} valid): ms on the "
-                  f"device, median of {ROUNDS} rounds of {CALLS} calls (min-max)")
+        for shape in body["shapes"]:
+            times = time_variants(name, libs, inputs(name, shape), [v[0] for v in variants])
+            if name.startswith("k10"):
+                dtype, M, D, Hd, Dout = shape
+                what = f"K10 {str(dtype)[6:]}, M={M}, {D} -> {Hd} -> {Dout}"
+            else:
+                R, N, n_valid = shape
+                what = f"{name.upper()} f32, R={R} N={N} H={H} C={C} ({n_valid} valid)"
+            print(f"{what}: ms on the device, median of {ROUNDS} rounds of {CALLS} calls "
+                  f"(min-max)")
             for (label, *_), t, log in zip(variants, times, logs):
                 regs = "; ".join(ptxas_line(log, kernel) for kernel in body["kernels"])
                 print(f"  {label}: {statistics.median(t):.3f} ({min(t):.3f}-{max(t):.3f}); {regs}")

@@ -21,13 +21,13 @@ inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
 K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async),
 else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
 ``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. In f32 with C a
-multiple of 8 every kernel but K1 fast takes a tensor-core body too
-(``takes_tf32x3``): K1, K3 and K5 ``attention_tf32.cu`` (one body; C up to
-128), K2 ``attention_tiled_tf32.cu`` (C up to 1024), K6 and K7
-``attention_bwd_tf32.cu`` (C up to 128): every product in 3xTF32, three TF32
-products of split operands, which keeps the 1e-5 parity that one TF32
-product would break. f32 at C = 4 mod 8, and K1 fast in f32, keep the
-CUDA-core bodies.
+multiple of 8 every kernel takes a tensor-core body too (``takes_tf32x3``):
+K1, K3 and K5 ``attention_tf32.cu`` (one body; C up to 128), K1 fast its own
+body there (C up to 128: the logits kept in shared memory, P.V in two TF32
+products of bf16 P), K2 ``attention_tiled_tf32.cu`` (C up to 1024), K6 and
+K7 ``attention_bwd_tf32.cu`` (C up to 128): every product in 3xTF32, three
+TF32 products of split operands, which keeps the 1e-5 parity that one TF32
+product would break. f32 at C = 4 mod 8 keeps the CUDA-core bodies.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -210,12 +210,13 @@ def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
 
 def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
-    width C in ``dtype``: f32 with C a multiple of 8, K1, K3 and K5
+    width C in ``dtype``: f32 with C a multiple of 8, K1, K1 fast, K3 and K5
     (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
     MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head), K2
     (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body streams the
-    head), each within its shared memory. K1 fast in f32 keeps its
-    CUDA-core body."""
+    head), each within its shared memory (K1 fast keeps its logits in shared
+    memory where they fit and recomputes them past that, so N bounds
+    nothing)."""
     if dtype != torch.float32 or C <= 0 or C % 8:
         return False
     if name == "tiled_attention":
@@ -224,7 +225,7 @@ def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
         return False
     if name in BACKWARDS:
         return bwd_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
-    return (name in KCHUNK_FORWARDS + ("rows_attention",)
+    return (name in KCHUNK_FORWARDS + ("rows_attention", "rows_attention_fast")
             and tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
 
 
@@ -628,15 +629,15 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
               f"bytes (K6 and K7 up to {MAX_BWD_HEAD_DIM}; in f32 K2 up to {MAX_HEAD_DIM}, "
-              f"the others up to {MAX_KCHUNK_HEAD_DIM}, K1 fast none)")
+              f"the others up to {MAX_KCHUNK_HEAD_DIM})")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
             mma: Optional[bool] = None) -> torch.Tensor:
     """Launch K1, K1 fast or K2 (``name``); ``mma`` None picks the body by
     ``takes_tensor_cores``: the bf16 one (attention_mma.cu) or in f32 the
-    3xTF32 one (K1 attention_tf32.cu, K2 attention_tiled_tf32.cu); False
-    forces the CUDA-core body."""
+    3xTF32 one (K1 and K1 fast attention_tf32.cu, K2
+    attention_tiled_tf32.cu); False forces the CUDA-core body."""
     from ..kernels import build
 
     C = q.shape[-1]
@@ -848,8 +849,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
     ("rows_attention_kchunk_bwd", given ``dout`` and K5's ``out``, ``m`` and
     ``logs``) on CUDA tensors through the body ``mma`` names, without
     autograd: the CUDA-core body (``mma`` False), which a tensor-core one
-    replaced (bf16; in f32 all but K1 fast), stays callable only to time the
-    two side by side."""
+    replaced (both dtypes, C a multiple of 8), stays callable only to time
+    the two side by side."""
     if name == "rows_attention_bwd":
         return _launch_bwd(q, k, v, mask, dout, scale, mma=mma)
     if name == "rows_attention_kchunk_bwd":
@@ -862,7 +863,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
 def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """K1 fast: ``rows_attention_fast_reference``'s function; the plain
     version for CPU tensors, the kernel for CUDA ones: the tensor-core body
-    in bf16 with C a multiple of 8, else the CUDA-core body (C <= 1024).
+    with C a multiple of 8 (bf16; f32 up to 128), else the CUDA-core body
+    (C <= 1024).
     Forward only: its callers differentiate the f32 reference instead."""
     if mask is None:
         raise ValueError("rows_attention_fast needs a key mask")

@@ -3,9 +3,14 @@ plain PyTorch version and the dispatch to its hand-written Hopper kernel.
 
 Port of ``protein_redesign_tpu/ops/pallas_transition.py``:
 ``fused_transition`` replaces the Pallas kernel K10 (``_fused_transition_impl``
-:71 -> ``_kernel`` :33) with ``kernels/csrc/transition.cu``, and its
-backward differentiates the plain version, as ``_ft_bwd`` (:138)
-differentiates ``_reference_impl``.
+:71 -> ``_kernel`` :33), and its backward differentiates the plain version,
+as ``_ft_bwd`` (:138) differentiates ``_reference_impl``. K10 has two
+bodies (``transition_takes_tensor_cores``): input, hidden and output widths
+that are multiples of 8 in bf16 (4 in f32) take the tensor-core one
+(``kernels/csrc/transition_mma.cu``: mma.sync in bf16, 3xTF32 in f32, h kept
+in registers; ``transition_layout`` names its layout), other widths the
+CUDA-core one (``kernels/csrc/transition.cu``), which stays callable to time
+it beside the other.
 
 Weights keep the torch Linear layout: w1 [Hd, D], w2 [Dout, Hd], f32
 parameters. The computation takes the input's dtype, as the kernel does:
@@ -53,6 +58,85 @@ def smem_bytes(D: int) -> int:
     return whole if whole <= MAX_SMEM else 4 * (64 * 68 + 64 * 64 + 64 * 68 + 64 * 64 + 2 * 64)
 
 
+# transition_mma.cu's layouts: rows with W resident (Dout up to
+# TC_MAX_ROWS_OUT, W1, W2 and the biases staged once per block of
+# TC_RESIDENT_WARPS warps, halved where that does not fit, each warp with
+# two 16-row x tiles of its own); rows with W streamed (blocks of
+# TC_ROW_WARPS warps, 128-row A and output tiles, W1 and W2 in chunks of
+# TC_HIDDEN units); split (wider outputs, or rows past shared memory: blocks
+# of 4 warps, or 2 where 4 do not fit, one TC_HIDDEN-unit chunk each on
+# grid.y, W's slabs through a ring of TC_RING slots).
+TC_ROW_WARPS, TC_RING, TC_HIDDEN, TC_MAX_ROWS_OUT = 8, 3, 64, 128
+TC_RESIDENT_WARPS = 8
+_TC_OPERAND = {torch.bfloat16: (16, 8, 8), torch.float32: (8, 4, 4)}  # depth, pad, chunk
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _k_stride(K: int, dtype: torch.dtype) -> int:
+    depth, pad, _ = _TC_OPERAND[dtype]
+    return _round_up(K, depth) + pad
+
+
+def tc_rows_smem_bytes(D: int, Hd: int, Dout: int, dtype: torch.dtype, warps: int) -> int:
+    """Shared memory of transition_mma.cu's rows layout with W resident
+    (``rows_smem``) for blocks of ``warps`` warps: W1 [HK, D], W2's 64 or 128
+    rows of HK units, two 16-row x tiles a warp (in the dtype, rows as wide
+    as the wider of D and Dout: a dead tile takes the outputs), b1 and b2
+    (f32); HK is Hd padded to TC_HIDDEN."""
+    hk, outs, lda = _round_up(Hd, TC_HIDDEN), 64 if Dout <= 64 else 128, _k_stride(D, dtype)
+    ldx = _k_stride(max(D, Dout), dtype)
+    return dtype.itemsize * (hk * lda + outs * (hk + 8) + warps * 32 * ldx) + 4 * (hk + outs)
+
+
+def tc_chunks_smem_bytes(D: int, Hd: int, Dout: int, dtype: torch.dtype) -> int:
+    """Shared memory of the rows layout with W streamed (``chunks_smem``):
+    the A and output tiles of 16 TC_ROW_WARPS rows, one chunk of W1 and of
+    W2, b1 and b2."""
+    rows, outs, lda = 16 * TC_ROW_WARPS, 64 if Dout <= 64 else 128, _k_stride(D, dtype)
+    return (dtype.itemsize * (rows * lda + rows * (_round_up(Dout, 32) + 8) + TC_HIDDEN * lda
+                              + outs * (TC_HIDDEN + 8))
+            + 4 * (_round_up(Hd, TC_HIDDEN) + outs))
+
+
+def tc_split_smem_bytes(D: int, dtype: torch.dtype, warps: int) -> int:
+    """Shared memory of the split layout (``split_smem``) for blocks of
+    ``warps`` warps: 16 ``warps`` rows of x, TC_RING slots of 64 x 72 for
+    W's slabs, and the warps' [16, 68] f32 partial sums."""
+    return (dtype.itemsize * (16 * warps * _k_stride(D, dtype) + TC_RING * 64 * 72)
+            + 4 * 16 * warps * 68)
+
+
+def transition_layout(D: int, Hd: int, Dout: int, dtype: torch.dtype) -> Optional[str]:
+    """The layout transition_mma.cu takes for these widths (``layout_of``):
+    "resident" or "streamed" (the rows layout, Dout up to TC_MAX_ROWS_OUT, W
+    whole in shared memory or in chunks), "split", or None where the
+    tensor-core body does not take them (a width not a multiple of 8 in
+    bf16, 4 in f32, another dtype, or no layout within shared memory)."""
+    if dtype not in _TC_OPERAND or min(D, Hd, Dout) <= 0:
+        return None
+    chunk = _TC_OPERAND[dtype][2]
+    if D % chunk or Hd % chunk or Dout % chunk:
+        return None
+    if Dout <= TC_MAX_ROWS_OUT:
+        warps = TC_RESIDENT_WARPS
+        if min(tc_rows_smem_bytes(D, Hd, Dout, dtype, w) for w in (warps, warps // 2)) <= MAX_SMEM:
+            return "resident"
+        if tc_chunks_smem_bytes(D, Hd, Dout, dtype) <= MAX_SMEM:
+            return "streamed"
+    if tc_split_smem_bytes(D, dtype, 2) <= MAX_SMEM and -(-Hd // TC_HIDDEN) <= 65535:
+        return "split"
+    return None
+
+
+def transition_takes_tensor_cores(D: int, Hd: int, Dout: int, dtype: torch.dtype) -> bool:
+    """Whether K10 runs its tensor-core body (transition_mma.cu) at these
+    widths in ``dtype``, else the CUDA-core body (transition.cu)."""
+    return transition_layout(D, Hd, Dout, dtype) is not None
+
+
 def transition_fits(M: int, D: int, Hd: int, Dout: int, dtype: torch.dtype) -> bool:
     """Whether K10 takes M rows of width D in ``dtype``, hidden width Hd and
     Dout outputs: any D (smem_bytes(D) within MAX_SMEM), Hd up to
@@ -71,6 +155,11 @@ def transition_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if b2 is not None:
         out = out + b2.float()
     return out.to(dt)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) if it starts on 16 bytes, else a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -94,20 +183,28 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-    x2 = x.reshape(-1, D).contiguous()
+    x2 = _aligned(x.reshape(-1, D).contiguous())
     lib = build()
     dt = x.dtype
-    w1t = w1.to(dt).t().contiguous()  # [D, Hd]
-    w2t = w2.to(dt).t().contiguous()  # [Hd, Dout]
     b1f = b1.float().contiguous()
     b2f = None if b2 is None else b2.float().contiguous()
+    b2p = None if b2f is None else b2f.data_ptr()
     out = torch.empty((M, Dout), dtype=dt, device=x.device)
-    # the split blocks' f32 sums (outputs wider than 64, such as single_fc)
-    out32 = torch.zeros((M, Dout), device=x.device) if Dout > SPLIT_OUT_DIM else None
+    layout = (transition_layout(D, Hd, Dout, dt)
+              if transition_takes_tensor_cores(D, Hd, Dout, dt) else None)
+    if layout is not None:  # transition_mma.cu: the Linear layout as it is
+        fn = lib.lib.prd_transition_mma
+        w1p, w2p = (_aligned(w.to(dt).contiguous()) for w in (w1, w2))
+        split = layout == "split"
+    else:  # transition.cu: w1t [D, Hd], w2t [Hd, Dout]
+        fn = lib.lib.prd_transition
+        w1p, w2p = (w.to(dt).t().contiguous() for w in (w1, w2))
+        split = Dout > SPLIT_OUT_DIM
+    # the split blocks' f32 sums (outputs wider than the rows layouts take)
+    out32 = torch.zeros((M, Dout), device=x.device) if split else None
     with torch.cuda.device(x.device):
-        code = lib.lib.prd_transition(
-            x2.data_ptr(), w1t.data_ptr(), b1f.data_ptr(), w2t.data_ptr(),
-            None if b2f is None else b2f.data_ptr(), out.data_ptr(),
+        code = fn(
+            x2.data_ptr(), w1p.data_ptr(), b1f.data_ptr(), w2p.data_ptr(), b2p, out.data_ptr(),
             None if out32 is None else out32.data_ptr(),
             _DTYPE_CODES[dt], M, D, Hd, Dout, stream_of(x),
         )

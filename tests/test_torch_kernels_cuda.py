@@ -164,11 +164,12 @@ def test_more_rows_than_a_grid_dimension_holds(device, name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N", [16, 45, 192])
-@pytest.mark.parametrize("C", [8, 16, 64])
+@pytest.mark.parametrize("C", [8, 12, 16, 64, 128])
 def test_rows_fast_kernel_matches_plain(device, dtype, N, C):
     """K1 fast against its plain version: the same bf16 rounding points, the
     f32 logits summed in another order (a flip of a bf16 rounding moves a
-    probability by 2^-8), so 2e-2 in both dtypes."""
+    probability by 2^-8), so 2e-2 in both dtypes. C a multiple of 8 takes
+    the tensor-core bodies (f32: 3xTF32), C = 12 the CUDA-core one."""
     q, k, v, mask, _ = _inputs(6, N, 4, C, dtype, device, masked_rows=2)
     q = 3.0 * q  # logits of |l| ~ 5 at C = 16
     before = A.LAUNCHES["rows_attention_fast"]
@@ -684,7 +685,8 @@ def _linear(out_dim, in_dim, device, seed):
 @pytest.mark.parametrize("D,Hd,Dout,M,with_b2", [(64, 256, 64, 1000, True), (512, 2048, 512, 37, True),
                                                  (16, 64, 24, 5, False), (40, 72, 100, 130, False),
                                                  (96, 100, 70, 70, True), (768, 3072, 768, 37, True),
-                                                 (700, 96, 40, 70, False)])
+                                                 (700, 96, 40, 70, False), (128, 512, 128, 1000, True),
+                                                 (64, 256, 64, 70000, True), (24, 200, 136, 100, True)])
 def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2):
     from protein_redesign_tpu_torch.ops import transition as T
 
@@ -698,6 +700,55 @@ def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2)
     assert A.LAUNCHES["fused_transition"] == before + 1
     assert got.dtype == dtype and got.shape == (M, Dout)
     assert _rel(got, T.transition_reference(x, w1, b1, w2, b2)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("D,Hd,Dout,M", [(64, 256, 64, 3000), (128, 512, 128, 300),
+                                         (512, 2048, 512, 37), (768, 3072, 768, 20)])
+def test_transition_bodies_agree(device, dtype, D, Hd, Dout, M, monkeypatch):
+    """K10's tensor-core body (transition_mma.cu, in the layout its
+    predicate names, which the library's own layout_of agrees with) and its
+    CUDA-core body (transition.cu, the predicate patched, as chip_smoke times
+    it) on the same inputs: one launch each, each held to the plain version."""
+    from protein_redesign_tpu_torch.kernels import build
+    from protein_redesign_tpu_torch.ops import transition as T
+
+    layout = T.transition_layout(D, Hd, Dout, dtype)
+    code = build().lib.prd_transition_mma_layout(int(dtype == torch.bfloat16), D, Hd, Dout)
+    assert layout == {0: "resident", 1: "streamed", 2: "split"}[code]
+    x = _randn(M, D, seed=3, device=device).to(dtype)
+    w1, b1 = _linear(Hd, D, device, 5)
+    w2, b2 = _linear(Dout, Hd, device, 7)
+    want = T.transition_reference(x, w1, b1, w2, b2)
+    before = A.LAUNCHES["fused_transition"]
+    tensor_cores = T.transition(x, w1, b1, w2, b2)
+    monkeypatch.setattr(T, "transition_takes_tensor_cores", lambda *a: False)
+    cuda_cores = T.transition(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_transition"] == before + 2
+    for got in (tensor_cores, cuda_cores):
+        assert got.dtype == dtype and _rel(got, want) <= FUSED_TOL[dtype]
+
+
+@pytest.mark.parametrize("N,C", [(45, 16), (384, 16), (384, 128), (1800, 16), (1400, 128)])
+def test_rows_fast_f32_bodies(device, N, C):
+    """K1 fast in f32 on its 3xTF32 body (logits kept in shared memory up to
+    N ~ 1680 at C = 16 and ~ 1280 at C = 128, recomputed in each pass past
+    that: N = 1800 and 1400) and on its CUDA-core
+    body, the padded rows fully masked: each held to the plain version
+    within 2e-2; the outputs that a bf16 rounding flip moved (past the f32
+    sums' 1e-5) stay rare."""
+    q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=N + C, masked_rows=1)
+    q = 3.0 * q * (16 / C) ** 0.5
+    ref = A.rows_attention_fast_reference(q, k, v, mask, C ** -0.5)
+    before = A.LAUNCHES["rows_attention_fast"]
+    for mma in (True, False):
+        out = A.attention_body("rows_attention_fast", q, k, v, mask, None, C ** -0.5, mma=mma)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+        moved = (out - ref).abs() > 1e-5 * (1 + ref.abs())
+        assert float(moved.float().mean()) < 0.05
+    assert A.LAUNCHES["rows_attention_fast"] == before + 2
 
 
 @DTYPES

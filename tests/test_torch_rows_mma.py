@@ -104,12 +104,12 @@ def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
 @pytest.mark.parametrize("name", ["rows_attention", "tiled_attention", "rows_attention_fast"])
 @pytest.mark.parametrize("C", [8, 12, 16, 64, 128, 512, 768, 1024, 1028])
 def test_k1_k2_f32_body_choice_and_bound(name, C):
-    """K1 and K2 in f32: the 3xTF32 body at C a multiple of 8, K1 up to 128
-    (its accumulators hold the whole head), K2 up to 1024 (its wide body
-    streams the head); C = 12 and every other width keep the CUDA-core body,
-    whose bound, C <= 1024 a multiple of 4, attention_fits keeps. K1 fast
-    keeps its CUDA-core body in f32."""
-    tf32 = C % 8 == 0 and C <= {"rows_attention": 128, "tiled_attention": 1024}.get(name, 0)
+    """K1, K1 fast and K2 in f32: the 3xTF32 body at C a multiple of 8, K1
+    and K1 fast up to 128 (their accumulators hold the whole head), K2 up to
+    1024 (its wide body streams the head); C = 12 and every other width keep
+    the CUDA-core body, whose bound, C <= 1024 a multiple of 4,
+    attention_fits keeps."""
+    tf32 = C % 8 == 0 and C <= {"tiled_attention": 1024}.get(name, 128)
     assert A.takes_tf32x3(name, F32, C) is tf32
     assert A.takes_tensor_cores(name, F32, C) is tf32
     assert _body(name, F32, C) == ("3xtf32" if tf32 else "cuda cores")
@@ -238,6 +238,23 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (M.trimul_fits, (1, 300_000, 64, BF16), True),
     (M.trimul_fits, (1, 400_000, 64, BF16), False),
     (M.trimul_takes_tensor_cores, (72,), True),
+    # K1 fast in f32: 3xTF32 at multiples of 8 up to 128 (K1's range), bf16
+    # never; its bound unchanged at the edges
+    *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32 and C in (8, 128))
+      for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
+    *[(A.attention_fits, ("rows_attention_fast", 2, 16, 4, C, dtype), C <= 1024)
+      for C in (4, 8, 124, 128, 136, 1024, 1028) for dtype in (BF16, F32)],
+    # K10's tensor-core body: D, Hd and Dout multiples of 8 in bf16, 4 in f32
+    *[(T.transition_takes_tensor_cores, (D, 4 * D, D, dtype), ok)
+      for D, dtype, ok in ((8, BF16, True), (4, BF16, False), (12, BF16, False),
+                           (128, BF16, True), (136, BF16, True), (4, F32, True),
+                           (6, F32, False), (12, F32, True), (128, F32, True),
+                           (136, F32, True), (768, F32, True))],
+    (T.transition_takes_tensor_cores, (64, 260, 64, BF16), False),
+    (T.transition_takes_tensor_cores, (64, 260, 64, F32), True),
+    (T.transition_takes_tensor_cores, (64, 258, 64, F32), False),
+    (T.transition_takes_tensor_cores, (64, 256, 68, BF16), False),
+    (T.transition_takes_tensor_cores, (64, 256, 64, torch.float16), False),
     # K10 past the whole-row tile, and the split output's grid.y
     (T.transition_fits, (100, 768, 3072, 768, BF16), True),
     (T.transition_fits, (100, 64, T.MAX_SPLIT_HIDDEN, 128, F32), True),
@@ -246,6 +263,50 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
 ])
 def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
+
+
+@pytest.mark.parametrize("D,Hd,Dout,dtype,layout", [
+    (64, 256, 64, BF16, "resident"), (64, 256, 64, F32, "resident"),  # pair_fc
+    (128, 512, 128, BF16, "streamed"), (128, 512, 128, F32, "streamed"),  # pair width 128
+    (512, 2048, 512, BF16, "split"), (512, 2048, 512, F32, "split"),  # single_fc
+    (768, 3072, 768, BF16, "split"), (768, 3072, 768, F32, "split"),
+    (136, 544, 136, BF16, "split"),  # Dout past the rows layout's 128
+    (704, 96, 40, F32, "split"),  # the rows layout's A tile past shared memory
+    (64, 64 * 65536, 136, F32, None), (64, 64 * 65535, 136, F32, "split"),
+    (64, 64 * 65535, 128, F32, "split"),  # b1 past the streamed layout's shared memory
+    (1536, 512, 1536, F32, None),  # the split layout's x tile past shared memory
+])
+def test_transition_layout_by_shape(D, Hd, Dout, dtype, layout):
+    """K10's tensor-core layout (transition_mma.cu's layout_of) at the main
+    path's shapes and past them: pair_fc keeps W1 and W2 resident in shared
+    memory in both dtypes, pair width 128 streams them, outputs past 128 (and
+    rows whose tiles pass shared memory) split the hidden width, up to
+    grid.y's 65535 chunks (where transition_fits stops too) and while the
+    split block's x tile fits; past that the CUDA-core body takes the
+    shape."""
+    assert T.transition_layout(D, Hd, Dout, dtype) == layout
+    assert T.transition_takes_tensor_cores(D, Hd, Dout, dtype) is (layout is not None)
+    warps = T.TC_RESIDENT_WARPS
+    resident = min(T.tc_rows_smem_bytes(D, Hd, Dout, dtype, w) for w in (warps, warps // 2))
+    assert (resident <= T.MAX_SMEM) is (layout == "resident")
+    if layout == "streamed":
+        assert T.tc_chunks_smem_bytes(D, Hd, Dout, dtype) <= T.MAX_SMEM
+    if layout is None and Hd <= T.MAX_SPLIT_HIDDEN:
+        assert T.transition_fits(100, D, Hd, Dout, dtype)
+
+
+def test_transition_bound_accepts_what_it_accepted_before():
+    """transition_fits reads no body: every shape of a sweep that it
+    accepted before the tensor-core body came (any D with smem_bytes(D)
+    within MAX_SMEM, Hd up to MAX_SPLIT_HIDDEN past 64 outputs) it accepts
+    now, whichever body takes it."""
+    for D in (1, 4, 8, 64, 128, 670, 671, 768, 4096):
+        for Hd in (1, 64, 256, T.MAX_SPLIT_HIDDEN, T.MAX_SPLIT_HIDDEN + 1):
+            for Dout in (1, 64, 65, 128, 768):
+                for dtype in (BF16, F32):
+                    before = (T.smem_bytes(D) <= T.MAX_SMEM
+                              and (Dout <= T.SPLIT_OUT_DIM or Hd <= T.MAX_SPLIT_HIDDEN))
+                    assert T.transition_fits(100, D, Hd, Dout, dtype) is before
 
 
 # the routes --------------------------------------------------------------------

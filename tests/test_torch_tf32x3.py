@@ -359,3 +359,191 @@ def test_3xtf32_keeps_k1_within_1e5(C, N, queries):
     assert _excess(got[0], v[0].mean(0, keepdim=True).expand_as(got[0])) <= 0
     one = attention_emulated(q, k, v, mask, None, scale, matmul_tf32, queries)
     assert _excess(one, want) > 0
+
+
+# K1 fast in f32 -----------------------------------------------------------------
+
+NEAR_F32 = 32  # attention_tf32.cu's kNearF32, in units of 2^-24 |q| |k|
+TOL_BF16 = 2e-2  # K1 fast's gate in both dtypes (p is rounded to bf16)
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def error_units(qt: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """2^-24 |q_i| |k_j| for [R, H, N, C] rows: the scale of a logit's f32
+    error (both 3xTF32's and a reordered sum's grow with sum |q_c k_c|)."""
+    return 2.0**-24 * qt.norm(dim=-1)[..., :, None] * kt.norm(dim=-1)[..., None, :]
+
+
+def near_midpoint(l: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """attention_tf32.cu's near_bf16_midpoint_f32: l's low 16 bits' distance
+    from 0x8000 times its ulp, at most ``window``."""
+    bits = l.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    ulp = torch.ldexp(torch.ones_like(l), (torch.clamp((bits >> 23) & 0xFF, min=1) - 150).int())
+    return ((bits & 0xFFFF) - 0x8000).abs().float() * ulp <= window
+
+
+def fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c a[..., c] b[..., c] as one FMA chain over c in order (dot_smem):
+    each step's product and sum exact in float64, rounded once to f32."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]), dtype=torch.float64)
+    for c in range(a.shape[-1]):
+        acc = (acc + a[..., c].double() * b[..., c].double()).float().double()
+    return acc.float()
+
+
+def matmul_2xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The bf16-valued P against split X: a b_small + a b_big, the 3xTF32
+    product without a_small b_big (a is exact in TF32)."""
+    b_big, b_small = split(b)
+    return a @ b_small + a @ b_big
+
+
+def fast_logits_emulated(q, k, mask, scale: float):
+    """K1 fast's f32 logits as the kernel takes them, [R, H, N, N]: the 3xTF32
+    logits of the pre-scaled q (stepwise), the -2^15 fill; a kept logit in
+    the window recomputed by the FMA chain; each rounded to bf16. Returns
+    (the rounded logits, the 3xTF32 logits before the fill, the window's
+    mask)."""
+    qt = (q * scale).permute(0, 2, 1, 3)  # [R, H, N, C]
+    kt = k.permute(0, 2, 1, 3)
+    raw = stepwise(qt, kt.transpose(-1, -2), matmul_3xtf32)
+    kept = (mask[:, None, None, :] >= 0.5).expand_as(raw)
+    near = near_midpoint(raw, NEAR_F32 * error_units(qt, kt)) & kept
+    chain = fma_chain(qt[..., :, None, :], kt[..., None, :, :])
+    logits = torch.where(near, chain, raw)
+    logits = torch.where(kept, logits, torch.tensor(A.NEG_INF))
+    return bf16(logits), raw, near
+
+
+def fast_emulated(q, k, v, mask, scale: float, pv=matmul_2xtf32):
+    """K1 fast's f32 function as its tensor-core body takes it: the logits of
+    fast_logits_emulated; m = max; e = bf16(exp(bf16(l - m))); s = bf16(sum
+    e in f32); p = bf16(e / s); P.V stepwise over 8-key steps renumbered as
+    the accumulators hold them, each step through ``pv``."""
+    l, _, _ = fast_logits_emulated(q, k, mask, scale)
+    e = bf16(torch.exp(bf16(l - l.amax(-1, keepdim=True))))
+    p = bf16(e / bf16(e.sum(-1, keepdim=True)))
+    out = stepwise(p, v.permute(0, 2, 1, 3), pv, renumber=True)
+    return out.permute(0, 2, 1, 3)
+
+
+def _fast_inputs(N, C, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(3, N, 2, C).astype(np.float32)) for _ in range(3))
+    mask = torch.from_numpy((rng.rand(3, N) > 0.2).astype(np.float32))
+    mask[0] = 0.0  # a fully masked row
+    return 3.0 * q, k, v, mask  # logits of |l| up to ~15 at scale C^-0.5
+
+
+def test_k1_fast_pv_in_two_tf32_products_equals_three():
+    """P is a bf16 value, exact in TF32: its small part is 0, so P.V in two
+    TF32 products (p v_small + p v_big) equals the 3xTF32 product bit for bit
+    (as f32 values), step by step over the renumbered keys."""
+    q, k, v, mask = _fast_inputs(70, 16, seed=5)
+    a, b = (fast_emulated(q, k, v, mask, 0.25, pv) for pv in (matmul_2xtf32, matmul_3xtf32))
+    assert torch.equal(a, b)
+    p = bf16(torch.rand(4, 70, 70))
+    assert torch.equal(split(p)[1], torch.zeros_like(p))
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128])
+def test_k1_fast_logit_window_holds_4x_the_3xtf32_distance(C):
+    """The largest distance between the 3xTF32 logits and the plain f32
+    logits (``rows_attention_fast_reference``'s einsum), in units of 2^-24
+    |q| |k|, at C = 16, 32, 64 and 128 over seeded logits of |l| up to ~15:
+    at most 4.0 (in f32 ulps of max(|l|, 1) it reaches 19 at C = 16: the
+    error follows the terms, not the logit); the kernel's window of 32 such
+    units holds it at least 4x. Every kept logit outside the window then
+    rounds to the plain version's bf16; 1-3% fall inside and are
+    recomputed."""
+    q, k, v, mask = _fast_inputs(120, C, seed=C)
+    scale = A.weak_scalar(C ** -0.5, torch.float32)
+    l, raw, near = fast_logits_emulated(q, k, mask, scale)
+    plain = torch.einsum("rihc,rjhc->rhij", q * scale, k)
+    units = error_units((q * scale).permute(0, 2, 1, 3), k.permute(0, 2, 1, 3))
+    distance = float(((raw - plain).abs() / units).max())
+    print(f"C={C}: largest distance {distance:.2f} x 2^-24 |q| |k|; "
+          f"{float(near.float().mean()):.4f} of the logits in the window")
+    assert 4 * distance <= NEAR_F32
+    kept = (mask[:, None, None, :] >= 0.5).expand_as(raw)
+    outside = kept & ~near
+    assert torch.equal(l[outside], bf16(plain)[outside])
+    want = bf16(torch.where(kept, plain, torch.tensor(A.NEG_INF)))
+    assert torch.equal(l[~kept], want[~kept])  # the fill, the fully masked row included
+    assert float(near[kept].float().mean()) < 0.05
+
+
+@pytest.mark.parametrize("C,N", [(16, 45), (16, 130), (64, 70), (128, 45)])
+def test_k1_fast_f32_body_within_its_gate(C, N):
+    """K1 fast's f32 tensor-core body, emulated, against
+    ``rows_attention_fast_reference`` within 2e-2 (atol and rtol, the CUDA
+    test's gate), the fully masked row at the mean of v."""
+    q, k, v, mask = _fast_inputs(N, C, seed=N + 2 * C)
+    scale = A.weak_scalar(C ** -0.5, torch.float32)
+    got = fast_emulated(q, k, v, mask, scale)
+    want = A.rows_attention_fast_reference(q, k, v, mask, C ** -0.5)
+    torch.testing.assert_close(got, want, atol=TOL_BF16, rtol=TOL_BF16)
+    torch.testing.assert_close(got[0], v[0].mean(0, keepdim=True).expand_as(got[0]),
+                               atol=TOL_BF16, rtol=TOL_BF16)
+
+
+# K10 ----------------------------------------------------------------------------
+
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+HIDDEN_CHUNK = 64  # transition_mma.cu's kHid
+
+
+def transition_emulated(x, w1, b1, w2, b2, dtype, matmul=matmul_3xtf32):
+    """K10's tensor-core arithmetic: x^ = LN(x) in f32 rounded to the dtype;
+    per 64-unit hidden chunk h = ReLU(x^ W1^T + b1) rounded, taken from the
+    accumulators; out summed chunk by chunk in f32, + b2, rounded. bf16: the
+    products of rounded operands exact in f32, summed in f32; f32: each
+    product 3xTF32 (``matmul``) over 8-deep steps into fresh sums, the second
+    product's units renumbered as the accumulators hold them."""
+    xl = A.layer_norm_f32(x).to(dtype).float()
+    w1r, w2r = w1.to(dtype).float(), w2.to(dtype).float()
+    out = torch.zeros(x.shape[:-1] + (w2.shape[0],))
+    for h0 in range(0, w1.shape[0], HIDDEN_CHUNK):
+        units = slice(h0, h0 + HIDDEN_CHUNK)
+        if dtype == torch.float32:
+            acc = stepwise(xl, w1r[units].t(), matmul)
+        else:
+            acc = xl @ w1r[units].t()
+        h = torch.relu(acc + b1[units]).to(dtype).float()
+        if dtype == torch.float32:
+            out = out + stepwise(h, w2r[:, units].t(), matmul, renumber=True)
+        else:
+            out = out + h @ w2r[:, units].t()
+    if b2 is not None:
+        out = out + b2
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,D,Hd,Dout", [(40, 64, 256, 64), (24, 512, 2048, 512),
+                                         (8, 768, 3072, 768), (16, 128, 512, 128)],
+                         ids=["pair_fc", "single_fc", "single_768", "pair_128"])
+def test_k10_tensor_core_arithmetic_within_fused_tol(dtype, M, D, Hd, Dout):
+    """K10's tensor-core arithmetic against ``transition_reference`` within
+    FUSED_TOL (relative norm: 1e-5 in f32, 2e-2 in bf16) at pair_fc,
+    single_fc, single_dim 768 and pair width 128 (small M); in f32 one TF32
+    product per product misses 1e-5."""
+    rng = np.random.RandomState(D + M)
+    x = torch.from_numpy(rng.randn(M, D).astype(np.float32)).to(dtype)
+    w1 = torch.from_numpy((rng.randn(Hd, D) * D ** -0.5).astype(np.float32))
+    b1 = torch.from_numpy((0.3 * rng.randn(Hd)).astype(np.float32))
+    w2 = torch.from_numpy((rng.randn(Dout, Hd) * Hd ** -0.5).astype(np.float32))
+    b2 = torch.from_numpy((0.3 * rng.randn(Dout)).astype(np.float32))
+    from protein_redesign_tpu_torch.ops import transition as T
+
+    want = T.transition_reference(x, w1, b1, w2, b2).float()
+
+    def rel(got):
+        return float((got.float() - want).norm() / want.norm())
+
+    assert rel(transition_emulated(x, w1, b1, w2, b2, dtype)) <= FUSED_TOL[dtype]
+    if dtype == torch.float32:
+        assert rel(transition_emulated(x, w1, b1, w2, b2, dtype, matmul_tf32)) > FUSED_TOL[dtype]
