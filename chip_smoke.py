@@ -8,11 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: nvcc builds the attention kernels from the sources in the
    checkout (protein_redesign_tpu_torch/kernels/csrc) into
    protein_redesign_tpu_torch/kernels/_build; prints the build time and
-   ptxas's registers and spills of K8's, K9's and K10's tensor-core kernels
-   (fused_gated_mma.cu, trimul_mma.cu, transition_mma.cu) and of K1 fast's
-   f32 body (attention_tf32.cu), then K8's, K9's and K10's (pair_fc and
-   single_fc) device time by CUDA kernel at the fused configuration's shape
-   (torch.profiler, first in the process).
+   ptxas's registers and spills of K8's, K9's, K10's and K11's tensor-core
+   kernels (fused_gated_mma.cu, trimul_mma.cu, transition_mma.cu,
+   outer_mma.cu) and of K1 fast's f32 body (attention_tf32.cu), then K8's,
+   K9's, K10's (pair_fc and single_fc) and K11's device time by CUDA kernel
+   at the fused configuration's shape (torch.profiler, first in the
+   process).
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes (buckets 192 and 512), with the warm time
    of both from CUDA events; K1 and K2 run their tensor-core bodies (bf16
@@ -92,13 +93,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    3xTF32 in f32) and on the CUDA-core bodies they replaced, in the same run;
    K10 likewise (transition_mma.cu, with its layout named, against
    transition.cu) at pair_fc and single_fc, at pair width 128 in both dtypes
-   and at single_fc 768 in both dtypes; K8 at the h64x1 and h64x4 head
-   layouts (bf16, against its plain version and the unfused GatedAttention).
+   and at single_fc 768 in both dtypes; K11 likewise (outer_mma.cu against
+   outer.cu) in f32 and bf16 and at pair width 128 in bf16, and at bucket
+   512, B=1, in both dtypes; K8 at the
+   h64x1 and h64x4 head layouts (bf16, against its plain version and the
+   unfused GatedAttention).
 14. The fused configuration (the four switches use_pallas_{trimul,transition,
    outer,fused_gated} on): the paper-width bf16 forward at bucket 192, B=2,
    kernel route against plain route, exactly 24 K8, 24 K9, 24 K10, 12 K11,
-   13 K2 and no K1 per forward, and its device time by kernel group; the
-   forward at bucket 512, B=1 (K9's N^3); the f32 whole gradient at 192,
+   13 K2 and no K1 per forward, and its device time by kernel group (K11's
+   time all in outer_mma_kernel, none in outer.cu's); the forward at bucket
+   512, B=1 (K9's N^3), likewise; the f32 whole gradient at 192,
    kernel vs plain route (48 K8, 48 K9, 48 K10, 24 K11, 25 K2, no K1 or K7
    per micro-step); the generate CLI with the four flags at bucket 192, B=2,
    64 DDPM steps; the train CLI with the four flags at bucket 192, 2
@@ -200,7 +205,7 @@ SOURCES = {"rows_attention": CSRC + "attention_mma.cu",
            "fused_gated_rows_attention": CSRC + "fused_gated_mma.cu",
            "triangle_multiply": CSRC + "trimul_mma.cu",
            "fused_transition": CSRC + "transition_mma.cu",
-           "fused_outer_linear": CSRC + "outer.cu"}
+           "fused_outer_linear": CSRC + "outer_mma.cu"}
 # K1, K2 and K1 fast in f32 run their 3xTF32 bodies: the JSON record's own
 # entries, (kernel, source), K1's and K2's with the launches of the f32
 # train CLI at bucket 512, K1 fast's with those of the f32 served request
@@ -466,7 +471,8 @@ def phase_build() -> None:
               if "spill" in line and not line.strip().startswith("0 bytes stack")]
     if spills:
         print(f"[build] ptxas reports spills in {len(spills)} instantiations")
-    for source in ("fused_gated_mma.cu", "trimul_mma.cu", "transition_mma.cu", "attention_tf32.cu"):
+    for source in ("fused_gated_mma.cu", "trimul_mma.cu", "transition_mma.cu", "outer_mma.cu",
+                   "attention_tf32.cu"):
         for name, regs, stores, loads in ptxas_report(lib.build_log, source):
             if source == "attention_tf32.cu" and "fast" not in name:
                 continue
@@ -516,12 +522,15 @@ def _attention_case(R, N, H, C, dtype, n_valid, with_mask, with_bias, rows_mask,
 
 
 def phase_fused_breakdown() -> None:
-    """K8, K9 and K10 by CUDA kernel at the fused configuration's shape
+    """K8, K9, K10 and K11 by CUDA kernel at the fused configuration's shape
     (bucket 192, B=2, paper width: K8 h16x4 at D = 64, K9 outgoing, K10
-    pair_fc and single_fc), bf16 and f32, seeded random weights: device time
-    per kernel from torch.profiler, run first in the process (a profiler
-    window later in a long run loses kernels)."""
+    pair_fc and single_fc, K11 512 -> 64, and K11 at pair width 128 and at
+    bucket 512, B=1), bf16 and f32, seeded random weights: device time per
+    kernel from torch.profiler (K11's call with its LayerNorm and u), run
+    first in the process (a profiler window later in a long run loses
+    kernels)."""
     from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import outer as O
     from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
@@ -545,6 +554,9 @@ def phase_fused_breakdown() -> None:
                           torch.randn(4 * dim, generator=g, device="cuda"),
                           torch.randn(dim, 4 * dim, generator=g, device="cuda") * (4 * dim) ** -0.5,
                           torch.randn(dim, generator=g, device="cuda"))
+        ow, ow128 = ((torch.randn(d, 2 * 512, generator=g, device="cuda") * 1024 ** -0.5,
+                      torch.randn(d, generator=g, device="cuda")) for d in (D, 2 * D))
+        single512 = torch.randn(1, 512, 512, generator=g, device="cuda").to(dtype)
         label = str(dtype).replace("torch.", "")
         with torch.inference_mode():
             for name, fn in (("fused_gated_rows_attention", lambda: A.fused_gated(pair, mask, *gw, H)),
@@ -552,7 +564,11 @@ def phase_fused_breakdown() -> None:
                              ("fused_transition pair_fc",
                               lambda: T.transition(pair, *mlps["pair_fc"])),
                              ("fused_transition single_fc",
-                              lambda: T.transition(single, *mlps["single_fc"]))):
+                              lambda: T.transition(single, *mlps["single_fc"])),
+                             ("fused_outer_linear", lambda: O.outer(single, *ow)),
+                             ("fused_outer_linear D=128", lambda: O.outer(single, *ow128)),
+                             ("fused_outer_linear bucket 512, B=1",
+                              lambda: O.outer(single512, *ow))):
                 parts = device_time_by_kernel(fn)
                 print(f"[fused-breakdown] {name} {label}, device time by kernel: "
                       + ", ".join(f"{k} {v:.4f} ms" for k, v in
@@ -696,6 +712,7 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
                 raise AssertionError(f"{name}: relative error {rel} > {tol}")
         kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 2, 5), cuda_ms(lambda: forward(True), 2, 5)
         busy = device_time_by_group(lambda: forward(False))
+    check_outer_body(net.cfg, busy, tag)
     print(f"[{tag}] paper width, {net.cfg.dtype}, B={B}, bucket {bucket}: kernel route "
           f"{kernel_ms:.2f} ms, "
           f"plain route {plain_ms:.2f} ms per forward; launches per forward "
@@ -709,7 +726,8 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
 # Device-time groups, matched on the CUDA kernel's name, in order.
 GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("transition_mma", "K10 transition (tensor cores)"),
-          ("transition_kernel", "K10 transition"), ("outer_kernel", "K11 outer"),
+          ("transition_kernel", "K10 transition"), ("outer_mma", "K11 outer (tensor cores)"),
+          ("outer_kernel", "K11 outer"),
           ("rows_attention_kchunk_bwd_d", "K6 rows_attention_kchunk_bwd (tensor cores)"),
           ("rows_attention_kchunk_mma_kernel<true", "K5 rows_attention_kchunk_stats (mma)"),
           ("rows_attention_kchunk_mma", "K3 rows_attention_kchunk (tensor cores)"),
@@ -734,6 +752,18 @@ GROUPS = (("fused_gated", "K8 fused_gated"), ("trimul", "K9 trimul"),
           ("tiled_attention", "K2 tiled_attention"),
           ("layer_norm", "layer_norm"), ("gemm", "gemm/bmm"), ("nvjet", "gemm/bmm"),
           ("xmma", "gemm/bmm"), ("softmax", "softmax"), ("copy", "copy/cast"))
+
+
+def check_outer_body(cfg, busy: dict, tag: str) -> None:
+    """K11's two bodies add to one launch count, so the profiler tells which
+    ran: with the fused OuterLinear on at the paper's widths, the forward
+    must have run outer_mma_kernel and no outer_kernel."""
+    if not cfg.use_pallas_outer:
+        return
+    mma, core = busy.get("K11 outer (tensor cores)", 0.0), busy.get("K11 outer", 0.0)
+    if not (mma > 0 and core == 0):
+        raise AssertionError(f"[{tag}] K11 ran outer_mma_kernel for {mma} ms and outer_kernel "
+                             f"for {core} ms: its tensor-core body must take every launch")
 
 
 def device_time_by_group(fn, iters: int = 5) -> dict:
@@ -1513,7 +1543,9 @@ def fused_bound(name: str, args: tuple, out) -> dict:
     """The bound of one fused kernel call on these inputs: each input read
     once and the output written once; the operations this data needs (K8: a
     query against its row's unmasked keys; K9: the contraction over each
-    complex's valid nodes; the projections and MLPs over every position)."""
+    complex's valid nodes; the projections and MLPs over every position;
+    K11: the pairs i <= j, since round_T(xl_i * xl_j) . W1 is symmetric in
+    (i, j) and only u_i - u_j tells out[i, j] from out[j, i])."""
     if name == "fused_gated_rows_attention":
         x, mask, wq, *_, H = args
         N, D = x.shape[-2:]
@@ -1531,42 +1563,72 @@ def fused_bound(name: str, args: tuple, out) -> dict:
     else:
         x, w, _ = args
         B, N, S = x.shape
-        flops = 2 * B * N * N * S * w.shape[0]
+        flops = 2 * B * (N * (N + 1) // 2) * S * w.shape[0]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     return bound(flops, _nbytes(*tensors, out), out.dtype)
 
 
 @contextlib.contextmanager
 def fused_cuda_core_bodies():
-    """Inside the block, K8, K9 and K10 take the CUDA-core bodies that their
-    tensor-core ones replaced (fused_gated.cu, trimul.cu, transition.cu), so
-    that both can be timed in one run. Launch counts are the same."""
+    """Inside the block, K8, K9, K10 and K11 take the CUDA-core bodies that
+    their tensor-core ones replaced (fused_gated.cu, trimul.cu,
+    transition.cu, outer.cu), so that both can be timed in one run. Launch
+    counts are the same."""
     from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import outer as O
     from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
     takes = (A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores,
-             T.transition_takes_tensor_cores)
+             T.transition_takes_tensor_cores, O.outer_takes_tensor_cores)
     A.fused_gated_takes_tensor_cores = lambda D, H, C: False
     M.trimul_takes_tensor_cores = lambda D: False
     T.transition_takes_tensor_cores = lambda D, Hd, Dout, dtype: False
+    O.outer_takes_tensor_cores = lambda S, D, dtype: False
     try:
         yield
     finally:
         (A.fused_gated_takes_tensor_cores, M.trimul_takes_tensor_cores,
-         T.transition_takes_tensor_cores) = takes
+         T.transition_takes_tensor_cores, O.outer_takes_tensor_cores) = takes
+
+
+def fused_body_times(name: str, kernel, args: tuple, want, dtype, heads=None) -> str:
+    """One fused kernel (K8-K11) on the device on its tensor-core body and,
+    where the CUDA-core body it replaced takes the shape, on that one (the
+    predicates patched): device ms of each (the whole call) and the
+    CUDA-core body's error against the plain version's output ``want``."""
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import transition as T
+
+    dev = device_ms(lambda: kernel(*args))
+    layout = ""
+    if name == "fused_transition":
+        w1, w2 = args[1], args[3]
+        layout = T.transition_layout(w1.shape[1], w1.shape[0], w2.shape[0], dtype)
+        layout = f", {layout} layout"
+    out = f"; on the device {dev:.4f} ms (tensor-core body{layout})"
+    D = args[0].shape[-1]
+    if name == "fused_gated_rows_attention" and not A.fused_gated_core_fits(D, *heads):
+        return out
+    with fused_cuda_core_bodies():
+        core = kernel(*args)
+        core_dev = device_ms(lambda: kernel(*args))
+    torch.cuda.synchronize()
+    core_rel = float((core.float() - want.float()).norm() / want.float().norm())
+    return out + (f", CUDA-core body {core_dev:.4f} ms (its error {core_rel:.3e}, "
+                  f"{core_dev / dev:.1f}x the tensor-core body's time)")
 
 
 def phase_fused_kernels() -> dict:
     """K8-K11 against their plain versions at the fused configuration's shapes
     at bucket 192, B=2 (147 nodes valid): f32 and bf16 errors; the kernel's,
-    the plain version's and the unfused module route's time in both; K8, K9
-    and K10 on the device on their tensor-core bodies and on the CUDA-core
-    bodies those replaced; the record (bf16) keeps K8's starting view, K9
-    outgoing, K10 pair_fc. Then the same in bf16 at AlphaFold2's pair width
-    128 (K10's pair_fc there in f32 too), K8 at the h64x1 and h64x4 head
-    layouts (bf16) and K10 at single_fc 768 (both dtypes), outside the
-    record."""
+    the plain version's and the unfused module route's time in both; each on
+    the device on its tensor-core body and on the CUDA-core body it
+    replaced; the record (bf16) keeps K8's starting view, K9 outgoing, K10
+    pair_fc, K11. Then the same in bf16 at AlphaFold2's pair width 128
+    (K10's pair_fc there in f32 too), K8 at the h64x1 and h64x4 head layouts
+    (bf16), K10 at single_fc 768 (both dtypes) and K11 at bucket 512, B=1
+    (both dtypes), outside the record."""
     from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
     from protein_redesign_tpu_torch.models.layers import GatedAttention, TransitionMLP
     from protein_redesign_tpu_torch.ops import attention as A
@@ -1638,25 +1700,7 @@ def phase_fused_kernels() -> dict:
                 rec = record[name]
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
                 b = fused_bound(name, args, got)
-                bodies = ""
-                if name in FUSED_NAMES[:3]:  # K8, K9, K10: both bodies on the device
-                    dev = device_ms(lambda: kernel(*args))
-                    layout = ""
-                    if name == "fused_transition":
-                        w1, w2 = args[1], args[3]
-                        layout = ", " + T.transition_layout(w1.shape[1], w1.shape[0], w2.shape[0],
-                                                            dtype) + " layout"
-                    bodies = f"; on the device {dev:.4f} ms (tensor-core body{layout})"
-                    core_fits = (name != "fused_gated_rows_attention"
-                                 or A.fused_gated_core_fits(D, *heads))
-                    if core_fits:
-                        with fused_cuda_core_bodies():
-                            core = kernel(*args)
-                            core_dev = device_ms(lambda: kernel(*args))
-                        torch.cuda.synchronize()
-                        core_rel = float((core.float() - want.float()).norm() / want.float().norm())
-                        bodies += (f", CUDA-core body {core_dev:.4f} ms (its error {core_rel:.3e}, "
-                                   f"{core_dev / dev:.1f}x the tensor-core body's time)")
+                bodies = fused_body_times(name, kernel, args, want, dtype, heads)
                 print(f"[fused-kernels] {name} ({view}) {label}: ||kernel - plain|| / ||plain|| "
                       f"{rel:.3e} (tol {tol[dtype]:g}), max abs err {err:.3e}; kernel {ms:.4f} ms"
                       f"{bodies}, plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} "
@@ -1664,6 +1708,30 @@ def phase_fused_kernels() -> dict:
                 if dtype == torch.bfloat16 and paper and D == 64 and view.split(",")[0] in (
                         "starting", "outgoing", "pair_fc", "factored route"):
                     rec.update(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, **b)
+    # K11 at bucket 512, B=1: the fused forward's other measured shape
+    N = FUSED_BUCKET_LARGE[0]
+    for seed, dtype in enumerate((torch.bfloat16, torch.float32)):
+        g = torch.Generator("cuda").manual_seed(360 + seed)
+        single = torch.randn(1, N, 512, generator=g, device="cuda").to(dtype)
+        ol = perturb(OuterLinear(512, 64, factored=True, dtype=dtype), 340).to("cuda")
+        args = (single, ol.linear.weight, ol.linear.bias)
+        with torch.inference_mode():
+            got, want = O.outer(*args), O.outer_reference(*args)
+            torch.cuda.synchronize()
+            rel = float((got.float() - want.float()).norm() / want.float().norm())
+            if not (torch.isfinite(got).all() and rel <= tol[dtype]):
+                raise AssertionError(f"fused_outer_linear at 512 {dtype}: relative error {rel} > "
+                                     f"{tol[dtype]}")
+            ms = cuda_ms(lambda: O.outer(*args))
+            plain_ms = cuda_ms(lambda: O.outer_reference(*args))
+            unfused_ms = cuda_ms(lambda: ol(single))
+            bodies = fused_body_times("fused_outer_linear", O.outer, args, want, dtype)
+        b = fused_bound("fused_outer_linear", args, got)
+        label = str(dtype).replace("torch.", "")
+        print(f"[fused-kernels] fused_outer_linear (factored route) {label}, bucket {N}, B=1: "
+              f"||kernel - plain|| / ||plain|| {rel:.3e} (tol {tol[dtype]:g}); kernel {ms:.4f} "
+              f"ms{bodies}, plain {plain_ms:.4f} ms, unfused module route {unfused_ms:.4f} ms; "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return record
 
 
@@ -1711,6 +1779,7 @@ def phase_fused_forward_large(seed: int) -> None:
                 raise AssertionError(f"{name} at {N}: relative error {rel}")
         kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 1, 3), cuda_ms(lambda: forward(True), 1, 3)
         busy = device_time_by_group(lambda: forward(False), iters=3)
+    check_outer_body(net.cfg, busy, "fused-forward-512")
     total = sum(busy.values())
     print(f"[fused-forward-512] bf16, B=1, {residues + IMATINIB_ATOMS} nodes: kernel route "
           f"{kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms per forward; device busy {total:.2f} ms "

@@ -30,7 +30,7 @@ SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bw
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
            "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
            "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu",
-           "transition_mma.cu", "outer.cu")
+           "transition_mma.cu", "outer.cu", "outer_mma.cu")
 HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh", "ln_project.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
@@ -118,6 +118,8 @@ class KernelLibrary:
         lib.prd_transition_mma_layout.restype = i32
         lib.prd_outer.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.prd_outer.restype = i32
+        lib.prd_outer_mma.argtypes = [ptr] * 3 + [i64] + [ptr] * 2 + [i32] * 5 + [ptr]
+        lib.prd_outer_mma.restype = i32
         lib.prd_error_string.argtypes = [i32]
         lib.prd_error_string.restype = ctypes.c_char_p
         self.lib = lib

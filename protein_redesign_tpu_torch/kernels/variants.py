@@ -1,7 +1,7 @@
 """Time variants of the tensor-core bodies' launch constants on the card.
 
     python -m protein_redesign_tpu_torch.kernels.variants [k1] [k5] [k6] [k1fast] [k10]
-        [k10rows]
+        [k10rows] [k11]
 
 Each 3xTF32 body fixes a few constants. K5's forward (``csrc/attention_tf32.cu``
 and the body it shares in ``attention_tf32.cuh``): the warps of a block
@@ -39,7 +39,15 @@ order that changes from run to run). K10's rows layout (``k10rows``,
 pair_fc at bucket 192: M = 73,728, 64 -> 256 -> 64): 8 warps a block
 against 16 in bf16, W2's pair of f32 values as one 8-byte load or two 4-byte
 ones in the f32 second product, and, to time its parts, builds without the
-LayerNorm, the first or the second product (timing only).
+LayerNorm, the first or the second product (timing only). K11's tensor-core
+body (``outer_mma.cu``, ``k11``, at bucket 192 with B = 2 and at 512 with B
+= 1, single width 512, pair widths 64 and 128, both dtypes): the rows i a
+warp keeps accumulators for (``rows_i``, TI), the warps of a block along j
+(``kWarpsJ``: 16 rows j each) and along i (``kWarpsI``), and the depth of
+the chunk ring that streams xl and W1 (``ring_depth``); its
+outputs are held to the shipped build's at 1e-5 in f32 and 2e-2 in bf16.
+To time its parts, builds without the bf16 products, the staging copies or
+the output stores (timing only).
 """
 
 from __future__ import annotations
@@ -81,6 +89,15 @@ W2_TWO = ("const float* w_p = w2 + (n * 8 + g) * ld2 + kk * 8 + 2 * t4; "
 MIN_BLOCKS_128 = "(NT <= 4 ? 16 : 8) / WARPS"
 MIN_BLOCKS_80 = "(NT <= 2 ? 24 : (NT <= 4 ? 16 : 8)) / WARPS"
 WARPS_RULE = "(N + 127) / 128 * 128 > (N + 63) / 64 * 64 ? 4 : 8"
+# K11: the shipped constants (TI rule, warps along j and i, ring) and, for timing-only builds, its bf16 products, its staging copies
+# and its output stores, kept or left out
+K11_PRODUCTS = ("    p[ii][0] = hmul2(a[0], x[ii][0]);\n    p[ii][1] = hmul2(a[1], x[ii][0]);\n"
+                "    p[ii][2] = hmul2(a[2], x[ii][1]);\n    p[ii][3] = hmul2(a[3], x[ii][1]);\n")
+K11_NO_PRODUCTS = "    p[ii][0] = a[0], p[ii][1] = a[1], p[ii][2] = a[2], p[ii][3] = a[3];\n"
+K11_STAGING = re.compile(r"      stage_rows<T, C::JT[\s\S]*?w_s \+ slot \* C::DP \* kLd, kLd, tid\);\n")
+K11_STORE = re.compile(r"        if \(pc < ppr && i < N && j0 \+ jl \+ r < N\)\n[^;]*;\n")
+K11_SHIPPED = ("bytes == 2 || ND > 8 ? 2 : 4", "2", "4", "bytes == 4 && ND > 8 ? 2 : 3", K11_PRODUCTS, None,
+               None)
 
 # per body: the source it is built from, its constants' edits (file,
 # pattern, new definition with {} for the value), its instantiations at C =
@@ -190,6 +207,37 @@ BODIES = {
             (f"{TIMING_ONLY}: no first product", RESIDENT, LN_CALL, PROD_OUT, "", W2_PAIR),
         ),
     ),
+    "k11": dict(
+        source="outer_mma.cu",
+        edits=(("outer_mma.cu", r"int rows_i\(int bytes, int ND\) \{\n  return [^;]+;",
+                "int rows_i(int bytes, int ND) {{\n  return {};"),
+               ("outer_mma.cu", r"constexpr int kWarpsJ = \d+;", "constexpr int kWarpsJ = {};"),
+               ("outer_mma.cu", r"constexpr int kWarpsI = \d+;", "constexpr int kWarpsI = {};"),
+               ("outer_mma.cu", r"int ring_depth\(int bytes, int ND\) \{\n  return [^;]+;",
+                "int ring_depth(int bytes, int ND) {{\n  return {};"),
+               ("outer_mma.cu", re.escape(K11_PRODUCTS), "{}"),
+               ("outer_mma.cu", K11_STAGING, "{}"),
+               ("outer_mma.cu", K11_STORE, "{}")),
+        kernels=("outer_mma_kernelI13__nv_bfloat16Li8EE", "outer_mma_kernelI13__nv_bfloat16Li16EE",
+                 "outer_mma_kernelIfLi8EE", "outer_mma_kernelIfLi16EE"),
+        shapes=((torch.bfloat16, 2, 192, 512, 64), (torch.float32, 2, 192, 512, 64),
+                (torch.bfloat16, 2, 192, 512, 128), (torch.float32, 2, 192, 512, 128),
+                (torch.bfloat16, 1, 512, 512, 64), (torch.float32, 1, 512, 512, 64)),
+        variants=(
+            ("shipped: TI 2 (4 in f32 up to D = 64), 2 x 4 warps, ring 3 (2 in f32 past "
+             "D = 64)", *K11_SHIPPED),
+            ("TI 4 up to D = 64 in both dtypes", "ND <= 8 ? 4 : 2", *K11_SHIPPED[1:]),
+            ("4 x 2 warps (64 rows j, 2 TI rows i)", K11_SHIPPED[0], "4", "2", *K11_SHIPPED[3:]),
+            ("4 x 1 warps (64 rows j, TI rows i)", K11_SHIPPED[0], "4", "1", *K11_SHIPPED[3:]),
+            ("TI 2 at every width", "2", *K11_SHIPPED[1:]),
+            ("a ring of 2 chunks at every width", *K11_SHIPPED[:3], "2", *K11_SHIPPED[4:]),
+            (f"{TIMING_ONLY}: bf16 products not formed (the xl_j fragment as it is)",
+             *K11_SHIPPED[:4], K11_NO_PRODUCTS, None, None),
+            (f"{TIMING_ONLY}: no staging copies (products of stale shared memory)",
+             *K11_SHIPPED[:5], "", None),
+            (f"{TIMING_ONLY}: no output stores", *K11_SHIPPED[:6], ""),
+        ),
+    ),
 }
 
 
@@ -199,7 +247,9 @@ def build_variant(workdir: Path, body: dict, values, nvcc: str) -> subprocess.Po
     shutil.copytree(CSRC_DIR, src_dir, ignore=shutil.ignore_patterns("*.o"))
     for (name, pattern, definition), value in zip(body["edits"], values):
         path = src_dir / name
-        text, count = re.subn(pattern, definition.format(value), path.read_text())
+        # None keeps the matched text as it is
+        repl = (lambda m: m.group(0)) if value is None else definition.format(value)
+        text, count = re.subn(pattern, repl, path.read_text())
         if count != 1:
             raise RuntimeError(f"{name}: expected one match of {pattern}, got {count}")
         path.write_text(text)
@@ -230,6 +280,17 @@ def inputs(name: str, shape):
     that K6 takes, from the shipped kernels."""
     from ..ops import attention as A
 
+    if name == "k11":
+        from ..ops import outer as O
+
+        dtype, B, N, S, D = shape
+        g = torch.Generator(device="cuda").manual_seed(220)
+        x = torch.randn(B, N, S, generator=g, device="cuda").to(dtype)
+        w = torch.randn(D, 2 * S, generator=g, device="cuda") * (2 * S) ** -0.5
+        xl, u = O._ln_u(x, w)
+        return (xl, u, w[:, :S].to(dtype).contiguous(), 0.3 * torch.randn(D, generator=g,
+                                                                           device="cuda"),
+                torch.empty(B, N, N, D, dtype=dtype, device="cuda"))
     if name.startswith("k10"):
         dtype, M, D, Hd, Dout = shape
         g = torch.Generator(device="cuda").manual_seed(210)
@@ -251,6 +312,21 @@ def inputs(name: str, shape):
 def make_call(name: str, lib, tensors):
     """The variant's call and the outputs it writes."""
     stream = torch.cuda.current_stream().cuda_stream
+    if name == "k11":
+        xl, u, w1, bias, out = tensors
+        B, N, S = xl.shape
+        fn = lib.prd_outer_mma
+        fn.argtypes = [PTR] * 3 + [I64] + [PTR] * 2 + [I32] * 5 + [PTR]
+        fn.restype = I32
+        args = (xl.data_ptr(), u.data_ptr(), w1.data_ptr(), S, bias.data_ptr(), out.data_ptr(),
+                int(xl.dtype == torch.bfloat16), B, N, S, w1.shape[0], stream)
+
+        def call_k11():
+            code = fn(*args)
+            if code:
+                raise RuntimeError(f"launch failed: CUDA error {code}")
+
+        return call_k11, (out,)
     if name.startswith("k10"):
         x, w1, b1, w2, b2, out, out32 = tensors
         fn = lib.prd_transition_mma
@@ -344,7 +420,10 @@ def run(name: str, nvcc: str) -> None:
         libs = [ctypes.CDLL(str(d / "lib.so")) for d in dirs]
         for shape in body["shapes"]:
             times = time_variants(name, libs, inputs(name, shape), [v[0] for v in variants])
-            if name.startswith("k10"):
+            if name == "k11":
+                dtype, B, N, S, D = shape
+                what = f"K11 {str(dtype)[6:]}, B={B}, N={N}, S={S}, D={D}"
+            elif name.startswith("k10"):
                 dtype, M, D, Hd, Dout = shape
                 what = f"K10 {str(dtype)[6:]}, M={M}, {D} -> {Hd} -> {Dout}"
             else:

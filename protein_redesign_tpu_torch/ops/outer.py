@@ -4,8 +4,14 @@ version and the dispatch to its hand-written Hopper kernel.
 
 Port of ``protein_redesign_tpu/ops/pallas_outer.py``: ``fused_outer_linear``
 replaces the Pallas kernel K11 (``_fused_outer_impl`` :72 -> ``_make_kernel``
-:55) with ``kernels/csrc/outer.cu``; its backward differentiates the plain
-version, as ``_fo_bwd`` (:135) differentiates ``_reference_impl``.
+:55); its backward differentiates the plain version, as ``_fo_bwd`` (:135)
+differentiates ``_reference_impl``. K11 has two bodies
+(``outer_takes_tensor_cores``): pair widths D that are multiples of 8 up to
+128 take the tensor-core one (``kernels/csrc/outer_mma.cu``: mma.sync in
+bf16, 3xTF32 in f32, W1 in the Linear's layout), the other widths that
+``outer_fits`` admits (D = 4 mod 8) the CUDA-core one
+(``kernels/csrc/outer.cu``), which stays callable to time it beside the
+other.
 
 With W = [W1; W2] split along the concat axis,
 
@@ -36,8 +42,11 @@ from .attention import (
     plain_vjp,
     stream_of,
 )
+from .transition import _aligned
 
 MAX_PAIR_DIM = 128  # outer.cu: 16 threads of 4 output channels in each of two groups of 64
+# outer_mma.cu stages xl rows and W1 in 16-byte pieces: S a multiple of this
+TC_PIECE = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def outer_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
@@ -46,17 +55,29 @@ def outer_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
     return 0 < D <= MAX_PAIR_DIM and D % 4 == 0 and 0 < B <= 65535 and 0 < N <= 65535
 
 
-def _split(x: torch.Tensor, w: torch.Tensor):
-    """(xl in x's dtype, u f32 [..., N, D], W1 [D, S] in the dtype)."""
+def outer_takes_tensor_cores(S: int, D: int, dtype: torch.dtype) -> bool:
+    """Whether K11 runs its tensor-core body (outer_mma.cu) at single width S
+    and pair width D in ``dtype``, else the CUDA-core body (outer.cu): D a
+    multiple of 8 up to MAX_PAIR_DIM, and S a multiple of one 16-byte piece
+    (8 in bf16, 4 in f32). S need not be a multiple of the MMA's k-step (16
+    in bf16, 8 in f32): the last chunk of 64 is zero-padded in shared
+    memory."""
+    return (dtype in TC_PIECE and 0 < D <= MAX_PAIR_DIM and D % 8 == 0
+            and S > 0 and S % TC_PIECE[dtype] == 0)
+
+
+def _ln_u(x: torch.Tensor, w: torch.Tensor):
+    """(xl in x's dtype, u f32 [..., N, D])."""
     S = x.shape[-1]
     xl32 = layer_norm_f32(x)
     u = xl32 @ w[:, S:].float().t()
-    return xl32.to(x.dtype), u, w[:, :S].to(x.dtype)
+    return xl32.to(x.dtype), u
 
 
 def outer_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of K11: x [..., N, S] -> [..., N, N, D]."""
-    xl, u, w1 = _split(x, w)
+    xl, u = _ln_u(x, w)
+    w1 = w[:, :x.shape[-1]].to(x.dtype)
     prod = (xl[..., :, None, :] * xl[..., None, :, :]).float()  # rounded to the dtype
     o = prod @ w1.float().t()
     out = o + u[..., :, None, :] + (b.float() - u[..., None, :, :])
@@ -83,16 +104,26 @@ def _launch(x, w, b) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
     lib = build()
-    xl, u, w1 = _split(x, w)
+    xl, u = _ln_u(x, w)
     xl, u = xl.contiguous(), u.contiguous()
-    w1t = w1.t().contiguous()  # [S, D]
-    bf = b.float().contiguous()
+    bf = _aligned(b.float().contiguous())
     out = torch.empty((B, N, N, D), dtype=x.dtype, device=x.device)
+    if outer_takes_tensor_cores(S, D, x.dtype):
+        # outer_mma.cu: W1 in the dtype, rows of the Linear's [D, 2S] layout
+        # (a weight in the dtype is read in place; an f32 one in a bf16 model
+        # is cast, [D, S])
+        w1 = w if w.dtype == x.dtype else w[:, :S].to(x.dtype)
+        w1 = _aligned(w1.contiguous())
+        args = (xl.data_ptr(), u.data_ptr(), w1.data_ptr(), w1.stride(0), bf.data_ptr(),
+                out.data_ptr(), _DTYPE_CODES[x.dtype], B, N, S, D, stream_of(x))
+        fn = lib.lib.prd_outer_mma
+    else:  # outer.cu: W1 transposed, [S, D] in the dtype
+        w1t = w[:, :S].to(x.dtype).t().contiguous()
+        args = (xl.data_ptr(), u.data_ptr(), w1t.data_ptr(), bf.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[x.dtype], B, N, S, D, stream_of(x))
+        fn = lib.lib.prd_outer
     with torch.cuda.device(x.device):
-        code = lib.lib.prd_outer(
-            xl.data_ptr(), u.data_ptr(), w1t.data_ptr(), bf.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[x.dtype], B, N, S, D, stream_of(x),
-        )
+        code = fn(*args)
     lib.check(code, "fused_outer_linear")
     LAUNCHES["fused_outer_linear"] += 1
     return out

@@ -144,6 +144,24 @@ def test_outer_bf16_near_reference():
     assert _rel(got.float(), want.astype(jnp.float32)) < BF16_REL
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_outer_matches_pallas_at_paper_width(dtype):
+    """K11 at the paper's single width 512 and pair width 64, the shape its
+    tensor-core body takes on the main path, with a small B and N: in f32
+    against the Pallas kernel in interpret mode (1e-5), in bf16 within
+    BF16_REL of the JAX reference in bf16."""
+    x, w, b = _outer_case(seed=2, B=2, N=10, S=512, D=64)
+    jx, jw, jb = _j(x, w.T, b)
+    if dtype == torch.float32:
+        got = O.outer(*_t(x, w, b)).numpy()
+        np.testing.assert_allclose(got, JO._fused_outer_impl(jx, jw, jb, True), **TOL)
+    else:
+        got = O.outer(*_t(x, dtype=torch.bfloat16), *_t(w, b))
+        want = JO._reference_impl(*_j(x, dtype=jnp.bfloat16), jw, jb)
+        assert got.shape == (2, 10, 10, 64)
+        assert _rel(got.float(), want.astype(jnp.float32)) < BF16_REL
+
+
 # K9 --------------------------------------------------------------------------
 
 

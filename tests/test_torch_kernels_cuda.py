@@ -752,17 +752,103 @@ def test_rows_fast_f32_bodies(device, N, C):
 
 
 @DTYPES
+@pytest.mark.parametrize("body", ["tensor_cores", "cuda_cores"])
 @pytest.mark.parametrize("B,N,S,D", [(2, 45, 64, 64), (1, 130, 512, 64), (1, 7, 16, 8),
-                                     (1, 33, 128, 128), (2, 20, 32, 96)])
-def test_outer_kernel_matches_plain(device, dtype, B, N, S, D):
+                                     (1, 33, 128, 128), (2, 20, 32, 96), (1, 7, 40, 24),
+                                     (2, 45, 40, 8), (1, 130, 16, 128), (2, 45, 512, 96),
+                                     (1, 130, 40, 24), (1, 7, 512, 128)])
+def test_outer_kernel_matches_plain(device, dtype, body, B, N, S, D, monkeypatch):
+    """K11 on its tensor-core body (outer_mma.cu) and on its CUDA-core body
+    (outer.cu, the predicate patched, as chip_smoke times it) at shapes that
+    hit the tails: N not a multiple of the 32-row j tile or of the 16- and
+    8-row i tiles, S past the last 64-wide chunk (16, 40), D not a multiple
+    of 64."""
     from protein_redesign_tpu_torch.ops import outer as O
 
+    assert O.outer_takes_tensor_cores(S, D, dtype)
+    if body == "cuda_cores":
+        monkeypatch.setattr(O, "outer_takes_tensor_cores", lambda S, D, dtype: False)
     x = _randn(B, N, S, seed=5, device=device).to(dtype)
     w, b = _linear(D, 2 * S, device, 6)
+    before = A.LAUNCHES["fused_outer_linear"]
     got = O.outer(x, w, b)
     torch.cuda.synchronize()
-    assert got.shape == (B, N, N, D)
+    assert A.LAUNCHES["fused_outer_linear"] == before + 1
+    assert got.shape == (B, N, N, D) and got.dtype == dtype
     assert _rel(got, O.outer_reference(x, w, b)) <= FUSED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,B,N,S,D", [
+    (torch.float32, 1, 7, 16, 12), (torch.float32, 2, 45, 64, 20),
+    (torch.bfloat16, 1, 7, 16, 12), (torch.bfloat16, 2, 45, 64, 20),
+    (torch.bfloat16, 1, 7, 12, 8), (torch.bfloat16, 2, 45, 20, 64)])
+def test_outer_cuda_core_route(device, dtype, B, N, S, D):
+    """Shapes past the tensor-core body (D = 4 mod 8, or bf16 S not a
+    multiple of 8) take outer.cu with nothing patched: one launch, its
+    kernel alone on the profiler, within FUSED_TOL of the plain version."""
+    from protein_redesign_tpu_torch.ops import outer as O
+
+    assert O.outer_fits(B, N, D, dtype) and not O.outer_takes_tensor_cores(S, D, dtype)
+    x = _randn(B, N, S, seed=7, device=device).to(dtype)
+    w, b = _linear(D, 2 * S, device, 8)
+    before = A.LAUNCHES["fused_outer_linear"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = O.outer(x, w, b)
+        torch.cuda.synchronize()
+    assert A.LAUNCHES["fused_outer_linear"] == before + 1
+    names = [e.key for e in prof.key_averages() if "outer" in e.key]
+    assert any("outer_kernel" in n for n in names) and not any("outer_mma" in n for n in names)
+    assert got.shape == (B, N, N, D) and got.dtype == dtype
+    assert _rel(got, O.outer_reference(x, w, b)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("B,N,S,D", [(2, 45, 512, 64), (1, 33, 40, 128), (1, 7, 16, 24)])
+def test_outer_tensor_cores_one_hot(device, dtype, B, N, S, D):
+    """W1 picks column s_d for output d (W2 and the bias zero), so the
+    tensor-core body's output d is the product round_T(xl_i[s_d] xl_j[s_d])
+    itself: in bf16 bit for bit (__hmul2 rounds as the plain version's bf16
+    product, and the one nonzero term sums exactly); in f32 within 2^-22 of
+    it, since 3xTF32's split keeps 22 of the product's 24 bits. A wrong k
+    column, n-tile or row of the fragments moves an output by O(1)."""
+    from protein_redesign_tpu_torch.ops import outer as O
+
+    x = _randn(B, N, S, seed=9, device=device).to(dtype)
+    s_d = torch.randperm(S, generator=torch.Generator().manual_seed(D))[:D].to(device)
+    if D > S:
+        s_d = torch.arange(D, device=device) % S
+    w = torch.zeros(D, 2 * S, device=device)
+    w[torch.arange(D, device=device), s_d] = 1.0
+    b = torch.zeros(D, device=device)
+    got = O.outer(x, w, b)
+    xl = O._ln_u(x, w)[0]
+    want = (xl[:, :, None, :] * xl[:, None, :, :])[..., s_d]  # rounded to the dtype
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= 2.0 ** -22 * want.abs()).all())
+
+
+def test_outer_raises_and_does_not_fall_back(device, monkeypatch):
+    """A failed launch of the tensor-core body raises: neither the CUDA-core
+    body nor the plain version runs in its place, and no launch is counted."""
+    from protein_redesign_tpu_torch.kernels import build
+    from protein_redesign_tpu_torch.ops import outer as O
+
+    lib = build()
+    calls = []
+    monkeypatch.setattr(lib.lib, "prd_outer_mma", lambda *a: calls.append("mma") or 1)
+    monkeypatch.setattr(lib.lib, "prd_outer", lambda *a: calls.append("core") or 0)
+    monkeypatch.setattr(O, "outer_reference", lambda *a: calls.append("plain"))
+    x = _randn(1, 20, 64, seed=5, device=device).to(torch.bfloat16)
+    w, b = _linear(64, 128, device, 6)
+    before = A.LAUNCHES["fused_outer_linear"]
+    with pytest.raises(RuntimeError, match="fused_outer_linear"):
+        O.fused_outer_linear(x, w, b)
+    assert calls == ["mma"] and A.LAUNCHES["fused_outer_linear"] == before
 
 
 @DTYPES

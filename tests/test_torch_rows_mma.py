@@ -194,6 +194,17 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     # K11: D a multiple of 4 up to 128
     (O.outer_fits, (2, 16, 128, BF16), True),
     (O.outer_fits, (2, 16, 132, BF16), False),
+    *[(O.outer_fits, (2, 16, D, dtype), D <= 128) for D in (4, 8, 124) for dtype in (BF16, F32)],
+    # K11's tensor-core body: D a multiple of 8 up to 128 and S a multiple of
+    # one 16-byte piece (8 in bf16, 4 in f32), not of the MMA's k-step;
+    # D = 4 mod 8 takes the CUDA-core body, which outer_fits still admits
+    *[(O.outer_takes_tensor_cores, (512, D, dtype), D in (8, 128))
+      for D in (4, 8, 124, 128, 132) for dtype in (BF16, F32)],
+    *[(O.outer_takes_tensor_cores, (S, 64, dtype), ok)
+      for S, dtype, ok in ((16, BF16, True), (8, BF16, True), (40, BF16, True),
+                           (12, BF16, False), (4, BF16, False), (16, F32, True),
+                           (12, F32, True), (4, F32, True), (6, F32, False), (2, F32, False))],
+    (O.outer_takes_tensor_cores, (512, 64, torch.float16), False),
     # K5 on the bf16 tensor cores: K3's shared memory
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1168, BF16), True),
     # K7: the tensor-core body in bf16 at multiples of 8 up to 128, the
