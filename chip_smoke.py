@@ -141,9 +141,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    group), then one request served from its checkpoint through the serve
    CLI (--fast_softmax --sampler ddim, 5 DDIM steps, bucket 384): s per
    step and exact launches; the phase's wall time.
+18. Sequence design (run after phase 8, whose final Gaussian checkpoint it
+   keeps): ModelConfig() with seq_process="absorbing" and self_cond=True,
+   bf16, bucket 192. A forward with a live estimate (sc_flag 1, a seeded
+   z_sc) and one micro-step whose coin runs the first pass, kernel route
+   against plain route (2e-2 and 5e-2); the train CLI with --seq_process
+   absorbing --self_cond on phase 8's data, 2 optimizer steps of 2 x 2
+   (its coins printed, exact K1/K2/K7 launches: each micro-step's plus one
+   forward for each first pass, the validation's one or two); on its
+   checkpoint the generate CLI (DDPM absorbing, 64 steps, --reveal_schedule
+   cosine --reveal_temperature 0.5), the serve CLI (one request, DDIM 10,
+   2 samples, --reveal_conf_noise 0.5) and both batch CLIs (a 2-entry FASTA:
+   lysozyme 1-110 with an X run and a seeded second chain, imatinib, 2
+   samples each, DDIM 10, --mask_prob 0: every X committed to a real
+   residue, every other residue kept); the share of committed identities on
+   which the kernel and plain routes agree (printed, not gated); then
+   --seq_reverse ancestral, DDPM (8 steps) and DDIM (4, eta 1), on phase
+   8's checkpoint. Wall and s per step of each run; the phase's wall time.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
-CLIs, 15's train and serve CLIs and 17's serve CLI) runs with every launch
+CLIs, 15's train and serve CLIs, 17's serve CLI and 18's CLIs) runs with every launch
 count set to 0 just before it and read just after; the f32 train CLI at 512
 gives the launches of K1's and K2's f32 entries in the kernels' record, the
 f32 served request K1 fast's. Every kernel's time and
@@ -160,10 +177,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -655,12 +674,17 @@ def perturbed_net(cfg, seed: int = 0):
     return perturb(ProteinReDiffNet(cfg), seed + 1)
 
 
-def complex_batch(runner, batch_rows: int = 2, sequence: str = SEQUENCE):
+def complex_batch_data(runner, sequence: str = SEQUENCE) -> dict:
+    """One featurized complex of ``sequence`` and imatinib, ESM features zero."""
     from protein_redesign_tpu_torch.cli.common import complex_data, load_protein_arg, parse_ligand_arg
 
-    protein, ligand = load_protein_arg(sequence), parse_ligand_arg(LIGAND)
+    protein = load_protein_arg(sequence)
     esm = np.zeros((len(protein.aatype), runner.net.cfg.esm_dim), np.float32)
-    return runner.collate([complex_data(protein, ligand, esm)] * batch_rows)
+    return complex_data(protein, parse_ligand_arg(LIGAND), esm)
+
+
+def complex_batch(runner, batch_rows: int = 2, sequence: str = SEQUENCE):
+    return runner.collate([complex_batch_data(runner, sequence)] * batch_rows)
 
 
 def phase_forward(net, tag: str = "forward", bucket: int = 192,
@@ -668,7 +692,8 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
     """The net's forward at ``bucket`` (192: lysozyme and imatinib; 384: a
     seeded SERVE_LONG-residue sequence and imatinib), B=2, kernel route
     against plain route within ``tol``, its exact launches and device time
-    by group."""
+    by group. A self-conditioned net takes a live estimate: sc_flag 1 and a
+    seeded, nonzero z_sc."""
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
     from protein_redesign_tpu_torch.ops import attention as A
@@ -685,12 +710,14 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
     seq_t = torch.randn(B, N, 21, generator=g, device="cuda")
     mask = batch["residue_and_atom_mask"]
     t = torch.tensor([5, 40], device="cuda")
+    sc = ((torch.randn(B, N, 3, generator=g, device="cuda"), torch.ones(B, device="cuda"))
+          if net.cfg.self_cond else ())
 
     def forward(plain: bool):
         if not plain:
-            return net(batch, z, seq_t, mask, t)
+            return net(batch, z, seq_t, mask, t, *sc)
         with A.plain_route():
-            return net(batch, z, seq_t, mask, t)
+            return net(batch, z, seq_t, mask, t, *sc)
 
     with torch.inference_mode():
         A.reset_launch_counts()
@@ -1008,7 +1035,8 @@ def time_micro_step(tag: str, step, bodies=("tensor-core",)) -> None:
 
 def grad_check(net, batch: dict, noise, tag: str) -> None:
     """The whole parameter gradient of one micro-step, kernel route against
-    plain route, and its exact launches."""
+    plain route, and its exact launches (with a self-conditioning coin that
+    runs the first pass, one forward more)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     A.reset_launch_counts()
@@ -1021,6 +1049,8 @@ def grad_check(net, batch: dict, noise, tag: str) -> None:
     grads_p = torch.cat([p.grad.flatten().float() for p in net.parameters()])
     B, N = batch["residue_mask"].shape
     expected = forward_launches(net.cfg, remat=True, n=N)
+    if net.cfg.self_cond and noise.sc_coin < 0.5:  # the first pass: a forward without gradient
+        expected = {k: v + forward_launches(net.cfg, n=N)[k] for k, v in expected.items()}
     if launches != expected:
         raise AssertionError(f"{tag}: launches per micro-step {launches} != {expected}")
     rel = float((grads_k - grads_p).norm() / grads_p.norm())
@@ -1081,9 +1111,10 @@ def write_dataset(directory: Path, split: dict) -> None:
             save_complex_cache(directory / "PDB_processed_cache", pdb_id, data)
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int, keep: Path) -> dict:
     """The port's train CLI at paper width: 2 optimizer steps at bucket 192,
-    then a resume for 2 steps at bucket 384."""
+    then a resume for 2 steps at bucket 384. The final step's EMA weights
+    and config are kept in ``keep`` (phase 18's gaussian checkpoint)."""
     from protein_redesign_tpu_torch.config import ModelConfig
     from protein_redesign_tpu_torch.cli.train import main as train
     from protein_redesign_tpu_torch.ops import attention as A
@@ -1119,6 +1150,9 @@ def phase_train(seed: int) -> dict:
         saved = {p.name: sorted(f.name for f in p.iterdir())
                  for p in (run / "checkpoints").iterdir()}
         final = read_state(run / "checkpoints" / "4")
+        (keep / "4").mkdir(parents=True)
+        for name in ("config.json", "ema.pt", "state.json"):
+            shutil.copy(run / "checkpoints" / "4" / name, keep / "4" / name)
     steps = [m for m in metrics if "train_loss" in m]
     vals = [m for m in metrics if "val_loss" in m]
     losses = [m["train_loss"] for m in steps] + [m["val_loss"] for m in vals]
@@ -1219,6 +1253,288 @@ def phase_h64(seed: int) -> dict:
     print(f"[h64-train] --head_dim 64 --num_heads 1: val_loss {vals[0]['val_loss']:.4f}; launches "
           f"{({k: v for k, v in launches.items() if v})}")
     return launches
+
+
+# The design phase (18): the JAX package's sequence-design configuration,
+# absorbing sequence diffusion with coordinate self-conditioning, at paper
+# width in bf16; its DDIM runs take DESIGN_DDIM_STEPS steps. The batch CLIs'
+# FASTA gives lysozyme residues X_RUN as X (designed) beside a second chain of
+# CHAIN_B residues; the ancestral runs take ANCESTRAL_STEPS (a DDPM schedule
+# of that length, then DDIM steps of the 64-step one, eta 1).
+DESIGN = dict(seq_process="absorbing", self_cond=True)
+DESIGN_DDIM_STEPS, X_RUN, CHAIN_B, ANCESTRAL_STEPS = 10, (30, 42), 90, (8, 4)
+
+
+def _design_train(tmp: Path, seed: int) -> Path:
+    """The train CLI with --seq_process absorbing --self_cond on phase 8's
+    data at bucket 192: 2 optimizer steps of 2 x 2 micro-batches and the
+    final validation. Exact launches: each micro-step's, one forward without
+    gradient for each coin that ran the first pass, and the validation's
+    one or two forwards. Returns the checkpoint directory."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config
+
+    esm_dim = ModelConfig().esm_dim
+    write_dataset(tmp / "data", {
+        "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
+        "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+    run = tmp / "run"
+    argv = ["--save_dir", str(run), "--data_dir", str(tmp / "data"), "--batch_size", "2",
+            "--accumulate_grad_batches", "2", "--val_every_steps", "0", "--log_every_steps", "1",
+            "--warmup_steps", "10", "--seed", str(seed), "--device", "cuda", "--max_steps", "2",
+            "--seq_process", "absorbing", "--self_cond"]
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    state = train(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - began
+    launches = main_path_launches()
+    del state
+    cfg = read_config(run / "checkpoints" / "2")
+    metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [m for m in metrics if "train_loss" in m]
+    vals = [m for m in metrics if "val_loss" in m]
+    if [m["step"] for m in steps] != [1, 2] or len(vals) != 1 or not all(
+            math.isfinite(x) for x in [m["train_loss"] for m in steps] + [vals[0]["val_loss"]]):
+        raise AssertionError(f"design train metrics.jsonl: {metrics}")
+    if not (cfg.self_cond and cfg.seq_process == "absorbing"):
+        raise AssertionError(f"design train checkpoint config {cfg}")
+    passes = sum(int(m["sc_passes"]) for m in steps)
+    val_passes = int(vals[0]["val_sc_passes"])
+    micro, forward = forward_launches(cfg, remat=True), forward_launches(cfg)
+    expected = {k: 4 * micro[k] + (passes + 1 + val_passes) * forward[k] for k in REPLACES}
+    if launches != expected or not launches["rows_attention_bwd"]:
+        raise AssertionError(f"design train launches {launches} != {expected}")
+    for m in steps:
+        print(f"[design-train] step {m['step']} bucket {int(m['bucket'])}: loss "
+              f"{m['train_loss']:.4f}, grad_norm {m['grad_norm']:.4f}, {m['step_seconds']:.3f} s "
+              f"per optimizer step (2 micro-batches of 2), {int(m['sc_passes'])} self-cond first "
+              f"passes")
+    print(f"[design-train] absorbing + self_cond: val_loss {vals[0]['val_loss']:.4f} "
+          f"({val_passes} first pass); {passes} of 4 micro-batch coins ran the first pass; "
+          f"main() wall {wall:.2f} s; launches {({k: v for k, v in launches.items() if v})} = 4 "
+          f"micro-steps + {passes + 1 + val_passes} forwards without gradient")
+    return run / "checkpoints"
+
+
+def _design_grad(seed: int) -> None:
+    """One self-conditioned micro-step (the coin runs the first pass) of the
+    absorbing loss at paper width, bf16, B=2, bucket 192: the whole gradient,
+    kernel route against plain route."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    net = perturbed_net(ModelConfig(training_mode=True, mask_prob=0.5, **DESIGN), seed).to("cuda")
+    batch = collated([synthetic_complex(SEQUENCE, seed + s, net.cfg.esm_dim) for s in (1, 2)], 192)
+    B, N = batch["residue_mask"].shape
+    g = torch.Generator().manual_seed(seed + 3)
+    noise = dataclasses.replace(fixed_noise(batch, seed), corrupt_u=torch.rand(B, N, generator=g),
+                                sc_coin=0.0)
+    grad_check(net, batch, noise, "design micro-step (absorbing, self-cond first pass)")
+    del net
+
+
+def _design_generate(ckpt: Path, out: Path, cfg, tag: str, extra: list, steps: int,
+                     designed: bool) -> None:
+    """The generate CLI on ``ckpt`` (lysozyme 1-110 and imatinib, 2 samples
+    in one batch): the three output files, finite coordinates (every residue
+    decoded where ``designed``: no X to strip), exact launches."""
+    from protein_redesign_tpu_torch.cli.generate import main
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    argv = ["-c", str(ckpt), "-o", str(out), "-p", SEQUENCE, "-l", LIGAND, "-n", "2",
+            "--batch_size", "2", "--device", "cuda", *extra]
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    timings = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - began
+    launches = main_path_launches()
+    pdb = (out / "sample_protein.pdb").read_text()
+    coords = [[float(line[30:38]), float(line[38:46]), float(line[46:54])]
+              for line in pdb.splitlines() if line.startswith("ATOM")]
+    scores = [float(x) for x in (out / "sample_tmscores.txt").read_text().split()]
+    want = 2 * len(SEQUENCE)
+    if not (len(coords) == want if designed else 0 < len(coords) <= want) or not all(
+            math.isfinite(c) for xyz in coords for c in xyz):
+        raise AssertionError(f"[{tag}] {len(coords)} CA records or non-finite coordinates")
+    if (out / "sample_ligand.sdf").read_text().count("$$$$") != 2 or len(scores) != 2 or not all(
+            0.0 <= x <= 1.0 for x in scores):
+        raise AssertionError(f"[{tag}] sample_ligand.sdf or TM-scores {scores}")
+    expected = {k: steps * len(timings) * v for k, v in forward_launches(cfg).items()}
+    if launches != expected:
+        raise AssertionError(f"[{tag}] launches {launches} != {expected}")
+    for bucket, rows, n, seconds in timings:
+        print(f"[{tag}] bucket {bucket}, {rows} samples per batch: {n} steps in {seconds:.3f} s "
+              f"= {seconds / n:.4f} s/step")
+    print(f"[{tag}] {' '.join(extra)}: main() wall {wall:.2f} s; TM-scores {scores}; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+
+
+def _design_serve(ckpt: Path, tmp: Path, cfg) -> None:
+    """One request (lysozyme and imatinib, 2 samples) to the serve CLI with
+    DDIM absorbing and --reveal_conf_noise 0.5."""
+    from protein_redesign_tpu_torch.cli.serve import main as serve
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    reqs, results = tmp / "design_requests.jsonl", tmp / "design_results.jsonl"
+    reqs.write_text(json.dumps({"id": "design", "protein": SEQUENCE, "ligand": LIGAND,
+                                "num_samples": 2, "seed": 4}) + "\n")
+    argv = ["-c", str(ckpt), "-o", str(tmp / "served"), "--sampler", "ddim", "--ddim_steps",
+            str(DESIGN_DDIM_STEPS), "--reveal_conf_noise", "0.5", "--batch_size", "2",
+            "--input", str(reqs), "--output", str(results), "--device", "cuda"]
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    runner = serve(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - began
+    launches = main_path_launches()
+    (line,) = [json.loads(x) for x in results.read_text().splitlines()]
+    if "error" in line or [len(x) for x in line["sequences"]] != [len(SEQUENCE)] * 2 or not all(
+            0.0 <= x <= 1.0 for x in line["tmscores"]):
+        raise AssertionError(f"design serve: response {line}")
+    for path in line["pdb_files"] + line["sdf_files"]:
+        if not Path(path).is_file() or not Path(path).stat().st_size:
+            raise AssertionError(f"design serve: missing output {path}")
+    expected = {k: DESIGN_DDIM_STEPS * len(runner.timings) * v
+                for k, v in forward_launches(cfg).items()}
+    if launches != expected:
+        raise AssertionError(f"design serve launches {launches} != {expected}")
+    for bucket, rows, n, seconds in runner.timings:
+        print(f"[design-serve] bucket {bucket}, {rows} samples per batch: {n} DDIM steps in "
+              f"{seconds:.3f} s = {seconds / n:.4f} s/step")
+    print(f"[design-serve] --sampler ddim --ddim_steps {DESIGN_DDIM_STEPS} --reveal_conf_noise "
+          f"0.5: main() wall {wall:.2f} s (startup and 1 request); TM-scores {line['tmscores']}; "
+          f"launches {({k: v for k, v in launches.items() if v})}")
+
+
+def _design_batch(ckpt: Path, tmp: Path, cfg, seed: int) -> None:
+    """Both batch CLIs on a 2-entry FASTA (lysozyme 1-110 with residues
+    X_RUN given as X, and a seeded second chain), imatinib for each, 2
+    samples each, DDIM absorbing: --mask_prob 0, so exactly the X positions
+    are designable; each must be committed to a real residue and every other
+    position keep its residue."""
+    from protein_redesign_tpu_torch.cli.predict_batch_sequence import main as batch_sequence
+    from protein_redesign_tpu_torch.cli.predict_batch_structure import main as batch_structure
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    lo, hi = X_RUN
+    inputs = {"lysozyme_x": SEQUENCE[:lo] + "X" * (hi - lo) + SEQUENCE[hi:],
+              "chain_b": long_sequence(seed + 60, CHAIN_B)}
+    fasta, smiles = tmp / "design.fasta", tmp / "design.smiles"
+    fasta.write_text("".join(f">{k}\n{v}\n" for k, v in inputs.items()))
+    smiles.write_text(f"{LIGAND}\n{LIGAND}\n")
+    common = ["-c", str(ckpt), "-p", str(fasta), "-l", str(smiles), "-n", "2", "--batch_size", "2",
+              "--sampler", "ddim", "--ddim_steps", str(DESIGN_DDIM_STEPS), "--mask_prob", "0.0",
+              "--seed", str(seed), "--device", "cuda"]
+    for tag, cli in (("design-batch-sequence", batch_sequence),
+                     ("design-batch-structure", batch_structure)):
+        out = tmp / tag
+        A.reset_launch_counts()
+        began = time.perf_counter()
+        timings = cli(["-o", str(out), *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - began
+        launches = main_path_launches()
+        expected = {k: DESIGN_DDIM_STEPS * sum(forward_launches(cfg, n=b)[k] for b, *_ in timings)
+                    for k in REPLACES}
+        if launches != expected:
+            raise AssertionError(f"[{tag}] launches {launches} != {expected}")
+        if cli is batch_sequence:
+            lines = (out / "sample_sequences.fasta").read_text().splitlines()
+            designed = 0
+            for header, seq in zip(lines[::2], lines[1::2]):
+                given = inputs[header[1:].rsplit("_sample_", 1)[0]]
+                if len(seq) != len(given) or "X" in seq or any(
+                        a != b for a, b in zip(seq, given) if b != "X"):
+                    raise AssertionError(f"[{tag}] {header}: {seq} from {given}")
+                designed += given.count("X")
+            if len(lines) != 8:
+                raise AssertionError(f"[{tag}] sample_sequences.fasta: {lines}")
+            what = (f"{designed} X positions all committed to real residues, every known "
+                    f"residue kept")
+        else:
+            for name, given in inputs.items():
+                scores = [float(x) for x in
+                          (out / f"sample_tmscores_{name}.txt").read_text().split()]
+                for i in range(2):
+                    pdb = (out / f"sample_protein_{name}_model_{i}.pdb").read_text()
+                    atoms = [a[30:54] for a in pdb.splitlines() if a.startswith("ATOM")]
+                    if len(atoms) != len(given) or any("nan" in a.lower() for a in atoms):
+                        raise AssertionError(f"[{tag}] {name} model {i}: {len(atoms)} CA records")
+                    if not (out / f"sample_ligand_{name}_model_{i}.sdf").stat().st_size:
+                        raise AssertionError(f"[{tag}] {name} model {i}: empty SDF")
+                if len(scores) != 2 or not all(0.0 <= x <= 1.0 for x in scores):
+                    raise AssertionError(f"[{tag}] {name}: TM-scores {scores}")
+            what = "per-name PDB, SDF and TM-score files"
+        for bucket, rows, n, seconds in timings:
+            print(f"[{tag}] bucket {bucket}, {rows} samples per batch: {n} DDIM steps in "
+                  f"{seconds:.3f} s = {seconds / n:.4f} s/step")
+        print(f"[{tag}] main() wall {wall:.2f} s; {what}; launches "
+              f"{({k: v for k, v in launches.items() if v})}")
+
+
+def _design_route_agreement(ckpt: Path, seed: int) -> None:
+    """The share of committed identities on which the kernel route and the
+    plain route agree: DDIM absorbing, every residue designable (mask_prob
+    1), lysozyme and imatinib, B=2. Printed, not gated: a bf16 difference
+    can flip a ranking."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.weights import load_checkpoint
+
+    state_dict, cfg = load_checkpoint(ckpt, num_steps=STEPS)
+    net = ProteinReDiffNet(cfg.replace(training_mode=False))
+    net.load_state_dict(state_dict)
+    runner = SamplingRunner(net.to("cuda").eval(), "cuda", batch_size=2, mask_prob=1.0,
+                            sampler="ddim", ddim_steps=DESIGN_DDIM_STEPS)
+    datas = [complex_batch_data(runner)] * 2
+    kernel = runner.run(datas, seed)
+    with A.plain_route():
+        plain = runner.run(datas, seed)
+    n_lig = IMATINIB_ATOMS
+    same = [np.argmax(k[1][n_lig:], -1) == np.argmax(p[1][n_lig:], -1)
+            for k, p in zip(kernel, plain)]
+    if not all(np.isfinite(r[0]).all() for r in kernel + plain):
+        raise AssertionError("design route agreement: non-finite positions")
+    print(f"[design-agreement] DDIM {DESIGN_DDIM_STEPS} absorbing, all {len(SEQUENCE)} residues "
+          f"designed, 2 samples: the kernel and plain routes commit the same identity at "
+          f"{float(np.mean(np.concatenate(same))):.1%} of the positions (not gated)")
+    del net
+
+
+def phase_design(seed: int, gaussian_ckpt: Path) -> None:
+    """Phase 18: sequence design at paper width, bf16, bucket 192."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config, step_dir
+
+    began = time.perf_counter()
+    net = perturbed_net(ModelConfig(**DESIGN)).to("cuda").eval()
+    phase_forward(net, tag="design-forward")
+    del net
+    _design_grad(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = _design_train(tmp, seed)
+        cfg = read_config(step_dir(ckpt))
+        _design_generate(ckpt, tmp / "ddpm", cfg, "design-ddpm",
+                         ["--num_steps", str(STEPS), "--reveal_schedule", "cosine",
+                          "--reveal_temperature", "0.5"], STEPS, designed=True)
+        _design_serve(ckpt, tmp, cfg)
+        _design_batch(ckpt, tmp, cfg, seed)
+        _design_route_agreement(ckpt, seed)
+        g_cfg = read_config(step_dir(gaussian_ckpt))
+        ddpm, ddim = ANCESTRAL_STEPS
+        _design_generate(gaussian_ckpt, tmp / "anc-ddpm", g_cfg, "ancestral-ddpm",
+                         ["--seq_reverse", "ancestral", "--num_steps", str(ddpm)], ddpm,
+                         designed=False)
+        _design_generate(gaussian_ckpt, tmp / "anc-ddim", g_cfg, "ancestral-ddim",
+                         ["--seq_reverse", "ancestral", "--sampler", "ddim", "--ddim_steps",
+                          str(ddim), "--eta", "1.0", "--num_steps", str(STEPS)], ddim,
+                         designed=False)
+    print(f"[design] phase wall {time.perf_counter() - began:.1f} s")
 
 
 def _check_close(what: str, got, want, tol: float, to_scale: bool = False) -> float:
@@ -2270,8 +2586,10 @@ def main() -> None:
     phase_generate(net)
     del net
     phase_grad(args.seed)
-    launches = phase_train(args.seed)
-    phase_h64(args.seed)
+    with tempfile.TemporaryDirectory() as kept:
+        launches = phase_train(args.seed, keep=Path(kept))
+        phase_h64(args.seed)
+        phase_design(args.seed, Path(kept))
     record.update(phase_kchunk_kernels())
     net = perturbed_net(ModelConfig()).to("cuda").eval()
     long_launches = phase_generate_long(net)

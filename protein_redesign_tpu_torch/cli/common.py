@@ -1,8 +1,11 @@
-"""Shared inference plumbing for the port's generation CLI.
+"""Shared inference plumbing for the port's sampling CLIs.
 
-``update_pos``, ``update_seq``, ``parse_ligand_arg``, ``load_protein_arg``
-and ``softmax_np`` are copied from ``protein_redesign_tpu/cli/common.py``
-(:54-57, :59-73, :83-121, :124-130, :199-204), whose module imports jax.
+``update_pos``, ``predict_seq``, ``update_seq``, ``parse_ligand_arg``,
+``parse_ligands``, ``mask_sequence_by_percent``,
+``proteins_from_fasta_with_mask``, ``load_protein_arg`` and ``softmax_np``
+are copied from ``protein_redesign_tpu/cli/common.py`` (:54-57, :59-73,
+:76-80, :83-121, :124-130, :133-149, :152-165, :168-196, :199-204), whose
+module imports jax.
 ``add_esm_args`` and ``add_sampler_args`` (:207-323) are copied with the same
 flags; ``check_supported_args`` rejects the values outside the ported
 slice, and the fused-kernel switches override the checkpoint's config only
@@ -15,16 +18,19 @@ sampler, optionally padded to a full batch and with trajectory frames.
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 import warnings
 from argparse import BooleanOptionalAction
-from typing import Dict, List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..chem.mol import Molecule, mol_from_file, mol_from_smiles, update_mol_positions
 from ..chem.protein import RESIDUE_TYPES, Protein, protein_from_pdb_file, protein_from_sequence
+from ..chem.smiles import strip_cxsmiles
 from ..config import DataConfig
 from ..data.collate import collate_fn, numeric_batch, pick_bucket
 from ..data.featurize import ligand_to_data, protein_to_data
@@ -52,6 +58,12 @@ def update_pos(
     protein = dataclasses.replace(protein, atom_pos=atom_pos, atom_mask=atom_mask)
     ligand = update_mol_positions(ligand, pos[:n_lig])
     return protein, ligand
+
+
+def predict_seq(proba: np.ndarray) -> str:
+    """Argmax decode with terminal X stripped."""
+    tokens = np.argmax(softmax_np(np.asarray(proba)), axis=-1)
+    return "".join(RESIDUE_TYPES_NEW[i] for i in tokens).lstrip("X").rstrip("X")
 
 
 def update_seq(protein: Protein, proba: np.ndarray) -> Protein:
@@ -92,6 +104,55 @@ def parse_ligand_arg(ligand: str) -> Molecule:
         return mol_from_file(ligand)
     mol = mol_from_smiles(ligand)
     return update_mol_positions(mol, np.zeros((mol.num_atoms(), 3)))
+
+
+def parse_ligands(ligand_input: Union[str, Path, list]) -> List[Molecule]:
+    """SMILES list or .smiles file, zero-conformer; CXSMILES blocks stripped."""
+    if isinstance(ligand_input, list):
+        lines = ligand_input
+    else:
+        with open(ligand_input, "r") as f:
+            lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+    ligands = []
+    for line in lines:
+        mol = mol_from_smiles(strip_cxsmiles(line))
+        ligands.append(update_mol_positions(mol, np.zeros((mol.num_atoms(), 3))))
+    return ligands
+
+
+def mask_sequence_by_percent(seq: str, percentage: float = 0.2,
+                             rng: Optional[random.Random] = None) -> str:
+    """String-space masking: ``int(len * percentage)`` positions become X,
+    drawn from ``rng`` (a seeded ``random.Random`` reproduces the mask)."""
+    aa_to_replace = (rng or random).sample(range(len(seq)), int(len(seq) * percentage))
+    return "".join("X" if idx in aa_to_replace else char for idx, char in enumerate(seq))
+
+
+def proteins_from_fasta_with_mask(
+    fasta_file: Union[str, Path], mask_percent: float = 0.0,
+    rng: Optional[random.Random] = None,
+) -> Tuple[List[Protein], List[str], List[str]]:
+    """(proteins, names, masked sequences) of a FASTA file: wrapped records
+    are joined, CRLF endings stripped, spaces in names made underscores,
+    and each sequence masked by ``mask_sequence_by_percent``."""
+    names, raw_seqs = [], []
+    with open(fasta_file, "r") as f:
+        for line in f:
+            line = line.rstrip("\r\n")
+            if line.startswith(">"):
+                names.append(line.lstrip(">").replace(" ", "_"))
+                raw_seqs.append("")
+            elif line.strip():
+                if not raw_seqs:  # headerless leading sequence line
+                    names.append("seq_0")
+                    raw_seqs.append("")
+                raw_seqs[-1] += line.strip()
+    proteins, sequences = [], []
+    for raw in raw_seqs:
+        sequence = mask_sequence_by_percent(raw, mask_percent, rng=rng)
+        proteins.append(protein_from_sequence(sequence))
+        sequences.append(sequence)
+    return proteins, names, sequences
 
 
 def load_protein_arg(protein: str) -> Protein:
@@ -169,6 +230,83 @@ def add_sampler_args(parser) -> None:
     parser.add_argument("--sample_guard", action=BooleanOptionalAction, default=None)
     parser.add_argument("--outer_factored", action=BooleanOptionalAction, default=None)
     parser.add_argument("--pair_stream_bf16", action=BooleanOptionalAction, default=None)
+
+
+def add_batch_args(parser) -> None:
+    """The batch CLIs' flags (``cli/predict_batch_{sequence,structure}.py``
+    of the JAX package). ``--accelerator`` and ``--num_workers`` are
+    accepted and ignored, as there."""
+    parser.add_argument("--accelerator", type=str, default="gpu", help="accepted and ignored")
+    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
+                        help="more than 1 is not ported yet")
+    parser.add_argument("--num_steps", type=int, default=64)
+    parser.add_argument("--mask_prob", type=float, default=0.3)
+    parser.add_argument("--training_mode", action="store_true")
+    add_esm_args(parser)
+    add_sampler_args(parser)
+    for action in parser._actions:
+        if action.dest == "num_workers":
+            action.help = "accepted and ignored"
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("-c", "--ckpt_path", type=Path, required=True)
+    parser.add_argument("-o", "--output_dir", type=Path, required=True)
+    parser.add_argument("-p", "--fasta", type=str, required=True)
+    parser.add_argument("-l", "--ligand_file", type=str, default=None)
+    parser.add_argument("-n", "--num_samples", type=int, default=1)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to sample on (cuda or cpu)")
+
+
+def sample_fasta(args) -> Tuple[List[str], List[Protein], List[Molecule], List[Tuple], List]:
+    """The batch CLIs' shared pipeline: the FASTA's sequences masked from
+    ``--seed`` (``masked_sequences.fasta``), the ligands, ESM features and
+    ``num_samples`` samples of each. Returns (names, proteins, ligands,
+    per-sample results in input order, each name's samples together, the
+    runner's timings)."""
+    import os
+
+    from ..models.prdiff import ProteinReDiffNet
+    from ..utils.esm import ESMEmbedder
+    from ..utils.weights import load_checkpoint
+
+    args.num_workers = None  # accepted and ignored
+    check_supported_args(args)
+    seed = args.seed if args.seed is not None else int(np.random.randint(99999))
+    args.output_dir.mkdir(parents=True, exist_ok=True)
+    device = torch.device(args.device)
+
+    state_dict, cfg = load_checkpoint(args.ckpt_path, num_steps=args.num_steps)
+    cfg = apply_serving_defaults(cfg.replace(training_mode=False, **sampler_cfg_overrides(args)),
+                                 args)
+    net = ProteinReDiffNet(cfg)
+    net.load_state_dict(state_dict)
+    net.to(device).eval()
+
+    proteins, names, masked_sequences = proteins_from_fasta_with_mask(
+        args.fasta, args.mask_prob, rng=random.Random(seed))
+    with open(args.output_dir / "masked_sequences.fasta", "w") as f:
+        for i, (name, seq) in enumerate(zip(names, masked_sequences)):
+            f.write(f">{name}_sample_{i % args.num_samples}\n{seq}\n")
+    ligands = parse_ligands(["*"] * len(names) if args.ligand_file is None else args.ligand_file)
+
+    # transformers imports TensorFlow and jax where they are installed unless
+    # told not to; the port runs torch only.
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    embedder = ESMEmbedder(model_name=args.esm_model, esm_dim=cfg.esm_dim,
+                           require=args.require_esm)
+    datas = []
+    for protein, ligand in zip(proteins, ligands):
+        data = complex_data(protein, ligand, embedder.embed_protein(protein))
+        datas.extend([data] * args.num_samples)
+    runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob,
+                            **runner_sampler_kwargs(args))
+    results = runner.run(datas, seed=seed)
+    for bucket, rows, steps, seconds in runner.timings:
+        print(f"sampled {rows} at bucket {bucket}: {steps} {args.sampler} steps in "
+              f"{seconds:.3f} s ({seconds / steps:.4f} s/step)")
+    return names, proteins, ligands, results, runner.timings
 
 
 def check_supported_args(args) -> None:

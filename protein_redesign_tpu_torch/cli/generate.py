@@ -13,7 +13,10 @@ first sample) with mirror-trial TM-align; with ``--save_trajectory K`` also
 sample_trajectory_<i>.pdb per sample, K denoising frames as one MODEL each.
 ``--fast_softmax`` runs triangle attention through K1 fast where the
 checkpoint's config has ``use_pallas_bwd: false``, as the JAX package does;
-otherwise it changes only the triangle product's accumulator.
+otherwise it changes only the triangle product's accumulator. The sequence
+process and self-conditioning come from the checkpoint's config;
+``--seq_reverse`` and ``--reveal_schedule`` / ``--reveal_temperature`` /
+``--reveal_conf_noise`` (absorbing checkpoints) override it.
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ config wins over the model flags, as in the JAX CLI).
 The flags are the JAX CLI's. Writes ``metrics.jsonl``/``metrics.csv``
 (``train_loss``, ``grad_norm``, ``epoch``, ``bucket`` and ``step_seconds``,
 the host time from the step's start to its metrics read back, at every
-``log_every_steps``; ``val_loss`` at every validation) and checkpoints under
+``log_every_steps``; ``val_loss`` at every validation; with ``--self_cond``
+also ``sc_passes`` and ``val_sc_passes``, the micro-batches whose coin ran
+the first pass, and the coins on stdout) and checkpoints under
 ``<save_dir>/checkpoints`` at each validation, at the end, and on
 SIGTERM/SIGINT. Each step draws from a generator seeded by (seed, step), so
 a resumed run takes the draws an unbroken one would.
@@ -156,13 +158,18 @@ def main(argv=None):
     if val_batches and len(val_ds) % data_cfg.batch_size:
         val_real_counts[-1] = len(val_ds) % data_cfg.batch_size
 
-    def run_validation(step: int) -> float:
+    def run_validation(step: int) -> Dict[str, float]:
         losses: List[float] = []
+        passes = 0
         for rep in range(max(1, train_cfg.val_repeats)):
             for i, vb in enumerate(val_batches):
-                per = eval_step(state, vb, generator=generator(1, step, rep, i)).cpu().numpy()
-                losses.extend(per[: val_real_counts[i]].tolist())
-        return float(np.mean(losses)) if losses else float("inf")
+                per, val_metrics = eval_step(state, vb, generator=generator(1, step, rep, i))
+                losses.extend(per.cpu().numpy()[: val_real_counts[i]].tolist())
+                passes += int(val_metrics.get("sc_pass", False))
+        out = {"val_loss": float(np.mean(losses)) if losses else float("inf")}
+        if cfg.self_cond:
+            out["val_sc_passes"] = passes
+        return out
 
     interrupted = {"flag": False}
 
@@ -187,17 +194,22 @@ def main(argv=None):
             step += 1
             if train_cfg.log_every_steps > 0 and step % train_cfg.log_every_steps == 0:
                 loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-                logger.log(step, {
+                logged = {
                     "train_loss": loss, "grad_norm": grad_norm, "epoch": epoch,
                     "bucket": batch["residue_mask"].shape[-1],
                     "step_seconds": time.perf_counter() - began,
-                })
-                print(f"step {step}: loss={loss:.4f}")
+                }
+                coins = ""
+                if cfg.self_cond:
+                    logged["sc_passes"] = metrics["sc_passes"]
+                    coins = " self-cond coins " + ", ".join(f"{c:.3f}" for c in metrics["sc_coins"])
+                logger.log(step, logged)
+                print(f"step {step}: loss={loss:.4f}{coins}")
             if train_cfg.val_every_steps > 0 and step % train_cfg.val_every_steps == 0:
-                val_loss = run_validation(step)
-                logger.log(step, {"val_loss": val_loss})
-                print(f"step {step}: val_loss={val_loss:.4f}")
-                manager.save(state, val_loss)
+                val = run_validation(step)
+                logger.log(step, val)
+                print(f"step {step}: val_loss={val['val_loss']:.4f}")
+                manager.save(state, val["val_loss"])
             if interrupted["flag"]:
                 print("signal received; checkpointing and exiting")
                 stop = True
@@ -216,10 +228,10 @@ def main(argv=None):
     if manager.latest_step() == step:
         print(f"done at step {step} (checkpoint saved at this step)")
         return state
-    val_loss = run_validation(step)
-    logger.log(step, {"val_loss": val_loss})
-    manager.save(state, val_loss)
-    print(f"done at step {step}; final val_loss={val_loss:.4f}")
+    val = run_validation(step)
+    logger.log(step, val)
+    manager.save(state, val["val_loss"])
+    print(f"done at step {step}; final val_loss={val['val_loss']:.4f}")
     return state
 
 

@@ -648,28 +648,40 @@ int layout_of(int D, int Hd, int Dout) {
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
 
 // A persistent grid: the blocks of a kernel that fit on the card at once,
-// asked of the runtime once per kernel (each launch function keeps its own)
-// and shared-memory size (host time).
+// asked of the runtime once per kernel (each launch function keeps its own),
+// device and shared-memory size (host time). The shared-memory attribute and
+// the occupancy belong to the device, so each device keeps its own entry.
+constexpr int kMaxDevices = 64;
+
 struct GridCache {
-  size_t smem = 0;
-  long long blocks = 0;
+  size_t smem[kMaxDevices] = {};
+  long long blocks[kMaxDevices] = {};
 };
 
+// The resident blocks of ``kern`` on the current device, into ``blocks``.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kern, int threads, size_t smem, GridCache& cache) {
-  if (smem == cache.smem) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t resident_blocks(Kernel kern, int threads, size_t smem, GridCache& cache,
+                            long long& blocks) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
-      cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  cache.smem = smem;
-  cache.blocks = (long long)sms * per_sm;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem != cache.smem[device]) {
+    if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return e;
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
+        cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache.smem[device] = smem;
+    cache.blocks[device] = (long long)sms * per_sm;
+  }
+  blocks = cache.blocks[device];
   return cudaSuccess;
 }
 
@@ -678,10 +690,11 @@ cudaError_t launch_rows(const TArgs& a, cudaStream_t stream) {
   auto kern = transition_mma_rows_kernel<T, NO, WARPS>;
   const size_t smem = rows_smem<T>(a.D, a.Hd, a.Dout, WARPS);
   static GridCache cache;
-  const cudaError_t e = resident_blocks(kern, WARPS * 32, smem, cache);
+  long long blocks = 0;
+  const cudaError_t e = resident_blocks(kern, WARPS * 32, smem, cache, blocks);
   if (e != cudaSuccess) return e;
   const long long need = ((a.M + 15) / 16 + WARPS - 1) / WARPS;
-  kern<<<(unsigned)(need < cache.blocks ? need : cache.blocks), WARPS * 32, smem, stream>>>(a);
+  kern<<<(unsigned)(need < blocks ? need : blocks), WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -690,10 +703,11 @@ cudaError_t launch_chunks(const TArgs& a, cudaStream_t stream) {
   auto kern = transition_mma_chunks_kernel<T, NO>;
   const size_t smem = chunks_smem<T>(a.D, a.Hd, a.Dout);
   static GridCache cache;
-  const cudaError_t e = resident_blocks(kern, kRowWarps * 32, smem, cache);
+  long long blocks = 0;
+  const cudaError_t e = resident_blocks(kern, kRowWarps * 32, smem, cache, blocks);
   if (e != cudaSuccess) return e;
   const long long need = (a.M + 16 * kRowWarps - 1) / (16 * kRowWarps);
-  kern<<<(unsigned)(need < cache.blocks ? need : cache.blocks), kRowWarps * 32, smem, stream>>>(a);
+  kern<<<(unsigned)(need < blocks ? need : blocks), kRowWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

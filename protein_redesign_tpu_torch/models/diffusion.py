@@ -1,8 +1,8 @@
 """Beta schedules and the diffusion-schedule table (port of
 ``protein_redesign_tpu/models/diffusion.py``): computed in float64 with
 numpy, stored as float32 tensors. The table holds the quantities the DDPM
-and DDIM steps and the training loss read; the JAX table's others belong to
-the samplers that are not ported yet.
+and DDIM steps (the posterior coefficients: the ancestral sequence reverse)
+and the training loss read.
 """
 
 from __future__ import annotations
@@ -45,21 +45,30 @@ class DiffusionSchedule:
     sqrt_betas: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
+    posterior_variance: torch.Tensor
 
     @staticmethod
     def create(num_steps: int, schedule: str = "linear",
                device: torch.device | str = "cpu") -> "DiffusionSchedule":
         betas = get_betas(num_steps, schedule)
         alphas = 1.0 - betas
+        alphas_cumprod = np.cumprod(alphas)
+        alphas_cumprod_prev = np.concatenate([[1.0], alphas_cumprod[:-1]])
+        one_minus, one_minus_prev = 1.0 - alphas_cumprod, 1.0 - alphas_cumprod_prev
 
         def f32(a: np.ndarray) -> torch.Tensor:
             return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
 
         return DiffusionSchedule(
             alphas=f32(alphas),
-            alphas_cumprod=f32(np.cumprod(alphas)),
+            alphas_cumprod=f32(alphas_cumprod),
             sqrt_alphas=f32(np.sqrt(alphas)),
             sqrt_betas=f32(np.sqrt(betas)),
-            sqrt_alphas_cumprod=f32(np.sqrt(np.cumprod(alphas))),
-            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - np.cumprod(alphas))),
+            sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(one_minus)),
+            posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / one_minus),
+            posterior_mean_coef2=f32(one_minus_prev * np.sqrt(alphas) / one_minus),
+            posterior_variance=f32(betas * one_minus_prev / one_minus),
         )

@@ -3,18 +3,29 @@ and DDIM samplers (port of ``protein_redesign_tpu/models/prdiff.py``).
 
 Each sampler is a Python loop over timesteps. Every random draw comes from a
 ``torch.Generator`` or is injected, through ``SamplerNoise`` for the samplers
-(mask scores, initial coordinates and sequence, each step's noise) and
+(mask scores, initial coordinates and sequence, each step's noises) and
 ``TrainNoise`` for the loss (masking policy and fractions, mask scores,
-timesteps, noise), so a test can feed the port exactly what the JAX package
-drew. The loss keeps the reference's quirky reductions
+timesteps, noises, the absorbing corruption and the self-conditioning
+coin), so a test can feed the port exactly what the JAX package drew. The
+loss keeps the reference's quirky reductions
 (`tests/test_loss_semantics.py`): KL and CE summed to scalars and broadcast
 onto every sample, and (seq_pred + 1) / 2 fed to the CE as logits.
+
+The sequence-design modes of ``ModelConfig``: ``seq_process="absorbing"``
+(masked discrete diffusion: a CE-only loss, and samplers that reveal the
+designable residues by sticky confidence-ranked commitment),
+``seq_reverse="ancestral"`` (the DDPM posterior, or a DDIM step, on the
+Gaussian sequence channel with known residues clamped) and ``self_cond``
+(the previous clean-structure estimate enters the pair track as one more
+RBF distance embedding, gated per sample).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,7 +47,7 @@ from .layers import (
     SinusoidalProjection,
     TransitionMLP,
 )
-from .masking import random_mask, spatial_mask
+from .masking import _rank, random_mask, spatial_mask
 
 Batch = Dict[str, torch.Tensor]
 NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
@@ -44,14 +55,8 @@ NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for config fields outside the ported
-    slice (DDPM and DDIM generation and training with the Gaussian sequence
-    channel)."""
+    slice."""
     unsupported = [
-        (cfg.self_cond, "self_cond: self-conditioning is not ported yet"),
-        (cfg.seq_process != "gaussian",
-         f"seq_process={cfg.seq_process!r}: only 'gaussian' is ported"),
-        (cfg.seq_reverse != "reference",
-         f"seq_reverse={cfg.seq_reverse!r}: only 'reference' is ported"),
         (cfg.attn_chunk > 0, "attn_chunk>0: query-chunked attention is not ported yet"),
         (cfg.sequence_parallel, "sequence_parallel: not ported yet"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}: only float32"),
@@ -108,6 +113,8 @@ class ProteinReDiffNet(nn.Module):
         self.embed_relpos = Embed(cfg.max_relpos * 2 + 1, P, dtype)
         self.embed_dist = ProjLinear(P, "rbf", cfg.dist_dim, dtype)
         self.embed_beta = ProjLinear(P, "sinusoidal", cfg.time_dim, dtype)
+        if cfg.self_cond:
+            self.embed_sc_dist = ProjLinear(P, "rbf", cfg.dist_dim, dtype)
         self.Denoiser = Denoiser(cfg)
         self.weight_radial = TransitionMLP(P, P, 1, out_bias=False, dtype=dtype)
         self.seq_mlp = TransitionMLP(S, S, NUM_CLASSES, out_bias=False, dtype=dtype)
@@ -119,6 +126,8 @@ class ProteinReDiffNet(nn.Module):
         seq_t: torch.Tensor,  # [B, N, 21] noisy one-hot
         mask: torch.Tensor,   # [B, N] residue+atom mask
         t: torch.Tensor,      # [B] int timestep
+        z_sc: Optional[torch.Tensor] = None,     # [B, N, 3] previous x0-hat (nm)
+        sc_flag: Optional[torch.Tensor] = None,  # [B] 1.0 where z_sc is live
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg, dtype = self.cfg, self.dtype
         atom_mask = batch["atom_mask"]
@@ -157,6 +166,19 @@ class ProteinReDiffNet(nn.Module):
             self.embed_dist(noise_dist.to(dtype))
             + self.embed_beta(scaled_t[:, None, None])
         )
+        if cfg.self_cond:
+            # the previous x0-hat as one more RBF distance embedding, gated
+            # per sample: sc_flag 0 (the first sampler step, the training
+            # coin's other branch) adds exact zeros (`prdiff.py:180-198`)
+            if z_sc is None:
+                z_sc = torch.zeros_like(zf)
+            if sc_flag is None:
+                sc_flag = torch.zeros(z.shape[0], device=z.device)
+            zs = z_sc.float()
+            sc_dist = torch.linalg.vector_norm(
+                zs[..., :, None, :] - zs[..., None, :, :] + 1e-20, dim=-1)
+            gate = (sc_flag.float()[:, None, None, None] * mask_2d[..., None]).to(dtype)
+            pair = pair + gate * self.embed_sc_dist(sc_dist.to(dtype))
 
         single, pair = self.Denoiser(single, pair, mask)
 
@@ -173,7 +195,8 @@ class ProteinReDiffNet(nn.Module):
 @dataclasses.dataclass
 class TrainNoise:
     """Draws the training loss would otherwise take from its generator, as
-    the JAX package draws them (`prdiff.py:371-394, 438-462, 633-636`)."""
+    the JAX package draws them (`prdiff.py:371-394, 438-468, 557-575,
+    633-636`)."""
 
     rt: Optional[torch.Tensor] = None           # scalar U(0, 1): masking policy
     p: Optional[torch.Tensor] = None            # scalar U(0.1, mask_prob): fraction bound
@@ -183,6 +206,8 @@ class TrainNoise:
     t: Optional[torch.Tensor] = None            # [B] timesteps in [0, num_steps)
     noise_z: Optional[torch.Tensor] = None      # [B, N, 3] N(0, 1), before mean removal
     noise_seq: Optional[torch.Tensor] = None    # [B, N, 21] N(0, 1), before mean removal
+    corrupt_u: Optional[torch.Tensor] = None    # [B, N] U(0, 1): absorbing corruption
+    sc_coin: Optional[float] = None             # U(0, 1) on the host: self-cond pass if < 0.5
 
 
 def _uniform(value: Optional[torch.Tensor], like: torch.Tensor,
@@ -287,6 +312,54 @@ def _label_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0]
 
 
+# The x0-hat clip, nm (`prdiff.py:283-287`): at t near T the 1 / sqrt(a_t)
+# amplification turns O(1) prediction error into O(100) estimates.
+SC_CLIP_NM = 20.0
+
+
+def x0_hat(z_t: torch.Tensor, noise_pred: torch.Tensor, a_t: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """The clean-structure estimate at cumulative alpha ``a_t``, clipped to
+    ±SC_CLIP_NM and re-centred, without gradient: the self-conditioning
+    signal (``_x0_hat``, `prdiff.py:289-302`)."""
+    x0 = (z_t - torch.sqrt(1.0 - a_t) * noise_pred) * torch.rsqrt(torch.clamp(a_t, min=1e-12))
+    x0 = torch.clamp(x0, -SC_CLIP_NM, SC_CLIP_NM)
+    return remove_mean(x0, mask).detach()
+
+
+def host_generator(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A CPU generator for the draws the host branches on (the
+    self-conditioning coin), seeded from ``generator``'s seed, so a seeded
+    step stays reproducible and reading its coin costs no device sync;
+    None (no generator) keeps torch's default CPU stream."""
+    if generator is None:
+        return None
+    seed = np.random.SeedSequence([generator.initial_seed(), 17]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed >> 1))
+
+
+def apply_with_self_cond(net: ProteinReDiffNet, sched: DiffusionSchedule, batch: Batch,
+                         z_t: torch.Tensor, seq_t: torch.Tensor, mask: torch.Tensor,
+                         t: torch.Tensor, coin: Optional[float]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward (``_apply_with_self_cond``, `prdiff.py:304-331`).
+    With ``self_cond``, a coin below 0.5 runs a first pass without gradient
+    and conditions the gradient pass on its x0-hat; otherwise the gradient
+    pass takes the flag-0 input the samplers' first step uses. The coin is a
+    host float, so the branch is a Python one."""
+    if not net.cfg.self_cond:
+        return net(batch, z_t, seq_t, mask, t)
+    B = z_t.shape[0]
+    if coin < 0.5:
+        with torch.no_grad():
+            eps0, _ = net(batch, z_t, seq_t, mask, t)
+        z_sc = x0_hat(z_t, eps0, sched.alphas_cumprod[t][:, None, None], mask)
+        flag = torch.ones(B, device=z_t.device)
+    else:
+        z_sc, flag = torch.zeros_like(z_t), torch.zeros(B, device=z_t.device)
+    return net(batch, z_t, seq_t, mask, t, z_sc, flag)
+
+
 def diffusion_loss(
     net: ProteinReDiffNet,
     sched: DiffusionSchedule,
@@ -296,18 +369,20 @@ def diffusion_loss(
     t: torch.Tensor,
     noise_z: torch.Tensor,
     noise_seq: torch.Tensor,
+    sc_coin: Optional[float] = None,
 ) -> torch.Tensor:
     """Per-sample loss [B] (`prdiff.py:438-524`, Gaussian sequence channel):
     masked coordinate MSE per sample plus, in ``loss_mode="reference"``, KL
     and CE summed to scalars and broadcast onto every sample; in
     ``"per_position"``, per-sample self-normalized terms. ``noise_z`` and
-    ``noise_seq`` are raw standard normals."""
+    ``noise_seq`` are raw standard normals; ``sc_coin`` the
+    self-conditioning coin (``self_cond`` only)."""
     seq = batch["residue_one_hot"]
     residue_mask = batch["residue_mask"]
     noise_z = remove_mean(noise_z, mask)
     noise_seq = remove_mean(noise_seq, residue_mask)
     z_t, seq_t, seq_t1, t1 = q_sample(sched, x, seq, t, noise_z, noise_seq, batch)
-    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t)
+    noise_pred, seq_pred = apply_with_self_cond(net, sched, batch, z_t, seq_t, mask, t, sc_coin)
     sac1 = sched.sqrt_alphas_cumprod[t1][:, None, None]
     s1mac1 = sched.sqrt_one_minus_alphas_cumprod[t1][:, None, None]
     seq_pred_t1 = sac1 * seq_pred + s1mac1 * noise_seq
@@ -337,20 +412,77 @@ def diffusion_loss(
     return mse + torch.sum(kl) + torch.sum(nll)
 
 
+def absorbing_loss(
+    net: ProteinReDiffNet,
+    sched: DiffusionSchedule,
+    batch: Batch,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    t: torch.Tensor,
+    noise_z: torch.Tensor,
+    corrupt_u: torch.Tensor,
+    sc_coin: Optional[float] = None,
+) -> torch.Tensor:
+    """Per-sample loss [B] of ``seq_process="absorbing"`` (``_absorbing_loss``,
+    `prdiff.py:526-587`): every real residue is corrupted to the zero row
+    where ``corrupt_u`` < (t + 1) / T; class-0 rows are never visible; the
+    loss is the per-sample coordinate MSE over the node count plus the CE
+    over the corrupted real residues, with no KL. ``noise_z`` is the raw
+    standard normal, ``corrupt_u`` [B, N] uniform."""
+    cfg = net.cfg
+    labels = batch["residue_type"].long()
+    residue_mask = batch["residue_mask"]
+    noise_z = remove_mean(noise_z, mask)
+    sac = sched.sqrt_alphas_cumprod[t][:, None, None]
+    s1mac = sched.sqrt_one_minus_alphas_cumprod[t][:, None, None]
+    z_t = sac * x + s1mac * noise_z
+
+    p_t = ((t.float() + 1.0) / cfg.num_steps)[:, None]
+    real = (labels != 0).float()
+    corrupt = ((corrupt_u.to(x) < p_t) & (residue_mask > 0.5)).float()
+    visible = residue_mask * (1.0 - corrupt) * real
+    seq_t = (F.one_hot(labels, NUM_CLASSES).float() * 2.0 - 1.0) * visible[..., None]
+    noise_pred, seq_pred = apply_with_self_cond(net, sched, batch, z_t, seq_t, mask, t, sc_coin)
+
+    num_nodes = torch.clamp(torch.sum(mask > 0.5, dim=-1), min=1)
+    mse = torch.sum(mask[..., None] * torch.square(noise_pred - noise_z), dim=(-1, -2))
+    sel = corrupt * residue_mask * real
+    ce = torch.sum(_label_nll(seq_pred, labels) * sel, dim=-1) / torch.clamp(
+        torch.sum(sel, dim=-1), min=1.0)
+    return mse / num_nodes + ce
+
+
+def check_loss_config(cfg: ModelConfig) -> None:
+    """``loss``'s config checks (`prdiff.py:599-625`): ValueError on an
+    unknown ``loss_mode`` or ``seq_process``, a warning where per_position
+    has no effect (under absorbing)."""
+    if cfg.loss_mode not in ("reference", "per_position"):
+        raise ValueError(f"loss_mode must be 'reference' or 'per_position', got {cfg.loss_mode!r}")
+    if cfg.seq_process not in ("gaussian", "absorbing"):
+        raise ValueError(
+            f"seq_process must be 'gaussian' or 'absorbing', got {cfg.seq_process!r}")
+    if cfg.seq_process == "absorbing" and cfg.loss_mode == "per_position":
+        warnings.warn(
+            "loss_mode='per_position' has no effect under seq_process='absorbing' (the "
+            "absorbing loss is already per-position and ignores loss_mode)", stacklevel=3)
+
+
 def loss(
     net: ProteinReDiffNet,
     batch: Batch,
     reduction: str = "mean",
     noise: Optional[TrainNoise] = None,
     generator: Optional[torch.Generator] = None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+) -> Tuple[torch.Tensor, Dict]:
     """Scalar training/validation loss (`prdiff.py:589-646`), with the
     training masking policy as both the JAX train and eval steps take it;
     ``reduction="none"`` returns the per-sample [B] vector instead of its
-    mean (validation weights only a padded batch's real rows)."""
+    mean (validation weights only a padded batch's real rows). The metrics
+    hold ``loss`` and, with ``self_cond``, ``sc_pass``: whether the coin
+    ran the first pass. Without an injected coin it is drawn from
+    ``host_generator(generator)``."""
     cfg = net.cfg
-    if cfg.loss_mode not in ("reference", "per_position"):
-        raise ValueError(f"loss_mode must be 'reference' or 'per_position', got {cfg.loss_mode!r}")
+    check_loss_config(cfg)
     noise = noise or TrainNoise()
     batch = prepare_batch(batch, cfg.mask_prob, generator=generator, training=True,
                           train_noise=noise)
@@ -361,47 +493,116 @@ def loss(
     t = noise.t
     if t is None:
         t = torch.randint(0, cfg.num_steps, (B,), generator=generator, device=x.device)
+    t = t.to(x.device).long()
     noise_z = noise.noise_z
     if noise_z is None:
         noise_z = _normal(x.shape, x, generator)
-    noise_seq = noise.noise_seq
-    if noise_seq is None:
-        noise_seq = _normal(batch["residue_one_hot"].shape, x, generator)
-    per_sample = diffusion_loss(net, sched, batch, x, mask, t.to(x.device).long(),
-                                noise_z.to(x), noise_seq.to(x))
-    if cfg.loss_mode == "reference":
-        per_sample = per_sample / torch.sum(mask > 0.5, dim=-1)
+    coin = None
+    if cfg.self_cond:
+        coin = noise.sc_coin
+        if coin is None:
+            coin = torch.rand((), generator=host_generator(generator))
+        coin = float(coin)
+    if cfg.seq_process == "absorbing":
+        corrupt_u = noise.corrupt_u
+        if corrupt_u is None:
+            corrupt_u = torch.rand(batch["residue_mask"].shape, generator=generator,
+                                   device=x.device)
+        per_sample = absorbing_loss(net, sched, batch, x, mask, t, noise_z.to(x), corrupt_u, coin)
+    else:
+        noise_seq = noise.noise_seq
+        if noise_seq is None:
+            noise_seq = _normal(batch["residue_one_hot"].shape, x, generator)
+        per_sample = diffusion_loss(net, sched, batch, x, mask, t, noise_z.to(x),
+                                    noise_seq.to(x), coin)
+        if cfg.loss_mode == "reference":
+            # the per_position and absorbing terms are self-normalized per sample
+            per_sample = per_sample / torch.sum(mask > 0.5, dim=-1)
     mean = per_sample.mean()
+    metrics: Dict = {"loss": mean}
+    if cfg.self_cond:
+        metrics["sc_pass"] = coin < 0.5
     if reduction == "none":
-        return per_sample, {"loss": mean}
-    return mean, {"loss": mean}
+        return per_sample, metrics
+    return mean, metrics
 
 
 @dataclasses.dataclass
 class SamplerNoise:
     """Draws a sampler would otherwise take from its generator: raw
-    uniforms and standard normals, before any masking or mean removal."""
+    uniforms, standard normals and standard Gumbels, before any masking or
+    mean removal. Per-step draws are in loop order (DDIM: one per tau)."""
 
     mask_scores: Optional[torch.Tensor] = None  # [B * N]
     z0: Optional[torch.Tensor] = None           # [B, N, 3]
-    s0: Optional[torch.Tensor] = None           # [B, N, 21]
-    steps: Optional[torch.Tensor] = None        # [T, B, N, 3] in loop order (DDIM: [S, ...])
+    s0: Optional[torch.Tensor] = None           # [B, N, 21] (Gaussian sequence channel)
+    steps: Optional[torch.Tensor] = None        # [T, B, N, 3] coordinate normals
+    seq_steps: Optional[torch.Tensor] = None    # [T, B, N, 21] seq_reverse="ancestral", DDPM
+    gumbel_cls: Optional[torch.Tensor] = None   # [T, B, N, 20] absorbing, reveal_temperature > 0
+    gumbel_conf: Optional[torch.Tensor] = None  # [T, B, N] absorbing, reveal_conf_noise > 0
 
 
-Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+@dataclasses.dataclass
+class StepNoise:
+    """One step's draws: the coordinate normal and, where the mode takes
+    them, the sequence normal and the reveal's Gumbels."""
+
+    z: torch.Tensor
+    seq: Optional[torch.Tensor] = None
+    gumbel_cls: Optional[torch.Tensor] = None
+    gumbel_conf: Optional[torch.Tensor] = None
+
+
+# (z, seq_t, seq_pred) on the Gaussian sequence channel, (z, comm_mask,
+# comm_oh) under absorbing; self_cond appends (z_sc, sc_flag). carry[0] is
+# always the coordinates (nm).
+Carry = Tuple[torch.Tensor, ...]
 
 
 def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
+def _gumbel(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard Gumbel draws, -log(-log(U)) with U in [tiny, 1), as
+    ``jax.random.gumbel`` makes them."""
+    u = torch.rand(shape, generator=generator, device=like.device, dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def check_sampler_config(cfg: ModelConfig) -> None:
+    """The samplers' config checks (`prdiff.py:711-720`)."""
+    if cfg.seq_reverse not in ("reference", "ancestral"):
+        raise ValueError(
+            f"seq_reverse must be 'reference' or 'ancestral', got {cfg.seq_reverse!r}")
+    if cfg.reveal_schedule not in ("linear", "cosine"):
+        raise ValueError(
+            f"reveal_schedule must be 'linear' or 'cosine', got {cfg.reveal_schedule!r}")
+
+
+def absorbing_known_and_designable(batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(known ±1 one-hots with exact zero rows at every designable position,
+    designable mask) for the absorbing samplers
+    (``_absorbing_known_and_designable``, `prdiff.py:880-900`): designable
+    are the inference mask's positions and every residue of class 0 (a
+    user's ``X``), which the absorbing CE never trains."""
+    known_real = (batch["residue_type"] != 0).float()
+    seq = batch["residue_one_hot"] * known_real[..., None]
+    inv2 = torch.maximum(batch["residue_inv_extra_mask"],
+                         batch["residue_mask"] * (1.0 - known_real))
+    return seq, inv2
+
+
 def sample_init(
+    cfg: ModelConfig,
     batch: Batch,
     mask_prob: float,
     generator: Optional[torch.Generator] = None,
     noise: Optional[SamplerNoise] = None,
 ) -> Tuple[Batch, Carry]:
-    """prepare_batch + the initial (z, seq_t, seq_pred) carry (`prdiff.py:699-748`)."""
+    """prepare_batch + the initial carry (`prdiff.py:699-748`)."""
+    check_sampler_config(cfg)
     noise = noise or SamplerNoise()
     batch = prepare_batch(batch, mask_prob, noise.mask_scores, generator)
     x = batch["x"]
@@ -409,12 +610,20 @@ def sample_init(
     seq = batch["residue_one_hot"]
     z0 = noise.z0 if noise.z0 is not None else _normal(x.shape, x, generator)
     z0 = remove_mean(z0.to(x), mask)
-    s0 = noise.s0 if noise.s0 is not None else _normal(seq.shape, seq, generator)
-    s0 = remove_mean(s0.to(seq), batch["residue_mask"])
-    extra = batch["residue_extra_mask"][..., None]
-    inv = batch["residue_inv_extra_mask"][..., None]
-    s0 = extra * seq + inv * s0
-    return batch, (z0, s0, torch.zeros_like(s0))
+    if cfg.seq_process == "absorbing":
+        seq_known, inv2 = absorbing_known_and_designable(batch)
+        carry: Carry = (z0, torch.zeros_like(inv2), torch.zeros_like(seq_known))
+    else:
+        s0 = noise.s0 if noise.s0 is not None else _normal(seq.shape, seq, generator)
+        s0 = remove_mean(s0.to(seq), batch["residue_mask"])
+        extra = batch["residue_extra_mask"][..., None]
+        inv = batch["residue_inv_extra_mask"][..., None]
+        s0 = extra * seq + inv * s0
+        carry = (z0, s0, torch.zeros_like(s0))
+    if cfg.self_cond:
+        # the previous x0-hat and its flag, 0 on the first step
+        carry = carry + (torch.zeros_like(z0), torch.zeros(z0.shape[0], device=z0.device))
+    return batch, carry
 
 
 def guard(x: torch.Tensor, enabled: bool = True) -> torch.Tensor:
@@ -427,68 +636,195 @@ def guard(x: torch.Tensor, enabled: bool = True) -> torch.Tensor:
     return torch.clamp(torch.nan_to_num(x, nan=0.0, posinf=bound, neginf=-bound), -bound, bound)
 
 
+def _sc_inputs(cfg: ModelConfig, carry: Carry) -> Tuple[Optional[torch.Tensor], ...]:
+    """The carry's (z_sc, sc_flag) legs, or (None, None) without self_cond."""
+    return (carry[3], carry[4]) if cfg.self_cond else (None, None)
+
+
+def _next_carry(cfg: ModelConfig, legs: Carry, z_t: torch.Tensor, noise_pred: torch.Tensor,
+                a_t: torch.Tensor, mask: torch.Tensor) -> Carry:
+    """The step's carry: ``legs`` and, with self_cond, this step's x0-hat
+    and a live flag."""
+    if not cfg.self_cond:
+        return legs
+    flag = torch.ones(z_t.shape[0], device=z_t.device)
+    return legs + (x0_hat(z_t, noise_pred, a_t, mask), flag)
+
+
+def _clamp_known(batch: Batch, seq_cand: torch.Tensor) -> torch.Tensor:
+    """The known residues' conditioning one-hots, ``seq_cand`` elsewhere
+    (the ancestral sequence reverse)."""
+    return (batch["residue_extra_mask"][..., None] * batch["residue_one_hot"]
+            + batch["residue_inv_extra_mask"][..., None] * seq_cand)
+
+
+def _ddpm_coords(sched: DiffusionSchedule, z_t: torch.Tensor, noise_pred: torch.Tensor,
+                 t: torch.Tensor, t_scalar: int, z_noise: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """The reference DDPM coordinate update; ``z_noise`` is the raw normal."""
+    w_noise = (1.0 - sched.alphas[t]) / sched.sqrt_one_minus_alphas_cumprod[t]
+    mean = (1.0 / sched.sqrt_alphas[t])[:, None, None] * (
+        z_t - w_noise[:, None, None] * noise_pred
+    )
+    if t_scalar == 0:
+        return mean
+    return mean + sched.sqrt_betas[t][:, None, None] * remove_mean(z_noise.to(z_t), mask)
+
+
 def gaussian_step(
     net: ProteinReDiffNet,
     sched: DiffusionSchedule,
     batch: Batch,
     carry: Carry,
     t_scalar: int,
-    step_noise: torch.Tensor,
+    draws: StepNoise,
 ) -> Carry:
-    """One reference DDPM step (`prdiff.py:816-876`, seq_reverse='reference');
-    ``step_noise`` is the raw standard normal for the coordinates."""
-    z_t, seq_t, _ = carry
+    """One DDPM step on the Gaussian sequence channel (``_gaussian_step_fn``,
+    `prdiff.py:816-876`): the reference softmax recurrence, or with
+    ``seq_reverse="ancestral"`` the DDPM posterior with the known residues
+    clamped (``draws.seq`` its raw normal)."""
+    cfg = net.cfg
+    z_t, seq_t = carry[0], carry[1]
     x = batch["x"]
     mask = batch["residue_and_atom_mask"]
-    B = x.shape[0]
-    t = torch.full((B,), t_scalar, dtype=torch.long, device=x.device)
-    w_noise = (1.0 - sched.alphas[t]) / sched.sqrt_one_minus_alphas_cumprod[t]
-    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t)
-    mean = (1.0 / sched.sqrt_alphas[t])[:, None, None] * (
-        z_t - w_noise[:, None, None] * noise_pred
-    )
-    seq_next = torch.softmax(seq_pred, dim=-1) * 2.0 - 1.0
-    if t_scalar == 0:
-        z_next = mean
+    t = torch.full((x.shape[0],), t_scalar, dtype=torch.long, device=x.device)
+    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t, *_sc_inputs(cfg, carry))
+    if cfg.seq_reverse == "ancestral":
+        if t_scalar == 0:
+            seq_cand = seq_pred
+        else:
+            pm1 = sched.posterior_mean_coef1[t][:, None, None]
+            pm2 = sched.posterior_mean_coef2[t][:, None, None]
+            pstd = torch.sqrt(sched.posterior_variance[t])[:, None, None]
+            noise_s = remove_mean(draws.seq.to(x), batch["residue_mask"])
+            seq_cand = pm1 * seq_pred + pm2 * seq_t + pstd * noise_s
+        seq_next = _clamp_known(batch, seq_cand)
     else:
-        noise = remove_mean(step_noise.to(x), mask)
-        z_next = mean + sched.sqrt_betas[t][:, None, None] * noise
-    enabled = net.cfg.sample_guard
-    return guard(z_next, enabled), guard(seq_next, enabled), seq_pred
+        seq_next = torch.softmax(seq_pred, dim=-1) * 2.0 - 1.0
+    z_next = _ddpm_coords(sched, z_t, noise_pred, t, t_scalar, draws.z, mask)
+    enabled = cfg.sample_guard
+    legs = (guard(z_next, enabled), guard(seq_next, enabled), seq_pred)
+    return _next_carry(cfg, legs, z_t, noise_pred, sched.alphas_cumprod[t][:, None, None], mask)
 
 
-def sample_finish(batch: Batch, carry: Carry) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Carry -> (positions [B, N, 3] in Å, residue-masked sequence logits)."""
-    z_final, _seq_t, seq_pred_last = carry
-    return (
-        nanometre_to_angstrom(z_final),
-        batch["residue_mask"][..., None] * seq_pred_last,
-    )
+def reveal_update(cfg: ModelConfig, seq_pred: torch.Tensor, comm_mask: torch.Tensor,
+                  comm_oh: torch.Tensor, inv2: torch.Tensor, t_reveal: int,
+                  draws: StepNoise) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sticky-reveal commitment (``_reveal_update``, `prdiff.py:902-958`):
+    the cumulative target floor(n_inv g(1 - t/T)) (g linear or cosine);
+    newly committed are the best-ranked still-absorbed designable positions
+    by -log(confidence), optionally less the t/T-annealed Gumbel
+    ``draws.gumbel_conf``; identities by argmax over the 20 real classes,
+    or Gumbel-max at ``reveal_temperature`` (``draws.gumbel_cls``). t = 0
+    commits everything."""
+    probs = torch.softmax(seq_pred, dim=-1)
+    if cfg.reveal_temperature > 0.0:
+        cls = torch.argmax(seq_pred[..., 1:] / cfg.reveal_temperature
+                           + draws.gumbel_cls.to(seq_pred), dim=-1) + 1
+        conf = torch.gather(probs, -1, cls[..., None])[..., 0]
+    else:
+        conf, cls = torch.max(probs[..., 1:], dim=-1)
+        cls = cls + 1
+    cand = (inv2 > 0.5) & (comm_mask < 0.5)
+    t32 = torch.tensor(float(t_reveal), dtype=torch.float32, device=seq_pred.device)
+    frac = 1.0 - t32 / cfg.num_steps
+    if cfg.reveal_schedule == "cosine":
+        frac = 1.0 - torch.cos(0.5 * math.pi * frac)
+    k_t = torch.floor(torch.sum(inv2, dim=-1, keepdim=True) * frac)
+    n_new = torch.clamp(k_t - torch.sum(comm_mask, dim=-1, keepdim=True), min=0.0)
+    score = -torch.log(conf + 1e-9)
+    if cfg.reveal_conf_noise > 0.0:
+        anneal = t32 / cfg.num_steps
+        score = score - cfg.reveal_conf_noise * anneal * draws.gumbel_conf.to(score)
+    score = torch.where(cand, score, 1e10)
+    new = ((_rank(score, dim=-1) < n_new) & cand).float()
+    comm_oh = comm_oh + new[..., None] * (F.one_hot(cls, NUM_CLASSES).float() * 2.0 - 1.0)
+    return comm_mask + new, comm_oh
+
+
+def absorbing_step(
+    net: ProteinReDiffNet,
+    sched: DiffusionSchedule,
+    batch: Batch,
+    carry: Carry,
+    t_scalar: int,
+    draws: StepNoise,
+) -> Carry:
+    """One DDPM step under ``seq_process="absorbing"`` (``_absorbing_step_fn``,
+    `prdiff.py:960-1022`): the reference DDPM coordinate update, and the
+    designable residues revealed by ``reveal_update`` from the prediction
+    made while they were still absorbed."""
+    cfg = net.cfg
+    z_t, comm_mask, comm_oh = carry[:3]
+    x = batch["x"]
+    mask = batch["residue_and_atom_mask"]
+    seq, inv2 = absorbing_known_and_designable(batch)
+    t = torch.full((x.shape[0],), t_scalar, dtype=torch.long, device=x.device)
+    noise_pred, seq_pred = net(batch, z_t, seq + comm_oh, mask, t, *_sc_inputs(cfg, carry))
+    z_next = guard(_ddpm_coords(sched, z_t, noise_pred, t, t_scalar, draws.z, mask),
+                   cfg.sample_guard)
+    comm_mask, comm_oh = reveal_update(cfg, seq_pred, comm_mask, comm_oh, inv2, t_scalar, draws)
+    return _next_carry(cfg, (z_next, comm_mask, comm_oh), z_t, noise_pred,
+                       sched.alphas_cumprod[t][:, None, None], mask)
+
+
+def sample_finish(cfg: ModelConfig, batch: Batch,
+                  carry: Carry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Carry -> (positions [B, N, 3] in Å, residue-masked sequence logits);
+    under absorbing the logits are the known plus the committed ±1 one-hots
+    (`prdiff.py:767-784`)."""
+    residue_mask = batch["residue_mask"][..., None]
+    if cfg.seq_process == "absorbing":
+        seq_known, _ = absorbing_known_and_designable(batch)
+        logits = residue_mask * (seq_known + carry[2])
+    else:
+        logits = residue_mask * carry[2]
+    return nanometre_to_angstrom(carry[0]), logits
 
 
 StepHook = Optional[Callable[[int, Carry], None]]
 
 
+def _step_noise(cfg: ModelConfig, noise: Optional[SamplerNoise], i: int, x: torch.Tensor,
+                generator: Optional[torch.Generator], seq: bool) -> StepNoise:
+    """Step ``i``'s draws, injected or drawn: the coordinate normal always;
+    the sequence normal where ``seq`` (ancestral DDPM on the Gaussian
+    channel); the Gumbels where the absorbing reveal takes them."""
+    B, N = x.shape[:2]
+
+    def pick(field, shape, draw):
+        given = getattr(noise, field) if noise is not None else None
+        return given[i] if given is not None else draw(shape, x, generator)
+
+    draws = StepNoise(z=pick("steps", x.shape, _normal))
+    if seq:
+        draws.seq = pick("seq_steps", (B, N, NUM_CLASSES), _normal)
+    if cfg.seq_process == "absorbing":
+        if cfg.reveal_temperature > 0.0:
+            draws.gumbel_cls = pick("gumbel_cls", (B, N, NUM_CLASSES - 1), _gumbel)
+        if cfg.reveal_conf_noise > 0.0:
+            draws.gumbel_conf = pick("gumbel_conf", (B, N), _gumbel)
+    return draws
+
+
 def _sampler_loop(net: ProteinReDiffNet, batch: Batch, mask_prob: Optional[float],
                   generator: Optional[torch.Generator], noise: Optional[SamplerNoise],
-                  num_steps: int, step: Callable[[Batch, Carry, int, torch.Tensor], Carry],
-                  on_step: StepHook) -> Tuple[torch.Tensor, torch.Tensor]:
-    """sample_init, ``num_steps`` calls of ``step(batch, carry, i, noise_i)``
-    with each step's raw normal drawn (or injected) before it, and
-    sample_finish. ``on_step(i, carry)`` sees the carry after step i; it
-    changes nothing of the sample."""
-    mask_prob = net.cfg.mask_prob if mask_prob is None else mask_prob
-    batch, carry = sample_init(batch, mask_prob, generator, noise)
+                  num_steps: int, step: Callable[[Batch, Carry, int, StepNoise], Carry],
+                  on_step: StepHook, seq_draws: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sample_init, ``num_steps`` calls of ``step(batch, carry, i, draws)``
+    with each step's draws made (or injected) before it, and sample_finish.
+    ``seq_draws`` adds a sequence normal to every step's draws.
+    ``on_step(i, carry)`` sees the carry after step i; it changes nothing
+    of the sample."""
+    cfg = net.cfg
+    mask_prob = cfg.mask_prob if mask_prob is None else mask_prob
+    batch, carry = sample_init(cfg, batch, mask_prob, generator, noise)
     x = batch["x"]
     for i in range(num_steps):
-        if noise is not None and noise.steps is not None:
-            step_noise = noise.steps[i]
-        else:
-            step_noise = _normal(x.shape, x, generator)
-        carry = step(batch, carry, i, step_noise)
+        carry = step(batch, carry, i, _step_noise(cfg, noise, i, x, generator, seq_draws))
         if on_step is not None:
             on_step(i, carry)
-    return sample_finish(batch, carry)
+    return sample_finish(cfg, batch, carry)
 
 
 @torch.inference_mode()
@@ -501,15 +837,20 @@ def sample(
     on_step: StepHook = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DDPM ancestral sampler (`prdiff.py:669-687`) as a loop over
-    t = T-1 .. 0. Returns (positions in Å, residue-masked seq logits)."""
+    t = T-1 .. 0, with the step of the config's sequence process. Returns
+    (positions in Å, residue-masked seq logits)."""
     cfg = net.cfg
     sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(batch["residue_mask"].device))
     T = cfg.num_steps
+    absorbing = cfg.seq_process == "absorbing"
+    kind = absorbing_step if absorbing else gaussian_step
 
-    def step(b, carry, i, step_noise):
-        return gaussian_step(net, sched, b, carry, T - 1 - i, step_noise)
+    def step(b, carry, i, draws):
+        return kind(net, sched, b, carry, T - 1 - i, draws)
 
-    return _sampler_loop(net, batch, mask_prob, generator, noise, T, step, on_step)
+    ancestral = not absorbing and cfg.seq_reverse == "ancestral"
+    return _sampler_loop(net, batch, mask_prob, generator, noise, T, step, on_step,
+                         seq_draws=ancestral)
 
 
 def ddim_taus(num_steps: int, ddim_steps: int) -> np.ndarray:
@@ -542,6 +883,13 @@ def ddim_coord_update(z_t: torch.Tensor, noise_pred: torch.Tensor, mask: torch.T
     return torch.sqrt(a_prev) * x0_pred + dir_coeff * noise_pred + sigma * noise
 
 
+def _ddim_alphas(sched: DiffusionSchedule, tau: int,
+                 tau_prev: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    a_t = sched.alphas_cumprod[tau]
+    a_prev = sched.alphas_cumprod[tau_prev] if tau_prev >= 0 else torch.ones_like(a_t)
+    return a_t, a_prev
+
+
 def ddim_step(
     net: ProteinReDiffNet,
     sched: DiffusionSchedule,
@@ -550,21 +898,65 @@ def ddim_step(
     tau: int,
     tau_prev: int,
     eta: float,
-    step_noise: torch.Tensor,
+    draws: StepNoise,
 ) -> Carry:
-    """One DDIM step with the reference sequence recurrence
-    (``_ddim_gaussian_step_fn``, `prdiff.py:1082-1134`, seq_reverse='reference')."""
-    z_t, seq_t, _ = carry
+    """One DDIM step on the Gaussian sequence channel
+    (``_ddim_gaussian_step_fn``, `prdiff.py:1082-1134`): the reference
+    softmax recurrence, or with ``seq_reverse="ancestral"`` a deterministic
+    DDIM step on the sequence with seq_pred as its x0 and the known residues
+    clamped."""
+    cfg = net.cfg
+    z_t, seq_t = carry[0], carry[1]
     x = batch["x"]
     mask = batch["residue_and_atom_mask"]
     t = torch.full((x.shape[0],), tau, dtype=torch.long, device=x.device)
-    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t)
-    a_t = sched.alphas_cumprod[tau]
-    a_prev = sched.alphas_cumprod[tau_prev] if tau_prev >= 0 else torch.ones_like(a_t)
-    z_next = ddim_coord_update(z_t, noise_pred, mask, a_t, a_prev, eta, step_noise)
-    seq_next = torch.softmax(seq_pred, dim=-1) * 2.0 - 1.0
-    enabled = net.cfg.sample_guard
-    return guard(z_next, enabled), guard(seq_next, enabled), seq_pred
+    noise_pred, seq_pred = net(batch, z_t, seq_t, mask, t, *_sc_inputs(cfg, carry))
+    a_t, a_prev = _ddim_alphas(sched, tau, tau_prev)
+    z_next = ddim_coord_update(z_t, noise_pred, mask, a_t, a_prev, eta, draws.z)
+    if cfg.seq_reverse == "ancestral":
+        if tau_prev < 0:
+            seq_cand = seq_pred
+        else:
+            eps_seq = (seq_t - torch.sqrt(a_t) * seq_pred) * torch.rsqrt(
+                torch.clamp(1.0 - a_t, min=1e-12))
+            seq_cand = (torch.sqrt(a_prev) * seq_pred
+                        + torch.sqrt(torch.clamp(1.0 - a_prev, min=0.0)) * eps_seq)
+        seq_next = _clamp_known(batch, seq_cand)
+    else:
+        seq_next = torch.softmax(seq_pred, dim=-1) * 2.0 - 1.0
+    enabled = cfg.sample_guard
+    legs = (guard(z_next, enabled), guard(seq_next, enabled), seq_pred)
+    return _next_carry(cfg, legs, z_t, noise_pred, a_t, mask)
+
+
+def ddim_absorbing_step(
+    net: ProteinReDiffNet,
+    sched: DiffusionSchedule,
+    batch: Batch,
+    carry: Carry,
+    tau: int,
+    tau_prev: int,
+    eta: float,
+    draws: StepNoise,
+) -> Carry:
+    """One DDIM step under ``seq_process="absorbing"``
+    (``_ddim_absorbing_step_fn``, `prdiff.py:1170-1226`): the DDIM
+    coordinate update and the same reveal as the DDPM path, its target at
+    the current tau; the last step (tau_prev < 0) reveals at t = 0 whatever
+    the grid, so every position is committed."""
+    cfg = net.cfg
+    z_t, comm_mask, comm_oh = carry[:3]
+    x = batch["x"]
+    mask = batch["residue_and_atom_mask"]
+    seq, inv2 = absorbing_known_and_designable(batch)
+    t = torch.full((x.shape[0],), tau, dtype=torch.long, device=x.device)
+    noise_pred, seq_pred = net(batch, z_t, seq + comm_oh, mask, t, *_sc_inputs(cfg, carry))
+    a_t, a_prev = _ddim_alphas(sched, tau, tau_prev)
+    z_next = guard(ddim_coord_update(z_t, noise_pred, mask, a_t, a_prev, eta, draws.z),
+                   cfg.sample_guard)
+    t_reveal = 0 if tau_prev < 0 else tau
+    comm_mask, comm_oh = reveal_update(cfg, seq_pred, comm_mask, comm_oh, inv2, t_reveal, draws)
+    return _next_carry(cfg, (z_next, comm_mask, comm_oh), z_t, noise_pred, a_t, mask)
 
 
 @torch.inference_mode()
@@ -580,13 +972,15 @@ def sample_ddim(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DDIM sampler over a ``ddim_steps``-long subsequence of the trained
     schedule (``sample_ddim``, `prdiff.py:1024-1055`): the DDPM sampler's
-    initialisation and readout, one step per tau. ``noise.steps`` holds
-    one raw normal per tau (drawn at eta 0 too, as the JAX sampler does)."""
+    initialisation and readout, one step per tau, with the step of the
+    config's sequence process. ``noise.steps`` holds one raw normal per tau
+    (drawn at eta 0 too, as the JAX sampler does)."""
     cfg = net.cfg
     sched = schedule_on(cfg.num_steps, cfg.diffusion_schedule, str(batch["residue_mask"].device))
     taus, taus_prev = ddim_tau_grid(cfg.num_steps, ddim_steps)
+    kind = ddim_absorbing_step if cfg.seq_process == "absorbing" else ddim_step
 
-    def step(b, carry, i, step_noise):
-        return ddim_step(net, sched, b, carry, int(taus[i]), int(taus_prev[i]), eta, step_noise)
+    def step(b, carry, i, draws):
+        return kind(net, sched, b, carry, int(taus[i]), int(taus_prev[i]), eta, draws)
 
     return _sampler_loop(net, batch, mask_prob, generator, noise, ddim_steps, step, on_step)

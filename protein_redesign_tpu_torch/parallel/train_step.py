@@ -7,7 +7,10 @@
 - EMA after each optimizer step with torch_ema's ramp (``_ema_update``);
 - gradient accumulation: the micro-batches' gradients are summed by
   ``backward`` and divided by their count, and ``grad_norm`` is taken on the
-  averaged gradients before the clip.
+  averaged gradients before the clip;
+- with ``self_cond``, one coin per micro-batch, drawn on the host from the
+  step's seed (``prdiff.host_generator``) unless injected, so the Python
+  branch between one pass and two costs no device sync.
 
 The optimizer's learning rate is set before every update from the step
 count, as optax's schedule reads its own count: the first update uses
@@ -19,7 +22,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,7 +106,9 @@ def make_train_step(
     """The train step: ``step(state, micro_batches, noises=None,
     generator=None)`` over ``accumulate_grad_batches`` micro-batches,
     updating ``state`` in place; returns the averaged loss and the global
-    norm of the averaged gradients as device scalars."""
+    norm of the averaged gradients as device scalars and, with
+    ``self_cond``, the micro-batches' coins (``sc_coins``) and how many ran
+    the first pass (``sc_passes``)."""
     accum = train_cfg.accumulate_grad_batches
 
     def train_step(
@@ -116,12 +121,19 @@ def make_train_step(
             raise ValueError(f"{len(micro_batches)} micro-batches, accumulate_grad_batches={accum}")
         net, opt = state.net, state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss_sum = 0.0
+        self_cond = net.cfg.self_cond
+        if self_cond:
+            drawn = torch.rand(accum, generator=prdiff.host_generator(generator)).tolist()
+        loss_sum, coins = 0.0, []
         for i, batch in enumerate(micro_batches):
-            noise = noises[i] if noises is not None else None
+            noise = noises[i] if noises is not None else TrainNoise()
+            if self_cond and noise.sc_coin is None:
+                noise = dataclasses.replace(noise, sc_coin=drawn[i])
             loss, _ = prdiff.loss(net, batch, noise=noise, generator=generator)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
+            if self_cond:
+                coins.append(float(noise.sc_coin))
         params = list(net.parameters())
         for p in params:  # an unused parameter still gets Adam's zero-gradient update
             if p.grad is None:
@@ -139,20 +151,24 @@ def make_train_step(
         _ema_update(list(state.ema.parameters()), params, net.cfg.ema_decay, state.ema_updates)
         state.step += 1
         state.ema_updates += 1
-        return {"loss": loss_sum, "grad_norm": grad_norm}
+        metrics = {"loss": loss_sum, "grad_norm": grad_norm}
+        if self_cond:
+            metrics.update(sc_coins=coins, sc_passes=sum(c < 0.5 for c in coins))
+        return metrics
 
     return train_step
 
 
-def make_eval_step() -> Callable[..., torch.Tensor]:
+def make_eval_step() -> Callable[..., Tuple[torch.Tensor, Dict]]:
     """Validation under the EMA weights with fresh draws (`train_step.py:154-170`):
-    the per-sample [B] losses, so padded rows can be left out."""
+    the per-sample [B] losses, so padded rows can be left out, and the
+    loss's metrics (with ``self_cond``, ``sc_pass``: the validation loss
+    takes the self-conditioning coin as the training loss does)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch, noise: Optional[TrainNoise] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        loss, _ = prdiff.loss(state.ema, batch, reduction="none", noise=noise,
-                              generator=generator)
-        return loss
+                  generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict]:
+        return prdiff.loss(state.ema, batch, reduction="none", noise=noise,
+                           generator=generator)
 
     return eval_step

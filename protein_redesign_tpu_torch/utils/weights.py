@@ -5,7 +5,8 @@
 parameter tree (numpy arrays) and returns the port's ``state_dict`` under the
 reference names, transposing Dense kernels, splitting the fused embedding
 tables per feature, mapping LayerNorm ``scale`` to ``weight`` and adding the
-two constant buffers. ``train_state_from_jax`` carries a whole JAX train
+constant buffers (and, with ``self_cond``, ``embed_sc_dist``, mapped as
+``embed_dist``). ``train_state_from_jax`` carries a whole JAX train
 state (weights, EMA, Adam moments, counters) onto the port's. ``load_checkpoint``
 reads what the port's generate CLI accepts: a directory with ``config.json``
 and ``model.pt``, a train checkpoint directory of the port's train CLI (EMA
@@ -110,6 +111,9 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig) -> StateDic
     _denoiser(sd, params["denoiser"], cfg.num_blocks, "Denoiser.")
     sd["embed_dist.0.center"] = rbf_centers(cfg.dist_dim)
     sd["embed_beta.0.weight"] = sinusoidal_weights(cfg.time_dim)
+    if cfg.self_cond:  # the self-conditioning distance embedding, as embed_dist
+        _linear(sd, "embed_sc_dist.1", params, "embed_sc_dist/dense/Dense_0")
+        sd["embed_sc_dist.0.center"] = rbf_centers(cfg.dist_dim)
     return sd
 
 

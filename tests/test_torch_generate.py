@@ -70,7 +70,7 @@ def test_generate_ddim_with_trajectories(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--sampler", "ddim_parallel"], ["--window", "8"],
-                                  ["--seq_reverse", "ancestral"], ["--trimul_dmajor"],
+                                  ["--trimul_dmajor"],
                                   ["--ptol", "1e-3"], ["--use_pallas"],
                                   ["--pallas_auto_min_n", "384"], ["--num_workers", "2"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):

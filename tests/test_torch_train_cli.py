@@ -79,6 +79,37 @@ def test_train_resume_and_generate(mini_data, tmp_path, monkeypatch):  # noqa: F
     assert (out / "sample_protein.pdb").read_text().count("ATOM") > 0
 
 
+def test_train_design_modes_and_generate(mini_data, tmp_path, monkeypatch, capsys):  # noqa: F811
+    """The absorbing sequence process with self-conditioning through the
+    train CLI: each step's coins printed and its first passes logged
+    (sc_passes, val_sc_passes), the modes kept in the checkpoint's config,
+    and the generate CLI's DDIM absorbing sampler on it."""
+    from protein_redesign_tpu_torch.cli.generate import main as generate
+    from protein_redesign_tpu_torch.cli.train import main
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config
+
+    save_dir = tmp_path / "run"
+    state = main(["--save_dir", str(save_dir), "--data_dir", str(mini_data), *TINY_FLAGS,
+                  "--accumulate_grad_batches", "2", "--val_every_steps", "0", "--max_steps", "2",
+                  "--seq_process", "absorbing", "--self_cond"])
+    assert state.step == 2
+    printed = capsys.readouterr().out
+    assert printed.count("self-cond coins") == 2
+    metrics = _metrics(save_dir)
+    passes = [m["sc_passes"] for m in metrics if "train_loss" in m]
+    assert len(passes) == 2 and all(p in (0, 1, 2) for p in passes)
+    assert [m["val_sc_passes"] in (0, 1) for m in metrics if "val_loss" in m] == [True]
+    cfg = read_config(save_dir / "checkpoints" / "2")
+    assert cfg.self_cond and cfg.seq_process == "absorbing"
+    monkeypatch.setenv("PRD_DISABLE_ESM", "1")
+    for name in ("USE_TF", "USE_FLAX"):
+        monkeypatch.setenv(name, "0")
+    out = tmp_path / "out"
+    generate(["-c", str(save_dir / "checkpoints"), "-o", str(out), *GENERATE, "--sampler", "ddim",
+              "--ddim_steps", "2", "--reveal_temperature", "0.5"])
+    assert (out / "sample_protein.pdb").read_text().count("ATOM") > 0
+
+
 def test_sigterm_checkpoints_without_validation(mini_data, tmp_path, monkeypatch):  # noqa: F811
     from protein_redesign_tpu_torch.cli.train import main
     from protein_redesign_tpu_torch.parallel import train_step as T
@@ -130,7 +161,7 @@ def test_checkpoint_retention_keeps_top_k_and_latest(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--cache_device_batches"], ["--device_cache_gb", "1"], ["--num_devices", "2"],
     ["--mesh_shape", "2,1"], ["--profile"], ["--use_pallas"], ["--attn_chunk", "64"],
-    ["--trimul_dmajor"], ["--sequence_parallel"], ["--seq_process", "absorbing"],
+    ["--trimul_dmajor"], ["--sequence_parallel"],
 ])
 def test_train_rejects_what_is_not_ported(mini_data, tmp_path, flag):  # noqa: F811
     from protein_redesign_tpu_torch.cli.train import main

@@ -23,8 +23,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
-from test_torch_loss import LOSS_CFG, jax_train_draws  # noqa: E402
-from test_torch_net import make_batch, perturbed_params  # noqa: E402
+from test_torch_loss import LOSS_CFG  # noqa: E402
+from test_torch_net import make_batch  # noqa: E402
+from test_torch_selfcond import design_params, train_draws  # noqa: E402
 
 from protein_redesign_tpu.config import TrainConfig  # noqa: E402
 from protein_redesign_tpu.models.prdiff import ProteinReDiffModel  # noqa: E402
@@ -53,13 +54,13 @@ def _tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _start_state():
+def _start_state(cfg=CFG):
     """A JAX TrainState at step START with perturbed weights and moments."""
     rng = np.random.RandomState(9)
-    params = jax.tree_util.tree_map(jnp.asarray, perturbed_params(CFG, seed=7))
+    params = jax.tree_util.tree_map(jnp.asarray, design_params(cfg, seed=7))
     noisy = lambda scale, f=lambda x: x: jax.tree_util.tree_map(  # noqa: E731
         lambda p: jnp.asarray(f(scale * rng.randn(*p.shape)), jnp.float32), params)
-    clip, adam, sched = make_optimizer(CFG, TRAIN_CFG).init(params)
+    clip, adam, sched = make_optimizer(cfg, TRAIN_CFG).init(params)
     adam = adam._replace(count=jnp.int32(START), mu=noisy(1e-2), nu=noisy(1e-2, np.square))
     return TrainState(
         step=jnp.int32(START), params=params,
@@ -74,31 +75,47 @@ def _adam(opt_state):
 
 
 def test_three_accumulated_steps_match_jax():
+    _three_steps_match_jax(CFG)
+
+
+def test_design_steps_match_jax():
+    """The same with self-conditioning on the absorbing sequence process:
+    the coins are JAX's (one draw runs the first pass), so the first pass's
+    no-gradient forward and embed_sc_dist's weights, EMA and moments are
+    held too."""
+    metrics = _three_steps_match_jax(CFG.replace(self_cond=True, seq_process="absorbing"))
+    assert sum(m["sc_passes"] for m in metrics) > 0
+    assert all(len(m["sc_coins"]) == 2 for m in metrics)
+
+
+def _three_steps_match_jax(cfg):
     micro = [make_batch(B=2, seed=s) for s in (11, 12)]
     batch = {k: np.stack([m[k] for m in micro]) for k in micro[0]}
-    model = ProteinReDiffModel(CFG.replace(remat=False))  # remat changes no number
-    j_state = _start_state()
+    model = ProteinReDiffModel(cfg.replace(remat=False))  # remat changes no number
+    j_state = _start_state(cfg)
     adam = _adam(j_state.opt_state)
 
-    net = ProteinReDiffNet(CFG)
+    net = ProteinReDiffNet(cfg)
     state = make_train_state(net)
     train_state_from_jax(state, {
         "params": _tree(j_state.params), "ema_params": _tree(j_state.ema_params),
         "mu": _tree(adam.mu), "nu": _tree(adam.nu), "count": int(adam.count),
         "step": int(j_state.step), "ema_updates": int(j_state.ema_updates),
     })
-    assert state.step == START and lr_at(0, CFG, TRAIN_CFG) == pytest.approx(1e-3 / 6)
+    assert state.step == START and lr_at(0, cfg, TRAIN_CFG) == pytest.approx(1e-3 / 6)
 
     j_step = jax.jit(jax_train_step(model, TRAIN_CFG))
     step = make_train_step(TRAIN_CFG)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tmicro = [{k: torch.from_numpy(v) for k, v in m.items()} for m in micro]
     B, N = micro[0]["residue_mask"].shape
+    steps = []
     for i in range(3):
         key = jax.random.PRNGKey(100 + i)
         j_state, j_metrics = j_step(j_state, jb, key)
-        noises = [jax_train_draws(k, B, N, CFG) for k in jax.random.split(key, 2)]
+        noises = [train_draws(k, B, N, cfg) for k in jax.random.split(key, 2)]
         metrics = step(state, tmicro, noises)
+        steps.append(metrics)
         for name in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(metrics[name]), float(j_metrics[name]), rtol=1e-5,
                                        err_msg=f"step {i} {name}")
@@ -108,10 +125,10 @@ def test_three_accumulated_steps_match_jax():
     assert state.ema_updates == int(j_state.ema_updates)
     adam = _adam(j_state.opt_state)
     expected = {
-        "params": state_dict_from_jax(_tree(j_state.params), CFG),
-        "ema": state_dict_from_jax(_tree(j_state.ema_params), CFG),
-        "mu": state_dict_from_jax(_tree(adam.mu), CFG),
-        "nu": state_dict_from_jax(_tree(adam.nu), CFG),
+        "params": state_dict_from_jax(_tree(j_state.params), cfg),
+        "ema": state_dict_from_jax(_tree(j_state.ema_params), cfg),
+        "mu": state_dict_from_jax(_tree(adam.mu), cfg),
+        "nu": state_dict_from_jax(_tree(adam.nu), cfg),
     }
     for name, p in net.named_parameters():
         opt = state.optimizer.state[p]
@@ -122,3 +139,4 @@ def test_three_accumulated_steps_match_jax():
             atol = 0.0 if what == "nu" else 1e-5
             np.testing.assert_allclose(tensor.detach().numpy(), expected[what][name].numpy(),
                                        atol=atol, rtol=1e-4, err_msg=f"{what} {name}")
+    return steps
