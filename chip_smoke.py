@@ -158,10 +158,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    which the kernel and plain routes agree (printed, not gated); then
    --seq_reverse ancestral, DDPM (8 steps) and DDIM (4, eta 1), on phase
    8's checkpoint. Wall and s per step of each run; the phase's wall time.
+   Also on the design checkpoint: the absorbing Picard sampler
+   (deterministic reveal, ptol 0; the net without self_cond, whose
+   estimate-free function it computes) against the sequential absorbing
+   DDIM, the share of equal commitments printed; and the offline CLIs:
+   export_params on the train checkpoint, the generate CLI from the export
+   and from the checkpoint directory with one seed, equal byte for byte,
+   evaluate over that output (every group with TM-scores), and
+   preprocess_pdbbind --limit 2 --device cuda over a two-complex PDBbind
+   layout written from --seed.
+19. Parallel-in-time DDIM (Picard): ModelConfig() at paper width, bucket
+   192, B=1, on a checkpoint written by the port, over a 1000-step
+   schedule. bf16: the generate CLI with --sampler ddim --eta 0
+   --ddim_steps 50, and --sampler ddim_parallel --window 8 at --ptol 0, at
+   --ptol 1e-3 and at --ptol 1e-3 --coarse_init 5, each with exact K1 and
+   K2 launches (the per-forward counts times the sweeps plus the coarse
+   steps); each run again through the same runner under torch.profiler
+   (sweeps, nfe, s per sample, device busy time; the same sweeps as the
+   CLI's). The ptol-0 run ends below the 2S + 2 cap and agrees with the
+   sequential one within PICARD_POS_TOL (Å) and PICARD_LOGIT_TOL; f32
+   (3xTF32 kernels): the sequential and ptol-0 runs within 1e-3 Å or
+   PICARD_CONTROL times the one-ulp response, the larger. First, each
+   fused kernel (K8-K11) must repeat its bits at a sweep's shape, and
+   Picard at ptol 0 with all four switches must end below the cap.
+20. Query-chunked attention where the plan leaves the kernels: the h64x4
+   layout with fast_softmax at paper width, bf16. One forward at bucket
+   1024, B=1 (the plan's chunk 128) against the same weights unchunked:
+   relative norm, ms and peak memory of each, no attention kernel; one
+   training micro-step of 2 blocks at 768 (chunk 128): the whole gradient
+   against the unchunked one, ms and peak memory of each.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
-CLIs, 15's train and serve CLIs, 17's serve CLI and 18's CLIs) runs with every launch
-count set to 0 just before it and read just after; the f32 train CLI at 512
+CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs and 19's
+generate CLI and sampler runs) runs with every launch count set to 0 just
+before it and read just after; the f32 train CLI at 512
 gives the launches of K1's and K2's f32 entries in the kernels' record, the
 f32 served request K1 fast's. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
@@ -284,6 +314,30 @@ GRAD_2048_BLOCKS = 2
 # f32 training below the K-chunk switch at bucket 512 (phases 7 and 12):
 # (bucket, residues of a seeded sequence), 497 nodes with imatinib.
 TRAIN_F32_512 = (512, 460)
+# Parallel-in-time DDIM (phase 19): DDIM steps, the Picard window, the
+# coarse warm start's steps; the served schedule (SERVE_SCHEDULE) and shape
+# (lysozyme and imatinib, bucket 192, B = 1). The tol-0 Picard run against
+# the sequential DDIM run with the same draws, largest |difference| of the
+# positions in Å and ||difference|| / ||sequential|| of the logits: in f32
+# (3xTF32 kernels) the arithmetic's reordering only, which the trajectory
+# amplifies as it amplifies any rounding, so the f32 gate widens to
+# PICARD_CONTROL times the difference that one ulp more on the initial
+# coordinates makes to the sequential run, where that is larger (seeded
+# random weights drive the coordinates to ~3e4 Å, where one f32 ulp is
+# 2e-3 Å); in bf16 also the net's rounding at batch W (Picard) against
+# batch 1 (sequential). Measured runs put Picard at 0.5-1.1 times that
+# one-ulp response, so PICARD_CONTROL = 3 leaves room for their spread and
+# fails a drift several times the rounding's.
+PICARD_STEPS, PICARD_WINDOW, PICARD_COARSE = 50, 8, 5
+PICARD_POS_TOL = {"float32": 1e-3, "bfloat16": 0.5}
+PICARD_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+PICARD_CONTROL = 3.0
+# Query-chunked attention (phase 20): the h64x4 layout with fast_softmax in
+# bf16, whose attention plan leaves the kernels and chunks queries by 128
+# from bucket 768 (forward at 1024: the logits pass the plan's 4 GB line;
+# gradient at 768, depth cut to CHUNK_GRAD_BLOCKS); (bucket, residues).
+H64X4 = dict(head_dim=64, num_heads=4, fast_softmax=True)
+CHUNK_FORWARD, CHUNK_GRAD, CHUNK_GRAD_BLOCKS = (1024, 960), (768, 720), 2
 
 
 def launch_record(**counts) -> dict:
@@ -849,7 +903,7 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
                 *flags]
         A.reset_launch_counts()
         began = time.perf_counter()
-        timings = main(argv)
+        timings = main(argv).timings
         wall = time.perf_counter() - began
         launches = main_path_launches()
         out = tmp / "out"
@@ -1347,7 +1401,7 @@ def _design_generate(ckpt: Path, out: Path, cfg, tag: str, extra: list, steps: i
             "--batch_size", "2", "--device", "cuda", *extra]
     A.reset_launch_counts()
     began = time.perf_counter()
-    timings = main(argv)
+    timings = main(argv).timings
     torch.cuda.synchronize()
     wall = time.perf_counter() - began
     launches = main_path_launches()
@@ -1505,6 +1559,106 @@ def _design_route_agreement(ckpt: Path, seed: int) -> None:
     del net
 
 
+def _design_picard(ckpt: Path, seed: int) -> None:
+    """The absorbing Picard sampler (deterministic reveal, tol 0) on the
+    design checkpoint's weights against the sequential absorbing DDIM with
+    the same draws: every residue designable, lysozyme and imatinib, B = 2;
+    the share of committed identities the two agree on (printed, not
+    gated). Picard rejects self_cond, so the net is built without it and
+    without embed_sc_dist: the self-conditioned net computes exactly this
+    function where it has no estimate (sc_flag 0 adds exact zeros)."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.utils.weights import load_checkpoint
+
+    state_dict, cfg = load_checkpoint(ckpt, num_steps=STEPS)
+    cfg = cfg.replace(training_mode=False, self_cond=False, reveal_temperature=0.0,
+                      reveal_conf_noise=0.0)
+    net = ProteinReDiffNet(cfg)
+    net.load_state_dict({k: v for k, v in state_dict.items() if not k.startswith("embed_sc")})
+    net.to("cuda").eval()
+    out, stats = {}, None
+    for sampler in ("ddim", "ddim_parallel"):
+        runner = SamplingRunner(net, "cuda", batch_size=2, mask_prob=1.0, sampler=sampler,
+                                ddim_steps=DESIGN_DDIM_STEPS, window=PICARD_WINDOW, ptol=0.0)
+        out[sampler] = runner.run([complex_batch_data(runner)] * 2, seed)
+        stats = runner.picard_stats or stats
+    (stats,) = stats
+    n_lig, cap = IMATINIB_ATOMS, 2 * DESIGN_DDIM_STEPS + 2
+    same = [np.argmax(p[1][n_lig:], -1) == np.argmax(q[1][n_lig:], -1)
+            for p, q in zip(out["ddim"], out["ddim_parallel"])]
+    dpos = max(float(np.abs(p[0] - q[0]).max()) for p, q in zip(out["ddim"], out["ddim_parallel"]))
+    if not all(np.isfinite(r[0]).all() for r in out["ddim_parallel"]) or stats["iterations"] >= cap:
+        raise AssertionError(f"absorbing Picard: non-finite positions or {stats} at the cap {cap}")
+    print(f"[design-picard] absorbing, DDIM {DESIGN_DDIM_STEPS}, window {PICARD_WINDOW}, ptol 0: "
+          f"{stats['iterations']} sweeps (cap {cap}), nfe {stats['nfe']}; commitments equal to the "
+          f"sequential absorbing DDIM's at {float(np.mean(np.concatenate(same))):.1%} of the "
+          f"positions (not gated); max |positions difference| {dpos:.3e} A")
+    del net
+
+
+def _pdbbind_layout(root: Path, seed: int) -> Path:
+    """A two-complex PDBbind layout (aspirin and an 8- and a 12-residue
+    chain, coordinates from ``seed``), as tests/test_preprocess_cli.py
+    builds one."""
+    from protein_redesign_tpu_torch.chem.mol import mol_from_smiles, mol_to_sdf, update_mol_positions
+    from protein_redesign_tpu_torch.chem.protein import protein_from_sequence, protein_to_pdb_file
+
+    rng = np.random.RandomState(seed)
+    for i, pdb_id in enumerate(("1abc", "2xyz")):
+        src = root / "PDBbind_processed" / pdb_id
+        src.mkdir(parents=True)
+        mol = mol_from_smiles("CC(=O)Oc1ccccc1C(=O)O")
+        mol = update_mol_positions(mol, rng.randn(mol.num_atoms(), 3).astype(np.float32))
+        (src / f"{pdb_id}_ligand.sdf").write_text(mol_to_sdf(mol))
+        prot = protein_from_sequence("ARNDCQEGHILKMFPSTWYV"[: 8 + 4 * i])
+        prot.atom_pos[:, 1] = rng.randn(len(prot.aatype), 3)
+        protein_to_pdb_file(prot, src / f"{pdb_id}_protein_processed.pdb")
+    for split, ids in (("train", "1abc\n"), ("val", "2xyz\n"), ("test", "")):
+        (root / f"PRD_{split}_pdb_ids").write_text(ids)
+    return root
+
+
+def _offline_clis(ckpt: Path, tmp: Path, seed: int) -> None:
+    """The offline CLIs on the design run: export_params on its train
+    checkpoint; the generate CLI from the export and from the checkpoint
+    directory with one seed (DDIM, 2 samples), whose outputs must match
+    byte for byte; evaluate over that output (a JSON report whose every
+    group has TM-scores); preprocess_pdbbind --limit 2 on the card over a
+    two-complex PDBbind layout."""
+    from protein_redesign_tpu_torch.cli.evaluate import main as evaluate
+    from protein_redesign_tpu_torch.cli.export_params import main as export
+    from protein_redesign_tpu_torch.cli.generate import main as generate
+    from protein_redesign_tpu_torch.cli.preprocess_pdbbind import main as preprocess
+    from protein_redesign_tpu_torch.data.dataset import load_complex_cache
+
+    began = time.perf_counter()
+    export([str(ckpt), str(tmp / "export")])
+    common = ["-p", SEQUENCE, "-l", LIGAND, "-n", "2", "--batch_size", "2", "--sampler", "ddim",
+              "--ddim_steps", str(DESIGN_DDIM_STEPS), "--num_steps", str(STEPS), "--seed",
+              str(seed), "--device", "cuda"]
+    for name, source in (("from-ckpt", ckpt), ("from-export", tmp / "export")):
+        generate(["-c", str(source), "-o", str(tmp / name), *common])
+    for f in ("sample_protein.pdb", "sample_ligand.sdf", "sample_tmscores.txt"):
+        if (tmp / "from-ckpt" / f).read_bytes() != (tmp / "from-export" / f).read_bytes():
+            raise AssertionError(f"export: {f} differs between the checkpoint and its export")
+    evaluate(["-i", str(tmp / "from-export")])
+    report = json.loads((tmp / "from-export" / "evaluation.json").read_text())
+    if not report["groups"] or not all(g.get("tm") for g in report["groups"].values()):
+        raise AssertionError(f"evaluate: report without TM-scores {report}")
+    data = _pdbbind_layout(tmp / "pdbbind", seed)
+    preprocess(["--data_dir", str(data), "--pdbbind_dir", str(data / "PDBbind_processed"),
+                "--esm_model", str(tmp / "no-esm"), "--limit", "2", "--device", "cuda"])
+    for i, pdb_id in enumerate(("1abc", "2xyz")):
+        d = load_complex_cache(data / "PDB_processed_cache", pdb_id)
+        if d["num_residues"] != 8 + 4 * i or d["residue_esm"].shape != (8 + 4 * i, 1280):
+            raise AssertionError(f"preprocess: {pdb_id} cached {d['num_residues']} residues")
+    groups = {k: [round(x, 4) for x in g["tm"]] for k, g in report["groups"].items()}
+    print(f"[offline] export_params, two generate runs equal byte for byte (export and "
+          f"checkpoint), evaluate (TM-scores {groups}), preprocess_pdbbind --limit 2 --device "
+          f"cuda: {time.perf_counter() - began:.1f} s")
+
+
 def phase_design(seed: int, gaussian_ckpt: Path) -> None:
     """Phase 18: sequence design at paper width, bf16, bucket 192."""
     from protein_redesign_tpu_torch.config import ModelConfig
@@ -1525,6 +1679,8 @@ def phase_design(seed: int, gaussian_ckpt: Path) -> None:
         _design_serve(ckpt, tmp, cfg)
         _design_batch(ckpt, tmp, cfg, seed)
         _design_route_agreement(ckpt, seed)
+        _design_picard(ckpt, seed)
+        _offline_clis(ckpt, tmp, seed)
         g_cfg = read_config(step_dir(gaussian_ckpt))
         ddpm, ddim = ANCESTRAL_STEPS
         _design_generate(gaussian_ckpt, tmp / "anc-ddpm", g_cfg, "ancestral-ddpm",
@@ -1640,7 +1796,7 @@ def phase_generate_long(net) -> dict:
                 "-n", "1", "--num_steps", str(LONG_STEPS), "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats()
         A.reset_launch_counts()
-        timings = main(argv)
+        timings = main(argv).timings
         torch.cuda.synchronize()
         launches = main_path_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2567,6 +2723,335 @@ def phase_wide(seed: int) -> None:
         del net
 
 
+def _coarse_steps(S: int, coarse_init: int) -> int:
+    """The sequential steps of a ``coarse_init`` warm start over S DDIM
+    steps (the sub-grid ``sample_ddim_parallel`` takes)."""
+    if not coarse_init:
+        return 0
+    return len(np.unique(np.round(np.linspace(0, S, min(coarse_init, S) + 1)))) - 1
+
+
+def _picard_expected(cfg, runner) -> dict:
+    """The launches of the runner's last run: one forward per DDIM step, or
+    per Picard sweep plus one per coarse step."""
+    if runner.sampler == "ddim":
+        forwards = runner.ddim_steps * len(runner.timings)
+    else:
+        coarse = _coarse_steps(runner.ddim_steps, runner.coarse_init)
+        forwards = sum(s["iterations"] + coarse for s in runner.picard_stats)
+    return {k: forwards * v for k, v in forward_launches(cfg).items()}
+
+
+def _picard_agreement(tag: str, dtype: str, got, want, control=None) -> str:
+    """The tol-0 Picard sample against the sequential one: the largest
+    |positions difference| (Å) within PICARD_POS_TOL, or in f32 within
+    PICARD_CONTROL times ``control`` (the sequential sample from one ulp
+    more on the initial coordinates) where that is larger; the logits'
+    relative norm within PICARD_LOGIT_TOL, likewise widened."""
+    (pos, logits), (pos_s, logits_s) = got[0][:2], want[0][:2]
+
+    def diff(a, b):
+        return (float(np.abs(a[0] - b[0]).max()),
+                float(np.linalg.norm(a[1] - b[1]) / np.linalg.norm(b[1])))
+
+    dpos, dlog = diff((pos, logits), (pos_s, logits_s))
+    pos_tol, log_tol, line = PICARD_POS_TOL[dtype], PICARD_LOGIT_TOL[dtype], ""
+    if control is not None:
+        cpos, clog = diff(control, (pos_s, logits_s))
+        pos_tol, log_tol = max(pos_tol, PICARD_CONTROL * cpos), max(log_tol, PICARD_CONTROL * clog)
+        line = (f"; one ulp more on the initial coordinates moves the sequential sample by "
+                f"{cpos:.3e} A (logits {clog:.3e}); max |sequential positions| "
+                f"{float(np.abs(pos_s).max()):.4g} A")
+    if not (np.isfinite(pos).all() and dpos <= pos_tol and dlog <= log_tol):
+        raise AssertionError(f"[{tag}] Picard at ptol 0 against sequential DDIM: positions "
+                             f"{dpos} A (tol {pos_tol}), logits {dlog} (tol {log_tol}){line}")
+    return (f"against the sequential DDIM: max |positions difference| {dpos:.3e} A (tol "
+            f"{pos_tol:.3g}), ||logits difference|| / ||logits|| {dlog:.3e} (tol "
+            f"{log_tol:.3g}){line}")
+
+
+def _ulp_control(net, runner, data, seed: int):
+    """The sequential DDIM sample of ``runner``'s first run with its draws
+    made as the runner's generator makes them (mask scores, then the initial
+    coordinates and sequence) and the initial coordinates one ulp larger:
+    how far the trajectory carries a rounding-sized change."""
+    from protein_redesign_tpu_torch.models.prdiff import SamplerNoise, sample_ddim
+
+    _, batch = runner.collate([data])
+    B, N = batch["residue_mask"].shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    scores = torch.rand(B * N, generator=g, device="cuda")
+    z0 = torch.randn((B, N, 3), generator=g, device="cuda")
+    s0 = torch.randn((B, N, 21), generator=g, device="cuda")
+    noise = SamplerNoise(mask_scores=scores, z0=torch.nextafter(z0, z0 + torch.sign(z0)), s0=s0)
+    pos, logits = sample_ddim(net, batch, runner.ddim_steps, 0.0, runner.mask_prob, noise=noise)
+    n = data["num_atoms"] + data["num_residues"]
+    return pos[0, :n].cpu().numpy(), logits[0, :n].cpu().numpy()
+
+
+def _fused_repeats(seed: int) -> None:
+    """Each fused kernel (K8-K11, one switch a net; K10's single_fc layout
+    sums through per-chunk slabs of an f32 scratch) must give the same bits
+    twice for one input at a Picard sweep's shape (batch PICARD_WINDOW,
+    bucket 192), and the Picard sweeps at ptol 0 (DDIM DESIGN_DDIM_STEPS)
+    with all four switches must end below the 2S + 2 cap: ptol 0 converges
+    only on bit-equal repeats."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+
+    repeats = {}
+    for switch in FUSED:
+        net = perturbed_net(ModelConfig(**{switch: True}), seed).to("cuda").eval()
+        runner = SamplingRunner(net, "cuda")
+        _, batch = complex_batch(runner, PICARD_WINDOW)
+        batch = prepare_batch(batch, 0.3, generator=torch.Generator("cuda").manual_seed(0))
+        B, N = batch["residue_mask"].shape
+        g = torch.Generator("cuda").manual_seed(seed)
+        z, seq_t = (torch.randn(B, N, c, generator=g, device="cuda") for c in (3, 21))
+        t = torch.arange(B, device="cuda") * 100
+        with torch.inference_mode():
+            first, second = (net(batch, z, seq_t, batch["residue_and_atom_mask"], t)[0]
+                             for _ in range(2))
+        repeats[switch] = float((first - second).norm() / first.norm())
+        if not torch.equal(first, second):
+            raise AssertionError(f"[picard] {switch}: two forwards on one input differ, "
+                                 f"||first - second|| / ||first|| = {repeats[switch]:.3e}")
+        del net
+    net = fused_net(num_steps=SERVE_SCHEDULE).to("cuda").eval()
+    runner = SamplingRunner(net, "cuda", sampler="ddim_parallel", ddim_steps=DESIGN_DDIM_STEPS,
+                            window=PICARD_WINDOW, ptol=0.0)
+    runner.run([complex_batch_data(runner, SEQUENCE)], seed)
+    stats, cap = runner.picard_stats[0], 2 * DESIGN_DDIM_STEPS + 2
+    if stats["iterations"] >= cap:
+        raise AssertionError(f"[picard] ptol 0 with the four fused switches: {stats} at the "
+                             f"2S + 2 cap {cap}")
+    print(f"[picard] two forwards at batch {PICARD_WINDOW}, bucket 192, one fused switch each: "
+          f"bit-equal ({', '.join(repeats)}); Picard at ptol 0 with all four, DDIM "
+          f"{DESIGN_DDIM_STEPS}: {stats} (cap {cap})")
+    del net
+
+
+def _forward_busy(net, runner, data, rows: int) -> float:
+    """ms of device time of one net call on ``rows`` copies of ``data``
+    (torch.profiler over 3 calls): a DDIM step's at 1 row, a Picard sweep's
+    at PICARD_WINDOW rows."""
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+
+    _, batch = runner.collate([data] * rows)
+    batch = prepare_batch(batch, 0.3, generator=torch.Generator("cuda").manual_seed(0))
+    N = batch["residue_mask"].shape[1]
+    g = torch.Generator("cuda").manual_seed(1)
+    z, seq_t = (torch.randn(rows, N, c, generator=g, device="cuda") for c in (3, 21))
+    t = torch.full((rows,), SERVE_SCHEDULE // 2, device="cuda")
+    with torch.inference_mode():
+        busy = device_time_by_group(
+            lambda: net(batch, z, seq_t, batch["residue_and_atom_mask"], t), iters=3)
+    return sum(busy.values())
+
+
+def phase_picard(seed: int, trained: Path) -> None:
+    """Phase 19: parallel-in-time DDIM at paper width, bucket 192, B = 1,
+    on checkpoints written by the port. bf16, seeded random weights: the
+    generate CLI with --sampler ddim (eta 0) and --sampler ddim_parallel
+    --window 8 at --ptol 0, at --ptol 1e-3 and at --ptol 1e-3 --coarse_init
+    5: sweeps, nfe, wall per sample, exact K1 and K2 launches, and an
+    estimate of the device busy time per sample: the forwards times one
+    forward's device time at their batch (torch.profiler: a trace of a
+    whole run takes minutes to process), without the Picard loop's own
+    device work (cumsum, errors, selection). The sequential and ptol-0 runs
+    again in the process through the same runner (the same sweeps), the
+    ptol-0 sample against the sequential one. f32 (3xTF32 kernels), on the same weights and on phase
+    8's trained checkpoint (``trained``): the sequential and ptol-0 runs in
+    the process, held within 1e-3 Å, or PICARD_CONTROL times the
+    trajectory's response to one ulp on its initial coordinates where that
+    is larger."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.cli.generate import main as generate
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.weights import load_checkpoint, save_checkpoint
+
+    began = time.perf_counter()
+    _fused_repeats(seed)
+    S, W = PICARD_STEPS, PICARD_WINDOW
+    runs = (("ddim", dict(sampler="ddim")),
+            ("picard-ptol0", dict(sampler="ddim_parallel", ptol=0.0)),
+            ("picard-ptol1e-3", dict(sampler="ddim_parallel", ptol=1e-3)),
+            ("picard-ptol1e-3-coarse5", dict(sampler="ddim_parallel", ptol=1e-3,
+                                             coarse_init=PICARD_COARSE)))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for dtype, weights in (("bfloat16", "seeded"), ("float32", "seeded"),
+                               ("float32", "trained")):
+            ckpt = trained
+            if weights == "seeded":
+                ckpt = tmp / dtype
+                net = perturbed_net(ModelConfig(dtype=dtype), seed)
+                save_checkpoint(ckpt, net.state_dict(), net.cfg)
+                del net
+            state_dict, cfg = load_checkpoint(ckpt, num_steps=SERVE_SCHEDULE, dtype=dtype)
+            cfg = cfg.replace(training_mode=False)
+            net = ProteinReDiffNet(cfg)
+            net.load_state_dict(state_dict)
+            net.to("cuda").eval()
+            data = complex_batch_data(SamplingRunner(net, "cuda"), SEQUENCE)  # the CLI's -p
+            busy = {1: _forward_busy(net, SamplingRunner(net, "cuda"), data, 1),
+                    W: _forward_busy(net, SamplingRunner(net, "cuda"), data, W)}
+            print(f"[picard] {dtype} {weights}: one forward {busy[1]:.2f} ms busy at batch 1, "
+                  f"{busy[W]:.2f} at batch {W} (torch.profiler)")
+            samples = {}
+            for tag, kw in runs if dtype == "bfloat16" else runs[:2]:
+                kw = {"ddim_steps": S, "window": W, **kw}
+                runner = SamplingRunner(net, "cuda", batch_size=1, mask_prob=0.3, **kw)
+                line, stats = f"[picard] {dtype} {weights} {tag}", None
+                if dtype == "bfloat16":
+                    A.reset_launch_counts()
+                    cli = generate(["-c", str(ckpt), "-o", str(tmp / tag), "-p", SEQUENCE, "-l",
+                                    LIGAND, "-n", "1", "--batch_size", "1", "--num_steps",
+                                    str(SERVE_SCHEDULE), "--seed", str(seed), "--device", "cuda",
+                                    *[x for k, v in kw.items() for x in (f"--{k}", str(v))]])
+                    torch.cuda.synchronize()
+                    launches = main_path_launches()
+                    if launches != _picard_expected(cfg, cli):
+                        raise AssertionError(f"{line}: generate CLI launches {launches} != "
+                                             f"{_picard_expected(cfg, cli)}")
+                    (_, _, _, seconds), = cli.timings
+                    stats = cli.picard_stats[0] if cli.picard_stats else None
+                    line += (f": generate CLI {seconds:.3f} s per sample, launches "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+                if tag in ("ddim", "picard-ptol0"):
+                    A.reset_launch_counts()
+                    samples[tag] = runner.run([data], seed)
+                    torch.cuda.synchronize()
+                    if main_path_launches() != _picard_expected(cfg, runner):
+                        raise AssertionError(f"{line}: launches {main_path_launches()}")
+                    (_, _, _, seconds), = runner.timings
+                    if dtype == "bfloat16" and runner.picard_stats != cli.picard_stats:
+                        raise AssertionError(f"{line}: {runner.picard_stats} in the process, "
+                                             f"{cli.picard_stats} through the CLI")
+                    stats = runner.picard_stats[0] if runner.picard_stats else None
+                    line += f"; in the process {seconds:.3f} s per sample"
+                if stats is None:  # sequential DDIM
+                    stats, forwards = {"iterations": S, "nfe": S}, {1: S}
+                else:
+                    forwards = {1: _coarse_steps(S, kw.get("coarse_init", 0)),
+                                W: stats["iterations"]}
+                    if stats["iterations"] >= 2 * S + 2:
+                        raise AssertionError(f"{line}: {stats} at the 2S + 2 cap")
+                dev = sum(n * busy[rows] for rows, n in forwards.items())
+                line += (f"; {stats['iterations']} {'sweeps' if W in forwards else 'steps'}, "
+                         f"nfe {stats['nfe']}; device busy, estimated as forwards x one "
+                         f"profiled forward, {dev / 1e3:.3f} s per sample "
+                         f"({1 - dev / 1e3 / seconds:.1%} idle)")
+                if tag == "picard-ptol0":
+                    control = _ulp_control(net, runner, data, seed) if dtype == "float32" else None
+                    line += "; " + _picard_agreement(line, dtype, samples[tag], samples["ddim"],
+                                                     control)
+                print(line)
+            del net
+    print(f"[picard] phase wall {time.perf_counter() - began:.1f} s")
+
+
+def _chunk_nets(cfg, seed: int):
+    """(the net under ``cfg``'s plan, the same weights with the plan's chunk
+    off: pallas_auto_min_n 0 leaves the kernels and chunks nothing)."""
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+
+    chunked = perturbed_net(cfg, seed).to("cuda")
+    whole = ProteinReDiffNet(cfg.replace(pallas_auto_min_n=0)).to("cuda")
+    whole.load_state_dict(chunked.state_dict())
+    return chunked, whole
+
+
+def phase_chunked(seed: int) -> None:
+    """Phase 20: query-chunked attention where the plan leaves the kernels:
+    the h64x4 layout with fast_softmax in bf16 at paper width. One forward
+    at bucket 1024, B = 1 (chunk 128), chunked against unchunked (same
+    weights, the plan's chunk off): relative norm, ms and peak memory each,
+    no attention kernel launched; then one training micro-step of 2 blocks
+    at 768 (chunk 128 under the training plan): the whole gradient against
+    the unchunked one, ms and peak memory each."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.denoiser import resolve_attention_plan
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    began = time.perf_counter()
+    cfg = ModelConfig(**H64X4)
+    N, n_res = CHUNK_FORWARD
+    if resolve_attention_plan(cfg, N) != (False, 128):
+        raise AssertionError(f"the plan at {N}: {resolve_attention_plan(cfg, N)}")
+    chunked, whole = _chunk_nets(cfg, seed)
+    batch = prepare_batch(collated([synthetic_complex(long_sequence(seed + 70, n_res), seed + 70,
+                                                      cfg.esm_dim)], N), 0.3,
+                          generator=torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    z = torch.randn(1, N, 3, generator=g, device="cuda")
+    seq_t = torch.randn(1, N, 21, generator=g, device="cuda")
+    mask, t = batch["residue_and_atom_mask"], torch.tensor([40], device="cuda")
+    outs, ms, peak = {}, {}, {}
+    with torch.inference_mode():
+        for name, net in (("chunked", chunked), ("unchunked", whole)):
+            net.eval()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            A.reset_launch_counts()
+            outs[name] = net(batch, z, seq_t, mask, t)
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            if any(main_path_launches().values()):
+                raise AssertionError(f"[chunked] {name} launched {main_path_launches()}")
+            ms[name] = cuda_ms(lambda: net(batch, z, seq_t, mask, t), 1, 2)
+    for i, what in enumerate(("noise_pred", "seq_pred")):
+        a, b = outs["chunked"][i].float(), outs["unchunked"][i].float()
+        rel = float((a - b).norm() / b.norm())
+        print(f"[chunked] forward at {N}, {what} {tuple(a.shape)}: ||chunked - unchunked|| / "
+              f"||unchunked|| = {rel:.3e} (tol {FORWARD_REL_TOL:g})")
+        if not (torch.isfinite(a).all() and rel <= FORWARD_REL_TOL):
+            raise AssertionError(f"[chunked] {what}: relative difference {rel}")
+    print(f"[chunked] h64x4 fast_softmax bf16, B=1, bucket {N}, chunk 128: chunked "
+          f"{ms['chunked']:.1f} ms, peak {peak['chunked']:.2f} GiB; unchunked "
+          f"{ms['unchunked']:.1f} ms, peak {peak['unchunked']:.2f} GiB per forward (peak above "
+          f"the weights and inputs); no attention kernel launched")
+    del chunked, whole, outs
+
+    N, n_res = CHUNK_GRAD
+    cfg = ModelConfig(training_mode=True, mask_prob=0.5, num_blocks=CHUNK_GRAD_BLOCKS, **H64X4)
+    if resolve_attention_plan(cfg, N) != (False, 128):
+        raise AssertionError(f"the training plan at {N}: {resolve_attention_plan(cfg, N)}")
+    chunked, whole = _chunk_nets(cfg, seed)
+    batch = collated([synthetic_complex(long_sequence(seed + 71, n_res), seed + 71,
+                                        cfg.esm_dim)], N)
+    noise = fixed_noise(batch, seed)
+    grads = {}
+    for name, net in (("chunked", chunked), ("unchunked", whole)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        A.reset_launch_counts()
+        loss = micro_step(net, batch, noise)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if any(main_path_launches().values()):
+            raise AssertionError(f"[chunked] {name} micro-step launched {main_path_launches()}")
+        grads[name] = torch.cat([p.grad.flatten().float() for p in net.parameters()])
+        ms[name] = cuda_ms(lambda: micro_step(net, batch, noise), 0, 1)
+        print(f"[chunked] {name} micro-step loss {float(loss):.6f}")
+    rel = float((grads["chunked"] - grads["unchunked"]).norm() / grads["unchunked"].norm())
+    print(f"[chunked] gradient, {CHUNK_GRAD_BLOCKS} blocks, bucket {N}, bf16 fast_softmax, chunk "
+          f"128: ||chunked - unchunked|| / ||unchunked|| = {rel:.3e} (tol "
+          f"{GRAD_REL_TOL['bfloat16']:g}); micro-step chunked {ms['chunked']:.1f} ms, peak "
+          f"{peak['chunked']:.2f} GiB; unchunked {ms['unchunked']:.1f} ms, peak "
+          f"{peak['unchunked']:.2f} GiB")
+    if not (torch.isfinite(grads["chunked"]).all() and rel <= GRAD_REL_TOL["bfloat16"]):
+        raise AssertionError(f"[chunked] gradient: relative difference {rel}")
+    del chunked, whole
+    print(f"[chunked] phase wall {time.perf_counter() - began:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
@@ -2590,6 +3075,7 @@ def main() -> None:
         launches = phase_train(args.seed, keep=Path(kept))
         phase_h64(args.seed)
         phase_design(args.seed, Path(kept))
+        phase_picard(args.seed, Path(kept))
     record.update(phase_kchunk_kernels())
     net = perturbed_net(ModelConfig()).to("cuda").eval()
     long_launches = phase_generate_long(net)
@@ -2617,6 +3103,7 @@ def main() -> None:
     phase_forward(net, tag="fast-forward-384", bucket=384)
     del net
     phase_wide(args.seed)
+    phase_chunked(args.seed)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving

@@ -11,8 +11,9 @@ flags; ``check_supported_args`` rejects the values outside the ported
 slice, and the fused-kernel switches override the checkpoint's config only
 when given (:337-343). ``SamplingRunner`` is the JAX runner (:405-796)
 without segments, the mesh and the wire format: complexes are grouped by
-padding bucket, collated, and sampled batch by batch with the DDPM or DDIM
-sampler, optionally padded to a full batch and with trajectory frames.
+padding bucket, collated, and sampled batch by batch with the DDPM, DDIM or
+parallel-in-time DDIM (Picard) sampler, optionally padded to a full batch
+and with trajectory frames (DDPM and DDIM).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..chem.smiles import strip_cxsmiles
 from ..config import DataConfig
 from ..data.collate import collate_fn, numeric_batch, pick_bucket
 from ..data.featurize import ligand_to_data, protein_to_data
+from ..models.paratime import sample_ddim_parallel
 from ..models.prdiff import ProteinReDiffNet, sample, sample_ddim
 from ..ops.geometry import nanometre_to_angstrom
 
@@ -177,14 +179,11 @@ def add_esm_args(parser) -> None:
                              "when weights are unavailable")
 
 
-# The JAX CLI's flags for what the port does not take over yet: the
-# parallel-in-time sampler, segmented sampling, the TPU plan's kernel
-# switches and the data loader's workers. They parse, so a JAX command line
-# reads the same, and check_supported_args raises on any value given.
+# The JAX CLI's flags for what the port does not take over yet: segmented
+# sampling, the TPU plan's kernel switches and the data loader's workers.
+# They parse, so a JAX command line reads the same, and check_supported_args
+# raises on any value given.
 _UNPORTED_FLAGS = {
-    "window": (int, "ddim_parallel is not ported"),
-    "ptol": (float, "ddim_parallel is not ported"),
-    "coarse_init": (int, "ddim_parallel is not ported"),
     "sample_segments": (int, "segmented sampling is not ported"),
     "pallas_auto_min_n": (int, "the port takes the checkpoint config's value"),
     "num_workers": (int, "the port collates in the sampling process"),
@@ -209,10 +208,20 @@ def add_sampler_args(parser) -> None:
     rejected by ``check_supported_args``."""
     parser.add_argument("--sampler", type=str, default="ddpm",
                         choices=("ddpm", "ddim", "ddim_parallel"),
-                        help="ddim: accelerated subsequence sampling; ddim_parallel is not ported")
+                        help="ddim: accelerated subsequence sampling; ddim_parallel: "
+                             "window-parallel Picard iteration (models/paratime.py)")
     parser.add_argument("--ddim_steps", type=int, default=50)
     parser.add_argument("--eta", type=float, default=0.0,
                         help="DDIM stochasticity (ddim sampler only)")
+    parser.add_argument("--window", type=int, default=8,
+                        help="ddim_parallel: timesteps evaluated per Picard sweep, as one net "
+                             "call at batch window x batch_size")
+    parser.add_argument("--ptol", type=float, default=1e-3,
+                        help="ddim_parallel: per-point convergence tolerance (masked RMS "
+                             "change, nm); 0 = exact sequential trajectory")
+    parser.add_argument("--coarse_init", type=int, default=0,
+                        help="ddim_parallel: warm-start Picard from an N-step coarse "
+                             "sequential solve")
     parser.add_argument("--seq_reverse", type=str, default="reference",
                         choices=("reference", "ancestral"))
     parser.add_argument("--reveal_schedule", type=str, default="linear",
@@ -303,16 +312,26 @@ def sample_fasta(args) -> Tuple[List[str], List[Protein], List[Molecule], List[T
     runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob,
                             **runner_sampler_kwargs(args))
     results = runner.run(datas, seed=seed)
-    for bucket, rows, steps, seconds in runner.timings:
-        print(f"sampled {rows} at bucket {bucket}: {steps} {args.sampler} steps in "
-              f"{seconds:.3f} s ({seconds / steps:.4f} s/step)")
+    print_timings(runner)
     return names, proteins, ligands, results, runner.timings
+
+
+def print_timings(runner: "SamplingRunner") -> None:
+    """The sampling CLIs' line per batch: steps and seconds, and under
+    ddim_parallel the Picard sweeps and net evaluations."""
+    picard = runner.sampler == "ddim_parallel"
+    for i, (bucket, rows, steps, seconds) in enumerate(runner.timings):
+        extra = ""
+        if picard:
+            stats = runner.picard_stats[i]
+            extra = f"; {stats['iterations']} Picard sweeps, {stats['nfe']} evaluations"
+        print(f"sampled {rows} at bucket {bucket}: {steps} {runner.sampler} steps in "
+              f"{seconds:.3f} s ({seconds / steps:.4f} s/step){extra}")
 
 
 def check_supported_args(args) -> None:
     """NotImplementedError for flags outside the ported slice."""
     unsupported = [
-        (args.sampler == "ddim_parallel", "--sampler ddim_parallel: not ported yet"),
         (args.esm_backend != "torch", "--esm_backend jax: the port runs no jax"),
         (getattr(args, "num_devices", 1) > 1, "--num_devices > 1: not ported yet"),
     ]
@@ -345,8 +364,9 @@ def sampler_cfg_overrides(args) -> Dict:
 
 def runner_sampler_kwargs(args) -> Dict:
     """SamplingRunner kwargs from the sampler flags (`cli/common.py:378-384`,
-    without ddim_parallel's and the segments' options)."""
-    return dict(sampler=args.sampler, ddim_steps=args.ddim_steps, eta=args.eta)
+    without the segments, which ``check_supported_args`` rejects)."""
+    return dict(sampler=args.sampler, ddim_steps=args.ddim_steps, eta=args.eta,
+                window=args.window, ptol=args.ptol, coarse_init=args.coarse_init)
 
 
 def apply_serving_defaults(cfg, args):
@@ -363,25 +383,54 @@ def apply_serving_defaults(cfg, args):
 
 class SamplingRunner:
     """Groups complexes by padding bucket and samples each group with the
-    DDPM or DDIM sampler on ``device``.
+    DDPM, DDIM or Picard DDIM sampler on ``device``.
 
     ``buckets`` restricts the padding ladder (default: every DataConfig
     rung). ``pad_to_batch`` repeats a group's last complex until it holds
     ``batch_size``, so every batch at a bucket has one shape (the serve
-    CLI's mode). ``eta`` applies to the ddim sampler only."""
+    CLI's mode). ``eta`` applies to the ddim sampler only; ``window``,
+    ``ptol`` and ``coarse_init`` to ddim_parallel, whose per-batch stats
+    (``iterations``, ``nfe``) ``self.picard_stats`` collects. The JAX
+    runner's checks (`cli/common.py:462-545`) raise at construction; its
+    segments stay rejected for every sampler (``check_supported_args``)."""
 
     def __init__(self, net: ProteinReDiffNet, device: torch.device, batch_size: int = 1,
                  mask_prob: Optional[float] = None, buckets: Optional[Sequence[int]] = None,
                  sampler: str = "ddpm", ddim_steps: int = 50, eta: float = 0.0,
+                 window: int = 8, ptol: float = 1e-3, coarse_init: int = 0,
                  pad_to_batch: bool = False):
-        if sampler == "ddim_parallel":
-            raise NotImplementedError("the ddim_parallel sampler is not ported yet")
-        if sampler not in ("ddpm", "ddim"):
+        cfg = net.cfg
+        if sampler not in ("ddpm", "ddim", "ddim_parallel"):
             raise ValueError(f"Unknown sampler: {sampler}")
         if sampler == "ddpm" and eta != 0.0:
             raise ValueError(
                 "--eta only applies to the ddim sampler (the ddpm ancestral sampler has its own "
                 "fixed noise schedule and silently ignoring the flag would be misleading)"
+            )
+        if sampler == "ddim_parallel" and eta != 0.0:
+            raise ValueError(
+                "--eta is only supported by the plain ddim sampler; ddim_parallel is "
+                "deterministic (eta=0)"
+            )
+        parallel = sampler == "ddim_parallel"
+        absorbing = cfg.seq_process == "absorbing"
+        if parallel and not absorbing and cfg.seq_reverse != "reference":
+            raise ValueError(
+                "seq_reverse='ancestral' is implemented for the ddpm/ddim samplers; "
+                "ddim_parallel uses the reference recurrence (seq_reverse is ignored entirely "
+                "under seq_process='absorbing')"
+            )
+        if parallel and absorbing and (cfg.reveal_temperature > 0.0
+                                       or cfg.reveal_conf_noise > 0.0):
+            raise ValueError(
+                "ddim_parallel with seq_process='absorbing' requires the deterministic reveal: "
+                "drop --reveal_temperature / --reveal_conf_noise (the Picard fixed point needs "
+                "a deterministic step map), or use the ddpm/ddim samplers"
+            )
+        if parallel and absorbing and coarse_init > 0:
+            raise ValueError(
+                "--coarse_init warm starts are implemented for the gaussian sequence channel; "
+                "drop it for absorbing checkpoints"
             )
         self.net = net
         self.device = torch.device(device)
@@ -389,13 +438,15 @@ class SamplingRunner:
         self.mask_prob = net.cfg.mask_prob if mask_prob is None else mask_prob
         self.buckets = tuple(DataConfig().buckets if buckets is None else buckets)
         self.sampler, self.ddim_steps, self.eta = sampler, ddim_steps, eta
+        self.window, self.ptol, self.coarse_init = window, ptol, coarse_init
         self.pad_to_batch = pad_to_batch
         self.timings: List[Tuple[int, int, int, float]] = []
+        self.picard_stats: List[Dict[str, int]] = []
         self._warned_nonfinite = False
 
     def step_count(self) -> int:
         """Steps of the sampler's loop: the schedule's length for ddpm, the
-        tau grid's for ddim."""
+        tau grid's for ddim and ddim_parallel."""
         return self.net.cfg.num_steps if self.sampler == "ddpm" else self.ddim_steps
 
     def collate(self, group: Sequence[Dict]) -> Tuple[int, Dict[str, torch.Tensor]]:
@@ -420,6 +471,12 @@ class SamplingRunner:
                 captured.append(nanometre_to_angstrom(carry[0]).cpu().numpy())
 
         hook = on_step if frames else None
+        if self.sampler == "ddim_parallel":
+            pos, logits, stats = sample_ddim_parallel(
+                self.net, batch, self.ddim_steps, self.window, self.ptol, mask_prob, generator,
+                coarse_init=self.coarse_init)
+            self.picard_stats.append(stats)
+            return (pos, logits), None
         if self.sampler == "ddim":
             out = sample_ddim(self.net, batch, self.ddim_steps, self.eta, mask_prob, generator,
                               on_step=hook)
@@ -438,6 +495,11 @@ class SamplingRunner:
         sample is the same with or without them. Appends (bucket, rows,
         steps, seconds) per sampled batch to ``self.timings``."""
         T = self.step_count()
+        if trajectory and self.sampler == "ddim_parallel":
+            raise ValueError(
+                "trajectory capture rides the segmented ddpm/ddim samplers; ddim_parallel "
+                "refines all steps jointly and has no sequential intermediate states"
+            )
         if trajectory < 0 or (trajectory and T % trajectory):
             raise ValueError(f"trajectory frames ({trajectory}) must be a positive divisor of the "
                              f"sampler's step count ({T})")

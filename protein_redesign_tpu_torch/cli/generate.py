@@ -3,7 +3,8 @@
     python -m protein_redesign_tpu_torch.cli.generate \\
         -c <ckpt_dir or reference .ckpt> -o out/ -p <pdb-or-sequence> \\
         -l <sdf/mol2/SMILES/*> -n 8 [--num_steps 1000] [--mask_prob 0.3] [-r ref.pdb] \\
-        [--sampler ddim --ddim_steps 50 --eta 0] [--save_trajectory K] [--fast_softmax]
+        [--sampler ddim --ddim_steps 50 --eta 0] [--save_trajectory K] [--fast_softmax] \\
+        [--sampler ddim_parallel --window 8 --ptol 1e-3 --coarse_init 0] [--attn_chunk 128]
 
 ``-c`` is a directory holding ``config.json`` and ``model.pt``, or a
 reference Lightning ``.ckpt`` (EMA weights preferred). Outputs, as the JAX
@@ -73,6 +74,7 @@ def main(argv=None):
         complex_data,
         load_protein_arg,
         parse_ligand_arg,
+        print_timings,
         runner_sampler_kwargs,
         sampler_cfg_overrides,
         update_pos,
@@ -114,9 +116,7 @@ def main(argv=None):
                             **runner_sampler_kwargs(args))
     results = runner.run([data] * args.num_samples, seed=args.seed,
                          trajectory=args.save_trajectory)
-    for bucket, rows, steps, seconds in runner.timings:
-        print(f"sampled {rows} at bucket {bucket}: {steps} {args.sampler} steps in "
-              f"{seconds:.3f} s ({seconds / steps:.4f} s/step)")
+    print_timings(runner)
 
     sample_proteins, sample_ligands, tmscores = [], [], []
     for sample_idx, result in enumerate(results):
@@ -155,7 +155,7 @@ def main(argv=None):
         for tmscore in tmscores:
             f.write(str(tmscore) + "\n")
     print(f"wrote {len(sample_proteins)} samples to {args.output_dir}")
-    return runner.timings
+    return runner
 
 
 if __name__ == "__main__":

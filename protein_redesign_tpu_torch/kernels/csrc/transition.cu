@@ -32,12 +32,15 @@
 // chunk's 64 rows of W2, 64 output columns at a time. With Dout <= 64 a block
 // runs every hidden chunk and keeps its outputs in registers; with a wider
 // output (single_fc, 384 rows at bucket 192, B = 2: only 6 row tiles) blocks
-// split the hidden dimension, add their partial outputs into an f32 scratch
-// with atomics, and a second kernel adds b2 and rounds to T.
+// split the hidden dimension, store their partial outputs into their hidden
+// chunk's slab of an f32 scratch, and a second kernel sums the slabs in
+// chunk order, adds b2 and rounds to T (no atomics: the same bits at every
+// call).
 //
 // Layout: x contiguous [M, D]; w1t [D, Hd] and w2t [Hd, Dout] in T (the flax
 // kernels' layout); b1 [Hd] and b2 [Dout] f32 (b2 may be null); out
-// contiguous [M, Dout]; out32 a zeroed f32 [M, Dout] scratch when Dout > 64.
+// contiguous [M, Dout]; out32 an f32 [ceil(Hd / 64), M, Dout] scratch when
+// Dout > 64.
 // The entry point returns cudaGetLastError().
 
 #include "common.cuh"
@@ -166,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int c = c0 + cg * 4 + j;
-            if (c < Dout) atomicAdd(out32 + (m0 + r) * Dout + c, o[i][j]);
+            if (c < Dout) out32[(blockIdx.y * M + m0 + r) * Dout + c] = o[i][j];
           }
         }
       } else {
@@ -193,13 +196,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out = round(out32 + b2) for the split blocks' sums.
+// out = round(sum of the chunks' slabs + b2), the slabs of out32 [chunks, n]
+// added in chunk order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     transition_finish_kernel(const float* __restrict__ out32, const float* __restrict__ b2,
-                             T* __restrict__ out, long long n, int Dout) {
+                             T* __restrict__ out, long long n, int Dout, int chunks) {
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e < n) out[e] = Io<T>::cast(out32[e] + (b2 != nullptr ? b2[e % Dout] : 0.f));
+  if (e >= n) return;
+  float sum = 0.f;
+  for (int c = 0; c < chunks; ++c) sum += out32[c * n + e];
+  out[e] = Io<T>::cast(sum + (b2 != nullptr ? b2[e % Dout] : 0.f));
 }
 
 template <typename T, bool SPLIT, bool STREAM>
@@ -226,7 +233,7 @@ cudaError_t launch(const void* x, const void* w1t, const float* b1, const void* 
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   transition_finish_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      out32, b2, static_cast<T*>(out), n, Dout);
+      out32, b2, static_cast<T*>(out), n, Dout, (int)grid.y);
   return cudaGetLastError();
 }
 
@@ -252,7 +259,8 @@ extern "C" {
 
 // K10 over M rows. Takes any D (the whole-row layout up to D = 670, the
 // streamed one past it) and, for Dout > 64, Hd up to 65535 64-unit chunks
-// (grid.y). out32: a zeroed f32 [M, Dout] scratch, needed when Dout > 64.
+// (grid.y). out32: an f32 [ceil(Hd / 64), M, Dout] scratch, needed when
+// Dout > 64.
 int prd_transition(const void* x, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, void* out, void* out32, int dtype, int M, int D, int Hd,
                    int Dout, void* stream) {

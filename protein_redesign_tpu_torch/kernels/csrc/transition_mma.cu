@@ -54,14 +54,18 @@
 //   of x (32 where 64 do not fit) land whole and are normalised in place
 //   once; W1's chunk in 64-column slabs for the first product, then W2's
 //   rows in 64-output slabs for the second, stream through one ring of three
-//   slots (two in flight); the partial sums go into an f32 scratch by
-//   16-byte atomics (a warp's [16, 64] slab through shared memory, so that a
-//   lane adds four neighbouring outputs); transition_mma_finish_kernel adds
-//   b2 and rounds.
+//   slots (two in flight); each block stores its partial sums into its
+//   hidden chunk's own slab of an f32 scratch (a warp's [16, 64] slab
+//   through shared memory, so that a lane stores four neighbouring outputs
+//   in 16 bytes), and transition_mma_finish_kernel sums the slabs in chunk
+//   order, adds b2 and rounds. No atomics: the same input gives the same
+//   bits at every call, which parallel-in-time sampling at tolerance 0
+//   rests on.
 //
 // Layout: x contiguous [M, D]; w1 [Hd, D] and w2 [Dout, Hd] contiguous in T;
 // b1 [Hd] and b2 [Dout] f32 (b2 may be null); out contiguous [M, Dout];
-// out32 a zeroed f32 [M, Dout] scratch for the split layout. x, w1, w2 and
+// out32 an f32 [ceil(Hd / 64), M, Dout] scratch for the split layout (no
+// zeroing needed: each block writes all of its slab's part). x, w1, w2 and
 // out start on 16 bytes. The entry point returns cudaGetLastError().
 
 #include "ln_project.cuh"  // LnpOperand, unpack16 (and common.cuh, mma.cuh)
@@ -472,17 +476,18 @@ __global__ void __launch_bounds__(kRowWarps * 32, 1) transition_mma_chunks_kerne
   cp_async_wait<0>();
 }
 
-// 16 bytes of partial sums added into the f32 scratch.
-__device__ __forceinline__ void add4(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
+// 16 bytes of partial sums stored into the chunk's slab of the f32 scratch.
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
 
-// acc's [16, 64] sums (the warp's rows, outputs [c0, c0 + 64)) added into
-// the f32 scratch 16 bytes at a time: through the warp's [16][68] f32 tile,
-// so that each lane adds four neighbouring outputs of one row.
-__device__ __forceinline__ void add_partial(const float (&acc)[8][4], float* tile,
-                                            float* __restrict__ out32, long long row0,
-                                            long long M, int c0, int Dout, int lane) {
+// acc's [16, 64] sums (the warp's rows, outputs [c0, c0 + 64)) stored into
+// slab32, the block's hidden chunk's [M, Dout] slab of the f32 scratch, 16
+// bytes at a time: through the warp's [16][68] f32 tile, so that each lane
+// stores four neighbouring outputs of one row.
+__device__ __forceinline__ void store_partial(const float (&acc)[8][4], float* tile,
+                                              float* __restrict__ slab32, long long row0,
+                                              long long M, int c0, int Dout, int lane) {
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -493,7 +498,8 @@ __device__ __forceinline__ void add_partial(const float (&acc)[8][4], float* til
   for (int e = lane; e < 16 * 16; e += 32) {
     const int r = e >> 4, c = (e & 15) * 4;
     if (row0 + r < M && c0 + c < Dout)
-      add4(out32 + (row0 + r) * Dout + c0 + c, *reinterpret_cast<const float4*>(tile + r * 68 + c));
+      store4(slab32 + (row0 + r) * Dout + c0 + c,
+             *reinterpret_cast<const float4*>(tile + r * 68 + c));
   }
   __syncwarp();
 }
@@ -502,8 +508,8 @@ __device__ __forceinline__ void add_partial(const float (&acc)[8][4], float* til
 // The tile's x lands whole and each warp normalises its 16 rows in place
 // (LN once per block). W1's chunk in 64-column slabs (the first product)
 // and then W2's rows in 64-output slabs (the second, whose partial sums go
-// into the f32 scratch) stream through one ring of kRing slots, kRing - 1
-// slabs in flight while one is multiplied.
+// into the chunk's slab of the f32 scratch) stream through one ring of
+// kRing slots, kRing - 1 slabs in flight while one is multiplied.
 constexpr int kRing = 3;
 constexpr int kSlot = kSlab * 72;  // elements of a ring slot: 64 rows of up to 72
 
@@ -575,20 +581,24 @@ __global__ void __launch_bounds__(WARPS * 32) transition_mma_split_kernel(const 
 #pragma unroll
       for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
       prod_out<8>(h, slot, LD2, lane, acc);
-      add_partial(acc, t_s + warp * 16 * 68, a.out32, m0 + warp * 16, a.M, (s - s1) * kSlab,
-                  Dout, lane);
+      store_partial(acc, t_s + warp * 16 * 68, a.out32 + blockIdx.y * a.M * Dout,
+                    m0 + warp * 16, a.M, (s - s1) * kSlab, Dout, lane);
     }
     __syncthreads();  // every warp is done with slot s % kRing before it is refilled
   }
 }
 
-// out = round(out32 + b2) for the split blocks' sums.
+// out = round(sum of the chunks' slabs + b2), the slabs of out32 [chunks, n]
+// added in chunk order: the same bits at every call.
 template <typename T>
 __global__ void __launch_bounds__(256)
     transition_mma_finish_kernel(const float* __restrict__ out32, const float* __restrict__ b2,
-                                 T* __restrict__ out, long long n, int Dout) {
+                                 T* __restrict__ out, long long n, int Dout, int chunks) {
   const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (e < n) out[e] = Io<T>::cast(out32[e] + (b2 != nullptr ? b2[e % Dout] : 0.f));
+  if (e >= n) return;
+  float sum = 0.f;
+  for (int c = 0; c < chunks; ++c) sum += out32[c * n + e];
+  out[e] = Io<T>::cast(sum + (b2 != nullptr ? b2[e % Dout] : 0.f));
 }
 
 // Warps a block of the resident rows layout: 8 (in bf16 two such blocks fit
@@ -723,14 +733,15 @@ cudaError_t launch_split(const TArgs& a, cudaStream_t stream) {
   }
   const long long tiles = (a.M + 16 * WARPS - 1) / (16 * WARPS);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kern<<<dim3((unsigned)tiles, (a.Hd + kHid - 1) / kHid), WARPS * 32, smem, stream>>>(a);
+  const int chunks = (a.Hd + kHid - 1) / kHid;
+  kern<<<dim3((unsigned)tiles, chunks), WARPS * 32, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long n = a.M * a.Dout;
   const long long blocks = (n + 255) / 256;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   transition_mma_finish_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      a.out32, a.b2, static_cast<T*>(a.out), n, a.Dout);
+      a.out32, a.b2, static_cast<T*>(a.out), n, a.Dout, chunks);
   return cudaGetLastError();
 }
 
@@ -765,8 +776,9 @@ cudaError_t dispatch(const TArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // K10 on the tensor cores over M rows: D, Hd and Dout multiples of 8 (bf16)
-// or 4 (f32). out32: a zeroed f32 [M, Dout] scratch, needed where the split
-// layout runs (Dout > 128, or the rows layout's tiles past shared memory).
+// or 4 (f32). out32: an f32 [ceil(Hd / 64), M, Dout] scratch, needed where
+// the split layout runs (Dout > 128, or the rows layout's tiles past shared
+// memory).
 int prd_transition_mma(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, void* out32, int dtype, int M, int D, int Hd,
                        int Dout, void* stream) {

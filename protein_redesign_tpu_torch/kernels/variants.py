@@ -31,11 +31,10 @@ and 384 of 147 and 360 valid). K10's split layout (``transition_mma.cu``,
 ``k10``, single_fc at bucket 192: M = 384, 512 -> 2048 -> 512 and 768 ->
 3072 -> 768, both dtypes): the depth of its slab ring (``kRing``), the
 block's rows (``split_warps``: 64 where they fit, else 32), and, to time
-them alone, a build that stores its partial sums in place of adding them
-(its outputs are wrong and not compared). K10's times include zeroing its
-f32 scratch, as the wrapper does; its outputs are held to the shipped
-build's at 1e-5 in f32 and 2e-2 in bf16 (the scratch's atomics sum in an
-order that changes from run to run). K10's rows layout (``k10rows``,
+the slabs' sum alone, a build whose finish kernel reads one slab of its
+f32 scratch (timing only: its outputs are wrong and not compared); the
+others' outputs are held to the shipped build's at 1e-5 in f32 and 2e-2 in
+bf16. K10's rows layout (``k10rows``,
 pair_fc at bucket 192: M = 73,728, 64 -> 256 -> 64): 8 warps a block
 against 16 in bf16, W2's pair of f32 values as one 8-byte load or two 4-byte
 ones in the f32 second product, and, to time its parts, builds without the
@@ -71,9 +70,9 @@ PTR, I32, F32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lon
 
 # the shape of K5 and K6: (R, N, nodes valid)
 KCHUNK_SHAPE = (1024, 1024, 997)
-# K10's scratch: added to (shipped), or overwritten (timing only)
-ATOMIC = "atomicAdd(reinterpret_cast<float4*>(p), v);"
-STORE = "*reinterpret_cast<float4*>(p) = v;"
+# K10's finish kernel: every chunk's slab summed (shipped), or one (timing only)
+ALL_SLABS = "c < chunks"
+ONE_SLAB = "c < 1"
 TIMING_ONLY = "timing only"
 # K10's rows layout: its LayerNorm and its second product, kept or left out
 LN_CALL = "    ln_in_place<T>(a_w, ldx, D, lane);\n"
@@ -165,19 +164,18 @@ BODIES = {
         edits=(("transition_mma.cu", r"constexpr int kRing = \d+;", "constexpr int kRing = {};"),
                ("transition_mma.cu", r"return split_smem<T>\(D, 4\) <= kMaxSmem \? 4",
                 "return split_smem<T>(D, 4) <= kMaxSmem && {} ? 4"),
-               ("transition_mma.cu",
-                r"__device__ __forceinline__ void add4\(float\* p, float4 v\) \{\n  [^\n]*\n\}",
-                "__device__ __forceinline__ void add4(float* p, float4 v) {{\n  {}\n}}")),
+               ("transition_mma.cu", r"for \(int c = 0; c < chunks; \+\+c\) sum \+=",
+                "for (int c = 0; {}; ++c) sum +=")),
         kernels=("transition_mma_split_kernelI13__nv_bfloat16Li4EE",
                  "transition_mma_split_kernelIfLi4EE"),
         shapes=((torch.bfloat16, 384, 512, 2048, 512), (torch.float32, 384, 512, 2048, 512),
                 (torch.bfloat16, 384, 768, 3072, 768), (torch.float32, 384, 768, 3072, 768)),
         variants=(
-            ("shipped: a ring of 3 slabs, 64-row blocks where they fit", "3", "true", ATOMIC),
-            ("a ring of 2 slabs (double buffering)", "2", "true", ATOMIC),
-            ("a ring of 4 slabs", "4", "true", ATOMIC),
-            ("32-row blocks at every width", "3", "false", ATOMIC),
-            (f"{TIMING_ONLY}: partial sums stored, not added", "3", "true", STORE),
+            ("shipped: a ring of 3 slabs, 64-row blocks where they fit", "3", "true", ALL_SLABS),
+            ("a ring of 2 slabs (double buffering)", "2", "true", ALL_SLABS),
+            ("a ring of 4 slabs", "4", "true", ALL_SLABS),
+            ("32-row blocks at every width", "3", "false", ALL_SLABS),
+            (f"{TIMING_ONLY}: the finish kernel reads one slab", "3", "true", ONE_SLAB),
         ),
     ),
     "k10rows": dict(
@@ -299,7 +297,7 @@ def inputs(name: str, shape):
         w2 = (torch.randn(Dout, Hd, generator=g, device="cuda") * Hd ** -0.5).to(dtype)
         b1, b2 = (0.3 * torch.randn(n, generator=g, device="cuda") for n in (Hd, Dout))
         return (x, w1, b1, w2, b2, torch.empty(M, Dout, dtype=dtype, device="cuda"),
-                torch.zeros(M, Dout, device="cuda"))
+                torch.empty(-(-Hd // 64), M, Dout, device="cuda"))
     R, N, n_valid = shape
     g = torch.Generator(device="cuda").manual_seed(200)
     q, k, v, dout = (torch.randn(R, N, H, C, generator=g, device="cuda") for _ in range(4))
@@ -328,7 +326,7 @@ def make_call(name: str, lib, tensors):
 
         return call_k11, (out,)
     if name.startswith("k10"):
-        x, w1, b1, w2, b2, out, out32 = tensors
+        x, w1, _, w2, _, out, _ = tensors
         fn = lib.prd_transition_mma
         fn.argtypes = [PTR] * 7 + [I32] * 5 + [PTR]
         fn.restype = I32
@@ -336,7 +334,6 @@ def make_call(name: str, lib, tensors):
                 x.shape[1], w1.shape[0], w2.shape[0], stream)
 
         def call_k10():
-            out32.zero_()
             code = fn(*args)
             if code:
                 raise RuntimeError(f"launch failed: CUDA error {code}")

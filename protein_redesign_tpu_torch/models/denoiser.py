@@ -12,9 +12,11 @@ forward, launching its attention kernels a second time.
 
 ``resolve_attention_plan`` is a copy of the JAX package's decision
 (`denoiser.py:470-617`). The Denoiser resolves it once per forward from the
-padded complex axis, as the JAX one does (:638), and hands ``use_pallas`` to
-every attention; the port reads it only for ``fast_softmax`` (see
-``ops.attention.gated_attention_core``).
+padded complex axis, as the JAX one does (:638), and hands ``use_pallas``
+and ``attn_chunk`` to every attention: the port reads ``use_pallas`` only
+for ``fast_softmax`` (see ``ops.attention.gated_attention_core``), and
+``attn_chunk`` where the attention takes a plain route
+(``models.layers.attention_core``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from .layers import GatedAttention, LayerNorm, PRLinear, TransitionMLP, attentio
 PALLAS_TRAIN_MAX_N = 2048  # kernel ceiling for training (inclusive)
 PALLAS_INFER_MAX_N = 2048  # kernel ceiling for inference (inclusive)
 # From this size up, non-kernel plans chunk queries where the unchunked
-# logits would not fit (the port computes the same function unchunked).
+# logits would not fit.
 LONGCTX_CHUNK_MIN_N = 768
 
 
@@ -115,11 +117,11 @@ class TriangleAttention(nn.Module):
                                    fast=fast, kernel_bwd=kernel_bwd)
 
     def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor,
-                use_pallas: bool = True) -> torch.Tensor:
+                use_pallas: bool = True, attn_chunk: int = 0) -> torch.Tensor:
         if self.mode == "ending":
             pair = pair.transpose(-2, -3)
             mask_2d = mask_2d.transpose(-1, -2)
-        out = self.attn(pair, mask_2d, use_pallas=use_pallas)
+        out = self.attn(pair, mask_2d, use_pallas=use_pallas, attn_chunk=attn_chunk)
         if self.mode == "ending":
             out = out.transpose(-2, -3)
         return out
@@ -216,8 +218,8 @@ class _SPAHeads(nn.Module):
 class SPAttention(nn.Module):
     """AF2 single attention with pair bias (`denoiser.py:254-314`): per-head
     width single_dim, no padding mask, residual on the normed input.
-    ``fast`` (``cfg.fast_softmax``) and the plan's ``use_pallas`` go to the
-    attention, as the JAX module's ``fast_softmax`` and ``use_pallas`` do."""
+    ``fast`` (``cfg.fast_softmax``) and the plan's ``use_pallas`` and
+    ``attn_chunk`` go to the attention, as the JAX module's do."""
 
     def __init__(self, single_dim: int, pair_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, fast: bool = False):
@@ -231,7 +233,7 @@ class SPAttention(nn.Module):
         self.mha = _SPAHeads(single_dim, num_heads, dtype)
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor,
-                use_pallas: bool = True) -> torch.Tensor:
+                use_pallas: bool = True, attn_chunk: int = 0) -> torch.Tensor:
         del mask  # accepted but unused, as in the reference
         H, C = self.num_heads, self.single_dim
         m = self.layer_norm_m(single)
@@ -244,7 +246,8 @@ class SPAttention(nn.Module):
         k = heads(self.mha.linear_k(m))
         v = heads(self.mha.linear_v(m))
         g = torch.sigmoid(heads(self.mha.linear_g(m)))
-        o = attention_core(q, k, v, None, bias, 1.0, self.fast, use_pallas=use_pallas).to(self.dtype)
+        o = attention_core(q, k, v, None, bias, 1.0, self.fast, use_pallas=use_pallas,
+                           attn_chunk=attn_chunk).to(self.dtype)
         o = (g * o).reshape(o.shape[:-2] + (H * C,))
         return m + self.mha.linear_o(o)
 
@@ -286,7 +289,8 @@ class FoldingBlock(nn.Module):
     triangle multiplications (K9), ``use_pallas_fused_gated`` both triangle
     attentions (K8). ``fast`` and ``kernel_bwd`` (``cfg.fast_softmax`` and
     ``cfg.use_pallas_bwd``, taken once by the Denoiser) go to the attentions,
-    and so does the plan's ``use_pallas``, resolved once per forward."""
+    and so do the plan's ``use_pallas`` and ``attn_chunk``, resolved once per
+    forward."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, fast: bool = False,
                  kernel_bwd: bool = True):
@@ -316,16 +320,17 @@ class FoldingBlock(nn.Module):
                                      fused=transition)
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor,
-                use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                use_pallas: bool = True,
+                attn_chunk: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         mask_2d = mask[..., :, None] * mask[..., None, :]
         attn_bias = torch.movedim(self.attn_bias(pair), -1, -3)  # [..., H, i, j]
-        single = single + self.single_attn(single, mask, attn_bias, use_pallas)
+        single = single + self.single_attn(single, mask, attn_bias, use_pallas, attn_chunk)
         single = single + self.single_fc(single)
         pair = pair + self.outer_linear(single)
         pair = pair + self.pair_mul_outgoing(pair, mask_2d)
         pair = pair + self.pair_mul_incoming(pair, mask_2d)
-        pair = pair + self.pair_attn_starting(pair, mask_2d, use_pallas)
-        pair = pair + self.pair_attn_ending(pair, mask_2d, use_pallas)
+        pair = pair + self.pair_attn_starting(pair, mask_2d, use_pallas, attn_chunk)
+        pair = pair + self.pair_attn_ending(pair, mask_2d, use_pallas, attn_chunk)
         pair = pair + self.pair_fc(pair)
         return single, pair
 
@@ -352,18 +357,18 @@ class Denoiser(nn.Module):
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        use_pallas, _ = resolve_attention_plan(self.cfg, single.shape[-2])
+        use_pallas, attn_chunk = resolve_attention_plan(self.cfg, single.shape[-2])
         mask_2d = mask[..., :, None] * mask[..., None, :]
         pair = pair + mask_2d[..., None] * self.opm(single, mask)
-        single = self.SPAAttnBlock(single, pair, mask, use_pallas)
+        single = self.SPAAttnBlock(single, pair, mask, use_pallas, attn_chunk)
         if self.cfg.pair_stream_bf16:
             pair = pair.to(torch.bfloat16)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.folding_blocks:
             if remat:
-                single, pair = checkpoint(block, single, pair, mask, use_pallas,
+                single, pair = checkpoint(block, single, pair, mask, use_pallas, attn_chunk,
                                           use_reentrant=False)
             else:
-                single, pair = block(single, pair, mask, use_pallas)
+                single, pair = block(single, pair, mask, use_pallas, attn_chunk)
         pair = pair.to(self.dtype)
         return single, 0.5 * (pair + pair.transpose(-2, -3))

@@ -25,8 +25,10 @@ from ..ops.attention import (  # noqa: F401
     fused_gated_rows_attention,
     gated_attention_core,
     masked_softmax,
+    chunks_queries,
     weak_scalar,
 )
+from ..ops.chunked_attention import chunked_attention
 from ..ops.transition import fused_transition
 
 TRUNC_STD_CORRECTION = 0.87962566103423978
@@ -178,11 +180,17 @@ def attention_core(
     fast: bool = False,
     kernel_bwd: bool = True,
     use_pallas: bool = True,
+    attn_chunk: int = 0,
 ) -> torch.Tensor:
     """Row-flatten the leading dims and run ``gated_attention_core``
     (`layers.py:276-324`); ``fast`` and ``kernel_bwd`` are
-    ``cfg.fast_softmax`` and ``cfg.use_pallas_bwd``, ``use_pallas`` the
-    attention plan's decision."""
+    ``cfg.fast_softmax`` and ``cfg.use_pallas_bwd``, ``use_pallas`` and
+    ``attn_chunk`` the attention plan's decision. With ``attn_chunk`` > 0,
+    a call that would run a plain version (``chunks_queries``) runs in
+    query chunks on the unflattened inputs instead (``chunked_attention``,
+    as `layers.py:295-301`); a call a kernel takes keeps the kernel."""
+    if attn_chunk > 0 and chunks_queries(query, mask, attn_bias, fast, use_pallas):
+        return chunked_attention(query, key, value, mask, attn_bias, scale, attn_chunk, fast)
     lead = query.shape[:-3]
     N, H, C = query.shape[-3:]
     R = math.prod(lead)
@@ -210,8 +218,8 @@ class GatedAttention(nn.Module):
     attention plan only for ``fast``, so K8 engages at every such N, except
     where the plan leaves Pallas (``use_pallas`` False) with ``fast`` on in
     a bf16 model: the JAX module computes the bf16-logit attention there.
-    ``fast``, ``kernel_bwd`` and ``use_pallas`` go to ``gated_attention_core``
-    (K8 ignores them)."""
+    ``fast``, ``kernel_bwd``, ``use_pallas`` and ``attn_chunk`` go to
+    ``attention_core`` (K8 ignores them)."""
 
     def __init__(self, dim: int, head_dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, fused_gated: bool = False,
@@ -229,7 +237,7 @@ class GatedAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 attn_bias: Optional[torch.Tensor] = None,
-                use_pallas: bool = True) -> torch.Tensor:
+                use_pallas: bool = True, attn_chunk: int = 0) -> torch.Tensor:
         H, C = self.num_heads, self.head_dim
         bf16_logits = self.fast and not use_pallas and self.dtype == torch.bfloat16
         if (self.fused_gated and not bf16_logits and attn_bias is None and mask is not None
@@ -248,7 +256,7 @@ class GatedAttention(nn.Module):
         gate = torch.sigmoid(heads(self.gate_proj(x)))
         out = attention_core(
             query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast, self.kernel_bwd,
-            use_pallas,
+            use_pallas, attn_chunk,
         ).to(self.dtype)
         out = gate * out
         return self.out_proj(out.reshape(out.shape[:-2] + (H * C,)))

@@ -57,7 +57,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for config fields outside the ported
     slice."""
     unsupported = [
-        (cfg.attn_chunk > 0, "attn_chunk>0: query-chunked attention is not ported yet"),
         (cfg.sequence_parallel, "sequence_parallel: not ported yet"),
         (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}: only float32"),
         (cfg.dtype not in ("float32", "bfloat16"),

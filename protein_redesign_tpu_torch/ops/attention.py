@@ -385,13 +385,15 @@ def attention_reference(
     scale: float,
 ) -> torch.Tensor:
     """Plain version: softmax(q k^T * scale + bias, masked) v with f32
-    logits, probabilities rounded to v's dtype and f32 accumulation."""
+    logits, probabilities rounded to v's dtype and f32 accumulation. q, k, v
+    [..., N, H, C] (a query chunk: q [..., n, H, C]), mask broadcastable to
+    [..., N], bias to [..., H, n, N]."""
     qs = q * weak_scalar(scale, q.dtype)
-    logits = torch.einsum("rihc,rjhc->rhij", qs.float(), k.float())
+    logits = torch.einsum("...ihc,...jhc->...hij", qs.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
-    probs = masked_softmax(logits, None if mask is None else mask[:, None, None, :])
-    out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
+    probs = masked_softmax(logits, None if mask is None else mask[..., None, None, :])
+    out = torch.einsum("...hij,...jhc->...ihc", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
 
@@ -406,18 +408,19 @@ def attention_reference_fast(q, k, v, mask: Optional[torch.Tensor],
     dtype and P.V accumulated in f32. For f32 inputs this is
     ``attention_reference``'s function. Plain tensor ops on any device, and
     differentiable by autograd, as JAX differentiates the same function
-    there. Where the JAX plan also chunks queries (``attn_chunk``, N >= 768)
-    this computes the same function unchunked."""
+    there. Shapes as ``attention_reference``'s. Where the plan also chunks
+    queries (``attn_chunk``, N >= 768), ``ops.chunked_attention`` computes
+    the same function in query chunks."""
     dt = q.dtype
     qs = q * weak_scalar(scale, dt)
-    logits = torch.einsum("rihc,rjhc->rhij", qs.float(), k.float()).to(dt)
+    logits = torch.einsum("...ihc,...jhc->...hij", qs.float(), k.float()).to(dt)
     if bias is not None:
         logits = logits + bias.to(dt)
     if mask is not None:
-        logits = logits.masked_fill(mask[:, None, None, :] < 0.5, NEG_INF)
+        logits = logits.masked_fill(mask[..., None, None, :] < 0.5, NEG_INF)
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = e / e.float().sum(-1, keepdim=True).to(dt)
-    out = torch.einsum("rhij,rjhc->rihc", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("...hij,...jhc->...ihc", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
 
@@ -1211,6 +1214,30 @@ def plain_route() -> Iterator[None]:
         _PLAIN_ROUTE = outer
 
 
+def plain_body(q, mask, bias, fast: bool = False, use_pallas: bool = True):
+    """The plain version that ``gated_attention_core`` runs for a call on q
+    [..., N, H, C] in place of a kernel route, or None where it takes the
+    kernel route (on a CPU tensor the kernels' plain versions). Either
+    holds the whole [rows, H, N, N] logits: ``attention_reference_fast``
+    for the bf16-logit attention (``fast`` on bf16 inputs where the plan
+    leaves Pallas) on any device; ``attention_reference`` inside
+    ``plain_route()`` outside the K-chunk regime (whose plain versions
+    stream key chunks). ``chunks_queries`` reads the same decision."""
+    if fast and not use_pallas and q.dtype == torch.bfloat16:
+        return attention_reference_fast
+    kchunk = bias is None and mask is not None and kchunk_select(q.shape[-3], q.dtype) > 0
+    return attention_reference if _PLAIN_ROUTE and not kchunk else None
+
+
+def chunks_queries(q, mask, bias, fast: bool = False, use_pallas: bool = True) -> bool:
+    """Whether a plan's ``attn_chunk`` evaluates this call in query chunks
+    (``models.layers.attention_core``): wherever ``gated_attention_core``
+    would run a plain version, which holds the whole logits (every call on
+    a CPU tensor, else where ``plain_body`` names one). A call a kernel
+    takes keeps the kernel, which never holds them."""
+    return _on_cpu(q) or plain_body(q, mask, bias, fast, use_pallas) is not None
+
+
 def gated_attention_core(q, k, v, mask, bias, scale: float, fast: bool = False,
                          kernel_bwd: bool = True, use_pallas: bool = True) -> torch.Tensor:
     """Every model attention: the kernel route, or the plain version inside
@@ -1225,14 +1252,13 @@ def gated_attention_core(q, k, v, mask, bias, scale: float, fast: bool = False,
     ``kernel_bwd`` (``cfg.use_pallas_bwd``) off sends masked attention
     without a bias through ``_RowsAttentionPlainVjp``, and only there does
     ``fast`` select K1 fast."""
-    if fast and not use_pallas:
-        if q.dtype == torch.bfloat16:
-            return attention_reference_fast(q, k, v, mask, bias, scale)
-        fast = False  # f32: the flag leaves the function as it is
-    rows = bias is None and mask is not None
-    if rows and not kernel_bwd:
+    body = plain_body(q, mask, bias, fast, use_pallas)
+    if body is attention_reference_fast:
+        return body(q, k, v, mask, bias, scale)
+    fast = fast and use_pallas  # f32 where the plan leaves Pallas: the function as it is
+    if bias is None and mask is not None and not kernel_bwd:
+        # inside plain_route() its forward is the plain version, body's function
         return _RowsAttentionPlainVjp.apply(q, k, v, mask, scale, fast)
-    kchunk = rows and kchunk_select(q.shape[1], q.dtype) > 0
-    if _PLAIN_ROUTE and not kchunk:
-        return attention_reference(q, k, v, mask, bias, scale)
+    if body is not None:
+        return body(q, k, v, mask, bias, scale)
     return fused_attention(q, k, v, mask, bias, scale)

@@ -45,7 +45,9 @@ from .attention import (
 # tiles (f32) in shared memory where they fit (D up to 670), else a [64][68]
 # slab of them normalised from each row's mean and rstd (any D); outputs
 # wider than 64 split the hidden dimension across blocks (grid.y, up to
-# 65535 chunks of 64) and sum in an f32 scratch.
+# 65535 chunks of 64), each chunk's partial sums in a slab of an f32
+# scratch that a second kernel adds in chunk order (the same bits at every
+# call, as parallel-in-time sampling at tolerance 0 needs).
 MAX_SMEM = 232448  # bytes a block can use on the H100
 SPLIT_OUT_DIM = 64
 MAX_SPLIT_HIDDEN = 64 * 65535
@@ -65,7 +67,8 @@ def smem_bytes(D: int) -> int:
 # TC_ROW_WARPS warps, 128-row A and output tiles, W1 and W2 in chunks of
 # TC_HIDDEN units); split (wider outputs, or rows past shared memory: blocks
 # of 4 warps, or 2 where 4 do not fit, one TC_HIDDEN-unit chunk each on
-# grid.y, W's slabs through a ring of TC_RING slots).
+# grid.y, W's slabs through a ring of TC_RING slots, partial sums in the
+# chunk's slab of the f32 scratch, summed in chunk order as above).
 TC_ROW_WARPS, TC_RING, TC_HIDDEN, TC_MAX_ROWS_OUT = 8, 3, 64, 128
 TC_RESIDENT_WARPS = 8
 _TC_OPERAND = {torch.bfloat16: (16, 8, 8), torch.float32: (8, 4, 4)}  # depth, pad, chunk
@@ -200,8 +203,9 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
         fn = lib.lib.prd_transition
         w1p, w2p = (w.to(dt).t().contiguous() for w in (w1, w2))
         split = Dout > SPLIT_OUT_DIM
-    # the split blocks' f32 sums (outputs wider than the rows layouts take)
-    out32 = torch.zeros((M, Dout), device=x.device) if split else None
+    # the split blocks' f32 sums, a slab per 64-unit hidden chunk (outputs
+    # wider than the rows layouts take); every element is written
+    out32 = torch.empty((-(-Hd // TC_HIDDEN), M, Dout), device=x.device) if split else None
     with torch.cuda.device(x.device):
         code = fn(
             x2.data_ptr(), w1p.data_ptr(), b1f.data_ptr(), w2p.data_ptr(), b2p, out.data_ptr(),

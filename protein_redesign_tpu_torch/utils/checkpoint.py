@@ -129,9 +129,22 @@ def load_train_state(path: Union[str, Path], state: TrainState) -> None:
     state.step, state.ema_updates = int(meta["step"]), int(meta["ema_updates"])
 
 
+def load_weights(path: Union[str, Path], step: Optional[int] = None, raw: bool = False,
+                 **overrides: Any) -> Tuple[dict, ModelConfig, int]:
+    """(state_dict, config, step) of a train checkpoint directory: the
+    given ``step``'s, else the lowest-val_loss step's (``step_dir(prefer=
+    "best")``); its EMA weights, or with ``raw`` the trained ones."""
+    path = Path(path)
+    chosen = step_dir(path, prefer="best") if step is None else path / str(step)
+    if not (chosen / STATE_FILE).exists():
+        raise FileNotFoundError(f"No checkpoint of step {step} under {path}")
+    sd = torch.load(chosen / ("params.pt" if raw else "ema.pt"), map_location="cpu",
+                    weights_only=True)
+    return sd, read_config(chosen, **overrides), int(read_state(chosen)["step"])
+
+
 def load_ema_weights(path: Union[str, Path], **overrides: Any) -> Tuple[dict, ModelConfig]:
     """(EMA state_dict, config) of the best step of a train checkpoint
     directory, as the JAX generate CLI samples from (`cli/generate.py:175-184`)."""
-    chosen = step_dir(path, prefer="best")
-    sd = torch.load(chosen / "ema.pt", map_location="cpu", weights_only=True)
-    return sd, read_config(chosen, **overrides)
+    sd, cfg, _ = load_weights(path, **overrides)
+    return sd, cfg

@@ -57,6 +57,7 @@ def esm_tokens(sequence: str) -> np.ndarray:
 class ESMEmbedder:
     """Frozen ESM-2 650M residue embedder with graceful offline fallback.
 
+    The model runs on ``device`` (the preprocess CLI's ``--device``).
     ``esm_dim`` sizes the zero-fallback (models trained with a different
     esm_dim — e.g. tiny test configs — still get matching features)."""
 
@@ -98,7 +99,7 @@ class ESMEmbedder:
                 )
                 self._model = EsmModel.from_pretrained(
                     self.model_name, local_files_only=True
-                ).eval()
+                ).eval().to(self.device)
             except Exception as e:
                 # Any HF load failure (missing repo, malformed local path
                 # -> HFValidationError, offline hub) = weights unavailable.
@@ -129,7 +130,7 @@ class ESMEmbedder:
             return np.zeros((len(sequence), self.esm_dim), dtype=np.float32)
         import torch
 
-        inputs = self._tokenizer(sequence, return_tensors="pt")
+        inputs = self._tokenizer(sequence, return_tensors="pt").to(self.device)
         with torch.inference_mode():
             out = self._model(**inputs)
         reps = out.last_hidden_state[0, 1: len(sequence) + 1]
@@ -164,7 +165,7 @@ class ESMEmbedder:
         ] + [ESM_TOKEN_INDEX["<eos>"]]
         import torch
 
-        inputs = torch.tensor([ids])
+        inputs = torch.tensor([ids], device=self.device)
         with torch.inference_mode():
             out = self._model(input_ids=inputs)
         reps = out.last_hidden_state[0, 1: len(toks) + 1]

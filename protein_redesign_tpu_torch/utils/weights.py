@@ -172,8 +172,18 @@ def load_checkpoint(path: Union[str, Path], **overrides: Any) -> Tuple[StateDict
         cfg_dict.update(overrides)
         sd = torch.load(path / "model.pt", map_location="cpu", weights_only=True)
         return sd, config_from_dict(cfg_dict)
+    state_dict, cfg, _ = load_reference_weights(path, **overrides)
+    return state_dict, cfg
+
+
+def load_reference_weights(path: Union[str, Path], use_ema: bool = True,
+                           **overrides: Any) -> Tuple[StateDict, ModelConfig, str]:
+    """(state_dict, config, "EMA" or "raw") of a reference Lightning
+    ``.ckpt`` through the port's copy of ``load_reference_checkpoint``: its
+    EMA weights where ``use_ema`` and the checkpoint has them, else its
+    trained weights."""
     from .convert import load_reference_checkpoint
 
     params, ema_params, cfg = load_reference_checkpoint(str(path), **overrides)
-    tree = ema_params if ema_params is not None else params
-    return state_dict_from_jax(tree, cfg), cfg
+    ema = use_ema and ema_params is not None
+    return state_dict_from_jax(ema_params if ema else params, cfg), cfg, "EMA" if ema else "raw"

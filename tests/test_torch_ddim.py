@@ -140,7 +140,10 @@ def test_runner_pad_to_batch_and_mask_prob():
 def test_runner_sampler_arguments():
     with pytest.raises(ValueError, match="ddim sampler"):
         _runner(sampler="ddpm", eta=0.5)
-    with pytest.raises(NotImplementedError):
-        _runner(sampler="ddim_parallel")
+    with pytest.raises(ValueError, match="deterministic"):
+        _runner(sampler="ddim_parallel", eta=0.5)
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        _runner(sampler="euler")
+    assert _runner(sampler="ddim_parallel", ddim_steps=5).step_count() == 5
     assert _runner(sampler="ddim", ddim_steps=7).step_count() == 7
     assert _runner().step_count() == TINY.num_steps

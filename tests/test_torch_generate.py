@@ -69,9 +69,9 @@ def test_generate_ddim_with_trajectories(tmp_path, monkeypatch, capsys):
     assert "2 ddim steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--sampler", "ddim_parallel"], ["--window", "8"],
+@pytest.mark.parametrize("flag", [["--sample_segments", "2"], ["--esm_backend", "jax"],
                                   ["--trimul_dmajor"],
-                                  ["--ptol", "1e-3"], ["--use_pallas"],
+                                  ["--num_devices", "2"], ["--use_pallas"],
                                   ["--pallas_auto_min_n", "384"], ["--num_workers", "2"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):
     from protein_redesign_tpu_torch.cli.generate import main

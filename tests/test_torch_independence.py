@@ -52,7 +52,8 @@ FORBIDDEN = ("protein_redesign_tpu", "jax", "flax")
 VERBATIM = [
     "config.py", "chem/__init__.py", "chem/elements.py", "chem/mol.py", "chem/protein.py",
     "chem/smiles.py", "chem/features.py", "data/featurize.py", "data/collate.py",
-    "data/pipeline.py", "utils/tmalign.py", "utils/convert.py",
+    "data/pipeline.py", "utils/tmalign.py", "utils/convert.py", "utils/metrics.py",
+    "cli/evaluate.py",
 ]
 
 

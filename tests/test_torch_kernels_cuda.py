@@ -703,6 +703,30 @@ def test_transition_kernel_matches_plain(device, dtype, D, Hd, Dout, M, with_b2)
 
 
 @DTYPES
+@pytest.mark.parametrize("tensor_cores", [True, False], ids=["mma", "cuda_cores"])
+@pytest.mark.parametrize("D,Hd,Dout,M", [(512, 2048, 512, 1536), (768, 3072, 768, 37),
+                                         (40, 200, 136, 100)])
+def test_transition_split_repeats_bit_for_bit(device, dtype, tensor_cores, D, Hd, Dout, M,
+                                             monkeypatch):
+    """K10's split layouts (an output wider than the rows layouts take: each
+    hidden chunk's partial sums in its own slab, summed in chunk order) give
+    the same bits at every call, on both bodies: parallel-in-time sampling
+    at tolerance 0 converges only on bit-equal repeats."""
+    from protein_redesign_tpu_torch.ops import transition as T
+
+    assert T.transition_layout(D, Hd, Dout, dtype) == "split"
+    if not tensor_cores:
+        monkeypatch.setattr(T, "transition_takes_tensor_cores", lambda *a: False)
+    x = _randn(M, D, seed=11, device=device).to(dtype)
+    w1, b1 = _linear(Hd, D, device, 12)
+    w2, b2 = _linear(Dout, Hd, device, 14)
+    first = T.transition(x, w1, b1, w2, b2)
+    for _ in range(3):
+        assert torch.equal(T.transition(x, w1, b1, w2, b2), first)
+    assert _rel(first, T.transition_reference(x, w1, b1, w2, b2)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
 @pytest.mark.parametrize("D,Hd,Dout,M", [(64, 256, 64, 3000), (128, 512, 128, 300),
                                          (512, 2048, 512, 37), (768, 3072, 768, 20)])
 def test_transition_bodies_agree(device, dtype, D, Hd, Dout, M, monkeypatch):

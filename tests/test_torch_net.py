@@ -110,8 +110,7 @@ def test_forward_matches_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("param_dtype", "bfloat16"), ("dtype", "float16"), ("attn_chunk", 64),
-    ("sequence_parallel", True),
+    ("param_dtype", "bfloat16"), ("dtype", "float16"), ("sequence_parallel", True),
 ])
 def test_fields_outside_the_slice_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

@@ -160,8 +160,8 @@ def test_checkpoint_retention_keeps_top_k_and_latest(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--cache_device_batches"], ["--device_cache_gb", "1"], ["--num_devices", "2"],
-    ["--mesh_shape", "2,1"], ["--profile"], ["--use_pallas"], ["--attn_chunk", "64"],
-    ["--trimul_dmajor"], ["--sequence_parallel"],
+    ["--mesh_shape", "2,1"], ["--profile"], ["--use_pallas"], ["--trimul_dmajor"],
+    ["--sequence_parallel"],
 ])
 def test_train_rejects_what_is_not_ported(mini_data, tmp_path, flag):  # noqa: F811
     from protein_redesign_tpu_torch.cli.train import main
