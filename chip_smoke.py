@@ -187,10 +187,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative norm, ms and peak memory of each, no attention kernel; one
    training micro-step of 2 blocks at 768 (chunk 128): the whole gradient
    against the unchunked one, ms and peak memory of each.
+21. ESM-2 and the JAX CLIs' single-device switches (needs transformers).
+   An ESM-2 650M directory in the HF layout (esm2_t33_650M_UR50D's shape,
+   weights from --seed, a tokenizer of the ESM alphabet); the port's
+   encoder (models/esm2.py) in f32 (TF32 off) against HF's EsmModel on the
+   card within 1e-5 relative norm and in bf16 against its f32 within 2e-2,
+   on lysozyme 1-110 with ten residues masked (112 tokens) and a seeded
+   1022-residue sequence (1024 tokens); ms per embedding (best of 3 warm,
+   CUDA events) of the port's f32 and bf16 and HF's f32, each beside its
+   bound, and HF's f32 on the host CPU at 112 tokens. The generate CLI with
+   --require_esm on that directory at bucket 192, 2 samples, 64 DDPM steps,
+   with --esm_backend jax and torch: the embedder on the card, nonzero
+   features that agree across the backends within 1e-5, exact K1 and K2
+   launches, main() wall beside the same run without ESM just before and
+   phase 5's. The serving net (bf16,
+   fast_softmax, use_pallas_bwd off) for one DDIM step at 192 through the
+   generate CLI: no attention kernel under the default plan, 24 K1 fast and
+   13 K2 with --use_pallas and with --pallas_auto_min_n 192, each reaching
+   the config. --trimul_dmajor: the paper-width forward at 192 and 384, B=2,
+   bf16 and f32, against the same weights without it within the forward
+   gates, both routes' device time. --profile: the train CLI at 192 for 2
+   optimizer steps writes a non-empty torch.profiler trace with the card's
+   kernels under <save_dir>/profile, exact launches.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
-CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs and 19's
-generate CLI and sampler runs) runs with every launch count set to 0 just
+CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs, 19's generate
+CLI and sampler runs, and 21's generate and train CLIs) runs with every launch count set to 0 just
 before it and read just after; the f32 train CLI at 512
 gives the launches of K1's and K2's f32 entries in the kernels' record, the
 f32 served request K1 fast's. Every kernel's time and
@@ -338,6 +360,22 @@ PICARD_CONTROL = 3.0
 # gradient at 768, depth cut to CHUNK_GRAD_BLOCKS); (bucket, residues).
 H64X4 = dict(head_dim=64, num_heads=4, fast_softmax=True)
 CHUNK_FORWARD, CHUNK_GRAD, CHUNK_GRAD_BLOCKS = (1024, 960), (768, 720), 2
+# ESM-2 and the JAX CLIs' single-device switches (phase 21). The published
+# esm2_t33_650M_UR50D shape (facebook/esm2_t33_650M_UR50D's config.json),
+# weights from --seed; inputs lysozyme 1-110 with ESM_MASKS <mask> residues
+# (112 tokens) and a seeded ESM_LONG-residue sequence (1024 tokens, ESM-2's
+# longest). The port's f32 encoder (TF32 off) against HF's within
+# ESM_F32_TOL relative norm, its bf16 one against its f32 within
+# ESM_BF16_TOL; f32 GEMMs without TF32 run on the CUDA cores, whose dense
+# peak is 67 TFLOP/s (NVIDIA's data sheet, H100 SXM).
+ESM2_650M = dict(vocab_size=33, hidden_size=1280, num_hidden_layers=33, num_attention_heads=20,
+                 intermediate_size=5120, max_position_embeddings=1026,
+                 position_embedding_type="rotary", token_dropout=True,
+                 emb_layer_norm_before=False, layer_norm_eps=1e-5, pad_token_id=1,
+                 mask_token_id=32, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+ESM_MASKS, ESM_LONG = 10, 1022
+ESM_F32_TOL, ESM_BF16_TOL = 1e-5, 2e-2
+F32_CUDA_CORE_FLOPS = 67e12
 
 
 def launch_record(**counts) -> dict:
@@ -403,17 +441,18 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 3) -> float:
+def device_ms(fn, iters: int = 3, spin: int = 100_000_000) -> float:
     """ms of device time per call of ``fn``: CUDA events around ``iters``
-    calls queued behind a spin on the card (``torch.cuda._sleep``, ~0.05 s),
-    so that the events time the kernels back to back and not the host's
+    calls queued behind a spin on the card (``torch.cuda._sleep`` of
+    ``spin`` cycles, ~0.05 s by default; the calls' host time must fit in
+    it), so that the events time the kernels back to back and not the host's
     launch path, which bounds a small kernel's CUDA-event time. (A short
     torch.profiler window loses kernels once the process has run a while:
     K1 at 192 read 0.079, 0.052, 0.026 ms, then nothing, through phase 7.)"""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -741,16 +780,13 @@ def complex_batch(runner, batch_rows: int = 2, sequence: str = SEQUENCE):
     return runner.collate([complex_batch_data(runner, sequence)] * batch_rows)
 
 
-def phase_forward(net, tag: str = "forward", bucket: int = 192,
-                  tol: float = FORWARD_REL_TOL) -> None:
-    """The net's forward at ``bucket`` (192: lysozyme and imatinib; 384: a
-    seeded SERVE_LONG-residue sequence and imatinib), B=2, kernel route
-    against plain route within ``tol``, its exact launches and device time
-    by group. A self-conditioned net takes a live estimate: sc_flag 1 and a
-    seeded, nonzero z_sc."""
+def forward_inputs(net, bucket: int = 192) -> tuple:
+    """The net's inputs at ``bucket`` (192: lysozyme and imatinib; 384: a
+    seeded SERVE_LONG-residue sequence and imatinib), B=2, from fixed seeds.
+    A self-conditioned net takes a live estimate: sc_flag 1 and a seeded,
+    nonzero z_sc."""
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
-    from protein_redesign_tpu_torch.ops import attention as A
 
     runner = SamplingRunner(net, "cuda")
     sequence = SEQUENCE if bucket == 192 else long_sequence(51, SERVE_LONG)
@@ -766,12 +802,24 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
     t = torch.tensor([5, 40], device="cuda")
     sc = ((torch.randn(B, N, 3, generator=g, device="cuda"), torch.ones(B, device="cuda"))
           if net.cfg.self_cond else ())
+    return (batch, z, seq_t, mask, t, *sc)
+
+
+def phase_forward(net, tag: str = "forward", bucket: int = 192,
+                  tol: float = FORWARD_REL_TOL) -> None:
+    """The net's forward on ``forward_inputs(net, bucket)``, kernel route
+    against plain route within ``tol``, its exact launches and device time
+    by group."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    inputs = forward_inputs(net, bucket)
+    B = inputs[0]["residue_mask"].shape[0]
 
     def forward(plain: bool):
         if not plain:
-            return net(batch, z, seq_t, mask, t, *sc)
+            return net(*inputs)
         with A.plain_route():
-            return net(batch, z, seq_t, mask, t, *sc)
+            return net(*inputs)
 
     with torch.inference_mode():
         A.reset_launch_counts()
@@ -890,7 +938,16 @@ def device_time_by_kernel(fn, iters: int = 5) -> dict:
     return kernels
 
 
-def phase_generate(net, flags=(), tag: str = "generate") -> dict:
+# Each generate run's main() wall time (s) and the config its net ran, by tag.
+GENERATED: dict = {}
+
+
+def phase_generate(net, flags=(), tag: str = "generate", cfg=None) -> dict:
+    """The generate CLI on ``net``'s weights with ``flags``: lysozyme and
+    imatinib, 2 samples in one batch, STEPS DDPM steps unless the flags
+    choose another sampler; the output files and the exact launches of
+    every forward under ``cfg`` (default: the net's config with each
+    switch in ``flags`` on)."""
     from protein_redesign_tpu_torch.cli.generate import main
     from protein_redesign_tpu_torch.ops import attention as A
     from protein_redesign_tpu_torch.utils.weights import save_checkpoint
@@ -903,8 +960,9 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
                 *flags]
         A.reset_launch_counts()
         began = time.perf_counter()
-        timings = main(argv).timings
+        runner = main(argv)
         wall = time.perf_counter() - began
+        timings = runner.timings
         launches = main_path_launches()
         out = tmp / "out"
         pdb = (out / "sample_protein.pdb").read_text()
@@ -916,14 +974,15 @@ def phase_generate(net, flags=(), tag: str = "generate") -> dict:
         raise AssertionError(f"sample_protein.pdb: {len(coords)} CA records or non-finite coordinates")
     if sdf.count("$$$$") != 2 or len(scores) != 2:
         raise AssertionError("sample_ligand.sdf or sample_tmscores.txt incomplete")
-    forwards = STEPS * len(timings)
-    cfg = net.cfg.replace(**{f.lstrip("-"): True for f in flags})
+    forwards = sum(steps for _, _, steps, _ in timings)
+    cfg = cfg or net.cfg.replace(**{f.lstrip("-"): True for f in flags})
     expected = {k: forwards * v for k, v in forward_launches(cfg).items()}
     if launches != expected:
         raise AssertionError(f"generate launches {launches} != {expected}")
+    GENERATED[tag] = {"wall": wall, "cfg": runner.net.cfg}
     for bucket, rows, steps, seconds in timings:
-        print(f"[{tag}] bucket {bucket}, {rows} samples per batch: {steps} DDPM steps in "
-              f"{seconds:.3f} s = {seconds / steps:.4f} s/step")
+        print(f"[{tag}] bucket {bucket}, {rows} samples per batch: {steps} {runner.sampler} "
+              f"steps in {seconds:.3f} s = {seconds / steps:.4f} s/step")
     print(f"[{tag}] main() wall {wall:.2f} s; TM-scores {scores}; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     return launches
@@ -3052,6 +3111,320 @@ def phase_chunked(seed: int) -> None:
     print(f"[chunked] phase wall {time.perf_counter() - began:.1f} s")
 
 
+def write_seeded_esm2(directory: Path, seed: int) -> None:
+    """An ESM-2 650M checkpoint directory in the HF layout (config, weights
+    and tokenizer), its weights HF's initialisation from ``seed``."""
+    from transformers import EsmConfig, EsmModel, EsmTokenizer
+
+    from protein_redesign_tpu_torch.utils.esm import ESM_ALPHABET
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):  # HF's initialisation of 650M parameters, on the card
+        model = EsmModel(EsmConfig(**ESM2_650M), add_pooling_layer=False)
+    model.save_pretrained(directory)
+    del model
+    vocab = directory / "vocab.txt"
+    vocab.write_text("\n".join(ESM_ALPHABET) + "\n")
+    EsmTokenizer(str(vocab)).save_pretrained(directory)
+
+
+def esm_inputs(seed: int) -> dict:
+    """{name: token ids [L]}: lysozyme 1-110 with ESM_MASKS residues masked,
+    and a seeded ESM_LONG-residue sequence; each with cls and eos."""
+    from protein_redesign_tpu_torch.utils.esm import ESM_TOKEN_INDEX, esm_tokens
+
+    masked = esm_tokens(SEQUENCE)
+    masked[np.random.RandomState(seed).choice(len(SEQUENCE), ESM_MASKS, replace=False)] = \
+        ESM_TOKEN_INDEX["<mask>"]
+    cls, eos = ESM_TOKEN_INDEX["<cls>"], ESM_TOKEN_INDEX["<eos>"]
+    return {f"lysozyme, {ESM_MASKS} masked": np.concatenate([[cls], masked, [eos]]),
+            f"{ESM_LONG} residues": np.concatenate(
+                [[cls], esm_tokens(long_sequence(seed + 21, ESM_LONG)), [eos]])}
+
+
+def best_ms(fn, runs: int = 3) -> float:
+    """The best of ``runs`` warm calls, each timed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times)
+
+
+def esm_bound(model, tokens: int) -> dict:
+    """The least time of one embedding of ``tokens`` tokens by an ESM-2 650M
+    ``model`` (the port's or HF's): the projections, MLP, logits and P.V
+    over the peak of its compute dtype (bf16 on the tensor cores, f32 on the
+    CUDA cores), or its weights read once over the HBM rate."""
+    D, Fd = ESM2_650M["hidden_size"], ESM2_650M["intermediate_size"]
+    flops = ESM2_650M["num_hidden_layers"] * (2 * tokens * D * (4 * D + 2 * Fd)
+                                              + 4 * tokens * tokens * D)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    peak = PEAK_FLOPS[torch.bfloat16] if model.dtype == torch.bfloat16 else F32_CUDA_CORE_FLOPS
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3, "gflop": flops / 1e9,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def _rel(a, b) -> float:
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float((a - b).norm() / b.norm())
+
+
+@contextlib.contextmanager
+def recorded_embedders():
+    """Every ESMEmbedder the sampling CLIs build while inside, with the
+    features each computed (``features``)."""
+    from protein_redesign_tpu_torch.utils import esm
+
+    made, real = [], esm.ESMEmbedder
+
+    class Recorded(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.features = []
+            made.append(self)
+
+        def embed_protein(self, protein):
+            out = super().embed_protein(protein)
+            self.features.append(out)
+            return out
+
+    esm.ESMEmbedder = Recorded
+    try:
+        yield made
+    finally:
+        esm.ESMEmbedder = real
+
+
+def _esm_encoders(esm_dir: Path, seed: int) -> None:
+    """The port's encoder against HF's on the card, and the times."""
+    from transformers import EsmModel
+
+    from protein_redesign_tpu_torch.models.esm2 import load_esm2
+
+    port = {dtype: load_esm2(str(esm_dir), dtype=dtype, device="cuda")
+            for dtype in ("float32", "bfloat16")}
+    hf_cpu, hf = (EsmModel.from_pretrained(esm_dir, local_files_only=True, add_pooling_layer=False)
+                  .eval().requires_grad_(False) for _ in range(2))
+    hf.to("cuda")
+    for name, ids in esm_inputs(seed).items():
+        ids_t = torch.as_tensor(ids, device="cuda")[None]
+        ones = torch.ones_like(ids_t)
+
+        def run_port(dtype):
+            return lambda: port[dtype].model(ids_t, ones)
+
+        def run_hf():
+            return hf(input_ids=ids_t).last_hidden_state
+
+        with torch.inference_mode():
+            f32, bf16, want = run_port("float32")(), run_port("bfloat16")(), run_hf()
+            for label, out in (("f32", f32), ("bf16", bf16)):
+                if out.shape != want.shape or not torch.isfinite(out).all():
+                    raise AssertionError(f"[esm] {name}, {label}: shape {tuple(out.shape)} "
+                                         "or non-finite values")
+            rel_f32, rel_bf16 = _rel(f32, want), _rel(bf16, f32)
+            print(f"[esm] {name} ({len(ids)} tokens): port f32 against HF f32 "
+                  f"||d|| / ||HF|| = {rel_f32:.3e} (tol {ESM_F32_TOL:g}); port bf16 against "
+                  f"port f32 {rel_bf16:.3e} (tol {ESM_BF16_TOL:g})")
+            if not (rel_f32 <= ESM_F32_TOL and rel_bf16 <= ESM_BF16_TOL):
+                raise AssertionError(f"[esm] {name}: the port's encoder disagrees")
+            # ~1 s of spin: three embeddings' host time fits behind it
+            times = {label: (best_ms(fn), device_ms(fn, spin=2_000_000_000),
+                             esm_bound(model, len(ids)))
+                     for label, fn, model in (
+                         ("port f32", run_port("float32"), port["float32"].model),
+                         ("port bf16", run_port("bfloat16"), port["bfloat16"].model),
+                         ("HF f32", run_hf, hf))}
+            if len(ids) == len(SEQUENCE) + 2:
+                ids_cpu = ids_t.cpu()
+                hf_cpu(input_ids=ids_cpu)
+                host = []
+                for _ in range(3):
+                    began = time.perf_counter()
+                    hf_cpu(input_ids=ids_cpu)
+                    host.append((time.perf_counter() - began) * 1e3)
+                print(f"[esm] {name}: HF f32 on the host CPU ({torch.get_num_threads()} threads) "
+                      f"{min(host):.1f} ms per embedding, best of 3 warm")
+        print(f"[esm] {name}: ms per embedding on the card, best of 3 warm (CUDA events), and "
+              f"on the device (calls queued behind a spin): "
+              + "; ".join(f"{k} {ms:.3f}, on the device {dev:.3f} (bound {b['bound_ms']:.3f}, "
+                          f"{b['bound_by']}, {b['gflop']:.1f} GFLOP)"
+                          for k, (ms, dev, b) in times.items()))
+    del port, hf, hf_cpu
+    torch.cuda.empty_cache()
+
+
+def _esm_generate(esm_dir: Path, seed: int) -> None:
+    """The generate CLI with --require_esm on the seeded ESM-2 directory,
+    both backends: the embedder on the card, nonzero features that agree
+    across the backends, exact launches, main() wall time."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    net = perturbed_net(ModelConfig(), seed).to("cuda").eval()
+    phase_generate(net, tag="esm-generate-without")  # no weights under the default name: zeros
+    features = {}
+    for backend in ("jax", "torch"):
+        with recorded_embedders() as made:
+            phase_generate(net, flags=["--esm_model", str(esm_dir), "--esm_backend", backend,
+                                       "--require_esm"], tag=f"esm-generate-{backend}",
+                           cfg=net.cfg)
+        (embedder,) = made
+        model = embedder._encoder.model if backend == "jax" else embedder._model
+        device = next(model.parameters()).device
+        if embedder.device != "cuda" or device.type != "cuda" or not embedder.available:
+            raise AssertionError(f"[esm-generate-{backend}] the embedder ran on {device}")
+        (features[backend],) = embedder.features
+        if not np.abs(features[backend]).max() > 0:
+            raise AssertionError(f"[esm-generate-{backend}] residue_esm is zero")
+        print(f"[esm-generate-{backend}] ESM-2 on {device}: residue_esm "
+              f"{features[backend].shape}, max |x| {np.abs(features[backend]).max():.3f}")
+    rel = _rel(features["jax"], features["torch"])
+    print(f"[esm-generate] residue_esm, --esm_backend jax against torch: ||d|| / ||torch|| = "
+          f"{rel:.3e} (tol {ESM_F32_TOL:g})")
+    if not rel <= ESM_F32_TOL:
+        raise AssertionError("[esm-generate] the two backends' features disagree")
+    walls = {tag: GENERATED[tag]["wall"] for tag in ("esm-generate-jax", "esm-generate-torch",
+                                                      "esm-generate-without")}
+    phase5 = (f"{GENERATED['generate']['wall']:.2f} s" if "generate" in GENERATED
+              else "not run in this process")
+    print(f"[esm-generate] main() wall: --esm_backend jax {walls['esm-generate-jax']:.2f} s, "
+          f"torch {walls['esm-generate-torch']:.2f} s (each loading the 650M weights onto the "
+          f"card); without ESM just before {walls['esm-generate-without']:.2f} s, in phase 5 "
+          f"{phase5}")
+
+
+def _use_pallas_generate(seed: int) -> None:
+    """The serving net at 192 (bf16, fast_softmax, use_pallas_bwd off) for
+    one DDIM step through the generate CLI: the plan takes XLA there (no
+    attention kernel), --use_pallas and --pallas_auto_min_n 192 its kernel
+    branch (K1 fast and K2)."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False), seed).to("cuda")
+    one_step = ["--fast_softmax", "--sampler", "ddim", "--ddim_steps", "1"]
+    for tag, flags, cfg in (
+        ("plan-default", [], net.cfg),
+        ("plan-use_pallas", ["--use_pallas"], net.cfg.replace(use_pallas=True)),
+        ("plan-min_n-192", ["--pallas_auto_min_n", "192"], net.cfg.replace(pallas_auto_min_n=192)),
+    ):
+        launches = phase_generate(net.eval(), flags=[*one_step, *flags], tag=tag, cfg=cfg)
+        got = GENERATED[tag]["cfg"]
+        if (got.use_pallas, got.pallas_auto_min_n) != (cfg.use_pallas, cfg.pallas_auto_min_n):
+            raise AssertionError(f"[{tag}] config {got.use_pallas}, {got.pallas_auto_min_n}")
+        print(f"[{tag}] use_pallas {got.use_pallas}, pallas_auto_min_n {got.pallas_auto_min_n}: "
+              f"launches in one forward {launches['rows_attention_fast']} K1 fast, "
+              f"{launches['tiled_attention']} K2, {launches['rows_attention']} K1")
+
+
+def _trimul_dmajor(seed: int) -> None:
+    """--trimul_dmajor: the paper-width forward at 192 and 384, B=2, bf16 and
+    f32, against the same weights without the switch; both routes' device
+    time per forward, measured in turns."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+
+    for dtype, tol in (("bfloat16", FORWARD_REL_TOL), ("float32", FORWARD_REL_TOL_F32)):
+        net = perturbed_net(ModelConfig(dtype=dtype), seed).to("cuda").eval()
+        dmajor = ProteinReDiffNet(net.cfg.replace(trimul_dmajor=True))
+        dmajor.load_state_dict(net.state_dict())
+        dmajor.to("cuda").eval()
+        trimuls = [m for m in dmajor.modules() if type(m).__name__ == "TriangleMultiplication"]
+        if len(trimuls) != 2 * net.cfg.num_blocks or not all(m.dmajor for m in trimuls):
+            raise AssertionError("[dmajor] the switch did not reach every triangle multiplication")
+        for bucket in (192, 384):
+            inputs = forward_inputs(net, bucket)
+            with torch.inference_mode():
+                want, got = net(*inputs), dmajor(*inputs)
+                rels = [_rel(a, b) for a, b in zip(got, want)]
+                if not all(torch.isfinite(a).all() for a in got) or max(rels) > tol:
+                    raise AssertionError(f"[dmajor] {dtype} at {bucket}: relative {rels}")
+                # in turns, each behind ~0.3 s of spin, which three forwards' host time fits in
+                ms = {"d-minor": [], "channel-major": []}
+                for name, m in (("d-minor", net), ("channel-major", dmajor),
+                                ("channel-major", dmajor), ("d-minor", net)):
+                    ms[name].append(device_ms(lambda m=m: m(*inputs), spin=600_000_000))
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"[dmajor] {dtype}, bucket {bucket}, B=2: --trimul_dmajor against without, "
+                  f"noise {rels[0]:.3e}, seq {rels[1]:.3e} (tol {tol:g}; bit-equal: {equal}); "
+                  f"device ms per forward (without, with, with, without): "
+                  f"{ms['d-minor'][0]:.2f}, {ms['channel-major'][0]:.2f}, "
+                  f"{ms['channel-major'][1]:.2f}, {ms['d-minor'][1]:.2f}")
+        del net, dmajor
+        torch.cuda.empty_cache()
+
+
+def _profile_train(seed: int) -> None:
+    """The train CLI with --profile at 192 for 2 optimizer steps: a
+    non-empty torch.profiler trace with the card's kernels under
+    <save_dir>/profile, and exact launches."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    esm_dim = ModelConfig().esm_dim
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data", {
+            "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
+            "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+        run = tmp / "run"
+        A.reset_launch_counts()
+        began = time.perf_counter()
+        train(["--save_dir", str(run), "--data_dir", str(tmp / "data"), "--batch_size", "2",
+               "--val_every_steps", "0", "--log_every_steps", "1", "--warmup_steps", "10",
+               "--seed", str(seed), "--device", "cuda", "--max_steps", "2", "--profile"])
+        wall = time.perf_counter() - began
+        launches = main_path_launches()
+        metrics = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        traces = sorted((run / "profile").glob("*.json"))
+        sizes = [t.stat().st_size for t in traces]
+        kernels = sum(t.read_bytes().count(b'"cat": "kernel"') for t in traces)
+    steps = [m for m in metrics if "train_loss" in m]
+    vals = [m for m in metrics if "val_loss" in m]
+    if len(steps) != 2 or not all(math.isfinite(m["train_loss"]) for m in steps):
+        raise AssertionError(f"[profile] metrics {metrics}")
+    if not traces or not all(sizes) or not kernels:
+        raise AssertionError(f"[profile] traces {traces}, {sizes} bytes, {kernels} kernel events")
+    per_micro, per_eval = forward_launches(ModelConfig(), remat=True), forward_launches(ModelConfig())
+    expected = {k: len(steps) * per_micro[k] + len(vals) * per_eval[k] for k in REPLACES}
+    if launches != expected:
+        raise AssertionError(f"[profile] train launches {launches} != {expected}")
+    per_step = ", ".join(f"{m['step_seconds']:.3f}" for m in steps)
+    print(f"[profile] train CLI --profile, bucket 192, 2 optimizer steps of batch 2: "
+          f"{len(traces)} trace file(s) under <save_dir>/profile, {sum(sizes) / 2**20:.1f} MiB, "
+          f"{kernels} CUDA kernel events; main() wall {wall:.1f} s (trace written included); "
+          f"{per_step} s per step")
+
+
+def phase_esm(seed: int) -> None:
+    """Phase 21: ESM-2 650M on the card (the port's encoder, both CLI
+    backends) and the JAX CLIs' single-device switches."""
+    import os
+
+    began = time.perf_counter()
+    # transformers imports TensorFlow and jax where they are installed unless told not to
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    with tempfile.TemporaryDirectory() as tmp:
+        esm_dir = Path(tmp) / "esm2_t33_650M_seeded"
+        write_seeded_esm2(esm_dir, seed)
+        print(f"[esm] seeded ESM-2 650M directory (33 layers x 1280, 20 heads, FFN 5120) "
+              f"written in {time.perf_counter() - began:.1f} s")
+        _esm_encoders(esm_dir, seed)
+        _esm_generate(esm_dir, seed)
+    _use_pallas_generate(seed)
+    _trimul_dmajor(seed)
+    _profile_train(seed)
+    print(f"[esm] phase wall {time.perf_counter() - began:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
@@ -3104,6 +3477,7 @@ def main() -> None:
     del net
     phase_wide(args.seed)
     phase_chunked(args.seed)
+    phase_esm(args.seed)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving

@@ -4,7 +4,8 @@
         -c <ckpt_dir or reference .ckpt> -o out/ -p <pdb-or-sequence> \\
         -l <sdf/mol2/SMILES/*> -n 8 [--num_steps 1000] [--mask_prob 0.3] [-r ref.pdb] \\
         [--sampler ddim --ddim_steps 50 --eta 0] [--save_trajectory K] [--fast_softmax] \\
-        [--sampler ddim_parallel --window 8 --ptol 1e-3 --coarse_init 0] [--attn_chunk 128]
+        [--sampler ddim_parallel --window 8 --ptol 1e-3 --coarse_init 0] [--attn_chunk 128] \\
+        [--esm_model <HF dir> --esm_backend {torch,jax}] [--use_pallas] [--trimul_dmajor]
 
 ``-c`` is a directory holding ``config.json`` and ``model.pt``, or a
 reference Lightning ``.ckpt`` (EMA weights preferred). Outputs, as the JAX
@@ -17,7 +18,9 @@ checkpoint's config has ``use_pallas_bwd: false``, as the JAX package does;
 otherwise it changes only the triangle product's accumulator. The sequence
 process and self-conditioning come from the checkpoint's config;
 ``--seq_reverse`` and ``--reveal_schedule`` / ``--reveal_temperature`` /
-``--reveal_conf_noise`` (absorbing checkpoints) override it.
+``--reveal_conf_noise`` (absorbing checkpoints) override it. ESM-2 runs on
+``--device``: the HF transformers model, or with ``--esm_backend jax`` the
+package's own encoder (``models/esm2.py``) on the same weights.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ def main(argv=None):
     parser = ArgumentParser()
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--num_workers", type=int, default=2, help="accepted and ignored")
     parser.add_argument("--num_devices", "--num_gpus", type=int, default=1,
                         dest="num_devices")
     parser.add_argument("--num_steps", type=int, default=64)
@@ -105,8 +109,8 @@ def main(argv=None):
     # told not to; the port runs torch only.
     os.environ.setdefault("USE_TF", "0")
     os.environ.setdefault("USE_FLAX", "0")
-    embedder = ESMEmbedder(model_name=args.esm_model, esm_dim=cfg.esm_dim,
-                           require=args.require_esm)
+    embedder = ESMEmbedder(model_name=args.esm_model, device=args.device, esm_dim=cfg.esm_dim,
+                           require=args.require_esm, backend=args.esm_backend)
     data = complex_data(protein, ligand, embedder.embed_protein(protein))
     if not embedder.available:
         print("ESM-2 weights unavailable: residue_esm is zero")

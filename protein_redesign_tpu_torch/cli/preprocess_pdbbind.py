@@ -4,9 +4,10 @@
 
 For each PDB id across the three PRD splits: load the ligand
 (<id>_ligand.sdf, fallback .mol2) and the protein
-(<id>_protein_processed.pdb), compute per-chain ESM-2 embeddings with the
-HF torch backend on ``--device`` (zeros where the weights are not
-available offline), and write the complex cache that training reads.
+(<id>_protein_processed.pdb), compute per-chain ESM-2 embeddings on
+``--device`` with the HF transformers model or, with ``--esm_backend jax``,
+the package's own encoder (zeros where the weights are not available
+offline), and write the complex cache that training reads.
 
     python -m protein_redesign_tpu_torch.cli.preprocess_pdbbind \\
         --data_dir data --pdbbind_dir data/PDBbind_processed [--device cpu]
@@ -35,8 +36,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device ESM-2 runs on (cuda or cpu)")
     args = parser.parse_args(argv)
-    if args.esm_backend != "torch":
-        raise NotImplementedError("--esm_backend jax: the port runs no jax")
 
     import os
 
@@ -58,7 +57,7 @@ def main(argv=None):
     os.environ.setdefault("USE_TF", "0")
     os.environ.setdefault("USE_FLAX", "0")
     embedder = ESMEmbedder(model_name=args.esm_model, device=args.device,
-                           require=args.require_esm)
+                           require=args.require_esm, backend=args.esm_backend)
     n_ok, n_fail = 0, 0
     for pdb_id in tqdm(pdb_ids):
         out = Path(cache_dir) / pdb_id / "complex.npz"

@@ -90,10 +90,9 @@ def handle_request(req, runner, embedder, output_dir, default_mask_prob,
     """One request through the runner. The ``num_samples``, ``max_samples``
     and ``max_nodes`` guards run before any ESM or device work. ``mask_prob``
     and ``seed`` (the runner's generator) vary per request. ``device_lock``
-    (TCP mode) guards only the sampling: ESM embedding (on the host),
-    featurization, TM-align and the PDB/SDF writes run outside it, so
-    concurrent clients overlap their host work with each other's device
-    work."""
+    (TCP mode) guards only the sampling: ESM embedding (on the embedder's
+    device), featurization, TM-align and the PDB/SDF writes run outside it,
+    so concurrent clients overlap that work with each other's sampling."""
     from ..chem.mol import get_mol_positions, mol_to_sdf, update_mol_positions
     from ..chem.protein import protein_to_pdb_file, protein_to_sequence, proteins_to_pdb_file
     from ..utils.tmalign import run_tmalign
@@ -211,8 +210,8 @@ def serve_tcp(port, runner, embedder, output_dir, default_mask_prob,
               max_nodes=None, max_samples=None):
     """JSONL over TCP: each client connection streams request lines and
     receives one JSON result line per request. Connections are served by
-    threads; the sampling serializes behind one lock while host work
-    (ESM, featurization, TM-align, file writes) overlaps.
+    threads; the sampling serializes behind one lock while the rest (ESM,
+    featurization, TM-align, file writes) overlaps.
     ``max_requests``/``ready_cb`` exist for tests."""
     import socketserver
 
@@ -318,10 +317,10 @@ def main(argv=None):
     # told not to; the port runs torch only.
     os.environ.setdefault("USE_TF", "0")
     os.environ.setdefault("USE_FLAX", "0")
-    embedder = ESMEmbedder(model_name=args.esm_model, esm_dim=cfg.esm_dim,
-                           require=args.require_esm)
-    # resolve the ESM backend (weights, or the zeros fallback) at startup,
-    # not on the first request
+    embedder = ESMEmbedder(model_name=args.esm_model, device=args.device, esm_dim=cfg.esm_dim,
+                           require=args.require_esm, backend=args.esm_backend)
+    # resolve the ESM backend (its weights onto --device, or the zeros
+    # fallback) at startup, not on the first request
     print("[serve] resolving ESM backend...", file=sys.stderr, flush=True)
     embedder.embed_protein(protein_from_sequence("A"))
     args.output_dir.mkdir(parents=True, exist_ok=True)

@@ -18,6 +18,11 @@ the first pass, and the coins on stdout) and checkpoints under
 SIGTERM/SIGINT. Each step draws from a generator seeded by (seed, step), so
 a resumed run takes the draws an unbroken one would.
 
+``--profile`` traces the training loop (``torch.profiler``: the host, and the
+card where ``--device`` is one) into ``<save_dir>/profile``, as the JAX CLI's
+jax.profiler trace. ``--use_pallas``, ``--pallas_auto_min_n`` and
+``--trimul_dmajor`` set their config fields, as in the JAX CLI.
+
 ``--no-use_pallas_bwd`` keeps the K1 forward and differentiates triangle
 attention through the plain VJP of the f32 reference instead of K7;
 ``--fast_softmax`` with it runs K1 fast in the forward. Both persist in the
@@ -49,11 +54,6 @@ _REJECTED = (
     (lambda a: a.device_cache_gb > 0, "--device_cache_gb: TPU-tunnel plumbing, not ported"),
     (lambda a: a.num_devices > 1, "--num_devices > 1: multi-device training is not ported yet"),
     (lambda a: a.mesh_shape is not None, "--mesh_shape: multi-device training is not ported yet"),
-    (lambda a: a.profile, "--profile: the jax.profiler capture is not ported; "
-                          "chip_smoke.py profiles a step with torch.profiler"),
-    (lambda a: a.use_pallas, "--use_pallas: the port's attention always takes its CUDA "
-                             "kernels on a GPU"),
-    (lambda a: a.trimul_dmajor, "--trimul_dmajor: the channel-major layout is not ported"),
 )
 
 
@@ -81,7 +81,9 @@ def main(argv=None):
             action.help = WIRE_COMPRESSION_HELP
     parser.add_argument("--trained_ckpt", type=str, default=None,
                         help="checkpoint dir to resume from")
-    parser.add_argument("--profile", action="store_true", help="not ported")
+    parser.add_argument("--profile", action="store_true",
+                        help="trace the training loop with torch.profiler into "
+                             "<save_dir>/profile (TensorBoard's trace format)")
     parser.add_argument("--fresh", action="store_true",
                         help="delete save_dir first (reference train.py:28-30)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -98,7 +100,7 @@ def main(argv=None):
     from ..models.prdiff import ProteinReDiffNet
     from ..parallel.train_step import make_eval_step, make_train_state, make_train_step
     from ..utils.checkpoint import CheckpointManager, load_train_state, read_config, step_dir
-    from ..utils.logging import MetricsLogger
+    from ..utils.logging import MetricsLogger, maybe_profile
 
     cfg = model_config_from_args(args).replace(training_mode=True)
     data_cfg = data_config_from_args(args)
@@ -185,41 +187,43 @@ def main(argv=None):
             pass  # not on the main thread
 
     step, epoch, stop = state.step, 0, False
-    while not stop:
-        it = batches(train_ds, data_cfg.batch_size, data_cfg.buckets, shuffle=True,
-                     seed=train_cfg.seed, epoch=epoch, accum=accum)
-        for batch in prefetch(it, size=2, transform=to_device):
-            began = time.perf_counter()
-            metrics = train_step(state, micro_batches(batch), generator=generator(0, step))
-            step += 1
-            if train_cfg.log_every_steps > 0 and step % train_cfg.log_every_steps == 0:
-                loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-                logged = {
-                    "train_loss": loss, "grad_norm": grad_norm, "epoch": epoch,
-                    "bucket": batch["residue_mask"].shape[-1],
-                    "step_seconds": time.perf_counter() - began,
-                }
-                coins = ""
-                if cfg.self_cond:
-                    logged["sc_passes"] = metrics["sc_passes"]
-                    coins = " self-cond coins " + ", ".join(f"{c:.3f}" for c in metrics["sc_coins"])
-                logger.log(step, logged)
-                print(f"step {step}: loss={loss:.4f}{coins}")
-            if train_cfg.val_every_steps > 0 and step % train_cfg.val_every_steps == 0:
-                val = run_validation(step)
-                logger.log(step, val)
-                print(f"step {step}: val_loss={val['val_loss']:.4f}")
-                manager.save(state, val["val_loss"])
-            if interrupted["flag"]:
-                print("signal received; checkpointing and exiting")
+    with maybe_profile(save_dir, args.profile, device):
+        while not stop:
+            it = batches(train_ds, data_cfg.batch_size, data_cfg.buckets, shuffle=True,
+                         seed=train_cfg.seed, epoch=epoch, accum=accum)
+            for batch in prefetch(it, size=2, transform=to_device):
+                began = time.perf_counter()
+                metrics = train_step(state, micro_batches(batch), generator=generator(0, step))
+                step += 1
+                if train_cfg.log_every_steps > 0 and step % train_cfg.log_every_steps == 0:
+                    loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+                    logged = {
+                        "train_loss": loss, "grad_norm": grad_norm, "epoch": epoch,
+                        "bucket": batch["residue_mask"].shape[-1],
+                        "step_seconds": time.perf_counter() - began,
+                    }
+                    coins = ""
+                    if cfg.self_cond:
+                        logged["sc_passes"] = metrics["sc_passes"]
+                        coins = " self-cond coins " + ", ".join(
+                            f"{c:.3f}" for c in metrics["sc_coins"])
+                    logger.log(step, logged)
+                    print(f"step {step}: loss={loss:.4f}{coins}")
+                if train_cfg.val_every_steps > 0 and step % train_cfg.val_every_steps == 0:
+                    val = run_validation(step)
+                    logger.log(step, val)
+                    print(f"step {step}: val_loss={val['val_loss']:.4f}")
+                    manager.save(state, val["val_loss"])
+                if interrupted["flag"]:
+                    print("signal received; checkpointing and exiting")
+                    stop = True
+                    break
+                if 0 < train_cfg.max_steps <= step:
+                    stop = True
+                    break
+            epoch += 1
+            if 0 < train_cfg.max_epochs <= epoch:
                 stop = True
-                break
-            if 0 < train_cfg.max_steps <= step:
-                stop = True
-                break
-        epoch += 1
-        if 0 < train_cfg.max_epochs <= epoch:
-            stop = True
     if interrupted["flag"]:
         # Save first, no validation: the kill-grace window may not outlast one.
         manager.save(state)

@@ -130,17 +130,21 @@ class TriangleAttention(nn.Module):
 class TriangleMultiplication(nn.Module):
     """Gated triangle multiplicative update (`denoiser.py:83-181`).
     ``fast_accum`` keeps the einsum path's [N, N, D] product in the compute
-    dtype instead of f32. ``fused`` (``cfg.use_pallas_trimul``): the whole
-    op as one kernel (K9, ``triangle_multiply``) on the same parameters;
-    it ignores ``fast_accum``, as the JAX fused path does."""
+    dtype instead of f32. ``dmajor`` (``cfg.trimul_dmajor``) contracts
+    channel-major, a and b moved to [..., d, N, N] for a d-batched
+    [N, N] x [N, N] product (`denoiser.py:142-160`). ``fused``
+    (``cfg.use_pallas_trimul``): the whole op as one kernel (K9,
+    ``triangle_multiply``) on the same parameters; it ignores
+    ``fast_accum`` and ``dmajor``, as the JAX fused path does."""
 
     def __init__(self, pair_dim: int, mode: str, fast_accum: bool = False,
-                 dtype: torch.dtype = torch.float32, fused: bool = False):
+                 dtype: torch.dtype = torch.float32, fused: bool = False, dmajor: bool = False):
         super().__init__()
         if mode not in ("outgoing", "incoming"):
             raise ValueError(f"Invalid mode: {mode}")
         D = pair_dim
         self.mode, self.fast_accum, self.dtype, self.fused = mode, fast_accum, dtype, fused
+        self.dmajor = dmajor
         self.norm = LayerNorm(D, dtype=dtype)
         self.ab_gate = PRLinear(D, 2 * D, init="gating", dtype=dtype)
         self.ab_proj = PRLinear(D, 2 * D, init="default", dtype=dtype)
@@ -161,7 +165,14 @@ class TriangleMultiplication(nn.Module):
         ab = mask_2d[..., None] * (torch.sigmoid(self.ab_gate(pair)) * self.ab_proj(pair))
         a, b = ab.chunk(2, dim=-1)
         # f32 products and accumulation, as preferred_element_type=f32.
-        if self.mode == "outgoing":
+        if self.dmajor:
+            at, bt = (torch.movedim(t.float(), -1, -3) for t in (a, b))  # [..., d, N, N]
+            if self.mode == "outgoing":
+                prod = torch.matmul(at, bt.transpose(-1, -2))
+            else:
+                prod = torch.matmul(at.transpose(-1, -2), bt)
+            prod = torch.movedim(prod, -3, -1)
+        elif self.mode == "outgoing":
             prod = torch.einsum("...ikd,...jkd->...ijd", a.float(), b.float())
         else:
             prod = torch.einsum("...kid,...kjd->...ijd", a.float(), b.float())
@@ -282,8 +293,9 @@ class OuterProductUpdate(nn.Module):
 
 
 class FoldingBlock(nn.Module):
-    """One denoiser block (`denoiser.py:368-457`). The four fused-kernel
-    switches route its modules as the JAX block does (`denoiser.py:676-688`):
+    """One denoiser block (`denoiser.py:368-457`). ``cfg.trimul_dmajor`` goes
+    to both triangle multiplications. The four fused-kernel switches route
+    its modules as the JAX block does (`denoiser.py:676-688`):
     ``use_pallas_transition`` single_fc and pair_fc (K10),
     ``use_pallas_outer`` outer_linear (K11), ``use_pallas_trimul`` both
     triangle multiplications (K9), ``use_pallas_fused_gated`` both triangle
@@ -309,9 +321,9 @@ class FoldingBlock(nn.Module):
         self.outer_linear = OuterLinear(S, P, factored=cfg.outer_factored, dtype=dtype,
                                         fused=cfg.use_pallas_outer)
         self.pair_mul_outgoing = TriangleMultiplication(P, "outgoing", fast_accum, dtype,
-                                                        fused=trimul)
+                                                        fused=trimul, dmajor=cfg.trimul_dmajor)
         self.pair_mul_incoming = TriangleMultiplication(P, "incoming", fast_accum, dtype,
-                                                        fused=trimul)
+                                                        fused=trimul, dmajor=cfg.trimul_dmajor)
         self.pair_attn_starting = TriangleAttention(P, C, H, "starting", dtype,
                                                     fused_gated=cfg.use_pallas_fused_gated, **flags)
         self.pair_attn_ending = TriangleAttention(P, C, H, "ending", dtype,

@@ -1,6 +1,6 @@
 # Copied from protein_redesign_tpu/utils/esm.py so the port imports nothing of the JAX
-# package, with the HF transformers (torch) backend only: the original's "jax" backend
-# runs the in-repo JAX ESM-2.
+# package; its "jax" backend runs the port's own ESM-2 encoder (models/esm2.py) on
+# ``device`` where the original's runs the JAX one, and both backends run on ``device``.
 """Pluggable ESM-2 embedder (host-side, never inside the TPU graph).
 
 The reference loads esm2_t33_650M_UR50D via torch.hub at four call sites
@@ -13,9 +13,10 @@ time. This module provides:
 - ``esm_tokens(sequence)``: ESM-2 alphabet token ids (mask=32, pad=1 —
   the ids the reference's masking writes, `mask_utils.py:94-95`).
 - ``ESMEmbedder``: computes 1280-dim residue embeddings with the
-  HuggingFace ``transformers`` ESM-2 port when its weights are available
-  locally, else returns zeros (offline-safe; generation quality degrades
-  gracefully — the model was also trained with fully-masked ESM rows).
+  HuggingFace ``transformers`` ESM-2 port, or the package's own encoder,
+  when the HF weights are available locally, else returns zeros
+  (offline-safe; generation quality degrades gracefully — the model was
+  also trained with fully-masked ESM rows).
 """
 
 from __future__ import annotations
@@ -57,22 +58,28 @@ def esm_tokens(sequence: str) -> np.ndarray:
 class ESMEmbedder:
     """Frozen ESM-2 650M residue embedder with graceful offline fallback.
 
-    The model runs on ``device`` (the preprocess CLI's ``--device``).
-    ``esm_dim`` sizes the zero-fallback (models trained with a different
-    esm_dim — e.g. tiny test configs — still get matching features)."""
+    The model runs on ``device`` (the CLIs' ``--device``). ``esm_dim``
+    sizes the zero-fallback (models trained with a different esm_dim — e.g.
+    tiny test configs — still get matching features)."""
 
     def __init__(self, model_name: str = DEFAULT_MODEL_NAME,
                  device: str = "cpu", esm_dim: int = ESM_DIM,
-                 require: bool = False):
+                 require: bool = False, backend: str = "torch"):
         """``require=True`` turns the silent zero-fallback into a hard
         error — for production serving where unconditioned designs
-        masquerading as conditioned ones are unacceptable."""
+        masquerading as conditioned ones are unacceptable.
+
+        ``backend``: "torch" runs the HF transformers port; "jax" (the JAX
+        CLIs' name) runs the package's own ESM-2 encoder
+        (`models/esm2.py`) on the same HF weights."""
         self.model_name = model_name
         self.device = device
         self.esm_dim = esm_dim
         self.require = require
+        self.backend = backend
         self._model = None
         self._tokenizer = None
+        self._encoder = None
         self._available: Optional[bool] = None
 
     @property
@@ -90,6 +97,15 @@ class ESMEmbedder:
                 )
             return False
         try:
+            if self.backend == "jax":
+                from ..models.esm2 import load_esm2
+
+                self._encoder = load_esm2(self.model_name, device=self.device)
+                if self._encoder is None:
+                    raise FileNotFoundError(
+                        f"no local HF weights for {self.model_name}"
+                    )
+                return True
             import torch  # noqa: F401
             from transformers import AutoTokenizer, EsmModel
 
@@ -108,8 +124,10 @@ class ESMEmbedder:
                 ) from e
             return True
         except (OSError, ImportError) as e:  # offline / missing weights only
-            # Anything else PROPAGATES: weights were present but wrong,
-            # which must not silently degrade to the zero-embedding fallback.
+            # Anything else (e.g. the unsupported-architecture ValueError
+            # from load_esm2, a missing encoder key) PROPAGATES: weights
+            # were present but wrong, which must not silently degrade to
+            # the zero-embedding fallback.
             if self.require:
                 raise RuntimeError(
                     f"--require_esm set but ESM-2 weights are unavailable "
@@ -128,6 +146,8 @@ class ESMEmbedder:
         """[len(sequence), 1280] final-layer representations."""
         if not self.available:
             return np.zeros((len(sequence), self.esm_dim), dtype=np.float32)
+        if self.backend == "jax":
+            return self.embed_chain_masked(sequence)
         import torch
 
         inputs = self._tokenizer(sequence, return_tensors="pt").to(self.device)
@@ -163,6 +183,8 @@ class ESMEmbedder:
         ids = [ESM_TOKEN_INDEX["<cls>"]] + [
             ESM_TOKEN_INDEX.get(t, ESM_TOKEN_INDEX["<unk>"]) for t in toks
         ] + [ESM_TOKEN_INDEX["<eos>"]]
+        if self.backend == "jax":
+            return self._encoder(np.asarray(ids))[1: len(toks) + 1]
         import torch
 
         inputs = torch.tensor([ids], device=self.device)

@@ -1,6 +1,7 @@
 # Copied from protein_redesign_tpu/utils/logging.py so the port imports nothing of
-# the JAX package: MetricsLogger only, with its values read as plain floats (the
-# original reads them through parallel.mesh.host_scalar and keeps a jax.profiler hook).
+# the JAX package: MetricsLogger, with its values read as plain floats (the original
+# reads them through parallel.mesh.host_scalar), and maybe_profile on torch.profiler
+# where the original's runs jax.profiler.
 """Metrics logging: JSONL + CSV metric streams under the save dir."""
 
 from __future__ import annotations
@@ -8,8 +9,9 @@ from __future__ import annotations
 import csv
 import json
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 
 class MetricsLogger:
@@ -56,3 +58,24 @@ def _scalar(v: Any) -> Any:
         return float(v)
     except (TypeError, ValueError):
         return str(v)
+
+
+@contextmanager
+def maybe_profile(
+    save_dir: Union[str, Path], enabled: bool, device: Any = "cpu"
+) -> Iterator[None]:
+    """Capture a torch.profiler trace into <save_dir>/profile when enabled:
+    the host's operators, and the card's kernels where ``device`` is a GPU
+    (written on exit, in TensorBoard's trace format)."""
+    if not enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir = str(Path(save_dir) / "profile")
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        yield

@@ -39,7 +39,7 @@ def _inputs(seed=0):
     return single, pair, mask
 
 
-def _check(jmod, tmod, rename, jargs, targs, seed=0):
+def _check(jmod, tmod, rename, jargs, targs, seed=0, tol=TOL):
     params = perturbed_init(jmod, *map(jnp.asarray, jargs), seed=seed)
     ref = jmod.apply({"params": params}, *map(jnp.asarray, jargs))
     tmod.load_state_dict(flax_to_torch(params, rename))
@@ -48,7 +48,7 @@ def _check(jmod, tmod, rename, jargs, targs, seed=0):
     if not isinstance(out, tuple):
         out, ref = (out,), (ref,)
     for o, r in zip(out, ref):
-        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **tol)
 
 
 def test_sp_attention():
@@ -80,6 +80,16 @@ def test_triangle_multiplication(mode):
            (pair, mask_2d), (pair, mask_2d))
 
 
+@pytest.mark.parametrize("mode", ["outgoing", "incoming"])
+def test_triangle_multiplication_dmajor(mode):
+    """``dmajor`` (``--trimul_dmajor``): the channel-major contraction."""
+    _, pair, mask = _inputs(3)
+    mask_2d = mask[:, :, None] * mask[:, None, :]
+    _check(J.TriangleMultiplication(mode, dmajor=True),
+           T.TriangleMultiplication(P, mode, dmajor=True), {}, (pair, mask_2d), (pair, mask_2d),
+           tol=dict(atol=1e-5, rtol=1e-5))
+
+
 @pytest.mark.parametrize("mode", ["starting", "ending"])
 def test_triangle_attention(mode):
     _, pair, mask = _inputs(4)
@@ -100,6 +110,18 @@ def test_denoiser():
     single, pair, mask = _inputs(6)
     _check(J.Denoiser(CFG), T.Denoiser(CFG), DENOISER,
            (single, pair, mask), (single, pair, mask))
+
+
+def test_denoiser_trimul_dmajor():
+    """The 2-block trunk with ``trimul_dmajor``: both triangle
+    multiplications of every block contract channel-major, at 1e-5."""
+    single, pair, mask = _inputs(9)
+    cfg = CFG.replace(trimul_dmajor=True)
+    mod = T.Denoiser(cfg)
+    trimuls = [m for m in mod.modules() if isinstance(m, T.TriangleMultiplication)]
+    assert len(trimuls) == 2 * cfg.num_blocks and all(m.dmajor for m in trimuls)
+    _check(J.Denoiser(cfg), mod, DENOISER, (single, pair, mask), (single, pair, mask),
+           tol=dict(atol=1e-5, rtol=1e-5))
 
 
 def test_denoiser_bf16():

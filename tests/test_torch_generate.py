@@ -69,16 +69,46 @@ def test_generate_ddim_with_trajectories(tmp_path, monkeypatch, capsys):
     assert "2 ddim steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--sample_segments", "2"], ["--esm_backend", "jax"],
-                                  ["--trimul_dmajor"],
-                                  ["--num_devices", "2"], ["--use_pallas"],
-                                  ["--pallas_auto_min_n", "384"], ["--num_workers", "2"]])
+@pytest.mark.parametrize("flag", [["--sample_segments", "2"], ["--num_devices", "2"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):
     from protein_redesign_tpu_torch.cli.generate import main
 
     _checkpoint(tmp_path / "ckpt")
     with pytest.raises(NotImplementedError):
         main(["-c", str(tmp_path / "ckpt"), "-o", str(tmp_path / "out"), *ARGS, *flag])
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--use_pallas"], "use_pallas", True),
+    (["--pallas_auto_min_n", "16"], "pallas_auto_min_n", 16),
+    (["--trimul_dmajor"], "trimul_dmajor", True),
+    (["--num_workers", "2"], None, None),
+    (["--esm_backend", "jax", "--require_esm"], None, None),
+], ids=["use_pallas", "pallas_auto_min_n", "trimul_dmajor", "num_workers", "esm_backend_jax"])
+def test_generate_takes_the_jax_flags(tmp_path, monkeypatch, flag, field, value):
+    """The JAX CLI's flags run with its meaning: the switches set their
+    config fields, ``--num_workers`` is accepted and ignored, and
+    ``--esm_backend jax`` embeds with the package's own encoder (a tiny HF
+    ESM-2 directory of the net's esm_dim; ``--require_esm`` fails without
+    its weights)."""
+    from test_torch_esm2 import write_tiny_esm
+
+    from protein_redesign_tpu_torch.cli.generate import main
+
+    for name in ("USE_TF", "USE_FLAX"):
+        monkeypatch.setenv(name, "0")
+    if "--esm_backend" in flag:
+        monkeypatch.delenv("PRD_DISABLE_ESM", raising=False)
+        flag = [*flag, "--esm_model", str(write_tiny_esm(tmp_path / "esm", hidden=TINY.esm_dim))]
+    else:
+        monkeypatch.setenv("PRD_DISABLE_ESM", "1")
+    _checkpoint(tmp_path / "ckpt")
+    out = tmp_path / "out"
+    runner = main(["-c", str(tmp_path / "ckpt"), "-o", str(out), *ARGS, *flag])
+    if field is not None:
+        assert getattr(runner.net.cfg, field) == value
+    scores = [float(x) for x in (out / "sample_tmscores.txt").read_text().split()]
+    assert len(scores) == 2 and all(0.0 <= s <= 1.0 for s in scores)
 
 
 SCRIPT = r"""

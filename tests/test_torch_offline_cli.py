@@ -14,7 +14,8 @@
   sequence-only layout);
 - ``preprocess_pdbbind`` (``tests/test_preprocess_cli.py``) with
   ``--device cpu``: the same complex cache as the JAX CLI's, a second run
-  skipping what exists, and ``--esm_backend jax`` rejected;
+  skipping what exists, and with ``--esm_backend jax`` on a tiny HF ESM-2
+  directory the same embeddings as the JAX CLI's with its JAX encoder;
 - ``ops/graph.py`` against the JAX helpers;
 - a fresh process running all four CLIs imports none of jax, flax and the
   JAX package (checked in a subprocess, because this suite's conftest
@@ -37,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 from test_convert_cli import make_lightning_ckpt  # noqa: E402
 from test_evaluate import mutate, seq_helix  # noqa: E402
 from test_preprocess_cli import pdbbind_layout  # noqa: E402,F401
+from test_torch_esm2 import write_tiny_esm  # noqa: E402
 from test_torch_generate import TINY  # noqa: E402
 from test_torch_train_cli import GENERATE, TINY_FLAGS  # noqa: E402
 from test_train_cli import mini_data  # noqa: E402,F401
@@ -188,8 +190,16 @@ def test_preprocess_cli_matches_jax(pdbbind_layout, capsys):  # noqa: F811
                 np.testing.assert_array_equal(ours[k], v, err_msg=k)
     preprocess([*common, "--device", "cpu"])
     assert "preprocessed 0 complexes (0 failed)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="esm_backend"):
-        preprocess([*common, "--esm_backend", "jax"])
+    # --esm_backend jax: the package's own encoder on a tiny HF ESM-2 directory
+    esm = ["--esm_model", str(write_tiny_esm(data_dir / "esm_tiny")), "--esm_backend", "jax",
+           "--require_esm", "--limit", "1"]
+    preprocess([*common, *esm, "--device", "cpu", "--cache_dir", str(data_dir / "esm_port")])
+    assert "preprocessed 1 complexes (0 failed)" in capsys.readouterr().out
+    jax_preprocess([*common, *esm, "--cache_dir", str(data_dir / "esm_jax")])
+    ours = load_complex_cache(data_dir / "esm_port", ids[0])
+    theirs = load_complex_cache(data_dir / "esm_jax", ids[0])
+    assert ours["residue_esm"].shape == (8, 48) and np.abs(ours["residue_esm"]).max() > 0
+    np.testing.assert_allclose(ours["residue_esm"], theirs["residue_esm"], atol=2e-5, rtol=2e-5)
 
 
 def test_graph_helpers_match_jax():

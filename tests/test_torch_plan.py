@@ -19,6 +19,12 @@ the CPU (its Pallas kernels in interpret mode):
   routes are counted: the bf16-logit attention for all 2 x 3 + 1
   attentions at bucket 16 in bf16, K1 fast for the 2 x 2 triangle ones at
   bucket 32 without ``use_pallas_bwd``;
+- ``--use_pallas``, ``--pallas_auto_min_n`` (and ``--trimul_dmajor``)
+  reach the config in the generate, serve and both batch CLIs by the JAX
+  package's ``sampler_cfg_overrides`` rules (the auto threshold always set,
+  384 by default; the switches only when given, so a checkpoint's own
+  ``use_pallas`` survives), and in the train CLI as JAX's
+  ``model_config_from_args`` sets them;
 - the f32 loss gradient with ``fast_softmax`` on under the default
   (training) plan, and the loss and gradient of a ``head_dim=64,
   num_heads=1`` net (K7's plain version at C = 64 on the CPU), against the
@@ -37,6 +43,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_torch_loss import LOSS_CFG, jax_train_draws, key_for_policy  # noqa: E402
 from test_torch_net import CFG, make_batch, perturbed_params  # noqa: E402
+from test_train_cli import mini_data  # noqa: E402,F401
 
 from protein_redesign_tpu.models.denoiser import resolve_attention_plan as jax_plan  # noqa: E402
 from protein_redesign_tpu.models.prdiff import ProteinReDiffModel  # noqa: E402
@@ -63,6 +70,87 @@ def test_plan_matches_jax(head_dim):
         jcfg, pcfg = CFG.replace(**fields), PortConfig(**{**dataclasses.asdict(CFG), **fields})
         for n in PLAN_N:
             assert resolve_attention_plan(pcfg, n) == jax_plan(jcfg, n), (fields, n)
+
+
+class _Built(Exception):
+    pass
+
+
+def _record_config(monkeypatch) -> dict:
+    """Stops a CLI where it builds its net, keeping the config it built."""
+    from protein_redesign_tpu_torch.models import prdiff
+
+    built = {}
+
+    def record(cfg):
+        built["cfg"] = cfg
+        raise _Built
+
+    monkeypatch.setattr(prdiff, "ProteinReDiffNet", record)
+    return built
+
+
+PLAN_FLAGS = {"none": [], "use_pallas": ["--use_pallas"],
+              "pallas_auto_min_n": ["--pallas_auto_min_n", "16"],
+              "trimul_dmajor": ["--trimul_dmajor", "--pallas_auto_min_n", "0"]}
+
+
+@pytest.mark.parametrize("flags", list(PLAN_FLAGS))
+@pytest.mark.parametrize("checkpoint_pallas", [False, True], ids=["ckpt_xla", "ckpt_pallas"])
+@pytest.mark.parametrize("cli", ["generate", "serve", "predict_batch_sequence",
+                                 "predict_batch_structure"])
+def test_sampling_clis_set_the_plan_fields_as_jax(cli, checkpoint_pallas, flags, tmp_path,
+                                                  monkeypatch):
+    import importlib
+    from argparse import ArgumentParser
+
+    from protein_redesign_tpu.cli.common import add_sampler_args as jax_sampler_args
+    from protein_redesign_tpu.cli.common import sampler_cfg_overrides as jax_overrides
+    from test_torch_generate import TINY
+
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.utils.weights import save_checkpoint
+
+    ckpt = TINY.replace(use_pallas=checkpoint_pallas, pallas_auto_min_n=32)
+    save_checkpoint(tmp_path / "ckpt", ProteinReDiffNet(ckpt).state_dict(), ckpt)
+    argv = ["-c", str(tmp_path / "ckpt"), "-o", str(tmp_path / "out"), "--device", "cpu",
+            *PLAN_FLAGS[flags]]
+    if cli == "generate":
+        argv += ["-p", "GMASKLLEVAKRLG", "-l", "CCO", "-n", "1"]
+    elif cli.startswith("predict_batch"):
+        (tmp_path / "in.fasta").write_text(">a\nGMASKLLEVAKRLG\n")
+        argv += ["-p", str(tmp_path / "in.fasta")]
+    built = _record_config(monkeypatch)
+    with pytest.raises(_Built):
+        importlib.import_module(f"protein_redesign_tpu_torch.cli.{cli}").main(argv)
+    parser = ArgumentParser()
+    jax_sampler_args(parser)
+    want = CFG.replace(**{k: getattr(ckpt, k) for k in ("use_pallas", "pallas_auto_min_n")})
+    want = want.replace(**jax_overrides(parser.parse_known_args(PLAN_FLAGS[flags])[0]))
+    got = built["cfg"]
+    for field in ("use_pallas", "pallas_auto_min_n", "trimul_dmajor"):
+        assert getattr(got, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize("flags", list(PLAN_FLAGS))
+def test_train_cli_sets_the_plan_fields_as_jax(flags, mini_data, tmp_path,  # noqa: F811
+                                               monkeypatch):
+    from argparse import ArgumentParser
+
+    from protein_redesign_tpu.config import add_model_args, model_config_from_args
+    from test_torch_train_cli import TINY_FLAGS
+
+    from protein_redesign_tpu_torch.cli.train import main
+
+    built = _record_config(monkeypatch)
+    with pytest.raises(_Built):
+        main(["--save_dir", str(tmp_path / "run"), "--data_dir", str(mini_data), *TINY_FLAGS,
+              "--max_steps", "1", *PLAN_FLAGS[flags]])
+    parser = ArgumentParser()
+    add_model_args(parser)
+    want = model_config_from_args(parser.parse_known_args(PLAN_FLAGS[flags])[0])
+    for field in ("use_pallas", "pallas_auto_min_n", "trimul_dmajor"):
+        assert getattr(built["cfg"], field) == getattr(want, field), field
 
 
 def _fast_inputs(R=4, N=24, H=2, C=16, seed=0):

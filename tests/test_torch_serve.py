@@ -161,10 +161,12 @@ def test_serve_trajectory_request(ckpt, tmp_path):
 
 def test_serve_ddim_fast_softmax(ckpt, tmp_path, monkeypatch):
     """--sampler ddim with --fast_softmax on a use_pallas_bwd-false
-    checkpoint whose attention plan takes Pallas at the request's bucket
-    (pallas_auto_min_n 16): every DDIM step's triangle attentions take K1
-    fast. At the default pallas_auto_min_n (384) the plan takes XLA there,
-    and the f32 model computes its attentions as without the flag."""
+    checkpoint, served with --pallas_auto_min_n 16 so that the attention
+    plan takes Pallas at the request's bucket: every DDIM step's triangle
+    attentions take K1 fast. At the default pallas_auto_min_n (384, which
+    the flag sets whatever the checkpoint holds, as in the JAX CLI) the plan
+    takes XLA there, and the f32 model computes its attentions as without
+    the flag."""
     from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
     from protein_redesign_tpu_torch.utils.weights import save_checkpoint
 
@@ -180,7 +182,11 @@ def test_serve_ddim_fast_softmax(ckpt, tmp_path, monkeypatch):
     cfg = TINY.replace(use_pallas_bwd=False, pallas_auto_min_n=16)
     torch.manual_seed(0)
     save_checkpoint(tmp_path / "pallas", ProteinReDiffNet(cfg).state_dict(), cfg)
-    (resp,) = _serve(tmp_path / "pallas", tmp_path, [{**REQ, "id": "d", "seed": 5}], *flags)
+    (resp,) = _serve(tmp_path / "pallas", tmp_path, [{**REQ, "id": "y", "seed": 5}], *flags)
+    assert len(resp["sequences"]) == 1 and "error" not in resp
+    assert not calls  # the flag's default, not the checkpoint's 16
+    (resp,) = _serve(tmp_path / "pallas", tmp_path, [{**REQ, "id": "d", "seed": 5}], *flags,
+                     "--pallas_auto_min_n", "16")
     assert len(resp["sequences"]) == 1 and "error" not in resp
     assert len(calls) == 2 * 2 * TINY.num_blocks  # steps x triangle attentions
 

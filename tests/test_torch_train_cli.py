@@ -160,8 +160,7 @@ def test_checkpoint_retention_keeps_top_k_and_latest(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--cache_device_batches"], ["--device_cache_gb", "1"], ["--num_devices", "2"],
-    ["--mesh_shape", "2,1"], ["--profile"], ["--use_pallas"], ["--trimul_dmajor"],
-    ["--sequence_parallel"],
+    ["--mesh_shape", "2,1"], ["--sequence_parallel"],
 ])
 def test_train_rejects_what_is_not_ported(mini_data, tmp_path, flag):  # noqa: F811
     from protein_redesign_tpu_torch.cli.train import main
@@ -169,6 +168,35 @@ def test_train_rejects_what_is_not_ported(mini_data, tmp_path, flag):  # noqa: F
     with pytest.raises(NotImplementedError):
         main(["--save_dir", str(tmp_path / "run"), "--data_dir", str(mini_data), *TINY_FLAGS,
               "--max_steps", "1", *flag])
+
+
+@pytest.mark.parametrize("flag,field", [(["--use_pallas"], "use_pallas"),
+                                        (["--trimul_dmajor"], "trimul_dmajor")])
+def test_train_takes_the_jax_switches(mini_data, tmp_path, flag, field):  # noqa: F811
+    """The JAX CLI's switches set their config fields, which the
+    checkpoint keeps."""
+    from protein_redesign_tpu_torch.cli.train import main
+    from protein_redesign_tpu_torch.utils.checkpoint import read_config, step_dir
+
+    save_dir = tmp_path / "run"
+    main(["--save_dir", str(save_dir), "--data_dir", str(mini_data), *TINY_FLAGS,
+          "--max_steps", "1", *flag])
+    assert getattr(read_config(step_dir(save_dir / "checkpoints")), field) is True
+
+
+def test_train_profile_writes_a_trace(mini_data, tmp_path):  # noqa: F811
+    """``--profile``: a torch.profiler trace of the training loop under
+    <save_dir>/profile, as the JAX CLI writes its jax.profiler trace."""
+    from protein_redesign_tpu_torch.cli.train import main
+
+    save_dir = tmp_path / "run"
+    state = main(["--save_dir", str(save_dir), "--data_dir", str(mini_data), *TINY_FLAGS,
+                  "--max_steps", "1", "--profile"])
+    assert state.step == 1
+    traces = list((save_dir / "profile").glob("*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
 
 
 def test_wire_compression_is_documented_as_without_effect(capsys):
