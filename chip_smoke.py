@@ -170,7 +170,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 19. Parallel-in-time DDIM (Picard): ModelConfig() at paper width, bucket
    192, B=1, on a checkpoint written by the port, over a 1000-step
    schedule. bf16: the generate CLI with --sampler ddim --eta 0
-   --ddim_steps 50, and --sampler ddim_parallel --window 8 at --ptol 0, at
+   --ddim_steps 20 (PICARD_STEPS), and --sampler ddim_parallel --window 8 at --ptol 0, at
    --ptol 1e-3 and at --ptol 1e-3 --coarse_init 5, each with exact K1 and
    K2 launches (the per-forward counts times the sweeps plus the coarse
    steps); each run again through the same runner under torch.profiler
@@ -209,10 +209,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    gates, both routes' device time. --profile: the train CLI at 192 for 2
    optimizer steps writes a non-empty torch.profiler trace with the card's
    kernels under <save_dir>/profile, exact launches.
+22. Multi-device on this one card (ModelConfig(), bf16, bucket 192, lysozyme
+   1-110 + imatinib): --num_devices past the visible cards makes the train
+   and generate CLIs exit non-zero with the JAX CLIs' message; the train CLI
+   on a mini dataset, batch 2, 2 steps, on one rank in this process (exact
+   launches) and on two ranks sharing cuda:0 over gloo (--num_devices 2
+   --device cuda:0, PRD_DIST_BACKEND=gloo): both ranks' losses and
+   parameter checksums equal, step 1's loss and grad_norm within
+   GRAD_REL_TOL of one rank's, one metrics row a step with the all-reduce's
+   bytes and seconds, one checkpoint, each rank's launches (a row each),
+   rank 0's profiler trace counting its K1, K2 and K7; a 1-step resume on
+   both ranks; the CLI under the JAX cluster variables at world size 1 with
+   the default backend (nccl joins and all-reduces on the card). Then
+   SamplingRunner on a 2-replica mesh (make_mesh([cuda:0, cuda:0])) against
+   one device at one seed: DDIM 50 at batch 2 within FORWARD_REL_TOL, and
+   Picard in f32 at ptol 0 (DDIM 20, window 8, B = 2: 16 rows a sweep, 8 a
+   replica), the sweeps within MULTI_SWEEP_TOL and the sample within phase
+   19's f32 gate (PICARD_CONTROL), each replica's launches; one f32 forward through the
+   replicas against the net within 1e-5. Times here
+   are the overhead of sharing one card, not scaling. (The same comparison
+   of one and two ranks in f32, callable alone:
+   _multi_train(tmp, seed, "float32", 1, profile=False).)
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
 CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs, 19's generate
-CLI and sampler runs, and 21's generate and train CLIs) runs with every launch count set to 0 just
+CLI and sampler runs, 21's generate and train CLIs, and 22's train CLI and
+runners) runs with every launch count set to 0 just
 before it and read just after; the f32 train CLI at 512
 gives the launches of K1's and K2's f32 entries in the kernels' record, the
 f32 served request K1 fast's. Every kernel's time and
@@ -336,8 +358,10 @@ GRAD_2048_BLOCKS = 2
 # f32 training below the K-chunk switch at bucket 512 (phases 7 and 12):
 # (bucket, residues of a seeded sequence), 497 nodes with imatinib.
 TRAIN_F32_512 = (512, 460)
-# Parallel-in-time DDIM (phase 19): DDIM steps, the Picard window, the
-# coarse warm start's steps; the served schedule (SERVE_SCHEDULE) and shape
+# Parallel-in-time DDIM (phase 19): DDIM steps (20, where the served
+# stack takes 50, to keep the whole run inside its time limit with phase
+# 22), the Picard window, the coarse warm start's steps; the served
+# schedule (SERVE_SCHEDULE) and shape
 # (lysozyme and imatinib, bucket 192, B = 1). The tol-0 Picard run against
 # the sequential DDIM run with the same draws, largest |difference| of the
 # positions in Å and ||difference|| / ||sequential|| of the logits: in f32
@@ -350,7 +374,7 @@ TRAIN_F32_512 = (512, 460)
 # batch 1 (sequential). Measured runs put Picard at 0.5-1.1 times that
 # one-ulp response, so PICARD_CONTROL = 3 leaves room for their spread and
 # fails a drift several times the rounding's.
-PICARD_STEPS, PICARD_WINDOW, PICARD_COARSE = 50, 8, 5
+PICARD_STEPS, PICARD_WINDOW, PICARD_COARSE = 20, 8, 5
 PICARD_POS_TOL = {"float32": 1e-3, "bfloat16": 0.5}
 PICARD_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 PICARD_CONTROL = 3.0
@@ -3425,6 +3449,341 @@ def phase_esm(seed: int) -> None:
     print(f"[esm] phase wall {time.perf_counter() - began:.1f} s")
 
 
+# Multi-device on one card (phase 22): two training ranks over gloo and two
+# sampling replicas share the card; the gates are the single-device ones
+# (GRAD_REL_TOL for a step's loss and grad_norm, FORWARD_REL_TOL for bf16
+# samples, PICARD_POS_TOL and PICARD_LOGIT_TOL for Picard at ptol 0) and
+# 1e-5 for one f32 forward through the replicas. Picard runs phase 19's
+# f32 configuration (DDIM PICARD_STEPS, window PICARD_WINDOW) at B = 2 (16
+# rows a sweep, 8 a replica), where phase 19's gate is sharp (bf16's, from
+# the same one-ulp response, reaches thousands of Å on these weights). At
+# ptol 0 a step converges when its state repeats bit for bit, and the
+# split changes the rows' rounding and so the sweep at which a small change
+# is first absorbed: the sweeps of the two runs may differ (measured: f32
+# DDIM 20, 36 on one device and 38 on the replicas; bf16 DDIM 8, 16 and
+# 14), so they must agree within MULTI_SWEEP_TOL of the larger and both
+# end below the 2S + 2 cap.
+MULTI_F32_TOL, MULTI_SWEEP_TOL = 1e-5, 0.15
+# The rank-0 trace's kernels that count K1, K2 and K7 (bf16 bodies; K7's dq
+# kernel, one a launch).
+TRACE_KERNELS = {"rows_attention": "rows_attention_mma_kernel",
+                 "tiled_attention": "tiled_attention_mma_kernel",
+                 "rows_attention_bwd": "rows_attention_bwd_dq_mma_kernel"}
+
+
+def _cli(module: str, argv: list, **env) -> tuple:
+    """``python -m protein_redesign_tpu_torch.cli.<module> argv`` in a process
+    of its own: (exit code, stdout and stderr, wall s)."""
+    import os
+
+    began = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"protein_redesign_tpu_torch.cli.{module}",
+                           *argv], cwd=REPO, text=True, capture_output=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(REPO), **env})
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - began
+
+
+def _rank_values(out: str, pattern: str, ranks: int = 2) -> list:
+    """Each rank's matches of ``pattern`` after its ``[rank r]`` tag."""
+    return [re.findall(rf"\[rank {r}\] {pattern}", out) for r in range(ranks)]
+
+
+def _trace_kernels(trace_dir: Path) -> dict:
+    """Kernel events by TRACE_KERNELS name in the torch.profiler traces."""
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    for trace in trace_dir.glob("*.json"):
+        for event in json.loads(trace.read_text())["traceEvents"]:
+            if event.get("cat") == "kernel":
+                for name, kernel in TRACE_KERNELS.items():
+                    counts[name] += kernel in event.get("name", "")
+    return counts
+
+
+def _multi_reject(tmp: Path) -> None:
+    """--num_devices past the visible cards: both CLIs exit non-zero with the
+    JAX CLIs' message (checked before anything loads)."""
+    n = torch.cuda.device_count() + 1
+    want = f"--num_devices {n} requested but only {n - 1} CUDA devices are visible"
+    from concurrent.futures import ThreadPoolExecutor
+
+    argv = {"train": ["--save_dir", str(tmp / "rejected"), "--data_dir", str(tmp / "data"),
+                      "--num_devices", str(n)],
+            "generate": ["-c", str(tmp / "none"), "-o", str(tmp / "rejected"), "-p", SEQUENCE,
+                         "-l", LIGAND, "-n", "2", "--num_devices", str(n)]}
+    with ThreadPoolExecutor(2) as pool:
+        runs = dict(zip(argv, pool.map(lambda cli: _cli(cli, argv[cli]), argv)))
+    for cli, (code, out, _) in runs.items():
+        if code == 0 or want not in out:
+            raise AssertionError(f"[multi] {cli} --num_devices {n}: exit {code}\n{out[-2000:]}")
+    print(f"[multi] --num_devices {n} with {n - 1} card(s): train and generate exit non-zero "
+          f"with \"{want}\"")
+
+
+def _multi_train(tmp: Path, seed: int, dtype: str, steps: int, profile: bool) -> dict:
+    """The train CLI at paper width on phase 22's data, batch 2: one rank in
+    this process (exact launches), then two ranks on this card over gloo
+    (--num_devices 2 --device cuda:0, one row each). Both ranks' losses and
+    checksums agree; step 1's loss and grad_norm agree with one rank's within
+    GRAD_REL_TOL; each rank's launches are one rank's micro-steps at batch 1
+    and the final validation. Returns the two runs' metrics."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    common = ["--data_dir", str(tmp / "data"), "--batch_size", "2", "--val_every_steps", "0",
+              "--log_every_steps", "1", "--warmup_steps", "10", "--seed", str(seed),
+              "--dtype", dtype, "--max_steps", str(steps)]
+    one_dir, two_dir = tmp / f"one-{dtype}", tmp / f"two-{dtype}"
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    train([*common, "--save_dir", str(one_dir), "--device", "cuda"])
+    one_wall = time.perf_counter() - began
+    one_launches = main_path_launches()
+    cfg = ModelConfig(dtype=dtype)
+    per_micro, per_eval = forward_launches(cfg, remat=True), forward_launches(cfg)
+    expected = {k: steps * per_micro[k] + per_eval[k] for k in REPLACES}
+    if one_launches != expected:
+        raise AssertionError(f"[multi] one rank, {dtype}: launches {one_launches} != {expected}")
+    code, out, two_wall = _cli("train", [*common, "--save_dir", str(two_dir), "--num_devices", "2",
+                                         "--device", "cuda:0", *(["--profile"] if profile else [])],
+                               PRD_DIST_BACKEND="gloo")
+    if code != 0:
+        raise AssertionError(f"[multi] two ranks, {dtype}: exit {code}\n{out[-4000:]}")
+    groups = _rank_values(out, r"process group: (\w+), rank \d of 2 on (\S+)")
+    losses = _rank_values(out, r"step (\d+): loss=(\S+)")
+    sums = _rank_values(out, r"parameter checksum ([0-9a-f]+), equal on the 2 ranks")
+    launches = [[eval(x) for x in v] for v in _rank_values(out, r"parameter checksum [0-9a-f]+, "
+                                                             r"equal on the 2 ranks; kernel "
+                                                             r"launches (\{[^}]*\})")]
+    if "mesh: {'data': 2, 'model': 1} on gpu" not in out or groups != [[("gloo", "cuda:0")]] * 2:
+        raise AssertionError(f"[multi] two ranks: mesh or group\n{out[-4000:]}")
+    if len(losses[0]) != steps or losses[0] != losses[1] or len(sums[0]) != 1 or sums[0] != sums[1]:
+        raise AssertionError(f"[multi] two ranks disagree: losses {losses}, checksums {sums}"
+                             f"\n{out[-4000:]}")
+    want = {k: steps * per_micro[k] + per_eval[k] for k in REPLACES}  # a row a rank
+    for r in range(2):
+        got = {k: launches[r][0].get(k, 0) for k in REPLACES}
+        if got != want:
+            raise AssertionError(f"[multi] rank {r} launches {got} != {want}")
+    metrics = {name: [json.loads(ln) for ln in (d / "metrics.jsonl").read_text().splitlines()]
+               for name, d in (("one", one_dir), ("two", two_dir))}
+    rows = {k: [m for m in v if "train_loss" in m] for k, v in metrics.items()}
+    if [m["step"] for m in rows["two"]] != list(range(1, steps + 1)):
+        raise AssertionError(f"[multi] metrics.jsonl of two ranks: {metrics['two']}")
+    if sorted(p.name for p in (two_dir / "checkpoints").iterdir()) != [str(steps)]:
+        raise AssertionError("[multi] two ranks: checkpoints")
+    gaps = {}
+    for key in ("train_loss", "grad_norm"):
+        a, b = rows["two"][0][key], rows["one"][0][key]
+        gaps[key] = abs(a - b) / abs(b)
+        if not gaps[key] <= GRAD_REL_TOL[dtype]:
+            raise AssertionError(f"[multi] {dtype} step 1 {key}: two ranks {a}, one rank {b}")
+    mean = lambda k, rs: float(np.mean([m[k] for m in rs]))  # noqa: E731
+    print(f"[multi] train CLI, {dtype}, bucket 192, batch 2, {steps} step(s): one rank "
+          f"{mean('step_seconds', rows['one']):.3f} s per step (main() {one_wall:.1f} s); two "
+          f"gloo ranks on cuda:0, a row each, {mean('step_seconds', rows['two']):.3f} s per step, "
+          f"all-reduce {mean('allreduce_seconds', rows['two']):.4f} s of "
+          f"{rows['two'][0]['grad_bytes'] / 2**20:.2f} MiB a step (host staged), CLI wall "
+          f"{two_wall:.1f} s; step 1 loss {rows['two'][0]['train_loss']:.6f} against "
+          f"{rows['one'][0]['train_loss']:.6f}, grad_norm {rows['two'][0]['grad_norm']:.6f} "
+          f"against {rows['one'][0]['grad_norm']:.6f} (relative {gaps['train_loss']:.2e}, "
+          f"{gaps['grad_norm']:.2e}; gate {GRAD_REL_TOL[dtype]}); ranks' losses "
+          f"{[float(x) for _, x in losses[0]]} equal, checksum {sums[0][0]} on both; launches "
+          f"a rank {{K1 {want['rows_attention']}, K2 {want['tiled_attention']}, K7 "
+          f"{want['rows_attention_bwd']}}}")
+    if profile:
+        # the trace spans the training loop, not the final validation
+        traced = _trace_kernels(two_dir / "profile")
+        looped = {k: steps * per_micro[k] for k in TRACE_KERNELS}
+        if traced != looped:
+            raise AssertionError(f"[multi] rank 0's trace {traced} != its steps' launches "
+                                 f"{looped}")
+        print(f"[multi] rank 0's torch.profiler trace of the loop: {traced} kernel events, the "
+              f"launches of its {steps} micro-steps: a micro-step {per_micro['rows_attention']} "
+              f"K1 (24 forward + 24 recomputed), {per_micro['tiled_attention']} K2 (13 + 12), "
+              f"{per_micro['rows_attention_bwd']} K7")
+    return {"two_dir": two_dir, "common": common, "rows": rows}
+
+
+def _multi_resume_and_nccl(tmp: Path, seed: int, trained: dict) -> None:
+    """A 1-step resume of the two gloo ranks from their checkpoint, then the
+    CLI under the JAX cluster variables at world size 1 with the default
+    backend: NCCL joins and all-reduces on the card."""
+    import contextlib as ctx
+    import io
+    import os
+
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.parallel.mesh import free_port
+
+    two_dir, common = trained["two_dir"], trained["common"]
+    steps = trained["rows"]["two"][-1]["step"]
+    code, out, wall = _cli("train", [*common[:-1], str(steps + 1), "--save_dir", str(two_dir),
+                                     "--num_devices", "2", "--device", "cuda:0",
+                                     "--trained_ckpt", str(two_dir / "checkpoints")],
+                           PRD_DIST_BACKEND="gloo")
+    resumed = _rank_values(out, rf"resumed from \S+ at step ({steps})")
+    losses = _rank_values(out, rf"step ({steps + 1}): loss=(\S+)")
+    if code != 0 or [len(r) for r in resumed] != [1, 1] or len(losses[0]) != 1 \
+            or losses[0] != losses[1]:
+        raise AssertionError(f"[multi] resume of two ranks: exit {code}\n{out[-4000:]}")
+    print(f"[multi] resume: both ranks restored step {steps} and took step {steps + 1}, loss "
+          f"{losses[0][0][1]} on both (CLI wall {wall:.1f} s)")
+
+    cluster = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", "JAX_NUM_PROCESSES": "1",
+               "JAX_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in [*cluster, "PRD_DIST_BACKEND"]}
+    os.environ.update(cluster)
+    os.environ.pop("PRD_DIST_BACKEND", None)
+    buffer = io.StringIO()
+    try:
+        with ctx.redirect_stdout(buffer):
+            train([*common[:-1], "2", "--save_dir", str(tmp / "nccl"), "--device", "cuda"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = buffer.getvalue()
+    rows = [json.loads(ln) for ln in (tmp / "nccl" / "metrics.jsonl").read_text().splitlines()]
+    if "process group: nccl, rank 0 of 1 on cuda:0" not in text or "grad_bytes" not in rows[0]:
+        raise AssertionError(f"[multi] NCCL at world size 1: {text[-2000:]}\n{rows}")
+    steps = [m for m in rows if "grad_bytes" in m]
+    reduce_ms = ", ".join(f"{m['allreduce_seconds'] * 1e3:.2f}" for m in steps)
+    step_s = ", ".join(f"{m['step_seconds']:.3f}" for m in steps)
+    print(f"[multi] JAX cluster variables, world size 1, default backend: nccl joined on cuda:0, "
+          f"the gradient all-reduce of {rows[0]['grad_bytes'] / 2**20:.2f} MiB took {reduce_ms} "
+          f"ms on the card in steps 1 and 2 (cold, then warm); {step_s} s per step")
+
+
+def _multi_sample(seed: int) -> None:
+    """SamplingRunner with a 2-replica mesh on this card against the runner
+    on one device at one seed, on one set of weights, with each replica's
+    launches: DDIM 50 at batch 2 in bf16; Picard at ptol 0 (16 rows a
+    sweep) in f32; one f32 forward through the replicas against the net."""
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.parallel.mesh import ReplicatedNet, make_mesh
+
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    B = 2
+
+    def timed(runner, data):
+        """(results, s, launches, forwards) of one run after a 2-step warm run."""
+        steps = runner.ddim_steps
+        runner.ddim_steps = 2
+        runner.run([data] * B, seed)
+        runner.ddim_steps = steps
+        runner.timings.clear()
+        runner.picard_stats.clear()
+        A.reset_launch_counts()
+        if runner.mesh is not None:
+            runner.net.reset_launches()
+        out = runner.run([data] * B, seed)
+        forwards = steps if runner.sampler == "ddim" else runner.picard_stats[0]["iterations"]
+        return out, runner.timings[0][3], dict(A.LAUNCHES), forwards
+
+    for dtype, sampler, kw in (
+            ("bfloat16", "ddim", dict(ddim_steps=SERVE_STEPS)),
+            ("float32", "ddim_parallel", dict(ddim_steps=PICARD_STEPS, window=PICARD_WINDOW,
+                                              ptol=0.0))):
+        cfg = ModelConfig(num_steps=SERVE_SCHEDULE, dtype=dtype)
+        net = perturbed_net(cfg, seed).to("cuda").eval()
+        per_forward = forward_launches(cfg)
+        one = SamplingRunner(net, "cuda", batch_size=B, sampler=sampler, **kw)
+        two = SamplingRunner(net, "cuda", batch_size=B, sampler=sampler, mesh=mesh, **kw)
+        data = complex_batch_data(one)
+        out1, t1, l1, f1 = timed(one, data)
+        out2, t2, _, f2 = timed(two, data)
+        per_replica = [dict(x) for x in two.net.launches]
+        pos1, pos2 = (np.stack([r[0] for r in o]) for o in (out1, out2))
+        log1, log2 = (np.stack([r[1] for r in o]) for o in (out1, out2))
+        rel_pos = float(np.linalg.norm(pos2 - pos1) / np.linalg.norm(pos1))
+        rel_log = float(np.linalg.norm(log2 - log1) / np.linalg.norm(log1))
+        dpos = float(np.abs(pos2 - pos1).max())
+        want = {k: f1 * v for k, v in per_forward.items()}
+        if l1 != want:
+            raise AssertionError(f"[multi] {sampler} one device: launches {l1} != {want}")
+        for r, got in enumerate(per_replica):
+            if {k: got.get(k, 0) for k in REPLACES} != {k: f2 * v for k, v in per_forward.items()}:
+                raise AssertionError(f"[multi] {sampler} replica {r}: launches {got}")
+        if sampler == "ddim":
+            ok = rel_pos <= FORWARD_REL_TOL and rel_log <= FORWARD_REL_TOL
+            gate, work = f"gate {FORWARD_REL_TOL} relative norm", f"{f1} steps"
+        else:
+            # phase 19's f32 gate: PICARD_CONTROL x what one ulp more on z0
+            # does to the sequential DDIM sample of these weights
+            cpos, clog = _ulp_control(net, one, data, seed)
+            n = data["num_atoms"] + data["num_residues"]
+            ref = SamplingRunner(net, "cuda", sampler="ddim", ddim_steps=one.ddim_steps)
+            spos, slog = ref.run([data], seed)[0][:2]
+            pos_tol = max(PICARD_POS_TOL[dtype],
+                          PICARD_CONTROL * float(np.abs(cpos[:n] - spos).max()))
+            log_tol = max(PICARD_LOGIT_TOL[dtype], PICARD_CONTROL * float(
+                np.linalg.norm(clog[:n] - slog) / np.linalg.norm(slog)))
+            sweeps_ok = (abs(f1 - f2) <= MULTI_SWEEP_TOL * max(f1, f2)
+                         and max(f1, f2) < 2 * PICARD_STEPS + 2)
+            ok = sweeps_ok and dpos <= pos_tol and rel_log <= log_tol
+            gate = (f"gates {pos_tol:.4g} A and {log_tol:.3g} (PICARD_CONTROL x the one-ulp "
+                    f"response of the sequential sample); sweeps {f1} and {f2} (within "
+                    f"{MULTI_SWEEP_TOL:.0%} of the larger, below the cap {2 * PICARD_STEPS + 2})")
+            work = (f"DDIM {PICARD_STEPS}, {f1} sweeps of {PICARD_WINDOW * B} rows, "
+                    f"{PICARD_WINDOW * B // 2} a replica")
+        if not ok:
+            raise AssertionError(f"[multi] {sampler}: two replicas against one device: positions "
+                                 f"{rel_pos} ({dpos} A), logits {rel_log}; {gate}")
+        equal = np.array_equal(pos1, pos2) and np.array_equal(log1, log2)
+        print(f"[multi] {sampler}, {dtype}, bucket 192, B = {B}, {work}: one device {t1:.3f} s, "
+              f"two replicas on cuda:0 {t2:.3f} s; positions {rel_pos:.2e} relative "
+              f"({dpos:.3e} A), logits {rel_log:.2e} ({'' if equal else 'not '}bit-equal; "
+              f"{gate}); launches replica 0 {per_replica[0]}, replica 1 {per_replica[1]}")
+        if dtype == "bfloat16":
+            del net, one, two
+
+    replicated = ReplicatedNet(net, mesh)
+    _, batch = complex_batch(one, 2)
+    batch = prepare_batch(batch, 0.3, generator=torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(seed)
+    N = batch["residue_mask"].shape[1]
+    z, seq_t = (torch.randn(2, N, c, generator=g, device="cuda") for c in (3, 21))
+    t = torch.tensor([10, 500], device="cuda")
+    mask = batch["residue_and_atom_mask"]
+    with torch.inference_mode():
+        want, got = net(batch, z, seq_t, mask, t), replicated(batch, z, seq_t, mask, t)
+    gaps = [_rel(a, b) for a, b in zip(got, want)]
+    if not max(gaps) <= MULTI_F32_TOL:
+        raise AssertionError(f"[multi] f32 forward through two replicas: {gaps}")
+    print(f"[multi] f32 forward at 192, B = 2, through two replicas (a row each) against the net: "
+          f"{gaps[0]:.2e} and {gaps[1]:.2e} relative (gate {MULTI_F32_TOL}); launches "
+          f"{replicated.launches}")
+
+
+def phase_multidevice(seed: int) -> None:
+    """Phase 22: data-parallel training and sampling on this one card."""
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    began = time.perf_counter()
+    esm_dim = ModelConfig().esm_dim
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_dataset(tmp / "data", {
+            "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
+            "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:  # the rejections' processes overlap the training
+            rejected = pool.submit(_multi_reject, tmp)
+            trained = _multi_train(tmp, seed, "bfloat16", 2, profile=True)
+            rejected.result()
+        _multi_resume_and_nccl(tmp, seed, trained)
+    _multi_sample(seed)
+    print(f"[multi] one card: these times are overhead of sharing it, not scaling; phase wall "
+          f"{time.perf_counter() - began:.1f} s")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
@@ -3478,6 +3837,7 @@ def main() -> None:
     phase_wide(args.seed)
     phase_chunked(args.seed)
     phase_esm(args.seed)
+    phase_multidevice(args.seed)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving

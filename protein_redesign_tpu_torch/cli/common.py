@@ -12,10 +12,13 @@ slice. ``sampler_cfg_overrides`` follows JAX's rules (:326-353):
 ``--pallas_auto_min_n`` always sets its field, the kernel switches
 (``--use_pallas``, ``--trimul_dmajor``, the fused ones) only when given, so
 a checkpoint's own value survives. ``SamplingRunner`` is the JAX runner
-(:405-796) without segments, the mesh and the wire format: complexes are grouped by
+(:405-796) without segments and the wire format: complexes are grouped by
 padding bucket, collated, and sampled batch by batch with the DDPM, DDIM or
 parallel-in-time DDIM (Picard) sampler, optionally padded to a full batch
-and with trajectory frames (DDPM and DDIM).
+and with trajectory frames (DDPM and DDIM). With a mesh
+(``make_inference_mesh``, from ``--num_devices``) the net is replicated over
+its devices (``parallel.mesh.ReplicatedNet``): each call's rows are split
+over the replicas, which for ``ddim_parallel`` splits the Picard window.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..data.featurize import ligand_to_data, protein_to_data
 from ..models.paratime import sample_ddim_parallel
 from ..models.prdiff import ProteinReDiffNet, sample, sample_ddim
 from ..ops.geometry import nanometre_to_angstrom
+from ..parallel.mesh import DATA_AXIS, Mesh, ReplicatedNet, devices_for, make_mesh, pad_rows
 
 RESIDUE_TYPES_NEW = ["X"] + RESIDUE_TYPES
 
@@ -246,7 +250,7 @@ def add_batch_args(parser) -> None:
     parser.add_argument("--num_workers", type=int, default=1, help="accepted and ignored")
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--num_devices", "--num_gpus", type=int, default=1, dest="num_devices",
-                        help="more than 1 is not ported yet")
+                        help=NUM_DEVICES_HELP)
     parser.add_argument("--num_steps", type=int, default=64)
     parser.add_argument("--mask_prob", type=float, default=0.3)
     parser.add_argument("--training_mode", action="store_true")
@@ -278,6 +282,7 @@ def sample_fasta(args) -> Tuple[List[str], List[Protein], List[Molecule], List[T
     seed = args.seed if args.seed is not None else int(np.random.randint(99999))
     args.output_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device(args.device)
+    mesh = make_inference_mesh(args.num_devices, device)
 
     state_dict, cfg = load_checkpoint(args.ckpt_path, num_steps=args.num_steps)
     cfg = apply_serving_defaults(cfg.replace(training_mode=False, **sampler_cfg_overrides(args)),
@@ -304,7 +309,7 @@ def sample_fasta(args) -> Tuple[List[str], List[Protein], List[Molecule], List[T
         data = complex_data(protein, ligand, embedder.embed_protein(protein))
         datas.extend([data] * args.num_samples)
     runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob,
-                            **runner_sampler_kwargs(args))
+                            mesh=mesh, **runner_sampler_kwargs(args))
     results = runner.run(datas, seed=seed)
     print_timings(runner)
     return names, proteins, ligands, results, runner.timings
@@ -325,14 +330,21 @@ def print_timings(runner: "SamplingRunner") -> None:
 
 def check_supported_args(args) -> None:
     """NotImplementedError for flags outside the ported slice."""
-    unsupported = [
-        (getattr(args, "num_devices", 1) > 1, "--num_devices > 1: not ported yet"),
-        (args.sample_segments is not None, "--sample_segments: segmented sampling is not "
-                                           "ported"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(what)
+    if args.sample_segments is not None:
+        raise NotImplementedError("--sample_segments: segmented sampling is not ported")
+
+
+NUM_DEVICES_HELP = ("data-parallel sampling over this many devices: --device cuda takes cards "
+                    "0..N-1, cuda:K or cpu N replicas on that one device")
+
+
+def make_inference_mesh(num_devices: int, device) -> Optional[Mesh]:
+    """The sampling CLIs' data mesh (`cli/common.py:387-402`): None for at
+    most one device, else ``cuda:0 .. cuda:N-1`` for ``cuda`` (ValueError
+    where fewer cards are visible), or N replicas on ``cuda:K`` or the CPU."""
+    if num_devices is None or num_devices <= 1:
+        return None
+    return make_mesh(devices_for(num_devices, device))
 
 
 def sampler_cfg_overrides(args) -> Dict:
@@ -385,13 +397,20 @@ class SamplingRunner:
     ``ptol`` and ``coarse_init`` to ddim_parallel, whose per-batch stats
     (``iterations``, ``nfe``) ``self.picard_stats`` collects. The JAX
     runner's checks (`cli/common.py:462-545`) raise at construction; its
-    segments stay rejected for every sampler (``check_supported_args``)."""
+    segments stay rejected for every sampler (``check_supported_args``).
+
+    ``mesh`` replicates the net over its data axis (``ReplicatedNet``, on
+    the mesh's first device, which replaces ``device``): the batch floor
+    rises to the data axis and each group is padded to a multiple of it,
+    the padded rows dropped, as the JAX runner does (:512-521, :741-745);
+    under ``ddim_parallel`` the Picard window takes the split instead and
+    neither applies."""
 
     def __init__(self, net: ProteinReDiffNet, device: torch.device, batch_size: int = 1,
                  mask_prob: Optional[float] = None, buckets: Optional[Sequence[int]] = None,
                  sampler: str = "ddpm", ddim_steps: int = 50, eta: float = 0.0,
                  window: int = 8, ptol: float = 1e-3, coarse_init: int = 0,
-                 pad_to_batch: bool = False):
+                 pad_to_batch: bool = False, mesh: Optional[Mesh] = None):
         cfg = net.cfg
         if sampler not in ("ddpm", "ddim", "ddim_parallel"):
             raise ValueError(f"Unknown sampler: {sampler}")
@@ -425,9 +444,14 @@ class SamplingRunner:
                 "--coarse_init warm starts are implemented for the gaussian sequence channel; "
                 "drop it for absorbing checkpoints"
             )
-        self.net = net
+        self.net, self.mesh = net, mesh
         self.device = torch.device(device)
         self.batch_size = batch_size
+        if mesh is not None:
+            self.net = ReplicatedNet(net, mesh)
+            self.device = self.net.primary
+            if not parallel:
+                self.batch_size = max(batch_size, mesh.shape[DATA_AXIS])
         self.mask_prob = net.cfg.mask_prob if mask_prob is None else mask_prob
         self.buckets = tuple(DataConfig().buckets if buckets is None else buckets)
         self.sampler, self.ddim_steps, self.eta = sampler, ddim_steps, eta
@@ -506,6 +530,8 @@ class SamplingRunner:
             group = [datas[i] for i in idxs]
             if self.pad_to_batch:
                 group += [group[-1]] * (self.batch_size - len(group))
+            if self.mesh is not None and self.sampler != "ddim_parallel":
+                group = pad_rows(group, self.mesh.shape[DATA_AXIS])
             bucket, batch = self.collate(group)
             began = time.perf_counter()
             (pos, logits), frames = self._sample(batch, mask_prob, generator, trajectory)

@@ -34,14 +34,14 @@ from pathlib import Path
 
 
 def main(argv=None):
-    from .common import add_esm_args, add_sampler_args
+    from .common import NUM_DEVICES_HELP, add_esm_args, add_sampler_args
 
     parser = ArgumentParser()
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--num_workers", type=int, default=2, help="accepted and ignored")
     parser.add_argument("--num_devices", "--num_gpus", type=int, default=1,
-                        dest="num_devices")
+                        dest="num_devices", help=NUM_DEVICES_HELP)
     parser.add_argument("--num_steps", type=int, default=64)
     parser.add_argument("--mask_prob", type=float, default=0.3)
     parser.add_argument("--training_mode", action="store_true")
@@ -75,6 +75,7 @@ def main(argv=None):
         SamplingRunner,
         apply_serving_defaults,
         check_supported_args,
+        make_inference_mesh,
         complex_data,
         load_protein_arg,
         parse_ligand_arg,
@@ -86,8 +87,9 @@ def main(argv=None):
     )
 
     check_supported_args(args)
-    args.output_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device(args.device)
+    mesh = make_inference_mesh(args.num_devices, device)
+    args.output_dir.mkdir(parents=True, exist_ok=True)
 
     state_dict, cfg = load_checkpoint(args.ckpt_path, num_steps=args.num_steps)
     cfg = apply_serving_defaults(cfg.replace(
@@ -117,7 +119,7 @@ def main(argv=None):
     ref_protein = protein_from_pdb_file(args.ref_path) if args.ref_path else None
 
     runner = SamplingRunner(net, device, batch_size=args.batch_size, mask_prob=args.mask_prob,
-                            **runner_sampler_kwargs(args))
+                            mesh=mesh, **runner_sampler_kwargs(args))
     results = runner.run([data] * args.num_samples, seed=args.seed,
                          trajectory=args.save_trajectory)
     print_timings(runner)

@@ -251,7 +251,7 @@ def serve_tcp(port, runner, embedder, output_dir, default_mask_prob,
 
 
 def main(argv=None):
-    from .common import add_esm_args, add_sampler_args
+    from .common import NUM_DEVICES_HELP, add_esm_args, add_sampler_args
 
     parser = ArgumentParser()
     parser.add_argument("-c", "--ckpt_path", type=Path, required=True)
@@ -259,8 +259,7 @@ def main(argv=None):
     parser.add_argument("--num_steps", type=int, default=64)
     parser.add_argument("--mask_prob", type=float, default=0.3)
     parser.add_argument("--batch_size", type=int, default=1)
-    parser.add_argument("--num_devices", type=int, default=1,
-                        help="data-parallel sampling over this many cards: not ported yet")
+    parser.add_argument("--num_devices", type=int, default=1, help=NUM_DEVICES_HELP)
     add_sampler_args(parser)
     parser.add_argument("--fast_softmax", action="store_true",
                         help="bf16 attention softmax (K1 fast) for a checkpoint whose config "
@@ -298,11 +297,13 @@ def main(argv=None):
         SamplingRunner,
         apply_serving_defaults,
         check_supported_args,
+        make_inference_mesh,
         runner_sampler_kwargs,
         sampler_cfg_overrides,
     )
 
     check_supported_args(args)
+    mesh = make_inference_mesh(args.num_devices, args.device)
     state_dict, cfg = load_checkpoint(args.ckpt_path, num_steps=args.num_steps)
     cfg = apply_serving_defaults(cfg.replace(
         training_mode=False, fast_softmax=args.fast_softmax,
@@ -333,7 +334,7 @@ def main(argv=None):
         # warmed buckets restrict the ladder: a small request pads up to a
         # warmed rung instead of running an unwarmed smaller one
         buckets=sorted(warm) if warm else None,
-        **runner_sampler_kwargs(args),
+        mesh=mesh, **runner_sampler_kwargs(args),
     )
     if warm:
         warmup_runner(runner, warm, cfg.esm_dim)

@@ -1,4 +1,4 @@
-"""Training CLI (port of ``protein_redesign_tpu/cli/train.py``) on one device:
+"""Training CLI (port of ``protein_redesign_tpu/cli/train.py``):
 
     python -m protein_redesign_tpu_torch.cli.train \\
         --save_dir runs/exp --data_dir data \\
@@ -18,10 +18,36 @@ the first pass, and the coins on stdout) and checkpoints under
 SIGTERM/SIGINT. Each step draws from a generator seeded by (seed, step), so
 a resumed run takes the draws an unbroken one would.
 
+Data-parallel training, as the JAX CLI's (data, 1) mesh runs it:
+
+- ``--num_devices N`` (``-1``, the default: every visible card; one device
+  on the CPU) spawns one rank a card, ``cuda:<rank>``, in a process group on
+  localhost; ``--device cuda:K`` puts every rank on card K (gloo only) and
+  ``--device cpu`` runs the ranks on the CPU over gloo. The data axis is the
+  largest count up to N that divides ``--batch_size`` (with JAX's warning
+  where it drops devices), or ``--mesh_shape d,1``'s d. Each rank collates
+  the global batch and keeps its block of rows.
+- Under the JAX CLI's cluster variables (``JAX_COORDINATOR_ADDRESS`` or
+  ``COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) or
+  torchrun's (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+  ``LOCAL_RANK``) the process joins that group on ``cuda:<local_rank>``:
+  each process reads its stride of the epoch (``batch_size`` rows, a global
+  batch of ``batch_size`` x processes), all pinned to one bucket (the
+  ``multi-host fixed bucket:`` line).
+
+The backend is nccl on cards and gloo on the CPU; ``PRD_DIST_BACKEND=gloo``
+takes gloo on cards (two ranks on one card). SIGTERM/SIGINT to the process
+that spawned the ranks reaches each of them. Only rank 0 writes metrics and
+checkpoints (behind a barrier); every rank validates the whole validation
+set, so all reach the same ``val_loss``; a resume restores on every rank.
+At the end each rank prints its parameter checksum, checked equal across
+the ranks, and its kernel launches; metrics gain ``grad_bytes`` and
+``allreduce_seconds``. ``--mesh_shape d,m`` with m > 1 (FSDP) is not ported.
+
 ``--profile`` traces the training loop (``torch.profiler``: the host, and the
-card where ``--device`` is one) into ``<save_dir>/profile``, as the JAX CLI's
-jax.profiler trace. ``--use_pallas``, ``--pallas_auto_min_n`` and
-``--trimul_dmajor`` set their config fields, as in the JAX CLI.
+card where ``--device`` is one; rank 0 only) into ``<save_dir>/profile``, as
+the JAX CLI's jax.profiler trace. ``--use_pallas``, ``--pallas_auto_min_n``
+and ``--trimul_dmajor`` set their config fields, as in the JAX CLI.
 
 ``--no-use_pallas_bwd`` keeps the K1 forward and differentiates triangle
 attention through the plain VJP of the f32 reference instead of K7;
@@ -33,14 +59,32 @@ through K1 fast.
 
 from __future__ import annotations
 
+import functools
+import os
 import shutil
 import signal
+import sys
 import time
 from argparse import ArgumentParser
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..parallel.mesh import (
+    DATA_AXIS,
+    Cluster,
+    any_rank,
+    assert_replicas_equal,
+    backend_for,
+    barrier,
+    devices_for,
+    free_port,
+    init_distributed,
+    join,
+    make_mesh,
+)
 
 WIRE_COMPRESSION_HELP = (
     "accepted for the JAX CLI's command lines and has no effect: the compact "
@@ -52,8 +96,8 @@ WIRE_COMPRESSION_HELP = (
 _REJECTED = (
     (lambda a: a.cache_device_batches, "--cache_device_batches: TPU-tunnel plumbing, not ported"),
     (lambda a: a.device_cache_gb > 0, "--device_cache_gb: TPU-tunnel plumbing, not ported"),
-    (lambda a: a.num_devices > 1, "--num_devices > 1: multi-device training is not ported yet"),
-    (lambda a: a.mesh_shape is not None, "--mesh_shape: multi-device training is not ported yet"),
+    (lambda a: a.mesh_shape is not None and a.mesh_shape[1] > 1,
+     "--mesh_shape d,m with m > 1: FSDP parameter sharding is not ported yet"),
 )
 
 
@@ -62,15 +106,34 @@ def seed_for(seed: int, *salt: int) -> int:
     return int(np.random.SeedSequence([seed, *salt]).generate_state(1, np.uint64)[0] >> 1)
 
 
-def main(argv=None):
-    from ..config import (
-        add_data_args,
-        add_model_args,
-        add_train_args,
-        data_config_from_args,
-        model_config_from_args,
-        train_config_from_args,
-    )
+def parse_mesh_shape(text: str) -> Tuple[int, int]:
+    d, m = (int(x) for x in text.split(","))
+    return d, m
+
+
+def data_axis(n: int, batch_size: int, mesh_shape: Optional[Tuple[int, int]]) -> int:
+    """The data axis of a one-host run over n devices (`train.py:145-198` of
+    the JAX CLI): the largest count up to n that divides the batch, or
+    ``mesh_shape``'s."""
+    if mesh_shape is not None:
+        d = make_mesh([torch.device("cpu")] * n, mesh_shape).shape[DATA_AXIS]
+        if batch_size % d:
+            raise ValueError(f"--batch_size {batch_size} does not split over the data axis {d}")
+        return d
+    d = max(k for k in range(1, n + 1) if batch_size % k == 0)
+    if d < n:
+        print(f"warning: data-parallel over {d}/{n} devices (the data axis must divide the "
+              f"global batch {batch_size}; pass --mesh_shape or adjust --batch_size to use "
+              f"every chip)")
+    return d
+
+
+def platform(device: torch.device) -> str:
+    return "gpu" if device.type == "cuda" else device.type
+
+
+def _parser() -> ArgumentParser:
+    from ..config import add_data_args, add_model_args, add_train_args
 
     parser = ArgumentParser()
     add_model_args(parser)
@@ -87,17 +150,109 @@ def main(argv=None):
     parser.add_argument("--fresh", action="store_true",
                         help="delete save_dir first (reference train.py:28-30)")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to train on (cuda or cpu)")
-    args = parser.parse_args(argv)
+                        help="torch device to train on: cuda (rank r of --num_devices on "
+                             "cuda:r), cuda:K (every rank on card K) or cpu")
+    return parser
+
+
+def main(argv=None):
+    """Train; returns the final TrainState, or None in the process that
+    spawned the ranks."""
+    from ..config import train_config_from_args
+
+    args = _parser().parse_args(argv)
+    if args.mesh_shape is not None:
+        args.mesh_shape = parse_mesh_shape(args.mesh_shape)
     for bad, what in _REJECTED:
         if bad(args):
             raise NotImplementedError(what)
+    train_cfg = train_config_from_args(args)
 
-    import torch
+    joined = init_distributed(args.device)
+    if joined is not None:
+        cluster, device = joined
+        try:
+            if train_cfg.num_devices not in (-1, cluster.world):
+                raise SystemExit(f"--num_devices {train_cfg.num_devices}: each of the "
+                                 f"{cluster.world} processes trains on one device")
+            if args.mesh_shape not in (None, (cluster.world, 1)):
+                raise ValueError(f"mesh_shape {args.mesh_shape} != {cluster.world} devices")
+            return _train(args, device, cluster.rank, cluster.world, multihost=True)
+        finally:
+            torch.distributed.destroy_process_group()
+    device = torch.device(args.device)
+    n = train_cfg.num_devices
+    if n <= 0:  # every visible card; one device on the CPU or a named card
+        n = torch.cuda.device_count() if device.type == "cuda" and device.index is None else 1
+    devices = devices_for(n, device) if n > 1 else [device]
+    d = data_axis(max(n, 1), args.batch_size, args.mesh_shape)
+    if d == 1:
+        return _train(args, device, 0, 1)
+    if len(set(devices)) < d and device.type == "cuda" and backend_for(device) == "nccl":
+        raise ValueError(f"--device {device} puts the {d} ranks on one card, which nccl "
+                         f"refuses; set PRD_DIST_BACKEND=gloo to share it")
+    print(f"mesh: {make_mesh(devices[:d]).shape} on {platform(device)}", flush=True)
+    if device.type == "cuda":
+        from ..kernels import build
 
+        build()  # once, before the ranks start
+    _run_ranks(list(sys.argv[1:] if argv is None else argv), d)
+    return None
+
+
+def _run_ranks(argv: List[str], world: int) -> None:
+    """Spawn the ranks and wait for them. SIGTERM or SIGINT to this process
+    reaches every rank as SIGUSR1, a rank's stop request (the ranks then
+    checkpoint and exit together); a second one kills the ranks."""
+    import torch.multiprocessing as mp
+
+    ranks = mp.start_processes(_spawned_rank, args=(argv, world, free_port()), nprocs=world,
+                               join=False, start_method="spawn")
+    received = []
+
+    def forward(signum, frame):
+        received.append(signum)
+        for proc in ranks.processes:
+            if proc.is_alive():
+                os.kill(proc.pid, signal.SIGUSR1 if len(received) == 1 else signal.SIGKILL)
+
+    previous = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        while not ranks.join():
+            pass
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def _spawned_rank(rank: int, argv: List[str], world: int, port: int) -> None:
+    """One rank of ``--num_devices``: parse the same flags, join the group
+    on localhost, train on its block of each global batch's rows."""
+    args = _parser().parse_args(argv)
+    if args.mesh_shape is not None:
+        args.mesh_shape = parse_mesh_shape(args.mesh_shape)
+    device = join(Cluster(rank, world, rank, f"tcp://127.0.0.1:{port}"), args.device)
+    if device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    try:
+        _train(args, device, rank, world, multihost=False)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _tagged(tag: str, line: str) -> None:
+    """A spawned rank's line: the ranks share their parent's stdout, so each
+    line goes out whole, in one write, behind the rank's tag."""
+    sys.stdout.write(f"{tag}{line}\n")
+    sys.stdout.flush()
+
+
+def _train(args, device: torch.device, rank: int, world: int, multihost: bool = False):
+    from ..config import data_config_from_args, model_config_from_args, train_config_from_args
     from ..data.dataset import PDBDataset, load_split_ids
     from ..data.pipeline import batches, prefetch
     from ..models.prdiff import ProteinReDiffNet
+    from ..ops.attention import LAUNCHES
     from ..parallel.train_step import make_eval_step, make_train_state, make_train_step
     from ..utils.checkpoint import CheckpointManager, load_train_state, read_config, step_dir
     from ..utils.logging import MetricsLogger, maybe_profile
@@ -105,7 +260,13 @@ def main(argv=None):
     cfg = model_config_from_args(args).replace(training_mode=True)
     data_cfg = data_config_from_args(args)
     train_cfg = train_config_from_args(args)
-    device = torch.device(args.device)
+    spawned = world > 1 and not multihost
+    say = functools.partial(_tagged, f"[rank {rank}] ") if spawned else print
+    if multihost:
+        say(f"mesh: {make_mesh([device] * world).shape} on {platform(device)}")
+    if multihost or spawned:
+        say(f"process group: {torch.distributed.get_backend()}, rank {rank} of {world} on "
+            f"{device}")
 
     save_dir = Path(train_cfg.save_dir)
     if args.fresh and save_dir.exists():
@@ -116,14 +277,34 @@ def main(argv=None):
                     f"--fresh would delete --trained_ckpt ({args.trained_ckpt} is under "
                     f"{save_dir}); move the checkpoint out or drop --fresh"
                 )
-        shutil.rmtree(save_dir)
+        # the ranks share the save dir: rank 0 deletes, the others wait for it
+        if rank == 0:
+            shutil.rmtree(save_dir)
+    barrier()
     save_dir.mkdir(parents=True, exist_ok=True)
-    logger = MetricsLogger(save_dir)
+    logger = MetricsLogger(save_dir, enabled=rank == 0)
 
     cache_dir = data_cfg.resolved_cache_dir()
-    train_ds = PDBDataset(cache_dir, load_split_ids(data_cfg.data_dir, "train"))
+    train_ids = load_split_ids(data_cfg.data_dir, "train")
+    train_ds = PDBDataset(cache_dir, train_ids)
     val_ds = PDBDataset(cache_dir, load_split_ids(data_cfg.data_dir, "val"))
-    print(f"train: {len(train_ds)} complexes, val: {len(val_ds)}")
+    say(f"train: {len(train_ds)} complexes, val: {len(val_ds)}")
+
+    # Across processes every rank must run the same shapes at each step, so
+    # all training batches take one bucket: the smallest rung that holds the
+    # split's largest complex (`train.py:217-245` of the JAX CLI).
+    fixed_bucket = None
+    if multihost and world > 1:
+        largest = 0
+        for pdb_id in train_ids:
+            with np.load(Path(cache_dir) / pdb_id / "complex.npz") as z:
+                largest = max(largest, int(z["num_atoms"]) + int(z["num_residues"]))
+        fitting = [b for b in data_cfg.buckets if b >= largest]
+        if not fitting:
+            raise SystemExit(f"largest training complex has {largest} nodes, above the top "
+                             f"bucket {max(data_cfg.buckets)}")
+        fixed_bucket = min(fitting)
+        say(f"multi-host fixed bucket: {fixed_bucket} (largest complex {largest} nodes)")
 
     resume = step_dir(args.trained_ckpt) if args.trained_ckpt else None
     if resume is not None:
@@ -132,7 +313,7 @@ def main(argv=None):
     state = make_train_state(ProteinReDiffNet(cfg).to(device))
     if resume is not None:
         load_train_state(resume, state)
-        print(f"resumed from {resume} at step {state.step}")
+        say(f"resumed from {resume} at step {state.step}")
     train_step = make_train_step(train_cfg)
     eval_step = make_eval_step()
     manager = CheckpointManager(save_dir / "checkpoints", train_cfg.checkpoint_top_k)
@@ -144,6 +325,15 @@ def main(argv=None):
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = (t.float() if t.is_floating_point() else t).to(device, non_blocking=True)
         return out
+
+    def own_rows(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A spawned rank's block of the global batch's rows (each process
+        of a cluster collates its own rows)."""
+        if not spawned:
+            return batch
+        b = data_cfg.batch_size // world
+        rows = slice(rank * b, (rank + 1) * b)
+        return {k: v[:, rows] if accum > 1 else v[rows] for k, v in batch.items()}
 
     def micro_batches(batch: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
         if accum == 1:
@@ -180,18 +370,27 @@ def main(argv=None):
         # a second signal terminates at once instead of waiting for the save
         signal.signal(signum, signal.SIG_DFL)
 
-    for sig in (signal.SIGTERM, signal.SIGINT):
+    def on_request(signum, frame):  # a spawned rank's stop, sent by the process that spawned it
+        interrupted["flag"] = True
+
+    handlers = {signal.SIGTERM: on_signal, signal.SIGINT: on_signal}
+    if spawned:
+        handlers[signal.SIGUSR1] = on_request
+    for sig, handler in handlers.items():
         try:
-            signal.signal(sig, on_signal)
+            signal.signal(sig, handler)
         except ValueError:
             pass  # not on the main thread
 
     step, epoch, stop = state.step, 0, False
-    with maybe_profile(save_dir, args.profile, device):
+    with maybe_profile(save_dir, args.profile and rank == 0, device):
         while not stop:
+            # across processes each reads its stride of the epoch
             it = batches(train_ds, data_cfg.batch_size, data_cfg.buckets, shuffle=True,
-                         seed=train_cfg.seed, epoch=epoch, accum=accum)
-            for batch in prefetch(it, size=2, transform=to_device):
+                         seed=train_cfg.seed, epoch=epoch, accum=accum,
+                         num_shards=world if multihost else 1,
+                         shard_index=rank if multihost else 0, fixed_bucket=fixed_bucket)
+            for batch in prefetch(it, size=2, transform=lambda b: to_device(own_rows(b))):
                 began = time.perf_counter()
                 metrics = train_step(state, micro_batches(batch), generator=generator(0, step))
                 step += 1
@@ -201,6 +400,8 @@ def main(argv=None):
                         "train_loss": loss, "grad_norm": grad_norm, "epoch": epoch,
                         "bucket": batch["residue_mask"].shape[-1],
                         "step_seconds": time.perf_counter() - began,
+                        **{k: metrics[k] for k in ("grad_bytes", "allreduce_seconds")
+                           if k in metrics},
                     }
                     coins = ""
                     if cfg.self_cond:
@@ -208,14 +409,16 @@ def main(argv=None):
                         coins = " self-cond coins " + ", ".join(
                             f"{c:.3f}" for c in metrics["sc_coins"])
                     logger.log(step, logged)
-                    print(f"step {step}: loss={loss:.4f}{coins}")
+                    say(f"step {step}: loss={loss:.4f}{coins}")
                 if train_cfg.val_every_steps > 0 and step % train_cfg.val_every_steps == 0:
                     val = run_validation(step)
                     logger.log(step, val)
-                    print(f"step {step}: val_loss={val['val_loss']:.4f}")
+                    say(f"step {step}: val_loss={val['val_loss']:.4f}")
                     manager.save(state, val["val_loss"])
-                if interrupted["flag"]:
-                    print("signal received; checkpointing and exiting")
+                # the ranks stop together: a signal to one stops them all
+                if any_rank(interrupted["flag"]):
+                    interrupted["flag"] = True
+                    say("signal received; checkpointing and exiting")
                     stop = True
                     break
                 if 0 < train_cfg.max_steps <= step:
@@ -227,15 +430,19 @@ def main(argv=None):
     if interrupted["flag"]:
         # Save first, no validation: the kill-grace window may not outlast one.
         manager.save(state)
-        print(f"interrupted at step {step}; checkpoint saved (final validation skipped)")
-        return state
-    if manager.latest_step() == step:
-        print(f"done at step {step} (checkpoint saved at this step)")
-        return state
-    val = run_validation(step)
-    logger.log(step, val)
-    manager.save(state, val["val_loss"])
-    print(f"done at step {step}; final val_loss={val['val_loss']:.4f}")
+        say(f"interrupted at step {step}; checkpoint saved (final validation skipped)")
+    elif manager.latest_step() == step:
+        say(f"done at step {step} (checkpoint saved at this step)")
+    else:
+        val = run_validation(step)
+        logger.log(step, val)
+        manager.save(state, val["val_loss"])
+        say(f"done at step {step}; final val_loss={val['val_loss']:.4f}")
+    if world > 1:
+        digest = assert_replicas_equal(state.net)
+        launched = {k: n for k, n in LAUNCHES.items() if n}
+        say(f"parameter checksum {digest[:16]}, equal on the {world} ranks; "
+            f"kernel launches {launched}")
     return state
 
 

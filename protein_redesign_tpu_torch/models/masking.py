@@ -55,11 +55,14 @@ def spatial_mask(
     max_p: torch.Tensor,           # scalar
     frac_u: Optional[torch.Tensor] = None,  # scalar uniform in [0, 1)
     generator: Optional[torch.Generator] = None,
+    median_of: Optional[torch.Tensor] = None,  # [B', N]: the batch whose median counts
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask the k residues nearest the ligand centroid in each sample, with
-    k = floor(U(0, 1) * max_p * median(residues per sample)). Returns
+    k = floor(U(0, 1) * max_p * median(residues per sample)); the median is
+    over ``median_of``'s samples where given (a data-parallel rank's global
+    batch), else over ``residue_mask``'s. Returns
     (residue_extra_mask, residue_inv_extra_mask)."""
-    n_res = residue_mask.sum(-1)
+    n_res = (residue_mask if median_of is None else median_of).sum(-1)
     n_median = torch.quantile(n_res, 0.5)  # the mean of the middle two, as jnp.median
     if frac_u is None:
         frac_u = torch.rand((), generator=generator, device=residue_mask.device)

@@ -24,11 +24,15 @@ then returns its stats as they are.
 The draws are ``sample_ddim``'s: ``sample_init`` with the same generator or
 ``SamplerNoise`` (``mask_scores``, ``z0``, ``s0``); Picard draws nothing
 per step. The JAX ``mesh`` argument (the window sharded over devices) is
-not ported.
+the net itself here: given a ``parallel.mesh.ReplicatedNet``, each sweep's
+call at W * B window-major rows is split in contiguous blocks over its
+replicas, so a window that is a multiple of the replicas splits by window
+member (a warning otherwise, as JAX's ``_window_sharding``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -106,6 +110,17 @@ def check_picard_config(cfg: ModelConfig, window: int, ddim_steps: int,
             )
 
 
+def warn_uneven_window(net, W: int) -> None:
+    """JAX's warning (`paratime.py:68-85`) when a replicated net's data axis
+    does not divide the window."""
+    d = len(getattr(net, "devices", ()))
+    if d > 1 and W % d:
+        warnings.warn(
+            f"ddim_parallel window={W} is not a multiple of the mesh data axis ({d}); the "
+            f"window shards unevenly and per-sweep latency matches the next multiple "
+            f"({-(-W // d) * d}) — pick window as a multiple of the chip count.")
+
+
 class _Window:
     """The pieces both Picard loops share: the time tables on the device,
     the prepared batch expanded once to the window's W * B rows, one net
@@ -113,6 +128,7 @@ class _Window:
 
     def __init__(self, net: ProteinReDiffNet, batch: Batch, S: int, W: int, tol: float):
         cfg = net.cfg
+        warn_uneven_window(net, W)
         self.net, self.S, self.W = net, S, W
         x = batch["x"]
         self.B = x.shape[0]

@@ -26,7 +26,7 @@ import dataclasses
 import functools
 import math
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,9 @@ from .layers import (
     TransitionMLP,
 )
 from .masking import _rank, random_mask, spatial_mask
+
+if TYPE_CHECKING:
+    from ..parallel.mesh import RowShard
 
 Batch = Dict[str, torch.Tensor]
 NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
@@ -216,11 +219,41 @@ def _uniform(value: Optional[torch.Tensor], like: torch.Tensor,
     return torch.rand((), generator=generator, device=like.device)
 
 
+def fill_train_noise(cfg: ModelConfig, noise: TrainNoise, B: int, N: int, device,
+                     generator: Optional[torch.Generator]) -> TrainNoise:
+    """``noise`` with every draw it lacks taken from ``generator`` in the
+    order ``loss`` takes them, at batch ``B`` and bucket ``N``: so a loss
+    over the filled draws equals one over the generator. The
+    self-conditioning coin stays a host draw of ``loss``."""
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    f = dataclasses.replace(noise)
+    f.rt = rand(()) if f.rt is None else f.rt
+    f.p = 0.1 + rand(()) * (cfg.mask_prob - 0.1) if f.p is None else f.p
+    f.rand_u = rand(()) if f.rand_u is None else f.rand_u
+    f.rand_scores = rand(B * N) if f.rand_scores is None else f.rand_scores
+    f.spatial_u = rand(()) if f.spatial_u is None else f.spatial_u
+    if f.t is None:
+        f.t = torch.randint(0, cfg.num_steps, (B,), generator=generator, device=device)
+    if f.noise_z is None:
+        f.noise_z = torch.randn((B, N, 3), generator=generator, device=device)
+    if cfg.seq_process == "absorbing":
+        f.corrupt_u = rand((B, N)) if f.corrupt_u is None else f.corrupt_u
+    elif f.noise_seq is None:
+        f.noise_seq = torch.randn((B, N, NUM_CLASSES), generator=generator, device=device)
+    return f
+
+
 def _training_masks(batch: Batch, mask_prob: float, noise: TrainNoise,
-                    generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+                    generator: Optional[torch.Generator], shard: Optional["RowShard"] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training masking policy (`prdiff.py:371-394`): random masking of
     a U(0, 1) * p fraction when rt < 0.3, spatial masking around the ligand
-    when 0.3 <= rt < 0.5, else none; p ~ U(0.1, mask_prob)."""
+    when 0.3 <= rt < 0.5, else none; p ~ U(0.1, mask_prob). With a
+    ``shard``, the random mask ranks the global batch's residues (its
+    ``rand_scores`` are global) and the spatial mask's median counts them,
+    as on JAX's mesh."""
     residue_mask = batch["residue_mask"]
     rt = _uniform(noise.rt, residue_mask, generator)
     if noise.p is not None:
@@ -228,10 +261,14 @@ def _training_masks(batch: Batch, mask_prob: float, noise: TrainNoise,
     else:
         p = 0.1 + _uniform(None, residue_mask, generator) * (mask_prob - 0.1)
     p_rand = _uniform(noise.rand_u, residue_mask, generator) * p
-    rand_extra, rand_inv = random_mask(residue_mask, p_rand, noise.rand_scores, generator)
+    if shard is None:
+        rand_extra, rand_inv = random_mask(residue_mask, p_rand, noise.rand_scores, generator)
+    else:
+        rand_extra, rand_inv = (shard.rows(m) for m in random_mask(
+            shard.residue_mask, p_rand, noise.rand_scores, generator))
     spat_extra, spat_inv = spatial_mask(
         batch["residue_atom_pos"][:, :, 1], residue_mask, batch["atom_pos"], batch["atom_mask"],
-        p, noise.spatial_u, generator,
+        p, noise.spatial_u, generator, median_of=None if shard is None else shard.residue_mask,
     )
     use_rand, use_spatial = rt < 0.3, (rt >= 0.3) & (rt < 0.5)
     extra_mask = torch.where(use_rand, rand_extra,
@@ -248,6 +285,7 @@ def prepare_batch(
     generator: Optional[torch.Generator] = None,
     training: bool = False,
     train_noise: Optional[TrainNoise] = None,
+    shard: Optional["RowShard"] = None,
 ) -> Batch:
     """`prdiff.py:334-411`: ±1 one-hot, merged nm coordinates and the
     sequence masking: the training policy draw, or (inference) a fixed
@@ -263,7 +301,7 @@ def prepare_batch(
     pos = atom_mask[..., None] * atom_pos + residue_mask[..., None] * residue_ca_pos
     if training:
         extra_mask, inv_mask = _training_masks(batch, mask_prob, train_noise or TrainNoise(),
-                                               generator)
+                                               generator, shard)
     else:
         extra_mask, inv_mask = random_mask(residue_mask, mask_prob, mask_scores, generator)
 
@@ -369,13 +407,16 @@ def diffusion_loss(
     noise_z: torch.Tensor,
     noise_seq: torch.Tensor,
     sc_coin: Optional[float] = None,
+    shard: Optional["RowShard"] = None,
 ) -> torch.Tensor:
     """Per-sample loss [B] (`prdiff.py:438-524`, Gaussian sequence channel):
     masked coordinate MSE per sample plus, in ``loss_mode="reference"``, KL
     and CE summed to scalars and broadcast onto every sample; in
     ``"per_position"``, per-sample self-normalized terms. ``noise_z`` and
     ``noise_seq`` are raw standard normals; ``sc_coin`` the
-    self-conditioning coin (``self_cond`` only)."""
+    self-conditioning coin (``self_cond`` only). With a ``shard`` the two
+    sums span the global batch, all-reduced with their gradient, as GSPMD
+    sums them on JAX's mesh."""
     seq = batch["residue_one_hot"]
     residue_mask = batch["residue_mask"]
     noise_z = remove_mean(noise_z, mask)
@@ -408,7 +449,10 @@ def diffusion_loss(
 
     nll = _label_nll((seq_pred + 1.0) / 2.0, labels)
     nll = torch.where(labels == 0, 0.0, nll) * mask
-    return mse + torch.sum(kl) + torch.sum(nll)
+    if shard is None:
+        return mse + torch.sum(kl) + torch.sum(nll)
+    kl_sum, nll_sum = shard.sum(torch.stack([torch.sum(kl), torch.sum(nll)])).unbind()
+    return mse + kl_sum + nll_sum
 
 
 def absorbing_loss(
@@ -472,6 +516,7 @@ def loss(
     reduction: str = "mean",
     noise: Optional[TrainNoise] = None,
     generator: Optional[torch.Generator] = None,
+    shard: Optional["RowShard"] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Scalar training/validation loss (`prdiff.py:589-646`), with the
     training masking policy as both the JAX train and eval steps take it;
@@ -479,12 +524,24 @@ def loss(
     mean (validation weights only a padded batch's real rows). The metrics
     hold ``loss`` and, with ``self_cond``, ``sc_pass``: whether the coin
     ran the first pass. Without an injected coin it is drawn from
-    ``host_generator(generator)``."""
+    ``host_generator(generator)``.
+
+    ``shard`` (``parallel.mesh.RowShard``): ``batch`` is this rank's rows
+    of a global batch. ``noise`` and the generator's draws are then the
+    global batch's, as one process draws them (``fill_train_noise``); the
+    rank keeps its rows of them, masks over the global batch and sums the
+    reference KL and CE over it. The loss is the mean over its own rows."""
     cfg = net.cfg
     check_loss_config(cfg)
     noise = noise or TrainNoise()
+    if shard is not None:
+        N = batch["residue_mask"].shape[1]
+        noise = fill_train_noise(cfg, noise, shard.total, N, batch["residue_mask"].device,
+                                 generator)
+        noise = dataclasses.replace(noise, **{k: shard.rows(getattr(noise, k)) for k in (
+            "t", "noise_z", "noise_seq", "corrupt_u")})
     batch = prepare_batch(batch, cfg.mask_prob, generator=generator, training=True,
-                          train_noise=noise)
+                          train_noise=noise, shard=shard)
     x = batch["x"]
     mask = batch["residue_and_atom_mask"]
     B = x.shape[0]
@@ -513,7 +570,7 @@ def loss(
         if noise_seq is None:
             noise_seq = _normal(batch["residue_one_hot"].shape, x, generator)
         per_sample = diffusion_loss(net, sched, batch, x, mask, t, noise_z.to(x),
-                                    noise_seq.to(x), coin)
+                                    noise_seq.to(x), coin, shard)
         if cfg.loss_mode == "reference":
             # the per_position and absorbing terms are self-normalized per sample
             per_sample = per_sample / torch.sum(mask > 0.5, dim=-1)

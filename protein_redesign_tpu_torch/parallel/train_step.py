@@ -1,5 +1,4 @@
-"""Training machinery for one device (port of
-``protein_redesign_tpu/parallel/train_step.py``):
+"""Training machinery (port of ``protein_redesign_tpu/parallel/train_step.py``):
 
 - Adam with the reference's LinearLR warmup and an optional cosine decay
   (``make_optimizer``, ``lr_at``), and an optional clip by global norm that
@@ -15,6 +14,15 @@
 The optimizer's learning rate is set before every update from the step
 count, as optax's schedule reads its own count: the first update uses
 ``learning_rate / warmup_steps``.
+
+Inside a ``torch.distributed`` process group the step is data-parallel,
+as the JAX step is on a (data, 1) mesh: each rank's micro-batches are its
+rows of the global ones (``parallel.mesh.RowShard``), its draws the global
+batch's, and after the local backward passes one all-reduce averages the
+gradients and the loss over the ranks. With the loss's KL and CE sums
+already global, that average is the gradient of JAX's global loss; then
+``grad_norm``, the clip, Adam and the EMA run alike on every rank, which
+so holds the same parameters bit for bit (``mesh.assert_replicas_equal``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..models import prdiff
 from ..models.prdiff import Batch, ProteinReDiffNet, TrainNoise
+from . import mesh
 
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8  # optax.scale_by_adam's defaults
 
@@ -91,6 +101,19 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
+def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
+    """Average ``tensors`` over the process group in place, through one f32
+    buffer and one all-reduce; returns the buffer's bytes."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = mesh.all_reduced(flat) / mesh.rank_and_world()[1]
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+    return flat.numel() * flat.element_size()
+
+
+@torch.no_grad()
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], norm: torch.Tensor,
                          max_norm: float) -> None:
     """``optax.clip_by_global_norm``: unchanged when norm < max_norm, else
@@ -108,7 +131,9 @@ def make_train_step(
     updating ``state`` in place; returns the averaged loss and the global
     norm of the averaged gradients as device scalars and, with
     ``self_cond``, the micro-batches' coins (``sc_coins``) and how many ran
-    the first pass (``sc_passes``)."""
+    the first pass (``sc_passes``). Inside a process group ``noises`` are
+    the global micro-batches' draws, and the metrics add ``grad_bytes`` and
+    ``allreduce_seconds``: the all-reduced buffer and its host time."""
     accum = train_cfg.accumulate_grad_batches
 
     def train_step(
@@ -125,11 +150,13 @@ def make_train_step(
         if self_cond:
             drawn = torch.rand(accum, generator=prdiff.host_generator(generator)).tolist()
         loss_sum, coins = 0.0, []
+        data_parallel = mesh.distributed()
         for i, batch in enumerate(micro_batches):
             noise = noises[i] if noises is not None else TrainNoise()
             if self_cond and noise.sc_coin is None:
                 noise = dataclasses.replace(noise, sc_coin=drawn[i])
-            loss, _ = prdiff.loss(net, batch, noise=noise, generator=generator)
+            shard = mesh.RowShard.of(batch["residue_mask"]) if data_parallel else None
+            loss, _ = prdiff.loss(net, batch, noise=noise, generator=generator, shard=shard)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             if self_cond:
@@ -142,6 +169,14 @@ def make_train_step(
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
             loss_sum = loss_sum / accum
+        reduced = {}
+        if data_parallel:
+            loss_sum = torch.as_tensor(loss_sum, dtype=torch.float32, device=grads[0].device)
+            _synchronize(grads[0].device)
+            began = time.perf_counter()
+            reduced["grad_bytes"] = all_reduce_mean_([*grads, loss_sum])
+            _synchronize(grads[0].device)
+            reduced["allreduce_seconds"] = time.perf_counter() - began
         grad_norm = global_norm(grads)
         if train_cfg.gradient_clip_norm > 0:
             clip_by_global_norm_(grads, grad_norm, train_cfg.gradient_clip_norm)
@@ -151,12 +186,17 @@ def make_train_step(
         _ema_update(list(state.ema.parameters()), params, net.cfg.ema_decay, state.ema_updates)
         state.step += 1
         state.ema_updates += 1
-        metrics = {"loss": loss_sum, "grad_norm": grad_norm}
+        metrics = {"loss": loss_sum, "grad_norm": grad_norm, **reduced}
         if self_cond:
             metrics.update(sc_coins=coins, sc_passes=sum(c < 0.5 for c in coins))
         return metrics
 
     return train_step
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def make_eval_step() -> Callable[..., Tuple[torch.Tensor, Dict]]:

@@ -7,6 +7,11 @@ A manager directory holds one subdirectory per saved step, ``<step>/``, with
 ``state.json`` (step, ema_updates, val_loss). Retention is the JAX
 manager's: the ``top_k`` lowest val_loss, every step saved without a
 val_loss, and the latest step.
+
+Data-parallel training shares one directory between the ranks: only rank
+0's manager writes, and every rank's ``save`` ends at a barrier, so the
+step is on disk on every rank's return.
+A resume loads the same files on every rank (``load_train_state``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, List, Optional, Tuple, Union
 import torch
 
 from ..config import ModelConfig
+from ..parallel.mesh import barrier, rank_and_world
 from ..parallel.train_step import TrainState
 
 STATE_FILE = "state.json"
@@ -42,8 +48,15 @@ class CheckpointManager:
 
     def save(self, state: TrainState, val_loss: Optional[float] = None) -> Path:
         """Write the state at its step (replacing a save of the same step)
-        and apply the retention rule."""
+        and apply the retention rule; on a rank other than 0 only wait at
+        the barrier for rank 0's save."""
         final = self.directory / str(state.step)
+        if rank_and_world()[0] == 0:
+            self._write(state, val_loss, final)
+        barrier()
+        return final
+
+    def _write(self, state: TrainState, val_loss: Optional[float], final: Path) -> None:
         tmp = Path(tempfile.mkdtemp(dir=self.directory, prefix=".tmp-"))
         (tmp / "config.json").write_text(json.dumps(dataclasses.asdict(state.net.cfg)))
         torch.save(_cpu(state.net.state_dict()), tmp / "params.pt")
@@ -57,7 +70,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._retain()
-        return final
 
     def _retain(self) -> None:
         steps = self.steps()

@@ -69,13 +69,45 @@ def test_generate_ddim_with_trajectories(tmp_path, monkeypatch, capsys):
     assert "2 ddim steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--sample_segments", "2"], ["--num_devices", "2"]])
+@pytest.mark.parametrize("flag", [["--sample_segments", "2"], ["--sample_segments", "0"]])
 def test_generate_rejects_what_is_not_ported(tmp_path, flag):
     from protein_redesign_tpu_torch.cli.generate import main
 
     _checkpoint(tmp_path / "ckpt")
     with pytest.raises(NotImplementedError):
         main(["-c", str(tmp_path / "ckpt"), "-o", str(tmp_path / "out"), *ARGS, *flag])
+
+
+def test_generate_on_two_cpu_replicas(tmp_path, monkeypatch, capsys):
+    """``--num_devices 2`` on the CPU: the net replicated twice, the batch of
+    2 split 1 + 1, the same samples as on one device at the seed."""
+    from protein_redesign_tpu_torch.cli.generate import main
+
+    monkeypatch.setenv("PRD_DISABLE_ESM", "1")
+    _checkpoint(tmp_path / "ckpt")
+    for n, out in (("1", "one"), ("2", "two")):
+        main(["-c", str(tmp_path / "ckpt"), "-o", str(tmp_path / out), *ARGS,
+              "--batch_size", "2", "--num_devices", n])
+    assert "sampled 2 at bucket" in capsys.readouterr().out
+    one, two = ((tmp_path / d / "sample_protein.pdb").read_text() for d in ("one", "two"))
+    assert one.count("MODEL") == 2 and two.count("MODEL") == 2
+
+    def coords(pdb):  # PDB columns 31-54, written to 1e-3 Å
+        return np.array([[float(ln[30 + 8 * i:38 + 8 * i]) for i in range(3)]
+                         for ln in pdb.splitlines() if ln.startswith("ATOM")])
+
+    np.testing.assert_allclose(coords(two), coords(one), atol=2e-3)
+
+
+def test_generate_num_devices_needs_the_cards(tmp_path, monkeypatch):
+    """More cards asked for than visible: JAX's ValueError, no fallback."""
+    from protein_redesign_tpu_torch.cli.generate import main
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--num_devices 2 requested but only 1 CUDA devices "
+                                         "are visible"):
+        main(["-c", str(tmp_path / "ckpt"), "-o", str(tmp_path / "out"), *ARGS[:-4],
+              "--device", "cuda", "--num_devices", "2"])
 
 
 @pytest.mark.parametrize("flag,field,value", [

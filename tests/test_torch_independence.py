@@ -72,6 +72,18 @@ def test_imports_nothing_of_the_jax_package(relpath):
     assert not bad, f"{relpath} imports {bad}"
 
 
+def test_the_multi_device_modules_are_checked():
+    """``parallel/mesh.py`` and the entry point of the ranks that
+    ``--num_devices`` spawns (``cli.train._spawned_rank``, which a spawned
+    child imports by module) are among the files checked above; the train
+    CLI's tests check the ranks' ``sys.modules`` at run time."""
+    from protein_redesign_tpu_torch.cli import train
+
+    assert "protein_redesign_tpu_torch/parallel/mesh.py" in FILES
+    entry = Path(train._spawned_rank.__code__.co_filename).resolve().relative_to(REPO)
+    assert str(entry) in FILES and train._spawned_rank.__module__ == train.__name__
+
+
 @pytest.mark.parametrize("relpath", VERBATIM)
 def test_verbatim_copies_match_their_originals(relpath):
     header, body = (PORT / relpath).read_text().split("\n", 1)

@@ -156,14 +156,32 @@ def test_helpers_match_the_jax_package(tmp_path):
         J.mask_sequence_by_percent(SEQ, 0.25, random.Random(3))
 
 
-def test_batch_cli_rejects_num_devices(tmp_path):
+def test_batch_cli_rejects_num_devices(tmp_path, monkeypatch):
+    """More cards than are visible: the JAX CLI's ValueError, no fallback."""
     from protein_redesign_tpu_torch.cli.predict_batch_structure import main
 
     fasta = tmp_path / "in.fasta"
     fasta.write_text(f">a\n{SEQ}\n")
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--num_devices 2 requested but only 1 CUDA devices"):
         main(["-c", str(_checkpoint(tmp_path / "ckpt")), "-o", str(tmp_path / "o"),
-              "-p", str(fasta), "--num_devices", "2", "--device", "cpu"])
+              "-p", str(fasta), "--num_devices", "2", "--device", "cuda"])
+
+
+def test_batch_cli_on_two_cpu_replicas(tmp_path, no_esm):
+    """``--num_gpus 2`` (the reference's name) with ``--device cpu``: the
+    net replicated twice, the FASTA's sequences designed as on one device."""
+    from protein_redesign_tpu_torch.cli.predict_batch_sequence import main
+
+    fasta = tmp_path / "in.fasta"
+    fasta.write_text(f">a\n{SEQ}\n>b\n{SEQ[5:15]}\n")
+    ckpt = _checkpoint(tmp_path / "ckpt")
+    for n in ("1", "2"):
+        main(["-c", str(ckpt), "-o", str(tmp_path / n), "-p", str(fasta), "-n", "2",
+              "--num_steps", "2", "--seed", "0", "--device", "cpu", "--batch_size", "2",
+              "--num_gpus", n])
+    one, two = ((tmp_path / n / "sample_sequences.fasta").read_text() for n in ("1", "2"))
+    assert one.count(">") == 4 and one == two
 
 
 SCRIPT = r"""

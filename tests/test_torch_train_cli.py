@@ -9,6 +9,7 @@ suite's conftest imports jax)."""
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -159,15 +160,55 @@ def test_checkpoint_retention_keeps_top_k_and_latest(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--cache_device_batches"], ["--device_cache_gb", "1"], ["--num_devices", "2"],
-    ["--mesh_shape", "2,1"], ["--sequence_parallel"],
+    ["--cache_device_batches"], ["--device_cache_gb", "1"], ["--mesh_shape", "1,2"],
+    ["--mesh_shape", "2,2", "--num_devices", "4"], ["--sequence_parallel"],
 ])
 def test_train_rejects_what_is_not_ported(mini_data, tmp_path, flag):  # noqa: F811
+    """TPU plumbing, FSDP (a model axis above 1) and sequence parallelism."""
     from protein_redesign_tpu_torch.cli.train import main
 
     with pytest.raises(NotImplementedError):
         main(["--save_dir", str(tmp_path / "run"), "--data_dir", str(mini_data), *TINY_FLAGS,
               "--max_steps", "1", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--num_devices", "2"], ["--num_devices", "2",
+                                                           "--mesh_shape", "2,1"]])
+def test_train_on_two_cpu_ranks(mini_data, tmp_path, capfd, flag):  # noqa: F811
+    """``--num_devices 2`` (and ``--mesh_shape 2,1``) on the CPU: two spawned
+    gloo ranks take a row of each batch of 2 and print the same losses and
+    parameter checksum; rank 0 alone writes the metrics and checkpoint."""
+    from protein_redesign_tpu_torch.cli.train import main
+
+    save_dir = tmp_path / "run"
+    assert main(["--save_dir", str(save_dir), "--data_dir", str(mini_data), *TINY_FLAGS,
+                 "--max_steps", "1", "--val_every_steps", "0", *flag]) is None
+    out = capfd.readouterr().out
+    assert "mesh: {'data': 2, 'model': 1} on cpu" in out
+    losses = [re.findall(rf"\[rank {r}\] step 1: loss=(\S+)", out) for r in range(2)]
+    assert len(losses[0]) == 1 and losses[0] == losses[1]
+    sums = re.findall(r"parameter checksum ([0-9a-f]+), equal on the 2 ranks", out)
+    assert len(sums) == 2 and sums[0] == sums[1]
+    assert [m["step"] for m in _metrics(save_dir) if "train_loss" in m] == [1]
+    assert sorted(p.name for p in (save_dir / "checkpoints").iterdir()) == ["1"]
+
+
+def test_train_num_devices_needs_the_cards(mini_data, tmp_path, monkeypatch):  # noqa: F811
+    """``--num_devices 2`` on ``cuda`` with one card visible raises the JAX
+    CLI's message before anything starts, and a card shared by two ranks
+    under nccl raises too: neither falls back."""
+    from protein_redesign_tpu_torch.cli.train import main
+
+    argv = ["--save_dir", str(tmp_path / "run"), "--data_dir", str(mini_data),
+            *TINY_FLAGS[:-2], "--max_steps", "1", "--num_devices", "2"]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--num_devices 2 requested but only 1 CUDA devices "
+                                         "are visible"):
+        main([*argv, "--device", "cuda"])
+    monkeypatch.delenv("PRD_DIST_BACKEND", raising=False)
+    with pytest.raises(ValueError, match="PRD_DIST_BACKEND=gloo"):
+        main([*argv, "--device", "cuda:0"])
+    assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("flag,field", [(["--use_pallas"], "use_pallas"),
