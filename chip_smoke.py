@@ -38,10 +38,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    body timed beside the tensor-core one, SDPA's forward + backward in the
    same dtype and the bound at both buckets and widths.
 7. Whole-net gradient: the training loss's parameter gradients at paper
-   width, B=2, bucket 192, kernel route against plain route, in f32 and
+   width (GRAD_BLOCKS blocks), B=2, bucket 192, kernel route against plain
+   route, in f32 and
    bf16, and in f32 at bucket 512, B=1 (a seeded 460-residue sequence and
-   imatinib), with exactly 48 K1, 25 K2 and 24 K7 launches per micro-step
-   (remat: 24 + 24 K1, 13 + 12 K2); the kernel route's device time per
+   imatinib), with exactly 4 K1, 2 K2 and 2 K7 launches a block per
+   micro-step (remat: 2 + 2 K1, 1 + 1 K2, and one K2 more for
+   SPAttention); the kernel route's device time per
    micro-step by kernel group (torch.profiler): f32 at 192 and 512, each
    with K1 and K2 on their 3xTF32 bodies and again on their CUDA-core ones,
    bf16 at 192 and 384.
@@ -71,9 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. Generation at 2048: the generate CLI at bucket 2048, bf16, B=1, a seeded
    2000-residue sequence and imatinib, 3 DDPM steps: s/step, peak memory,
    finite outputs, exactly 24 K3, 13 K2 and no K1 launch per forward.
-11. Forward at 1024: the f32 net at bucket 1024, B=1, kernel route against
-   plain route (24 K3 and 13 K2 per forward), with the kernel route's device
-   time by kernel group.
+11. Forward at 1024: the f32 net (LONG_BLOCKS blocks) at bucket 1024, B=1,
+   kernel route against plain route (2 K3 a block and one K2 a block plus
+   one per forward), with the kernel route's device time by kernel group.
 12. Gradient and training at 1024 and 2048: one f32 micro-step's whole
    parameter gradient at 1024, kernel route against plain route (48 K5, 24
    K6, 25 K2, no K1 or K7), its device time by kernel group; one bf16
@@ -119,7 +121,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    --no-use_pallas_bwd --fast_softmax on phase 8's data at bucket 192, 2
    optimizer steps (the training plan takes XLA: bf16-logit attention, no
    attention kernel); the serve CLI on that checkpoint with --sampler ddim
-   --ddim_steps 50 over a 1000-step schedule, --batch_size 2
+   --ddim_steps SERVE_STEPS (20) over a 1000-step schedule, --batch_size 2
    --warmup_buckets 192,384, over a JSONL file of four requests (lysozyme
    1-110 + imatinib with 2 samples, the same with a 5-frame trajectory, a
    seeded 330-residue sequence + imatinib at bucket 384, one over
@@ -218,11 +220,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    parameter checksums equal, step 1's loss and grad_norm within
    GRAD_REL_TOL of one rank's, one metrics row a step with the all-reduce's
    bytes and seconds, one checkpoint, each rank's launches (a row each),
-   rank 0's profiler trace counting its K1, K2 and K7; a 1-step resume on
-   both ranks; the CLI under the JAX cluster variables at world size 1 with
+   rank 0's profiler trace counting its K1, K2 and K7 (phase 23 resumes
+   its checkpoint); the CLI under the JAX cluster variables at world size 1 with
    the default backend (nccl joins and all-reduces on the card). Then
    SamplingRunner on a 2-replica mesh (make_mesh([cuda:0, cuda:0])) against
-   one device at one seed: DDIM 50 at batch 2 within FORWARD_REL_TOL, and
+   one device at one seed: DDIM SERVE_STEPS at batch 2 within FORWARD_REL_TOL, and
    Picard in f32 at ptol 0 (DDIM 20, window 8, B = 2: 16 rows a sweep, 8 a
    replica), the sweeps within MULTI_SWEEP_TOL and the sample within phase
    19's f32 gate (PICARD_CONTROL), each replica's launches; one f32 forward through the
@@ -230,6 +232,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    are the overhead of sharing one card, not scaling. (The same comparison
    of one and two ranks in f32, callable alone:
    _multi_train(tmp, seed, "float32", 1, profile=False).)
+23. The model axis on this one card, and the kernels' widths (paper
+   width, bf16, after phase 22 and on its data): K9 and K11 at pair widths
+   36 and 192 on their wide bodies, K7 and K6 at head width 256 in both
+   dtypes and K3/K5 in f32, each against its plain version at the fused
+   and attention gates with its device time, bound and SDPA's time, the
+   paper-width K9 and K11 rows timed again (5%), and a fused bf16 net at
+   pair width 36; FSDP: the train CLI with --num_devices 2 --mesh_shape 1,2
+   --device cuda:0 over gloo resuming phase 22's (2, 1) checkpoint for 2
+   steps, its first step against one rank resuming the same checkpoint
+   within GRAD_REL_TOL, equal losses and whole checksums, each rank's
+   bytes of parameters, EMA and moments, rank 0's trace of K1, K2 and K7,
+   and the generate CLI on its checkpoint; --param_dtype bfloat16: the
+   train CLI on one rank, the checkpoint's dtypes (f32 LayerNorms only),
+   the generate CLI on it, K1, K2 and K7 launched; sequence parallelism:
+   two gloo ranks on cuda:0 as one model group (bf16, remat,
+   SP_STEP_BLOCKS blocks) against one rank on a model axis of 1, the loss
+   and whole gradient within GRAD_REL_TOL, peak memory a rank at 384 and
+   for a forward at 1024, and no kernel launched.
+Each phase's wall is printed as [wall] <phase>: N s, and the whole run's.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
 CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs, 19's generate
@@ -348,7 +369,11 @@ GRAD_REL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 # The serve CLI warms buckets 192 and 384; its requests are lysozyme (147
 # nodes), a seeded SERVE_LONG-residue sequence (367 nodes, bucket 384) and one
 # over --max_nodes (384, the largest warmed bucket; 397 nodes).
-SERVE_STEPS, SERVE_SCHEDULE, SERVE_LONG, SERVE_OVERSIZED = 50, 1000, 330, 360
+SERVE_STEPS, SERVE_SCHEDULE, SERVE_LONG, SERVE_OVERSIZED = 20, 1000, 330, 360
+# Depth of the paper-width nets of the gradient phase (7) and of the f32
+# forward and micro-step at 1024 (11): cut from 12 so that the whole smoke
+# stays within its time limit (PERF.md §4 lists the cuts and the walls).
+GRAD_BLOCKS, LONG_BLOCKS = 4, 4
 # The JAX package's recommended training layout, one head of width 64
 # (`protein_redesign_tpu/models/denoiser.py:513-519`): K1 and K7 at C = 64.
 H64 = dict(head_dim=64, num_heads=1)
@@ -1209,8 +1234,8 @@ def phase_grad(seed: int) -> None:
     from protein_redesign_tpu_torch.config import ModelConfig
 
     for dtype in ("float32", "bfloat16"):
-        net = perturbed_net(ModelConfig(dtype=dtype, training_mode=True, mask_prob=0.5),
-                            seed).to("cuda")
+        net = perturbed_net(ModelConfig(dtype=dtype, training_mode=True, mask_prob=0.5,
+                                        num_blocks=GRAD_BLOCKS), seed).to("cuda")
         batch = collated([synthetic_complex(SEQUENCE, seed + s, net.cfg.esm_dim) for s in (1, 2)],
                          192)
         noise = fixed_noise(batch, seed)
@@ -1915,7 +1940,7 @@ def phase_forward_long(seed: int) -> None:
     from protein_redesign_tpu_torch.models.prdiff import prepare_batch
     from protein_redesign_tpu_torch.ops import attention as A
 
-    net = perturbed_net(ModelConfig(dtype="float32"), seed).to("cuda").eval()
+    net = perturbed_net(ModelConfig(dtype="float32", num_blocks=LONG_BLOCKS), seed).to("cuda").eval()
     N = LONG_TRAIN[0]
     batch = prepare_batch(collated([long_complex(seed + 20, net.cfg.esm_dim)], N), 0.3,
                           generator=torch.Generator("cuda").manual_seed(0))
@@ -1959,7 +1984,8 @@ def phase_grad_long(seed: int) -> None:
     from protein_redesign_tpu_torch.config import ModelConfig
     from protein_redesign_tpu_torch.ops import attention as A
 
-    net = perturbed_net(ModelConfig(dtype="float32", training_mode=True, mask_prob=0.5),
+    net = perturbed_net(ModelConfig(dtype="float32", training_mode=True, mask_prob=0.5,
+                                    num_blocks=LONG_BLOCKS),
                         seed).to("cuda")
     batch = collated([long_complex(seed + 21, net.cfg.esm_dim)], LONG_TRAIN[0])
     noise = fixed_noise(batch, seed)
@@ -3605,10 +3631,10 @@ def _multi_train(tmp: Path, seed: int, dtype: str, steps: int, profile: bool) ->
     return {"two_dir": two_dir, "common": common, "rows": rows}
 
 
-def _multi_resume_and_nccl(tmp: Path, seed: int, trained: dict) -> None:
-    """A 1-step resume of the two gloo ranks from their checkpoint, then the
-    CLI under the JAX cluster variables at world size 1 with the default
-    backend: NCCL joins and all-reduces on the card."""
+def _multi_nccl(tmp: Path, trained: dict) -> None:
+    """The CLI under the JAX cluster variables at world size 1 with the
+    default backend: NCCL joins and all-reduces on the card. (The resume of
+    the two ranks' checkpoint is phase 23's, under a (1, 2) mesh.)"""
     import contextlib as ctx
     import io
     import os
@@ -3616,20 +3642,7 @@ def _multi_resume_and_nccl(tmp: Path, seed: int, trained: dict) -> None:
     from protein_redesign_tpu_torch.cli.train import main as train
     from protein_redesign_tpu_torch.parallel.mesh import free_port
 
-    two_dir, common = trained["two_dir"], trained["common"]
-    steps = trained["rows"]["two"][-1]["step"]
-    code, out, wall = _cli("train", [*common[:-1], str(steps + 1), "--save_dir", str(two_dir),
-                                     "--num_devices", "2", "--device", "cuda:0",
-                                     "--trained_ckpt", str(two_dir / "checkpoints")],
-                           PRD_DIST_BACKEND="gloo")
-    resumed = _rank_values(out, rf"resumed from \S+ at step ({steps})")
-    losses = _rank_values(out, rf"step ({steps + 1}): loss=(\S+)")
-    if code != 0 or [len(r) for r in resumed] != [1, 1] or len(losses[0]) != 1 \
-            or losses[0] != losses[1]:
-        raise AssertionError(f"[multi] resume of two ranks: exit {code}\n{out[-4000:]}")
-    print(f"[multi] resume: both ranks restored step {steps} and took step {steps + 1}, loss "
-          f"{losses[0][0][1]} on both (CLI wall {wall:.1f} s)")
-
+    common = trained["common"]
     cluster = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}", "JAX_NUM_PROCESSES": "1",
                "JAX_PROCESS_ID": "0"}
     saved = {k: os.environ.get(k) for k in [*cluster, "PRD_DIST_BACKEND"]}
@@ -3660,7 +3673,7 @@ def _multi_resume_and_nccl(tmp: Path, seed: int, trained: dict) -> None:
 def _multi_sample(seed: int) -> None:
     """SamplingRunner with a 2-replica mesh on this card against the runner
     on one device at one seed, on one set of weights, with each replica's
-    launches: DDIM 50 at batch 2 in bf16; Picard at ptol 0 (16 rows a
+    launches: DDIM SERVE_STEPS at batch 2 in bf16; Picard at ptol 0 (16 rows a
     sweep) in f32; one f32 forward through the replicas against the net."""
     from protein_redesign_tpu_torch.cli.common import SamplingRunner
     from protein_redesign_tpu_torch.config import ModelConfig
@@ -3761,83 +3774,531 @@ def _multi_sample(seed: int) -> None:
           f"{replicated.launches}")
 
 
-def phase_multidevice(seed: int) -> None:
-    """Phase 22: data-parallel training and sampling on this one card."""
+def phase_multidevice(seed: int, tmp: Path) -> dict:
+    """Phase 22: data-parallel training and sampling on this one card; its
+    data and the two ranks' run stay in ``tmp`` for phase 23."""
     from protein_redesign_tpu_torch.config import ModelConfig
 
     began = time.perf_counter()
     esm_dim = ModelConfig().esm_dim
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        write_dataset(tmp / "data", {
-            "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
-            "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
-        from concurrent.futures import ThreadPoolExecutor
+    write_dataset(tmp / "data", {
+        "train": [synthetic_complex(SEQUENCE, seed + s, esm_dim) for s in (10, 11)],
+        "val": [synthetic_complex(SEQUENCE, seed + 14, esm_dim)]})
+    from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(1) as pool:  # the rejections' processes overlap the training
-            rejected = pool.submit(_multi_reject, tmp)
-            trained = _multi_train(tmp, seed, "bfloat16", 2, profile=True)
-            rejected.result()
-        _multi_resume_and_nccl(tmp, seed, trained)
+    with ThreadPoolExecutor(1) as pool:  # the rejections' processes overlap the training
+        rejected = pool.submit(_multi_reject, tmp)
+        trained = _multi_train(tmp, seed, "bfloat16", 2, profile=True)
+        rejected.result()
+    _multi_nccl(tmp, trained)
     _multi_sample(seed)
     print(f"[multi] one card: these times are overhead of sharing it, not scaling; phase wall "
           f"{time.perf_counter() - began:.1f} s")
+    return trained
+
+
+# -- phase 23: the model axis on one card -------------------------------------
+
+# K9 and K11 past their tensor-core bodies; K3/K5 (f32), K6 and K7 past 128
+MODEL_AXIS_PAIR_WIDTHS, MODEL_AXIS_HEAD_WIDTH = (36, 192), 256
+# the paper-width rows these widths must leave alone (PERF.md §6, on the
+# device, bf16, bucket 192, B=2): K9 outgoing, K11's whole call
+PAPER_DEVICE_MS = {"triangle_multiply": 0.182, "fused_outer_linear": 0.0491}
+PAPER_DRIFT = 0.05
+# sequence parallelism: the micro-step at 384 and the forward at 1024 at
+# paper width with the depth cut to these blocks (each rank time-slices the
+# one card, and every gather crosses the host under gloo)
+SP_STEP_BLOCKS, SP_FORWARD_BLOCKS, SP_LONG = 2, 2, LONG_TRAIN
+
+
+def _width_check(tag: str, got, want, tol: float) -> float:
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    if not (torch.isfinite(got).all() and rel <= tol):
+        raise AssertionError(f"[widths] {tag}: relative error {rel} > {tol}")
+    return rel
+
+
+def _widths_fused() -> None:
+    """K9 and K11 at pair widths 36 and 192 (bucket 192, B=2, 147 nodes
+    valid) on their wide bodies against the plain versions, both dtypes,
+    and the paper-width rows timed again."""
+    from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
+    from protein_redesign_tpu_torch.ops import outer as O
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    N, n_valid = 192, 147
+    tol = {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
+    node = (torch.arange(N, device="cuda") < n_valid).float()
+    mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
+    for seed, (D, dtype) in enumerate((D, dt) for D in (*MODEL_AXIS_PAIR_WIDTHS, 64)
+                                      for dt in (torch.bfloat16, torch.float32)):
+        paper = D == 64
+        if paper and dtype == torch.float32:
+            continue
+        g = torch.Generator("cuda").manual_seed(700 + seed)
+        pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
+        single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
+        label = f"{str(dtype).replace('torch.', '')}, D={D}"
+        cases = []
+        for mode in ("outgoing", "incoming")[:1 if paper else 2]:
+            tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 710).to("cuda")
+            args = (pair, mask2d, tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight,
+                    tm.ab_proj.bias, tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight,
+                    tm.out_proj.bias)
+            cases.append(("triangle_multiply", mode, lambda *a, m=mode: M.trimul(*a, m),
+                          lambda *a, m=mode: M.trimul_reference(*a, m), args))
+        ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 720).to("cuda")
+        cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
+                      (single, ol.linear.weight, ol.linear.bias)))
+        with torch.inference_mode():
+            for name, view, kernel, plain, args in cases:
+                body = (M.trimul_body(D) if name == "triangle_multiply" else
+                        "tensor cores" if O.outer_takes_tensor_cores(512, D, dtype)
+                        else "cuda cores")
+                if (body in ("wide", "cuda cores")) == paper:
+                    raise AssertionError(f"[widths] {name} {label} took the {body} body")
+                got, want = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                rel = _width_check(f"{name} {view} {label}", got, want, tol[dtype])
+                ms, plain_ms = device_ms(lambda: kernel(*args)), device_ms(lambda: plain(*args))
+                b = fused_bound(name, args, got)
+                line = (f"[widths] {name} ({view}) {label} on the {body} body: ||kernel - plain|| "
+                        f"/ ||plain|| {rel:.3e} (tol {tol[dtype]:g}); on the device {ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                if paper:
+                    was = PAPER_DEVICE_MS[name]
+                    drift = ms / was - 1
+                    line += (f"; the paper-width row was {was} ms: {drift:+.1%} "
+                             f"({'held' if abs(drift) <= PAPER_DRIFT else 'missed'}, 5%)")
+                print(line)
+
+
+def _widths_attention() -> None:
+    """K7 and K6 at head width 256 in both dtypes, K3 and K5 in f32, on
+    their CUDA-core bodies (R = 384 triangle rows at bucket 192, one head,
+    147 nodes valid) against the plain versions, with SDPA's time."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    N, n_valid, C = 192, 147, MODEL_AXIS_HEAD_WIDTH
+    scale = 1.0 / math.sqrt(C)
+    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+        label = str(dtype).replace("torch.", "")
+        q, k, v, mask, _ = _attention_case(2 * N, N, 1, C, dtype, n_valid, True, False, True,
+                                           730 + seed)
+        g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(740 + seed),
+                        device="cuda").to(dtype)
+        out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        cases = [("rows_attention_bwd", lambda: A.rows_attention_bwd(q, k, v, mask, g, scale),
+                  lambda: A.rows_attention_bwd_reference(q, k, v, mask, g, scale), 5, 7, 0.0),
+                 ("rows_attention_kchunk_bwd",
+                  lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
+                  lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
+                                                                scale), 5, 8, 3 * m.numel() * 4)]
+        if dtype == torch.float32:
+            cases += [("rows_attention_kchunk",
+                       lambda: (A.rows_attention_kchunk(q, k, v, mask, scale),),
+                       lambda: (A.rows_attention_kchunk_reference(q, k, v, mask, scale),), 2, 4,
+                       0.0),
+                      ("rows_attention_kchunk_stats",
+                       lambda: A.rows_attention_kchunk_stats(q, k, v, mask, scale),
+                       lambda: A.rows_attention_kchunk_reference(q, k, v, mask, scale,
+                                                                 stats=True), 2, 4,
+                       2 * m.numel() * 4)]
+        for name, kernel, plain, products, operands, extra in cases:
+            if A.takes_tensor_cores(name, dtype, C):
+                raise AssertionError(f"[widths] {name} at C={C} {label} took a tensor-core body")
+            before = A.LAUNCHES[name]
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if A.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"[widths] {name} at C={C}: no launch")
+            errs = []
+            for a, b in zip(got, want):
+                scale_b = max(float(b.float().abs().max()), 1.0)
+                err = float((a.float() - b.float()).abs().max())
+                errs.append(err)
+                if not (torch.isfinite(a).all() and err <= tol * scale_b):
+                    raise AssertionError(f"[widths] {name} at C={C} {label}: max abs err {err} > "
+                                         f"{tol} x {scale_b}")
+            ms, plain_ms = device_ms(kernel, 2), device_ms(plain, 2)
+            bnd = attention_bound(q, mask, None, products=products, operands=operands,
+                                  extra_bytes=extra)
+            lib = library_ms(q, k, v, mask, None, scale,
+                             dout=g if name.endswith("bwd") else None)
+            print(f"[widths] {name} R={2 * N} H=1 N={N} C={C} {label} on the CUDA-core body: max "
+                  f"abs err {max(errs):.3e} (tol {tol:g} x max(1, max|x|)); on the device "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}), library (SDPA, {label}) {lib} ms")
+
+
+def _widths_forward(seed: int) -> None:
+    """The bf16 net at pair width 36 with the four fused switches, 2 blocks,
+    bucket 192: kernel route against plain route, K9 and K11 on their wide
+    bodies inside the net."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    net = fused_net(pair_dim=36, num_blocks=2).to("cuda").eval()
+    inputs = forward_inputs(net)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        kernel_out = net(*inputs)
+        torch.cuda.synchronize()
+        launches = main_path_launches()
+        with A.plain_route():
+            plain_out = net(*inputs)
+    if launches != forward_launches(net.cfg):
+        raise AssertionError(f"[widths] pair 36 launches {launches}")
+    rels = [_width_check(f"pair-36 forward {i}", a, b, FORWARD_REL_TOL)
+            for i, (a, b) in enumerate(zip(kernel_out, plain_out))]
+    print(f"[widths] fused bf16 net at pair width 36, 2 blocks, bucket 192: noise_pred and "
+          f"seq_pred {rels[0]:.3e}, {rels[1]:.3e} from the plain route (tol {FORWARD_REL_TOL:g}); "
+          f"launches {({k: n for k, n in launches.items() if n})}")
+
+
+def _fsdp(tmp: Path, seed: int, trained: dict) -> None:
+    """The train CLI on a (1, 2) mesh, two gloo ranks on cuda:0, resuming
+    phase 22's (2, 1) checkpoint for 2 steps; its first step against one
+    rank resuming the same checkpoint in this process; the generate CLI on
+    its checkpoint."""
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.config import ModelConfig
+
+    two_dir, common = trained["two_dir"], trained["common"]
+    steps = trained["rows"]["two"][-1]["step"]
+    ckpt = str(two_dir / "checkpoints")
+    one_dir, fsdp_dir = tmp / "one-resume", tmp / "fsdp"
+    train([*common[:-1], str(steps + 1), "--save_dir", str(one_dir), "--device", "cuda",
+           "--trained_ckpt", ckpt])
+    code, out, wall = _cli("train", [*common[:-1], str(steps + 2), "--save_dir", str(fsdp_dir),
+                                     "--num_devices", "2", "--mesh_shape", "1,2", "--device",
+                                     "cuda:0", "--trained_ckpt", ckpt, "--profile"],
+                           PRD_DIST_BACKEND="gloo")
+    if code != 0:
+        raise AssertionError(f"[fsdp] exit {code}\n{out[-4000:]}")
+    resumed = _rank_values(out, rf"resumed from \S+ at step ({steps})")
+    losses = _rank_values(out, r"step (\d+): loss=(\S+)")
+    sums = _rank_values(out, r"parameter checksum ([0-9a-f]+), equal on the 2 ranks")
+    held = _rank_values(out, r"this rank holds (\S+) MiB of parameters, (\S+) MiB of EMA and "
+                             r"(\S+) MiB of Adam moments")
+    sharded = _rank_values(out, r"FSDP over 2 ranks: (\d+) of (\d+) parameter tensors sharded")
+    if ("mesh: {'data': 1, 'model': 2} on gpu" not in out or [len(r) for r in resumed] != [1, 1]
+            or len(losses[0]) != 2 or losses[0] != losses[1] or len(sums[0]) != 1
+            or sums[0] != sums[1] or [len(h) for h in held] != [1, 1]):
+        raise AssertionError(f"[fsdp] mesh, resume, losses or checksums\n{out[-4000:]}")
+    rows = {name: [json.loads(ln) for ln in (d / "metrics.jsonl").read_text().splitlines()
+                   if "train_loss" in ln] for name, d in (("one", one_dir), ("fsdp", fsdp_dir))}
+    gaps = {}
+    for key in ("train_loss", "grad_norm"):
+        a, b = rows["fsdp"][0][key], rows["one"][0][key]
+        gaps[key] = abs(a - b) / abs(b)
+        if not gaps[key] <= GRAD_REL_TOL["bfloat16"]:
+            raise AssertionError(f"[fsdp] step {steps + 1} {key}: two ranks {a}, one rank {b}")
+    per_micro = forward_launches(ModelConfig(), remat=True)
+    traced = _trace_kernels(fsdp_dir / "profile")
+    looped = {k: 2 * per_micro[k] for k in TRACE_KERNELS}
+    if traced != looped:
+        raise AssertionError(f"[fsdp] rank 0's trace {traced} != {looped}")
+    whole = trained["rows"]["two"][0]["grad_bytes"] / 2**20
+    print(f"[fsdp] train CLI, bf16, bucket 192, batch 2, --mesh_shape 1,2: two gloo ranks on "
+          f"cuda:0 resumed phase 22's (2, 1) step {steps} and took 2 steps, "
+          f"{np.mean([r['step_seconds'] for r in rows['fsdp']]):.3f} s per step (CLI wall "
+          f"{wall:.1f} s); step {steps + 1} loss {rows['fsdp'][0]['train_loss']:.6f}, grad_norm "
+          f"{rows['fsdp'][0]['grad_norm']:.6f} against one rank's {rows['one'][0]['train_loss']:.6f}"
+          f", {rows['one'][0]['grad_norm']:.6f} from the same checkpoint (relative "
+          f"{gaps['train_loss']:.2e}, {gaps['grad_norm']:.2e}; gate {GRAD_REL_TOL['bfloat16']}); "
+          f"losses equal on both ranks, whole checksum {sums[0][0]} on both; "
+          f"{sharded[0][0][0]} of {sharded[0][0][1]} tensors sharded; each rank holds "
+          + " / ".join(f"{h[0][0]} MiB of parameters, {h[0][1]} of EMA, {h[0][2]} of moments"
+                       for h in held)
+          + f" against one rank's {whole:.2f} MiB of parameters; rank 0's trace of the loop "
+          f"{traced} (2 micro-steps, each rank both rows)")
+    from protein_redesign_tpu_torch.cli.generate import main as generate
+
+    began = time.perf_counter()
+    generate(["-c", str(fsdp_dir / "checkpoints"), "-o", str(tmp / "fsdp-generate"), "-p",
+              SEQUENCE, "-l", LIGAND, "-n", "2", "--num_steps", "8"])
+    pdb = tmp / "fsdp-generate" / "sample_protein.pdb"
+    if not pdb.exists() or pdb.read_text().count("MODEL") < 2:
+        raise AssertionError("[fsdp] generate on the (1, 2) checkpoint wrote no samples")
+    print(f"[fsdp] the generate CLI sampled 2 complexes from the (1, 2) run's checkpoint (whole "
+          f"tensors), --num_steps 8: main() {time.perf_counter() - began:.1f} s")
+
+
+def _param_dtype(tmp: Path, seed: int) -> None:
+    """The bf16 train CLI with --param_dtype bfloat16 on one rank, 2 steps;
+    the checkpoint's leaf dtypes; the generate CLI on it."""
+    from protein_redesign_tpu_torch.cli.generate import main as generate
+    from protein_redesign_tpu_torch.cli.train import main as train
+    from protein_redesign_tpu_torch.models.layers import LayerNorm
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffNet
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.checkpoint import load_weights
+
+    save = tmp / "param-bf16"
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    state = train(["--data_dir", str(tmp / "data"), "--batch_size", "2", "--val_every_steps", "0",
+                   "--log_every_steps", "1", "--warmup_steps", "10", "--seed", str(seed),
+                   "--dtype", "bfloat16", "--param_dtype", "bfloat16", "--max_steps", "2",
+                   "--save_dir", str(save), "--device", "cuda"])
+    wall = time.perf_counter() - began
+    launches = {k: n for k, n in main_path_launches().items() if n}
+    if not all(launches.get(k) for k in TRACE_KERNELS):
+        raise AssertionError(f"[param-bf16] launches {launches}")
+    sd, cfg, _ = load_weights(save / "checkpoints")
+    with torch.device("meta"):
+        net = ProteinReDiffNet(cfg)
+    f32 = {f"{n}.{p}" if n else p for n, mod in net.named_modules()
+           if isinstance(mod, LayerNorm) for p, t in mod._parameters.items() if t is not None}
+    wrong = [n for n, _ in net.named_parameters()
+             if sd[n].dtype != (torch.float32 if n in f32 else torch.bfloat16)]
+    moments = [t for s in state.optimizer.state.values() for t in s.values()
+               if torch.is_tensor(t) and t.dim()]
+    if wrong or cfg.param_dtype != "bfloat16" or {t.dtype for t in moments} != {
+            torch.bfloat16, torch.float32}:
+        raise AssertionError(f"[param-bf16] leaf dtypes: {wrong[:5]}")
+    rows = [json.loads(ln) for ln in (save / "metrics.jsonl").read_text().splitlines()
+            if "train_loss" in ln]
+    A.reset_launch_counts()
+    began_gen = time.perf_counter()
+    generate(["-c", str(save / "checkpoints"), "-o", str(tmp / "param-bf16-generate"), "-p",
+              SEQUENCE, "-l", LIGAND, "-n", "2", "--num_steps", "8"])
+    gen = {k: n for k, n in main_path_launches().items() if n}
+    params = sum(t.numel() * t.element_size() for t in state.net.parameters()) / 2**20
+    losses = ", ".join(f"{r['train_loss']:.4f}" for r in rows)
+    n_bf16 = sum(sd[n].dtype == torch.bfloat16 for n, _ in net.named_parameters())
+    print(f"[param-bf16] train CLI --dtype bfloat16 --param_dtype bfloat16, 2 steps at batch 2: "
+          f"loss {losses}, {np.mean([r['step_seconds'] for r in rows]):.3f} s per step (main() "
+          f"{wall:.1f} s); in the checkpoint {len(f32)} LayerNorm leaves f32 and {n_bf16} "
+          f"parameters bf16, as JAX's init tree; parameters {params:.2f} MiB on the card, EMA "
+          f"and moments in their dtypes; launches {launches}; generate from it (8 steps): "
+          f"{time.perf_counter() - began_gen:.1f} s, launches {gen}")
+
+
+def _sp_rank(rank: int, world: int, port: int, workdir: str) -> None:
+    """A spawned rank of the sequence-parallel leg: the micro-step at 384
+    (the gradient averaged over the model group, as the train step does),
+    then the forward at 1024; rank 0 saves the numbers."""
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.parallel import mesh
+
+    mesh.join(mesh.Cluster(rank, world, rank, f"tcp://127.0.0.1:{port}"), "cuda:0")
+    workdir = Path(workdir)
+    inputs = torch.load(workdir / "sp.pt", weights_only=False)
+    out = {}
+    with mesh.on_mesh(mesh.mesh_axes(1, world)):
+        out.update(_sp_step(inputs, mesh))
+        out.update(_sp_forward_long(inputs))
+    out["launches"] = {k: n for k, n in A.LAUNCHES.items() if n}
+    if rank == 0:
+        torch.save(out, workdir / "sp_out.pt")
+    torch.distributed.destroy_process_group()
+
+
+def _sp_net(cfg, blocks: int):
+    net = perturbed_net(cfg.replace(num_blocks=blocks), seed=23).to("cuda")
+    return net
+
+
+def _sp_step(inputs: dict, mesh) -> dict:
+    """One micro-step on ``inputs``'s batch; the whole gradient, averaged
+    over the process group where there is one."""
+    net = _sp_net(inputs["cfg"], SP_STEP_BLOCKS)
+    batch = {k: v.to("cuda") for k, v in inputs["batch"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    began = time.perf_counter()
+    loss = micro_step(net, batch, inputs["noise"])
+    flat = torch.cat([p.grad.float().reshape(-1) for p in net.parameters()])
+    if mesh.distributed():
+        flat = mesh.all_reduced(flat) / mesh.rank_and_world()[1]
+        loss = mesh.all_reduced(loss.float()) / mesh.rank_and_world()[1]
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grad": flat.cpu(), "step_s": time.perf_counter() - began,
+            "peak_384": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _sp_forward_long(inputs: dict) -> dict:
+    net = _sp_net(inputs["cfg"], SP_FORWARD_BLOCKS).eval()
+    long_inputs = [t.to("cuda") if torch.is_tensor(t) else
+                   {k: v.to("cuda") for k, v in t.items()} for t in inputs["long"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    began = time.perf_counter()
+    with torch.inference_mode():
+        noise, _ = net(*long_inputs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(noise).all():
+        raise AssertionError("[sp] the forward at 1024: non-finite values")
+    return {"forward_s": time.perf_counter() - began,
+            "peak_1024": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _sequence_parallel(seed: int) -> None:
+    """Two gloo ranks on cuda:0 as one model group: bf16, sequence_parallel,
+    remat; the micro-step at 384 (B = 1) against this process on a model
+    axis of 1, the forward at 1024; no kernel launches."""
+    import torch.multiprocessing as mp
+
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import prepare_batch
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.parallel import mesh
+
+    cfg = ModelConfig(dtype="bfloat16", sequence_parallel=True, remat=True, training_mode=True)
+    batch = collated([synthetic_complex(long_sequence(seed + 60, SERVE_LONG), seed + 60,
+                                        cfg.esm_dim)], 384)
+    noise = fixed_noise(batch, seed + 61)
+    N = SP_LONG[0]
+    long = prepare_batch(collated([synthetic_complex(long_sequence(seed + 62, SP_LONG[1]),
+                                                     seed + 62, cfg.esm_dim)], N), 0.3,
+                         generator=torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    long_inputs = [long, torch.randn(1, N, 3, generator=g, device="cuda"),
+                   torch.randn(1, N, 21, generator=g, device="cuda"),
+                   long["residue_and_atom_mask"], torch.tensor([40], device="cuda")]
+    inputs = {"cfg": cfg, "batch": {k: v.cpu() for k, v in batch.items()}, "noise": noise,
+              "long": [t.cpu() if torch.is_tensor(t) else {k: v.cpu() for k, v in t.items()}
+                       for t in long_inputs]}
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(inputs, Path(workdir) / "sp.pt")
+        import os
+
+        os.environ[mesh.BACKEND_VAR] = "gloo"
+        began = time.perf_counter()
+        try:
+            procs = mp.spawn(_sp_rank, args=(2, mesh.free_port(), workdir), nprocs=2, join=False)
+            A.reset_launch_counts()
+            with mesh.on_mesh(mesh.mesh_axes(1, 1)):
+                one = _sp_step(inputs, mesh)
+                one_long = _sp_forward_long(inputs)
+            one_launches = {k: n for k, n in A.LAUNCHES.items() if n}
+            while not procs.join():
+                pass
+        finally:
+            os.environ.pop(mesh.BACKEND_VAR, None)
+        wall = time.perf_counter() - began
+        two = torch.load(Path(workdir) / "sp_out.pt", weights_only=False)
+    loss_gap = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    grad_gap = float((two["grad"] - one["grad"]).norm() / one["grad"].norm())
+    tol = GRAD_REL_TOL["bfloat16"]
+    if two["launches"] or one_launches:
+        raise AssertionError(f"[sp] kernels launched: {two['launches']} / {one_launches}")
+    if not (loss_gap <= tol and grad_gap <= tol):
+        raise AssertionError(f"[sp] two ranks against one: loss {loss_gap}, gradient {grad_gap}")
+    print(f"[sp] bf16, sequence_parallel, remat, paper width with {SP_STEP_BLOCKS} blocks: the "
+          f"micro-step at 384 (B = 1) on two gloo ranks on cuda:0 (the complex axis 192 + 192) "
+          f"against one rank on a model axis of 1: loss {two['loss']:.6f} against "
+          f"{one['loss']:.6f} (relative {loss_gap:.2e}), the whole gradient {grad_gap:.2e} "
+          f"relative (gate {tol}); {two['step_s']:.2f} s against {one['step_s']:.2f} s; peak "
+          f"memory a rank {two['peak_384']:.2f} GiB against {one['peak_384']:.2f} GiB; no "
+          f"kernel launched (the plain route, as JAX's plan and fused_ok)")
+    print(f"[sp] the forward at {N} ({SP_LONG[1]} residues + imatinib), {SP_FORWARD_BLOCKS} "
+          f"blocks, B = 1: peak memory a rank {two['peak_1024']:.2f} GiB on two ranks, "
+          f"{one_long['peak_1024']:.2f} GiB on one; {two['forward_s']:.2f} s against "
+          f"{one_long['forward_s']:.2f} s; leg wall {wall:.1f} s")
+
+
+def phase_model_axis(seed: int, tmp: Path, trained: dict) -> None:
+    """Phase 23: the model axis on one card, and the widths the JAX kernels
+    take."""
+    began = time.perf_counter()
+    _widths_fused()
+    _widths_attention()
+    _widths_forward(seed)
+    _fsdp(tmp, seed, trained)
+    _param_dtype(tmp, seed)
+    _sequence_parallel(seed)
+    print(f"[model-axis] one card: FSDP and sequence parallelism share it, so their times are "
+          f"overhead of sharing, not scaling; phase wall {time.perf_counter() - began:.1f} s")
+
+
+@contextlib.contextmanager
+def wall(tag: str):
+    """Print the block's wall time as ``[wall] tag``."""
+    began = time.perf_counter()
+    yield
+    print(f"[wall] {tag}: {time.perf_counter() - began:.1f} s", flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights and synthetic data")
     args = parser.parse_args()
+    began = time.perf_counter()
     name, smi = phase_device()
     from protein_redesign_tpu_torch.models.prdiff import ModelConfig
 
-    phase_build()
-    phase_fused_breakdown()
-    record = phase_kernels()
-    record["rows_attention_bwd"] = phase_k7()
-    net = perturbed_net(ModelConfig()).to("cuda").eval()
-    print(f"[forward] ModelConfig(): single {net.cfg.single_dim}, pair {net.cfg.pair_dim}, "
-          f"{net.cfg.num_heads} heads x {net.cfg.head_dim}, {net.cfg.num_blocks} blocks, "
-          f"{net.cfg.dtype}")
-    phase_forward(net)
-    phase_generate(net)
-    del net
-    phase_grad(args.seed)
+    with wall("build"):
+        phase_build()
+    with wall("fused breakdown, kernels, K7"):
+        phase_fused_breakdown()
+        record = phase_kernels()
+        record["rows_attention_bwd"] = phase_k7()
+    with wall("forward and generate at 192"):
+        net = perturbed_net(ModelConfig()).to("cuda").eval()
+        print(f"[forward] ModelConfig(): single {net.cfg.single_dim}, pair {net.cfg.pair_dim}, "
+              f"{net.cfg.num_heads} heads x {net.cfg.head_dim}, {net.cfg.num_blocks} blocks, "
+              f"{net.cfg.dtype}")
+        phase_forward(net)
+        phase_generate(net)
+        del net
+    with wall("gradient"):
+        phase_grad(args.seed)
     with tempfile.TemporaryDirectory() as kept:
-        launches = phase_train(args.seed, keep=Path(kept))
-        phase_h64(args.seed)
-        phase_design(args.seed, Path(kept))
-        phase_picard(args.seed, Path(kept))
-    record.update(phase_kchunk_kernels())
-    net = perturbed_net(ModelConfig()).to("cuda").eval()
-    long_launches = phase_generate_long(net)
-    del net
-    phase_forward_long(args.seed)
-    phase_grad_long(args.seed)
-    phase_grad_2048(args.seed)
-    train_long = phase_train_long(args.seed)
-    train_512 = phase_train_long(args.seed, TRAIN_F32_512)
-    record.update(phase_fused_kernels())
-    net = fused_net().to("cuda").eval()
-    phase_forward(net, tag="fused-forward")
-    del net
-    phase_fused_forward_large(args.seed)
-    phase_fused_grad(args.seed)
-    net = perturbed_net(ModelConfig()).to("cuda").eval()
-    fused_generate = phase_generate(net, flags=[f"--{f}" for f in FUSED], tag="fused-generate")
-    del net
-    phase_fused_train(args.seed)
-    record.update(phase_fast_kernel())
-    served = phase_serving(args.seed)
-    served_f32 = phase_fast_f32(args.seed)
-    net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False)).to("cuda").eval()
-    phase_forward(net, tag="fast-forward")
-    phase_forward(net, tag="fast-forward-384", bucket=384)
-    del net
-    phase_wide(args.seed)
-    phase_chunked(args.seed)
-    phase_esm(args.seed)
-    phase_multidevice(args.seed)
+        with wall("train CLI"):
+            launches = phase_train(args.seed, keep=Path(kept))
+        with wall("h64"):
+            phase_h64(args.seed)
+        with wall("design"):
+            phase_design(args.seed, Path(kept))
+        with wall("picard"):
+            phase_picard(args.seed, Path(kept))
+    with wall("K-chunk kernels"):
+        record.update(phase_kchunk_kernels())
+    with wall("generate at 2048"):
+        net = perturbed_net(ModelConfig()).to("cuda").eval()
+        long_launches = phase_generate_long(net)
+        del net
+    with wall("long forward and gradients"):
+        phase_forward_long(args.seed)
+        phase_grad_long(args.seed)
+        phase_grad_2048(args.seed)
+    with wall("long train CLIs"):
+        train_long = phase_train_long(args.seed)
+        train_512 = phase_train_long(args.seed, TRAIN_F32_512)
+    with wall("fused"):
+        record.update(phase_fused_kernels())
+        net = fused_net().to("cuda").eval()
+        phase_forward(net, tag="fused-forward")
+        del net
+        phase_fused_forward_large(args.seed)
+        phase_fused_grad(args.seed)
+        net = perturbed_net(ModelConfig()).to("cuda").eval()
+        fused_generate = phase_generate(net, flags=[f"--{f}" for f in FUSED],
+                                        tag="fused-generate")
+        del net
+        phase_fused_train(args.seed)
+    with wall("serving"):
+        record.update(phase_fast_kernel())
+        served = phase_serving(args.seed)
+        served_f32 = phase_fast_f32(args.seed)
+        net = perturbed_net(ModelConfig(fast_softmax=True, use_pallas_bwd=False)).to("cuda").eval()
+        phase_forward(net, tag="fast-forward")
+        phase_forward(net, tag="fast-forward-384", bucket=384)
+        del net
+    with wall("wide"):
+        phase_wide(args.seed)
+    with wall("chunked"):
+        phase_chunked(args.seed)
+    with wall("esm"):
+        phase_esm(args.seed)
+    with tempfile.TemporaryDirectory() as shared:
+        with wall("multi-device"):
+            trained = phase_multidevice(args.seed, Path(shared))
+        with wall("model axis"):
+            phase_model_axis(args.seed, Path(shared), trained)
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving
@@ -3865,6 +4326,7 @@ def main() -> None:
          "launches": f32_launches[k], **{key: record[k][key] for key in keys}}
         for k, (kernel, source) in F32_BODIES.items()
     ]
+    print(f"[wall] whole smoke after startup: {time.perf_counter() - began:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

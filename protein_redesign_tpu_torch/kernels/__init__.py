@@ -110,6 +110,8 @@ class KernelLibrary:
         lib.prd_trimul.restype = i32
         lib.prd_trimul_mma.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.prd_trimul_mma.restype = i32
+        lib.prd_trimul_wide.argtypes = lib.prd_trimul_mma.argtypes
+        lib.prd_trimul_wide.restype = i32
         lib.prd_transition.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.prd_transition.restype = i32
         lib.prd_transition_mma.argtypes = lib.prd_transition.argtypes

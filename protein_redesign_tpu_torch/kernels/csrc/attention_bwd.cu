@@ -56,6 +56,11 @@
 //   rows_attention_bwd_wide_dkdv_kernel: the same with the roles of queries
 //     and keys swapped, reading m, s and delta from the scratch.
 // The logit and dP dot products run in the same order in both kernels.
+// Heads run to 1024 (CPL = C / 32 values a lane and row) on the same two
+// kernels; past 512 (SHARE) a block takes 8 rows and one tile buffer, into
+// which K (qt) is staged for the logits, then V (dO) for dP and dv's sums,
+// then K (qt) again for the dS products, each sum in the order it has
+// without SHARE; the accumulators spill at that width.
 //
 // Layout: q, k, v and dO are [R, N, H, C] with the head dimension contiguous
 // and the other strides given in elements; mask is contiguous f32 [R, N];
@@ -350,12 +355,13 @@ __global__ void __launch_bounds__(NWARPS * 32)
                                       float scale, Strides qs, Strides ks, Strides vs,
                                       Strides gs) {
   constexpr int TQ = NWARPS * kRPW;
+  constexpr bool SHARE = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int stride = C + 4;  // padded K/V rows: conflict-free float4 reads by lane
-  float* q_s = smem;                  // [TQ][C]
-  float* g_s = q_s + TQ * C;          // [TQ][C]
-  float* k_s = g_s + TQ * C;          // [kTile][C + 4]
-  float* v_s = k_s + kTile * stride;  // [kTile][C + 4]
+  float* q_s = smem;                                // [TQ][C]
+  float* g_s = q_s + TQ * C;                        // [TQ][C]
+  float* k_s = g_s + TQ * C;                        // [kTile][C + 4]
+  float* v_s = SHARE ? k_s : k_s + kTile * stride;  // [kTile][C + 4]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -420,18 +426,29 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int k0 = 0; k0 < N; k0 += kTile) {
     __syncthreads();
     stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
-    stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+    if constexpr (!SHARE) stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
     __syncthreads();
     const int j = k0 + lane;
+    float p[kRPW];
     if (j < N) {
       const bool masked = mask_row[j] < 0.5f;
 #pragma unroll
       for (int rr = 0; rr < kRPW; ++rr) {
         const float l = masked ? kMaskFill
                                : dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
-        const float p = expf(l - m[rr]) / s[rr];
-        delta[rr] = fmaf(dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C), p, delta[rr]);
+        p[rr] = expf(l - m[rr]) / s[rr];
       }
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's logits have read K's tile
+      stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+      __syncthreads();
+    }
+    if (j < N) {
+#pragma unroll
+      for (int rr = 0; rr < kRPW; ++rr)
+        delta[rr] =
+            fmaf(dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C), p[rr], delta[rr]);
     }
   }
 #pragma unroll
@@ -446,20 +463,36 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int k0 = 0; k0 < N; k0 += kTile) {
     __syncthreads();
     stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
-    stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+    if constexpr (!SHARE) stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
     __syncthreads();
     const int j = k0 + lane;
     const bool keep = j < N && mask_row[j] >= 0.5f;  // dS is zero at masked keys
-    float ds[kRPW];
+    float p[kRPW], ds[kRPW];
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      p[rr] = 0.f;
+      if (keep) {
+        const float l = dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
+        p[rr] = expf(l - m[rr]) / s[rr];
+      }
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's logits have read K's tile
+      stage_rows<T, false>(v_base, vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+      __syncthreads();
+    }
 #pragma unroll
     for (int rr = 0; rr < kRPW; ++rr) {
       ds[rr] = 0.f;
       if (keep) {
-        const float l = dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
-        const float p = expf(l - m[rr]) / s[rr];
         const float dp = dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C);
-        ds[rr] = Io<T>::round(p * (dp - delta[rr]));
+        ds[rr] = Io<T>::round(p[rr] * (dp - delta[rr]));
       }
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's dP has read V's tile
+      stage_rows<T, false>(k_base, ks.n, k0, kTile, N, C, 1.f, k_s, stride);
+      __syncthreads();
     }
     const int nk = min(kTile, N - k0);
     for (int jj = 0; jj < nk; ++jj) {
@@ -502,12 +535,13 @@ __global__ void __launch_bounds__(NWARPS * 32)
                                         int H, int C, float scale, Strides qs, Strides ks,
                                         Strides vs, Strides gs) {
   constexpr int TK = NWARPS * kRPW;
+  constexpr bool SHARE = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int stride = C + 4;  // padded q/dO rows: conflict-free float4 reads by lane
-  float* k_s = smem;                  // [TK][C]
-  float* v_s = k_s + TK * C;          // [TK][C]
-  float* q_s = v_s + TK * C;          // [kTile][C + 4]
-  float* g_s = q_s + kTile * stride;  // [kTile][C + 4]
+  float* k_s = smem;                                // [TK][C]
+  float* v_s = k_s + TK * C;                        // [TK][C]
+  float* q_s = v_s + TK * C;                        // [kTile][C + 4]
+  float* g_s = SHARE ? q_s : q_s + kTile * stride;  // [kTile][C + 4]
   float* m_s = g_s + kTile * stride;  // [kTile]
   float* s_s = m_s + kTile;           // [kTile]
   float* d_s = s_s + kTile;           // [kTile]
@@ -540,7 +574,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int i0 = 0; i0 < N; i0 += kTile) {
     __syncthreads();
     stage_rows<T, true>(q_base, qs.n, i0, kTile, N, C, scale, q_s, stride);
-    stage_rows<T, false>(g_base, gs.n, i0, kTile, N, C, 1.f, g_s, stride);
+    if constexpr (!SHARE) stage_rows<T, false>(g_base, gs.n, i0, kTile, N, C, 1.f, g_s, stride);
     if (threadIdx.x < kTile) {
       const int qi = i0 + threadIdx.x;
       const bool ok = qi < N;
@@ -552,20 +586,36 @@ __global__ void __launch_bounds__(NWARPS * 32)
     const bool live = i0 + lane < N;
     const float* q_row = q_s + lane * stride;
     const float* g_row = g_s + lane * stride;
-    float pv[kRPW], ds[kRPW];
+    float p[kRPW], pv[kRPW], ds[kRPW];
 #pragma unroll
     for (int rr = 0; rr < kRPW; ++rr) {
-      pv[rr] = ds[rr] = 0.f;
+      p[rr] = pv[rr] = ds[rr] = 0.f;
       if (!live) continue;
       const float l = masked[rr] ? kMaskFill : dot_smem(q_row, k_s + (row0 + rr) * C, C);
-      const float p = expf(l - m_s[lane]) / s_s[lane];
-      pv[rr] = Io<T>::round(p);
-      if (!masked[rr]) {
+      p[rr] = expf(l - m_s[lane]) / s_s[lane];
+      pv[rr] = Io<T>::round(p[rr]);
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's logits have read qt's tile
+      stage_rows<T, false>(g_base, gs.n, i0, kTile, N, C, 1.f, g_s, stride);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      if (live && !masked[rr]) {
         const float dp = dot_smem(g_row, v_s + (row0 + rr) * C, C);
-        ds[rr] = Io<T>::round(p * (dp - d_s[lane]));
+        ds[rr] = Io<T>::round(p[rr] * (dp - d_s[lane]));
       }
     }
     const int ni = min(kTile, N - i0);
+    if constexpr (SHARE) {
+      sum_tile<kRPW, CPL>(dvr, pv, g_s, stride, ni, C, lane);
+      __syncthreads();  // every warp's sums have read dO's tile
+      stage_rows<T, true>(q_base, qs.n, i0, kTile, N, C, scale, q_s, stride);
+      __syncthreads();
+      sum_tile<kRPW, CPL>(dkr, ds, q_s, stride, ni, C, lane);
+      continue;
+    }
     for (int ii = 0; ii < ni; ++ii) {
       float qv[CPL], gv[CPL];
 #pragma unroll
@@ -604,12 +654,14 @@ cudaError_t launch_wide_one(Kernel kern, int rows_per_block, size_t smem, int th
   return cudaGetLastError();
 }
 
-// The wide layout (32 < C <= 128): 4 x CPL accumulators per lane and row.
+// The wide layout (32 < C <= 1024): 4 x CPL accumulators per lane and row.
 template <typename T, int CPL>
 cudaError_t launch_wide(const Args& a) {
-  constexpr int NWARPS = CPL <= 2 ? 8 : 4;
+  constexpr int NWARPS = CPL <= 2 ? 8 : (CPL > 16 ? 2 : 4);
   constexpr int ROWS = NWARPS * kRPW;
-  const size_t smem = sizeof(float) * (size_t)(2 * ROWS * a.C + 2 * kTile * (a.C + 4) + 3 * kTile);
+  constexpr int TILES = CPL > 16 ? 1 : 2;  // SHARE: one tile buffer
+  const size_t smem =
+      sizeof(float) * (size_t)(2 * ROWS * a.C + TILES * kTile * (a.C + 4) + 3 * kTile);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -650,14 +702,17 @@ cudaError_t dispatch_width(const Args& a) {
   if (a.C <= 16) return launch<T, 16>(a);
   if (a.C <= 32) return launch<T, 32>(a);
   if (a.C <= 64) return launch_wide<T, 2>(a);
-  return launch_wide<T, 4>(a);
+  if (a.C <= 128) return launch_wide<T, 4>(a);
+  if (a.C <= 256) return launch_wide<T, 8>(a);
+  if (a.C <= 512) return launch_wide<T, 16>(a);
+  return launch_wide<T, 32>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K7: dq (w.r.t. the pre-scaled q), dk and dv of rows attention, C up to 128
+// K7: dq (w.r.t. the pre-scaled q), dk and dv of rows attention, C up to 1024
 // (a multiple of 4 above 32). stats is caller-allocated f32 scratch of
 // 3 * R * H * N values.
 int prd_rows_attention_bwd(const void* q, const void* k, const void* v, const void* mask,
@@ -671,7 +726,7 @@ int prd_rows_attention_bwd(const void* q, const void* k, const void* v, const vo
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}, {g_sr, g_sn, g_sh},
                static_cast<cudaStream_t>(stream)};
   const bool ok = (dtype == 0 || dtype == 1) && R > 0 && N > 0 && H > 0 && H <= 65535 &&
-                  C > 0 && C <= 128 && (C <= 32 || C % 4 == 0) && mask != nullptr &&
+                  C > 0 && C <= 1024 && (C <= 32 || C % 4 == 0) && mask != nullptr &&
                   stats != nullptr;
   if (!ok) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_width<float>(a);

@@ -38,7 +38,11 @@
 // warp reduces the tile max, and the P.V product runs with the lanes on the
 // head channels, each key's p broadcast by a shuffle. Running max, sums and
 // the [4, C] accumulator stay in registers; shared memory is O((TQ + 64) C),
-// so there is no bound on N. No CN transpose: the TPU kernel transposed to
+// so there is no bound on N. Head widths run to 1024 (CPL = C / 32 values a
+// lane, as K1's CUDA-core body); past 512 V is staged into K's buffer after
+// the tile's logits (SHARE_KV), so a block's shared memory stays within the
+// card's 227 KB (197 KB at C = 1024), and the [4, CPL] accumulators spill
+// there. No CN transpose: the TPU kernel transposed to
 // [R, H, C, N] to avoid lane padding, which this card does not have. The
 // products run on the CUDA cores in f32, bound by the instruction rate of
 // the shuffles and FMAs (not by bytes); the tensor-core bodies replace it
@@ -65,11 +69,12 @@ __global__ void __launch_bounds__(NWARPS * 32)
                                  float* __restrict__ logs_out, int N, int H, int C, float scale,
                                  Strides qs, Strides ks, Strides vs) {
   constexpr int TQ = NWARPS * kRPW;
+  constexpr bool SHARE_KV = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int k_stride = C + 4;  // padded K rows: conflict-free float4 reads by lane
-  float* q_s = smem;                  // [TQ][C]
-  float* k_s = q_s + TQ * C;          // [kTK][C + 4]
-  float* v_s = k_s + kTK * k_stride;  // [kTK][C]
+  float* q_s = smem;                                     // [TQ][C]
+  float* k_s = q_s + TQ * C;                             // [kTK][C + 4]
+  float* v_s = SHARE_KV ? k_s : k_s + kTK * k_stride;  // [kTK][C]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -99,7 +104,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int k0 = 0; k0 < N; k0 += kTK) {
     __syncthreads();
     stage_rows<T, false>(k_base, ks.n, k0, kTK, N, C, 1.f, k_s, k_stride);
-    stage_rows<T, false>(v_base, vs.n, k0, kTK, N, C, 1.f, v_s, C);
+    if constexpr (!SHARE_KV) stage_rows<T, false>(v_base, vs.n, k0, kTK, N, C, 1.f, v_s, C);
     __syncthreads();
     const int j = k0 + lane;
     const bool live = j < N;
@@ -117,6 +122,11 @@ __global__ void __launch_bounds__(NWARPS * 32)
       m[rr] = m_new;
 #pragma unroll
       for (int t = 0; t < CPL; ++t) acc[rr][t] *= alpha;
+    }
+    if constexpr (SHARE_KV) {
+      __syncthreads();  // every warp's logits have read K's tile
+      stage_rows<T, false>(v_base, vs.n, k0, kTK, N, C, 1.f, v_s, C);
+      __syncthreads();
     }
     const int nk = min(kTK, N - k0);
     for (int jj = 0; jj < nk; ++jj) {
@@ -173,7 +183,8 @@ template <typename T, int CPL, bool STATS>
 cudaError_t launch(const Args& a) {
   constexpr int NWARPS = CPL <= 2 ? 8 : 4;
   constexpr int TQ = NWARPS * kRPW;
-  const size_t smem = sizeof(float) * (size_t)(TQ * a.C + kTK * (a.C + 4) + kTK * a.C);
+  const size_t smem =
+      sizeof(float) * (size_t)(TQ * a.C + kTK * (a.C + 4) + (CPL > 16 ? 0 : kTK * a.C));
   const long long blocks = (long long)((a.N + TQ - 1) / TQ) * a.R;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto kern = rows_attention_kchunk_kernel<T, CPL, NWARPS, STATS>;
@@ -192,7 +203,10 @@ template <typename T, bool STATS>
 cudaError_t dispatch_width(const Args& a) {
   if (a.C <= 32) return launch<T, 1, STATS>(a);
   if (a.C <= 64) return launch<T, 2, STATS>(a);
-  return launch<T, 4, STATS>(a);
+  if (a.C <= 128) return launch<T, 4, STATS>(a);
+  if (a.C <= 256) return launch<T, 8, STATS>(a);
+  if (a.C <= 512) return launch<T, 16, STATS>(a);
+  return launch<T, 32, STATS>(a);
 }
 
 template <bool STATS>
@@ -206,7 +220,7 @@ cudaError_t dispatch_type(int dtype, const Args& a) {
 extern "C" {
 
 // K3 (m and logs null) or K5 (both given): masked attention without bias by
-// online softmax over key tiles. Takes C a multiple of 4 up to 128.
+// online softmax over key tiles. Takes C a multiple of 4 up to 1024.
 int prd_rows_attention_kchunk(const void* q, const void* k, const void* v, const void* mask,
                               void* out, void* m, void* logs, int dtype, int R, int N, int H,
                               int C, float scale, long long q_sr, long long q_sn, long long q_sh,
@@ -217,7 +231,7 @@ int prd_rows_attention_kchunk(const void* q, const void* k, const void* v, const
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh},
                static_cast<cudaStream_t>(stream)};
   const bool ok = (dtype == 0 || dtype == 1) && R > 0 && N > 0 && H > 0 && H <= 65535 && C > 0 &&
-                  C <= 128 && C % 4 == 0 && mask != nullptr && (m == nullptr) == (logs == nullptr);
+                  C <= 1024 && C % 4 == 0 && mask != nullptr && (m == nullptr) == (logs == nullptr);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (m != nullptr) return (int)dispatch_type<true>(dtype, a);
   return (int)dispatch_type<false>(dtype, a);

@@ -36,6 +36,14 @@
 // broadcast by a shuffle. Shared memory is O((TQ + 64) C): no bound on N.
 // CUDA cores in f32; tensor cores are later work.
 //
+// Head widths run to 1024 (CPL = C / 32 values a lane and row). Past 512 the
+// two staged tiles would not fit beside the block's rows, so (SHARE) a
+// block takes 8 rows and one tile buffer: K (or qt) is staged for the
+// logits, then V (or dO) into the same buffer for dP and, in the dk/dv
+// kernel, dv's sums, then K (qt) again for the dS products. Each
+// accumulator sums the same terms in the same order as without SHARE; the
+// [4, CPL] accumulators spill at that width.
+//
 // Layout: q, k, v and dO are [R, N, H, C] with the head dimension
 // contiguous and the other strides given in elements; mask is contiguous f32
 // [R, N]; m, log s and delta are contiguous f32 [R, H, N]; dq, dk, dv are
@@ -88,13 +96,14 @@ __device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&ac
 template <typename T, int CPL, int NWARPS>
 __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dq_kernel(const Args a) {
   constexpr int TQ = NWARPS * kRPW;
+  constexpr bool SHARE = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, C = a.C, H = a.H;
   const int stride = C + 4;  // padded K/V rows: conflict-free float4 reads by lane
-  float* q_s = smem;                  // [TQ][C]
-  float* g_s = q_s + TQ * C;          // [TQ][C]
-  float* k_s = g_s + TQ * C;          // [kTile][C + 4]
-  float* v_s = k_s + kTile * stride;  // [kTile][C + 4]
+  float* q_s = smem;                                // [TQ][C]
+  float* g_s = q_s + TQ * C;                        // [TQ][C]
+  float* k_s = g_s + TQ * C;                        // [kTile][C + 4]
+  float* v_s = SHARE ? k_s : k_s + kTile * stride;  // [kTile][C + 4]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -128,20 +137,36 @@ __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dq_kernel(c
   for (int k0 = 0; k0 < N; k0 += kTile) {
     __syncthreads();
     stage_rows<T, false>(k_base, a.ks.n, k0, kTile, N, C, 1.f, k_s, stride);
-    stage_rows<T, false>(v_base, a.vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+    if constexpr (!SHARE) stage_rows<T, false>(v_base, a.vs.n, k0, kTile, N, C, 1.f, v_s, stride);
     __syncthreads();
     const int j = k0 + lane;
     const bool keep = j < N && mask_row[j] >= 0.5f;  // dS is zero at masked keys
-    float ds[kRPW];
+    float p[kRPW], ds[kRPW];
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      p[rr] = 0.f;
+      if (keep) {
+        const float l = dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
+        p[rr] = expf((l - m[rr]) - logs[rr]);
+      }
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's logits have read K's tile
+      stage_rows<T, false>(v_base, a.vs.n, k0, kTile, N, C, 1.f, v_s, stride);
+      __syncthreads();
+    }
 #pragma unroll
     for (int rr = 0; rr < kRPW; ++rr) {
       ds[rr] = 0.f;
       if (keep) {
-        const float l = dot_smem(q_s + (row0 + rr) * C, k_s + lane * stride, C);
-        const float p = expf((l - m[rr]) - logs[rr]);
         const float dp = dot_smem(g_s + (row0 + rr) * C, v_s + lane * stride, C);
-        ds[rr] = Io<T>::round(p * (dp - delta[rr]));
+        ds[rr] = Io<T>::round(p[rr] * (dp - delta[rr]));
       }
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's dP has read V's tile
+      stage_rows<T, false>(k_base, a.ks.n, k0, kTile, N, C, 1.f, k_s, stride);
+      __syncthreads();
     }
     const int nk = min(kTile, N - k0);
     for (int jj = 0; jj < nk; ++jj) {
@@ -166,13 +191,14 @@ __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dq_kernel(c
 template <typename T, int CPL, int NWARPS>
 __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dkdv_kernel(const Args a) {
   constexpr int TK = NWARPS * kRPW;
+  constexpr bool SHARE = CPL > 16;
   extern __shared__ __align__(16) float smem[];
   const int N = a.N, C = a.C, H = a.H;
   const int stride = C + 4;  // padded q/dO rows: conflict-free float4 reads by lane
-  float* k_s = smem;                   // [TK][C]
-  float* v_s = k_s + TK * C;           // [TK][C]
-  float* q_s = v_s + TK * C;           // [kTile][C + 4]
-  float* g_s = q_s + kTile * stride;   // [kTile][C + 4]
+  float* k_s = smem;                                // [TK][C]
+  float* v_s = k_s + TK * C;                        // [TK][C]
+  float* q_s = v_s + TK * C;                        // [kTile][C + 4]
+  float* g_s = SHARE ? q_s : q_s + kTile * stride;  // [kTile][C + 4]
   float* m_s = g_s + kTile * stride;   // [kTile]
   float* logs_s = m_s + kTile;         // [kTile]
   float* delta_s = logs_s + kTile;     // [kTile]
@@ -207,7 +233,7 @@ __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dkdv_kernel
   for (int i0 = 0; i0 < N; i0 += kTile) {
     __syncthreads();
     stage_rows<T, true>(q_base, a.qs.n, i0, kTile, N, C, a.scale, q_s, stride);
-    stage_rows<T, false>(g_base, a.gs.n, i0, kTile, N, C, 1.f, g_s, stride);
+    if constexpr (!SHARE) stage_rows<T, false>(g_base, a.gs.n, i0, kTile, N, C, 1.f, g_s, stride);
     if (threadIdx.x < kTile) {
       const int qi = i0 + threadIdx.x;
       const bool ok = qi < N;
@@ -219,20 +245,36 @@ __global__ void __launch_bounds__(NWARPS * 32) rows_attention_kchunk_dkdv_kernel
     const bool live = i0 + lane < N;
     const float* q_row = q_s + lane * stride;
     const float* g_row = g_s + lane * stride;
-    float pv[kRPW], ds[kRPW];
+    float p[kRPW], pv[kRPW], ds[kRPW];
 #pragma unroll
     for (int rr = 0; rr < kRPW; ++rr) {
-      pv[rr] = ds[rr] = 0.f;
+      p[rr] = pv[rr] = ds[rr] = 0.f;
       if (!live) continue;
       const float l = masked[rr] ? kMaskFill : dot_smem(q_row, k_s + (row0 + rr) * C, C);
-      const float p = expf((l - m_s[lane]) - logs_s[lane]);
-      pv[rr] = Io<T>::round(p);
-      if (keep[rr]) {
+      p[rr] = expf((l - m_s[lane]) - logs_s[lane]);
+      pv[rr] = Io<T>::round(p[rr]);
+    }
+    if constexpr (SHARE) {
+      __syncthreads();  // every warp's logits have read qt's tile
+      stage_rows<T, false>(g_base, a.gs.n, i0, kTile, N, C, 1.f, g_s, stride);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRPW; ++rr) {
+      if (live && keep[rr]) {
         const float dp = dot_smem(g_row, v_s + (row0 + rr) * C, C);
-        ds[rr] = Io<T>::round(p * (dp - delta_s[lane]));
+        ds[rr] = Io<T>::round(p[rr] * (dp - delta_s[lane]));
       }
     }
     const int ni = min(kTile, N - i0);
+    if constexpr (SHARE) {
+      sum_tile<kRPW, CPL>(dv, pv, g_s, stride, ni, C, lane);
+      __syncthreads();  // every warp's sums have read dO's tile
+      stage_rows<T, true>(q_base, a.qs.n, i0, kTile, N, C, a.scale, q_s, stride);
+      __syncthreads();
+      sum_tile<kRPW, CPL>(dk, ds, q_s, stride, ni, C, lane);
+      continue;
+    }
     for (int ii = 0; ii < ni; ++ii) {
       float qv[CPL], gv[CPL];
 #pragma unroll
@@ -273,9 +315,11 @@ cudaError_t launch_one(Kernel kern, int rows_per_block, size_t smem, int threads
 
 template <typename T, int CPL>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int NWARPS = CPL <= 2 ? 8 : 4;
+  constexpr int NWARPS = CPL <= 2 ? 8 : (CPL > 16 ? 2 : 4);
   constexpr int ROWS = NWARPS * kRPW;
-  const size_t smem = sizeof(float) * (size_t)(2 * ROWS * a.C + 2 * kTile * (a.C + 4) + 3 * kTile);
+  constexpr int TILES = CPL > 16 ? 1 : 2;  // SHARE: one tile buffer
+  const size_t smem =
+      sizeof(float) * (size_t)(2 * ROWS * a.C + TILES * kTile * (a.C + 4) + 3 * kTile);
   const cudaError_t e = launch_one(rows_attention_kchunk_dq_kernel<T, CPL, NWARPS>, ROWS, smem,
                                    NWARPS * 32, a, stream);
   if (e != cudaSuccess) return e;
@@ -287,7 +331,10 @@ template <typename T>
 cudaError_t dispatch_width(const Args& a, cudaStream_t stream) {
   if (a.C <= 32) return launch<T, 1>(a, stream);
   if (a.C <= 64) return launch<T, 2>(a, stream);
-  return launch<T, 4>(a, stream);
+  if (a.C <= 128) return launch<T, 4>(a, stream);
+  if (a.C <= 256) return launch<T, 8>(a, stream);
+  if (a.C <= 512) return launch<T, 16>(a, stream);
+  return launch<T, 32>(a, stream);
 }
 
 }  // namespace
@@ -296,7 +343,7 @@ extern "C" {
 
 // K6: dq (w.r.t. the pre-scaled q), dk and dv of the K-chunked rows attention
 // from the forward's stats m, log s and the caller's delta, all f32 [R, H, N].
-// Takes C a multiple of 4 up to 128.
+// Takes C a multiple of 4 up to 1024.
 int prd_rows_attention_kchunk_bwd(const void* q, const void* k, const void* v, const void* mask,
                                   const void* dout, const void* m, const void* logs,
                                   const void* delta, void* dq, void* dk, void* dv, int dtype,
@@ -309,7 +356,7 @@ int prd_rows_attention_kchunk_bwd(const void* q, const void* k, const void* v, c
                R, N, H, C, scale,
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}, {g_sr, g_sn, g_sh}};
   const bool ok = (dtype == 0 || dtype == 1) && R > 0 && N > 0 && H > 0 && H <= 65535 && C > 0 &&
-                  C <= 128 && C % 4 == 0 && mask != nullptr && m != nullptr && logs != nullptr &&
+                  C <= 1024 && C % 4 == 0 && mask != nullptr && m != nullptr && logs != nullptr &&
                   delta != nullptr;
   if (!ok) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -120,6 +120,28 @@ __device__ __forceinline__ void tile_4x4(float (&acc)[4][4], const float* A, int
   }
 }
 
+// acc[rr][t] += w[rr] of tile row ii (broadcast from lane ii) * tile[ii][lane +
+// 32 t] over the tile's first n rows, in row order: the wide backward bodies'
+// sums into a warp's RPW rows of head channels.
+template <int RPW, int CPL>
+__device__ __forceinline__ void sum_tile(float (&acc)[RPW][CPL], const float (&w)[RPW],
+                                         const float* tile, int stride, int n, int C, int lane) {
+  for (int ii = 0; ii < n; ++ii) {
+    float xv[CPL];
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      const int c = lane + 32 * t;
+      xv[t] = c < C ? tile[ii * stride + c] : 0.f;
+    }
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const float x = __shfl_sync(kFull, w[rr], ii);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) acc[rr][t] = fmaf(x, xv[t], acc[rr][t]);
+    }
+  }
+}
+
 // sum_c a[c] * b[c] in one fixed order, both in 16-byte aligned shared memory
 // (C a multiple of 4): every kernel that recomputes a logit gets the same bits.
 __device__ __forceinline__ float dot_smem(const float* a, const float* b, int C) {

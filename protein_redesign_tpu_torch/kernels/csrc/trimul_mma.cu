@@ -62,6 +62,25 @@
 // [B, N, N, D] f32, prod [B, D, N, N] f32; out contiguous [B, N, N, D].
 // Takes D a multiple of 8 up to 128. The entry point returns
 // cudaGetLastError().
+//
+// The wide body (prd_trimul_wide) takes every other pair width from 1 to
+// 512, the JAX kernel's reach (VMEM is its only bound). The contraction is
+// the kernel above, unchanged: it works on one channel plane at a time, so D
+// never enters it. The two LN + projection stages, whose tiles hold a whole
+// row of D channels, become CUDA-core kernels of 256 threads over 64
+// positions (trimul.cu's register tiles): LN of each position over its D
+// real channels into a transposed f32 tile [D][68] in shared memory, then
+// each 64-column slice of the output summed over K slices of 128 weight rows
+// staged beside it, so that only the LN tile grows with D (139 KB at 512).
+//   trimul_project_wide_kernel: a, b and the out gate from w_in [D, 5D] in
+//     trimul.cu's order [gate_a | gate_b | proj_a | proj_b | out_gate], into
+//     the scratch layouts above;
+//   trimul_out_wide_kernel: the channel-major product read along the
+//     positions into the tile, LN over d, round(x^) W_op + bop, times the
+//     out gate, in T.
+// Both are bound by their FMAs on the CUDA cores (2 B N^2 D 6 D in all),
+// which the tensor-core body does in mma.sync; the wide widths are for
+// configurations that need them, not the paper's.
 
 #include "ln_project.cuh"
 
@@ -386,6 +405,220 @@ __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks) trimul_out_mma_ker
   ln_project<T>(load, static_cast<const T*>(a.wop_t), a.D, a.D, p0, rows, epi, smem_tm);
 }
 
+constexpr int kWideMaxD = 512;
+constexpr int kWThreads = 256;
+constexpr int kWRows = 64;          // positions a block: 16 groups of 4
+constexpr int kWLd = kWRows + 4;    // row stride of the transposed LN tile
+constexpr int kWCols = 64;          // output columns a slice: 16 groups of 4
+constexpr int kWK = 128;            // weight rows (input channels) a K slice
+
+__host__ __device__ constexpr size_t wide_smem_bytes(int D, int cols) {
+  return sizeof(float) * ((size_t)D * kWLd + (size_t)kWK * cols);
+}
+
+// pos = (bb, x, y) of the [B, N, N] pair grid.
+__device__ __forceinline__ void pair_coords(long long pos, int N, long long& bb, int& x, int& y) {
+  const long long bx = pos / N;
+  y = (int)(pos - bx * N);
+  bb = bx / N;
+  x = (int)(bx - bb * N);
+}
+
+// acc += (the LN tile's 4 positions pg * 4 ..) x (weight columns [c0, c0 + 64)
+// of w [D, ld]) over all D rows, K slices of kWK rows staged into ws
+// [kWK][cols] at column offset off; columns past limit are zero.
+template <typename T>
+__device__ __forceinline__ void wide_slice(float (&acc)[4][4], const float* xsT, float* ws,
+                                           int cols, int off, const T* __restrict__ w, int ld,
+                                           int c0, int limit, int D, int pg, int cl) {
+  for (int k0 = 0; k0 < D; k0 += kWK) {
+    const int kn = min(kWK, D - k0);
+    __syncthreads();  // the LN tile is in; the previous K slice's reads are done
+    for (int e = threadIdx.x; e < kn * kWCols; e += kWThreads) {
+      const int d = e / kWCols, c = e - d * kWCols;
+      ws[d * cols + off + c] =
+          c0 + c < limit ? Io<T>::load(w + (long long)(k0 + d) * ld + c0 + c) : 0.f;
+    }
+    __syncthreads();
+    tile_4x4(acc, xsT + k0 * kWLd + pg * 4, kWLd, ws + off + cl, cols, kn);
+  }
+}
+
+__device__ __forceinline__ void zero4x4(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// w_in here is [D, 5D] in trimul.cu's column order [gate_a | gate_b | proj_a
+// | proj_b | out_gate], b_in likewise.
+template <typename T>
+__global__ void __launch_bounds__(kWThreads) trimul_project_wide_kernel(const TmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_tm[];
+  const int D = a.D, N = a.N, NP = (N + 7) & ~7, W = 5 * D;
+  float* xsT = reinterpret_cast<float*>(smem_tm);  // [D][kWLd]: the LN rows, transposed
+  float* ws = xsT + D * kWLd;                       // [kWK][2 kWCols]: gate | projection
+  const long long positions = (long long)a.B * N * N;
+  const long long p0 = (long long)blockIdx.x * kWRows;
+  const int rows = (int)min((long long)kWRows, positions - p0);
+  const T* pair = static_cast<const T*>(a.pair);
+  const T* w_in = static_cast<const T*>(a.w_in);
+  T* a_t = static_cast<T*>(a.a_t);
+  T* b_t = static_cast<T*>(a.b_t);
+  const int tid = threadIdx.x;
+  for (int r = tid >> 5; r < kWRows; r += kWThreads / 32)
+    layer_norm_to_column<T>(pair + (p0 + min(r, rows - 1)) * D, r < rows, D, xsT + r, kWLd);
+  const int pg = tid % (kWRows / 4), cl = (tid / (kWRows / 4)) * 4;
+
+  // a and b: slices of 64 of the 2D a | b channels, gate and projection together
+  for (int s0 = 0; s0 < 2 * D; s0 += kWCols) {
+    float g[4][4], pr[4][4];
+    zero4x4(g);
+    zero4x4(pr);
+    for (int k0 = 0; k0 < D; k0 += kWK) {
+      const int kn = min(kWK, D - k0);
+      __syncthreads();
+      for (int e = tid; e < kn * kWCols; e += kWThreads) {
+        const int d = e / kWCols, c = e - d * kWCols;
+        const bool ok = s0 + c < 2 * D;
+        const T* row = w_in + (long long)(k0 + d) * W + s0 + c;
+        ws[d * 2 * kWCols + c] = ok ? Io<T>::load(row) : 0.f;
+        ws[d * 2 * kWCols + kWCols + c] = ok ? Io<T>::load(row + 2 * D) : 0.f;
+      }
+      __syncthreads();
+      tile_4x4(g, xsT + k0 * kWLd + pg * 4, kWLd, ws + cl, 2 * kWCols, kn);
+      tile_4x4(pr, xsT + k0 * kWLd + pg * 4, kWLd, ws + kWCols + cl, 2 * kWCols, kn);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (pg * 4 + i >= rows) continue;
+      const long long pos = p0 + pg * 4 + i;
+      long long bb;
+      int x, y;
+      pair_coords(pos, N, bb, x, y);
+      const float m = a.mask[pos];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = s0 + cl + j;
+        if (c >= 2 * D) continue;
+        const float v = sigmoid_f(g[i][j] + a.b_in[c]) * (pr[i][j] + a.b_in[2 * D + c]) * m;
+        T* dst = c < D ? a_t : b_t;
+        const int ch = c < D ? c : c - D;
+        T* row = dst + ((bb * D + ch) * N + x) * NP;
+        row[y] = Io<T>::cast(v);
+        if (y == N - 1)
+          for (int yy = N; yy < NP; ++yy) row[yy] = Io<T>::cast(0.f);
+      }
+    }
+  }
+  // the out gate: slices of 64 of the D columns 4D ..
+  for (int s0 = 0; s0 < D; s0 += kWCols) {
+    float g[4][4];
+    zero4x4(g);
+    wide_slice<T>(g, xsT, ws, kWCols, 0, w_in + 4 * D, W, s0, D, D, pg, cl);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (pg * 4 + i >= rows) continue;
+      float* dst = a.gate + (p0 + pg * 4 + i) * D;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = s0 + cl + j;
+        if (c < D) dst[c] = sigmoid_f(g[i][j] + a.b_in[4 * D + c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWThreads) trimul_out_wide_kernel(const TmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_tm[];
+  const int D = a.D, N = a.N;
+  float* xsT = reinterpret_cast<float*>(smem_tm);  // [D][kWLd]: the product's rows, transposed
+  float* ws = xsT + D * kWLd;                       // [kWK][kWCols]: W_op rows
+  const long long nn = (long long)N * N;
+  const long long positions = (long long)a.B * nn;
+  const long long p0 = (long long)blockIdx.x * kWRows;
+  const int rows = (int)min((long long)kWRows, positions - p0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // the channel-major product, a run of 64 positions per channel
+  for (int e = tid; e < D * kWRows; e += kWThreads) {
+    const int d = e / kWRows, p = e - d * kWRows;
+    float v = 0.f;
+    if (p < rows) {
+      const long long pos = p0 + p;
+      const long long bb = pos / nn;
+      v = a.prod[(bb * D + d) * nn + (pos - bb * nn)];
+    }
+    xsT[d * kWLd + p] = v;
+  }
+  __syncthreads();
+  // LN over d of each position, a warp a position, rounded to T in place
+  for (int p = tid >> 5; p < kWRows; p += kWThreads / 32) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s += xsT[d * kWLd + p];
+    const float mu = warp_sum(s) / (float)D;
+    float sq = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float t = xsT[d * kWLd + p] - mu;
+      sq = fmaf(t, t, sq);
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / (float)D + 1e-5f);
+    for (int d = lane; d < D; d += 32) xsT[d * kWLd + p] = Io<T>::round((xsT[d * kWLd + p] - mu) * rstd);
+  }
+  const int pg = tid % (kWRows / 4), cl = (tid / (kWRows / 4)) * 4;
+  const T* wop_t = static_cast<const T*>(a.wop_t);
+  T* out = static_cast<T*>(a.out);
+  for (int s0 = 0; s0 < D; s0 += kWCols) {
+    float acc[4][4];
+    zero4x4(acc);
+    wide_slice<T>(acc, xsT, ws, kWCols, 0, wop_t, D, s0, D, D, pg, cl);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (pg * 4 + i >= rows) continue;
+      const long long pos = p0 + pg * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = s0 + cl + j;
+        if (c < D) out[pos * D + c] = Io<T>::cast(a.gate[pos * D + c] * (acc[i][j] + a.bop[c]));
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const TmArgs& a, bool incoming, cudaStream_t stream) {
+  const long long positions = (long long)a.B * a.N * a.N;
+  const long long blocks = (positions + kWRows - 1) / kWRows;
+  const long long tiles = (a.N + kCt - 1) / kCt;
+  if (blocks > 0x7fffffffLL || tiles * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem_p = wide_smem_bytes(a.D, 2 * kWCols);
+  const size_t smem_o = wide_smem_bytes(a.D, kWCols);
+  cudaError_t e = cudaSuccess;
+  if (smem_p > 48 * 1024)
+    e = cudaFuncSetAttribute(trimul_project_wide_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_p);
+  if (e == cudaSuccess && smem_o > 48 * 1024)
+    e = cudaFuncSetAttribute(trimul_out_wide_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_o);
+  if (e != cudaSuccess) return e;
+  trimul_project_wide_kernel<T><<<(unsigned)blocks, kWThreads, smem_p, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(tiles * tiles), a.D, a.B);
+  const T* at = static_cast<const T*>(a.a_t);
+  const T* bt = static_cast<const T*>(a.b_t);
+  if (incoming)
+    trimul_contract_kernel<T, true><<<grid, kCThreads, 0, stream>>>(at, bt, a.prod, a.N, a.D);
+  else
+    trimul_contract_kernel<T, false><<<grid, kCThreads, 0, stream>>>(at, bt, a.prod, a.N, a.D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  trimul_out_wide_kernel<T><<<(unsigned)blocks, kWThreads, smem_o, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch_rows(Kernel kern, size_t smem, long long blocks, const TmArgs& a,
                         cudaStream_t stream) {
@@ -441,6 +674,27 @@ int prd_trimul_mma(const void* pair, const void* mask, const void* w_in, const v
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(a, mode == 1, s);
   return (int)launch<bf16>(a, mode == 1, s);
+}
+
+// K9's wide body, dtype 0 f32, 1 bf16; mode 0 outgoing, 1 incoming. Takes D
+// from 1 to 512 and B up to 65535; w_in in trimul.cu's column order.
+int prd_trimul_wide(const void* pair, const void* mask, const void* w_in, const void* b_in,
+                    const void* wop_t, const void* bop, void* a_t, void* b_t, void* gate,
+                    void* prod, void* out, int dtype, int mode, int B, int N, int D,
+                    void* stream) {
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+  };
+  const bool ok = (dtype == 0 || dtype == 1) && (mode == 0 || mode == 1) && B > 0 &&
+                  B <= 65535 && N > 0 && D > 0 && D <= kWideMaxD && aligned(a_t) &&
+                  aligned(b_t);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const TmArgs a{pair, static_cast<const float*>(mask), w_in, static_cast<const float*>(b_in),
+                 wop_t, static_cast<const float*>(bop), a_t, b_t, static_cast<float*>(gate),
+                 static_cast<float*>(prod), out, B, N, D};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_wide<float>(a, mode == 1, s);
+  return (int)launch_wide<bf16>(a, mode == 1, s);
 }
 
 }  // extern "C"

@@ -10,6 +10,22 @@ With ``cfg.remat`` and grad enabled, each FoldingBlock is checkpointed
 (`denoiser.py:665`'s ``nn.remat``): the backward recomputes the block's
 forward, launching its attention kernels a second time.
 
+With ``cfg.sequence_parallel`` inside ``parallel.mesh.on_mesh`` (the
+counterpart of the JAX Denoiser's ``with mesh:``; without one it raises, as
+JAX's ``with_sharding_constraint`` does), each rank of the model group
+holds its block of the first complex axis of ``pair`` [B, N, N, D] and
+``single`` [B, N, C] from the first FoldingBlock through the end of the
+stack (`denoiser.py:460-469, 667-669, 692-693`), and the ops reach past
+their rows through ``mesh.gather_blocks`` (all-gather, its adjoint a
+reduce-scatter): single attention gathers the keys' and values' rows,
+OuterLinear ``single[j]``, the outgoing triangle multiplication ``b``, the
+incoming one ``a`` and ``b``; the ending triangle attention and the final
+symmetrisation take the transpose from the gathered whole. Starting
+triangle attention and the transitions are local. No kernel runs (JAX's
+``fused_ok`` and plan): the Denoiser runs inside ``ops.attention.
+plain_route()`` and the fused switches are off. Where m does not divide N
+the last block is short, padded for the collectives only.
+
 ``resolve_attention_plan`` is a copy of the JAX package's decision
 (`denoiser.py:470-617`). The Denoiser resolves it once per forward from the
 padded complex axis, as the JAX one does (:638), and hands ``use_pallas``
@@ -21,15 +37,17 @@ for ``fast_softmax`` (see ``ops.attention.gated_attention_core``), and
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..ops.attention import weak_scalar
+from ..ops.attention import plain_route, weak_scalar
+from ..parallel import mesh
 from ..ops.outer import fused_outer_linear
 from ..ops.trimul import triangle_multiply
 from .layers import GatedAttention, LayerNorm, PRLinear, TransitionMLP, attention_core
@@ -117,13 +135,19 @@ class TriangleAttention(nn.Module):
                                    fast=fast, kernel_bwd=kernel_bwd)
 
     def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor,
-                use_pallas: bool = True, attn_chunk: int = 0) -> torch.Tensor:
+                use_pallas: bool = True, attn_chunk: int = 0,
+                transpose: Optional[Callable] = None) -> torch.Tensor:
+        """``transpose`` (sequence parallelism): this rank's rows of a
+        row-sharded tensor's transpose; mask_2d, symmetric, is its own."""
         if self.mode == "ending":
-            pair = pair.transpose(-2, -3)
-            mask_2d = mask_2d.transpose(-1, -2)
+            if transpose is None:
+                pair = pair.transpose(-2, -3)
+                mask_2d = mask_2d.transpose(-1, -2)
+            else:
+                pair = transpose(pair)
         out = self.attn(pair, mask_2d, use_pallas=use_pallas, attn_chunk=attn_chunk)
         if self.mode == "ending":
-            out = out.transpose(-2, -3)
+            out = out.transpose(-2, -3) if transpose is None else transpose(out)
         return out
 
 
@@ -152,7 +176,11 @@ class TriangleMultiplication(nn.Module):
         self.out_gate = PRLinear(D, D, init="gating", dtype=dtype)
         self.out_proj = PRLinear(D, D, init="final", dtype=dtype)
 
-    def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor) -> torch.Tensor:
+    def forward(self, pair: torch.Tensor, mask_2d: torch.Tensor,
+                sp: Optional[Tuple[Callable, int, int]] = None) -> torch.Tensor:
+        """``sp`` (sequence parallelism: this rank's rows [lo, hi) of the
+        pair and of mask_2d): (gather, lo, hi), ``gather`` the whole
+        complex axis from the rows."""
         if self.fused:
             return triangle_multiply(
                 pair.to(self.dtype), mask_2d.to(self.dtype),
@@ -165,7 +193,14 @@ class TriangleMultiplication(nn.Module):
         ab = mask_2d[..., None] * (torch.sigmoid(self.ab_gate(pair)) * self.ab_proj(pair))
         a, b = ab.chunk(2, dim=-1)
         # f32 products and accumulation, as preferred_element_type=f32.
-        if self.dmajor:
+        if sp is not None:
+            gather, lo, hi = sp
+            if self.mode == "outgoing":  # a[i, k] local, b[j, k] of every j
+                prod = torch.einsum("...ikd,...jkd->...ijd", a.float(), gather(b).float())
+            else:  # a[k, i] of every k at the local i, b[k, j] of every k
+                prod = torch.einsum("...kid,...kjd->...ijd",
+                                    gather(a)[:, :, lo:hi].float(), gather(b).float())
+        elif self.dmajor:
             at, bt = (torch.movedim(t.float(), -1, -3) for t in (a, b))  # [..., d, N, N]
             if self.mode == "outgoing":
                 prod = torch.matmul(at, bt.transpose(-1, -2))
@@ -196,20 +231,23 @@ class OuterLinear(nn.Module):
         self.norm = LayerNorm(single_dim, dtype=dtype)
         self.linear = PRLinear(2 * single_dim, pair_dim, init="final", dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_j: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x_j`` (sequence parallelism): the whole single representation,
+        x this rank's rows i of it."""
         if self.fused:
             return fused_outer_linear(x.to(self.dtype), self.linear.weight, self.linear.bias)
         S = self.single_dim
         x = self.norm(x)
+        xj = x if x_j is None else self.norm(x_j)
         if self.factored:
             w = self.linear.weight.to(self.dtype).t()  # [2S, D], the flax kernel
-            u = x @ w[S:]
-            diff = u[..., :, None, :] - u[..., None, :, :]
+            u, uj = x @ w[S:], xj @ w[S:]
+            diff = u[..., :, None, :] - uj[..., None, :, :]
             y = x[..., :, :, None] * w[:S]  # [..., N, S, D]
-            prod = torch.einsum("...isd,...js->...ijd", y.float(), x.float()).to(self.dtype)
+            prod = torch.einsum("...isd,...js->...ijd", y.float(), xj.float()).to(self.dtype)
             return prod + diff + self.linear.bias.to(self.dtype)
         x_i = x[..., :, None, :]
-        x_j = x[..., None, :, :]
+        x_j = xj[..., None, :, :]
         return self.linear(torch.cat([x_i * x_j, x_i - x_j], dim=-1))
 
 
@@ -310,30 +348,40 @@ class FoldingBlock(nn.Module):
         S, P = cfg.single_dim, cfg.pair_dim
         H, C = cfg.num_heads, cfg.head_dim
         fast_accum = fast or cfg.pair_stream_bf16
+        # no fused kernel with the complex axis sharded (`denoiser.py:644`)
+        fused_ok = not cfg.sequence_parallel
         self.attn_bias = nn.Sequential(
             LayerNorm(P, dtype=dtype), PRLinear(P, H, init="normal", dtype=dtype)
         )
-        flags = dict(fast=fast, kernel_bwd=kernel_bwd)
+        flags = dict(fast=fast, kernel_bwd=kernel_bwd and fused_ok)
         self.single_attn = GatedAttention(S, C, H, dtype, **flags)
-        transition, trimul = cfg.use_pallas_transition, cfg.use_pallas_trimul
+        transition = cfg.use_pallas_transition and fused_ok
+        trimul = cfg.use_pallas_trimul and fused_ok
+        fused_gated = cfg.use_pallas_fused_gated and fused_ok
         self.single_fc = TransitionMLP(S, S * cfg.transition_factor, S, dtype=dtype,
                                        fused=transition)
         self.outer_linear = OuterLinear(S, P, factored=cfg.outer_factored, dtype=dtype,
-                                        fused=cfg.use_pallas_outer)
+                                        fused=cfg.use_pallas_outer and fused_ok)
         self.pair_mul_outgoing = TriangleMultiplication(P, "outgoing", fast_accum, dtype,
                                                         fused=trimul, dmajor=cfg.trimul_dmajor)
         self.pair_mul_incoming = TriangleMultiplication(P, "incoming", fast_accum, dtype,
                                                         fused=trimul, dmajor=cfg.trimul_dmajor)
         self.pair_attn_starting = TriangleAttention(P, C, H, "starting", dtype,
-                                                    fused_gated=cfg.use_pallas_fused_gated, **flags)
+                                                    fused_gated=fused_gated, **flags)
         self.pair_attn_ending = TriangleAttention(P, C, H, "ending", dtype,
-                                                  fused_gated=cfg.use_pallas_fused_gated, **flags)
+                                                  fused_gated=fused_gated, **flags)
         self.pair_fc = TransitionMLP(P, P * cfg.transition_factor, P, dtype=dtype,
                                      fused=transition)
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor, mask: torch.Tensor,
-                use_pallas: bool = True,
-                attn_chunk: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                use_pallas: bool = True, attn_chunk: int = 0,
+                sp: Optional[Tuple[mesh.MeshAxes, int, int]] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``sp`` (sequence parallelism): (axes, lo, hi), single and pair
+        this rank's rows [lo, hi) of their first complex axis."""
+        if sp is not None:
+            with plain_route():  # here too for remat's recompute in the backward
+                return self._forward_rows(single, pair, mask, use_pallas, attn_chunk, *sp)
         mask_2d = mask[..., :, None] * mask[..., None, :]
         attn_bias = torch.movedim(self.attn_bias(pair), -1, -3)  # [..., H, i, j]
         single = single + self.single_attn(single, mask, attn_bias, use_pallas, attn_chunk)
@@ -343,6 +391,28 @@ class FoldingBlock(nn.Module):
         pair = pair + self.pair_mul_incoming(pair, mask_2d)
         pair = pair + self.pair_attn_starting(pair, mask_2d, use_pallas, attn_chunk)
         pair = pair + self.pair_attn_ending(pair, mask_2d, use_pallas, attn_chunk)
+        pair = pair + self.pair_fc(pair)
+        return single, pair
+
+    def _forward_rows(self, single, pair, mask, use_pallas, attn_chunk, axes, lo, hi):
+        N = mask.shape[-1]
+
+        def gather(x: torch.Tensor) -> torch.Tensor:
+            return mesh.gather_blocks(x, axes, N)
+
+        def transpose(x: torch.Tensor) -> torch.Tensor:
+            return gather(x).transpose(1, 2)[:, lo:hi]
+
+        mask_2d = mask[..., lo:hi, None] * mask[..., None, :]  # [B, rows, N]
+        attn_bias = torch.movedim(self.attn_bias(pair), -1, -3)  # [B, H, rows, N]
+        single = single + self.single_attn(single, mask, attn_bias, use_pallas, attn_chunk,
+                                           kv=gather(single))
+        single = single + self.single_fc(single)
+        pair = pair + self.outer_linear(single, gather(single))
+        pair = pair + self.pair_mul_outgoing(pair, mask_2d, (gather, lo, hi))
+        pair = pair + self.pair_mul_incoming(pair, mask_2d, (gather, lo, hi))
+        pair = pair + self.pair_attn_starting(pair, mask_2d, use_pallas, attn_chunk)
+        pair = pair + self.pair_attn_ending(pair, mask_2d, use_pallas, attn_chunk, transpose)
         pair = pair + self.pair_fc(pair)
         return single, pair
 
@@ -369,6 +439,18 @@ class Denoiser(nn.Module):
 
     def forward(self, single: torch.Tensor, pair: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        axes = None
+        if self.cfg.sequence_parallel:
+            axes = mesh.current_axes()
+            if axes is None:
+                raise RuntimeError(
+                    "sequence_parallel shards the complex axis over the mesh's 'model' axis and "
+                    "needs a mesh in context: run the model inside parallel.mesh.on_mesh(...), "
+                    "as the JAX Denoiser runs inside `with mesh:`")
+        with plain_route() if axes is not None else contextlib.nullcontext():
+            return self._forward(single, pair, mask, axes)
+
+    def _forward(self, single, pair, mask, axes):
         use_pallas, attn_chunk = resolve_attention_plan(self.cfg, single.shape[-2])
         mask_2d = mask[..., :, None] * mask[..., None, :]
         pair = pair + mask_2d[..., None] * self.opm(single, mask)
@@ -376,11 +458,18 @@ class Denoiser(nn.Module):
         if self.cfg.pair_stream_bf16:
             pair = pair.to(torch.bfloat16)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        sp, N = None, single.shape[-2]
+        if axes is not None:  # this rank's rows of the complex axis
+            lo, hi = mesh.sp_rows(N, axes)
+            sp = (axes, lo, hi)
+            single, pair = single[:, lo:hi], pair[:, lo:hi]
         for block in self.folding_blocks:
             if remat:
-                single, pair = checkpoint(block, single, pair, mask, use_pallas, attn_chunk,
+                single, pair = checkpoint(block, single, pair, mask, use_pallas, attn_chunk, sp,
                                           use_reentrant=False)
             else:
-                single, pair = block(single, pair, mask, use_pallas, attn_chunk)
+                single, pair = block(single, pair, mask, use_pallas, attn_chunk, sp)
+        if axes is not None:
+            single, pair = mesh.gather_blocks(single, axes, N), mesh.gather_blocks(pair, axes, N)
         pair = pair.to(self.dtype)
         return single, 0.5 * (pair + pair.transpose(-2, -3))

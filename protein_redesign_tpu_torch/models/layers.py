@@ -22,6 +22,8 @@ from torch import nn
 from ..chem.features import ATOM_FEATURE_SIZES, BOND_FEATURE_SIZES
 from ..ops.attention import (  # noqa: F401
     ROWS_KCHUNK_MIN_N,
+    attention_reference,
+    attention_reference_fast,
     fused_gated_rows_attention,
     gated_attention_core,
     masked_softmax,
@@ -207,6 +209,18 @@ def attention_core(
     return out.reshape(lead + (N, H, C))
 
 
+def rows_attention_plain(query, key, value, mask, attn_bias, scale: float, fast: bool,
+                         attn_chunk: int) -> torch.Tensor:
+    """The plain attention of a block of query rows against every key (query
+    [..., n, H, C], key and value [..., N, H, C], bias [..., H, n, N]): the
+    bf16-logit attention with ``fast``, in query chunks of ``attn_chunk``
+    where it divides n (each row's function is the same either way)."""
+    if attn_chunk > 0 and query.shape[-3] % attn_chunk == 0:
+        return chunked_attention(query, key, value, mask, attn_bias, scale, attn_chunk, fast)
+    body = attention_reference_fast if fast else attention_reference
+    return body(query, key, value, mask, attn_bias, scale)
+
+
 class GatedAttention(nn.Module):
     """Per-head gated MHA with optional additive bias (`layers.py:327-429`)
     over any leading dims; the input's second-to-last axis is the sequence.
@@ -237,27 +251,37 @@ class GatedAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 attn_bias: Optional[torch.Tensor] = None,
-                use_pallas: bool = True, attn_chunk: int = 0) -> torch.Tensor:
+                use_pallas: bool = True, attn_chunk: int = 0,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kv`` (sequence parallelism): the whole sequence the keys and
+        values come from, x this rank's rows of it (the queries), taken by
+        the plain attention."""
         H, C = self.num_heads, self.head_dim
         bf16_logits = self.fast and not use_pallas and self.dtype == torch.bfloat16
         if (self.fused_gated and not bf16_logits and attn_bias is None and mask is not None
-                and x.shape[-2] < ROWS_KCHUNK_MIN_N):
+                and x.shape[-2] < ROWS_KCHUNK_MIN_N and kv is None):
             return fused_gated_rows_attention(
                 x.to(self.dtype), mask, self.q_proj.weight, self.k_proj.weight,
                 self.v_proj.weight, self.gate_proj.weight, self.gate_proj.bias,
                 self.out_proj.weight, self.out_proj.bias, H,
             )
         x = self.norm(x)
+        xkv = x if kv is None else self.norm(kv)
 
         def heads(y: torch.Tensor) -> torch.Tensor:
             return y.reshape(y.shape[:-1] + (H, C))
 
-        query, key, value = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
+        query, key, value = heads(self.q_proj(x)), heads(self.k_proj(xkv)), heads(self.v_proj(xkv))
         gate = torch.sigmoid(heads(self.gate_proj(x)))
-        out = attention_core(
-            query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast, self.kernel_bwd,
-            use_pallas, attn_chunk,
-        ).to(self.dtype)
+        if kv is None:
+            out = attention_core(
+                query, key, value, mask, attn_bias, 1.0 / math.sqrt(C), self.fast,
+                self.kernel_bwd, use_pallas, attn_chunk,
+            )
+        else:
+            out = rows_attention_plain(query, key, value, mask, attn_bias, 1.0 / math.sqrt(C),
+                                       bf16_logits, attn_chunk)
+        out = out.to(self.dtype)
         out = gate * out
         return self.out_proj(out.reshape(out.shape[:-2] + (H * C,)))
 

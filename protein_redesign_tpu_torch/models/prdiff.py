@@ -58,16 +58,26 @@ NUM_CLASSES = 21  # 20 residue types + pad/mask class 0
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for config fields outside the ported
-    slice."""
-    unsupported = [
-        (cfg.sequence_parallel, "sequence_parallel: not ported yet"),
-        (cfg.param_dtype != "float32", f"param_dtype={cfg.param_dtype!r}: only float32"),
-        (cfg.dtype not in ("float32", "bfloat16"),
-         f"dtype={cfg.dtype!r}: only float32 and bfloat16"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"ModelConfig.{what}")
+    slice: a ``dtype`` or ``param_dtype`` other than float32 or bfloat16."""
+    for field in ("dtype", "param_dtype"):
+        value = getattr(cfg, field)
+        if value not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"ModelConfig.{field}={value!r}: only float32 and bfloat16")
+
+
+def cast_params_(net: nn.Module, param_dtype: str) -> nn.Module:
+    """Every parameter in ``param_dtype`` but the affine LayerNorms', which
+    stay float32 as the JAX package's (`layers.py:145-151`); each module
+    casts its weights to its compute dtype at use."""
+    dtype = getattr(torch, param_dtype)
+    for module in net.modules():
+        if isinstance(module, LayerNorm):
+            continue
+        for p in module._parameters.values():
+            if p is not None:
+                p.data = p.data.to(dtype)
+    return net
 
 
 class NormLinear(nn.Sequential):
@@ -120,6 +130,7 @@ class ProteinReDiffNet(nn.Module):
         self.Denoiser = Denoiser(cfg)
         self.weight_radial = TransitionMLP(P, P, 1, out_bias=False, dtype=dtype)
         self.seq_mlp = TransitionMLP(S, S, NUM_CLASSES, out_bias=False, dtype=dtype)
+        cast_params_(self, cfg.param_dtype)
 
     def forward(
         self,

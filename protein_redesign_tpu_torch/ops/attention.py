@@ -178,7 +178,7 @@ def tiled_tf32x3_smem_bytes(C: int) -> int:
     """Shared memory of K2's f32 tensor-core body at head width C: the
     one-pass body with 64 queries and the bias up to C = 128, the wide body
     above."""
-    return (tf32x3_smem_bytes(C, 64, bias=True) if C <= MAX_KCHUNK_HEAD_DIM
+    return (tf32x3_smem_bytes(C, 64, bias=True) if C <= MAX_TC_HEAD_DIM
             else TILED_WIDE_TF32X3_SMEM_BYTES)
 
 
@@ -197,13 +197,13 @@ def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
     in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
     8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K7 and K6
-    in bf16 when C is a multiple of 8 up to MAX_BWD_HEAD_DIM (their
+    in bf16 when C is a multiple of 8 up to MAX_TC_HEAD_DIM (their
     accumulators hold the whole head). Else the CUDA-core body, or in f32
     the 3xTF32 body where ``takes_tf32x3``."""
     if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
         return False
     if name in BACKWARDS:
-        return C <= MAX_BWD_HEAD_DIM and bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
+        return C <= MAX_TC_HEAD_DIM and bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
     queries = kchunk_queries(C) if name in KCHUNK_FORWARDS else 64
     return mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES
 
@@ -212,7 +212,7 @@ def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
     width C in ``dtype``: f32 with C a multiple of 8, K1, K1 fast, K3 and K5
     (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
-    MAX_KCHUNK_HEAD_DIM (the accumulators hold the whole head), K2
+    MAX_TC_HEAD_DIM (the accumulators hold the whole head), K2
     (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body streams the
     head), each within its shared memory (K1 fast keeps its logits in shared
     memory where they fit and recomputes them past that, so N bounds
@@ -221,7 +221,7 @@ def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
         return False
     if name == "tiled_attention":
         return C <= MAX_HEAD_DIM and tiled_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
-    if C > MAX_KCHUNK_HEAD_DIM:
+    if C > MAX_TC_HEAD_DIM:
         return False
     if name in BACKWARDS:
         return bwd_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
@@ -255,7 +255,13 @@ def width_fits(C: int, max_width: int) -> bool:
     return 0 < C <= max_width and C % 4 == 0
 
 
-MAX_HEAD_DIM = 1024  # the CUDA-core bodies: C / 32 accumulators per lane and query
+# The CUDA-core bodies of every attention kernel (K1, K1 fast, K2, K3, K5,
+# K6, K7): C / 32 accumulators per lane and row; K3, K5, K6 and K7 past 512
+# share one staged tile buffer between K and V (or qt and dO).
+MAX_HEAD_DIM = 1024
+# The tensor-core bodies whose accumulators hold a whole head: K6 and K7 in
+# both dtypes, K1, K1 fast, K3 and K5 in f32 (3xTF32).
+MAX_TC_HEAD_DIM = 128
 
 
 def attention_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
@@ -266,33 +272,22 @@ def attention_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype
                                    or width_fits(C, MAX_HEAD_DIM))
 
 
-# K7: the CUDA-core body holds rows in registers to C = 32, then 4 x C / 32
-# accumulators per lane; the tensor-core body a warp's 16 rows of the whole
-# head's gradients (C / 2 accumulators a thread)
-MAX_BWD_HEAD_DIM = 128
-
-
 def bwd_fits(R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K7 takes the backward of [R, N, H, C] operands of ``dtype``:
-    a tensor-core body's shared memory (bf16 or 3xTF32, multiples of 8),
-    else the CUDA-core body's C <= MAX_BWD_HEAD_DIM, a multiple of 4."""
+    a tensor-core body's shared memory (bf16 or 3xTF32, multiples of 8 up to
+    MAX_TC_HEAD_DIM), else the CUDA-core body's C <= MAX_HEAD_DIM, a multiple
+    of 4."""
     return grid_fits(R, N, H) and (takes_tensor_cores("rows_attention_bwd", dtype, C)
-                                   or width_fits(C, MAX_BWD_HEAD_DIM))
-
-
-# K3, K5 and K6 on the CUDA cores: 4 x C / 32 accumulators per lane; K3 and
-# K5 in f32 on the tensor cores: a warp's 16 rows of the whole head's output
-# (C / 2 accumulators a thread)
-MAX_KCHUNK_HEAD_DIM = 128
+                                   or width_fits(C, MAX_HEAD_DIM))
 
 
 def kchunk_fits(name: str, R: int, N: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K3 (``name`` "rows_attention_kchunk"), K5 or K6 takes
     [R, N, H, C] operands of ``dtype``: the bf16 tensor-core body's shared
     memory, the 3xTF32 body's (f32), else the CUDA-core body's C <=
-    MAX_KCHUNK_HEAD_DIM."""
+    MAX_HEAD_DIM."""
     return grid_fits(R, N, H) and (takes_tensor_cores(name, dtype, C)
-                                   or width_fits(C, MAX_KCHUNK_HEAD_DIM))
+                                   or width_fits(C, MAX_HEAD_DIM))
 
 
 # The K-chunk switch points and chunk target of the JAX package
@@ -631,8 +626,8 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (K6 and K7 up to {MAX_BWD_HEAD_DIM}; in f32 K2 up to {MAX_HEAD_DIM}, "
-              f"the others up to {MAX_KCHUNK_HEAD_DIM})")
+              f"bytes (K6 and K7 up to {MAX_TC_HEAD_DIM}; in f32 K2 up to {MAX_HEAD_DIM}, "
+              f"the others up to {MAX_TC_HEAD_DIM})")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
@@ -702,8 +697,8 @@ def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
     if mma:
         _check(q, k, v, mask, None, auto, _MMA_BOUND)
     else:
-        _check(q, k, v, mask, None, width_fits(C, MAX_BWD_HEAD_DIM),
-               f"rows attention backward takes a multiple of 4 up to {MAX_BWD_HEAD_DIM}")
+        _check(q, k, v, mask, None, width_fits(C, MAX_HEAD_DIM),
+               f"rows attention backward takes a multiple of 4 up to {MAX_HEAD_DIM}")
     R, N, H, C = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout must match q: got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
@@ -739,8 +734,8 @@ def _check_kchunk(q, k, v, mask, name: str = "rows_attention_kchunk_bwd",
     if tensor_cores:
         _check(q, k, v, mask, None, takes_tensor_cores(name, q.dtype, C), _MMA_BOUND)
     else:
-        _check(q, k, v, mask, None, width_fits(C, MAX_KCHUNK_HEAD_DIM),
-               f"K-chunked rows attention takes a multiple of 4 up to {MAX_KCHUNK_HEAD_DIM}")
+        _check(q, k, v, mask, None, width_fits(C, MAX_HEAD_DIM),
+               f"K-chunked rows attention takes a multiple of 4 up to {MAX_HEAD_DIM}")
 
 
 def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool] = None):
@@ -970,7 +965,8 @@ class _RowsAttentionPlainVjp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, fast):
         ctx.save_for_backward(q, k, v, mask)
-        ctx.scale, ctx.fast = scale, fast
+        # inside plain_route() no kernel stands behind the forward to warn of
+        ctx.scale, ctx.fast, ctx.warn = scale, fast, not _PLAIN_ROUTE
         if kchunk_select(q.shape[1], q.dtype) > 0:
             fn = rows_attention_kchunk_reference if _PLAIN_ROUTE else rows_attention_kchunk
         elif fast:
@@ -983,7 +979,8 @@ class _RowsAttentionPlainVjp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        _warn_plain_vjp(ctx.fast)
+        if ctx.warn:
+            _warn_plain_vjp(ctx.fast)
         grads = plain_vjp(attention_reference, ctx.saved_tensors, ctx.needs_input_grad, dout,
                           None, ctx.scale)
         return (*grads, None, None)
@@ -1020,7 +1017,7 @@ def rows_attention(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     if (stats and q.dim() == 4 and not _on_cpu(q) and not _PLAIN_ROUTE
             and kchunk_select(q.shape[1], q.dtype) == 0 and not bwd_fits(*q.shape, q.dtype)):
         raise ValueError(f"rows attention backward (K7) takes a head width that is a multiple "
-                         f"of 4 up to {MAX_BWD_HEAD_DIM}; got q {tuple(q.shape)}")
+                         f"of 4 up to {MAX_HEAD_DIM}; got q {tuple(q.shape)}")
     return _RowsAttention.apply(q, k, v, mask, scale, stats)
 
 

@@ -9,9 +9,9 @@ differentiates ``_reference_impl``. K11 has two bodies
 (``outer_takes_tensor_cores``): pair widths D that are multiples of 8 up to
 128 take the tensor-core one (``kernels/csrc/outer_mma.cu``: mma.sync in
 bf16, 3xTF32 in f32, W1 in the Linear's layout), the other widths that
-``outer_fits`` admits (D = 4 mod 8) the CUDA-core one
-(``kernels/csrc/outer.cu``), which stays callable to time it beside the
-other.
+``outer_fits`` admits (any D up to 512) the CUDA-core one
+(``kernels/csrc/outer.cu``: past 128 a block per 128-channel slice), which
+stays callable to time it beside the other.
 
 With W = [W1; W2] split along the concat axis,
 
@@ -44,25 +44,28 @@ from .attention import (
 )
 from .transition import _aligned
 
-MAX_PAIR_DIM = 128  # outer.cu: 16 threads of 4 output channels in each of two groups of 64
+MAX_TC_PAIR_DIM = 128  # outer_mma.cu: a warp's 16 j x TI i rows of all D channels
+# outer.cu: 16 threads of 4 output channels in each of two groups of 64, a
+# block per slice of 128 channels past that
+MAX_PAIR_DIM = 512
 # outer_mma.cu stages xl rows and W1 in 16-byte pieces: S a multiple of this
 TC_PIECE = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def outer_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
-    """Whether K11 takes x [B, N, S] in ``dtype`` with D output channels: D a
-    multiple of 4 up to MAX_PAIR_DIM, B and N from 1 to 65535."""
-    return 0 < D <= MAX_PAIR_DIM and D % 4 == 0 and 0 < B <= 65535 and 0 < N <= 65535
+    """Whether K11 takes x [B, N, S] in ``dtype`` with D output channels: D
+    from 1 to MAX_PAIR_DIM, B and N from 1 to 65535."""
+    return 0 < D <= MAX_PAIR_DIM and 0 < B <= 65535 and 0 < N <= 65535
 
 
 def outer_takes_tensor_cores(S: int, D: int, dtype: torch.dtype) -> bool:
     """Whether K11 runs its tensor-core body (outer_mma.cu) at single width S
     and pair width D in ``dtype``, else the CUDA-core body (outer.cu): D a
-    multiple of 8 up to MAX_PAIR_DIM, and S a multiple of one 16-byte piece
+    multiple of 8 up to MAX_TC_PAIR_DIM, and S a multiple of one 16-byte piece
     (8 in bf16, 4 in f32). S need not be a multiple of the MMA's k-step (16
     in bf16, 8 in f32): the last chunk of 64 is zero-padded in shared
     memory."""
-    return (dtype in TC_PIECE and 0 < D <= MAX_PAIR_DIM and D % 8 == 0
+    return (dtype in TC_PIECE and 0 < D <= MAX_TC_PAIR_DIM and D % 8 == 0
             and S > 0 and S % TC_PIECE[dtype] == 0)
 
 
@@ -98,8 +101,8 @@ def _launch(x, w, b) -> torch.Tensor:
         raise ValueError(f"OuterLinear weight must be [D, 2S] = [D, {2 * S}] with bias [D], got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
     if not outer_fits(B, N, D, x.dtype):
-        raise ValueError(f"the OuterLinear kernel takes a pair width that is a multiple of 4 up "
-                         f"to {MAX_PAIR_DIM}, B and N from 1 to 65535; got B={B}, N={N}, D={D}")
+        raise ValueError(f"the OuterLinear kernel takes a pair width from 1 to {MAX_PAIR_DIM}, "
+                         f"B and N from 1 to 65535; got B={B}, N={N}, D={D}")
     for name, t in (("w", w), ("b", b)):
         if t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")

@@ -4,9 +4,11 @@ dispatch to its hand-written Hopper kernel.
 Port of ``protein_redesign_tpu/ops/pallas_trimul.py``: ``triangle_multiply``
 replaces the Pallas kernel K9 (``fused_triangle_multiply`` :145 ->
 ``_trimul_kernel`` :76) with ``kernels/csrc/trimul_mma.cu`` (tensor cores:
-mma.sync in bf16, 3xTF32 in f32; ``trimul.cu``, the CUDA-core body it
-replaced, stays callable through ``trimul_takes_tensor_cores`` to time the
-two side by side); its backward
+mma.sync in bf16, 3xTF32 in f32, at pair widths that are multiples of 8 up
+to 128; ``trimul.cu``, the CUDA-core body it replaced, stays callable
+through ``trimul_takes_tensor_cores`` to time the two side by side; every
+other width up to 512 takes ``trimul_mma.cu``'s wide body, see
+``trimul_body``); its backward
 differentiates the plain version, as ``_tm_bwd`` (:288) differentiates
 ``_reference_impl``. The whole module op:
 
@@ -47,24 +49,38 @@ MODES = ("outgoing", "incoming")
 # trimul_mma.cu: the LN + projection block's four values of a row a lane, the
 # contraction a block per (b, d, 64 x 64 tile); trimul.cu (CUDA cores): 8 warps
 # of D / 8 channels, D / 32 values per lane in the epilogue
-MAX_PAIR_DIM = 128
+MAX_TC_PAIR_DIM = 128
+# the wide body: a [D, 68] f32 LN tile and a [128, 128] weight slice in
+# shared memory (200 KB at 512)
+MAX_PAIR_DIM = 512
 MAX_N = 65535 * 16  # trimul.cu's grid.y: one block per 16 x 16 output tile
 MAX_POSITIONS = 64 * (2**31 - 1)  # one projection block per 64 of the B N^2 positions
 
 
 def trimul_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
-    """Whether K9 takes a [B, N, N, D] pair in ``dtype``: D a multiple of 8
-    up to MAX_PAIR_DIM, B up to 65535, N up to MAX_N and B N^2 up to
+    """Whether K9 takes a [B, N, N, D] pair in ``dtype``: D from 1 to
+    MAX_PAIR_DIM, B up to 65535, N up to MAX_N and B N^2 up to
     MAX_POSITIONS."""
-    return (0 < D <= MAX_PAIR_DIM and D % 8 == 0 and 0 < B <= 65535 and 0 < N <= MAX_N
+    return (0 < D <= MAX_PAIR_DIM and 0 < B <= 65535 and 0 < N <= MAX_N
             and B * N * N <= MAX_POSITIONS)
 
 
 def trimul_takes_tensor_cores(D: int) -> bool:
     """Whether K9 runs its tensor-core body (trimul_mma.cu, either dtype) at
-    pair width D; the CUDA-core body (trimul.cu) has the same bound and runs
-    only where this is patched to False, to time the two."""
-    return 0 < D <= MAX_PAIR_DIM and D % 8 == 0
+    pair width D: a multiple of 8 up to MAX_TC_PAIR_DIM. Where this is
+    patched to False those widths take the CUDA-core body (trimul.cu), to
+    time the two."""
+    return 0 < D <= MAX_TC_PAIR_DIM and D % 8 == 0
+
+
+def trimul_body(D: int) -> str:
+    """K9's body at pair width D: "tensor cores" (trimul_mma.cu), "cuda
+    cores" (trimul.cu, the same widths with ``trimul_takes_tensor_cores``
+    patched False) or "wide" (trimul_mma.cu's CUDA-core LN + projection
+    kernels around its contraction: every other width up to 512)."""
+    if trimul_takes_tensor_cores(D):
+        return "tensor cores"
+    return "cuda cores" if 0 < D <= MAX_TC_PAIR_DIM and D % 8 == 0 else "wide"
 
 
 def _interleaved(gate, proj):
@@ -110,9 +126,8 @@ def _launch(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str) -> tor
     if mask_2d.shape != (B, N, N):
         raise ValueError(f"mask_2d must be [B, N, N] = {(B, N, N)}, got {tuple(mask_2d.shape)}")
     if not trimul_fits(B, N, D, pair.dtype):
-        raise ValueError(f"the triangle kernel takes a pair width that is a multiple of 8 up to "
-                         f"{MAX_PAIR_DIM}, B from 1 to 65535 and N from 1 to {MAX_N}; got "
-                         f"B={B}, N={N}, D={D}")
+        raise ValueError(f"the triangle kernel takes a pair width from 1 to {MAX_PAIR_DIM}, B "
+                         f"from 1 to 65535 and N from 1 to {MAX_N}; got B={B}, N={N}, D={D}")
     shapes = {"ab_gate": (wg, bg, 2 * D), "ab_proj": (wp, bp, 2 * D), "out_gate": (wog, bog, D),
               "out_proj": (wop, bop, D)}
     for name, (w, b, out_dim) in shapes.items():
@@ -129,7 +144,8 @@ def _launch(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str) -> tor
     bop_f = bop.float().contiguous()
     gate = torch.empty((B, N, N, D), dtype=torch.float32, device=pair.device)  # the out gate
     out = torch.empty_like(pair)
-    if trimul_takes_tensor_cores(D):
+    body = trimul_body(D)
+    if body == "tensor cores":
         # [D, 5D]: gate and projection columns interleaved 8 by 8, then the out gate
         w_in = torch.cat([_interleaved(wg, wp), wog]).to(dt).t().contiguous()
         b_in = torch.cat([_interleaved(bg, bp), bog]).float().contiguous()
@@ -140,6 +156,20 @@ def _launch(pair, mask_2d, wg, bg, wp, bp, wog, bog, wop, bop, mode: str) -> tor
         prod = torch.empty((B, D, N, N), dtype=torch.float32, device=pair.device)
         with torch.cuda.device(pair.device):
             code = lib.lib.prd_trimul_mma(
+                pair.data_ptr(), mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+                wop_t.data_ptr(), bop_f.data_ptr(), a_t.data_ptr(), b_t.data_ptr(),
+                gate.data_ptr(), prod.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],
+                MODES.index(mode), B, N, D, stream_of(pair),
+            )
+    elif body == "wide":
+        w_in = torch.cat([wg, wp, wog]).to(dt).t().contiguous()  # gates | projections | out gate
+        b_in = torch.cat([bg, bp, bog]).float().contiguous()
+        # scratch as the tensor-core body's
+        a_t = torch.empty((B, D, N, -(-N // 8) * 8), dtype=dt, device=pair.device)
+        b_t = torch.empty_like(a_t)
+        prod = torch.empty((B, D, N, N), dtype=torch.float32, device=pair.device)
+        with torch.cuda.device(pair.device):
+            code = lib.lib.prd_trimul_wide(
                 pair.data_ptr(), mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
                 wop_t.data_ptr(), bop_f.data_ptr(), a_t.data_ptr(), b_t.data_ptr(),
                 gate.data_ptr(), prod.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],

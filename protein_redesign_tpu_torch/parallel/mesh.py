@@ -3,21 +3,30 @@
 JAX train CLI's ``_maybe_init_distributed``, `cli/train.py:29-69`).
 
 The JAX package builds a ('data', 'model') ``jax.sharding.Mesh`` and lets
-GSPMD split the batch over 'data' and insert the gradient all-reduce. The
-port does the same by hand, data-parallel only (a model axis of 1; FSDP
-comes with its own slice):
+GSPMD split the batch over 'data', shard the large parameters over 'model'
+and insert the collectives. The port does the same by hand:
 
 - training runs one process a device in a ``torch.distributed`` process
-  group; each rank holds its contiguous block of the global batch's rows,
-  the loss's batch-wide sums are all-reduced with autograd
-  (``all_reduce_sum``) and the gradients once a step
-  (``parallel/train_step.py``);
+  group. Rank r sits at mesh position (r // m, r % m), as JAX's
+  ``reshape(d, m)`` of the device list puts devices (``MeshAxes``): the m
+  ranks of one data row form its model group and take the same rows of
+  the global batch and the same draws; the d ranks of one model column form
+  its data group. Each data row holds its block of the global batch's rows;
+  the loss's batch-wide sums are all-reduced over the data group with
+  autograd (``all_reduce_sum``) and the gradients once a step
+  (``parallel/train_step.py``). With m > 1 the parameters are sharded over
+  the model group (FSDP, ``parallel/fsdp.py``) after JAX's ``_param_spec``
+  (``param_spec``);
+- ``on_mesh(axes)`` is the counterpart of JAX's ``with mesh:``: inside it
+  a ``sequence_parallel`` model shards the pair and single representations'
+  first complex axis over the model group (``models/denoiser.py``), with
+  the collective below (``gather_blocks`` and its adjoint);
 - sampling keeps one process and a ``ReplicatedNet``: one copy of the net a
   mesh device, each call's rows split over them and run in turn from one
   thread (the launches do not wait for the cards), the outputs gathered in
   order on the first device.
 
-A mesh is a list of ``torch.device`` s; one device may appear more than
+A mesh is an array of ``torch.device`` s; one device may appear more than
 once (two replicas on one card, or on the CPU).
 """
 
@@ -61,8 +70,8 @@ class Mesh:
 
 def make_mesh(devices: Sequence[Any], mesh_shape: Optional[Tuple[int, int]] = None) -> Mesh:
     """A ('data', 'model') mesh over ``devices`` (all on the data axis by
-    default). ValueError when the shape does not hold them, as in JAX;
-    NotImplementedError for a model axis above 1."""
+    default), device i at ``mesh_position(i, m)``. ValueError when the shape
+    does not hold them, as in JAX."""
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if mesh_shape is None:
@@ -70,14 +79,16 @@ def make_mesh(devices: Sequence[Any], mesh_shape: Optional[Tuple[int, int]] = No
     d, m = mesh_shape
     if d * m != n:
         raise ValueError(f"mesh_shape {mesh_shape} != {n} devices")
-    if m > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: a model axis above 1 shards the parameters "
-            "(FSDP), which is not ported yet; use (d, 1)")
     array = np.empty((d, m), dtype=object)
     for i, device in enumerate(devices):
-        array[i // m, i % m] = device
+        array[mesh_position(i, m)] = device
     return Mesh(array)
+
+
+def mesh_position(rank: int, model_size: int) -> Tuple[int, int]:
+    """(data index, model index) of rank or device ``rank`` on a mesh with a
+    model axis of ``model_size``: JAX's ``reshape(d, m)``, row-major."""
+    return rank // model_size, rank % model_size
 
 
 def host_scalar(x: Any) -> Any:
@@ -226,6 +237,68 @@ def rank_and_world() -> Tuple[int, int]:
     return dist.get_rank(), dist.get_world_size()
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """This rank's place on a (data, model) mesh of ranks: the axes' sizes,
+    its indices along them (``mesh_position``), and its data group (the d
+    ranks of its model column) and model group (the m ranks of its data
+    row); the groups are None outside a process group."""
+
+    data: int
+    model: int
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+
+def mesh_axes(d: int, m: int) -> MeshAxes:
+    """This rank's ``MeshAxes`` on a (d, m) mesh of the group's ranks. Every
+    rank calls it with the same shape (creating a group is collective);
+    outside a group only (1, 1) holds. ValueError, as ``make_mesh``'s, when
+    d m is not the world size."""
+    rank, world = rank_and_world()
+    if d * m != world:
+        raise ValueError(f"mesh_shape {(d, m)} != {world} devices")
+    di, mi = mesh_position(rank, m)
+    if not distributed():
+        return MeshAxes(d, m)
+    model_groups = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    data_groups = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)]
+    return MeshAxes(d, m, di, mi, data_groups[mi], model_groups[di])
+
+
+_AXES: Optional[MeshAxes] = None
+
+
+@contextlib.contextmanager
+def on_mesh(axes: MeshAxes):
+    """Run the block on ``axes``: the port's ``with mesh:``. The loss's
+    batch sums span its data group, and a ``sequence_parallel`` model
+    shards its complex axis over its model group."""
+    global _AXES
+    outer, _AXES = _AXES, axes
+    try:
+        yield axes
+    finally:
+        _AXES = outer
+
+
+def current_axes() -> Optional[MeshAxes]:
+    """The axes of the innermost ``on_mesh``, or None outside one."""
+    return _AXES
+
+
+def _data_group() -> Any:
+    """The group the batch's rows span: the data group inside ``on_mesh``,
+    else the whole world (a (world, 1) mesh)."""
+    return None if _AXES is None else _AXES.data_group
+
+
+def _group_size(group: Any) -> int:
+    return dist.get_world_size(group) if distributed() else 1
+
+
 def _comm_device(x: torch.Tensor) -> torch.device:
     """Where a collective on ``x`` runs: the CPU where the group's backend
     is gloo (which stages a card's tensors through the host), else x's
@@ -233,41 +306,123 @@ def _comm_device(x: torch.Tensor) -> torch.device:
     return torch.device("cpu") if dist.get_backend() == "gloo" else x.device
 
 
-def all_reduced(x: torch.Tensor, op: Any = None) -> torch.Tensor:
-    """``x`` summed (or reduced by ``op``) over the group, as a new tensor."""
-    y = x.detach().to(_comm_device(x), copy=True)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op)
-    return y.to(x.device)
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a collective sends it: on the CPU under gloo, and bf16 as f32
+    there (exact)."""
+    y = x.detach().to(_comm_device(x))
+    if y.device.type == "cpu" and y.dtype == torch.bfloat16:
+        y = y.float()
+    return y.contiguous()
+
+
+def all_reduced(x: torch.Tensor, op: Any = None, group: Any = None) -> torch.Tensor:
+    """``x`` summed (or reduced by ``op``) over ``group`` (the world by
+    default), as a new tensor."""
+    y = _wire(x).clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return y.to(x.device, x.dtype)
+
+
+def gathered(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """The group's equal-shaped ``x`` concatenated along ``dim`` in rank
+    order, without gradient."""
+    y = _wire(x)
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    return torch.cat(parts, dim=dim).to(x.device, x.dtype)
+
+
+def reduce_scattered(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` summed over the group (equal
+    blocks): nccl's reduce-scatter, and under gloo, which has none, an
+    all-reduce and a slice."""
+    n, index = dist.get_world_size(group), dist.get_rank(group)
+    if dist.get_backend(group) == "nccl":
+        moved = x.movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // n,) + moved.shape[1:], dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, moved, group=group)
+        return out.movedim(0, dim)
+    return all_reduced(x, group=group).chunk(n, dim=dim)[index].contiguous()
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = sum over ranks of x; the gradient of each rank's x is the sum
-    over ranks of dL/dy, so the ranks' gradients add up to the gradient of
-    the sum of their losses."""
+    """y = sum over the group's ranks of x; the gradient of each rank's x is
+    the sum over the ranks of dL/dy, so the ranks' gradients add up to the
+    gradient of the sum of their losses."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduced(x)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduced(x, group=group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduced(grad)
+        return all_reduced(grad, group=ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the group, differentiable; ``x`` itself outside one."""
-    return _AllReduceSum.apply(x) if distributed() else x
+    """The sum of ``x`` over the data group (``_data_group``),
+    differentiable; ``x`` itself outside a process group."""
+    return _AllReduceSum.apply(x, _data_group()) if distributed() else x
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' equal-shaped ``x`` concatenated along the rows, in rank
-    order, without gradient; ``x`` itself outside a group."""
+    """The data group's equal-shaped ``x`` concatenated along the rows, in
+    rank order, without gradient; ``x`` itself outside a process group."""
     if not distributed():
         return x
-    y = x.detach().contiguous().to(_comm_device(x))
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, y)
-    return torch.cat(parts).to(x.device)
+    return gathered(x, 0, _data_group())
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The model group's blocks of ``dim`` (``row_blocks(total, m)``, the
+    last one short where m does not divide ``total``, padded for the
+    collective as JAX pads) as the whole axis. Adjoint: the reduce-scatter,
+    each rank's block of the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, dim, total, group):
+        n = dist.get_world_size(group)
+        size = -(-total // n)
+        ctx.dim, ctx.group, ctx.size, ctx.total = dim, group, size, total
+        ctx.real = x.shape[dim]
+        pad = size - x.shape[dim]
+        if pad:
+            shape = list(x.shape)
+            shape[dim] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+        return gathered(x, dim, group).narrow(dim, 0, total)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        pad = ctx.size * n - ctx.total
+        if pad:
+            shape = list(grad.shape)
+            shape[ctx.dim] = pad
+            grad = torch.cat([grad, grad.new_zeros(shape)], dim=ctx.dim)
+        block = reduce_scattered(grad.contiguous(), ctx.dim, ctx.group)
+        return block.narrow(ctx.dim, 0, ctx.real), None, None, None
+
+
+def gather_blocks(x: torch.Tensor, axes: MeshAxes, total: int, dim: int = 1) -> torch.Tensor:
+    """The whole axis ``dim`` (``total`` long) from each model rank's block
+    of it, differentiable (``_GatherBlocks``): a sequence-parallel
+    activation's complex axis, or an FSDP parameter from its shards; ``x``
+    itself on a model axis of 1."""
+    if axes.model == 1 or axes.model_group is None:
+        return x
+    return _GatherBlocks.apply(x, dim, total, axes.model_group)
+
+
+def sp_rows(total: int, axes: MeshAxes) -> Tuple[int, int]:
+    """[start, stop) of this rank's block of a complex axis of ``total``
+    over the model axis (an empty block past the rows, where m > total)."""
+    blocks = row_blocks(total, axes.model)
+    if axes.model_index < len(blocks):
+        return blocks[axes.model_index]
+    return total, total
 
 
 def any_rank(flag: bool) -> bool:
@@ -284,18 +439,13 @@ def barrier() -> None:
         dist.barrier()
 
 
-def params_checksum(module: torch.nn.Module) -> str:
-    """sha256 of the parameters' bytes, in order."""
-    h = hashlib.sha256()
-    for p in module.parameters():
-        h.update(p.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
-
-
 def assert_replicas_equal(module: torch.nn.Module) -> str:
-    """The parameters' checksum, after checking that every rank holds the
-    same one (AssertionError naming each rank's where they differ)."""
-    digest = params_checksum(module)
+    """The whole parameters' checksum (a sharded net's gathered first), after
+    checking that every rank holds the same one (AssertionError naming each
+    rank's where they differ)."""
+    from .fsdp import whole_checksum
+
+    digest = whole_checksum(module)
     if distributed():
         digests: List[Optional[str]] = [None] * dist.get_world_size()
         dist.all_gather_object(digests, digest)
@@ -318,10 +468,13 @@ class RowShard:
 
     @staticmethod
     def of(local_residue_mask: torch.Tensor) -> "RowShard":
-        """The shard of this rank's equal block, from its residue mask."""
-        rank, world = rank_and_world()
+        """The shard of this rank's equal block of its data group's rows,
+        from its residue mask."""
+        group = _data_group()
+        index = dist.get_rank(group) if distributed() else 0
         b = local_residue_mask.shape[0]
-        return RowShard(rank * b, (rank + 1) * b, world * b, all_gather_rows(local_residue_mask))
+        return RowShard(index * b, (index + 1) * b, _group_size(group) * b,
+                        all_gather_rows(local_residue_mask))
 
     def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         return None if x is None else x[self.start:self.stop]

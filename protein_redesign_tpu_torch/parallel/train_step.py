@@ -23,6 +23,19 @@ gradients and the loss over the ranks. With the loss's KL and CE sums
 already global, that average is the gradient of JAX's global loss; then
 ``grad_norm``, the clip, Adam and the EMA run alike on every rank, which
 so holds the same parameters bit for bit (``mesh.assert_replicas_equal``).
+
+On a (d, m) mesh (``mesh.on_mesh``) the m ranks of a model group run the
+same rows and draws. Where the net is sharded (FSDP, ``parallel/fsdp.py``)
+each shard's gradient arrives reduce-scattered over the model group from
+the backward, is all-reduced over the data group, and the whole leaves'
+gradients over every rank; both are divided by the d m ranks (the model
+group's copies are equal, so its sum is m times one). ``grad_norm`` counts
+each whole leaf once and each shard once (the shards' squares summed over
+the model group); the clip, Adam and the EMA then run on the shards. A
+``sequence_parallel`` net (whole parameters) takes the same world average:
+the loss is replicated on the model group, and each rank's gradient is
+that of its rows' share times m (the adjoint of the final gather sums the
+group's equal cotangents).
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..models import prdiff
 from ..models.prdiff import Batch, ProteinReDiffNet, TrainNoise
-from . import mesh
+from . import fsdp, mesh
 
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8  # optax.scale_by_adam's defaults
 
@@ -101,11 +114,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> int:
-    """Average ``tensors`` over the process group in place, through one f32
-    buffer and one all-reduce; returns the buffer's bytes."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> int:
+    """Sum ``tensors`` over ``group`` (the world by default) in place and
+    divide them by the world size, through one f32 buffer and one
+    all-reduce; returns the buffer's bytes."""
+    if not tensors:
+        return 0
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    flat = mesh.all_reduced(flat) / mesh.rank_and_world()[1]
+    flat = mesh.all_reduced(flat, group=group) / mesh.rank_and_world()[1]
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -161,7 +177,7 @@ def make_train_step(
             loss_sum = loss_sum + loss.detach()
             if self_cond:
                 coins.append(float(noise.sc_coin))
-        params = list(net.parameters())
+        params = list(fsdp.restore_(net).parameters())
         for p in params:  # an unused parameter still gets Adam's zero-gradient update
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -170,14 +186,24 @@ def make_train_step(
             torch._foreach_div_(grads, float(accum))
             loss_sum = loss_sum / accum
         reduced = {}
+        spec = fsdp.sharded(net)
+        shards = [p.grad for n, p in net.named_parameters() if n in spec]
+        whole = [p.grad for n, p in net.named_parameters() if n not in spec]
+        axes = mesh.current_axes()
         if data_parallel:
             loss_sum = torch.as_tensor(loss_sum, dtype=torch.float32, device=grads[0].device)
             _synchronize(grads[0].device)
             began = time.perf_counter()
-            reduced["grad_bytes"] = all_reduce_mean_([*grads, loss_sum])
+            reduced["grad_bytes"] = (all_reduce_mean_([*whole, loss_sum])
+                                     + all_reduce_mean_(shards, axes.data_group if shards else None))
             _synchronize(grads[0].device)
             reduced["allreduce_seconds"] = time.perf_counter() - began
-        grad_norm = global_norm(grads)
+        if shards:
+            shard_sq = sum(torch.sum(torch.square(g.float())) for g in shards)
+            grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in whole)
+                                   + mesh.all_reduced(shard_sq, group=axes.model_group))
+        else:
+            grad_norm = global_norm(grads)
         if train_cfg.gradient_clip_norm > 0:
             clip_by_global_norm_(grads, grad_norm, train_cfg.gradient_clip_norm)
         for group in opt.param_groups:

@@ -10,7 +10,10 @@ val_loss, and the latest step.
 
 Data-parallel training shares one directory between the ranks: only rank
 0's manager writes, and every rank's ``save`` ends at a barrier, so the
-step is on disk on every rank's return.
+step is on disk on every rank's return. The files hold whole tensors: a
+sharded (FSDP) state is gathered first, on every rank
+(``parallel.fsdp.whole_state_dict``), so a checkpoint loads under any
+mesh, on one rank and in every sampling CLI.
 A resume loads the same files on every rank (``load_train_state``).
 """
 
@@ -27,6 +30,7 @@ from typing import Any, List, Optional, Tuple, Union
 import torch
 
 from ..config import ModelConfig
+from ..parallel.fsdp import whole_optimizer_state, whole_state_dict
 from ..parallel.mesh import barrier, rank_and_world
 from ..parallel.train_step import TrainState
 
@@ -51,17 +55,18 @@ class CheckpointManager:
         and apply the retention rule; on a rank other than 0 only wait at
         the barrier for rank 0's save."""
         final = self.directory / str(state.step)
+        whole = (whole_state_dict(state.net), whole_state_dict(state.ema),
+                 whole_optimizer_state(state.net, state.optimizer))
         if rank_and_world()[0] == 0:
-            self._write(state, val_loss, final)
+            self._write(state, whole, val_loss, final)
         barrier()
         return final
 
-    def _write(self, state: TrainState, val_loss: Optional[float], final: Path) -> None:
+    def _write(self, state: TrainState, whole, val_loss: Optional[float], final: Path) -> None:
         tmp = Path(tempfile.mkdtemp(dir=self.directory, prefix=".tmp-"))
         (tmp / "config.json").write_text(json.dumps(dataclasses.asdict(state.net.cfg)))
-        torch.save(_cpu(state.net.state_dict()), tmp / "params.pt")
-        torch.save(_cpu(state.ema.state_dict()), tmp / "ema.pt")
-        torch.save(state.optimizer.state_dict(), tmp / "optimizer.pt")
+        for data, name in zip(whole, ("params.pt", "ema.pt", "optimizer.pt")):
+            torch.save(data, tmp / name)
         (tmp / STATE_FILE).write_text(json.dumps({
             "step": state.step, "ema_updates": state.ema_updates,
             "val_loss": None if val_loss is None else float(val_loss),
@@ -81,10 +86,6 @@ class CheckpointManager:
         for s in steps:
             if s not in keep:
                 shutil.rmtree(self.directory / str(s))
-
-
-def _cpu(state_dict) -> dict:
-    return {k: v.detach().cpu() for k, v in state_dict.items()}
 
 
 def checkpoint_steps(directory: Union[str, Path]) -> List[int]:

@@ -200,7 +200,7 @@ def test_kchunk_wrappers_check_their_inputs():
         A.rows_attention(*t, None, SCALE)
     with pytest.raises(ValueError, match="must be on"):
         A._check_kchunk(*t, torch.from_numpy(mask))
-    wide = torch.zeros(2, 4, 1, A.MAX_KCHUNK_HEAD_DIM + 4)
+    wide = torch.zeros(2, 4, 1, A.MAX_HEAD_DIM + 4)
     with pytest.raises(ValueError, match="head width"):
         A._check_kchunk(wide, wide, wide, torch.ones(2, 4))
 

@@ -195,8 +195,8 @@ def test_rows_fast_strided_operands(device):
 
 def test_wrapper_rejects(device):
     q, k, v, mask, bias = _inputs(2, 16, 2, 8, torch.float32, device)
-    with pytest.raises(ValueError):  # K7: 4 x C / 32 accumulators per lane, C <= 128
-        wide_q = torch.zeros(2, 16, 1, 132, device=device)
+    with pytest.raises(ValueError):  # K7: 4 x C / 32 accumulators per lane, C <= 1024
+        wide_q = torch.zeros(2, 16, 1, 1028, device=device)
         A.rows_attention_bwd(wide_q, wide_q, wide_q, mask, wide_q, 0.5)
     with pytest.raises(ValueError):
         A.rows_attention(q, k, v, mask.cpu(), 0.5)
@@ -204,7 +204,7 @@ def test_wrapper_rejects(device):
     with pytest.raises(ValueError):  # the CUDA-core body takes C <= 1024
         A.tiled_attention(wide, wide, wide, None, torch.zeros(2, 1, 16, 16, device=device), 1.0)
     with pytest.raises(ValueError, match="K7"):  # raised before the forward launches K1
-        wide_q = torch.zeros(2, 16, 1, 132, device=device, requires_grad=True)
+        wide_q = torch.zeros(2, 16, 1, 1028, device=device, requires_grad=True)
         A.rows_attention(wide_q, wide_q, wide_q, mask, 0.5)
     with pytest.raises(TypeError):
         A.rows_attention(q.detach().half(), k.half(), v.half(), mask, 0.5)
@@ -608,8 +608,8 @@ def test_kchunk_autograd_launches_kernels(device, kchunk_regime):
 
 def test_kchunk_wrappers_reject(device):
     q, k, v, mask, _ = _inputs(2, 16, 2, 8, torch.float32, device)
-    wide = torch.zeros(2, 16, 1, 132, device=device)
-    with pytest.raises(ValueError):  # 4 x C / 32 accumulators per lane: C <= 128
+    wide = torch.zeros(2, 16, 1, 1028, device=device)
+    with pytest.raises(ValueError):  # 4 x C / 32 accumulators per lane: C <= 1024
         A.rows_attention_kchunk(wide, wide, wide, mask, 0.5)
     with pytest.raises(ValueError):
         A.rows_attention_kchunk_stats(q, k, v, mask.cpu(), 0.5)
@@ -970,13 +970,13 @@ def test_fused_wrappers_reject(device):
     from protein_redesign_tpu_torch.ops import transition as T
     from protein_redesign_tpu_torch.ops import trimul as M
 
-    with pytest.raises(ValueError):  # pair width beyond 128
-        ws = [*_linear(272, 136, device, 0), *_linear(272, 136, device, 0),
-              *_linear(136, 136, device, 0), *_linear(136, 136, device, 0)]
-        M.trimul(torch.zeros(1, 4, 4, 136, device=device), torch.ones(1, 4, 4, device=device),
+    with pytest.raises(ValueError):  # pair width beyond 512
+        ws = [*_linear(1026, 513, device, 0), *_linear(1026, 513, device, 0),
+              *_linear(513, 513, device, 0), *_linear(513, 513, device, 0)]
+        M.trimul(torch.zeros(1, 4, 4, 513, device=device), torch.ones(1, 4, 4, device=device),
                  *ws, "outgoing")
-    with pytest.raises(ValueError):  # output channels beyond 128
-        O.outer(torch.zeros(1, 4, 8, device=device), *_linear(132, 16, device, 0))
+    with pytest.raises(ValueError):  # output channels beyond 512
+        O.outer(torch.zeros(1, 4, 8, device=device), *_linear(513, 16, device, 0))
     hd = T.MAX_SPLIT_HIDDEN + 64  # a split output's hidden chunks beyond grid.y
     with pytest.raises(ValueError):
         T.transition(torch.zeros(3, 1, device=device), torch.zeros(1, 1, device=device).expand(hd, 1),
@@ -1390,3 +1390,79 @@ def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
     with pytest.raises(ValueError, match="head width 1028"):
         A.attention_body(name, wide, wide, wide, torch.ones(2, 16, device=device), wide_bias,
                          1.0, mma=False)
+
+
+# the widths the JAX kernels take past the tensor-core bodies' ---------------
+
+
+@DTYPES
+@pytest.mark.parametrize("name", ["rows_attention_bwd", "rows_attention_kchunk_bwd"])
+@pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
+def test_wide_head_backwards_match_plain(device, dtype, name, N, C):
+    """K7 and K6 past the tensor-core bodies' 128: their CUDA-core bodies
+    (CPL 8 and 16 with two staged tiles, CPL 32 with one buffer shared by K
+    and V) against the plain versions, fully masked rows included."""
+    assert not A.takes_tensor_cores(name, dtype, C)
+    q, k, v, mask, _ = _inputs(4, N, 2, C, dtype, device, seed=21, masked_rows=1)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to(device, dtype)
+    before = A.LAUNCHES[name]
+    grads, ref = _backward(name, q, k, v, mask, g, C ** -0.5)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES[name] == before + 1
+    _assert_grads_close(grads, ref, dtype)
+    assert torch.count_nonzero(grads[0][:1]) == 0 and torch.count_nonzero(grads[1][:1]) == 0
+
+
+@pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
+def test_wide_head_kchunk_forward_f32_matches_plain(device, N, C):
+    """K3 and K5 in f32 past 128 on the CUDA-core body (V staged into K's
+    buffer past 512): against the plain version, K5's output K3's."""
+    assert not A.takes_tensor_cores("rows_attention_kchunk", torch.float32, C)
+    q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=23, masked_rows=1)
+    out = A.rows_attention_kchunk(q, k, v, mask, C ** -0.5)
+    out_s, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, C ** -0.5)
+    torch.cuda.synchronize()
+    ref, ref_m, ref_logs = A.rows_attention_kchunk_reference(q, k, v, mask, C ** -0.5, stats=True)
+    tol = _tol(torch.float32, C)
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    torch.testing.assert_close(out_s, out, atol=0, rtol=0)
+    torch.testing.assert_close(m, ref_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logs, ref_logs, atol=1e-5, rtol=1e-5)
+
+
+@DTYPES
+@pytest.mark.parametrize("mode", ["outgoing", "incoming"])
+@pytest.mark.parametrize("B,N,D", [(1, 17, 1), (2, 45, 36), (1, 33, 136), (1, 20, 192),
+                                   (1, 9, 512)])
+def test_trimul_wide_body_matches_plain(device, dtype, mode, B, N, D):
+    """K9 at widths past its tensor-core body (not a multiple of 8, or past
+    128): the wide body, one launch, within FUSED_TOL of the plain version."""
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    assert M.trimul_body(D) == "wide"
+    pair = _randn(B, N, N, D, seed=7, device=device).to(dtype)
+    mask = _pair_mask(B, N, device, masked_rows=3)
+    ws = [*_linear(2 * D, D, device, 8), *_linear(2 * D, D, device, 10),
+          *_linear(D, D, device, 12), *_linear(D, D, device, 14)]
+    before = A.LAUNCHES["triangle_multiply"]
+    got = M.trimul(pair, mask, *ws, mode)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["triangle_multiply"] == before + 1
+    assert _rel(got, M.trimul_reference(pair, mask, *ws, mode)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("B,N,S,D", [(1, 7, 16, 1), (2, 45, 64, 36), (1, 33, 40, 192),
+                                     (1, 9, 24, 512), (1, 20, 512, 136)])
+def test_outer_wide_widths_match_plain(device, dtype, B, N, S, D):
+    """K11 at widths past its tensor-core body: outer.cu (a block per
+    128-channel slice past 128), within FUSED_TOL of the plain version."""
+    from protein_redesign_tpu_torch.ops import outer as O
+
+    assert O.outer_fits(B, N, D, dtype) and not O.outer_takes_tensor_cores(S, D, dtype)
+    x = _randn(B, N, S, seed=7, device=device).to(dtype)
+    w, b = _linear(D, 2 * S, device, 8)
+    got = O.outer(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N, N, D) and got.dtype == dtype
+    assert _rel(got, O.outer_reference(x, w, b)) <= FUSED_TOL[dtype]

@@ -96,11 +96,6 @@ def test_make_mesh_matches_jax(n, shape):
     assert mesh.data_devices == [torch.device("cpu")] * want["data"]
 
 
-def test_model_axis_is_not_ported():
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        M.make_mesh(TWO_CPUS, (1, 2))
-
-
 def test_rows_split_gather_and_pad():
     mesh = M.make_mesh(TWO_CPUS)
     batch = {"a": torch.arange(12.0).reshape(4, 3), "b": torch.arange(4),

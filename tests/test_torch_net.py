@@ -109,9 +109,7 @@ def test_forward_matches_jax():
     np.testing.assert_allclose(seq.numpy(), np.asarray(j_seq), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("param_dtype", "bfloat16"), ("dtype", "float16"), ("sequence_parallel", True),
-])
+@pytest.mark.parametrize("field,value", [("dtype", "float16"), ("param_dtype", "float16")])
 def test_fields_outside_the_slice_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         ProteinReDiffNet(CFG.replace(**{field: value}))

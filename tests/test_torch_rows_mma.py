@@ -169,12 +169,12 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.attention_fits, ("rows_attention", 2, 16, A.MAX_HEADS + 1, 16, F32), False),
     (A.attention_fits, ("rows_attention", A.MAX_BLOCKS, 16, 4, 16, F32), True),
     (A.attention_fits, ("rows_attention", A.MAX_BLOCKS, 17, 4, 16, F32), False),
-    # K7: C <= 128
-    (A.bwd_fits, (2, 16, 4, 128, BF16), True),
-    (A.bwd_fits, (2, 16, 4, 132, BF16), False),
-    # K3: the tensor-core body in bf16; K3 in f32, K5 and K6: C <= 128
+    # K7: C <= 1024
+    (A.bwd_fits, (2, 16, 4, 1024, BF16), True),
+    (A.bwd_fits, (2, 16, 4, 1028, BF16), False),
+    # K3: the tensor-core body in bf16; K3 in f32, K5 and K6: C <= 1024
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 1168, BF16), True),
-    (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 132, F32), False),
+    (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 1028, F32), False),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 128, BF16), True),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1176, BF16), False),
     # K8: D <= 128; the tensor-core body C a multiple of 8 up to 128 with
@@ -183,18 +183,18 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.fused_gated_fits, (4, 16, 132, 4, 16, BF16), False),
     (A.fused_gated_fits, (4, 16, 64, 2, 36, BF16), False),
     (A.fused_gated_fits, (4, 16, 64, 5, 32, BF16), True),
-    # K9: D a multiple of 8 up to 128
-    (M.trimul_fits, (2, 16, 128, BF16), True),
-    (M.trimul_fits, (2, 16, 136, BF16), False),
-    (M.trimul_fits, (2, 16, 124, BF16), False),
+    # K9: any D up to 512
+    (M.trimul_fits, (2, 16, 512, BF16), True),
+    (M.trimul_fits, (2, 16, 513, BF16), False),
+    (M.trimul_fits, (2, 16, 124, BF16), True),
     # K10: any D (the whole-row tile up to 670, the streamed one past it);
     # outputs wider than 64 split the hidden width over grid.y's 65535 chunks
     (T.transition_fits, (100, 670, 256, 670, F32), True),
     (T.transition_fits, (100, 671, 256, 671, F32), True),
-    # K11: D a multiple of 4 up to 128
-    (O.outer_fits, (2, 16, 128, BF16), True),
-    (O.outer_fits, (2, 16, 132, BF16), False),
-    *[(O.outer_fits, (2, 16, D, dtype), D <= 128) for D in (4, 8, 124) for dtype in (BF16, F32)],
+    # K11: any D up to 512
+    (O.outer_fits, (2, 16, 512, BF16), True),
+    (O.outer_fits, (2, 16, 513, BF16), False),
+    *[(O.outer_fits, (2, 16, D, dtype), D <= 512) for D in (4, 8, 124) for dtype in (BF16, F32)],
     # K11's tensor-core body: D a multiple of 8 up to 128 and S a multiple of
     # one 16-byte piece (8 in bf16, 4 in f32), not of the MMA's k-step;
     # D = 4 mod 8 takes the CUDA-core body, which outer_fits still admits
@@ -213,7 +213,7 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.takes_mma, ("rows_attention_bwd", BF16, 136), False),
     (A.bwd_fits, (2, 16, 4, 124, BF16), True),
     (A.bwd_fits, (2, 16, 4, 128, F32), True),
-    (A.bwd_fits, (2, 16, 4, 132, F32), False),
+    (A.bwd_fits, (2, 16, 4, 1028, F32), False),
     # K3 and K5 in f32: 3xTF32 at multiples of 8 up to 128
     (A.takes_tf32x3, ("rows_attention_kchunk", F32, 128), True),
     (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), False),
@@ -223,16 +223,16 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
     # K6 and K7 (the f32 body too) at the edges: the tensor-core bodies at
     # multiples of 8 up to 128, the CUDA-core ones at multiples of 4 up to
-    # 128; the bounds accept what they accepted before the f32 bodies came
+    # 1024
     *[(fn, (name, dtype, C), ok)
       for name in ("rows_attention_kchunk_bwd", "rows_attention_bwd")
       for C, bf16_ok, f32_ok in ((4, False, False), (8, True, True), (124, False, False),
                                  (128, True, True), (136, False, False))
       for fn, dtype, ok in ((A.takes_mma, BF16, bf16_ok), (A.takes_mma, F32, False),
                             (A.takes_tf32x3, F32, f32_ok), (A.takes_tf32x3, BF16, False))],
-    *[(A.kchunk_fits, ("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype), C <= 128)
+    *[(A.kchunk_fits, ("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype), C <= 1024)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
-    *[(A.bwd_fits, (2, 16, 4, C, dtype), C <= 128)
+    *[(A.bwd_fits, (2, 16, 4, C, dtype), C <= 1024)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
     # K8's tensor-core body: C a multiple of 8 up to 128 with H C <= 512 (the
     # h64 layouts), past them the CUDA-core body's C = 4 mod 8 up to 32
@@ -274,6 +274,36 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
 ])
 def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [1, 36, 128, 136, 512, 513])
+def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
+    """K9 and K11 take every pair width from 1 to 512, the JAX kernels'
+    reach at these sizes: multiples of 8 up to 128 on the tensor-core bodies
+    (unchanged), every other width on K9's wide body and K11's CUDA-core one;
+    513 raises."""
+    assert M.trimul_fits(2, 16, D, dtype) is (D <= 512)
+    assert O.outer_fits(2, 16, D, dtype) is (D <= 512)
+    assert M.trimul_body(D) == ("tensor cores" if D == 128 else "wide")
+    assert O.outer_takes_tensor_cores(512, D, dtype) is (D == 128)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("C", [128, 132, 256, 1024, 1028])
+def test_k3_k5_k6_k7_take_head_widths_up_to_1024(C, dtype):
+    """K6 and K7 in both dtypes, and K3 and K5 in f32, take every multiple
+    of 4 up to MAX_HEAD_DIM on their CUDA-core bodies, as K1 and K2 do; the
+    tensor-core bodies keep 128."""
+    ok = C <= A.MAX_HEAD_DIM
+    assert A.bwd_fits(2, 16, 4, C, dtype) is ok
+    assert A.kchunk_fits("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype) is ok
+    for name in ("rows_attention_bwd", "rows_attention_kchunk_bwd"):
+        assert A.takes_tensor_cores(name, dtype, C) is (C == 128)
+    if dtype == F32:
+        for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats"):
+            assert A.kchunk_fits(name, 2, 16, 4, C, dtype) is ok
+            assert _body(name, dtype, C) == ("3xtf32" if C == 128 else "cuda cores")
 
 
 @pytest.mark.parametrize("D,Hd,Dout,dtype,layout", [
@@ -364,15 +394,19 @@ def test_wide_f32_heads_reach_the_kernel(as_if_on_cuda, C):
 
 
 def test_rows_attention_raises_before_launch_past_k7(as_if_on_cuda):
-    """Below the switch K7 takes C <= 128: a gradient at C = 136 raises
-    before K1 launches; without a gradient K1 takes the shape."""
-    q, k, v, mask = _qkv(2, 8, 1, 136, requires_grad=True)
+    """Below the switch K7 takes C <= 1024 in bf16 (its CUDA-core body past
+    128): a gradient at C = 1032 raises before K1 launches; without a
+    gradient K1's bf16 tensor-core body takes the shape."""
+    q, k, v, mask = (t.to(BF16) if t.dtype == F32 and t.dim() == 4 else t
+                     for t in _qkv(2, 8, 1, 1032))
+    q.requires_grad_(True)
+    assert A.attention_fits("rows_attention", 2, 8, 1, 1032, BF16)
     with pytest.raises(ValueError, match="K7"):
         A.rows_attention(q, k, v, mask, 0.1)
     assert as_if_on_cuda == []
     with torch.no_grad():
         A.rows_attention(q, k, v, mask, 0.1)
-    assert as_if_on_cuda == [("rows_attention", 136)]
+    assert as_if_on_cuda == [("rows_attention", 1032)]
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["k1", "k1_fast"])
@@ -388,10 +422,10 @@ def test_plain_vjp_route_launches_past_the_old_bound(as_if_on_cuda, fast):
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("C,grad", [(1028, False), (136, True)])
+@pytest.mark.parametrize("C,grad", [(1028, False), (136, True), (1028, True)])
 def test_cpu_tensors_take_the_plain_version_at_any_width(C, grad):
     """On the CPU the wrappers take their plain versions whatever the bound:
-    K2 past 1024, and a triangle attention with a gradient past K7's 128."""
+    K2 past 1024, and a triangle attention with a gradient past K7's 1024."""
     A.reset_launch_counts()
     q, k, v, mask = _qkv(2, 6, 1, C, requires_grad=grad)
     bias = torch.randn(2, 1, 6, 6, generator=torch.Generator().manual_seed(2))
@@ -410,7 +444,19 @@ def test_fused_configuration_at_pair_width_72_matches_jax(monkeypatch):
     K11, 64): every fused wrapper runs, once per module call. The forward
     against the JAX model with the same switches (its Pallas kernels in
     interpret mode, which take any width)."""
-    cfg = FUSED_CFG.replace(pair_dim=72)
+    _fused_forward_matches_jax(monkeypatch, 72)
+
+
+def test_fused_configuration_at_pair_width_36_matches_jax(monkeypatch):
+    """Pair width 36 (not a multiple of 8: K9's wide body and K11's CUDA-core
+    one on the card) with the four switches, through the plain route here,
+    against the JAX kernels in interpret mode."""
+    assert M.trimul_body(36) == "wide" and M.trimul_fits(2, 32, 36, F32)
+    _fused_forward_matches_jax(monkeypatch, 36)
+
+
+def _fused_forward_matches_jax(monkeypatch, pair_dim):
+    cfg = FUSED_CFG.replace(pair_dim=pair_dim)
     calls = _count_fused_calls(monkeypatch)
     batch = make_batch(B=2, seed=8)
     params = perturbed_params(cfg, seed=8)
