@@ -633,9 +633,10 @@ def phase_build() -> None:
     if spills:
         print(f"[build] ptxas reports spills in {len(spills)} instantiations")
     for source in ("fused_gated_mma.cu", "trimul_mma.cu", "transition_mma.cu", "outer_mma.cu",
-                   "attention_tf32.cu"):
+                   "attention_tf32.cu", "attention_kchunk_wide_tf32.cu",
+                   "attention_bwd_wide_tf32.cu", "attention_bwd_wide_mma.cu"):
         for name, regs, stores, loads in ptxas_report(lib.build_log, source):
-            if source == "attention_tf32.cu" and "fast" not in name:
+            if source.startswith("attention") and not ("fast" in name or "wide" in name):
                 continue
             print(f"[build] ptxas {source} {name}: {regs} registers, {stores} bytes spill stores, "
                   f"{loads} bytes spill loads")
@@ -3873,87 +3874,268 @@ def _widths_fused() -> None:
                 print(line)
 
 
+# The wide tensor-core bodies past head width 128: the kernel each
+# must show on the profiler, and the CUDA-core kernel it replaced, which
+# must not run; K6 and K1 in f32 keep their CUDA-core bodies.
+WIDE_TC_KERNELS = {
+    ("rows_attention_kchunk", torch.float32): "rows_attention_kchunk_wide_tf32x3_kernel",
+    ("rows_attention_kchunk_stats", torch.float32): "rows_attention_kchunk_wide_tf32x3_kernel",
+    ("rows_attention_bwd", torch.float32): "rows_attention_bwd_dkdv_wide_tf32x3_kernel",
+    ("rows_attention_bwd", torch.bfloat16): "rows_attention_bwd_dkdv_wide_mma_kernel",
+}
+WIDE_CORE_KERNELS = ("rows_attention_kchunk_kernel", "rows_attention_bwd_wide_dq_kernel",
+                     "rows_attention_bwd_wide_dkdv_kernel")
+# the paper-width rows the wide bodies must leave alone (PERF.md §6, on the
+# device): K7 bf16 at 192 (R = 384, H = 4, C = 16), K3 f32 at 1024 (R = 1024)
+PAPER_ATTENTION_MS = {("rows_attention_bwd", 192): 0.2126, ("rows_attention_kchunk", 1024): 7.990}
+
+
+# The wide bodies' kernel names, read by torch.profiler in a fresh process:
+# late in this one (after the multi-device phase) the profiler returned no
+# kernel at all, even for a window of three calls behind a finished spin.
+_WIDE_NAMES = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from protein_redesign_tpu_torch.ops import attention as A
+C, out = int(sys.argv[2]), {}
+for name, dt in (("rows_attention_kchunk", "float32"), ("rows_attention_kchunk_stats", "float32"),
+                 ("rows_attention_bwd", "float32"), ("rows_attention_bwd", "bfloat16")):
+    g = torch.Generator("cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(4, 64, 1, C, generator=g, device="cuda").to(getattr(torch, dt))
+                     for _ in range(4))
+    mask = torch.ones(4, 64, device="cuda")
+    if name == "rows_attention_bwd":
+        fn = lambda: A.rows_attention_bwd(q, k, v, mask, dout, 0.1)
+    else:
+        fn = lambda: getattr(A, name)(q, k, v, mask, 0.1)
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out[f"{name} {dt}"] = [e.key for e in prof.key_averages() if "kernel" in e.key]
+print(json.dumps(out))
+"""
+
+
+def _wide_kernel_names(C: int) -> dict:
+    """{(name, dtype): the CUDA kernels three calls ran} for K3, K5 (f32) and
+    K7 (both dtypes) at head width C, from a fresh process (the library is
+    built already)."""
+    proc = subprocess.run([sys.executable, "-c", _WIDE_NAMES, str(REPO), str(C)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[widths] the kernel-name process failed:\n{proc.stderr[-3000:]}")
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {(key.split()[0], getattr(torch, key.split()[1])): v for key, v in names.items()}
+
+
 def _widths_attention() -> None:
-    """K7 and K6 at head width 256 in both dtypes, K3 and K5 in f32, on
-    their CUDA-core bodies (R = 384 triangle rows at bucket 192, one head,
-    147 nodes valid) against the plain versions, with SDPA's time."""
+    """Triangle attention at head width 256 (R = 384 rows at bucket 192, one
+    head, 147 nodes valid) against the plain versions, with SDPA's time and
+    the bound: K7 in both dtypes and K3 and K5 in f32 on their wide
+    tensor-core bodies (the profiler shows which kernel ran), each beside
+    its CUDA-core body; K6, and K1 and K1 fast in f32, on their CUDA-core
+    bodies; K3 and K5 in f32 also at N = 1024 (R = 1024), where the f32 plan
+    takes them. Then the paper-width K7 (bf16, 192) and K3 (f32, 1024) rows
+    timed again."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    N, n_valid, C = 192, 147, MODEL_AXIS_HEAD_WIDTH
+    C = MODEL_AXIS_HEAD_WIDTH
     scale = 1.0 / math.sqrt(C)
-    for seed, dtype in enumerate((torch.float32, torch.bfloat16)):
+    ran = _wide_kernel_names(C)
+    for (name, dtype), want_kernel in WIDE_TC_KERNELS.items():
+        names = ran[(name, dtype)]
+        wanted = {want_kernel, want_kernel.replace("dkdv", "dq")}  # K7: both of its kernels
+        if (not all(any(w in n for n in names) for w in wanted)
+                or any(c in n for n in names for c in WIDE_CORE_KERNELS)):
+            raise AssertionError(f"[widths] {name} at C={C} {dtype} ran {names}")
+    print(f"[widths] the profiler (a fresh process) shows the wide tensor-core kernels at C={C}: "
+          f"{sorted(set(WIDE_TC_KERNELS.values()))} (and K7's dq kernels), and none of "
+          f"{list(WIDE_CORE_KERNELS)}")
+    for seed, (dtype, N, n_valid) in enumerate(((torch.float32, 192, 147),
+                                                (torch.bfloat16, 192, 147),
+                                                (torch.float32, 1024, 997))):
         label = str(dtype).replace("torch.", "")
-        q, k, v, mask, _ = _attention_case(2 * N, N, 1, C, dtype, n_valid, True, False, True,
-                                           730 + seed)
+        q, k, v, mask, _ = _attention_case((2 if N == 192 else 1) * N, N, 1, C, dtype, n_valid,
+                                           True, False, True, 730 + seed)
+        R = q.shape[0]
         g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(740 + seed),
                         device="cuda").to(dtype)
-        out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-        cases = [("rows_attention_bwd", lambda: A.rows_attention_bwd(q, k, v, mask, g, scale),
-                  lambda: A.rows_attention_bwd_reference(q, k, v, mask, g, scale), 5, 7, 0.0),
-                 ("rows_attention_kchunk_bwd",
-                  lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
-                  lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
-                                                                scale), 5, 8, 3 * m.numel() * 4)]
+        cases = []
+        if N == 192:
+            out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+            cases += [("rows_attention_bwd",
+                       lambda: A.rows_attention_bwd(q, k, v, mask, g, scale),
+                       lambda: A.rows_attention_bwd_reference(q, k, v, mask, g, scale), 5, 7, 0.0,
+                       dict(dout=g)),
+                      ("rows_attention_kchunk_bwd",
+                       lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
+                       lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
+                                                                     scale), 5, 8,
+                       3 * m.numel() * 4, None)]
+            if dtype == torch.float32:
+                cases += [("rows_attention",
+                           lambda: (A.rows_attention(q, k, v, mask, scale),),
+                           lambda: (A.attention_reference(q, k, v, mask, None, scale),), 2, 4,
+                           0.0, None),
+                          ("rows_attention_fast",
+                           lambda: (A.rows_attention_fast(q, k, v, mask, scale),),
+                           lambda: (A.rows_attention_fast_reference(q, k, v, mask, scale),), 2,
+                           4, 0.0, None)]
         if dtype == torch.float32:
             cases += [("rows_attention_kchunk",
                        lambda: (A.rows_attention_kchunk(q, k, v, mask, scale),),
                        lambda: (A.rows_attention_kchunk_reference(q, k, v, mask, scale),), 2, 4,
-                       0.0),
+                       0.0, {}),
                       ("rows_attention_kchunk_stats",
                        lambda: A.rows_attention_kchunk_stats(q, k, v, mask, scale),
                        lambda: A.rows_attention_kchunk_reference(q, k, v, mask, scale,
                                                                  stats=True), 2, 4,
-                       2 * m.numel() * 4)]
-        for name, kernel, plain, products, operands, extra in cases:
-            if A.takes_tensor_cores(name, dtype, C):
-                raise AssertionError(f"[widths] {name} at C={C} {label} took a tensor-core body")
+                       2 * R * N * 4, {})]
+        for name, kernel, plain, products, operands, extra, core_args in cases:
+            wide = (name, dtype) in WIDE_TC_KERNELS
+            if A.takes_tensor_cores(name, dtype, C) != wide:
+                raise AssertionError(f"[widths] {name} at C={C} {label}: tensor cores "
+                                     f"{A.takes_tensor_cores(name, dtype, C)}, expected {wide}")
             before = A.LAUNCHES[name]
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             if A.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"[widths] {name} at C={C}: no launch")
             errs = []
+            tol_name = TOL_BF16 if name == "rows_attention_fast" else tol  # its bf16 softmax
             for a, b in zip(got, want):
                 scale_b = max(float(b.float().abs().max()), 1.0)
                 err = float((a.float() - b.float()).abs().max())
                 errs.append(err)
-                if not (torch.isfinite(a).all() and err <= tol * scale_b):
+                if not (torch.isfinite(a).all() and err <= tol_name * scale_b):
                     raise AssertionError(f"[widths] {name} at C={C} {label}: max abs err {err} > "
-                                         f"{tol} x {scale_b}")
-            ms, plain_ms = device_ms(kernel, 2), device_ms(plain, 2)
+                                         f"{tol_name} x {scale_b}")
+            body = "CUDA-core body"
+            if wide:
+                body = f"wide tensor-core body ({WIDE_TC_KERNELS[(name, dtype)]})"
+            iters = 2 if N == 192 else 1
+            ms, plain_ms = device_ms(kernel, iters), device_ms(plain, iters)
+            line = f"on the device {ms:.4f} ms"
+            if wide:
+                core = lambda: A.attention_body(name, q, k, v, mask, None, scale,  # noqa: E731
+                                                mma=False, **core_args)
+                core_ms = device_ms(core, iters)
+                line += f" (its CUDA-core body {core_ms:.4f} ms, {core_ms / ms:.1f}x)"
             bnd = attention_bound(q, mask, None, products=products, operands=operands,
                                   extra_bytes=extra)
             lib = library_ms(q, k, v, mask, None, scale,
                              dout=g if name.endswith("bwd") else None)
-            print(f"[widths] {name} R={2 * N} H=1 N={N} C={C} {label} on the CUDA-core body: max "
-                  f"abs err {max(errs):.3e} (tol {tol:g} x max(1, max|x|)); on the device "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                  f"({bnd['bound_by']}), library (SDPA, {label}) {lib} ms")
+            lib_txt = "refused" if lib is None else f"{lib:.4f}"
+            verdict = "" if lib is None else (f"; {'held' if ms <= lib else 'missed'} against "
+                                              f"SDPA ({ms / lib:.2f}x)")
+            print(f"[widths] {name} R={R} H=1 N={N} C={C} {label} on the {body}: max abs err "
+                  f"{max(errs):.3e} (tol {tol_name:g} x max(1, max|x|)); {line}, plain {plain_ms:.4f} "
+                  f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library (SDPA, "
+                  f"{label}) {lib_txt} ms{verdict}")
+        del q, k, v, g
+    for (name, N), was in PAPER_ATTENTION_MS.items():
+        dtype = torch.bfloat16 if name == "rows_attention_bwd" else torch.float32
+        q, k, v, mask, _ = _attention_case((2 if N == 192 else 1) * N, N, 4, 16, dtype,
+                                           147 if N == 192 else 997, True, False, True, 750)
+        if name == "rows_attention_bwd":
+            g = torch.randn_like(q)
+            fn = lambda: A.rows_attention_bwd(q, k, v, mask, g, 0.25)  # noqa: E731
+        else:
+            fn = lambda: A.rows_attention_kchunk(q, k, v, mask, 0.25)  # noqa: E731
+        ms = device_ms(fn, 3)
+        drift = ms / was - 1
+        print(f"[widths] paper-width {name} at {N} ({str(dtype).replace('torch.', '')}): on the "
+              f"device {ms:.4f} ms; the row was {was} ms: {drift:+.1%} "
+              f"({'held' if abs(drift) <= PAPER_DRIFT else 'missed'}, 5%)")
+
+
+# K8 past its old bound of 128: (D, H, C) on the tensor-core body at pair
+# width 192, and on the split route one head of 256, C = 36 (4 mod 8, past
+# 32) and H C = 1024; the paper-width row it must leave alone (0.157 ms on
+# the device, bf16, bucket 192, B = 2)
+K8_WIDTHS = ((192, 4, 16), (64, 1, 256), (64, 4, 36), (128, 8, 128))
+K8_PAPER_MS = 0.157
+
+
+def _widths_fused_gated() -> None:
+    """K8 at K8_WIDTHS (bucket 192, B = 2, 147 nodes valid, the starting
+    view) against its plain version in both dtypes, with its route, device
+    time, the plain version's and the bound; then the paper-width K8 (D =
+    64, h16x4, bf16) timed again."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    N, n_valid = 192, 147
+    tol = {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
+    node = (torch.arange(N, device="cuda") < n_valid).float()
+    mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
+    for seed, ((D, H, C), dtype) in enumerate(
+            (w, dt) for w in (*K8_WIDTHS, (64, 4, 16)) for dt in (torch.bfloat16, torch.float32)):
+        paper = (D, H, C) == (64, 4, 16)
+        if paper and dtype == torch.float32:
+            continue
+        g = torch.Generator("cuda").manual_seed(760 + seed)
+        x = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
+        ws = [torch.randn(H * C, D, generator=g, device="cuda") * D ** -0.5 for _ in range(4)]
+        ws += [0.3 * torch.randn(H * C, generator=g, device="cuda"),
+               torch.randn(D, H * C, generator=g, device="cuda") * (H * C) ** -0.5,
+               0.1 * torch.randn(D, generator=g, device="cuda")]
+        args = (x, mask2d, *ws, H)
+        label = f"{str(dtype).replace('torch.', '')}, D={D}, H={H}, C={C}"
+        body = A.fused_gated_body(D, H, C)
+        with torch.inference_mode():
+            A.reset_launch_counts()
+            got = A.fused_gated(*args)
+            torch.cuda.synchronize()
+            if main_path_launches() != launch_record(fused_gated_rows_attention=1):
+                raise AssertionError(f"[widths] K8 {label}: launches {main_path_launches()}")
+            want = A.fused_gated_reference(*args)
+            rel = _width_check(f"fused_gated_rows_attention {label}", got, want, tol[dtype])
+            ms = device_ms(lambda: A.fused_gated(*args))
+            plain_ms = device_ms(lambda: A.fused_gated_reference(*args))
+        b = fused_bound("fused_gated_rows_attention", args, got)
+        line = (f"[widths] fused_gated_rows_attention {label} on the {body} route: ||kernel - "
+                f"plain|| / ||plain|| {rel:.3e} (tol {tol[dtype]:g}); on the device {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        if paper:
+            drift = ms / K8_PAPER_MS - 1
+            line += (f"; the paper-width row was {K8_PAPER_MS} ms: {drift:+.1%} "
+                     f"({'held' if abs(drift) <= PAPER_DRIFT else 'missed'}, 5%)")
+        print(line)
 
 
 def _widths_forward(seed: int) -> None:
-    """The bf16 net at pair width 36 with the four fused switches, 2 blocks,
-    bucket 192: kernel route against plain route, K9 and K11 on their wide
-    bodies inside the net."""
+    """The bf16 net at pair widths 36 and 192 with the four fused switches,
+    2 blocks, bucket 192, B = 2: kernel route against plain route, with the
+    exact launch counts; K9 and K11 on their wide bodies inside both nets,
+    K8 on its tensor-core body at 192 (past its old bound of 128)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    net = fused_net(pair_dim=36, num_blocks=2).to("cuda").eval()
-    inputs = forward_inputs(net)
-    with torch.inference_mode():
-        A.reset_launch_counts()
-        kernel_out = net(*inputs)
-        torch.cuda.synchronize()
-        launches = main_path_launches()
-        with A.plain_route():
-            plain_out = net(*inputs)
-    if launches != forward_launches(net.cfg):
-        raise AssertionError(f"[widths] pair 36 launches {launches}")
-    rels = [_width_check(f"pair-36 forward {i}", a, b, FORWARD_REL_TOL)
-            for i, (a, b) in enumerate(zip(kernel_out, plain_out))]
-    print(f"[widths] fused bf16 net at pair width 36, 2 blocks, bucket 192: noise_pred and "
-          f"seq_pred {rels[0]:.3e}, {rels[1]:.3e} from the plain route (tol {FORWARD_REL_TOL:g}); "
-          f"launches {({k: n for k, n in launches.items() if n})}")
+    for pair_dim in MODEL_AXIS_PAIR_WIDTHS:
+        net = fused_net(pair_dim=pair_dim, num_blocks=2).to("cuda").eval()
+        inputs = forward_inputs(net)
+        with torch.inference_mode():
+            A.reset_launch_counts()
+            kernel_out = net(*inputs)
+            torch.cuda.synchronize()
+            launches = main_path_launches()
+            with A.plain_route():
+                plain_out = net(*inputs)
+        if launches != forward_launches(net.cfg):
+            raise AssertionError(f"[widths] pair {pair_dim} launches {launches}")
+        rels = [_width_check(f"pair-{pair_dim} forward {i}", a, b, FORWARD_REL_TOL)
+                for i, (a, b) in enumerate(zip(kernel_out, plain_out))]
+        k8 = A.fused_gated_body(pair_dim, net.cfg.num_heads, net.cfg.head_dim)
+        print(f"[widths] fused bf16 net at pair width {pair_dim}, 2 blocks, bucket 192 (K8 on "
+              f"the {k8} route): noise_pred and seq_pred {rels[0]:.3e}, {rels[1]:.3e} from the "
+              f"plain route (tol {FORWARD_REL_TOL:g}); launches "
+              f"{({k: n for k, n in launches.items() if n})}")
+        del net
 
 
 def _fsdp(tmp: Path, seed: int, trained: dict) -> None:
@@ -4205,6 +4387,7 @@ def phase_model_axis(seed: int, tmp: Path, trained: dict) -> None:
     take."""
     began = time.perf_counter()
     _widths_fused()
+    _widths_fused_gated()
     _widths_attention()
     _widths_forward(seed)
     _fsdp(tmp, seed, trained)

@@ -30,8 +30,10 @@ SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bw
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
            "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
            "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu",
-           "transition_mma.cu", "outer.cu", "outer_mma.cu")
-HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh", "ln_project.cuh")
+           "transition_mma.cu", "outer.cu", "outer_mma.cu", "attention_kchunk_wide_tf32.cu",
+           "attention_bwd_wide_mma.cu", "attention_bwd_wide_tf32.cu")
+HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh",
+           "attention_bwd_wide.cuh", "ln_project.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -76,6 +78,10 @@ class KernelLibrary:
         lib.prd_rows_attention_kchunk_mma.restype = i32
         lib.prd_rows_attention_kchunk_tf32x3.argtypes = lib.prd_rows_attention_kchunk_mma.argtypes
         lib.prd_rows_attention_kchunk_tf32x3.restype = i32
+        lib.prd_rows_attention_kchunk_wide_tf32x3.argtypes = (
+            lib.prd_rows_attention_kchunk_mma.argtypes
+        )
+        lib.prd_rows_attention_kchunk_wide_tf32x3.restype = i32
         lib.prd_rows_attention_bwd.argtypes = (
             [ptr] * 9 + [i32] * 5 + [f32] + strides + [i64] * 3 + [ptr]
         )
@@ -86,6 +92,9 @@ class KernelLibrary:
         lib.prd_rows_attention_bwd_mma.restype = i32
         lib.prd_rows_attention_bwd_tf32x3.argtypes = lib.prd_rows_attention_bwd_mma.argtypes
         lib.prd_rows_attention_bwd_tf32x3.restype = i32
+        for wide in ("mma", "tf32x3"):
+            fn = getattr(lib, f"prd_rows_attention_bwd_wide_{wide}")
+            fn.argtypes, fn.restype = lib.prd_rows_attention_bwd_mma.argtypes, i32
         lib.prd_rows_attention_kchunk.argtypes = (
             [ptr] * 7 + [i32] * 5 + [f32] + strides + [ptr]
         )
@@ -106,6 +115,10 @@ class KernelLibrary:
         lib.prd_fused_gated.restype = i32
         lib.prd_fused_gated_mma.argtypes = lib.prd_fused_gated.argtypes
         lib.prd_fused_gated_mma.restype = i32
+        lib.prd_fused_gated_project.argtypes = [ptr] * 5 + [i32] * 6 + [f32] + [i64] * 3 + [ptr]
+        lib.prd_fused_gated_project.restype = i32
+        lib.prd_fused_gated_out.argtypes = [ptr] * 5 + [i32, i64, i32, i32, ptr]
+        lib.prd_fused_gated_out.restype = i32
         lib.prd_trimul.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.prd_trimul.restype = i32
         lib.prd_trimul_mma.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]

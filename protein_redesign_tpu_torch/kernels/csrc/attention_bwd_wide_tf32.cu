@@ -1,0 +1,71 @@
+// Hand-written Hopper (sm_90a) tensor-core body of K7, the rows attention
+// flash backward, in float32 (3xTF32, mma.sync m16n8k8) past head width 128, for C a
+// multiple of 8 in (128, 1024]:
+//
+//   rows_attention_bwd_dq_wide_tf32x3_kernel<NC>,    <- _rows_attention_bwd_impl /
+//   rows_attention_bwd_dkdv_wide_tf32x3_kernel<NC>      _make_rowhead_bwd_kernel (K7)
+//
+// of protein_redesign_tpu/ops/pallas_attention.py: the wide body of
+// attention_bwd_wide.cuh (its header has the function, the design and what
+// bounds it) over NC chunks of 128 channels. It replaces, at those widths,
+// attention_bwd.cu's CUDA-core kernels (kept for C = 4 mod 8 and callable to
+// time them beside these), which spill at 8 channels a lane (20.4 ms at R =
+// 384, N = 192, C = 256, 10-14x SDPA). The entry point takes
+// attention_bwd_tf32.cu's arguments and returns cudaGetLastError() after
+// its launches.
+
+#include "attention_bwd_wide.cuh"
+
+namespace {
+
+template <int NC>
+__global__ void __launch_bounds__(kWbWarps * 32, 1)
+    rows_attention_bwd_dq_wide_tf32x3_kernel(const WideBwdArgs<float> a) {
+  wide_bwd_dq<float, NC>(a);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kWbWarps * 32, 1)
+    rows_attention_bwd_dkdv_wide_tf32x3_kernel(const WideBwdArgs<float> a) {
+  wide_bwd_dkdv<float, NC>(a);
+}
+
+template <int NC>
+cudaError_t launch(const WideBwdArgs<float>& a, cudaStream_t stream) {
+  return launch_wide_bwd<float, NC>(rows_attention_bwd_dq_wide_tf32x3_kernel<NC>,
+                                  rows_attention_bwd_dkdv_wide_tf32x3_kernel<NC>, a, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K7 on the tensor cores: dqt (w.r.t. the pre-scaled q), dk and dv of rows
+// attention, C a multiple of 8 in (128, 1024]. stats is caller-allocated f32
+// scratch of 3 * R * H * N values (m, s, delta).
+int prd_rows_attention_bwd_wide_tf32x3(const void* q, const void* k, const void* v,
+                                    const void* mask, const void* dout, void* dq, void* dk,
+                                    void* dv, void* stats, int R, int N, int H, int C, float scale,
+                                    long long q_sr, long long q_sn, long long q_sh, long long k_sr,
+                                    long long k_sn, long long k_sh, long long v_sr, long long v_sn,
+                                    long long v_sh, long long g_sr, long long g_sn, long long g_sh,
+                                    void* stream) {
+  float* st = static_cast<float*>(stats);
+  const long long rhn = (long long)R * H * N;
+  const WideBwdArgs<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<const float*>(mask),
+                          static_cast<const float*>(dout), static_cast<float*>(dq),
+                          static_cast<float*>(dk), static_cast<float*>(dv), st,
+                          st == nullptr ? nullptr : st + rhn,
+                          st == nullptr ? nullptr : st + 2 * rhn, R, N, H, C, scale,
+                          {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh},
+                          {g_sr, g_sn, g_sh}};
+  if (!wide_bwd_ok(a)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 256) return (int)launch<2>(a, s);
+  if (C <= 512) return (int)launch<4>(a, s);
+  if (C <= 768) return (int)launch<6>(a, s);
+  return (int)launch<8>(a, s);
+}
+
+}  // extern "C"

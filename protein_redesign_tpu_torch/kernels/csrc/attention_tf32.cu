@@ -15,6 +15,8 @@
 //       <- _rows_attention_impl with fast=True (K1 fast: the softmax
 //          rounded as bf16, cfg.fast_softmax; serving an f32 checkpoint)
 //
+//   (K3 and K5 past C = 128: attention_kchunk_wide_tf32.cu.)
+//
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, for those
 // widths, the CUDA-core bodies of attention.cu (K1, K1 fast) and
 // attention_kchunk.cu (K3, K5), kept for C = 4 mod 8 and callable to time
@@ -480,7 +482,7 @@ int prd_rows_attention_fast_tf32x3(const void* q, const void* k, const void* v,
 
 // K3 (m and logs null) or K5 (both given) in f32 on the tensor cores
 // (3xTF32): masked attention without bias by online softmax over key tiles.
-// C a multiple of 8 up to 128.
+// C a multiple of 8 up to 128 (past it attention_kchunk_wide_tf32.cu).
 int prd_rows_attention_kchunk_tf32x3(const void* q, const void* k, const void* v,
                                      const void* mask, void* out, void* m, void* logs, int R,
                                      int N, int H, int C, float scale, long long q_sr,

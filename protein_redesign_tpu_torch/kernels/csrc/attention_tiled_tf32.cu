@@ -39,7 +39,9 @@
 // accumulator holds (n 8 + 2t + (e & 1)); only P.V renumbers keys.
 //
 // Wide heads (SPAttention, C = single_dim 512, 768 or 1024 in the wide
-// configurations). A warp cannot hold 16 rows of a 512-wide output, nor a
+// configurations; the body, wide_tf32x3_body in attention_tf32.cuh, is
+// shared with K3 and K5 past 128, which run it without the bias). A warp
+// cannot hold 16 rows of a 512-wide output, nor a
 // block its q tile in shared memory (64 rows at C = 1024 are 256 KB). The
 // bf16 body splits the output over grid.z in 64-channel slices, each block
 // recomputing all of Q K^T, 8x the logit products at C = 512. Here each
@@ -86,228 +88,12 @@ __global__ void __launch_bounds__(kTiledWarps * 32, kF32MinBlocks<kTiledWarps, N
   rows_tf32x3_body<false, true, HAS_MASK, kTiledWarps, NT>(a);
 }
 
-constexpr int kWideWarps = 8;
-constexpr int kWideTQ = 32;                 // queries a block: two row blocks of 16
-constexpr int kWideBK = 64;                 // keys a tile
-constexpr int kWideKC = 128;                // channels a chunk: two n-tiles a warp
-constexpr int kWideLdQK = kWideKC + 4;      // Q and K rows (4 mod 32: conflict-free A, B^T reads)
-constexpr int kWideLdV = kWideKC + 8;       // V rows (8 mod 32: conflict-free B reads)
-constexpr int kWideLdS = kWideBK + 4;       // bias, logits and P rows
-constexpr int kWideStage = (kWideTQ + kWideBK) * kWideLdQK;  // floats a stage (>= 64 kWideLdV)
-
-constexpr size_t wide_smem() {
-  return sizeof(float) * (2 * (size_t)kWideStage + 4 * (size_t)kWideTQ * kWideLdS + 2 * kWideTQ);
-}
-
-// NC channel chunks of 128 (C <= 128 NC).
+// NC channel chunks of 128 (C <= 128 NC): the wide body of attention_tf32.cuh
+// with the bias.
 template <bool HAS_MASK, int NC>
 __global__ void __launch_bounds__(kWideWarps * 32, 1)
     tiled_attention_wide_tf32x3_kernel(const F32Args a) {
-  constexpr int TQ = kWideTQ, BK = kWideBK, KC = kWideKC, LS = kWideLdS;
-  // a tile's bias is staged by the copies issued at its previous tile's
-  // last V chunk, after every thread has passed the first one's barrier
-  static_assert(NC >= 2, "the wide body takes C > 128");
-  extern __shared__ __align__(16) float smem_f[];
-  float* stage_s = smem_f;                   // [2][kWideStage]
-  float* bias_s = stage_s + 2 * kWideStage;  // [TQ][LS], the tile's bias
-  float* s_s = bias_s + TQ * LS;             // [TQ][LS], the tile's logits
-  unsigned* p_hi = reinterpret_cast<unsigned*>(s_s + TQ * LS);  // [TQ][LS], P's TF32 big part
-  unsigned* p_lo = p_hi + TQ * LS;                               // and small part
-  float* alpha_s = reinterpret_cast<float*>(p_lo + TQ * LS);     // [TQ], exp(m - m')
-  float* l_s = alpha_s + TQ;                                     // [TQ], the final sums
-
-  const int N = a.N, C = a.C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const Block b = block_of<TQ>(N, 0);
-  const float* q_base = a.q + b.r * a.qs.r + b.h * a.qs.h;
-  const float* k_base = a.k + b.r * a.ks.r + b.h * a.ks.h;
-  const float* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
-  const float* bias_head = a.bias + ((long long)b.r * a.H + b.h) * N * N;
-  const float* mask_row = HAS_MASK ? a.mask + (long long)b.r * N : nullptr;
-  const int tiles = (N + BK - 1) / BK;
-  const int stages = tiles * 2 * NC;
-
-  // Stage s of key tile t = s / (2 NC), j = s % (2 NC): j < NC chunk j of Q
-  // and K (with the tile's bias at j = 0), else chunk j - NC of V.
-  auto issue = [&](int s) {
-    float* buf = stage_s + (s & 1) * kWideStage;
-    const int t = s / (2 * NC), j = s - t * 2 * NC;
-    if (j < NC) {
-      const int c0 = j * KC;
-      stage_f32(q_base + c0, a.qs.n, b.q0, TQ, N, C - c0, KC, kWideLdQK, buf);
-      stage_f32(k_base + c0, a.ks.n, t * BK, BK, N, C - c0, KC, kWideLdQK,
-                buf + TQ * kWideLdQK);
-      if (j == 0) stage_bias(bias_head, N, b.q0, TQ, t * BK, BK, LS, a.bias16, bias_s);
-    } else {
-      const int c0 = (j - NC) * KC;
-      stage_f32(v_base + c0, a.vs.n, t * BK, BK, N, C - c0, KC, kWideLdV, buf);
-    }
-  };
-  // The start of stage s: its copies landed (and q scaled) for the block,
-  // the next stage's in flight.
-  auto begin = [&](int s, bool q_chunk, int c0) -> float* {
-    if (s + 1 < stages) issue(s + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    float* buf = stage_s + (s & 1) * kWideStage;
-    if (q_chunk && a.scale != 1.f)  // the pre-scaled q, by the threads that copied it
-      scale_staged_f32(buf, b.q0, TQ, N, C - c0, KC, kWideLdQK, a.scale);
-    __syncthreads();
-    return buf;
-  };
-
-  float acc[NC][2][2][4];  // chunk, n-tile (2 warp, 2 warp + 1), row block, fragment
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][n][rb][e] = 0.f;
-  const int row = tid >> 3, part = tid & 7;  // the row pass: 8 threads a row
-  float m_run = neg_inf(), l_run = 0.f;
-
-  issue(0);
-  cp_async_commit();  // stage 0 a group of its own: begin(0) waits for it
-  int s = 0;
-  for (int t = 0; t < tiles; ++t) {
-    // S = Q K^T over the chunks of C: this warp's row block and 16 keys
-    float sacc[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-#pragma unroll 1
-    for (int j = 0; j < NC; ++j, ++s) {
-      const float* buf = begin(s, true, j * KC);
-      logits_tf32<2, KC, true>(buf + (warp & 1) * 16 * kWideLdQK,
-                               buf + (TQ + (warp >> 1) * 16) * kWideLdQK, kWideLdQK, lane, sacc);
-      __syncthreads();  // the stage after next overwrites this buffer
-    }
-    {
-      const int r0 = (warp & 1) * 16 + g, c0 = (warp >> 1) * 16 + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        *reinterpret_cast<float2*>(s_s + r0 * LS + c0 + n * 8) = make_float2(sacc[n][0], sacc[n][1]);
-        *reinterpret_cast<float2*>(s_s + (r0 + 8) * LS + c0 + n * 8) =
-            make_float2(sacc[n][2], sacc[n][3]);
-      }
-    }
-    __syncthreads();
-    {
-      // the row pass: keys part 4 + [0, 4) and 32 + part 4 + [0, 4) of the
-      // tile, plus the bias, then the fill; past N -inf (weight 0)
-      const int k0 = t * BK;
-      float l[8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = h * 32 + part * 4;
-        const float4 x = *reinterpret_cast<const float4*>(s_s + row * LS + col);
-        const float4 y = *reinterpret_cast<const float4*>(bias_s + row * LS + col);
-        l[4 * h] = x.x + y.x;
-        l[4 * h + 1] = x.y + y.y;
-        l[4 * h + 2] = x.z + y.z;
-        l[4 * h + 3] = x.w + y.w;
-      }
-      float mx = neg_inf();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int key = k0 + (i >> 2) * 32 + part * 4 + (i & 3);
-        if (key >= N)
-          l[i] = neg_inf();
-        else if (HAS_MASK && mask_row[key] < 0.5f)
-          l[i] = kMaskFill;
-        mx = fmaxf(mx, l[i]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      // the tile holds a key below N, so the new max is finite and the
-      // first tile's rescale is exp(-inf) = 0
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = exp2_approx((m_run - m_new) * kLog2e);
-      const float nm = -m_new * kLog2e;
-      float sum = 0.f;
-      unsigned hi[8], lo[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = exp2_approx(fmaf(l[i], kLog2e, nm));
-        sum += p;
-        split_tf32(p, hi[i], lo[i]);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int at = row * LS + h * 32 + part * 4;
-        *reinterpret_cast<uint4*>(p_hi + at) = make_uint4(hi[4 * h], hi[4 * h + 1],
-                                                          hi[4 * h + 2], hi[4 * h + 3]);
-        *reinterpret_cast<uint4*>(p_lo + at) = make_uint4(lo[4 * h], lo[4 * h + 1],
-                                                          lo[4 * h + 2], lo[4 * h + 3]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if (part == 0) alpha_s[row] = alpha;
-    }
-    // acc = acc exp(m - m') + P V, chunk by chunk of V's channels
-#pragma unroll
-    for (int c = 0; c < NC; ++c, ++s) {
-      const float* v_t = begin(s, false, 0);
-#pragma unroll
-      for (int rb = 0; rb < 2; ++rb) {
-        const float al_a = alpha_s[rb * 16 + g], al_b = alpha_s[rb * 16 + g + 8];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          acc[c][n][rb][0] *= al_a;
-          acc[c][n][rb][1] *= al_a;
-          acc[c][n][rb][2] *= al_b;
-          acc[c][n][rb][3] *= al_b;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) {
-        unsigned bb[2][2], bs[2][2];
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const float* v_col = v_t + (kk * 8 + t4) * kWideLdV + (2 * warp + n) * 8 + g;
-          split_tf32(v_col[0], bb[n][0], bs[n][0]);
-          split_tf32(v_col[4 * kWideLdV], bb[n][1], bs[n][1]);
-        }
-#pragma unroll
-        for (int rb = 0; rb < 2; ++rb) {
-          const int at = (rb * 16 + g) * LS + kk * 8 + t4;
-          const unsigned ah[4] = {p_hi[at], p_hi[at + 8 * LS], p_hi[at + 4], p_hi[at + 8 * LS + 4]};
-          const unsigned al[4] = {p_lo[at], p_lo[at + 8 * LS], p_lo[at + 4], p_lo[at + 8 * LS + 4]};
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-            mma_3xtf32(acc[c][n][rb], ah, al, bb[n][0], bb[n][1], bs[n][0], bs[n][1]);
-        }
-      }
-      __syncthreads();  // the stage after next overwrites this buffer
-    }
-  }
-
-  if (part == 0) l_s[row] = l_run;
-  __syncthreads();
-#pragma unroll
-  for (int rb = 0; rb < 2; ++rb) {
-    const int row_a = b.q0 + rb * 16 + g;
-    const float div_a = l_s[rb * 16 + g], div_b = l_s[rb * 16 + g + 8];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int ch = c * KC + (2 * warp + n) * 8 + 2 * t4;
-        if (ch >= C) continue;
-        if (row_a < N)
-          *reinterpret_cast<float2*>(a.out + (((long long)b.r * N + row_a) * a.H + b.h) * C + ch) =
-              make_float2(acc[c][n][rb][0] / div_a, acc[c][n][rb][1] / div_a);
-        if (row_a + 8 < N)
-          *reinterpret_cast<float2*>(a.out +
-                                     (((long long)b.r * N + row_a + 8) * a.H + b.h) * C + ch) =
-              make_float2(acc[c][n][rb][2] / div_b, acc[c][n][rb][3] / div_b);
-      }
-    }
-  }
+  wide_tf32x3_body<true, HAS_MASK, false, NC>(a);
 }
 
 template <bool HAS_MASK, int NT>
@@ -319,7 +105,7 @@ cudaError_t launch_narrow(const F32Args& a, cudaStream_t stream) {
 template <bool HAS_MASK, int NC>
 cudaError_t launch_wide(const F32Args& a, cudaStream_t stream) {
   return launch_f32(tiled_attention_wide_tf32x3_kernel<HAS_MASK, NC>, kWideWarps * 32, kWideTQ,
-                    wide_smem(), a, stream);
+                    wide_tf32x3_smem<true>(), a, stream);
 }
 
 template <bool HAS_MASK>

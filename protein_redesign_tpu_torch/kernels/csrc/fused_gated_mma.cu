@@ -64,16 +64,27 @@
 // Layout: x [R1, R2, N, D] with D contiguous and element strides (s1, s2, sn);
 // mask contiguous f32 [R, N] (R = R1 R2); w_in [D, 4 H C] in T (q | k | v |
 // gate columns); bg [H C] f32; wo_t [H C, D] in T; bo [D] f32; out contiguous
-// [R, N, D]. Takes D up to 128, C a multiple of 8 up to 128 and H C up to
-// 512 (h16x4, h64x1, h64x4 at pair widths 64-128). The entry point returns
-// cudaGetLastError().
+// [R, N, D]. Takes D up to 512, C a multiple of 8 up to 128 and H C up to
+// 512 (h16x4, h64x1, h64x4 at pair widths 64-512). Past D = 128 the
+// out-projection runs in slices of 128 output columns, each re-reading the
+// gated-heads tile (one slice up to 128, so those widths keep their bits),
+// and the LN + projection is fused_gated.cu's CUDA-core kernel in K slices
+// of 128 weight rows (ln_project.cuh's A tile holds a whole row of D <=
+// 128). The entry point returns cudaGetLastError().
 
 #include "attention_tf32.cuh"
 #include "ln_project.cuh"
 
+// fused_gated.cu's LN + projection (CUDA cores, K slices of 128 rows), which
+// this body runs past D = 128.
+extern "C" int prd_fused_gated_project(const void* x, const void* w_in, const void* bg, void* qkv,
+                                       void* gate, int dtype, int R1, int R2, int N, int D, int HC,
+                                       float scale, long long s1, long long s2, long long sn,
+                                       void* stream);
+
 namespace {
 
-constexpr int kFgMaxD = 128;
+constexpr int kFgMaxD = 512;  // out-projection slices of 128 columns past 128
 constexpr int kFgMaxC = 128;
 constexpr int kFgMaxWidth = 512;  // H C
 
@@ -190,27 +201,28 @@ __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks)
   ln_project<T>(load, static_cast<const T*>(a.w_in), a.D, 4 * HC, p0, rows, epi, smem_fg);
 }
 
-// Rows [k0, k0 + 64) of W_o [HC, D] (T) into shared memory as [64][ld],
-// columns up to DP, zero past HC and past D: by cp.async where D fills whole
-// 16-byte chunks, else element by element.
+// Rows [k0, k0 + 64) and columns [d0, d0 + DP) of W_o [HC, D] (T) into
+// shared memory as [64][ld], zero past HC and past D: by cp.async where D
+// fills whole 16-byte chunks, else element by element.
 template <typename T>
-__device__ __forceinline__ void stage_wo(const T* __restrict__ wo, int HC, int D, int DP, int k0,
-                                         int ld, T* dst) {
+__device__ __forceinline__ void stage_wo(const T* __restrict__ wo, int HC, int D, int d0, int DP,
+                                         int k0, int ld, T* dst) {
   constexpr int kChunk = 16 / sizeof(T);
   if (D % kChunk == 0) {
     const int per_row = DP / kChunk;
     for (int e = threadIdx.x; e < 64 * per_row; e += blockDim.x) {
       const int j = e / per_row;
       const int d = (e - j * per_row) * kChunk;
-      const bool ok = k0 + j < HC && d < D;
-      cp_async16(dst + j * ld + d, ok ? wo + (long long)(k0 + j) * D + d : wo, ok);
+      const bool ok = k0 + j < HC && d0 + d < D;
+      cp_async16(dst + j * ld + d, ok ? wo + (long long)(k0 + j) * D + d0 + d : wo, ok);
     }
     return;
   }
   for (int e = threadIdx.x; e < 64 * DP; e += blockDim.x) {
     const int j = e / DP;
     const int d = e - j * DP;
-    dst[j * ld + d] = k0 + j < HC && d < D ? wo[(long long)(k0 + j) * D + d] : Io<T>::cast(0.f);
+    dst[j * ld + d] =
+        k0 + j < HC && d0 + d < D ? wo[(long long)(k0 + j) * D + d0 + d] : Io<T>::cast(0.f);
   }
 }
 
@@ -255,34 +267,35 @@ __device__ __forceinline__ void store_gated(const float (&acc)[NT][4], float s_a
   }
 }
 
-// out = sum + bo for the warp's 16 queries, DT n-tiles of 8 output columns.
+// out = sum + bo for the warp's 16 queries, DT n-tiles of 8 output columns
+// from d0.
 template <typename T, int DT>
-__device__ __forceinline__ void store_rows(T* out_r, const float* bo, int N, int D, int row_a,
-                                           const float (&oacc)[DT][4], int lane) {
+__device__ __forceinline__ void store_rows(T* out_r, const float* bo, int N, int D, int d0,
+                                           int row_a, const float (&oacc)[DT][4], int lane) {
   const int t4 = lane & 3;
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int q = row_a + 8 * (e >> 1);
-      const int col = n * 8 + 2 * t4 + (e & 1);
+      const int col = d0 + n * 8 + 2 * t4 + (e & 1);
       if (q < N && col < D) out_r[(long long)q * D + col] = Io<T>::cast(oacc[n][e] + bo[col]);
     }
   }
 }
 
 // The out-projection of the block's gated heads: oacc = go [64, HC] W_o
-// [HC, D] for the warp's 16 rows, W_o staged 64 rows at a time into wo_s
-// (the K and V tiles' space, free after the passes). Starts and ends with a
-// barrier.
+// [HC, d0 + 8 DT) for the warp's 16 rows, W_o's columns from d0 staged 64
+// rows at a time into wo_s (the K and V tiles' space, free after the
+// passes). Starts with a barrier.
 template <int DT>
 __device__ __forceinline__ void out_project(const bf16* go_s, int gs, const bf16* wo, int HC,
-                                            int D, bf16* wo_s, int warp, int lane,
+                                            int D, int d0, bf16* wo_s, int warp, int lane,
                                             float (&oacc)[DT][4]) {
   constexpr int DP = 8 * DT, OS = DP + 8;
   for (int k0 = 0; k0 < HC; k0 += 64) {
     __syncthreads();  // go_s is complete; the previous chunk's reads are done
-    stage_wo(wo, HC, D, DP, k0, OS, wo_s);
+    stage_wo(wo, HC, D, d0, DP, k0, OS, wo_s);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -302,14 +315,14 @@ __device__ __forceinline__ void out_project(const bf16* go_s, int gs, const bf16
 
 template <int DT>
 __device__ __forceinline__ void out_project(const float* go_s, int gs, const float* wo, int HC,
-                                            int D, float* wo_s, int warp, int lane,
+                                            int D, int d0, float* wo_s, int warp, int lane,
                                             float (&oacc)[DT][4]) {
   constexpr int DP = 8 * DT, OS = DP + 8;  // OS = 8 mod 32: conflict-free B reads
   const int g = lane >> 2, t4 = lane & 3;
   const float* a_w = go_s + warp * 16 * gs;
   for (int k0 = 0; k0 < HC; k0 += 64) {
     __syncthreads();  // go_s is complete; the previous chunk's reads are done
-    stage_wo(wo, HC, D, DP, k0, OS, wo_s);
+    stage_wo(wo, HC, D, d0, DP, k0, OS, wo_s);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -399,12 +412,16 @@ __global__ void __launch_bounds__(kWarps * 32, kFgMinBlocks<NT, DT>)
                             warp * 16, lane, go_s, GS);
     }
   }
-  float oacc[DT][4];
+  // the out-projection in slices of 8 DT output columns (one up to D = 128)
+  for (int d0 = 0; d0 < D; d0 += 8 * DT) {
+    float oacc[DT][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  out_project<DT>(go_s, GS, static_cast<const bf16*>(fa.wo_t), HC, D, k_s, warp, lane, oacc);
-  store_rows<bf16, DT>(static_cast<bf16*>(fa.out) + (long long)b.r * N * D, fa.bo, N, D, row_a,
-                       oacc, lane);
+    for (int n = 0; n < DT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+    out_project<DT>(go_s, GS, static_cast<const bf16*>(fa.wo_t), HC, D, d0, k_s, warp, lane,
+                    oacc);
+    store_rows<bf16, DT>(static_cast<bf16*>(fa.out) + (long long)b.r * N * D, fa.bo, N, D, d0,
+                         row_a, oacc, lane);
+  }
 }
 
 // f32 (3xTF32): q and K rows of 8 NTQ channels (the padded head), slices of
@@ -474,12 +491,15 @@ __global__ void __launch_bounds__(kWarps * 32, kFgF32MinBlocks<NTQ, DT>)
                              warp * 16, lane, go_s, GS);
     }
   }
-  float oacc[DT][4];
+  for (int d0 = 0; d0 < D; d0 += 8 * DT) {
+    float oacc[DT][4];
 #pragma unroll
-  for (int n = 0; n < DT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  out_project<DT>(go_s, GS, static_cast<const float*>(fa.wo_t), HC, D, k_s, warp, lane, oacc);
-  store_rows<float, DT>(static_cast<float*>(fa.out) + (long long)b.r * N * D, fa.bo, N, D, row_a,
-                        oacc, lane);
+    for (int n = 0; n < DT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+    out_project<DT>(go_s, GS, static_cast<const float*>(fa.wo_t), HC, D, d0, k_s, warp, lane,
+                    oacc);
+    store_rows<float, DT>(static_cast<float*>(fa.out) + (long long)b.r * N * D, fa.bo, N, D, d0,
+                          row_a, oacc, lane);
+  }
 }
 
 template <typename Kernel>
@@ -540,15 +560,23 @@ cudaError_t launch(const FgArgs& a, cudaStream_t stream) {
   const long long positions = (long long)a.R1 * a.R2 * a.N;
   const long long blocks = (positions + kLnpRows - 1) / kLnpRows;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = lnp_smem_bytes<T>(a.D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_gated_project_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (a.D > kLnpMaxD) {  // past ln_project's whole-row tile: fused_gated.cu's K-sliced projection
+    const int e = prd_fused_gated_project(a.x, a.w_in, a.bg, a.qkv, a.gate, sizeof(T) == 2,
+                                          a.R1, a.R2, a.N, a.D, a.H * a.C, a.scale, a.s1, a.s2,
+                                          a.sn, stream);
+    if (e != 0) return (cudaError_t)e;
+  } else {
+    const size_t smem = lnp_smem_bytes<T>(a.D);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(fused_gated_project_mma_kernel<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    fused_gated_project_mma_kernel<T><<<(unsigned)blocks, kLnpThreads, smem, stream>>>(a);
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  fused_gated_project_mma_kernel<T><<<(unsigned)blocks, kLnpThreads, smem, stream>>>(a);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
   const bool f32 = sizeof(T) == sizeof(float);
   return a.D <= 64 ? dispatch_attention<8>(a, f32, stream) : dispatch_attention<16>(a, f32, stream);
 }
@@ -558,7 +586,7 @@ cudaError_t launch(const FgArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // K8 on the tensor cores over rows x [R1, R2, N, D], dtype 0 f32 (3xTF32),
-// 1 bf16. Takes D up to 128, C a multiple of 8 up to 128 and H C up to 512.
+// 1 bf16. Takes D up to 512, C a multiple of 8 up to 128 and H C up to 512.
 int prd_fused_gated_mma(const void* x, const void* mask, const void* w_in, const void* bg,
                         const void* wo_t, const void* bo, void* qkv, void* gate, void* out,
                         int dtype, int R1, int R2, int N, int D, int H, int C, float scale,

@@ -63,6 +63,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
                : "memory");
 }
 
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
 // d += A B on the tensor cores: bf16 operands, f32 accumulators.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                                unsigned b1) {
@@ -102,6 +109,13 @@ __device__ __forceinline__ void load_a_frag_trans(unsigned (&a)[4], const __nv_b
 __device__ __forceinline__ void load_bt_frags(unsigned (&b)[4], const __nv_bfloat16* tile, int ld,
                                               int n0, int k0, int lane) {
   ldmatrix_x4(b, tile + (n0 + ((lane >> 4) << 3) + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// The B fragment of S = A X^T for one n-tile: X rows [n0, n0 + 8) and
+// columns [k0, k0 + 16) (ldmatrix.x2: lanes 0-15 give the addresses).
+__device__ __forceinline__ void load_bt_frag(unsigned (&b)[2], const __nv_bfloat16* tile, int ld,
+                                             int n0, int k0, int lane) {
+  ldmatrix_x2(b, tile + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
 }
 
 // B fragments of O = P X for two n-tiles: X rows [k0, k0 + 16) (keys) and

@@ -18,16 +18,21 @@ kernels the denoiser's main path runs:
 
 K1, K1 fast, K2, K3, K5, K6 and K7 have two bodies (``takes_mma``): on bf16
 inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
-K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async),
-else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
-``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. In f32 with C a
-multiple of 8 every kernel takes a tensor-core body too (``takes_tf32x3``):
-K1, K3 and K5 ``attention_tf32.cu`` (one body; C up to 128), K1 fast its own
-body there (C up to 128: the logits kept in shared memory, P.V in two TF32
-products of bf16 P), K2 ``attention_tiled_tf32.cu`` (C up to 1024), K6 and
-K7 ``attention_bwd_tf32.cu`` (C up to 128): every product in 3xTF32, three
+K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async; K6 up
+to C = 128, K7 up to 1024 with its wide body past 128,
+``attention_bwd_wide_mma.cu``), else the CUDA-core one of ``attention.cu``,
+``attention_kchunk.cu``, ``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``.
+In f32 with C a multiple of 8 every kernel takes a tensor-core body too
+(``takes_tf32x3``): K1, K3 and K5 ``attention_tf32.cu`` (one body up to C =
+128; K3 and K5 past it up to 1024 ``attention_kchunk_wide_tf32.cu``, the
+wide body they share with K2), K1 fast its own body there (C up to 128: the
+logits kept in shared memory, P.V in two TF32 products of bf16 P), K2
+``attention_tiled_tf32.cu`` (C up to 1024), K6 and K7
+``attention_bwd_tf32.cu`` (K6 up to 128, K7 up to 1024, its wide body
+``attention_bwd_wide_tf32.cu`` past 128): every product in 3xTF32, three
 TF32 products of split operands, which keeps the 1e-5 parity that one TF32
-product would break. f32 at C = 4 mod 8 keeps the CUDA-core bodies.
+product would break. f32 at C = 4 mod 8, and K1, K1 fast and K6 in f32
+past 128, keep the CUDA-core bodies.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -42,10 +47,12 @@ product would break. f32 at C = 4 mod 8 keeps the CUDA-core bodies.
 - ``fused_gated_rows_attention`` (K8) <- ``fused_gated_rows_attention``
   (:1142) / ``_fused_gated_impl`` / ``_make_fused_gated_kernel``: the whole
   no-bias GatedAttention (LN, projections, masked softmax, gate,
-  out-projection), the switch ``use_pallas_fused_gated``. Two bodies
-  (``fused_gated_takes_tensor_cores``): C a multiple of 8 the tensor-core one
+  out-projection), the switch ``use_pallas_fused_gated``. Three routes
+  (``fused_gated_body``): C a multiple of 8 the tensor-core body
   (``fused_gated_mma.cu``: mma.sync in bf16, 3xTF32 in f32), C = 4 mod 8
-  the CUDA-core one (``fused_gated.cu``). Its backward
+  the CUDA-core one (``fused_gated.cu``), each within its bound, and every
+  other shape the JAX kernel takes the split route (the projection, the
+  K-chunk forward over the heads, the gate and out-projection). Its backward
   differentiates the plain version ``fused_gated_reference``, as
   ``_fused_gated_bwd`` (:1227) differentiates ``_fused_gated_reference``.
   It computes in the input's dtype (f32 throughout in float32), where the
@@ -193,17 +200,62 @@ def bwd_tf32x3_smem_bytes(C: int) -> int:
     return 4 * ((2 * 64 + 4 * tile) * (8 * nt + 4) + 6 * tile)
 
 
+def kchunk_wide_tf32x3_smem_bytes(C: int) -> int:
+    """Shared memory of K3's and K5's f32 body past C = 128 (K2's wide body
+    without the bias tile, ``wide_tf32x3_smem`` in attention_tf32.cuh): two
+    stages of TQ queries and 64 keys of 128 channels (132 floats a row),
+    and the logits and P's two parts of a [TQ, 64] tile (68 floats a row);
+    TQ = 64 up to C = 512, 32 above."""
+    tq = 64 if C <= 512 else 32
+    return 4 * (2 * (tq + 64) * 132 + 3 * tq * 68 + 2 * tq)
+
+
+
+def wide_bwd_smem_bytes(C: int, dtype: torch.dtype) -> int:
+    """Shared memory of K7's wide tensor-core bodies past C = 128
+    (``wide_bwd_smem`` in attention_bwd_wide.cuh, the larger of its two
+    kernels): two stage buffers of a 128-channel chunk of TA + 64 rows (or
+    64 rows of a product's operand), the f32 S and dP tiles of TA rows of 64
+    (+ 4), the P and dS tiles (TF32 big and small parts in f32, bf16 in
+    bf16), and the dk/dv kernel's query stats; TA = 32 queries (dq) or 32
+    keys up to C = 512 and 16 above (dk/dv)."""
+    f32 = dtype == torch.float32
+    ld_s, ld_p, ld_a = (132, 136, 68) if f32 else (136, 136, 72)
+    item, tile_item = (4, 8) if f32 else (2, 2)
+
+    def kernel(ta: int, dkdv: bool) -> int:
+        stage = max((ta + 64) * ld_s, 64 * ld_p)
+        tiles = (2 if dkdv else 1) * tile_item * ta * ld_a
+        return item * 2 * stage + 4 * 2 * ta * 68 + tiles + (4 * 3 * 64 if dkdv else 0)
+
+    return max(kernel(32, False), kernel(32 if C <= 512 else 16, True))
+
+
+def _takes_wide(name: str, dtype: torch.dtype, C: int) -> bool:
+    """K7 (both dtypes) and K3 and K5 (f32) past MAX_TC_HEAD_DIM, on their
+    wide tensor-core bodies, which stream the head in 128-channel chunks."""
+    if C > MAX_HEAD_DIM:
+        return False
+    if name == "rows_attention_bwd":
+        return wide_bwd_smem_bytes(C, dtype) <= MMA_SMEM_BYTES
+    return (dtype == torch.float32 and name in KCHUNK_FORWARDS
+            and kchunk_wide_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
+
+
 def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
     in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
-    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K7 and K6
-    in bf16 when C is a multiple of 8 up to MAX_TC_HEAD_DIM (their
-    accumulators hold the whole head). Else the CUDA-core body, or in f32
-    the 3xTF32 body where ``takes_tf32x3``."""
+    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K6 in
+    bf16 when C is a multiple of 8 up to MAX_TC_HEAD_DIM (its accumulators
+    hold the whole head), K7 up to MAX_HEAD_DIM (its wide body streams the
+    head past 128). Else the CUDA-core body, or in f32 the 3xTF32 body where
+    ``takes_tf32x3``."""
     if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
         return False
     if name in BACKWARDS:
-        return C <= MAX_TC_HEAD_DIM and bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
+        if C > MAX_TC_HEAD_DIM:
+            return _takes_wide(name, dtype, C)
+        return bwd_mma_smem_bytes(C) <= MMA_SMEM_BYTES
     queries = kchunk_queries(C) if name in KCHUNK_FORWARDS else 64
     return mma_smem_bytes(C, queries) <= MMA_SMEM_BYTES
 
@@ -212,17 +264,18 @@ def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
     width C in ``dtype``: f32 with C a multiple of 8, K1, K1 fast, K3 and K5
     (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
-    MAX_TC_HEAD_DIM (the accumulators hold the whole head), K2
-    (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body streams the
-    head), each within its shared memory (K1 fast keeps its logits in shared
-    memory where they fit and recomputes them past that, so N bounds
-    nothing)."""
+    MAX_TC_HEAD_DIM (the accumulators hold the whole head), K3, K5 and K7
+    past it up to MAX_HEAD_DIM (their wide bodies stream the head), K2
+    (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body, which K3
+    and K5 share), each within its shared memory (K1 fast keeps its logits
+    in shared memory where they fit and recomputes them past that, so N
+    bounds nothing)."""
     if dtype != torch.float32 or C <= 0 or C % 8:
         return False
     if name == "tiled_attention":
         return C <= MAX_HEAD_DIM and tiled_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
     if C > MAX_TC_HEAD_DIM:
-        return False
+        return _takes_wide(name, dtype, C)
     if name in BACKWARDS:
         return bwd_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
     return (name in KCHUNK_FORWARDS + ("rows_attention", "rows_attention_fast")
@@ -260,7 +313,9 @@ def width_fits(C: int, max_width: int) -> bool:
 # share one staged tile buffer between K and V (or qt and dO).
 MAX_HEAD_DIM = 1024
 # The tensor-core bodies whose accumulators hold a whole head: K6 and K7 in
-# both dtypes, K1, K1 fast, K3 and K5 in f32 (3xTF32).
+# both dtypes, K1, K1 fast, K3 and K5 in f32 (3xTF32). Past it K7 (both
+# dtypes) and K3 and K5 (f32) take wide bodies, K1, K1 fast and K6 their
+# CUDA-core ones.
 MAX_TC_HEAD_DIM = 128
 
 
@@ -626,8 +681,8 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (K6 and K7 up to {MAX_TC_HEAD_DIM}; in f32 K2 up to {MAX_HEAD_DIM}, "
-              f"the others up to {MAX_TC_HEAD_DIM})")
+              f"bytes (K6 up to {MAX_TC_HEAD_DIM}, K7 up to {MAX_HEAD_DIM}; in f32 K2, K3 and "
+              f"K5 up to {MAX_HEAD_DIM}, K1 and K1 fast up to {MAX_TC_HEAD_DIM})")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
@@ -688,7 +743,8 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
 def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
     """Launch K7; ``mma`` None picks the body by ``takes_tensor_cores``: the
     bf16 one (attention_bwd_mma.cu) or in f32 the 3xTF32 one
-    (attention_bwd_tf32.cu); False forces the CUDA-core body."""
+    (attention_bwd_tf32.cu), past C = 128 their wide bodies
+    (attention_bwd_wide_{mma,tf32}.cu); False forces the CUDA-core body."""
     from ..kernels import build
 
     C = q.shape[-1]
@@ -717,9 +773,11 @@ def _launch_bwd(q, k, v, mask, dout, scale: float, mma: Optional[bool] = None):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mma:
-            fn = (lib.lib.prd_rows_attention_bwd_mma if q.dtype == torch.bfloat16
-                  else lib.lib.prd_rows_attention_bwd_tf32x3)
-            code = fn(*pointers, R, N, H, C, w, *strides, stream)
+            body = "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+            if C > MAX_TC_HEAD_DIM:  # attention_bwd_wide_{mma,tf32}.cu
+                body = f"wide_{body}"
+            code = getattr(lib.lib, f"prd_rows_attention_bwd_{body}")(
+                *pointers, R, N, H, C, w, *strides, stream)
         else:
             code = lib.lib.prd_rows_attention_bwd(*pointers, _DTYPE_CODES[q.dtype], R, N, H, C, w,
                                                   *strides, stream)
@@ -738,11 +796,13 @@ def _check_kchunk(q, k, v, mask, name: str = "rows_attention_kchunk_bwd",
                f"K-chunked rows attention takes a multiple of 4 up to {MAX_HEAD_DIM}")
 
 
-def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool] = None):
+def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool] = None,
+                   count: bool = True):
     """K3 (``stats`` False) or K5: out, plus m and log s [R, H, N] f32. The
     body by ``takes_tensor_cores`` where ``mma`` is None: the bf16 one
-    (attention_mma.cu) or in f32 the 3xTF32 one (attention_tf32.cu); False
-    forces the CUDA-core body."""
+    (attention_mma.cu) or in f32 the 3xTF32 one (attention_tf32.cu; past C
+    = 128 attention_kchunk_wide_tf32.cu); False forces the CUDA-core body. ``count``
+    False: a launch inside K8's split route, counted as K8's."""
     from ..kernels import build
 
     name = "rows_attention_kchunk_stats" if stats else "rows_attention_kchunk"
@@ -764,7 +824,8 @@ def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mma:
             fn = (lib.lib.prd_rows_attention_kchunk_mma if q.dtype == torch.bfloat16
-                  else lib.lib.prd_rows_attention_kchunk_tf32x3)
+                  else lib.lib.prd_rows_attention_kchunk_tf32x3 if C <= MAX_TC_HEAD_DIM
+                  else lib.lib.prd_rows_attention_kchunk_wide_tf32x3)
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
                       None if m is None else m.data_ptr(),
                       None if logs is None else logs.data_ptr(), R, N, H, C, w, *strides, stream)
@@ -775,7 +836,8 @@ def _launch_kchunk(q, k, v, mask, scale: float, stats: bool, mma: Optional[bool]
                 _DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream,
             )
     lib.check(code, name)
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
     return (out, m, logs) if stats else out
 
 
@@ -1073,38 +1135,80 @@ def fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -
     return (gated @ wo.to(dt).float().t() + bo.float()).to(dt)
 
 
-# K8's two bodies. fused_gated_mma.cu (tensor cores, bf16 and 3xTF32): C a
-# multiple of 8 up to 128 (the P.V accumulators hold 64 channels a slice),
-# H C up to 512 and D up to 128 (a warp's [16, D] out-projection sum in
-# registers). fused_gated.cu (CUDA cores, C = 4 mod 8): up to four output
-# channels per lane (D <= 128), one head channel per lane in P.V (C <= 32),
-# the out-projection [H C, D] in shared memory (f32, H C <= 128).
-MAX_FUSED_PAIR_DIM, MAX_FUSED_HEAD_DIM, MAX_FUSED_WIDTH = 128, 128, 512
-MAX_FUSED_CORE_HEAD_DIM, MAX_FUSED_CORE_WIDTH = 32, 128
+# K8's routes. The tensor-core body, fused_gated_mma.cu (bf16 and 3xTF32):
+# C a multiple of 8 up to 128 (the P.V accumulators hold 64 channels a
+# slice) with H C up to 512 (the block's gated-heads tile), D up to 512 (the
+# out-projection in slices of 128 columns; past 128 the LN + projection is
+# fused_gated.cu's, in K slices of 128 weight rows). The CUDA-core body,
+# fused_gated.cu: C = 4 mod 8 up to 32 (one head channel a lane in P.V), H C
+# up to 128 and D up to 128 (W_o in shared memory, four output channels a
+# lane). The split route takes every other shape the JAX kernel takes, D up
+# to MAX_FUSED_PAIR_DIM, C a multiple of 4 up to MAX_HEAD_DIM and H C up to
+# MAX_FUSED_WIDTH: fused_gated.cu's projection into the scratch, the K-chunk
+# forward (K3's bodies) over the scratch's heads, then fused_gated.cu's gate
+# and out-projection kernel (counted as K8's one launch).
+MAX_FUSED_PAIR_DIM, MAX_FUSED_WIDTH = 512, 4096
+MAX_FUSED_HEAD_DIM, MAX_FUSED_TC_WIDTH = 128, 512  # the tensor-core body
+MAX_FUSED_CORE_PAIR_DIM, MAX_FUSED_CORE_HEAD_DIM, MAX_FUSED_CORE_WIDTH = 128, 32, 128
 
 
 def fused_gated_takes_tensor_cores(D: int, H: int, C: int) -> bool:
     """Whether K8 runs its tensor-core body (fused_gated_mma.cu, either
     dtype) at pair width D with H heads of width C: C a multiple of 8 up to
-    MAX_FUSED_HEAD_DIM, H C up to MAX_FUSED_WIDTH, D up to
-    MAX_FUSED_PAIR_DIM. Else the CUDA-core body (fused_gated.cu)."""
+    MAX_FUSED_HEAD_DIM, H C up to MAX_FUSED_TC_WIDTH, D up to
+    MAX_FUSED_PAIR_DIM."""
     return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_HEAD_DIM and C % 8 == 0
-            and 0 < H * C <= MAX_FUSED_WIDTH)
+            and 0 < H * C <= MAX_FUSED_TC_WIDTH)
 
 
 def fused_gated_core_fits(D: int, H: int, C: int) -> bool:
     """The CUDA-core body's bound: D up to 128, C a multiple of 4 up to 32,
     H C up to 128."""
-    return (0 < D <= MAX_FUSED_PAIR_DIM and 0 < C <= MAX_FUSED_CORE_HEAD_DIM and C % 4 == 0
+    return (0 < D <= MAX_FUSED_CORE_PAIR_DIM and 0 < C <= MAX_FUSED_CORE_HEAD_DIM and C % 4 == 0
             and 0 < H * C <= MAX_FUSED_CORE_WIDTH)
+
+
+def fused_gated_body(D: int, H: int, C: int) -> Optional[str]:
+    """K8's route at pair width D with H heads of width C: "tensor cores",
+    "cuda cores" or "split" (the JAX kernel's reach past both bodies), None
+    past it."""
+    if fused_gated_takes_tensor_cores(D, H, C):
+        return "tensor cores"
+    if fused_gated_core_fits(D, H, C):
+        return "cuda cores"
+    if 0 < D <= MAX_FUSED_PAIR_DIM and width_fits(C, MAX_HEAD_DIM) and 0 < H * C <= MAX_FUSED_WIDTH:
+        return "split"
+    return None
 
 
 def fused_gated_fits(R: int, N: int, D: int, H: int, C: int, dtype: torch.dtype) -> bool:
     """Whether K8 takes R rows of N positions of width D in ``dtype`` with H
-    heads of width C: the tensor-core body's bound, else the CUDA-core
-    body's; one block per (row, 32 queries) in grid.x."""
-    return ((fused_gated_takes_tensor_cores(D, H, C) or fused_gated_core_fits(D, H, C))
-            and R > 0 and N > 0 and -(-N // 32) * R <= MAX_BLOCKS)
+    heads of width C: a route's bound (``fused_gated_body``); one block per
+    (row, 32 queries) in grid.x, and on the split route the K-chunk
+    forward's grid."""
+    body = fused_gated_body(D, H, C)
+    return (body is not None and R > 0 and N > 0 and -(-N // 32) * R <= MAX_BLOCKS
+            and (body != "split" or grid_fits(R, N, H)))
+
+
+def _fused_gated_split(lib, x4, maskf, w_in, bg_f, wo_t, bo_f, qkv, gate, out, H: int, C: int):
+    """The split route: the projection into the scratch, the K-chunk forward
+    over each head (q is scaled already), the gate and out-projection."""
+    R1, R2, N, D = x4.shape
+    R, HC, dt = R1 * R2, H * C, x4.dtype
+    with torch.cuda.device(x4.device):
+        stream = stream_of(x4)
+        code = lib.lib.prd_fused_gated_project(
+            x4.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(),
+            _DTYPE_CODES[dt], R1, R2, N, D, HC, 1.0 / math.sqrt(C), *x4.stride()[:3], stream)
+    lib.check(code, "fused_gated_rows_attention")
+    q, k, v = (t.view(R, N, H, C) for t in qkv)
+    o = _launch_kchunk(q, k, v, maskf, 1.0, stats=False, count=False)
+    with torch.cuda.device(x4.device):
+        code = lib.lib.prd_fused_gated_out(o.data_ptr(), gate.data_ptr(), wo_t.data_ptr(),
+                                           bo_f.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],
+                                           R * N, D, HC, stream_of(x4))
+    lib.check(code, "fused_gated_rows_attention")
 
 
 def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> torch.Tensor:
@@ -1122,11 +1226,9 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     R = math.prod(x.shape[:-2])
     if not (H * C == HC and fused_gated_fits(R, N, D, H, C, x.dtype)):
         raise ValueError(f"the fused gated attention kernel takes D up to {MAX_FUSED_PAIR_DIM}, "
-                         f"head width a multiple of 8 up to {MAX_FUSED_HEAD_DIM} with H*C up to "
-                         f"{MAX_FUSED_WIDTH} (or a multiple of 4 up to "
-                         f"{MAX_FUSED_CORE_HEAD_DIM} with H*C up to {MAX_FUSED_CORE_WIDTH}) and "
-                         f"ceil(N / 32) rows up to {MAX_BLOCKS}; got {R} rows, N={N}, D={D}, "
-                         f"H={H}, H*C={HC}")
+                         f"head width a multiple of 4 up to {MAX_HEAD_DIM} with H*C up to "
+                         f"{MAX_FUSED_WIDTH}, and ceil(N / 32) rows up to {MAX_BLOCKS}; got {R} "
+                         f"rows, N={N}, D={D}, H={H}, H*C={HC}")
     for name, w, shape in (("wq", wq, (HC, D)), ("wk", wk, (HC, D)), ("wv", wv, (HC, D)),
                            ("wg", wg, (HC, D)), ("bg", bg, (HC,)), ("wo", wo, (D, HC)),
                            ("bo", bo, (D,))):
@@ -1150,16 +1252,19 @@ def _launch_fused_gated(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -> 
     qkv = torch.empty((3, R, N, HC), dtype=dt, device=x.device)  # scratch: q (scaled), k, v
     gate = torch.empty((R, N, HC), dtype=torch.float32, device=x.device)
     out = torch.empty(x4.shape, dtype=dt, device=x.device)
-    entry = (lib.lib.prd_fused_gated_mma if fused_gated_takes_tensor_cores(D, H, C)
-             else lib.lib.prd_fused_gated)
-    with torch.cuda.device(x.device):
-        code = entry(
-            x4.data_ptr(), maskf.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(), wo_t.data_ptr(),
-            bo_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[dt], R1, R2, N, D, H, C, 1.0 / math.sqrt(C),
-            *x4.stride()[:3], stream_of(x),
-        )
-    lib.check(code, "fused_gated_rows_attention")
+    body = fused_gated_body(D, H, C)
+    if body == "split":
+        _fused_gated_split(lib, x4, maskf, w_in, bg_f, wo_t, bo_f, qkv, gate, out, H, C)
+    else:
+        entry = lib.lib.prd_fused_gated_mma if body == "tensor cores" else lib.lib.prd_fused_gated
+        with torch.cuda.device(x.device):
+            code = entry(
+                x4.data_ptr(), maskf.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(),
+                wo_t.data_ptr(), bo_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(), out.data_ptr(),
+                _DTYPE_CODES[dt], R1, R2, N, D, H, C, 1.0 / math.sqrt(C),
+                *x4.stride()[:3], stream_of(x),
+            )
+        lib.check(code, "fused_gated_rows_attention")
     LAUNCHES["fused_gated_rows_attention"] += 1
     return out.reshape(x.shape)
 

@@ -982,13 +982,15 @@ def test_fused_wrappers_reject(device):
         T.transition(torch.zeros(3, 1, device=device), torch.zeros(1, 1, device=device).expand(hd, 1),
                      torch.zeros(hd, device=device),
                      torch.zeros(1, 1, device=device).expand(128, hd))
-    for H, C in ((2, 136), (5, 128), (11, 12)):  # C past 128, H C past 512, C = 4 mod 8 past 128
-        ws = [torch.zeros(H * C, 16, device=device) for _ in range(4)]
+    # K8 past the JAX kernel's reach: C past 1024, H C past 4096, C not a
+    # multiple of 4, D past 512
+    for D, H, C in ((16, 1, 1028), (16, 1025, 4), (16, 2, 34), (513, 4, 16)):
+        ws = [torch.zeros(H * C, D, device=device) for _ in range(4)]
         with pytest.raises(ValueError):
-            A.fused_gated(torch.zeros(1, 4, 4, 16, device=device),
+            A.fused_gated(torch.zeros(1, 4, 4, D, device=device),
                           torch.ones(1, 4, 4, device=device), *ws,
-                          torch.zeros(H * C, device=device), torch.zeros(16, H * C, device=device),
-                          torch.zeros(16, device=device), H)
+                          torch.zeros(H * C, device=device), torch.zeros(D, H * C, device=device),
+                          torch.zeros(D, device=device), H)
     with pytest.raises(TypeError):
         O.outer(torch.zeros(1, 4, 8, device=device).half(), *_linear(8, 16, device, 0))
 
@@ -1399,10 +1401,12 @@ def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
 @pytest.mark.parametrize("name", ["rows_attention_bwd", "rows_attention_kchunk_bwd"])
 @pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
 def test_wide_head_backwards_match_plain(device, dtype, name, N, C):
-    """K7 and K6 past the tensor-core bodies' 128: their CUDA-core bodies
-    (CPL 8 and 16 with two staged tiles, CPL 32 with one buffer shared by K
-    and V) against the plain versions, fully masked rows included."""
-    assert not A.takes_tensor_cores(name, dtype, C)
+    """K7 and K6 past the narrow tensor-core bodies' 128 against the plain
+    versions, fully masked rows included: K7 on its wide tensor-core body at
+    multiples of 8 (256, 1024), K6 everywhere and K7 at C = 4 mod 8 on the
+    CUDA-core bodies (CPL 8 and 16 with two staged tiles, CPL 32 with one
+    buffer shared by K and V)."""
+    assert A.takes_tensor_cores(name, dtype, C) is (name == "rows_attention_bwd" and C % 8 == 0)
     q, k, v, mask, _ = _inputs(4, N, 2, C, dtype, device, seed=21, masked_rows=1)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to(device, dtype)
     before = A.LAUNCHES[name]
@@ -1415,9 +1419,10 @@ def test_wide_head_backwards_match_plain(device, dtype, name, N, C):
 
 @pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
 def test_wide_head_kchunk_forward_f32_matches_plain(device, N, C):
-    """K3 and K5 in f32 past 128 on the CUDA-core body (V staged into K's
-    buffer past 512): against the plain version, K5's output K3's."""
-    assert not A.takes_tensor_cores("rows_attention_kchunk", torch.float32, C)
+    """K3 and K5 in f32 past 128: the wide 3xTF32 body at multiples of 8
+    (256, 1024), the CUDA-core body at C = 4 mod 8 (V staged into K's buffer
+    past 512): against the plain version, K5's output K3's."""
+    assert A.takes_tensor_cores("rows_attention_kchunk", torch.float32, C) is (C % 8 == 0)
     q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=23, masked_rows=1)
     out = A.rows_attention_kchunk(q, k, v, mask, C ** -0.5)
     out_s, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, C ** -0.5)
@@ -1466,3 +1471,159 @@ def test_outer_wide_widths_match_plain(device, dtype, B, N, S, D):
     torch.cuda.synchronize()
     assert got.shape == (B, N, N, D) and got.dtype == dtype
     assert _rel(got, O.outer_reference(x, w, b)) <= FUSED_TOL[dtype]
+
+
+# the wide tensor-core bodies of K3/K5 (f32) and K7 (both dtypes) ------------
+
+
+def _kernel_names(fn, calls=3):
+    """fn's last result and the CUDA kernels ``calls`` calls of it ran, by
+    the profiler. A spin on the card runs to its end in the window before
+    the calls, and the window stays open 0.1 s after them: the profiler has
+    been seen to drop the first kernels of a window (a single call's
+    kernels, all of them), and kernels near its end."""
+    import time
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(200_000_000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            got = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    return got, [e.key for e in prof.key_averages() if "kernel" in e.key]
+
+
+# the tensor-core kernel each wide body must run, and the CUDA-core one it
+# replaces, which must not run
+WIDE_KERNELS = {
+    ("rows_attention_kchunk", torch.float32): ("rows_attention_kchunk_wide_tf32x3_kernel",
+                                               "rows_attention_kchunk_kernel"),
+    ("rows_attention_kchunk_stats", torch.float32): ("rows_attention_kchunk_wide_tf32x3_kernel",
+                                                     "rows_attention_kchunk_kernel"),
+    ("rows_attention_bwd", torch.float32): ("rows_attention_bwd_dkdv_wide_tf32x3_kernel",
+                                            "rows_attention_bwd_wide_dq_kernel"),
+    ("rows_attention_bwd", torch.bfloat16): ("rows_attention_bwd_dkdv_wide_mma_kernel",
+                                             "rows_attention_bwd_wide_dq_kernel"),
+}
+
+
+@pytest.mark.parametrize("name,dtype", list(WIDE_KERNELS), ids=["k3_f32", "k5_f32", "k7_f32",
+                                                                 "k7_bf16"])
+@pytest.mark.parametrize("N,C", [(45, 136), (100, 136), (192, 256), (45, 256), (33, 1024),
+                                 (70, 1024)])
+def test_wide_tensor_core_bodies_match_plain(device, name, dtype, N, C):
+    """K3 and K5 in f32 and K7 in both dtypes past C = 128 on their wide
+    tensor-core bodies, ragged N and a fully masked row included, against
+    the plain versions (the narrow bodies' gates: K3/K5 f32 1e-5, 1e-4 at C
+    >= 512, m and log s 1e-5; K7 relative to the largest gradient, f32
+    1e-5, bf16 2e-2); the profiler shows the tensor-core kernel and not the
+    CUDA-core one it replaces."""
+    assert A.takes_tensor_cores(name, dtype, C)
+    want_kernel, core_kernel = WIDE_KERNELS[(name, dtype)]
+    q, k, v, mask, _ = _inputs(3, N, 2, C, dtype, device, seed=80 + C, masked_rows=1)
+    scale = C ** -0.5
+    before = A.LAUNCHES[name] + 2  # the profiled calls: two before the one checked
+    if name == "rows_attention_bwd":
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(81)).to(device, dtype)
+        got, names = _kernel_names(lambda: A.rows_attention_bwd(q, k, v, mask, g, scale))
+        _assert_grads_close(got, A.rows_attention_bwd_reference(q, k, v, mask, g, scale), dtype)
+        assert torch.count_nonzero(got[0][:1]) == 0 and torch.count_nonzero(got[1][:1]) == 0
+        assert any(want_kernel.replace("dkdv", "dq") in n for n in names), names
+    else:
+        stats = name == "rows_attention_kchunk_stats"
+        fn = A.rows_attention_kchunk_stats if stats else A.rows_attention_kchunk
+        got, names = _kernel_names(lambda: fn(q, k, v, mask, scale))
+        ref = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=stats)
+        tol = _tol(dtype, C)
+        for a, b, t in zip(got if stats else (got,), ref if stats else (ref,), (tol, 1e-5, 1e-5)):
+            torch.testing.assert_close(a, b, atol=t, rtol=t)
+    assert A.LAUNCHES[name] == before + 1
+    assert any(want_kernel in n for n in names), names
+    assert not any(core_kernel in n for n in names), names
+
+
+@pytest.mark.parametrize("C", [136, 1024])
+def test_wide_f32_kchunk_stats_output_is_k3s(device, C):
+    """K5's output on the wide body is K3's bit for bit, and both bodies
+    (wide tensor-core and CUDA-core, ``mma=False``) stay callable."""
+    q, k, v, mask, _ = _inputs(2, 50, 1, C, torch.float32, device, seed=90, masked_rows=1)
+    out = A.rows_attention_kchunk(q, k, v, mask, 0.1)
+    out_s, _, _ = A.rows_attention_kchunk_stats(q, k, v, mask, 0.1)
+    torch.testing.assert_close(out_s, out, atol=0, rtol=0)
+    core = A.attention_body("rows_attention_kchunk", q, k, v, mask, None, 0.1, mma=False)
+    tol = _tol(torch.float32, C)
+    torch.testing.assert_close(core, out, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_k7_body_strided_and_cuda_core_callable(device, dtype):
+    """K7's wide body in the 'ending' layout (q, k, v and dO through
+    strides) gives the bits it gives on contiguous copies; its CUDA-core body
+    (``mma=False``) stays callable and agrees within the gate."""
+    N, H, C = 40, 2, 256
+    q, k, v, mask, _ = _inputs(N, N, H, C, dtype, device, seed=91, masked_rows=2)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(92)).to(device, dtype)
+    qt, kt, vt, gt = (x.transpose(0, 1) for x in (q, k, v, g))
+    assert not kt.is_contiguous()
+    got = A.rows_attention_bwd(qt, kt, vt, mask, gt, 0.1)
+    dense = A.rows_attention_bwd(*(x.contiguous() for x in (qt, kt, vt)), mask, gt.contiguous(),
+                                 0.1)
+    for a, b in zip(got, dense):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    core = A.attention_body("rows_attention_bwd", qt, kt, vt, mask, None, 0.1, mma=False, dout=gt)
+    _assert_grads_close(got, core, dtype)
+
+
+@pytest.mark.parametrize("entry,name,dtype,C", [
+    ("prd_rows_attention_kchunk_wide_tf32x3", "rows_attention_kchunk", torch.float32, 256),
+    ("prd_rows_attention_bwd_wide_tf32x3", "rows_attention_bwd", torch.float32, 256),
+    ("prd_rows_attention_bwd_wide_mma", "rows_attention_bwd", torch.bfloat16, 1024)])
+def test_wide_bodies_raise_and_do_not_fall_back(device, monkeypatch, entry, name, dtype, C):
+    """A failed launch of a wide tensor-core body raises: neither the
+    CUDA-core body nor the plain version runs in its place, and no launch is
+    counted."""
+    from protein_redesign_tpu_torch.kernels import build
+
+    lib = build()
+    calls = []
+    monkeypatch.setattr(lib.lib, entry, lambda *a: calls.append("tc") or 1)
+    core = "prd_rows_attention_bwd" if name == "rows_attention_bwd" else "prd_rows_attention_kchunk"
+    monkeypatch.setattr(lib.lib, core, lambda *a: calls.append("core") or 0)
+    q, k, v, mask, _ = _inputs(2, 20, 1, C, dtype, device, seed=93)
+    before = A.LAUNCHES[name]
+    with pytest.raises(RuntimeError, match=name):
+        if name == "rows_attention_bwd":
+            A.rows_attention_bwd(q, k, v, mask, q, 0.1)
+        else:
+            A.rows_attention_kchunk(q, k, v, mask, 0.1)
+    assert calls == ["tc"] and A.LAUNCHES[name] == before
+
+
+@DTYPES
+@pytest.mark.parametrize("N,D,H,C", [(20, 512, 4, 16), (24, 192, 4, 16), (17, 64, 1, 1024),
+                                     (12, 64, 1024, 4), (20, 64, 2, 36), (16, 128, 8, 128),
+                                     (20, 136, 4, 12), (33, 64, 1, 256)])
+def test_fused_gated_new_edges_match_plain(device, dtype, N, D, H, C):
+    """K8 at the JAX kernel's edges: D = 512 and 192 on the tensor-core body
+    (out-projection slices past 128, the K-sliced projection), C = 1024, H C
+    = 4096, C = 36, H C = 1024, D = 136 at C = 4 mod 8 and C = 256 on the
+    split route, one launch each, fully masked rows included, within the
+    fused gates of the plain version."""
+    body = A.fused_gated_body(D, H, C)
+    assert body == ("tensor cores" if D in (512, 192) else "split")
+    pair = _randn(2, N, N, D, seed=17, device=device).to(dtype)
+    mask = _pair_mask(2, N, device, masked_rows=3)
+    ws = [_randn(H * C, D, seed=18 + i, scale=D ** -0.5, device=device) for i in range(4)]
+    ws += [_randn(H * C, seed=22, scale=0.3, device=device), *_linear(D, H * C, device, 23)]
+    before = dict(A.LAUNCHES)
+    got = A.fused_gated(pair, mask, *ws, H)
+    torch.cuda.synchronize()
+    # one K8 launch; the split route's K-chunk forward counts as K8's
+    assert A.LAUNCHES == {**before, "fused_gated_rows_attention":
+                          before["fused_gated_rows_attention"] + 1}
+    want = A.fused_gated_reference(pair, mask, *ws, H)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= FUSED_TOL[dtype]
+    assert _rel(got[0, :3], want[0, :3]) <= FUSED_TOL[dtype]

@@ -27,7 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
-from test_torch_fused import FUSED_CFG, _count_fused_calls  # noqa: E402
+from test_torch_fused import FUSED_CFG, _count_fused_calls, _gated_case, _jax_gated, _t  # noqa: E402
 from test_torch_net import make_batch, perturbed_params  # noqa: E402
 
 import protein_redesign_tpu.ops.pallas_attention as pa  # noqa: E402
@@ -87,6 +87,15 @@ def _body(name, dtype, C):
       for C in (8, 16, 64, 128)],
     ("rows_attention_kchunk", F32, 12, "cuda cores"),
     ("rows_attention_kchunk_stats", F32, 20, "cuda cores"),
+    # past 128: K3 and K5 in f32 and K7 in both dtypes on their wide
+    # tensor-core bodies (attention_tf32.cuh, attention_bwd_wide.cuh), K6 on
+    # its CUDA-core body, C = 4 mod 8 on the CUDA cores
+    *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats",
+                                            "rows_attention_bwd") for C in (256, 1024)],
+    *[("rows_attention_bwd", BF16, C, "bf16 mma") for C in (256, 1024)],
+    *[("rows_attention_kchunk_bwd", dtype, C, "cuda cores") for dtype in (BF16, F32)
+      for C in (256, 1024)],
+    *[(name, F32, 132, "cuda cores") for name in ("rows_attention_kchunk", "rows_attention_bwd")],
     # K6: the bf16 tensor cores and 3xTF32 at C a multiple of 8, else the CUDA cores
     *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
       for dtype in (BF16, F32) for C in (8, 16, 64, 128)],
@@ -177,12 +186,18 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 1028, F32), False),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 128, BF16), True),
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1176, BF16), False),
-    # K8: D <= 128; the tensor-core body C a multiple of 8 up to 128 with
-    # H C <= 512, the CUDA-core body C = 4 mod 8 up to 32 with H C <= 128
+    # K8: the JAX kernel's reach, D <= 512, C a multiple of 4 up to 1024,
+    # H C <= 4096 (the tensor-core body, the CUDA-core body or the split route)
     (A.fused_gated_fits, (4, 16, 128, 4, 32, BF16), True),
-    (A.fused_gated_fits, (4, 16, 132, 4, 16, BF16), False),
-    (A.fused_gated_fits, (4, 16, 64, 2, 36, BF16), False),
+    (A.fused_gated_fits, (4, 16, 512, 4, 16, BF16), True),
+    (A.fused_gated_fits, (4, 16, 64, 2, 36, BF16), True),
     (A.fused_gated_fits, (4, 16, 64, 5, 32, BF16), True),
+    (A.fused_gated_fits, (4, 16, 513, 4, 16, BF16), False),
+    (A.fused_gated_fits, (4, 16, 64, 1, 1024, F32), True),
+    (A.fused_gated_fits, (4, 16, 64, 1, 1028, F32), False),
+    (A.fused_gated_fits, (4, 16, 64, 1024, 4, BF16), True),
+    (A.fused_gated_fits, (4, 16, 64, 1025, 4, BF16), False),
+    (A.fused_gated_fits, (4, 16, 64, 2, 34, BF16), False),
     # K9: any D up to 512
     (M.trimul_fits, (2, 16, 512, BF16), True),
     (M.trimul_fits, (2, 16, 513, BF16), False),
@@ -207,44 +222,51 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (O.outer_takes_tensor_cores, (512, 64, torch.float16), False),
     # K5 on the bf16 tensor cores: K3's shared memory
     (A.kchunk_fits, ("rows_attention_kchunk_stats", 2, 16, 4, 1168, BF16), True),
-    # K7: the tensor-core body in bf16 at multiples of 8 up to 128, the
-    # CUDA-core body at multiples of 4 (and in f32)
+    # K7: the tensor-core bodies in bf16 at multiples of 8 up to 1024 (the
+    # wide body past 128), the CUDA-core body at C = 4 mod 8 (and in f32)
     (A.takes_mma, ("rows_attention_bwd", BF16, 128), True),
-    (A.takes_mma, ("rows_attention_bwd", BF16, 136), False),
+    (A.takes_mma, ("rows_attention_bwd", BF16, 136), True),
+    (A.takes_mma, ("rows_attention_bwd", BF16, 132), False),
+    (A.takes_mma, ("rows_attention_bwd", BF16, 1032), False),
     (A.bwd_fits, (2, 16, 4, 124, BF16), True),
     (A.bwd_fits, (2, 16, 4, 128, F32), True),
     (A.bwd_fits, (2, 16, 4, 1028, F32), False),
-    # K3 and K5 in f32: 3xTF32 at multiples of 8 up to 128
+    # K3 and K5 in f32: 3xTF32 at multiples of 8 up to 1024 (the wide body
+    # past 128)
     (A.takes_tf32x3, ("rows_attention_kchunk", F32, 128), True),
-    (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), True),
+    (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 1024), True),
+    (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 1032), False),
     (A.takes_tf32x3, ("rows_attention_kchunk", F32, 124), False),
     (A.takes_tf32x3, ("rows_attention_kchunk", BF16, 16), False),
     (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 12), False),
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
     # K6 and K7 (the f32 body too) at the edges: the tensor-core bodies at
-    # multiples of 8 up to 128, the CUDA-core ones at multiples of 4 up to
-    # 1024
+    # multiples of 8 up to 128 (K7 up to 1024), the CUDA-core ones at
+    # multiples of 4 up to 1024
     *[(fn, (name, dtype, C), ok)
       for name in ("rows_attention_kchunk_bwd", "rows_attention_bwd")
-      for C, bf16_ok, f32_ok in ((4, False, False), (8, True, True), (124, False, False),
-                                 (128, True, True), (136, False, False))
-      for fn, dtype, ok in ((A.takes_mma, BF16, bf16_ok), (A.takes_mma, F32, False),
-                            (A.takes_tf32x3, F32, f32_ok), (A.takes_tf32x3, BF16, False))],
+      for C, tc in ((4, False), (8, True), (124, False), (128, True), (132, False),
+                    (136, name == "rows_attention_bwd"), (1024, name == "rows_attention_bwd"))
+      for fn, dtype, ok in ((A.takes_mma, BF16, tc), (A.takes_mma, F32, False),
+                            (A.takes_tf32x3, F32, tc), (A.takes_tf32x3, BF16, False))],
     *[(A.kchunk_fits, ("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype), C <= 1024)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
     *[(A.bwd_fits, (2, 16, 4, C, dtype), C <= 1024)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
-    # K8's tensor-core body: C a multiple of 8 up to 128 with H C <= 512 (the
-    # h64 layouts), past them the CUDA-core body's C = 4 mod 8 up to 32
+    # K8: the tensor-core body at C a multiple of 8 up to 128 with H C <= 512
+    # (the h64 layouts) and D up to 512, the CUDA-core body at C = 4 mod 8 up
+    # to 32 with H C <= 128 and D <= 128, the split route past them
     *[(A.fused_gated_fits, (4, 16, D, H, C, dtype), ok)
       for D, H, C, ok in ((64, 1, 64, True), (128, 4, 64, True), (128, 4, 128, True),
-                          (64, 1, 136, False), (64, 5, 128, False), (64, 65, 8, False),
-                          (64, 9, 12, True), (64, 11, 12, False), (20, 4, 16, True),
-                          (136, 1, 64, False))
+                          (64, 1, 136, True), (64, 5, 128, True), (64, 65, 8, True),
+                          (64, 9, 12, True), (64, 11, 12, True), (20, 4, 16, True),
+                          (136, 1, 64, True))
       for dtype in (BF16, F32)],
     (A.fused_gated_takes_tensor_cores, (64, 4, 16), True),
     (A.fused_gated_takes_tensor_cores, (64, 9, 12), False),
     (A.fused_gated_takes_tensor_cores, (64, 4, 128), True),
+
     # K9: B N^2 within one projection block per 64 positions
     (M.trimul_fits, (1, 300_000, 64, BF16), True),
     (M.trimul_fits, (1, 400_000, 64, BF16), False),
@@ -276,6 +298,21 @@ def test_bound_predicate_edges(fits, args, ok):
     assert fits(*args) is ok
 
 
+@pytest.mark.parametrize("D,H,C,body", [
+    (64, 4, 16, "tensor cores"), (192, 4, 16, "tensor cores"), (512, 1, 128, "tensor cores"),
+    (64, 5, 128, "split"), (64, 1, 136, "split"), (64, 2, 36, "split"), (136, 4, 12, "split"),
+    (64, 1, 1024, "split"), (512, 1024, 4, "split"), (64, 9, 12, "cuda cores"),
+    (128, 2, 28, "cuda cores"), (513, 4, 16, None), (64, 1, 1028, None), (64, 1025, 4, None),
+])
+def test_k8_route_by_shape(D, H, C, body):
+    """K8's route: the tensor-core body (C a multiple of 8 up to 128, H C up
+    to 512, D up to 512), the CUDA-core body (C = 4 mod 8 up to 32, H C up
+    to 128, D up to 128), the split route over the rest of the JAX kernel's
+    reach, none past it."""
+    assert A.fused_gated_body(D, H, C) == body
+    assert A.fused_gated_fits(4, 16, D, H, C, BF16) is (body is not None)
+
+
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("D", [1, 36, 128, 136, 512, 513])
 def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
@@ -293,17 +330,20 @@ def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
 @pytest.mark.parametrize("C", [128, 132, 256, 1024, 1028])
 def test_k3_k5_k6_k7_take_head_widths_up_to_1024(C, dtype):
     """K6 and K7 in both dtypes, and K3 and K5 in f32, take every multiple
-    of 4 up to MAX_HEAD_DIM on their CUDA-core bodies, as K1 and K2 do; the
-    tensor-core bodies keep 128."""
+    of 4 up to MAX_HEAD_DIM, as K1 and K2 do: K6 on its tensor-core body up
+    to 128 and its CUDA-core body past it; K7, K3 and K5 on their
+    tensor-core bodies at every multiple of 8 up to 1024 (the wide bodies
+    past 128) and on the CUDA-core bodies at C = 4 mod 8."""
     ok = C <= A.MAX_HEAD_DIM
+    wide_ok = ok and C % 8 == 0
     assert A.bwd_fits(2, 16, 4, C, dtype) is ok
     assert A.kchunk_fits("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype) is ok
-    for name in ("rows_attention_bwd", "rows_attention_kchunk_bwd"):
-        assert A.takes_tensor_cores(name, dtype, C) is (C == 128)
+    assert A.takes_tensor_cores("rows_attention_bwd", dtype, C) is wide_ok
+    assert A.takes_tensor_cores("rows_attention_kchunk_bwd", dtype, C) is (C == 128)
     if dtype == F32:
         for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats"):
             assert A.kchunk_fits(name, 2, 16, 4, C, dtype) is ok
-            assert _body(name, dtype, C) == ("3xtf32" if C == 128 else "cuda cores")
+            assert _body(name, dtype, C) == ("3xtf32" if wide_ok else "cuda cores")
 
 
 @pytest.mark.parametrize("D,Hd,Dout,dtype,layout", [
@@ -437,6 +477,48 @@ def test_cpu_tensors_take_the_plain_version_at_any_width(C, grad):
         out.sum().backward()
         assert torch.isfinite(q.grad).all()
     assert not any(A.LAUNCHES.values())
+
+
+def test_fused_gated_at_pair_width_192_reaches_the_launcher(as_if_on_cuda, monkeypatch):
+    """K8 at pair width 192 (past the old bound of 128) on CUDA tensors
+    reaches its launcher, which the route's bound admits (the tensor-core
+    body), and takes no plain version; the launcher's stand-in returns the
+    plain version's output."""
+    launched = []
+
+    def launch(x, mask, *ws):
+        D, (HC, H) = x.shape[-1], (ws[0].shape[0], ws[-1])
+        R, N = x.shape[0] * x.shape[1], x.shape[2]
+        assert A.fused_gated_fits(R, N, D, H, HC // H, x.dtype)
+        launched.append((D, H, HC // H, A.fused_gated_body(D, H, HC // H)))
+        return A.fused_gated_reference(x, mask, *ws)
+
+    monkeypatch.setattr(A, "_launch_fused_gated", launch)
+    x, mask, ws, H = _gated_case(seed=3, N=6, D=192, H=4, C=16)
+    got = A.fused_gated_rows_attention(*_t(x, mask), *_t(*ws), H)
+    assert launched == [(192, 4, 16, "tensor cores")]
+    want = A.fused_gated_reference(*_t(x, mask), *_t(*ws), H)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("D,H,C", [(192, 4, 16), (64, 1, 256), (64, 4, 36), (128, 8, 128)],
+                         ids=["d192", "c256", "c36", "hc1024"])
+def test_fused_gated_plain_matches_jax_past_the_old_bound(D, H, C):
+    """K8's plain version at the widths the JAX kernel takes past the old
+    bound (pair width 192; one head of 256; C = 36, not a multiple of 8, past
+    32; H C = 1024) against the JAX ``_fused_gated_impl`` (Pallas in
+    interpret mode), f32, 1e-5, N = 8 with fully masked rows."""
+    x, mask2d, ws, _ = _gated_case(seed=11, N=8, D=D, H=H, C=C)
+    got = A.fused_gated(*_t(x, mask2d), *_t(*ws), H).numpy()
+    pallas = _jax_gated(x, mask2d, ws, H, lambda *a: pa._fused_gated_impl(*a, True))
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_configuration_at_pair_width_192_matches_jax(monkeypatch):
+    """Pair width 192 (past the old bound of K8, 128) with the four
+    switches, against the JAX kernels in interpret mode."""
+    assert A.fused_gated_body(192, FUSED_CFG.num_heads, FUSED_CFG.head_dim) == "tensor cores"
+    _fused_forward_matches_jax(monkeypatch, 192)
 
 
 def test_fused_configuration_at_pair_width_72_matches_jax(monkeypatch):
