@@ -627,7 +627,10 @@ def phase_build() -> None:
     if lib.build_seconds is None:
         print(f"[build] reused {lib.path.name} (sources unchanged)")
     else:
-        print(f"[build] nvcc built {lib.path.name} in {lib.build_seconds:.1f} s")
+        last = sorted(lib.source_seconds.items(), key=lambda kv: -kv[1])[:3]
+        print(f"[build] nvcc built {lib.path.name} in {lib.build_seconds:.1f} s, "
+              f"{len(lib.source_seconds)} sources in parallel; the last to end: "
+              + ", ".join(f"{src} at {s:.1f} s" for src, s in last))
     spills = [line.strip() for line in lib.build_log.splitlines()
               if "spill" in line and not line.strip().startswith("0 bytes stack")]
     if spills:
@@ -3875,19 +3878,33 @@ def _widths_fused() -> None:
 
 
 # The wide tensor-core bodies past head width 128: the kernel each
-# must show on the profiler, and the CUDA-core kernel it replaced, which
-# must not run; K6 and K1 in f32 keep their CUDA-core bodies.
+# must show on the profiler (K6 and K7: their dk/dv kernel, and their dq
+# kernel by the same name), and the CUDA-core kernels they replaced, which
+# must not run (matched as substrings of the profiler's names: none is part
+# of a wide kernel's name).
 WIDE_TC_KERNELS = {
     ("rows_attention_kchunk", torch.float32): "rows_attention_kchunk_wide_tf32x3_kernel",
     ("rows_attention_kchunk_stats", torch.float32): "rows_attention_kchunk_wide_tf32x3_kernel",
     ("rows_attention_bwd", torch.float32): "rows_attention_bwd_dkdv_wide_tf32x3_kernel",
     ("rows_attention_bwd", torch.bfloat16): "rows_attention_bwd_dkdv_wide_mma_kernel",
+    ("rows_attention", torch.float32): "rows_attention_wide_tf32x3_kernel",
+    ("rows_attention_fast", torch.float32): "rows_attention_fast_wide_tf32x3_kernel",
+    ("rows_attention_kchunk_bwd", torch.float32): "rows_attention_kchunk_bwd_dkdv_wide_tf32x3_kernel",
+    ("rows_attention_kchunk_bwd", torch.bfloat16): "rows_attention_kchunk_bwd_dkdv_wide_mma_kernel",
 }
 WIDE_CORE_KERNELS = ("rows_attention_kchunk_kernel", "rows_attention_bwd_wide_dq_kernel",
-                     "rows_attention_bwd_wide_dkdv_kernel")
+                     "rows_attention_bwd_wide_dkdv_kernel", "rows_attention_kernel",
+                     "rows_attention_fast_kernel", "rows_attention_kchunk_dq_kernel",
+                     "rows_attention_kchunk_dkdv_kernel")
 # the paper-width rows the wide bodies must leave alone (PERF.md §6, on the
-# device): K7 bf16 at 192 (R = 384, H = 4, C = 16), K3 f32 at 1024 (R = 1024)
-PAPER_ATTENTION_MS = {("rows_attention_bwd", 192): 0.2126, ("rows_attention_kchunk", 1024): 7.990}
+# device, H = 4, C = 16, R = 2N up to 384 and R = N at 1024): K7 bf16 at
+# 192, K3 f32 at 1024, K1 f32 at 192, K1 fast f32 at 384, K6 f32 at 1024
+PAPER_ATTENTION_MS = {("rows_attention_bwd", 192, torch.bfloat16): 0.2126,
+                      ("rows_attention_kchunk", 1024, torch.float32): 7.990,
+                      ("rows_attention", 192, torch.float32): 0.1316,
+                      ("rows_attention_fast", 384, torch.float32): 2.711,
+                      ("rows_attention_kchunk_bwd", 1024, torch.float32): 28.71}
+PAPER_VALID = {192: 147, 384: 360, 1024: 997}
 
 
 # The wide bodies' kernel names, read by torch.profiler in a fresh process:
@@ -3900,13 +3917,19 @@ sys.path.insert(0, sys.argv[1])
 from protein_redesign_tpu_torch.ops import attention as A
 C, out = int(sys.argv[2]), {}
 for name, dt in (("rows_attention_kchunk", "float32"), ("rows_attention_kchunk_stats", "float32"),
-                 ("rows_attention_bwd", "float32"), ("rows_attention_bwd", "bfloat16")):
+                 ("rows_attention_bwd", "float32"), ("rows_attention_bwd", "bfloat16"),
+                 ("rows_attention", "float32"), ("rows_attention_fast", "float32"),
+                 ("rows_attention_kchunk_bwd", "float32"),
+                 ("rows_attention_kchunk_bwd", "bfloat16")):
     g = torch.Generator("cuda").manual_seed(0)
     q, k, v, dout = (torch.randn(4, 64, 1, C, generator=g, device="cuda").to(getattr(torch, dt))
                      for _ in range(4))
     mask = torch.ones(4, 64, device="cuda")
     if name == "rows_attention_bwd":
         fn = lambda: A.rows_attention_bwd(q, k, v, mask, dout, 0.1)
+    elif name == "rows_attention_kchunk_bwd":
+        o, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, 0.1, stats=True)
+        fn = lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, dout, o, m, logs, 0.1)
     else:
         fn = lambda: getattr(A, name)(q, k, v, mask, 0.1)
     fn()
@@ -3922,9 +3945,9 @@ print(json.dumps(out))
 
 
 def _wide_kernel_names(C: int) -> dict:
-    """{(name, dtype): the CUDA kernels three calls ran} for K3, K5 (f32) and
-    K7 (both dtypes) at head width C, from a fresh process (the library is
-    built already)."""
+    """{(name, dtype): the CUDA kernels three calls ran} for K1, K1 fast, K3,
+    K5 (f32), K6 and K7 (both dtypes) at head width C, from a fresh process
+    (the library is built already)."""
     proc = subprocess.run([sys.executable, "-c", _WIDE_NAMES, str(REPO), str(C)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -3936,12 +3959,11 @@ def _wide_kernel_names(C: int) -> dict:
 def _widths_attention() -> None:
     """Triangle attention at head width 256 (R = 384 rows at bucket 192, one
     head, 147 nodes valid) against the plain versions, with SDPA's time and
-    the bound: K7 in both dtypes and K3 and K5 in f32 on their wide
-    tensor-core bodies (the profiler shows which kernel ran), each beside
-    its CUDA-core body; K6, and K1 and K1 fast in f32, on their CUDA-core
-    bodies; K3 and K5 in f32 also at N = 1024 (R = 1024), where the f32 plan
-    takes them. Then the paper-width K7 (bf16, 192) and K3 (f32, 1024) rows
-    timed again."""
+    the bound: K6 and K7 in both dtypes and K1, K1 fast, K3 and K5 in f32 on
+    their wide tensor-core bodies (the profiler shows which kernel ran),
+    each beside its CUDA-core body; K3, K5 and K6 in f32 also at N = 1024 (R
+    = 1024), where the f32 plan takes them (K6 there on its wide body only).
+    Then the paper-width rows of PAPER_ATTENTION_MS timed again."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     C = MODEL_AXIS_HEAD_WIDTH
@@ -3977,16 +3999,23 @@ def _widths_attention() -> None:
                        lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
                        lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
                                                                      scale), 5, 8,
-                       3 * m.numel() * 4, None)]
+                       3 * m.numel() * 4, dict(dout=g, out=out, m=m, logs=logs))]
             if dtype == torch.float32:
                 cases += [("rows_attention",
                            lambda: (A.rows_attention(q, k, v, mask, scale),),
                            lambda: (A.attention_reference(q, k, v, mask, None, scale),), 2, 4,
-                           0.0, None),
+                           0.0, {}),
                           ("rows_attention_fast",
                            lambda: (A.rows_attention_fast(q, k, v, mask, scale),),
                            lambda: (A.rows_attention_fast_reference(q, k, v, mask, scale),), 2,
-                           4, 0.0, None)]
+                           4, 0.0, {})]
+        else:  # K6 in its regime, from the plain K5's stats; its wide body only
+            out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+            cases += [("rows_attention_kchunk_bwd",
+                       lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
+                       lambda: A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs,
+                                                                     scale), 5, 8,
+                       3 * m.numel() * 4, None)]
         if dtype == torch.float32:
             cases += [("rows_attention_kchunk",
                        lambda: (A.rows_attention_kchunk(q, k, v, mask, scale),),
@@ -4007,26 +4036,36 @@ def _widths_attention() -> None:
             torch.cuda.synchronize()
             if A.LAUNCHES[name] != before + 1:
                 raise AssertionError(f"[widths] {name} at C={C}: no launch")
-            errs = []
             tol_name = TOL_BF16 if name == "rows_attention_fast" else tol  # its bf16 softmax
-            for a, b in zip(got, want):
-                scale_b = max(float(b.float().abs().max()), 1.0)
-                err = float((a.float() - b.float()).abs().max())
-                errs.append(err)
-                if not (torch.isfinite(a).all() and err <= tol_name * scale_b):
-                    raise AssertionError(f"[widths] {name} at C={C} {label}: max abs err {err} > "
-                                         f"{tol_name} x {scale_b}")
+
+            def max_err(outs, body):
+                errs = []
+                for a, b in zip(outs, want):
+                    scale_b = max(float(b.float().abs().max()), 1.0)
+                    err = float((a.float() - b.float()).abs().max())
+                    errs.append(err)
+                    if not (torch.isfinite(a).all() and err <= tol_name * scale_b):
+                        raise AssertionError(f"[widths] {name} at C={C} {label} on the {body}: max "
+                                             f"abs err {err} > {tol_name} x {scale_b}")
+                return max(errs)
+
             body = "CUDA-core body"
             if wide:
                 body = f"wide tensor-core body ({WIDE_TC_KERNELS[(name, dtype)]})"
+            err = max_err(got, body)
             iters = 2 if N == 192 else 1
             ms, plain_ms = device_ms(kernel, iters), device_ms(plain, iters)
             line = f"on the device {ms:.4f} ms"
-            if wide:
+            if wide and core_args is not None:
                 core = lambda: A.attention_body(name, q, k, v, mask, None, scale,  # noqa: E731
                                                 mma=False, **core_args)
+                core_out = core()
+                torch.cuda.synchronize()
+                core_err = max_err(core_out if isinstance(core_out, tuple) else (core_out,),
+                                   "CUDA-core body")
                 core_ms = device_ms(core, iters)
-                line += f" (its CUDA-core body {core_ms:.4f} ms, {core_ms / ms:.1f}x)"
+                line += (f" (its CUDA-core body: max abs err {core_err:.3e}, {core_ms:.4f} ms, "
+                         f"{core_ms / ms:.1f}x)")
             bnd = attention_bound(q, mask, None, products=products, operands=operands,
                                   extra_bytes=extra)
             lib = library_ms(q, k, v, mask, None, scale,
@@ -4035,19 +4074,27 @@ def _widths_attention() -> None:
             verdict = "" if lib is None else (f"; {'held' if ms <= lib else 'missed'} against "
                                               f"SDPA ({ms / lib:.2f}x)")
             print(f"[widths] {name} R={R} H=1 N={N} C={C} {label} on the {body}: max abs err "
-                  f"{max(errs):.3e} (tol {tol_name:g} x max(1, max|x|)); {line}, plain {plain_ms:.4f} "
+                  f"{err:.3e} (tol {tol_name:g} x max(1, max|x|)); {line}, plain {plain_ms:.4f} "
                   f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library (SDPA, "
                   f"{label}) {lib_txt} ms{verdict}")
         del q, k, v, g
-    for (name, N), was in PAPER_ATTENTION_MS.items():
-        dtype = torch.bfloat16 if name == "rows_attention_bwd" else torch.float32
-        q, k, v, mask, _ = _attention_case((2 if N == 192 else 1) * N, N, 4, 16, dtype,
-                                           147 if N == 192 else 997, True, False, True, 750)
-        if name == "rows_attention_bwd":
+        if N == 1024:
+            del out, m, logs
+    for (name, N, dtype), was in PAPER_ATTENTION_MS.items():
+        q, k, v, mask, _ = _attention_case((2 if N <= 384 else 1) * N, N, 4, 16, dtype,
+                                           PAPER_VALID[N], True, False, True, 750)
+        if name not in ("rows_attention_bwd", "rows_attention_kchunk_bwd"):
+            fn = lambda: getattr(A, name)(q, k, v, mask, 0.25)  # noqa: E731
+        elif name == "rows_attention_bwd":
             g = torch.randn_like(q)
             fn = lambda: A.rows_attention_bwd(q, k, v, mask, g, 0.25)  # noqa: E731
         else:
-            fn = lambda: A.rows_attention_kchunk(q, k, v, mask, 0.25)  # noqa: E731
+            g = torch.randn_like(q)
+            out, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, 0.25)
+            fn = lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs,  # noqa: E731
+                                                     0.25)
+        if A.takes_tensor_cores(name, dtype, 16) is not True:
+            raise AssertionError(f"[widths] paper-width {name}: not on its tensor-core body")
         ms = device_ms(fn, 3)
         drift = ms / was - 1
         print(f"[widths] paper-width {name} at {N} ({str(dtype).replace('torch.', '')}): on the "

@@ -31,13 +31,17 @@ SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bw
            "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
            "fused_gated_mma.cu", "trimul.cu", "trimul_mma.cu", "transition.cu",
            "transition_mma.cu", "outer.cu", "outer_mma.cu", "attention_kchunk_wide_tf32.cu",
-           "attention_bwd_wide_mma.cu", "attention_bwd_wide_tf32.cu")
+           "attention_bwd_wide_mma.cu", "attention_bwd_wide_tf32.cu", "attention_rows_wide_tf32.cu",
+           "attention_fast_wide_tf32.cu", "attention_kchunk_bwd_wide_mma.cu",
+           "attention_kchunk_bwd_wide_tf32.cu")
 HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh",
            "attention_bwd_wide.cuh", "ln_project.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*ARCH, "-shared")
+# the build log's last section: each source and when its nvcc ended
+NVCC_SECONDS = "== nvcc seconds from the build's start\n"
 
 
 class KernelLibrary:
@@ -47,6 +51,10 @@ class KernelLibrary:
         self.path = path
         self.build_seconds = build_seconds  # None: reused an existing build
         self.build_log = build_log
+        # {source: seconds from the build's start to its nvcc's end}
+        self.source_seconds = {
+            src: float(s) for src, s in
+            (line.split() for line in build_log.partition(NVCC_SECONDS)[2].splitlines())}
         lib = ctypes.CDLL(str(path))
         ptr, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         strides = [i64] * 9
@@ -70,6 +78,9 @@ class KernelLibrary:
         lib.prd_rows_attention_tf32x3.restype = i32
         lib.prd_rows_attention_fast_tf32x3.argtypes = lib.prd_rows_attention_fast_mma.argtypes
         lib.prd_rows_attention_fast_tf32x3.restype = i32
+        for wide in ("rows_attention", "rows_attention_fast"):
+            fn = getattr(lib, f"prd_{wide}_wide_tf32x3")
+            fn.argtypes, fn.restype = lib.prd_rows_attention_fast_mma.argtypes, i32
         lib.prd_tiled_attention_tf32x3.argtypes = lib.prd_tiled_attention_mma.argtypes
         lib.prd_tiled_attention_tf32x3.restype = i32
         lib.prd_rows_attention_kchunk_mma.argtypes = (
@@ -111,6 +122,9 @@ class KernelLibrary:
             lib.prd_rows_attention_kchunk_bwd_mma.argtypes
         )
         lib.prd_rows_attention_kchunk_bwd_tf32x3.restype = i32
+        for wide in ("mma", "tf32x3"):
+            fn = getattr(lib, f"prd_rows_attention_kchunk_bwd_wide_{wide}")
+            fn.argtypes, fn.restype = lib.prd_rows_attention_kchunk_bwd_mma.argtypes, i32
         lib.prd_fused_gated.argtypes = [ptr] * 9 + [i32] * 7 + [f32] + [i64] * 3 + [ptr]
         lib.prd_fused_gated.restype = i32
         lib.prd_fused_gated_mma.argtypes = lib.prd_fused_gated.argtypes
@@ -184,13 +198,20 @@ def build() -> KernelLibrary:
         start = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objects = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
-            procs = [
-                subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", obj, str(CSRC_DIR / src)],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for src, obj in zip(SOURCES, objects)
-            ]
-            logs = [f"== {src}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
-            log = "".join(logs)
+            outputs = [Path(tmp) / f"{Path(s).stem}.out" for s in SOURCES]
+            procs = []
+            for src, obj, out in zip(SOURCES, objects, outputs):
+                with open(out, "w") as f:
+                    procs.append(subprocess.Popen(
+                        [nvcc, *COMPILE_FLAGS, "-o", obj, str(CSRC_DIR / src)],
+                        stdout=f, stderr=subprocess.STDOUT))
+            done = {}  # source: seconds from the build's start to its nvcc's end
+            while len(done) < len(procs):
+                for src, proc in zip(SOURCES, procs):
+                    if src not in done and proc.poll() is not None:
+                        done[src] = time.perf_counter() - start
+                time.sleep(0.05)
+            log = "".join(f"== {src}\n{out.read_text()}" for src, out in zip(SOURCES, outputs))
             if any(proc.returncode != 0 for proc in procs):
                 raise RuntimeError(f"nvcc failed:\n{log}")
             so = Path(tmp) / "lib.so"
@@ -199,6 +220,7 @@ def build() -> KernelLibrary:
             log += proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            log += NVCC_SECONDS + "".join(f"{src} {done[src]:.1f}\n" for src in SOURCES)
             # atomic: concurrent builders never see half a file
             os.replace(so, target)
         build_seconds = time.perf_counter() - start

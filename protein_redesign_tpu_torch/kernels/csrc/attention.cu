@@ -1,10 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels for the denoiser's attention family:
 // their CUDA-core bodies, which serve inputs whose head width is not a
-// multiple of 8, K1 fast in float32, and K1 in float32 past C = 128. A
-// multiple of 8 takes the tensor-core bodies: in bf16 attention_mma.cu (K1,
-// K1 fast and K2 alike), in float32 3xTF32, attention_tf32.cu (K1, C <= 128)
-// and attention_tiled_tf32.cu (K2, C <= 1024). The bodies here stay
-// callable in both dtypes to time them beside those.
+// multiple of 8. A multiple of 8 takes the tensor-core bodies: in bf16
+// attention_mma.cu (K1, K1 fast and K2 alike), in float32 3xTF32,
+// attention_tf32.cu (K1 and K1 fast, C <= 128), attention_rows_wide_tf32.cu
+// and attention_fast_wide_tf32.cu (K1 and K1 fast past 128, C <= 1024) and
+// attention_tiled_tf32.cu (K2, C <= 1024). The bodies here stay callable in
+// both dtypes to time them beside those.
 //
 // Replaces two Pallas TPU kernels of protein_redesign_tpu/ops/pallas_attention.py,
 // the first in both of its variants:

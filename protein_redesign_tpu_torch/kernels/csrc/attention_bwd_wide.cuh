@@ -1,19 +1,24 @@
-// The wide tensor-core bodies of K7, the rows attention flash backward, for
-// head widths C that are a multiple of 8 in (128, 1024]: one body for both
-// dtypes, bf16 on mma.sync m16n8k16 (attention_bwd_wide_mma.cu) and f32 in
-// 3xTF32 (attention_bwd_wide_tf32.cu), which instantiate it under their own
-// kernel names, each a source of its own so that nvcc builds them beside
-// the narrow bodies (attention_bwd_mma.cu, attention_bwd_tf32.cu). The narrow bodies (C <= 128) keep a whole head of each
-// operand in a warp's fragments; past 128 a warp cannot hold 16 rows of a
-// head's gradient, and the CUDA-core bodies (attention_bwd.cu) they replace
-// spill at 8 channels a lane.
+// The wide tensor-core bodies of K7, the rows attention flash backward, and
+// of K6, its K-chunk regime's backward from K5's stats, for head widths C
+// that are a multiple of 8 in (128, 1024]: one body for both dtypes and both
+// kernels, bf16 on mma.sync m16n8k16 (K7 attention_bwd_wide_mma.cu, K6
+// attention_kchunk_bwd_wide_mma.cu) and f32 in 3xTF32 (K7
+// attention_bwd_wide_tf32.cu, K6 attention_kchunk_bwd_wide_tf32.cu), which
+// instantiate it under their own kernel names, each a source of its own so
+// that nvcc builds them beside the narrow bodies (attention_bwd_mma.cu,
+// attention_bwd_tf32.cu). The narrow bodies (C <= 128) keep a whole head of
+// each operand in a warp's fragments; past 128 a warp cannot hold 16 rows of
+// a head's gradient, and the CUDA-core bodies (attention_bwd.cu,
+// attention_kchunk_bwd.cu) they replace spill at 8 channels a lane.
 //
 // The function is the narrow bodies' (rows_attention_bwd_reference): per
 // (row, head), qt = q * scale rounded to T, logits with -2^15 at masked keys,
 // P = softmax in f32, dv = round_T(P)^T dO, dP = dO V^T, delta = rowsum(dP o
 // P), dS = P o (dP - delta), zero at masked keys, rounded to T once, dqt = dS
-// K and dk = dS^T qt, f32 sums, outputs in T. Two kernels, as the narrow
-// bodies:
+// K and dk = dS^T qt, f32 sums, outputs in T. K6 (STATS_IN) takes P =
+// exp((l - m) - log s) from K5's split stats and delta = rowsum(dO o O)
+// from the caller (rows_attention_kchunk_bwd_reference), read only. Two
+// kernels, as the narrow bodies:
 //
 //   dq kernel: a block of 32 queries (two row blocks of 16) and 8 warps.
 //     Pass A over the key tiles of 64 computes S = qt K^T and dP = dO V^T
@@ -26,12 +31,16 @@
 //     Pass B computes S and dP again, the row pass turns them into dS in
 //     shared memory, and stages of K's chunks give dqt += dS K[:, chunk].
 //     It writes m, s and delta to the [3, R, H, N] scratch, as the narrow
-//     dq kernel does.
+//     dq kernel does. K6's dq kernel skips pass A: each row's -m log2 e,
+//     exp(-log s) and delta are read (load_stats: the two stats apart, so
+//     that a fully masked row, l = m = -2^15, keeps an exponent of exactly
+//     0), pass B runs alone and nothing is written to the stats.
 //   dk/dv kernel: a block of TK keys (32 up to C = 512, 16 above), 8 warps,
 //     over query tiles of 64, transposed as the narrow kernel (rows keys):
 //     S^T = K qt^T and dP^T = V dO^T once per tile by the same chunk
 //     stages, the row pass turns them into P^T and dS^T with the queries'
-//     stats read per column (past N: -inf and 0, so P^T is exactly 0), then
+//     stats read per column (K6: m and log s apart, as the dq kernel; past
+//     N: -inf and 0, so P^T is exactly 0), then
 //     stages of dO's chunks give dv += P^T dO[:, chunk] and stages of qt's
 //     give dk += dS^T qt[:, chunk].
 // S, dP, P and dS go through shared memory: the rows of a tile span the
@@ -71,7 +80,9 @@ struct WideBwdArgs {
   T* dq;
   T* dk;
   T* dv;
-  float* m;  // the [3, R, H, N] scratch: m, s, delta
+  // K7: the [3, R, H, N] scratch its dq kernel writes (m, s, delta); K6:
+  // K5's m and log s and the caller's delta, [R, H, N] each, read only
+  float* m;
   float* s;
   float* delta;
   int R, N, H, C;
@@ -310,7 +321,8 @@ struct WideStages {
 };
 
 // The dq kernel over NC chunks (C <= 128 NC): a block of 16 RB queries.
-template <typename T, int NC>
+// STATS_IN (K6): the rows' stats read, pass B only.
+template <typename T, int NC, bool STATS_IN = false>
 __device__ __forceinline__ void wide_bwd_dq(const WideBwdArgs<T>& a) {
   using Ops = WideOps<T>;
   constexpr int RB = kWbDqRB, TQ = 16 * RB, BK = kWbBK, KC = kWbKC;
@@ -333,8 +345,9 @@ __device__ __forceinline__ void wide_bwd_dq(const WideBwdArgs<T>& a) {
   const T* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
   const T* g_base = a.g + b.r * a.gs.r + b.h * a.gs.h;
   const float* mask_row = a.mask + (long long)b.r * N;
+  const long long base = ((long long)b.r * a.H + b.h) * N;
   const int tiles = (N + BK - 1) / BK;
-  const int stages_a = tiles * 2 * NC, stages = stages_a + tiles * 3 * NC;
+  const int stages_a = STATS_IN ? 0 : tiles * 2 * NC, stages = stages_a + tiles * 3 * NC;
 
   // Stage s: pass A (s < stages_a) key tile t, j < NC chunk j of qt and K,
   // else chunk j - NC of dO and V; pass B the same, then j >= 2 NC chunk j
@@ -420,8 +433,8 @@ __device__ __forceinline__ void wide_bwd_dq(const WideBwdArgs<T>& a) {
   issue(0);
   cp_async_commit();  // stage 0 a group of its own: begin(0) waits for it
   int s = 0;
-  // pass A: m and s online, u beside s
-  for (int t = 0; t < tiles; ++t) {
+  // pass A (K7): m and s online, u beside s
+  for (int t = 0; t < (STATS_IN ? 0 : tiles); ++t) {
     logits(s);
     float l[4 * G], d[4 * G];
     bool kept[4 * G];
@@ -452,7 +465,11 @@ __device__ __forceinline__ void wide_bwd_dq(const WideBwdArgs<T>& a) {
     u_run = u_run * alpha + u;
     m_run = m_new;
   }
-  const float nm = -m_run * kLog2e, inv = 1.f / l_run, delta = u_run * inv;
+  float nm = -m_run * kLog2e, inv = 1.f / l_run, delta = u_run * inv;
+  if constexpr (STATS_IN) {  // K6: K5's m and log s kept apart, the caller's delta
+    const RowStats rs = load_stats<true>(a.m, a.s, a.delta, base + b.q0 + row, b.q0 + row < N);
+    nm = rs.nm, inv = rs.inv, delta = rs.delta;
+  }
   // pass B: dS, then dqt += dS K chunk by chunk
   for (int t = 0; t < tiles; ++t) {
     logits(s);
@@ -479,16 +496,17 @@ __device__ __forceinline__ void wide_bwd_dq(const WideBwdArgs<T>& a) {
   }
 
   store_wide<T, NC, RB>(a.dq, N, a.H, C, b, acc, warp, lane);
-  if (part == 0 && b.q0 + row < N) {  // one thread a row
-    const long long at = ((long long)b.r * a.H + b.h) * N + b.q0 + row;
+  if (!STATS_IN && part == 0 && b.q0 + row < N) {  // K7: one thread a row
+    const long long at = base + b.q0 + row;
     a.m[at] = m_run;
     a.s[at] = l_run;
     a.delta[at] = delta;
   }
 }
 
-// The dk/dv kernel over NC chunks: a block of 16 RB keys.
-template <typename T, int NC>
+// The dk/dv kernel over NC chunks: a block of 16 RB keys. STATS_IN (K6):
+// the queries' second stat is log s.
+template <typename T, int NC, bool STATS_IN = false>
 __device__ __forceinline__ void wide_bwd_dkdv(const WideBwdArgs<T>& a) {
   using Ops = WideOps<T>;
   constexpr int RB = kWbRB<NC>, TK = 16 * RB, BQ = kWbBK, KC = kWbKC;
@@ -572,7 +590,7 @@ __device__ __forceinline__ void wide_bwd_dkdv(const WideBwdArgs<T>& a) {
     // previous tile's row pass read them before its product stages' barriers
     if (tid < BQ) {
       const int i = t * BQ + tid;
-      const RowStats rs = load_stats<false>(a.m, a.s, a.delta, base + i, i < N);
+      const RowStats rs = load_stats<STATS_IN>(a.m, a.s, a.delta, base + i, i < N);
       stat_s[tid] = rs.nm;
       stat_s[BQ + tid] = rs.inv;
       stat_s[2 * BQ + tid] = rs.delta;
@@ -629,6 +647,8 @@ __device__ __forceinline__ void wide_bwd_dkdv(const WideBwdArgs<T>& a) {
   store_wide<T, NC, RB>(a.dv, N, a.H, C, b, dv, warp, lane);
 }
 
+// The operands both kernels take, K7's scratch or K6's read-only stats
+// given (the entry points pass K6's const pointers through unchanged).
 template <typename T>
 bool wide_bwd_ok(const WideBwdArgs<T>& a) {
   constexpr long long v = 16 / sizeof(T);

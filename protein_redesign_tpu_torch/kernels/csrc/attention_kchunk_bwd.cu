@@ -34,7 +34,10 @@
 // both kernels, so P agrees bit for bit between them; the products into dq,
 // dk and dv run with the lanes on the head channels and each dS or P
 // broadcast by a shuffle. Shared memory is O((TQ + 64) C): no bound on N.
-// CUDA cores in f32; tensor cores are later work.
+// CUDA cores in f32. This body serves C = 4 mod 8; multiples of 8 take the
+// tensor-core bodies (attention_bwd_{mma,tf32}.cu up to 128,
+// attention_kchunk_bwd_wide_{mma,tf32}.cu past it), and this one stays
+// callable to time it beside them.
 //
 // Head widths run to 1024 (CPL = C / 32 values a lane and row). Past 512 the
 // two staged tiles would not fit beside the block's rows, so (SHARE) a

@@ -38,18 +38,15 @@
 
 namespace {
 
-template <int NC>
-constexpr int kKchunkWideRB = NC <= 4 ? 4 : 2;
-
 template <bool STATS, int NC>
 __global__ void __launch_bounds__(kWideWarps * 32, 1)
     rows_attention_kchunk_wide_tf32x3_kernel(const F32Args a) {
-  wide_tf32x3_body<false, true, STATS, NC, kKchunkWideRB<NC>>(a);
+  wide_tf32x3_body<false, true, STATS, NC, kWideRB<NC>>(a);
 }
 
 template <bool STATS, int NC>
 cudaError_t launch(const F32Args& a, cudaStream_t stream) {
-  constexpr int RB = kKchunkWideRB<NC>;
+  constexpr int RB = kWideRB<NC>;
   return launch_f32(rows_attention_kchunk_wide_tf32x3_kernel<STATS, NC>, kWideWarps * 32, 16 * RB,
                     wide_tf32x3_smem<false, RB>(), a, stream);
 }

@@ -15,7 +15,8 @@
 //       <- _rows_attention_impl with fast=True (K1 fast: the softmax
 //          rounded as bf16, cfg.fast_softmax; serving an f32 checkpoint)
 //
-//   (K3 and K5 past C = 128: attention_kchunk_wide_tf32.cu.)
+//   (Past C = 128: K3 and K5 attention_kchunk_wide_tf32.cu, K1
+//   attention_rows_wide_tf32.cu, K1 fast attention_fast_wide_tf32.cu.)
 //
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, for those
 // widths, the CUDA-core bodies of attention.cu (K1, K1 fast) and
@@ -141,20 +142,6 @@ cudaError_t dispatch_width(const F32Args& a, cudaStream_t stream) {
   if (a.C <= 32) return launch<ROWS, STATS, 4>(a, stream);
   if (a.C <= 64) return launch<ROWS, STATS, 8>(a, stream);
   return launch<ROWS, STATS, 16>(a, stream);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// K1 fast's recompute window, in units of 2^-24 |q| |k| (the logit's f32
-// error scale), and whether x lies within w of a midpoint between two bf16
-// values: its low 16 bits' distance from 0x8000 times its ulp.
-constexpr float kNearF32 = 32.f;
-__device__ __forceinline__ bool near_bf16_midpoint_f32(float x, float w) {
-  const unsigned u = __float_as_uint(x);
-  const float ulp = __uint_as_float((unsigned)max((int)((u >> 23) & 0xffu) - 23, 0) << 23);
-  return (float)abs((int)(u & 0xffffu) - 0x8000) * ulp <= w;
 }
 
 // kNearF32 2^-24 |x| for a row of C floats in shared memory.

@@ -389,6 +389,13 @@ constexpr int kWideLdS = kWideBK + 4;       // bias, logits and P rows
 // Floats of a stage buffer: TQ queries and 64 keys of a chunk (>= 64 V rows).
 __host__ __device__ constexpr int wide_stage(int TQ) { return (TQ + kWideBK) * kWideLdQK; }
 
+// Row blocks of 16 queries a block of the wide bodies without the bias (K1,
+// K1 fast, K3, K5) over NC chunks: 4 up to NC = 4 (C <= 512), where the
+// output's accumulators are 32 NC floats a thread, 2 above; 64 queries a
+// block halve the K and V tiles read from L2 per query against 32.
+template <int NC>
+constexpr int kWideRB = NC <= 4 ? 4 : 2;
+
 template <bool BIAS, int RB = 2>
 constexpr size_t wide_tf32x3_smem() {
   constexpr int TQ = 16 * RB;
@@ -625,6 +632,22 @@ __device__ __forceinline__ void wide_tf32x3_body(const F32Args& a) {
       }
     }
   }
+}
+
+// K1 fast's rounding points (attention_tf32.cu and, past C = 128,
+// attention_fast_wide_tf32.cu): x rounded to bf16 and back.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// K1 fast's recompute window, in units of 2^-24 |q| |k| (the logit's f32
+// error scale), and whether x lies within w of a midpoint between two bf16
+// values: its low 16 bits' distance from 0x8000 times its ulp.
+constexpr float kNearF32 = 32.f;
+__device__ __forceinline__ bool near_bf16_midpoint_f32(float x, float w) {
+  const unsigned u = __float_as_uint(x);
+  const float ulp = __uint_as_float((unsigned)max((int)((u >> 23) & 0xffu) - 23, 0) << 23);
+  return (float)abs((int)(u & 0xffffu) - 0x8000) * ulp <= w;
 }
 
 }  // namespace

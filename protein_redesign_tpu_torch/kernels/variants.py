@@ -1,7 +1,7 @@
 """Time variants of the tensor-core bodies' launch constants on the card.
 
-    python -m protein_redesign_tpu_torch.kernels.variants [k1] [k5] [k6] [k1fast] [k10]
-        [k10rows] [k11]
+    python -m protein_redesign_tpu_torch.kernels.variants [k1] [k5] [k6] [k1fast]
+        [k1fastwide] [k10] [k10rows] [k11]
 
 Each 3xTF32 body fixes a few constants. K5's forward (``csrc/attention_tf32.cu``
 and the body it shares in ``attention_tf32.cuh``): the warps of a block
@@ -27,7 +27,14 @@ median of the rounds. Each variant's outputs are held to the shipped one's
 K1 fast's f32 body (``attention_tf32.cu``, ``k1fast``): its logits kept in
 shared memory where they fit (``fast_stores_logits``) against recomputing
 them from K in each of its three passes, at K1's phase-3 shapes (N = 192
-and 384 of 147 and 360 valid). K10's split layout (``transition_mma.cu``,
+and 384 of 147 and 360 valid). K1 fast's f32 body past C = 128
+(``attention_fast_wide_tf32.cu``, ``k1fastwide``, at one head of 256,
+phase 23's R = 384, N = 192 and R = 768, N = 384, scale C^-0.5): its
+logits kept against recomputed, 32 queries a block against 64, and, to
+time the near-midpoint recompute, a build whose window is empty (timing
+only: a logit by a bf16 midpoint may round otherwise); its variants are
+held to the shipped build at its gate, 2e-2 (a row sum taken in another
+order may round to another bf16). K10's split layout (``transition_mma.cu``,
 ``k10``, single_fc at bucket 192: M = 384, 512 -> 2048 -> 512 and 768 ->
 3072 -> 768, both dtypes): the depth of its slab ring (``kRing``), the
 block's rows (``split_warps``: 64 where they fit, else 32), and, to time
@@ -157,6 +164,26 @@ BODIES = {
         variants=(
             ("shipped: logits kept in shared memory where they fit", "smem <= 227 * 1024"),
             ("logits recomputed from K in each pass", "false"),
+        ),
+    ),
+    "k1fastwide": dict(
+        source="attention_fast_wide_tf32.cu",
+        edits=(("attention_fast_wide_tf32.cu", r"if \(stored <= 227 \* 1024\)", "if ({})"),
+               ("attention_tf32.cuh", r"constexpr int kWideRB = [^;]+;",
+                "constexpr int kWideRB = {};"),
+               ("attention_tf32.cuh", r"constexpr float kNearF32 = [^;]+;",
+                "constexpr float kNearF32 = {};")),
+        kernels=("rows_attention_fast_wide_tf32x3_kernelILb1ELi2E",
+                 "rows_attention_fast_wide_tf32x3_kernelILb0ELi2E"),
+        shapes=((384, 192, 147, 1, 256), (768, 384, 360, 1, 256)),
+        tol=2e-2,
+        variants=(
+            ("shipped: logits kept where they fit, 64 queries a block, window 32 units",
+             "stored <= 227 * 1024", "NC <= 4 ? 4 : 2", "32.f"),
+            ("logits recomputed from Q and K in each pass", "false", "NC <= 4 ? 4 : 2", "32.f"),
+            ("32 queries a block", "stored <= 227 * 1024", "2", "32.f"),
+            (f"{TIMING_ONLY}: no logit recomputed (an empty window)", "stored <= 227 * 1024",
+             "NC <= 4 ? 4 : 2", "-1.f"),
         ),
     ),
     "k10": dict(
@@ -298,13 +325,21 @@ def inputs(name: str, shape):
         b1, b2 = (0.3 * torch.randn(n, generator=g, device="cuda") for n in (Hd, Dout))
         return (x, w1, b1, w2, b2, torch.empty(M, Dout, dtype=dtype, device="cuda"),
                 torch.empty(-(-Hd // 64), M, Dout, device="cuda"))
-    R, N, n_valid = shape
+    R, N, n_valid, *width = shape
+    heads, channels = width or (H, C)
     g = torch.Generator(device="cuda").manual_seed(200)
-    q, k, v, dout = (torch.randn(R, N, H, C, generator=g, device="cuda") for _ in range(4))
+    q, k, v, dout = (torch.randn(R, N, heads, channels, generator=g, device="cuda")
+                     for _ in range(4))
     node = (torch.arange(N, device="cuda") < n_valid).float()
     mask = (node[:, None] * node[None, :]).repeat(R // N, 1).contiguous()
-    out, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, SCALE)
+    out, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, scale_of(q))
     return q, k, v, dout, mask, m, logs, A._kchunk_delta(dout, out)
+
+
+def scale_of(q) -> float:
+    """The softmax scale at q's head width: SCALE at C, C^-0.5 at the wide
+    bodies' widths."""
+    return SCALE if q.shape[-1] == C else q.shape[-1] ** -0.5
 
 
 def make_call(name: str, lib, tensors):
@@ -342,12 +377,14 @@ def make_call(name: str, lib, tensors):
     q, k, v, dout, mask, m, logs, delta = tensors
     R, N = q.shape[:2]
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    if name in ("k1", "k1fast"):
-        fn = lib.prd_rows_attention_tf32x3 if name == "k1" else lib.prd_rows_attention_fast_tf32x3
+    if name in ("k1", "k1fast", "k1fastwide"):
+        fn = getattr(lib, {"k1": "prd_rows_attention_tf32x3",
+                           "k1fast": "prd_rows_attention_fast_tf32x3",
+                           "k1fastwide": "prd_rows_attention_fast_wide_tf32x3"}[name])
         fn.argtypes = [PTR] * 5 + [I32] * 4 + [F32] + [I64] * 9 + [PTR]
         outs = (torch.empty_like(q),)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), outs[0].data_ptr(),
-                R, N, H, C, SCALE, *strides, stream)
+                R, N, *q.shape[2:], scale_of(q), *strides, stream)
     elif name == "k5":
         fn = lib.prd_rows_attention_kchunk_tf32x3
         fn.argtypes = [PTR] * 7 + [I32] * 4 + [F32] + [I64] * 9 + [PTR]
@@ -373,7 +410,8 @@ def make_call(name: str, lib, tensors):
 
 def time_variants(name: str, libs, tensors, labels):
     """Each variant's ms per call on the device at one shape, in turns; each
-    variant's outputs (but a timing-only one's) held to the shipped one's."""
+    variant's outputs (but a timing-only one's) held to the shipped one's,
+    at the body's own gate where it has one."""
     fns, outs = [], []
     for lib in libs:
         call, written = make_call(name, lib, tensors)
@@ -381,7 +419,7 @@ def time_variants(name: str, libs, tensors, labels):
         torch.cuda.synchronize()
         fns.append(call)
         outs.append(tuple(t.clone() for t in written))
-    tol = 2e-2 if tensors[0].dtype == torch.bfloat16 else 1e-5
+    tol = BODIES[name].get("tol", 2e-2 if tensors[0].dtype == torch.bfloat16 else 1e-5)
     for written, label in zip(outs[1:], labels[1:]):
         if label.startswith(TIMING_ONLY):
             continue
@@ -424,8 +462,10 @@ def run(name: str, nvcc: str) -> None:
                 dtype, M, D, Hd, Dout = shape
                 what = f"K10 {str(dtype)[6:]}, M={M}, {D} -> {Hd} -> {Dout}"
             else:
-                R, N, n_valid = shape
-                what = f"{name.upper()} f32, R={R} N={N} H={H} C={C} ({n_valid} valid)"
+                R, N, n_valid, *width = shape
+                heads, channels = width or (H, C)
+                what = (f"{name.upper()} f32, R={R} N={N} H={heads} C={channels} ({n_valid} "
+                        f"valid)")
             print(f"{what}: ms on the device, median of {ROUNDS} rounds of {CALLS} calls "
                   f"(min-max)")
             for (label, *_), t, log in zip(variants, times, logs):

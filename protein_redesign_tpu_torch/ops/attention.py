@@ -18,21 +18,24 @@ kernels the denoiser's main path runs:
 
 K1, K1 fast, K2, K3, K5, K6 and K7 have two bodies (``takes_mma``): on bf16
 inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
-K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async; K6 up
-to C = 128, K7 up to 1024 with its wide body past 128,
-``attention_bwd_wide_mma.cu``), else the CUDA-core one of ``attention.cu``,
-``attention_kchunk.cu``, ``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``.
-In f32 with C a multiple of 8 every kernel takes a tensor-core body too
-(``takes_tf32x3``): K1, K3 and K5 ``attention_tf32.cu`` (one body up to C =
-128; K3 and K5 past it up to 1024 ``attention_kchunk_wide_tf32.cu``, the
-wide body they share with K2), K1 fast its own body there (C up to 128: the
-logits kept in shared memory, P.V in two TF32 products of bf16 P), K2
+K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async; K6
+and K7 up to 1024 with their wide body past 128,
+``attention_kchunk_bwd_wide_mma.cu`` and ``attention_bwd_wide_mma.cu``),
+else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
+``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. In f32 with C a
+multiple of 8 every kernel takes a tensor-core body too (``takes_tf32x3``):
+K1, K3 and K5 ``attention_tf32.cu`` (one body up to C = 128; past it up to
+1024 the wide body they share with K2, ``attention_rows_wide_tf32.cu`` for
+K1 and ``attention_kchunk_wide_tf32.cu`` for K3 and K5), K1 fast its own
+bodies (the logits kept in shared memory, P.V in two TF32 products of bf16
+P: ``attention_tf32.cu`` up to C = 128, ``attention_fast_wide_tf32.cu``
+past it up to 1024, which streams the head in 128-channel chunks), K2
 ``attention_tiled_tf32.cu`` (C up to 1024), K6 and K7
-``attention_bwd_tf32.cu`` (K6 up to 128, K7 up to 1024, its wide body
-``attention_bwd_wide_tf32.cu`` past 128): every product in 3xTF32, three
-TF32 products of split operands, which keeps the 1e-5 parity that one TF32
-product would break. f32 at C = 4 mod 8, and K1, K1 fast and K6 in f32
-past 128, keep the CUDA-core bodies.
+``attention_bwd_tf32.cu`` (up to 128; past it up to 1024 their wide body,
+``attention_kchunk_bwd_wide_tf32.cu`` and ``attention_bwd_wide_tf32.cu``):
+every product in 3xTF32, three TF32 products of split operands, which keeps
+the 1e-5 parity that one TF32 product would break. C = 4 mod 8 keeps the
+CUDA-core bodies in both dtypes.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -200,19 +203,38 @@ def bwd_tf32x3_smem_bytes(C: int) -> int:
     return 4 * ((2 * 64 + 4 * tile) * (8 * nt + 4) + 6 * tile)
 
 
+def wide_queries(C: int) -> int:
+    """Queries a block of the f32 wide bodies without the bias (K1, K1 fast,
+    K3, K5; ``kWideRB`` in attention_tf32.cuh): 64 up to C = 512, 32 above."""
+    return 64 if C <= 512 else 32
+
+
 def kchunk_wide_tf32x3_smem_bytes(C: int) -> int:
     """Shared memory of K3's and K5's f32 body past C = 128 (K2's wide body
     without the bias tile, ``wide_tf32x3_smem`` in attention_tf32.cuh): two
     stages of TQ queries and 64 keys of 128 channels (132 floats a row),
     and the logits and P's two parts of a [TQ, 64] tile (68 floats a row);
-    TQ = 64 up to C = 512, 32 above."""
-    tq = 64 if C <= 512 else 32
+    TQ = ``wide_queries(C)``. K1's f32 body past 128 is the same."""
+    tq = wide_queries(C)
     return 4 * (2 * (tq + 64) * 132 + 3 * tq * 68 + 2 * tq)
 
 
+def fast_wide_tf32x3_smem_bytes(C: int, N: int, store: bool) -> int:
+    """Shared memory of K1 fast's f32 body past C = 128 (``fast_wide_smem``
+    in attention_fast_wide_tf32.cu) at N keys: two stages of TQ queries and
+    64 keys of 128 channels (132 floats a row), the tile's P [TQ, 64] (68
+    floats a row), the queries' windows, the tile's key norms, the row
+    reductions (8 warps x 16 rows) and each warp's 32 recompute jobs and
+    their logits; with ``store`` the rounded logits of every key tile, 2
+    bytes a (query, key), N padded to 64. TQ = ``wide_queries(C)``."""
+    tq = wide_queries(C)
+    keys = -(-N // 64) * 64
+    return (4 * (2 * (tq + 64) * 132 + tq * 68 + tq + 64 + 8 * 16 + 2 * 8 * 32)
+            + (2 * tq * keys if store else 0))
+
 
 def wide_bwd_smem_bytes(C: int, dtype: torch.dtype) -> int:
-    """Shared memory of K7's wide tensor-core bodies past C = 128
+    """Shared memory of K6's and K7's wide tensor-core bodies past C = 128
     (``wide_bwd_smem`` in attention_bwd_wide.cuh, the larger of its two
     kernels): two stage buffers of a 128-channel chunk of TA + 64 rows (or
     64 rows of a product's operand), the f32 S and dP tiles of TA rows of 64
@@ -232,23 +254,29 @@ def wide_bwd_smem_bytes(C: int, dtype: torch.dtype) -> int:
 
 
 def _takes_wide(name: str, dtype: torch.dtype, C: int) -> bool:
-    """K7 (both dtypes) and K3 and K5 (f32) past MAX_TC_HEAD_DIM, on their
-    wide tensor-core bodies, which stream the head in 128-channel chunks."""
+    """K7 and K6 (both dtypes) and K1, K1 fast, K3 and K5 (f32) past
+    MAX_TC_HEAD_DIM, on their wide tensor-core bodies, which stream the head
+    in 128-channel chunks (K1 fast keeps its logits in shared memory where
+    they fit and recomputes them past that, so N bounds nothing)."""
     if C > MAX_HEAD_DIM:
         return False
-    if name == "rows_attention_bwd":
+    if name in BACKWARDS:
         return wide_bwd_smem_bytes(C, dtype) <= MMA_SMEM_BYTES
-    return (dtype == torch.float32 and name in KCHUNK_FORWARDS
+    if dtype != torch.float32:
+        return False
+    if name == "rows_attention_fast":
+        return fast_wide_tf32x3_smem_bytes(C, 0, store=False) <= MMA_SMEM_BYTES
+    return (name in KCHUNK_FORWARDS + ("rows_attention",)
             and kchunk_wide_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES)
 
 
 def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
     in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
-    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K6 in
-    bf16 when C is a multiple of 8 up to MAX_TC_HEAD_DIM (its accumulators
-    hold the whole head), K7 up to MAX_HEAD_DIM (its wide body streams the
-    head past 128). Else the CUDA-core body, or in f32 the 3xTF32 body where
+    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K6 and K7
+    in bf16 when C is a multiple of 8 up to MAX_HEAD_DIM (their accumulators
+    hold the whole head up to MAX_TC_HEAD_DIM, their wide body streams it
+    past 128). Else the CUDA-core body, or in f32 the 3xTF32 body where
     ``takes_tf32x3``."""
     if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
         return False
@@ -264,12 +292,12 @@ def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
     width C in ``dtype``: f32 with C a multiple of 8, K1, K1 fast, K3 and K5
     (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
-    MAX_TC_HEAD_DIM (the accumulators hold the whole head), K3, K5 and K7
-    past it up to MAX_HEAD_DIM (their wide bodies stream the head), K2
-    (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body, which K3
-    and K5 share), each within its shared memory (K1 fast keeps its logits
-    in shared memory where they fit and recomputes them past that, so N
-    bounds nothing)."""
+    MAX_TC_HEAD_DIM (the accumulators hold the whole head), all six past it
+    up to MAX_HEAD_DIM (their wide bodies stream the head), K2
+    (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body, which K1,
+    K3 and K5 share), each within its shared memory (K1 fast keeps its
+    logits in shared memory where they fit and recomputes them past that,
+    so N bounds nothing)."""
     if dtype != torch.float32 or C <= 0 or C % 8:
         return False
     if name == "tiled_attention":
@@ -313,9 +341,9 @@ def width_fits(C: int, max_width: int) -> bool:
 # share one staged tile buffer between K and V (or qt and dO).
 MAX_HEAD_DIM = 1024
 # The tensor-core bodies whose accumulators hold a whole head: K6 and K7 in
-# both dtypes, K1, K1 fast, K3 and K5 in f32 (3xTF32). Past it K7 (both
-# dtypes) and K3 and K5 (f32) take wide bodies, K1, K1 fast and K6 their
-# CUDA-core ones.
+# both dtypes, K1, K1 fast, K3 and K5 in f32 (3xTF32). Past it K6 and K7
+# (both dtypes) and K1, K1 fast, K3 and K5 (f32) take wide bodies that
+# stream the head in 128-channel chunks.
 MAX_TC_HEAD_DIM = 128
 
 
@@ -681,15 +709,16 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
 
 
 _MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (K6 up to {MAX_TC_HEAD_DIM}, K7 up to {MAX_HEAD_DIM}; in f32 K2, K3 and "
-              f"K5 up to {MAX_HEAD_DIM}, K1 and K1 fast up to {MAX_TC_HEAD_DIM})")
+              f"bytes (up to {MAX_HEAD_DIM}; in bf16 K1, K1 fast, K2, K3 and K5 to the "
+              f"widths whose tiles fit)")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
             mma: Optional[bool] = None) -> torch.Tensor:
     """Launch K1, K1 fast or K2 (``name``); ``mma`` None picks the body by
     ``takes_tensor_cores``: the bf16 one (attention_mma.cu) or in f32 the
-    3xTF32 one (K1 and K1 fast attention_tf32.cu, K2
+    3xTF32 one (K1 and K1 fast attention_tf32.cu, past C = 128
+    attention_rows_wide_tf32.cu and attention_fast_wide_tf32.cu; K2
     attention_tiled_tf32.cu); False forces the CUDA-core body."""
     from ..kernels import build
 
@@ -717,6 +746,8 @@ def _launch(name: str, q, k, v, mask, bias, scale: float,
         common = (_DTYPE_CODES[q.dtype], R, N, H, C, w, *strides, stream)
         if mma:
             suffix = "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+            if suffix == "tf32x3" and name != "tiled_attention" and C > MAX_TC_HEAD_DIM:
+                suffix = "wide_tf32x3"  # K1 and K1 fast past 128
             fn = getattr(lib.lib, f"prd_{name}_{suffix}")
             tensors = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        None if mask is None else mask.data_ptr()]
@@ -845,7 +876,8 @@ def _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale: float,
                        mma: Optional[bool] = None):
     """K6: dq, dk, dv from K5's (out, m, log s). The body by
     ``takes_tensor_cores`` where ``mma`` is None: the bf16 one
-    (attention_bwd_mma.cu) or in f32 the 3xTF32 one (attention_bwd_tf32.cu);
+    (attention_bwd_mma.cu) or in f32 the 3xTF32 one (attention_bwd_tf32.cu),
+    past C = 128 their wide bodies (attention_kchunk_bwd_wide_{mma,tf32}.cu);
     False forces the CUDA-core body."""
     from ..kernels import build
 
@@ -878,9 +910,11 @@ def _launch_kchunk_bwd(q, k, v, mask, dout, out, m, logs, scale: float,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if mma:
-            fn = (lib.lib.prd_rows_attention_kchunk_bwd_mma if q.dtype == torch.bfloat16
-                  else lib.lib.prd_rows_attention_kchunk_bwd_tf32x3)
-            code = fn(*pointers, R, N, H, C, w, *strides, stream)
+            body = "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+            if C > MAX_TC_HEAD_DIM:
+                body = f"wide_{body}"
+            code = getattr(lib.lib, f"prd_rows_attention_kchunk_bwd_{body}")(
+                *pointers, R, N, H, C, w, *strides, stream)
         else:
             code = lib.lib.prd_rows_attention_kchunk_bwd(*pointers, _DTYPE_CODES[q.dtype], R, N,
                                                          H, C, w, *strides, stream)
@@ -923,8 +957,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
 def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """K1 fast: ``rows_attention_fast_reference``'s function; the plain
     version for CPU tensors, the kernel for CUDA ones: the tensor-core body
-    with C a multiple of 8 (bf16; f32 up to 128), else the CUDA-core body
-    (C <= 1024).
+    with C a multiple of 8 (bf16 to the widths whose tiles fit; f32 up to
+    1024), else the CUDA-core body (C <= 1024).
     Forward only: its callers differentiate the f32 reference instead."""
     if mask is None:
         raise ValueError("rows_attention_fast needs a key mask")

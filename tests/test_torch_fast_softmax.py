@@ -84,6 +84,27 @@ def test_fast_reference_matches_jax_fast_kernel(dtype):
     np.testing.assert_allclose(got[1], j_fast[1], atol=1e-2 * np.abs(j_fast).max())
 
 
+def test_fast_reference_matches_jax_fast_kernel_at_head_width_256():
+    """Past head width 128, where the f32 K1 fast takes its wide body on the
+    card: the plain version (the CPU route) against the JAX K1 fast in
+    interpret mode, f32, one head of 256, the fully masked row included."""
+    jdt = jnp.float32
+    q, k, v, mask = _inputs(jdt, R=3, N=40, H=1, C=256, seed=4)
+    q = 0.25 * q  # |logits| ~ 5 at C = 256
+    j_fast = _jax_rows(q, k, v, mask, jdt, fast=True)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    before = dict(A.LAUNCHES)
+    got = A.rows_attention_fast(tq, tk, tv, torch.from_numpy(mask), SCALE)
+    assert A.LAUNCHES == before
+    want = A.rows_attention_fast_reference(tq, tk, tv, torch.from_numpy(mask), SCALE)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - j_fast).max() <= 1e-2 * np.abs(j_fast).max()
+    np.testing.assert_allclose(got[1], np.broadcast_to(v[1].mean(0), got[1].shape),
+                               atol=1e-2 * np.abs(j_fast).max())
+
+
 def test_rows_attention_fast_needs_a_mask():
     q = torch.zeros(2, 4, 1, 8)
     with pytest.raises(ValueError, match="mask"):

@@ -145,6 +145,27 @@ def test_k6_matches_jax_kchunk_bwd_cn(kchunk_regime, dtype):
     assert torch.count_nonzero(grads[2][1]) > 0
 
 
+def test_k6_matches_jax_kchunk_bwd_cn_at_head_width_256(kchunk_regime):
+    """Past head width 128, where K6 takes its wide body on the card: the
+    plain K6 from the plain K5's split stats against the JAX K6 in
+    interpret mode, f32, one head of 256, the fully masked row included."""
+    q, k, v, g, mask = _inputs(R=2, N=32, H=1, C=256, seed=5)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.float32) for x in (q, k, v, g))
+    dqt, dkt, dvt = pa._rows_attention_kchunk_bwd_cn(
+        _swap(jq * SCALE), _swap(jk), _swap(jv), jnp.asarray(mask), _swap(jg), 8, 1, True)
+    j_grads = (_swap(dqt) * SCALE, _swap(dkt), _swap(dvt))
+    tq, tk, tv, tg = _torch((q, k, v, g), "f32")
+    tm = torch.from_numpy(mask)
+    out, m, logs = A.rows_attention_kchunk_stats(tq, tk, tv, tm, SCALE)
+    before = dict(A.LAUNCHES)
+    grads = A.rows_attention_kchunk_bwd(tq, tk, tv, tm, tg, out, m, logs, SCALE)
+    assert A.LAUNCHES == before
+    for got, want in zip(grads, j_grads):
+        _close(got.numpy(), want, "f32")
+    assert torch.count_nonzero(grads[0][1]) == 0 and torch.count_nonzero(grads[1][1]) == 0
+    assert torch.count_nonzero(grads[2][1]) > 0
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_k6_route_matches_jax_grad_of_fused_attention(kchunk_regime, dtype):
     """The autograd route at or above the switch: K5 forward, K6 backward,

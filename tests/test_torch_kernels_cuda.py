@@ -754,14 +754,17 @@ def test_transition_bodies_agree(device, dtype, D, Hd, Dout, M, monkeypatch):
         assert got.dtype == dtype and _rel(got, want) <= FUSED_TOL[dtype]
 
 
-@pytest.mark.parametrize("N,C", [(45, 16), (384, 16), (384, 128), (1800, 16), (1400, 128)])
+@pytest.mark.parametrize("N,C", [(45, 16), (384, 16), (384, 128), (1800, 16), (1400, 128),
+                                 (192, 256), (640, 256), (70, 1024), (1900, 1024)])
 def test_rows_fast_f32_bodies(device, N, C):
     """K1 fast in f32 on its 3xTF32 body (logits kept in shared memory up to
     N ~ 1680 at C = 16 and ~ 1280 at C = 128, recomputed in each pass past
-    that: N = 1800 and 1400) and on its CUDA-core
-    body, the padded rows fully masked: each held to the plain version
-    within 2e-2; the outputs that a bf16 rounding flip moved (past the f32
-    sums' 1e-5) stay rare."""
+    that: N = 1800 and 1400; past C = 128 the wide body, which keeps them up
+    to N = 576 at C <= 512 and 1856 above: N = 640 and 1900 recompute) and
+    on its CUDA-core body, the padded rows fully masked: each held to the
+    plain version within 2e-2; the outputs that a bf16 rounding flip moved
+    (past the f32 sums' 1e-5) stay rare, so a near-midpoint logit recomputed
+    into the wrong row or key shows."""
     q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=N + C, masked_rows=1)
     q = 3.0 * q * (16 / C) ** 0.5
     ref = A.rows_attention_fast_reference(q, k, v, mask, C ** -0.5)
@@ -1368,25 +1371,44 @@ def test_wide_configurations_run_the_kernels_on_the_card(device, fields, launche
         assert float((a.float() - b.float()).norm() / b.float().norm()) <= tol
 
 
-@pytest.mark.parametrize("name", ["tiled_attention", "rows_attention"])
-@pytest.mark.parametrize("C", [516, 768, 1024])
+# K1's and K1 fast's CUDA-core kernels, which their wide f32 bodies replace
+WIDE_F32_ROWS = {"rows_attention": ("rows_attention_wide_tf32x3_kernel", "rows_attention_kernel"),
+                 "rows_attention_fast": ("rows_attention_fast_wide_tf32x3_kernel",
+                                         "rows_attention_fast_kernel")}
+
+
+@pytest.mark.parametrize("name", ["tiled_attention", "rows_attention", "rows_attention_fast"])
+@pytest.mark.parametrize("C", [132, 136, 256, 516, 768, 1024])
 def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
-    """K2 and K1 in f32 past C = 512 on the CUDA-core body, where its last
-    pass stages V into K's buffer, and through the wrapper (K2 at C = 768
-    and 1024 on its wide 3xTF32 body): against the plain version at 1e-4
-    (the wide-head f32 tolerance), fully masked rows included; C = 1028 is
+    """K2, K1 and K1 fast in f32 past C = 128 on the CUDA-core body (past C
+    = 512 its last pass stages V into K's buffer), and through the wrapper:
+    K2 at C a multiple of 8 on its wide 3xTF32 body, K1 and K1 fast on
+    theirs (the profiler shows the wide kernel and not the CUDA-core one), C
+    = 132 and 516 on the CUDA-core bodies; N = 70, not a multiple of the key
+    tile. Against the plain version at 1e-4 at C >= 512 and 1e-5 below (K1
+    fast 2e-2, its bf16 softmax), fully masked rows included; C = 1028 is
     refused."""
     q, k, v, mask, bias = _inputs(2, 70, 1, C, torch.float32, device, seed=50, masked_rows=1)
     scale = C ** -0.5
     b = bias if name == "tiled_attention" else None
-    ref = A.attention_reference(q, k, v, mask, b, scale)
+    if name == "rows_attention_fast":
+        ref, tol = A.rows_attention_fast_reference(q, k, v, mask, scale), 2e-2
+    else:
+        ref, tol = A.attention_reference(q, k, v, mask, b, scale), _tol(torch.float32, C)
     out = A.attention_body(name, q, k, v, mask, b, scale, mma=False)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    assert A.takes_tensor_cores(name, torch.float32, C) is (C % 8 == 0)
     if name == "tiled_attention":
         out = A.tiled_attention(q, k, v, mask, bias, scale)
     else:
-        out = A.rows_attention(q, k, v, mask, scale)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+        fn = A.rows_attention_fast if name == "rows_attention_fast" else A.rows_attention
+        out, names = _kernel_names(lambda: fn(q, k, v, mask, scale))
+        wide_kernel, core_kernel = WIDE_F32_ROWS[name]
+        assert any((wide_kernel if C % 8 == 0 else core_kernel) in n for n in names), names
+        assert not any((core_kernel if C % 8 == 0 else wide_kernel) in n for n in names), names
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    mean_v = v[:1].mean(1, keepdim=True).expand_as(out[:1])
+    torch.testing.assert_close(out[:1], mean_v, atol=tol, rtol=tol)
     wide = torch.zeros(2, 16, 1, 1028, device=device)
     wide_bias = torch.zeros(2, 1, 16, 16, device=device) if name == "tiled_attention" else None
     with pytest.raises(ValueError, match="head width 1028"):
@@ -1402,11 +1424,11 @@ def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
 @pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
 def test_wide_head_backwards_match_plain(device, dtype, name, N, C):
     """K7 and K6 past the narrow tensor-core bodies' 128 against the plain
-    versions, fully masked rows included: K7 on its wide tensor-core body at
-    multiples of 8 (256, 1024), K6 everywhere and K7 at C = 4 mod 8 on the
-    CUDA-core bodies (CPL 8 and 16 with two staged tiles, CPL 32 with one
-    buffer shared by K and V)."""
-    assert A.takes_tensor_cores(name, dtype, C) is (name == "rows_attention_bwd" and C % 8 == 0)
+    versions, fully masked rows and the padding rows of a ragged N included:
+    both on their wide tensor-core bodies at multiples of 8 (256, 1024), on
+    the CUDA-core bodies at C = 4 mod 8 (CPL 8 and 16 with two staged tiles,
+    CPL 32 with one buffer shared by K and V)."""
+    assert A.takes_tensor_cores(name, dtype, C) is (C % 8 == 0)
     q, k, v, mask, _ = _inputs(4, N, 2, C, dtype, device, seed=21, masked_rows=1)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to(device, dtype)
     before = A.LAUNCHES[name]
@@ -1496,8 +1518,15 @@ def _kernel_names(fn, calls=3):
 
 
 # the tensor-core kernel each wide body must run, and the CUDA-core one it
-# replaces, which must not run
+# replaces, which must not run (K6: each body's dk/dv kernel; the dq kernels
+# are checked by name too)
 WIDE_KERNELS = {
+    ("rows_attention_kchunk_bwd", torch.float32): ("rows_attention_kchunk_bwd_dkdv_wide_tf32x3_kernel",
+                                                   "rows_attention_kchunk_dkdv_kernel"),
+    ("rows_attention_kchunk_bwd", torch.bfloat16): ("rows_attention_kchunk_bwd_dkdv_wide_mma_kernel",
+                                                    "rows_attention_kchunk_dkdv_kernel"),
+    ("rows_attention", torch.float32): WIDE_F32_ROWS["rows_attention"],
+    ("rows_attention_fast", torch.float32): WIDE_F32_ROWS["rows_attention_fast"],
     ("rows_attention_kchunk", torch.float32): ("rows_attention_kchunk_wide_tf32x3_kernel",
                                                "rows_attention_kchunk_kernel"),
     ("rows_attention_kchunk_stats", torch.float32): ("rows_attention_kchunk_wide_tf32x3_kernel",
@@ -1509,28 +1538,49 @@ WIDE_KERNELS = {
 }
 
 
-@pytest.mark.parametrize("name,dtype", list(WIDE_KERNELS), ids=["k3_f32", "k5_f32", "k7_f32",
-                                                                 "k7_bf16"])
+@pytest.mark.parametrize("name,dtype", list(WIDE_KERNELS), ids=["k6_f32", "k6_bf16", "k1_f32",
+                                                                 "k1_fast_f32", "k3_f32", "k5_f32",
+                                                                 "k7_f32", "k7_bf16"])
 @pytest.mark.parametrize("N,C", [(45, 136), (100, 136), (192, 256), (45, 256), (33, 1024),
                                  (70, 1024)])
 def test_wide_tensor_core_bodies_match_plain(device, name, dtype, N, C):
-    """K3 and K5 in f32 and K7 in both dtypes past C = 128 on their wide
-    tensor-core bodies, ragged N and a fully masked row included, against
-    the plain versions (the narrow bodies' gates: K3/K5 f32 1e-5, 1e-4 at C
-    >= 512, m and log s 1e-5; K7 relative to the largest gradient, f32
-    1e-5, bf16 2e-2); the profiler shows the tensor-core kernel and not the
-    CUDA-core one it replaces."""
+    """K1, K1 fast, K3 and K5 in f32 and K6 and K7 in both dtypes past C =
+    128 on their wide tensor-core bodies, ragged N and a fully masked row
+    included, against the plain versions (the narrow bodies' gates: K1, K3
+    and K5 f32 1e-5, 1e-4 at C >= 512, m and log s 1e-5; K1 fast 2e-2; K6
+    and K7 relative to the largest gradient, f32 1e-5, bf16 2e-2); the
+    profiler shows the tensor-core kernel and not the CUDA-core one it
+    replaces."""
     assert A.takes_tensor_cores(name, dtype, C)
     want_kernel, core_kernel = WIDE_KERNELS[(name, dtype)]
     q, k, v, mask, _ = _inputs(3, N, 2, C, dtype, device, seed=80 + C, masked_rows=1)
     scale = C ** -0.5
     before = A.LAUNCHES[name] + 2  # the profiled calls: two before the one checked
-    if name == "rows_attention_bwd":
+    if name in ("rows_attention_bwd", "rows_attention_kchunk_bwd"):
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(81)).to(device, dtype)
-        got, names = _kernel_names(lambda: A.rows_attention_bwd(q, k, v, mask, g, scale))
-        _assert_grads_close(got, A.rows_attention_bwd_reference(q, k, v, mask, g, scale), dtype)
+        if name == "rows_attention_bwd":
+            fn = lambda: A.rows_attention_bwd(q, k, v, mask, g, scale)  # noqa: E731
+            ref = A.rows_attention_bwd_reference(q, k, v, mask, g, scale)
+        else:
+            out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+            fn = lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs,  # noqa: E731
+                                                     scale)
+            ref = A.rows_attention_kchunk_bwd_reference(q, k, v, mask, g, out, m, logs, scale)
+        got, names = _kernel_names(fn)
+        _assert_grads_close(got, ref, dtype)
         assert torch.count_nonzero(got[0][:1]) == 0 and torch.count_nonzero(got[1][:1]) == 0
         assert any(want_kernel.replace("dkdv", "dq") in n for n in names), names
+        assert not any(core_kernel.replace("dkdv", "dq") in n for n in names), names
+    elif name in WIDE_F32_ROWS:
+        fast = name == "rows_attention_fast"
+        fn = A.rows_attention_fast if fast else A.rows_attention
+        got, names = _kernel_names(lambda: fn(q, k, v, mask, scale))
+        ref = (A.rows_attention_fast_reference(q, k, v, mask, scale) if fast
+               else A.attention_reference(q, k, v, mask, None, scale))
+        tol = 2e-2 if fast else _tol(dtype, C)
+        torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+        mean_v = v[:1].mean(1, keepdim=True).expand_as(got[:1])
+        torch.testing.assert_close(got[:1], mean_v, atol=tol, rtol=tol)
     else:
         stats = name == "rows_attention_kchunk_stats"
         fn = A.rows_attention_kchunk_stats if stats else A.rows_attention_kchunk
@@ -1542,6 +1592,24 @@ def test_wide_tensor_core_bodies_match_plain(device, name, dtype, N, C):
     assert A.LAUNCHES[name] == before + 1
     assert any(want_kernel in n for n in names), names
     assert not any(core_kernel in n for n in names), names
+
+
+@pytest.mark.parametrize("C,N", [(256, 640), (1024, 1900)])
+def test_wide_k1_fast_recomputes_its_logits_past_shared_memory(device, C, N):
+    """K1 fast's f32 wide body where the rounded logits of a block no longer
+    fit shared memory (past N = 576 at C <= 512, 1856 above): its sum and
+    P.V passes recompute them, against the plain version within 2e-2, the
+    fully masked row at the mean of v; the profiler shows the kernel's
+    recomputing instantiation (STORE false) and not the storing one."""
+    assert A.fast_wide_tf32x3_smem_bytes(C, N, store=True) > A.MMA_SMEM_BYTES
+    q, k, v, mask, _ = _inputs(2, N, 1, C, torch.float32, device, seed=94, masked_rows=1)
+    got, names = _kernel_names(lambda: A.rows_attention_fast(q, k, v, mask, C ** -0.5))
+    assert any("rows_attention_fast_wide_tf32x3_kernel<false" in n for n in names), names
+    assert not any("rows_attention_fast_wide_tf32x3_kernel<true" in n for n in names), names
+    ref = A.rows_attention_fast_reference(q, k, v, mask, C ** -0.5)
+    torch.testing.assert_close(got, ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got[:1], v[:1].mean(1, keepdim=True).expand_as(got[:1]),
+                               atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("C", [136, 1024])
@@ -1579,7 +1647,11 @@ def test_wide_k7_body_strided_and_cuda_core_callable(device, dtype):
 @pytest.mark.parametrize("entry,name,dtype,C", [
     ("prd_rows_attention_kchunk_wide_tf32x3", "rows_attention_kchunk", torch.float32, 256),
     ("prd_rows_attention_bwd_wide_tf32x3", "rows_attention_bwd", torch.float32, 256),
-    ("prd_rows_attention_bwd_wide_mma", "rows_attention_bwd", torch.bfloat16, 1024)])
+    ("prd_rows_attention_bwd_wide_mma", "rows_attention_bwd", torch.bfloat16, 1024),
+    ("prd_rows_attention_wide_tf32x3", "rows_attention", torch.float32, 136),
+    ("prd_rows_attention_fast_wide_tf32x3", "rows_attention_fast", torch.float32, 1024),
+    ("prd_rows_attention_kchunk_bwd_wide_tf32x3", "rows_attention_kchunk_bwd", torch.float32, 256),
+    ("prd_rows_attention_kchunk_bwd_wide_mma", "rows_attention_kchunk_bwd", torch.bfloat16, 512)])
 def test_wide_bodies_raise_and_do_not_fall_back(device, monkeypatch, entry, name, dtype, C):
     """A failed launch of a wide tensor-core body raises: neither the
     CUDA-core body nor the plain version runs in its place, and no launch is
@@ -1589,15 +1661,20 @@ def test_wide_bodies_raise_and_do_not_fall_back(device, monkeypatch, entry, name
     lib = build()
     calls = []
     monkeypatch.setattr(lib.lib, entry, lambda *a: calls.append("tc") or 1)
-    core = "prd_rows_attention_bwd" if name == "rows_attention_bwd" else "prd_rows_attention_kchunk"
+    core = {"rows_attention_kchunk": "prd_rows_attention_kchunk"}.get(name, f"prd_{name}")
     monkeypatch.setattr(lib.lib, core, lambda *a: calls.append("core") or 0)
     q, k, v, mask, _ = _inputs(2, 20, 1, C, dtype, device, seed=93)
+    stats = [torch.zeros(2, 1, 20, device=device) for _ in range(2)]
+    calls_by_name = {
+        "rows_attention_bwd": lambda: A.rows_attention_bwd(q, k, v, mask, q, 0.1),
+        "rows_attention_kchunk": lambda: A.rows_attention_kchunk(q, k, v, mask, 0.1),
+        "rows_attention": lambda: A.rows_attention(q, k, v, mask, 0.1),
+        "rows_attention_fast": lambda: A.rows_attention_fast(q, k, v, mask, 0.1),
+        "rows_attention_kchunk_bwd": lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, q, q,
+                                                                         *stats, 0.1)}
     before = A.LAUNCHES[name]
     with pytest.raises(RuntimeError, match=name):
-        if name == "rows_attention_bwd":
-            A.rows_attention_bwd(q, k, v, mask, q, 0.1)
-        else:
-            A.rows_attention_kchunk(q, k, v, mask, 0.1)
+        calls_by_name[name]()
     assert calls == ["tc"] and A.LAUNCHES[name] == before
 
 

@@ -87,14 +87,14 @@ def _body(name, dtype, C):
       for C in (8, 16, 64, 128)],
     ("rows_attention_kchunk", F32, 12, "cuda cores"),
     ("rows_attention_kchunk_stats", F32, 20, "cuda cores"),
-    # past 128: K3 and K5 in f32 and K7 in both dtypes on their wide
-    # tensor-core bodies (attention_tf32.cuh, attention_bwd_wide.cuh), K6 on
-    # its CUDA-core body, C = 4 mod 8 on the CUDA cores
+    # past 128: K3 and K5 in f32 and K6 and K7 in both dtypes on their wide
+    # tensor-core bodies (attention_tf32.cuh, attention_bwd_wide.cuh), C = 4
+    # mod 8 on the CUDA cores
     *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats",
                                             "rows_attention_bwd") for C in (256, 1024)],
     *[("rows_attention_bwd", BF16, C, "bf16 mma") for C in (256, 1024)],
-    *[("rows_attention_kchunk_bwd", dtype, C, "cuda cores") for dtype in (BF16, F32)
-      for C in (256, 1024)],
+    *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
+      for dtype in (BF16, F32) for C in (256, 1024)],
     *[(name, F32, 132, "cuda cores") for name in ("rows_attention_kchunk", "rows_attention_bwd")],
     # K6: the bf16 tensor cores and 3xTF32 at C a multiple of 8, else the CUDA cores
     *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
@@ -104,27 +104,46 @@ def _body(name, dtype, C):
 def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
     """Which body K5, K6 and K7 (and K3 in f32) take at C a multiple of 8:
     K5, K6 and K7 the bf16 tensor cores (attention_mma.cu,
-    attention_bwd_mma.cu), K3, K5, K6 and K7 in f32 the 3xTF32 bodies
-    (attention_tf32.cu, attention_bwd_tf32.cu); every other width keeps its
-    CUDA-core body."""
+    attention_bwd_mma.cu; K6 and K7 past 128 their wide body), K3, K5, K6
+    and K7 in f32 the 3xTF32 bodies (attention_tf32.cu,
+    attention_bwd_tf32.cu; past 128 the wide ones); every other width keeps
+    its CUDA-core body."""
     assert _body(name, dtype, C) == body
 
 
 @pytest.mark.parametrize("name", ["rows_attention", "tiled_attention", "rows_attention_fast"])
 @pytest.mark.parametrize("C", [8, 12, 16, 64, 128, 512, 768, 1024, 1028])
 def test_k1_k2_f32_body_choice_and_bound(name, C):
-    """K1, K1 fast and K2 in f32: the 3xTF32 body at C a multiple of 8, K1
-    and K1 fast up to 128 (their accumulators hold the whole head), K2 up to
-    1024 (its wide body streams the head); C = 12 and every other width keep
-    the CUDA-core body, whose bound, C <= 1024 a multiple of 4,
-    attention_fits keeps."""
-    tf32 = C % 8 == 0 and C <= {"tiled_attention": 1024}.get(name, 128)
+    """K1, K1 fast and K2 in f32: the 3xTF32 body at C a multiple of 8 up to
+    1024 (past 128 the wide bodies, which stream the head in 128-channel
+    chunks); C = 12 and every other width keep the CUDA-core body, whose
+    bound, C <= 1024 a multiple of 4, attention_fits keeps."""
+    tf32 = C % 8 == 0 and C <= 1024
     assert A.takes_tf32x3(name, F32, C) is tf32
     assert A.takes_tensor_cores(name, F32, C) is tf32
     assert _body(name, F32, C) == ("3xtf32" if tf32 else "cuda cores")
     assert A.attention_fits(name, 2, 16, 4, C, F32) is (C <= 1024)
     if tf32 and name == "tiled_attention":
         assert A.tiled_tf32x3_smem_bytes(C) <= A.MMA_SMEM_BYTES
+    if tf32 and C > 128:  # K1 on K3's wide body, K1 fast on its own
+        assert A.kchunk_wide_tf32x3_smem_bytes(C) <= A.MMA_SMEM_BYTES
+        assert A.fast_wide_tf32x3_smem_bytes(C, 0, store=False) <= A.MMA_SMEM_BYTES
+
+
+@pytest.mark.parametrize("C,stored_up_to", [(136, 576), (512, 576), (520, 1856), (1024, 1856)])
+def test_k1_fast_wide_body_stores_its_logits_where_they_fit(C, stored_up_to):
+    """K1 fast's f32 body past 128 keeps the rounded logits in shared memory
+    (2 bytes a query and key, 64 queries a block up to C = 512, 32 above)
+    up to the last N whose block fits MMA_SMEM_BYTES, and recomputes them
+    past it; its shared memory without them does not depend on N."""
+    def stores(N):  # the kernel's own switch in attention_fast_wide_tf32.cu's launch()
+        return A.fast_wide_tf32x3_smem_bytes(C, N, store=True) <= A.MMA_SMEM_BYTES
+
+    assert stores(stored_up_to)
+    assert not stores(stored_up_to + 64)
+    assert stores(stored_up_to + 1) is False
+    assert (A.fast_wide_tf32x3_smem_bytes(C, 100_000, store=False)
+            == A.fast_wide_tf32x3_smem_bytes(C, 0, store=False) <= A.MMA_SMEM_BYTES)
 
 
 def test_k1_k2_bound_accepts_every_shape_it_accepted_before():
@@ -242,12 +261,12 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 12), False),
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
     # K6 and K7 (the f32 body too) at the edges: the tensor-core bodies at
-    # multiples of 8 up to 128 (K7 up to 1024), the CUDA-core ones at
-    # multiples of 4 up to 1024
+    # multiples of 8 up to 1024 (the wide bodies past 128), the CUDA-core
+    # ones at C = 4 mod 8 up to 1024
     *[(fn, (name, dtype, C), ok)
       for name in ("rows_attention_kchunk_bwd", "rows_attention_bwd")
       for C, tc in ((4, False), (8, True), (124, False), (128, True), (132, False),
-                    (136, name == "rows_attention_bwd"), (1024, name == "rows_attention_bwd"))
+                    (136, True), (1024, True))
       for fn, dtype, ok in ((A.takes_mma, BF16, tc), (A.takes_mma, F32, False),
                             (A.takes_tf32x3, F32, tc), (A.takes_tf32x3, BF16, False))],
     *[(A.kchunk_fits, ("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype), C <= 1024)
@@ -271,9 +290,9 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (M.trimul_fits, (1, 300_000, 64, BF16), True),
     (M.trimul_fits, (1, 400_000, 64, BF16), False),
     (M.trimul_takes_tensor_cores, (72,), True),
-    # K1 fast in f32: 3xTF32 at multiples of 8 up to 128 (K1's range), bf16
-    # never; its bound unchanged at the edges
-    *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32 and C in (8, 128))
+    # K1 fast in f32: 3xTF32 at multiples of 8 up to 1024 (its wide body past
+    # 128), bf16 never; its bound unchanged at the edges
+    *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32 and C in (8, 128, 136))
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
     *[(A.attention_fits, ("rows_attention_fast", 2, 16, 4, C, dtype), C <= 1024)
       for C in (4, 8, 124, 128, 136, 1024, 1028) for dtype in (BF16, F32)],
@@ -330,16 +349,15 @@ def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
 @pytest.mark.parametrize("C", [128, 132, 256, 1024, 1028])
 def test_k3_k5_k6_k7_take_head_widths_up_to_1024(C, dtype):
     """K6 and K7 in both dtypes, and K3 and K5 in f32, take every multiple
-    of 4 up to MAX_HEAD_DIM, as K1 and K2 do: K6 on its tensor-core body up
-    to 128 and its CUDA-core body past it; K7, K3 and K5 on their
-    tensor-core bodies at every multiple of 8 up to 1024 (the wide bodies
-    past 128) and on the CUDA-core bodies at C = 4 mod 8."""
+    of 4 up to MAX_HEAD_DIM, as K1 and K2 do: on their tensor-core bodies at
+    every multiple of 8 up to 1024 (the wide bodies past 128) and on the
+    CUDA-core bodies at C = 4 mod 8."""
     ok = C <= A.MAX_HEAD_DIM
     wide_ok = ok and C % 8 == 0
     assert A.bwd_fits(2, 16, 4, C, dtype) is ok
     assert A.kchunk_fits("rows_attention_kchunk_bwd", 2, 16, 4, C, dtype) is ok
     assert A.takes_tensor_cores("rows_attention_bwd", dtype, C) is wide_ok
-    assert A.takes_tensor_cores("rows_attention_kchunk_bwd", dtype, C) is (C == 128)
+    assert A.takes_tensor_cores("rows_attention_kchunk_bwd", dtype, C) is wide_ok
     if dtype == F32:
         for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats"):
             assert A.kchunk_fits(name, 2, 16, 4, C, dtype) is ok
