@@ -250,20 +250,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    SP_STEP_BLOCKS blocks) against one rank on a model axis of 1, the loss
    and whole gradient within GRAD_REL_TOL, peak memory a rank at 384 and
    for a forward at 1024, and no kernel launched.
+24. The installed port: a wheel of the checkout (pyproject.toml, README.md
+   and both packages copied to a temporary directory; pip wheel
+   --no-build-isolation, then pip install --target, both without an index;
+   the wheel needs setuptools), the installed port made read-only. A process
+   outside the checkout whose PYTHONPATH holds the install directory only
+   loads phase 2's library through PRD_TORCH_KERNEL_DIR with no rebuild and
+   reports the user cache as the build directory it would take without the
+   variable; the installed prd-torch-generate (ModelConfig(), seeded and
+   perturbed weights, bucket 192, 2 samples, INSTALLED_STEPS DDPM steps)
+   writes files bit-equal to the checkout's generate CLI with the same seed
+   and flags. ProteinReDiffModel(ModelConfig(), device="cuda") samples at
+   bucket 192, B=2, bit-equal to the free sample with the same generator
+   seed, with exact K1 and K2 launches. Then one line of MFU: the analytic
+   FLOPs of utils/flops.denoiser_forward_flops over the profiled busy time
+   of phase 4's bf16 forward at 192 and phase 15's fast forward at 384,
+   against the H100's dense bf16 peak.
 Each phase's wall is printed as [wall] <phase>: N s, and the whole run's.
 
 Each main path (phases 5, 8, 10, 12's train CLIs, 14's generate and train
 CLIs, 15's train and serve CLIs, 17's serve CLI, 18's CLIs, 19's generate
 CLI and sampler runs, 21's generate and train CLIs, and 22's train CLI and
-runners) runs with every launch count set to 0 just
+runners, 24's facade sample) runs with every launch count set to 0 just
 before it and read just after; the f32 train CLI at 512
 gives the launches of K1's and K2's f32 entries in the kernels' record, the
 f32 served request K1 fast's. Every kernel's time and
 the library call's come from CUDA events; the bound is the larger of the
 operations this run's data needs (a query against its row's unmasked keys)
 over the card's peak for the dtype (f32: 3xTF32 on the tensor cores) and
-the bytes moved once over 3.35 TB/s; beside it the exponentials' floor,
-one per logit at 16 per SM and clock.
+the bytes moved once over 3.35 TB/s (the peaks are utils/flops.py's);
+beside it the exponentials' floor, one per logit at 16 per SM and clock.
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -276,6 +292,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import socket
@@ -291,6 +308,15 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
+
+# The H100's dense peaks and memory rate (NVIDIA's data sheet, 700 W), by
+# compute dtype; the exponentials' rate a clock on each SM.
+from protein_redesign_tpu_torch.utils.flops import (  # noqa: E402
+    EXP_PER_SM_CLOCK,
+    F32_CUDA_CORE_FLOPS,
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+)
 
 # f32 with TF32 off: 1e-5, 1e-4 at head width 512 (a 512-term f32 dot per
 # logit); bf16: 2e-2 (probabilities are rounded to bf16 before P.V).
@@ -344,15 +370,6 @@ FUSED = ("use_pallas_trimul", "use_pallas_transition", "use_pallas_outer", "use_
 FUSED_NAMES = ("fused_gated_rows_attention", "triangle_multiply", "fused_transition",
                "fused_outer_linear")
 FUSED_BUCKET_LARGE = (512, 460)  # one forward at bucket 512: 460 residues + imatinib
-# Dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): bf16 on the
-# tensor cores; f32 products at f32 accuracy the fastest way the card has,
-# 3xTF32 on the tensor cores: three TF32 products (495 TFLOP/s) for one,
-# 165 TFLOP/s (f32 FMAs outside them give 67); HBM bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
-HBM_BYTES_PER_S = 3.35e12
-# The exponentials' floor: 16 a clock on each SM (the SFU), at the card's
-# maximum SM clock.
-EXP_PER_SM_CLOCK = 16
 # The long-context paths: (bucket, residues of a seeded sequence); with
 # imatinib's 37 atoms 2037 and 997 nodes, so the padded rows are fully masked.
 LONG_GENERATE, LONG_TRAIN, IMATINIB_ATOMS = (2048, 2000), (1024, 960), 37
@@ -424,7 +441,8 @@ ESM2_650M = dict(vocab_size=33, hidden_size=1280, num_hidden_layers=33, num_atte
                  mask_token_id=32, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 ESM_MASKS, ESM_LONG = 10, 1022
 ESM_F32_TOL, ESM_BF16_TOL = 1e-5, 2e-2
-F32_CUDA_CORE_FLOPS = 67e12
+# The installed copy (phase 24): DDPM steps of its generate CLI run.
+INSTALLED_STEPS = 4
 
 
 def launch_record(**counts) -> dict:
@@ -531,7 +549,8 @@ def body_times(name, q, k, v, mask, bias, scale, **backward) -> str:
 def bound(flops: float, nbytes: float, dtype) -> dict:
     """The least time the card could take: operations over the dtype's peak
     or bytes over the HBM rate, whichever is larger."""
-    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    peak = PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
@@ -858,6 +877,10 @@ def forward_inputs(net, bucket: int = 192) -> tuple:
     return (batch, z, seq_t, mask, t, *sc)
 
 
+# Each forward's device busy ms (torch.profiler), B, bucket and config, by tag.
+FORWARD_BUSY: dict = {}
+
+
 def phase_forward(net, tag: str = "forward", bucket: int = 192,
                   tol: float = FORWARD_REL_TOL) -> None:
     """The net's forward on ``forward_inputs(net, bucket)``, kernel route
@@ -895,6 +918,7 @@ def phase_forward(net, tag: str = "forward", bucket: int = 192,
         kernel_ms, plain_ms = cuda_ms(lambda: forward(False), 2, 5), cuda_ms(lambda: forward(True), 2, 5)
         busy = device_time_by_group(lambda: forward(False))
     check_outer_body(net.cfg, busy, tag)
+    FORWARD_BUSY[tag] = (sum(busy.values()), B, bucket, net.cfg)
     print(f"[{tag}] paper width, {net.cfg.dtype}, B={B}, bucket {bucket}: kernel route "
           f"{kernel_ms:.2f} ms, "
           f"plain route {plain_ms:.2f} ms per forward; launches per forward "
@@ -3219,7 +3243,7 @@ def esm_bound(model, tokens: int) -> dict:
     flops = ESM2_650M["num_hidden_layers"] * (2 * tokens * D * (4 * D + 2 * Fd)
                                               + 4 * tokens * tokens * D)
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    peak = PEAK_FLOPS[torch.bfloat16] if model.dtype == torch.bfloat16 else F32_CUDA_CORE_FLOPS
+    peak = PEAK_FLOPS["bfloat16"] if model.dtype == torch.bfloat16 else F32_CUDA_CORE_FLOPS
     ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_s, bytes_s) * 1e3, "gflop": flops / 1e9,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
@@ -4444,6 +4468,178 @@ def phase_model_axis(seed: int, tmp: Path, trained: dict) -> None:
           f"overhead of sharing, not scaling; phase wall {time.perf_counter() - began:.1f} s")
 
 
+def _installed_copy(tmp: Path) -> Path:
+    """A wheel of the checkout's packaging files and both packages, built
+    and installed under ``tmp`` as a user would (``pip wheel``, then ``pip
+    install --target``), the installed port made read-only. Returns the
+    install directory."""
+    src, site = tmp / "src", tmp / "site"
+    src.mkdir()
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(REPO / name, src / name)
+    for package in ("protein_redesign_tpu", "protein_redesign_tpu_torch"):
+        shutil.copytree(REPO / package, src / package,
+                        ignore=shutil.ignore_patterns("__pycache__", "_build"))
+
+    def pip(*argv):
+        proc = subprocess.run([sys.executable, "-m", "pip", *argv], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"pip {argv[0]} failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+    began = time.perf_counter()
+    # the build backend is setuptools, taken from this interpreter (no isolation)
+    pip("wheel", "--no-cache-dir", "--no-deps", "--no-build-isolation", "--no-index", "-w",
+        str(tmp / "dist"), str(src))
+    (wheel,) = (tmp / "dist").glob("*.whl")
+    pip("install", "--no-cache-dir", "--no-deps", "--no-index", "--target", str(site),
+        str(wheel))
+    package = site / "protein_redesign_tpu_torch"
+    for path in [package, *package.rglob("*")]:
+        path.chmod(path.stat().st_mode & ~0o222)
+    print(f"[installed] wheel built and installed with --target in "
+          f"{time.perf_counter() - began:.1f} s; the installed port is read-only")
+    return site
+
+
+# Run by the installed copy, in a process outside the checkout: where it
+# loads the library from and where it would build without the variable.
+_INSTALLED_LOAD = """
+import json, os
+import protein_redesign_tpu_torch
+from protein_redesign_tpu_torch import kernels
+lib = kernels.build()
+explicit = os.environ.pop(kernels.KERNEL_DIR_ENV)
+print(json.dumps({"package": protein_redesign_tpu_torch.__file__, "library": str(lib.path),
+                  "build_seconds": lib.build_seconds, "explicit": explicit,
+                  "default_dir": str(kernels.build_dir())}))
+"""
+
+
+def _generated(out: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(out.iterdir()) if p.is_file()}
+
+
+def phase_installed(seed: int) -> None:
+    """The port as ``pip install`` gives it: a wheel of this checkout
+    installed into a temporary directory and made read-only. A process
+    outside the checkout, whose PYTHONPATH holds that directory only,
+    loads phase 2's library through PRD_TORCH_KERNEL_DIR without a rebuild
+    (the library's name is a hash of the sources' contents, so every
+    source and header arrived byte for byte) and finds that without the
+    variable it would build into the user's cache; the installed
+    ``prd-torch-generate`` writes files bit-equal to the checkout's
+    generate CLI with the same seed and flags. Then the model facade at
+    paper width: ``ProteinReDiffModel(ModelConfig())`` samples bit-equal
+    to the free ``sample`` with the same generator seed, with exact K1 and
+    K2 launches."""
+    from protein_redesign_tpu_torch import kernels
+    from protein_redesign_tpu_torch.cli.common import SamplingRunner
+    from protein_redesign_tpu_torch.config import ModelConfig
+    from protein_redesign_tpu_torch.models.prdiff import ProteinReDiffModel, sample
+    from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.utils.tmalign import find_tmalign
+    from protein_redesign_tpu_torch.utils.weights import save_checkpoint
+
+    lib = kernels.build()
+    cfg = ModelConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        site = _installed_copy(tmp)
+        env = {**os.environ, "PYTHONPATH": str(site), "PRD_TMALIGN": find_tmalign(),
+               kernels.KERNEL_DIR_ENV: str(lib.path.parent)}
+        proc = subprocess.run([sys.executable, "-c", _INSTALLED_LOAD], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"the installed copy failed to load:\n{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.splitlines()[-1])
+        cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache")
+        if not (Path(got["package"]).is_relative_to(site) and got["build_seconds"] is None
+                and got["library"] == str(lib.path)
+                and got["default_dir"] == str(cache / "protein_redesign_tpu_torch" / "kernels")):
+            raise AssertionError(f"installed copy: {got}; phase 2 built {lib.path}")
+        print(f"[installed] the installed copy ({got['package']}) loaded "
+              f"{Path(got['library']).name} from {got['explicit']} without a rebuild; without "
+              f"{kernels.KERNEL_DIR_ENV} it would build into {got['default_dir']} (its package "
+              f"directory is read-only)")
+
+        save_checkpoint(tmp / "ckpt", perturbed_net(cfg, seed).state_dict(), cfg)
+        argv = ["-c", str(tmp / "ckpt"), "-p", SEQUENCE, "-l", LIGAND, "-n", "2",
+                "--batch_size", "2", "--num_steps", str(INSTALLED_STEPS), "--seed", str(seed),
+                "--device", "cuda"]
+        # both at once, ESM-2 off in both (its features zero, as in phase 5)
+        runs = {}
+        began = time.perf_counter()
+        for where, command, cwd, run_env in (
+                ("checkout", [sys.executable, "-m", "protein_redesign_tpu_torch.cli.generate"],
+                 REPO, {**os.environ, "PRD_TMALIGN": env["PRD_TMALIGN"]}),
+                ("installed", [str(site / "bin" / "prd-torch-generate")], tmp, env)):
+            with open(tmp / f"{where}.log", "w") as log:
+                runs[where] = subprocess.Popen(
+                    [*command, *argv, "-o", str(tmp / where)], cwd=cwd,
+                    env={**run_env, "PRD_DISABLE_ESM": "1"}, stdout=log,
+                    stderr=subprocess.STDOUT)
+        outputs = {}
+        try:
+            for where, proc in runs.items():
+                if proc.wait(timeout=600) != 0:
+                    log = (tmp / f"{where}.log").read_text()
+                    raise AssertionError(f"{where} generate CLI failed:\n{log[-3000:]}")
+                outputs[where] = _generated(tmp / where)
+        finally:
+            for proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - began
+        if sorted(outputs["installed"]) != sorted(outputs["checkout"]) or any(
+                outputs["installed"][k] != outputs["checkout"][k] for k in outputs["checkout"]):
+            raise AssertionError("prd-torch-generate from the installed copy wrote other files "
+                                 "than the checkout's generate CLI")
+        print(f"[installed] prd-torch-generate (installed) and python -m ...cli.generate "
+              f"(checkout), bucket 192, 2 samples, {INSTALLED_STEPS} DDPM steps, seed {seed}: "
+              f"{len(outputs['checkout'])} files bit-equal ({', '.join(outputs['checkout'])}); "
+              f"both processes side by side in {wall:.1f} s")
+
+    model = ProteinReDiffModel(cfg, device="cuda")
+    model.load_params(perturbed_net(cfg, seed).state_dict())
+    landed, batch = complex_batch(SamplingRunner(model.net, "cuda"))
+    A.reset_launch_counts()
+    began = time.perf_counter()
+    pos, logits = model.sample(batch, torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - began
+    launches = main_path_launches()
+    free = sample(model.net, batch, generator=torch.Generator("cuda").manual_seed(seed))
+    if not (torch.equal(pos, free[0]) and torch.equal(logits, free[1])):
+        raise AssertionError("ProteinReDiffModel.sample differs from the free sample")
+    if not (torch.isfinite(pos).all() and pos.shape == (2, landed, 3)):
+        raise AssertionError(f"facade sample: shape {tuple(pos.shape)} or non-finite values")
+    expected = {k: cfg.num_steps * v for k, v in forward_launches(cfg).items()}
+    if launches != expected:
+        raise AssertionError(f"facade sample launches {launches} != {expected}")
+    print(f"[installed] ProteinReDiffModel(ModelConfig(), device='cuda').sample at bucket "
+          f"{landed}, {cfg.dtype}, B=2, {cfg.num_steps} DDPM steps in {seconds:.2f} s: bit-equal "
+          f"to the free sample with the same seed; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+
+
+def print_mfu() -> None:
+    """One line: the analytic forward FLOPs (``utils.flops``) over the
+    profiled busy time of phase 4's bf16 forward at 192 and phase 15's fast
+    forward at 384, against the H100's dense bf16 peak."""
+    from protein_redesign_tpu_torch.utils.flops import denoiser_forward_flops, mfu
+
+    parts = []
+    for tag in ("forward", "fast-forward-384"):
+        busy_ms, B, bucket, cfg = FORWARD_BUSY[tag]
+        flops = denoiser_forward_flops(cfg, B, bucket)
+        parts.append(f"{tag} (bucket {bucket}, B={B}) {flops / 1e9:.1f} GFLOP in {busy_ms:.2f} ms "
+                     f"busy = {mfu(flops, busy_ms / 1e3):.2%}")
+    print(f"[mfu] of {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s dense bf16: " + "; ".join(parts))
+
+
 @contextlib.contextmanager
 def wall(tag: str):
     """Print the block's wall time as ``[wall] tag``."""
@@ -4529,6 +4725,9 @@ def main() -> None:
             trained = phase_multidevice(args.seed, Path(shared))
         with wall("model axis"):
             phase_model_axis(args.seed, Path(shared), trained)
+    with wall("installed"):
+        phase_installed(args.seed)
+        print_mfu()
     # each kernel's launches on its own main path: K1, K2 and K7 on the train
     # CLI at 192/384, K3 on generation at 2048, K5 and K6 on training at 1024,
     # K8-K11 on generation with the four switches at 192, K1 fast on serving

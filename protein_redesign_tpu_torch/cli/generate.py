@@ -32,7 +32,10 @@ from argparse import ArgumentParser
 from operator import itemgetter
 from pathlib import Path
 
+from . import command
 
+
+@command
 def main(argv=None):
     from .common import NUM_DEVICES_HELP, add_esm_args, add_sampler_args
 

@@ -15,7 +15,10 @@ from __future__ import annotations
 
 from argparse import ArgumentParser
 
+from . import command
 
+
+@command
 def main(argv=None):
     from .common import add_batch_args
 

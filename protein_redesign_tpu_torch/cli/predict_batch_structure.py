@@ -18,7 +18,10 @@ import warnings
 from argparse import ArgumentParser
 from operator import itemgetter
 
+from . import command
 
+
+@command
 def main(argv=None):
     from .common import add_batch_args
 

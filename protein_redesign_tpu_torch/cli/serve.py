@@ -45,6 +45,8 @@ from argparse import ArgumentParser
 from operator import itemgetter
 from pathlib import Path
 
+from . import command
+
 # _claim_lock, _claimed_counts, _safe_dir_name and _claim_request_dir are
 # copied from protein_redesign_tpu/cli/serve.py (:40-74), whose module
 # imports jax.
@@ -250,6 +252,7 @@ def serve_tcp(port, runner, embedder, output_dir, default_mask_prob,
         server.serve_forever(poll_interval=0.05)
 
 
+@command
 def main(argv=None):
     from .common import NUM_DEVICES_HELP, add_esm_args, add_sampler_args
 

@@ -81,6 +81,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import command
 from ..parallel.mesh import (
     DATA_AXIS,
     Cluster,
@@ -167,6 +168,7 @@ def _parser() -> ArgumentParser:
     return parser
 
 
+@command
 def main(argv=None):
     """Train; returns the final TrainState, or None in the process that
     spawned the ranks."""

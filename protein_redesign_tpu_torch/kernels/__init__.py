@@ -2,11 +2,16 @@
 
 The sources under ``csrc/`` have a plain C interface. On first use ``nvcc``
 compiles each of them for Hopper (``sm_90a``), one process per source, all
-started together, and links the objects into one shared library under
-``_build/``, named by a hash of the sources, the shared header and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is. The
-library is bound with ``ctypes``: every pointer and the stream are
-``c_void_p``, and each entry point returns its ``cudaGetLastError()``.
+started together, and links the objects into one shared library named by
+a hash of the sources, the headers and the flags (their contents, not their
+path), so an edited source is rebuilt and an unchanged one is loaded as it
+is, from whichever copy of the package it comes. The library goes into the
+directory ``build_dir()`` chooses: ``$PRD_TORCH_KERNEL_DIR`` when it is set;
+else ``_build/`` beside this module when that can be written (a checkout);
+else ``${XDG_CACHE_HOME:-~/.cache}/protein_redesign_tpu_torch/kernels`` (an
+installed, read-only copy). The library is bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``, and each entry point returns its
+``cudaGetLastError()``.
 
 Nothing is built or loaded at import time: the CPU tests import every module
 of the port on machines without ``nvcc``.
@@ -26,6 +31,8 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# An explicit build directory, as TORCH_EXTENSIONS_DIR is for torch's builds.
+KERNEL_DIR_ENV = "PRD_TORCH_KERNEL_DIR"
 SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bwd_mma.cu",
            "attention_bwd_tf32.cu", "attention_kchunk.cu", "attention_tf32.cu",
            "attention_tiled_tf32.cu", "attention_kchunk_bwd.cu", "fused_gated.cu",
@@ -176,6 +183,28 @@ def find_nvcc() -> str:
     )
 
 
+def _writable(directory: Path) -> bool:
+    """Whether ``directory`` (or, while it does not exist, its nearest
+    existing parent) can take the build: this process may write it, and its
+    mode grants someone write permission, so a copy made read-only stays so
+    for a root process too."""
+    while not directory.exists():
+        directory = directory.parent
+    return os.access(directory, os.W_OK) and bool(directory.stat().st_mode & 0o222)
+
+
+def build_dir() -> Path:
+    """Where the library is looked for and built: ``$PRD_TORCH_KERNEL_DIR``;
+    else ``BUILD_DIR`` when it can be written; else the user's cache."""
+    explicit = os.environ.get(KERNEL_DIR_ENV)
+    if explicit:
+        return Path(explicit)
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "protein_redesign_tpu_torch" / "kernels"
+
+
 def _source_digest() -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
@@ -189,14 +218,15 @@ def build() -> KernelLibrary:
     global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
-    target = BUILD_DIR / f"libprd_kernels_{_source_digest()}.so"
+    directory = build_dir()
+    target = directory / f"libprd_kernels_{_source_digest()}.so"
     log_path = target.with_suffix(".log")
     build_seconds = None
     if not target.exists():
         nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        directory.mkdir(parents=True, exist_ok=True)
         start = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=directory) as tmp:
             objects = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
             outputs = [Path(tmp) / f"{Path(s).stem}.out" for s in SOURCES]
             procs = []

@@ -7,6 +7,8 @@ agree with their originals:
   save that they cite the reference repository by its own paths
   (``ProteinReDiff/mol.py``) where the originals give a checkout's
   absolute path;
+- ``utils/flops.py`` keeps the original's analytic count and MFU (MFU's
+  default peak aside) and replaces only ``compiled_flops``, XLA's count;
 - ModelConfig, DataConfig and TrainConfig have the same fields and defaults;
 - ``ligand_to_data``, ``protein_to_data`` and ``collate_fn`` give the same
   arrays on two complexes;
@@ -51,9 +53,9 @@ FILES = sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_sm
 FORBIDDEN = ("protein_redesign_tpu", "jax", "flax")
 VERBATIM = [
     "config.py", "chem/__init__.py", "chem/elements.py", "chem/mol.py", "chem/protein.py",
-    "chem/smiles.py", "chem/features.py", "data/featurize.py", "data/collate.py",
-    "data/pipeline.py", "utils/tmalign.py", "utils/convert.py", "utils/metrics.py",
-    "cli/evaluate.py",
+    "chem/smiles.py", "chem/features.py", "data/__init__.py", "data/featurize.py",
+    "data/collate.py", "data/pipeline.py", "utils/tmalign.py", "utils/convert.py",
+    "utils/metrics.py", "cli/evaluate.py",
 ]
 
 
@@ -90,6 +92,30 @@ def test_verbatim_copies_match_their_originals(relpath):
     assert header.startswith(f"# Copied from protein_redesign_tpu/{relpath}")
     original = (REPO / "protein_redesign_tpu" / relpath).read_text()
     assert body == re.sub(r"/[\w/]*/ProteinReDiff/", "ProteinReDiff/", original)
+
+
+def _top_level(path: Path) -> dict:
+    """A module's top-level functions and assignments by name, as AST dumps."""
+    nodes = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef):
+            nodes[node.name] = node
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            nodes[node.targets[0].id] = node
+    return nodes
+
+
+def test_flops_copy_changes_only_compiled_flops():
+    relpath = "utils/flops.py"
+    assert (PORT / relpath).read_text().startswith(f"# Copied from protein_redesign_tpu/{relpath}")
+    ours, theirs = _top_level(PORT / relpath), _top_level(REPO / "protein_redesign_tpu" / relpath)
+    assert "compiled_flops" not in ours and "counted_flops" in ours
+    for name in ("denoiser_forward_flops", "PEAK_FLOPS_V5E"):
+        assert ast.dump(ours[name]) == ast.dump(theirs[name]), name
+    mfu, original = ours["mfu"], theirs["mfu"]
+    assert ast.unparse(mfu.args.defaults[0]) == "PEAK_FLOPS['bfloat16']"
+    mfu.args.defaults, original.args.defaults = [], []
+    assert ast.dump(mfu) == ast.dump(original)
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "DataConfig", "TrainConfig"])
