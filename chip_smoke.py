@@ -654,7 +654,8 @@ def phase_build() -> None:
               if "spill" in line and not line.strip().startswith("0 bytes stack")]
     if spills:
         print(f"[build] ptxas reports spills in {len(spills)} instantiations")
-    for source in ("fused_gated_mma.cu", "trimul_mma.cu", "transition_mma.cu", "outer_mma.cu",
+    for source in ("fused_gated_mma.cu", "fused_gated_wide.cu", "trimul_mma.cu",
+                   "trimul_wide_mma.cu", "transition_mma.cu", "outer_mma.cu",
                    "attention_tf32.cu", "attention_kchunk_wide_tf32.cu",
                    "attention_bwd_wide_tf32.cu", "attention_bwd_wide_mma.cu"):
         for name, regs, stores, loads in ptxas_report(lib.build_log, source):
@@ -709,7 +710,8 @@ def phase_fused_breakdown() -> None:
     """K8, K9, K10 and K11 by CUDA kernel at the fused configuration's shape
     (bucket 192, B=2, paper width: K8 h16x4 at D = 64, K9 outgoing, K10
     pair_fc and single_fc, K11 512 -> 64, and K11 at pair width 128 and at
-    bucket 512, B=1), bf16 and f32, seeded random weights: device time per
+    bucket 512, B=1), and K8's split route and K8 and K9 past pair width
+    128 at phase 23's rows, bf16 and f32, seeded random weights: device time per
     kernel from torch.profiler (K11's call with its LayerNorm and u), run
     first in the process (a profiler window later in a long run loses
     kernels)."""
@@ -753,6 +755,22 @@ def phase_fused_breakdown() -> None:
                              ("fused_outer_linear D=128", lambda: O.outer(single, *ow128)),
                              ("fused_outer_linear bucket 512, B=1",
                               lambda: O.outer(single512, *ow))):
+                parts = device_time_by_kernel(fn)
+                print(f"[fused-breakdown] {name} {label}, device time by kernel: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  sorted(parts.items(), key=lambda kv: -kv[1])))
+    # the wide routes of phase 23 (147 nodes valid): K8's split route at
+    # (128, 8, 128), its projection past 128 at (192, 4, 16), K9 at 192
+    mask2d = _widths_mask2d()
+    for dtype in (torch.bfloat16, torch.float32):
+        label = str(dtype).replace("torch.", "")
+        split, wide = (_k8_args(*w, dtype, mask2d, 1) for w in ((128, 8, 128), (192, 4, 16)))
+        k9 = _k9_args(192, dtype, "outgoing", mask2d, 1)
+        with torch.inference_mode():
+            for name, fn in (("fused_gated_rows_attention (128, 8, 128), split",
+                              lambda: A.fused_gated(*split)),
+                             ("fused_gated_rows_attention (192, 4, 16)", lambda: A.fused_gated(*wide)),
+                             ("triangle_multiply D=192", lambda: M.trimul(*k9, "outgoing"))):
                 parts = device_time_by_kernel(fn)
                 print(f"[fused-breakdown] {name} {label}, device time by kernel: "
                       + ", ".join(f"{k} {v:.4f} ms" for k, v in
@@ -3829,6 +3847,7 @@ def phase_multidevice(seed: int, tmp: Path) -> dict:
 
 # K9 and K11 past their tensor-core bodies; K3/K5 (f32), K6 and K7 past 128
 MODEL_AXIS_PAIR_WIDTHS, MODEL_AXIS_HEAD_WIDTH = (36, 192), 256
+K9_WIDE = 512  # K9 at the JAX kernel's widest pair width, bf16, on ln_project.cuh's wide block
 # the paper-width rows these widths must leave alone (PERF.md §6, on the
 # device, bf16, bucket 192, B=2): K9 outgoing, K11's whole call
 PAPER_DEVICE_MS = {"triangle_multiply": 0.182, "fused_outer_linear": 0.0491}
@@ -3846,44 +3865,57 @@ def _width_check(tag: str, got, want, tol: float) -> float:
     return rel
 
 
+def _k9_args(D: int, dtype, mode: str, mask2d, seed: int) -> tuple:
+    """K9's arguments at pair width D, bucket 192, B = 2: a seeded pair and a
+    perturbed TriangleMultiplication's weights."""
+    from protein_redesign_tpu_torch.models.denoiser import TriangleMultiplication
+
+    N = mask2d.shape[-1]
+    g = torch.Generator("cuda").manual_seed(seed)
+    pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
+    tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 710).to("cuda")
+    return (pair, mask2d, tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight, tm.ab_proj.bias,
+            tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight, tm.out_proj.bias)
+
+
 def _widths_fused() -> None:
     """K9 and K11 at pair widths 36 and 192 (bucket 192, B=2, 147 nodes
-    valid) on their wide bodies against the plain versions, both dtypes,
-    and the paper-width rows timed again."""
-    from protein_redesign_tpu_torch.models.denoiser import OuterLinear, TriangleMultiplication
+    valid) against the plain versions, both dtypes (K9 at 192 on its
+    tensor-core body and, timed beside it, on the CUDA-core wide body it
+    replaced; at 36 on the wide body; K11 on its CUDA-core body), K9 at 512
+    in bf16, and the paper-width rows timed again."""
+    from protein_redesign_tpu_torch.models.denoiser import OuterLinear
     from protein_redesign_tpu_torch.ops import outer as O
     from protein_redesign_tpu_torch.ops import trimul as M
 
-    N, n_valid = 192, 147
+    N = 192
     tol = {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
-    node = (torch.arange(N, device="cuda") < n_valid).float()
-    mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
-    for seed, (D, dtype) in enumerate((D, dt) for D in (*MODEL_AXIS_PAIR_WIDTHS, 64)
+    mask2d = _widths_mask2d(N)
+    for seed, (D, dtype) in enumerate((D, dt) for D in (*MODEL_AXIS_PAIR_WIDTHS, 64, K9_WIDE)
                                       for dt in (torch.bfloat16, torch.float32)):
-        paper = D == 64
-        if paper and dtype == torch.float32:
+        paper, wide = D == 64, D == K9_WIDE
+        if (paper or wide) and dtype == torch.float32:
             continue
         g = torch.Generator("cuda").manual_seed(700 + seed)
-        pair = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
         single = torch.randn(2, N, 512, generator=g, device="cuda").to(dtype)
         label = f"{str(dtype).replace('torch.', '')}, D={D}"
         cases = []
-        for mode in ("outgoing", "incoming")[:1 if paper else 2]:
-            tm = perturb(TriangleMultiplication(D, mode, dtype=dtype), 710).to("cuda")
-            args = (pair, mask2d, tm.ab_gate.weight, tm.ab_gate.bias, tm.ab_proj.weight,
-                    tm.ab_proj.bias, tm.out_gate.weight, tm.out_gate.bias, tm.out_proj.weight,
-                    tm.out_proj.bias)
+        for mode in ("outgoing", "incoming")[:1 if paper or wide else 2]:
             cases.append(("triangle_multiply", mode, lambda *a, m=mode: M.trimul(*a, m),
-                          lambda *a, m=mode: M.trimul_reference(*a, m), args))
-        ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 720).to("cuda")
-        cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
-                      (single, ol.linear.weight, ol.linear.bias)))
+                          lambda *a, m=mode: M.trimul_reference(*a, m),
+                          _k9_args(D, dtype, mode, mask2d, 700 + seed)))
+        if not wide:
+            ol = perturb(OuterLinear(512, D, factored=True, dtype=dtype), 720).to("cuda")
+            cases.append(("fused_outer_linear", "factored route", O.outer, O.outer_reference,
+                          (single, ol.linear.weight, ol.linear.bias)))
         with torch.inference_mode():
             for name, view, kernel, plain, args in cases:
                 body = (M.trimul_body(D) if name == "triangle_multiply" else
                         "tensor cores" if O.outer_takes_tensor_cores(512, D, dtype)
                         else "cuda cores")
-                if (body in ("wide", "cuda cores")) == paper:
+                expected = ("tensor cores" if paper or (name == "triangle_multiply" and D % 8 == 0)
+                            else "wide" if name == "triangle_multiply" else "cuda cores")
+                if body != expected:
                     raise AssertionError(f"[widths] {name} {label} took the {body} body")
                 got, want = kernel(*args), plain(*args)
                 torch.cuda.synchronize()
@@ -3893,6 +3925,15 @@ def _widths_fused() -> None:
                 line = (f"[widths] {name} ({view}) {label} on the {body} body: ||kernel - plain|| "
                         f"/ ||plain|| {rel:.3e} (tol {tol[dtype]:g}); on the device {ms:.4f} ms, "
                         f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                if name == "triangle_multiply" and D > 128:  # the CUDA-core wide body it replaced
+                    with fused_cuda_core_bodies():
+                        core = kernel(*args)
+                        core_ms = device_ms(lambda: kernel(*args))
+                    torch.cuda.synchronize()
+                    core_rel = _width_check(f"{name} {view} {label} wide body", core, want,
+                                            tol[dtype])
+                    line += (f"; the CUDA-core wide body {core_ms:.4f} ms (its error "
+                             f"{core_rel:.3e}, {core_ms / ms:.1f}x)")
                 if paper:
                     was = PAPER_DEVICE_MS[name]
                     drift = ms / was - 1
@@ -3931,15 +3972,37 @@ PAPER_ATTENTION_MS = {("rows_attention_bwd", 192, torch.bfloat16): 0.2126,
 PAPER_VALID = {192: 147, 384: 360, 1024: 997}
 
 
-# The wide bodies' kernel names, read by torch.profiler in a fresh process:
-# late in this one (after the multi-device phase) the profiler returned no
-# kernel at all, even for a window of three calls behind a finished spin.
-_WIDE_NAMES = r"""
-import json, sys
+# Phase 23's kernel names, read by torch.profiler in one fresh process: late
+# in this one (after the multi-device phase) the profiler returned no kernel
+# at all, even for a window of three calls behind a finished spin; and in a
+# fresh process it has dropped a window's kernels (all of a call's) where no
+# spin ran before the calls. So each window runs a spin to its end first and
+# stays open 0.1 s after the calls, as the CUDA tests' _kernel_names does.
+# "attention": K1, K1 fast, K3, K5 (f32), K6 and K7 (both dtypes) at head
+# width C; "fused": K8 at K8_WIDTHS and K8_WIDE, K9 at 192 and K9_WIDE, both
+# dtypes, and one forward of the bf16 fused net at pair width 192 (2 blocks).
+_WIDTH_NAMES = r"""
+import json, sys, time
 import torch
 sys.path.insert(0, sys.argv[1])
+import chip_smoke as c
 from protein_redesign_tpu_torch.ops import attention as A
-C, out = int(sys.argv[2]), {}
+from protein_redesign_tpu_torch.ops import trimul as M
+
+def names(fn):
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(200_000_000)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    return [e.key for e in prof.key_averages() if "kernel" in e.key]
+
+C, attention, fused = int(sys.argv[2]), {}, {}
 for name, dt in (("rows_attention_kchunk", "float32"), ("rows_attention_kchunk_stats", "float32"),
                  ("rows_attention_bwd", "float32"), ("rows_attention_bwd", "bfloat16"),
                  ("rows_attention", "float32"), ("rows_attention_fast", "float32"),
@@ -3956,28 +4019,40 @@ for name, dt in (("rows_attention_kchunk", "float32"), ("rows_attention_kchunk_s
         fn = lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, dout, o, m, logs, 0.1)
     else:
         fn = lambda: getattr(A, name)(q, k, v, mask, 0.1)
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    out[f"{name} {dt}"] = [e.key for e in prof.key_averages() if "kernel" in e.key]
-print(json.dumps(out))
+    attention[f"{name} {dt}"] = names(fn)
+mask2d = c._widths_mask2d()
+with torch.inference_mode():
+    for dt in (torch.bfloat16, torch.float32):
+        for D, H, C8 in (*c.K8_WIDTHS, c.K8_WIDE):
+            args = c._k8_args(D, H, C8, dt, mask2d, 1)
+            fused[f"k8 {D} {H} {C8} {dt}"] = names(lambda: A.fused_gated(*args))
+        for D in (192, c.K9_WIDE):
+            args = c._k9_args(D, dt, "outgoing", mask2d, 1)
+            fused[f"k9 {D} {dt}"] = names(lambda: M.trimul(*args, "outgoing"))
+    net = c.fused_net(pair_dim=192, num_blocks=2).to("cuda").eval()
+    inputs = c.forward_inputs(net)
+    fused["net"] = names(lambda: net(*inputs))
+print(json.dumps({"attention": attention, "fused": fused}))
 """
+_WIDTH_NAMES_RAN: dict = {}
 
 
-def _wide_kernel_names(C: int) -> dict:
-    """{(name, dtype): the CUDA kernels three calls ran} for K1, K1 fast, K3,
-    K5 (f32), K6 and K7 (both dtypes) at head width C, from a fresh process
-    (the library is built already)."""
-    proc = subprocess.run([sys.executable, "-c", _WIDE_NAMES, str(REPO), str(C)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"[widths] the kernel-name process failed:\n{proc.stderr[-3000:]}")
-    names = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {(key.split()[0], getattr(torch, key.split()[1])): v for key, v in names.items()}
+def _width_kernel_names() -> dict:
+    """_WIDTH_NAMES's {"attention": {(name, dtype): kernels}, "fused": {tag:
+    kernels}} at head width MODEL_AXIS_HEAD_WIDTH, from one fresh process
+    (the library is built already), run by the first caller."""
+    if not _WIDTH_NAMES_RAN:
+        proc = subprocess.run([sys.executable, "-c", _WIDTH_NAMES, str(REPO),
+                               str(MODEL_AXIS_HEAD_WIDTH)], capture_output=True, text=True,
+                              timeout=600, env={**os.environ, "PRD_DISABLE_ESM": "1"})
+        if proc.returncode != 0:
+            raise AssertionError(f"[widths] the kernel-name process failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        ran = json.loads(proc.stdout.strip().splitlines()[-1])
+        _WIDTH_NAMES_RAN["fused"] = ran["fused"]
+        _WIDTH_NAMES_RAN["attention"] = {(key.split()[0], getattr(torch, key.split()[1])): v
+                                         for key, v in ran["attention"].items()}
+    return _WIDTH_NAMES_RAN
 
 
 def _widths_attention() -> None:
@@ -3992,7 +4067,7 @@ def _widths_attention() -> None:
 
     C = MODEL_AXIS_HEAD_WIDTH
     scale = 1.0 / math.sqrt(C)
-    ran = _wide_kernel_names(C)
+    ran = _width_kernel_names()["attention"]
     for (name, dtype), want_kernel in WIDE_TC_KERNELS.items():
         names = ran[(name, dtype)]
         wanted = {want_kernel, want_kernel.replace("dkdv", "dq")}  # K7: both of its kernels
@@ -4131,34 +4206,105 @@ def _widths_attention() -> None:
 # 32) and H C = 1024; the paper-width row it must leave alone (0.157 ms on
 # the device, bf16, bucket 192, B = 2)
 K8_WIDTHS = ((192, 4, 16), (64, 1, 256), (64, 4, 36), (128, 8, 128))
+K8_WIDE = (512, 1, 128)  # the widest pair width, bf16, on ln_project.cuh's wide block
 K8_PAPER_MS = 0.157
+# The CUDA-core projection kernels that K8's and K9's tensor-core routes
+# replaced past pair width 128 and on K8's split route (substrings of the
+# profiler's kernel names): none may run in the pair-192 net or on any of
+# K8_WIDTHS, K8_WIDE, K9 at 192 and K9_WIDE.
+CORE_PROJECTIONS = ("fused_gated_project_kernel", "fused_gated_out_kernel",
+                    "trimul_project_wide_kernel", "trimul_out_wide_kernel")
+
+
+def k8_tensor_core_kernels(D: int, H: int, C: int, dtype) -> tuple:
+    """The tensor-core kernels K8's route at (D, H, C) launches in ``dtype``
+    (substrings of the profiler's names): the LN + projection
+    (ln_project.cuh's block up to D = 128, its wide block past it, and on
+    the split route where ``split_projection_block`` picks it), then the
+    fused attention body, or on the split route K3's bodies (unnamed here)
+    and the gate + out-projection."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    split = A.fused_gated_body(D, H, C) == "split"
+    wide = D > 128 or (split and A.split_projection_block(D, dtype) == "wide")
+    project = "fused_gated_project_mma_wide_kernel" if wide else "fused_gated_project_mma_kernel"
+    return (project, "fused_gated_out_mma_kernel" if split else "fused_gated_attention_")
+
+
+K9_TC_KERNELS = {True: ("trimul_project_mma_wide_kernel", "trimul_contract_kernel",
+                        "trimul_out_mma_wide_kernel"),
+                 False: ("trimul_project_mma_kernel", "trimul_contract_kernel",
+                         "trimul_out_mma_kernel")}  # past 128 or not
+
+
+def _k8_args(D: int, H: int, C: int, dtype, mask2d, seed: int) -> tuple:
+    """K8's arguments at (D, H, C), bucket 192, B = 2, the starting view: a
+    seeded pair and weights."""
+    N = mask2d.shape[-1]
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
+    ws = [torch.randn(H * C, D, generator=g, device="cuda") * D ** -0.5 for _ in range(4)]
+    ws += [0.3 * torch.randn(H * C, generator=g, device="cuda"),
+           torch.randn(D, H * C, generator=g, device="cuda") * (H * C) ** -0.5,
+           0.1 * torch.randn(D, generator=g, device="cuda")]
+    return (x, mask2d, *ws, H)
+
+
+def _widths_mask2d(N: int = 192, n_valid: int = 147):
+    """Phase 23's pair mask at bucket N, B = 2: the first n_valid nodes."""
+    node = (torch.arange(N, device="cuda") < n_valid).float()
+    return (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
+
+
+def _check_kernel_names(tag: str, names: list, want: tuple) -> None:
+    missing = [k for k in want if not any(k in n for n in names)]
+    core = [n for n in names if any(k in n for k in CORE_PROJECTIONS)]
+    if missing or core:
+        raise AssertionError(f"[widths] {tag}: missing {missing}, CUDA-core projections {core} "
+                             f"(ran {names})")
 
 
 def _widths_fused_gated() -> None:
     """K8 at K8_WIDTHS (bucket 192, B = 2, 147 nodes valid, the starting
-    view) against its plain version in both dtypes, with its route, device
-    time, the plain version's and the bound; then the paper-width K8 (D =
-    64, h16x4, bf16) timed again."""
+    view) against its plain version in both dtypes and at K8_WIDE in bf16,
+    with its route (its tensor-core kernels by the predicates, and by the
+    profiler's names in a fresh process, with K9's), device time, the plain
+    version's and the bound; then the paper-width K8 (D = 64, h16x4, bf16)
+    timed again."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    N, n_valid = 192, 147
-    tol = {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
-    node = (torch.arange(N, device="cuda") < n_valid).float()
-    mask2d = (node[:, None] * node[None, :]).expand(2, N, N).contiguous()
-    for seed, ((D, H, C), dtype) in enumerate(
-            (w, dt) for w in (*K8_WIDTHS, (64, 4, 16)) for dt in (torch.bfloat16, torch.float32)):
-        paper = (D, H, C) == (64, 4, 16)
-        if paper and dtype == torch.float32:
+    names = _width_kernel_names()["fused"]
+    for tag, ran in names.items():
+        if tag == "net":
             continue
-        g = torch.Generator("cuda").manual_seed(760 + seed)
-        x = torch.randn(2, N, N, D, generator=g, device="cuda").to(dtype)
-        ws = [torch.randn(H * C, D, generator=g, device="cuda") * D ** -0.5 for _ in range(4)]
-        ws += [0.3 * torch.randn(H * C, generator=g, device="cuda"),
-               torch.randn(D, H * C, generator=g, device="cuda") * (H * C) ** -0.5,
-               0.1 * torch.randn(D, generator=g, device="cuda")]
-        args = (x, mask2d, *ws, H)
+        parts = tag.split()
+        if parts[0] == "k8":
+            want = k8_tensor_core_kernels(*map(int, parts[1:4]), getattr(torch, parts[4][6:]))
+        else:
+            want = K9_TC_KERNELS[int(parts[1]) > 128]
+        _check_kernel_names(tag, ran, want)
+        print(f"[widths] {tag.replace('torch.', '')} ran "
+              + ", ".join(sorted({re.sub(r"^void |\(anonymous namespace\)::|<.*$", "", n)
+                                  for n in ran})))
+    _check_kernel_names("the pair-192 net", names["net"],
+                        ("fused_gated_project_mma_wide_kernel", "trimul_project_mma_wide_kernel"))
+    print(f"[widths] the bf16 pair-192 net ran no CUDA-core projection kernel "
+          f"({', '.join(CORE_PROJECTIONS)}): {len(names['net'])} kernels on the profiler")
+
+    tol = {torch.float32: TOL_F32, torch.bfloat16: TOL_BF16}
+    mask2d = _widths_mask2d()
+    for seed, ((D, H, C), dtype) in enumerate(
+            (w, dt) for w in (*K8_WIDTHS, K8_WIDE, (64, 4, 16))
+            for dt in (torch.bfloat16, torch.float32)):
+        paper = (D, H, C) == (64, 4, 16)
+        if (paper or (D, H, C) == K8_WIDE) and dtype == torch.float32:
+            continue
+        args = _k8_args(D, H, C, dtype, mask2d, 760 + seed)
         label = f"{str(dtype).replace('torch.', '')}, D={D}, H={H}, C={C}"
         body = A.fused_gated_body(D, H, C)
+        if not (paper or body == "split" or A.fused_gated_takes_tensor_cores(D, H, C)):
+            raise AssertionError(f"[widths] K8 {label} took the {body} route")
+        body += " (" + ", ".join(k8_tensor_core_kernels(D, H, C, dtype)) + ")"
         with torch.inference_mode():
             A.reset_launch_counts()
             got = A.fused_gated(*args)
@@ -4183,9 +4329,12 @@ def _widths_fused_gated() -> None:
 def _widths_forward(seed: int) -> None:
     """The bf16 net at pair widths 36 and 192 with the four fused switches,
     2 blocks, bucket 192, B = 2: kernel route against plain route, with the
-    exact launch counts; K9 and K11 on their wide bodies inside both nets,
-    K8 on its tensor-core body at 192 (past its old bound of 128)."""
+    exact launch counts; K9 on its wide body at 36 and its tensor-core body
+    at 192, K11 on its CUDA-core body in both nets, K8 on its tensor-core
+    body at 192 (past its old bound of 128; _widths_fused_gated shows on the
+    profiler that no CUDA-core projection kernel ran in this net)."""
     from protein_redesign_tpu_torch.ops import attention as A
+    from protein_redesign_tpu_torch.ops import trimul as M
 
     for pair_dim in MODEL_AXIS_PAIR_WIDTHS:
         net = fused_net(pair_dim=pair_dim, num_blocks=2).to("cuda").eval()
@@ -4202,9 +4351,10 @@ def _widths_forward(seed: int) -> None:
         rels = [_width_check(f"pair-{pair_dim} forward {i}", a, b, FORWARD_REL_TOL)
                 for i, (a, b) in enumerate(zip(kernel_out, plain_out))]
         k8 = A.fused_gated_body(pair_dim, net.cfg.num_heads, net.cfg.head_dim)
+        k9 = M.trimul_body(pair_dim)
         print(f"[widths] fused bf16 net at pair width {pair_dim}, 2 blocks, bucket 192 (K8 on "
-              f"the {k8} route): noise_pred and seq_pred {rels[0]:.3e}, {rels[1]:.3e} from the "
-              f"plain route (tol {FORWARD_REL_TOL:g}); launches "
+              f"the {k8} route, K9 on the {k9} body): noise_pred and seq_pred {rels[0]:.3e}, "
+              f"{rels[1]:.3e} from the plain route (tol {FORWARD_REL_TOL:g}); launches "
               f"{({k: n for k, n in launches.items() if n})}")
         del net
 

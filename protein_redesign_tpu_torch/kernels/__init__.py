@@ -40,9 +40,9 @@ SOURCES = ("attention.cu", "attention_mma.cu", "attention_bwd.cu", "attention_bw
            "transition_mma.cu", "outer.cu", "outer_mma.cu", "attention_kchunk_wide_tf32.cu",
            "attention_bwd_wide_mma.cu", "attention_bwd_wide_tf32.cu", "attention_rows_wide_tf32.cu",
            "attention_fast_wide_tf32.cu", "attention_kchunk_bwd_wide_mma.cu",
-           "attention_kchunk_bwd_wide_tf32.cu")
+           "attention_kchunk_bwd_wide_tf32.cu", "fused_gated_wide.cu", "trimul_wide_mma.cu")
 HEADERS = ("common.cuh", "mma.cuh", "attention_mma.cuh", "attention_tf32.cuh",
-           "attention_bwd_wide.cuh", "ln_project.cuh")
+           "attention_bwd_wide.cuh", "ln_project.cuh", "fused_gated_rows.cuh", "trimul_rows.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -136,10 +136,11 @@ class KernelLibrary:
         lib.prd_fused_gated.restype = i32
         lib.prd_fused_gated_mma.argtypes = lib.prd_fused_gated.argtypes
         lib.prd_fused_gated_mma.restype = i32
-        lib.prd_fused_gated_project.argtypes = [ptr] * 5 + [i32] * 6 + [f32] + [i64] * 3 + [ptr]
-        lib.prd_fused_gated_project.restype = i32
-        lib.prd_fused_gated_out.argtypes = [ptr] * 5 + [i32, i64, i32, i32, ptr]
-        lib.prd_fused_gated_out.restype = i32
+        lib.prd_fused_gated_project_mma.argtypes = (
+            [ptr] * 5 + [i32] * 6 + [f32] + [i64] * 3 + [i32, ptr])
+        lib.prd_fused_gated_project_mma.restype = i32
+        lib.prd_fused_gated_out_mma.argtypes = [ptr] * 5 + [i32, i64, i32, i32, i32, ptr]
+        lib.prd_fused_gated_out_mma.restype = i32
         lib.prd_trimul.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.prd_trimul.restype = i32
         lib.prd_trimul_mma.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]

@@ -27,9 +27,8 @@
 //    transposed view [B, j, i, D] needs no copy), LN into a transposed tile
 //    in shared memory (a warp per row), then, for each slice of 64 w_in
 //    columns, K slices of 128 of its rows staged beside it in turn (a whole
-//    [D, 4 H C] w_in would not fit at D = 128; one K slice up to D = 128,
-//    so D = 512 fits in 172 KB) and 4 x 4 register tiles (4 positions x 4
-//    columns) give
+//    [D, 4 H C] w_in would not fit at D = 128; one K slice up to D = 128)
+//    and 4 x 4 register tiles (4 positions x 4 columns) give
 //    q (scaled in f32, then rounded), k, v (rounded) and the f32 gate, into
 //    contiguous scratch [3, R, N, H C] and [R, N, H C].
 // 2. fused_gated_attention_kernel, one block per (row, 32 queries): for each
@@ -48,18 +47,13 @@
 // out contiguous [R, N, D]. Takes D up to 128 (AlphaFold2's pair width), C
 // a multiple of 4 up to 32 and H C up to 128. The entry point returns cudaGetLastError().
 //
-// The split route (ops.attention.fused_gated_body "split") takes every
-// other shape the JAX kernel takes (D up to 512, C a multiple of 4 up to
-// 1024, H C up to 4096), past both bodies' tiles: prd_fused_gated_project
-// (kernel 1 alone) fills the scratch, the K-chunk forward (K3's bodies,
-// called by the wrapper) takes each head of it as [R, N, H, C] operands
-// with the scale already in q, and prd_fused_gated_out (fused_gated_out_kernel)
-// forms round(g o) and its out-projection + bo on the CUDA cores. Its
-// arithmetic is the bodies' except that o is rounded to T before the gate
-// (the K-chunk kernels' output), one rounding more in bf16, inside the 2e-2
-// gate. Its cost is o's round trip (R N H C in T, written and read) and
-// the projections on the CUDA cores: a body for the widths no configuration
-// of the paper runs.
+// K8 runs this body at C = 4 mod 8 (ops.attention.fused_gated_body "cuda
+// cores"), and at every shape it takes where
+// ops.attention.fused_gated_takes_tensor_cores is patched to False, to time
+// it beside the tensor-core body (fused_gated_mma.cu). The split route
+// (fused_gated_body "split") takes the shapes past both bodies on the
+// tensor cores (fused_gated_mma.cu's and fused_gated_wide.cu's projection
+// and gate + out-projection around K3's bodies).
 
 #include "common.cuh"
 
@@ -275,77 +269,6 @@ cudaError_t launch_project(const T* x, const T* w_in, const float* bg, T* qkv, f
   return cudaGetLastError();
 }
 
-// The split route's last kernel: out = round(g o) W_o + bo for o the heads'
-// attention output [positions, H C] in T (the K-chunk kernels' output) and g
-// the gate [positions, H C] f32: a block a tile of 64 positions x 64 output
-// columns, 4 x 4 register tiles, summed over K slices of 128 rows of W_o
-// [H C, D] staged beside the slice's round(g o), transposed.
-constexpr int kLdO = kTP + 4;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_gated_out_kernel(const T* __restrict__ o, const float* __restrict__ gate,
-                           const T* __restrict__ wo_t, const float* __restrict__ bo,
-                           T* __restrict__ out, long long positions, int D, int HC) {
-  extern __shared__ __align__(16) float smem[];
-  float* goT = smem;               // [kWK][kLdO]: round(g o) of the K slice, transposed
-  float* ws = goT + kWK * kLdO;    // [kWK][kWC]: its rows of W_o
-  const int tid = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * kTP;
-  const int rows = (int)min((long long)kTP, positions - p0);
-  const int c0 = blockIdx.y * kWC;
-  const int pg = tid % (kTP / 4), cl = (tid / (kTP / 4)) * 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < HC; k0 += kWK) {
-    const int kn = min(kWK, HC - k0);
-    __syncthreads();  // the previous slice's reads are done
-    for (int e = tid; e < kTP * kn; e += kThreads) {  // along the channels of a position
-      const int p = e / kn, c = e - p * kn;
-      float x = 0.f;
-      if (p < rows) {
-        const long long at = (p0 + p) * HC + k0 + c;
-        x = Io<T>::round(gate[at] * Io<T>::load(o + at));
-      }
-      goT[c * kLdO + p] = x;
-    }
-    for (int e = tid; e < kn * kWC; e += kThreads) {
-      const int c = e / kWC, d = e - c * kWC;
-      ws[e] = c0 + d < D ? Io<T>::load(wo_t + (long long)(k0 + c) * D + c0 + d) : 0.f;
-    }
-    __syncthreads();
-    tile_4x4(acc, goT + pg * 4, kLdO, ws + cl, kWC, kn);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (pg * 4 + i >= rows) continue;
-    T* row = out + (p0 + pg * 4 + i) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = c0 + cl + j;
-      if (d < D) row[d] = Io<T>::cast(acc[i][j] + bo[d]);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_out(const T* o, const float* gate, const T* wo_t, const float* bo, T* out,
-                       long long positions, int D, int HC, cudaStream_t stream) {
-  const long long blocks = (positions + kTP - 1) / kTP;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)kWK * (kLdO + kWC);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_gated_out_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)blocks, (D + kWC - 1) / kWC);
-  fused_gated_out_kernel<T><<<grid, kThreads, smem, stream>>>(o, gate, wo_t, bo, out, positions, D,
-                                                             HC);
-  return cudaGetLastError();
-}
-
 struct Args {
   const void* x;
   const float* mask;
@@ -406,47 +329,6 @@ int prd_fused_gated(const void* x, const void* mask, const void* w_in, const voi
                R1, R2, N, D, H, C, scale, s1, s2, sn, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch<float>(a);
   return (int)launch<__nv_bfloat16>(a);
-}
-
-// K8's LN + projection alone (the tensor-core body past D = 128 and the
-// split route): x [R1, R2, N, D] through its strides into qkv [3, R1 R2 N,
-// H C] (q scaled) in T and gate [R1 R2 N, H C] f32. Takes D up to 512 and H
-// C a multiple of 4.
-int prd_fused_gated_project(const void* x, const void* w_in, const void* bg, void* qkv,
-                            void* gate, int dtype, int R1, int R2, int N, int D, int HC,
-                            float scale, long long s1, long long s2, long long sn, void* stream) {
-  const bool ok = (dtype == 0 || dtype == 1) && R1 > 0 && R2 > 0 && N > 0 && D > 0 && D <= 512 &&
-                  HC > 0 && HC % 4 == 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const long long positions = (long long)R1 * R2 * N;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_project<float>(static_cast<const float*>(x), static_cast<const float*>(w_in),
-                                      static_cast<const float*>(bg), static_cast<float*>(qkv),
-                                      static_cast<float*>(gate), R2, N, D, HC, scale, s1, s2, sn,
-                                      positions, s);
-  using bf = __nv_bfloat16;
-  return (int)launch_project<bf>(static_cast<const bf*>(x), static_cast<const bf*>(w_in),
-                                 static_cast<const float*>(bg), static_cast<bf*>(qkv),
-                                 static_cast<float*>(gate), R2, N, D, HC, scale, s1, s2, sn,
-                                 positions, s);
-}
-
-// The split route's gate and out-projection: out [positions, D] = round(g o)
-// W_o + bo, o [positions, H C] in T, gate f32, wo_t [H C, D] in T, bo f32.
-int prd_fused_gated_out(const void* o, const void* gate, const void* wo_t, const void* bo,
-                        void* out, int dtype, long long positions, int D, int HC, void* stream) {
-  const bool ok = (dtype == 0 || dtype == 1) && positions > 0 && D > 0 && HC > 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_out<float>(static_cast<const float*>(o), static_cast<const float*>(gate),
-                                  static_cast<const float*>(wo_t), static_cast<const float*>(bo),
-                                  static_cast<float*>(out), positions, D, HC, s);
-  using bf = __nv_bfloat16;
-  return (int)launch_out<bf>(static_cast<const bf*>(o), static_cast<const float*>(gate),
-                             static_cast<const bf*>(wo_t), static_cast<const float*>(bo),
-                             static_cast<bf*>(out), positions, D, HC, s);
 }
 
 }  // extern "C"

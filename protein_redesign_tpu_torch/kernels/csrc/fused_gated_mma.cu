@@ -68,19 +68,19 @@
 // 512 (h16x4, h64x1, h64x4 at pair widths 64-512). Past D = 128 the
 // out-projection runs in slices of 128 output columns, each re-reading the
 // gated-heads tile (one slice up to 128, so those widths keep their bits),
-// and the LN + projection is fused_gated.cu's CUDA-core kernel in K slices
-// of 128 weight rows (ln_project.cuh's A tile holds a whole row of D <=
-// 128). The entry point returns cudaGetLastError().
+// and the LN + projection is fused_gated_wide.cu's kernel on ln_project.cuh's
+// wide block (the A tile alone resident, W streamed in K slices). The entry
+// points return cudaGetLastError().
 
 #include "attention_tf32.cuh"
-#include "ln_project.cuh"
+#include "fused_gated_rows.cuh"
 
-// fused_gated.cu's LN + projection (CUDA cores, K slices of 128 rows), which
-// this body runs past D = 128.
-extern "C" int prd_fused_gated_project(const void* x, const void* w_in, const void* bg, void* qkv,
-                                       void* gate, int dtype, int R1, int R2, int N, int D, int HC,
-                                       float scale, long long s1, long long s2, long long sn,
-                                       void* stream);
+// fused_gated_wide.cu's LN + projection on ln_project.cuh's wide block,
+// which project() runs past D = 128.
+extern "C" int prd_fused_gated_project_wide(const void* x, const void* w_in, const void* bg,
+                                            void* qkv, void* gate, int dtype, int R1, int R2,
+                                            int N, int D, int HC, float scale, long long s1,
+                                            long long s2, long long sn, void* stream);
 
 namespace {
 
@@ -111,79 +111,6 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// ln_project's loader: 64 positions of x [R1, R2, N, D] read through strides.
-template <typename T>
-struct StridedRows {
-  const T* x;
-  int R2, N, D;
-  long long s1, s2, sn;
-
-  bool vec;  // x and its strides on 16 bytes, D a multiple of 16 bytes
-
-  // One 64-bit division a block (R N positions, R < 2^31).
-  __device__ __forceinline__ void operator()(float* raw, int ld, long long p0, int rows) const {
-    const long long row0 = p0 / N;
-    const int n0 = (int)(p0 - row0 * N);
-    lnp_load_rows<T>(raw, ld, D, rows, vec, [&](int p) {
-      int n = n0 + p, row = (int)row0;
-      if (n >= N) {
-        row += n / N;
-        n -= (n / N) * N;
-      }
-      const int r1 = row / R2;
-      return x + r1 * s1 + (long long)(row - r1 * R2) * s2 + (long long)n * sn;
-    });
-  }
-};
-
-// ln_project's epilogue: q (scaled in f32, then rounded), k, v into
-// qkv [3, positions, H C] in T, the gate's sigmoid into gate [positions, H C];
-// a thread takes 8 columns of a position at a time (an 8-column chunk lies in
-// one of q, k, v and gate: H C % 8 == 0), 16- or 32-byte stores along rows.
-template <typename T>
-struct QkvGate {
-  T* qkv;
-  float* gate;
-  const float* bg;
-  int HC;
-  float scale;
-  long long positions;
-
-  __device__ __forceinline__ void operator()(const float* tile, long long p0, int rows,
-                                             int c0) const {
-    constexpr int kItems = kLnpRows * (kLnpCols / 8) / kLnpThreads;
-    float v[kItems][8], b[kItems][8];  // the loads before any store
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + kLnpThreads * k;
-      const int p = i >> 3, col = c0 + (i & 7) * 8;
-      load8(tile + p * kLnpLdT + (i & 7) * 8, v[k]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[k][j] = col >= 3 * HC && col < 4 * HC ? bg[col - 3 * HC + j] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + kLnpThreads * k;
-      const int p = i >> 3, col = c0 + (i & 7) * 8;
-      if (p >= rows || col >= 4 * HC) continue;
-      const long long pos = p0 + p;
-      const int which = col / HC;  // 0 q, 1 k, 2 v, 3 gate
-      const int c = col - which * HC;
-      float o[8];
-      if (which == 3) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = sigmoid_f(v[k][j] + b[k][j]);
-        store8(gate + pos * HC + c, o);
-      } else {
-        const float s = which == 0 ? scale : 1.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = v[k][j] * s;
-        store8(qkv + (which * positions + pos) * HC + c, o);
-      }
-    }
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks)
     fused_gated_project_mma_kernel(const FgArgs a) {
@@ -192,11 +119,8 @@ __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks)
   const long long positions = (long long)a.R1 * a.R2 * a.N;
   const long long p0 = (long long)blockIdx.x * kLnpRows;
   const int rows = (int)min((long long)kLnpRows, positions - p0);
-  constexpr int kChunk = 16 / sizeof(T);
-  const bool vec = a.D % kChunk == 0 && (reinterpret_cast<unsigned long long>(a.x) & 15u) == 0 &&
-                   a.s1 % kChunk == 0 &&
-                   a.s2 % kChunk == 0 && a.sn % kChunk == 0;
-  const StridedRows<T> load{static_cast<const T*>(a.x), a.R2, a.N, a.D, a.s1, a.s2, a.sn, vec};
+  const StridedRows<T> load =
+      strided_rows(static_cast<const T*>(a.x), a.R2, a.N, a.D, a.s1, a.s2, a.sn);
   const QkvGate<T> epi{static_cast<T*>(a.qkv), a.gate, a.bg, HC, a.scale, positions};
   ln_project<T>(load, static_cast<const T*>(a.w_in), a.D, 4 * HC, p0, rows, epi, smem_fg);
 }
@@ -555,28 +479,32 @@ cudaError_t dispatch_attention(const FgArgs& a, bool f32, cudaStream_t stream) {
   return launch_mma<8, DT>(a, stream);
 }
 
+// K8's LN + projection into the scratch (the whole call's first kernel, and
+// the split route's): the block above up to D = 128, the wide block past it
+// (or at any D where wide is set).
 template <typename T>
-cudaError_t launch(const FgArgs& a, cudaStream_t stream) {
-  const long long positions = (long long)a.R1 * a.R2 * a.N;
-  const long long blocks = (positions + kLnpRows - 1) / kLnpRows;
+cudaError_t project(const FgArgs& a, cudaStream_t stream, bool wide = false) {
+  if (wide || a.D > kLnpMaxD)
+    return (cudaError_t)prd_fused_gated_project_wide(a.x, a.w_in, a.bg, a.qkv, a.gate,
+                                                     sizeof(T) == 2, a.R1, a.R2, a.N, a.D,
+                                                     a.H * a.C, a.scale, a.s1, a.s2, a.sn, stream);
+  const long long blocks = ((long long)a.R1 * a.R2 * a.N + kLnpRows - 1) / kLnpRows;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (a.D > kLnpMaxD) {  // past ln_project's whole-row tile: fused_gated.cu's K-sliced projection
-    const int e = prd_fused_gated_project(a.x, a.w_in, a.bg, a.qkv, a.gate, sizeof(T) == 2,
-                                          a.R1, a.R2, a.N, a.D, a.H * a.C, a.scale, a.s1, a.s2,
-                                          a.sn, stream);
-    if (e != 0) return (cudaError_t)e;
-  } else {
-    const size_t smem = lnp_smem_bytes<T>(a.D);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(fused_gated_project_mma_kernel<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    fused_gated_project_mma_kernel<T><<<(unsigned)blocks, kLnpThreads, smem, stream>>>(a);
-    const cudaError_t e = cudaGetLastError();
+  const size_t smem = lnp_smem_bytes<T>(a.D);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(fused_gated_project_mma_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
     if (e != cudaSuccess) return e;
   }
+  fused_gated_project_mma_kernel<T><<<(unsigned)blocks, kLnpThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const FgArgs& a, cudaStream_t stream) {
+  const cudaError_t e = project<T>(a, stream);
+  if (e != cudaSuccess) return e;
   const bool f32 = sizeof(T) == sizeof(float);
   return a.D <= 64 ? dispatch_attention<8>(a, f32, stream) : dispatch_attention<16>(a, f32, stream);
 }
@@ -602,6 +530,27 @@ int prd_fused_gated_mma(const void* x, const void* mask, const void* w_in, const
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(a, s);
   return (int)launch<bf16>(a, s);
+}
+
+// K8's LN + projection alone, the split route's first kernel: x [R1, R2, N,
+// D] through its strides into qkv [3, R1 R2 N, H C] (q scaled) in T and gate
+// [R1 R2 N, H C] f32, on the tensor cores: ln_project.cuh's block up to D =
+// 128 unless wide is 1, its wide block past 128 or where wide is 1
+// (ops.attention.split_projection_block). Takes D up to 512 and H C a
+// multiple of 4.
+int prd_fused_gated_project_mma(const void* x, const void* w_in, const void* bg, void* qkv,
+                                void* gate, int dtype, int R1, int R2, int N, int D, int HC,
+                                float scale, long long s1, long long s2, long long sn, int wide,
+                                void* stream) {
+  const bool ok = (dtype == 0 || dtype == 1) && R1 > 0 && R2 > 0 && N > 0 && D > 0 &&
+                  D <= kFgMaxD && HC > 0 && HC % 4 == 0 && aligned16(w_in) && aligned16(qkv) &&
+                  aligned16(gate);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const FgArgs a{x, nullptr, w_in, static_cast<const float*>(bg), nullptr, nullptr, qkv,
+                 static_cast<float*>(gate), nullptr, R1, R2, N, D, 1, HC, scale, s1, s2, sn};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)project<float>(a, s, wide != 0);
+  return (int)project<bf16>(a, s, wide != 0);
 }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
 // LayerNorm + projection on the tensor cores: the block that the fused
-// kernels' LN -> Linear stages share (fused_gated_mma.cu: K8's q, k, v and
-// gate projection; trimul_mma.cu: K9's gated a, b and out-gate projection
-// and its out-projection of the normed product). transition_mma.cu (K10)
-// takes its operand traits (LnpOperand) and unpack16.
+// kernels' LN -> Linear stages share (fused_gated_mma.cu and
+// fused_gated_wide.cu: K8's q, k, v and gate projection; trimul_mma.cu and
+// trimul_wide_mma.cu: K9's gated a, b and out-gate projection and its
+// out-projection of the normed product). transition_mma.cu (K10) takes its
+// operand traits (LnpOperand) and unpack16; fused_gated_wide.cu's gate +
+// out-projection takes its weight staging and product (lnw_stage_w,
+// lnp_product).
 //
 // One block of kLnpThreads threads (4 warps) takes kLnpRows = 64 positions:
 //   0. the first two 64-column slices of the weight W [D, Wc] (T, row-major)
@@ -31,16 +34,39 @@
 // rows, 16 bytes each; the tile lets every epilogue write whole rows (or
 // runs of positions), as the loaders read them.
 //
-// Loader: void operator()(float* raw, int ld, long long p0, int rows) const,
-// fills raw[p * ld + d] for p < 64, d < D (zeros for p >= rows).
+// That block (ln_project) takes D up to kLnpMaxD = 128: past it the raw f32
+// rows, the A tile and two whole-D weight slices outgrow shared memory
+// (about 131 + 66 + 147 KB at D = 512 in bf16). The wide block
+// (ln_project_wide, D up to kLnwMaxD = 512, the JAX kernels' reach) keeps
+// only the A tile resident:
+//   - LayerNorm in two passes over the rows, kLnwChunk = 64 columns at a
+//     time through a raw f32 chunk [64][65] (the loader reads columns [d0,
+//     d0 + dn) of the rows): the first takes each row's mean and M2 chunk by
+//     chunk (the chunk's own mean and sum of squares about it, merged by
+//     Chan's update, so no sum of squares cancels) into shared memory past
+//     the chunk, the second reads the rows again (mostly from L2),
+//     normalises and writes x^ in T into the A tile;
+//   - W streams in K slices of kLnwK rows (128 bytes of a column: 64 rows in
+//     bf16, 32 in f32) x 64 columns through a ring of kLnwBufs = 3 buffers by
+//     cp.async, two K slices ahead, one barrier a K slice; each 64-column
+//     slice of the output sums its K slices in order in the warps'
+//     accumulators, then goes through the output tile to the epilogue as in
+//     the narrow block. Shared memory lnw_smem_bytes: 111,616 bytes at D =
+//     512 in bf16 (two blocks a SM), 177,152 in f32 (one).
+//
+// Loader: void operator()(float* raw, int ld, long long p0, int rows, int d0,
+// int dn) const, fills raw[p * ld + d] for p < 64, d < dn with column d0 + d
+// of position p0 + p (zeros for p >= rows); the narrow block asks for (0, D),
+// the wide one for chunks of 64 (d0 a multiple of 64).
 // Epilogue: void operator()(const float* tile, long long p0, int rows, int c0)
 // const: tile[p * kLnpLdT + c] is the product at position p0 + p and column
 // c0 + c (c < 64); positions at or past p0 + rows and columns at or past Wc
 // are padding. Loaders and epilogues issue their global loads before their
 // stores (a load after a store to memory that may alias waits for it).
 //
-// Requirements: D <= kLnpMaxD; Wc a multiple of 8 (bf16) or 4 (f32), so a
-// 16-byte copy of a weight row never straddles its end; w 16-byte aligned.
+// Requirements: D <= kLnpMaxD (ln_project) or kLnwMaxD (ln_project_wide); Wc
+// a multiple of 8 (bf16) or 4 (f32), so a 16-byte copy of a weight row never
+// straddles its end; w 16-byte aligned.
 #pragma once
 
 #include "common.cuh"
@@ -56,6 +82,9 @@ constexpr int kLnpMinBlocks = 4;
 constexpr int kLnpRows = 64;
 constexpr int kLnpCols = 64;
 constexpr int kLnpMaxD = 128;
+constexpr int kLnwMaxD = 512;
+constexpr int kLnwChunk = 64;  // LN columns of the wide block's raw chunk
+constexpr int kLnwBufs = 3;    // the wide block's ring of weight K slices
 constexpr int kLnpLdW = kLnpCols + 8;  // weight slice row stride (bf16 and f32: conflict-free)
 constexpr int kLnpLdT = kLnpCols + 4;  // output tile row stride (f32, 16-byte rows)
 
@@ -218,6 +247,12 @@ __device__ __forceinline__ void lnp_product(const __nv_bfloat16* a_w, int lda,
   }
 }
 
+// f32: mma.cuh's mma_3xtf32 for each n-tile (its three products into a fresh
+// fragment, small terms first, then added to the sum), the three products
+// interleaved over the 8 n-tiles, so that none waits on the one before it
+// (asm volatile keeps the order as written; one n-tile after the other, each
+// product stalled on its predecessor's result). Each n-tile's sums are
+// mma_3xtf32's, in its order: the same bits.
 __device__ __forceinline__ void lnp_product(const float* a_w, int lda, const float* w_s, int DP,
                                             int lane, float (&acc)[8][4]) {
   const int g = lane >> 2, t4 = lane & 3;
@@ -228,13 +263,24 @@ __device__ __forceinline__ void lnp_product(const float* a_w, int lda, const flo
     split_tf32(a_w[g * lda + kc + t4 + 4], ab[2], as[2]);
     split_tf32(a_w[(g + 8) * lda + kc + t4 + 4], ab[3], as[3]);
     const float* w0 = w_s + (kc + t4) * kLnpLdW + g;
+    unsigned bb[8][2], bs[8][2];
+    float t[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      unsigned bb0, bs0, bb1, bs1;
-      split_tf32(w0[n * 8], bb0, bs0);
-      split_tf32(w0[4 * kLnpLdW + n * 8], bb1, bs1);
-      mma_3xtf32(acc[n], ab, as, bb0, bb1, bs0, bs1);
+      split_tf32(w0[n * 8], bb[n][0], bs[n][0]);
+      split_tf32(w0[4 * kLnpLdW + n * 8], bb[n][1], bs[n][1]);
+      t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
     }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma_tf32_1688(t[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma_tf32_1688(t[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma_tf32_1688(t[n], ab, bb[n][0], bb[n][1]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += t[n][i];
   }
 }
 
@@ -259,7 +305,7 @@ __device__ __forceinline__ void ln_project(const Load& load, const T* __restrict
   cp_async_commit();
   if (slices > 1) lnp_stage_w(w, D, DP, Wc, kLnpCols, w_s + wbuf);
   cp_async_commit();
-  load(raw, D + 1, p0, rows);
+  load(raw, D + 1, p0, rows, 0, D);
   __syncthreads();
   // LN, a warp a row, four rows at once (their reductions interleave): D <=
   // 128, so four values a lane
@@ -324,6 +370,146 @@ __device__ __forceinline__ void ln_project(const Load& load, const T* __restrict
         *reinterpret_cast<float2*>(tile + (warp * 16 + g + 8 * half) * kLnpLdT + n * 8 + 2 * t4) =
             make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
     __syncthreads();  // the tile is whole; every warp is done with this slice's buffer
+    epi(tile, p0, rows, sl * kLnpCols);
+  }
+}
+
+// Weight rows of the wide block's K slices: 128 bytes of a column (64 in
+// bf16, 32 in f32; a multiple of either MMA's depth).
+template <typename T>
+constexpr int kLnwK = 128 / (int)sizeof(T);
+
+// Shared memory of one wide block: the A tile, the ring of weight K slices,
+// and the raw f32 chunk (during LN) or the output tile (during the slices).
+template <typename T>
+__host__ __device__ constexpr size_t lnw_smem_bytes(int D) {
+  const int DP = lnp_depth_pad<T>(D);
+  const size_t a = sizeof(T) * (size_t)kLnpRows * (DP + LnpOperand<T>::kPad);
+  const size_t w = sizeof(T) * (size_t)kLnwBufs * kLnwK<T> * kLnpLdW;
+  const size_t raw = sizeof(float) * (size_t)kLnpRows * (kLnwChunk + 1);
+  const size_t tile = sizeof(float) * (size_t)kLnpRows * kLnpLdT;
+  return a + w + (raw > tile ? raw : tile);
+}
+
+// Weight rows [k0, k0 + kLnwK) and columns [c0, c0 + 64) of W [D, Wc] into a
+// K slice [kLnwK][kLnpLdW] by cp.async, zero past D and past Wc.
+template <typename T>
+__device__ __forceinline__ void lnw_stage_w(const T* __restrict__ w, int D, int Wc, int k0, int c0,
+                                            T* dst) {
+  constexpr int kChunk = LnpOperand<T>::kChunk;
+  constexpr int kPerRow = kLnpCols / kChunk;
+  for (int e = threadIdx.x; e < kLnwK<T> * kPerRow; e += kLnpThreads) {
+    const int d = e / kPerRow;
+    const int c = (e - d * kPerRow) * kChunk;
+    const bool ok = k0 + d < D && c0 + c < Wc;
+    cp_async16(dst + d * kLnpLdW + c, ok ? w + (long long)(k0 + d) * Wc + c0 + c : w, ok);
+  }
+}
+
+// The wide block: positions [p0, p0 + rows), rows <= 64, of width D (128 <
+// D <= kLnwMaxD) through LN and x^ W (W [D, Wc] in T), each 64-column slice
+// handed to epi.
+template <typename T, class Load, class Epi>
+__device__ __forceinline__ void ln_project_wide(const Load& load, const T* __restrict__ w, int D,
+                                                int Wc, long long p0, int rows, const Epi& epi,
+                                                unsigned char* smem) {
+  constexpr int KS = kLnwK<T>, kWarpsL = kLnpThreads / 32, kRowsW = kLnpRows / kWarpsL;
+  constexpr int ldr = kLnwChunk + 1, wbuf = KS * kLnpLdW;
+  const int DP = lnp_depth_pad<T>(D);
+  const int lda = DP + LnpOperand<T>::kPad;
+  T* a_s = reinterpret_cast<T*>(smem);  // [64][lda]
+  T* w_s = a_s + kLnpRows * lda;        // [kLnwBufs][KS][kLnpLdW] (16-byte aligned)
+  float* raw = reinterpret_cast<float*>(w_s + kLnwBufs * wbuf);  // [64][ldr], then:
+  float* tile = raw;                                               // [64][kLnpLdT]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ks = (DP + KS - 1) / KS;  // K slices a 64-column slice
+  const int total = (Wc + kLnpCols - 1) / kLnpCols * ks;
+  // K slice t (column slice t / ks, rows (t % ks) KS) into ring buffer t % 3;
+  // a group committed whether or not there is one, so that the waits count
+  auto stage = [&](int t) {
+    if (t < total)
+      lnw_stage_w(w, D, Wc, (t % ks) * KS, (t / ks) * kLnpCols, w_s + (t % kLnwBufs) * wbuf);
+    cp_async_commit();
+  };
+  stage(0);
+  stage(1);
+
+  // LN, first pass: each row's mean and M2 (a warp a row: rows warp + 4 r),
+  // kept in stats [64][2] past the raw chunk (the output tile's region holds
+  // both), so that no register holds them across the passes
+  float* stats = raw + kLnpRows * ldr;
+  static_assert(kLnpRows * ldr + 2 * kLnpRows <= kLnpRows * kLnpLdT, "stats past the raw chunk");
+  for (int d0 = 0; d0 < D; d0 += kLnwChunk) {
+    const int dn = min(kLnwChunk, D - d0);
+    __syncthreads();  // the previous chunk's reads (and its stats) are done
+    load(raw, ldr, p0, rows, d0, dn);
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kRowsW; ++r) {
+      const int q0 = warp + kWarpsL * r;
+      const float* row = raw + q0 * ldr;
+      const float v0 = lane < dn ? row[lane] : 0.f;
+      const float v1 = lane + 32 < dn ? row[lane + 32] : 0.f;
+      const float mc = warp_sum(v0 + v1) / (float)dn;
+      const float t0 = lane < dn ? v0 - mc : 0.f;
+      const float t1 = lane + 32 < dn ? v1 - mc : 0.f;
+      float q = warp_sum(fmaf(t0, t0, t1 * t1)), mean = mc;
+      if (d0 > 0) {  // Chan: merge (d0, mean, M2) with (dn, mc, q)
+        const float n = (float)(d0 + dn), delta = mc - stats[2 * q0];
+        mean = fmaf(delta, (float)dn / n, stats[2 * q0]);
+        q = stats[2 * q0 + 1] + fmaf(delta * delta, (float)d0 * ((float)dn / n), q);
+      }
+      __syncwarp();  // every lane has read the row's stats before any writes them
+      stats[2 * q0] = mean;  // every lane writes the same values
+      stats[2 * q0 + 1] = q;
+    }
+  }
+  // second pass: x^ rounded to T into the A tile
+  for (int d0 = 0; d0 < D; d0 += kLnwChunk) {
+    const int dn = min(kLnwChunk, D - d0);
+    __syncthreads();
+    load(raw, ldr, p0, rows, d0, dn);
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kRowsW; ++r) {
+      const int q0 = warp + kWarpsL * r;
+      const float* row = raw + q0 * ldr;
+      const float mean = stats[2 * q0], rstd = rsqrtf(stats[2 * q0 + 1] / (float)D + 1e-5f);
+      T* dst = a_s + q0 * lda + d0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int d = lane + 32 * i;
+        if (d < dn) dst[d] = Io<T>::cast((row[d] - mean) * rstd);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < kLnpRows * (DP - D); e += kLnpThreads) {  // zero past D
+    const int p = e / (DP - D);
+    a_s[p * lda + D + (e - p * (DP - D))] = Io<T>::cast(0.f);
+  }
+
+  const T* a_w = a_s + warp * 16 * lda;
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int sl = 0, t = 0; sl < total / ks; ++sl) {
+    float acc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int kt = 0; kt < ks; ++kt, ++t) {
+      cp_async_wait<1>();
+      __syncthreads();  // K slice t is in (the first time, the A tile too); every warp is done
+                        // with K slice t - 1, whose buffer K slice t + 2 takes
+      stage(t + 2);
+      lnp_product(a_w + kt * KS, lda, w_s + (t % kLnwBufs) * wbuf, min(KS, DP - kt * KS), lane,
+                  acc);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(tile + (warp * 16 + g + 8 * half) * kLnpLdT + n * 8 + 2 * t4) =
+            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    __syncthreads();  // the tile is whole (the next slice writes it after a barrier)
     epi(tile, p0, rows, sl * kLnpCols);
   }
 }

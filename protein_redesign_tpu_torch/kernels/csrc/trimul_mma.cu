@@ -60,18 +60,22 @@
 // channels, then the D out-gate columns; b_in [5D] f32 in the same order;
 // wop_t [D, D] in T; bop [D] f32; scratch a_t, b_t [B, D, N, NP] in T, gate
 // [B, N, N, D] f32, prod [B, D, N, N] f32; out contiguous [B, N, N, D].
-// Takes D a multiple of 8 up to 128. The entry point returns
-// cudaGetLastError().
+// Takes D a multiple of 8 up to 512: past 128 the two LN + projection
+// stages run on ln_project.cuh's wide block (trimul_wide_mma.cu, the A tile
+// alone resident, W streamed in K slices), around the same contraction. The
+// entry point returns cudaGetLastError().
 //
 // The wide body (prd_trimul_wide) takes every other pair width from 1 to
-// 512, the JAX kernel's reach (VMEM is its only bound). The contraction is
-// the kernel above, unchanged: it works on one channel plane at a time, so D
-// never enters it. The two LN + projection stages, whose tiles hold a whole
-// row of D channels, become CUDA-core kernels of 256 threads over 64
-// positions (trimul.cu's register tiles): LN of each position over its D
-// real channels into a transposed f32 tile [D][68] in shared memory, then
-// each 64-column slice of the output summed over K slices of 128 weight rows
-// staged beside it, so that only the LN tile grows with D (139 KB at 512).
+// 512 (those not a multiple of 8), the JAX kernel's reach (VMEM is its only
+// bound), and every width where ops.trimul.trimul_takes_tensor_cores is
+// patched to False past 128. The contraction is the kernel above,
+// unchanged: it works on one channel plane at a time, so D never enters it.
+// The two LN + projection stages become CUDA-core kernels of 256 threads
+// over 64 positions (trimul.cu's register tiles): LN of each position over
+// its D real channels into a transposed f32 tile [D][68] in shared memory,
+// then each 64-column slice of the output summed over K slices of 128 weight
+// rows staged beside it, so that only the LN tile grows with D (139 KB at
+// 512).
 //   trimul_project_wide_kernel: a, b and the out gate from w_in [D, 5D] in
 //     trimul.cu's order [gate_a | gate_b | proj_a | proj_b | out_gate], into
 //     the scratch layouts above;
@@ -79,108 +83,25 @@
 //     positions into the tile, LN over d, round(x^) W_op + bop, times the
 //     out gate, in T.
 // Both are bound by their FMAs on the CUDA cores (2 B N^2 D 6 D in all),
-// which the tensor-core body does in mma.sync; the wide widths are for
-// configurations that need them, not the paper's.
+// which the tensor-core bodies do in mma.sync.
 
-#include "ln_project.cuh"
+#include "trimul_rows.cuh"
+
+// trimul_wide_mma.cu's LN + projection stages on the wide block (stage 0 the
+// projection, 1 the out-projection; args a TmArgs), which launch() runs past
+// D = 128.
+extern "C" int prd_trimul_mma_wide_stage(const void* args, int stage, int dtype, void* stream);
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTmMaxD = 128;
+constexpr int kTmMaxD = kLnwMaxD;
 constexpr int kCt = 64;       // output tile of one channel: kCt x kCt
 constexpr int kCThreads = 128;
 // k per stage: 64 in bf16, 32 in f32 (the stages' static shared memory)
 template <typename T>
 constexpr int kCk = sizeof(T) == 2 ? 64 : 32;
-
-struct TmArgs {
-  const void* pair;
-  const float* mask;
-  const void* w_in;
-  const float* b_in;
-  const void* wop_t;
-  const float* bop;
-  void* a_t;
-  void* b_t;
-  float* gate;
-  float* prod;
-  void* out;
-  int B, N, D;
-};
-
-// ln_project's loader: 64 positions of the contiguous pair [positions, D].
-template <typename T>
-struct PairRows {
-  const T* x;
-  int D;
-
-  __device__ __forceinline__ void operator()(float* raw, int ld, long long p0, int rows) const {
-    // D % 8 == 0: 16-byte rows where x is 16-byte aligned
-    const bool vec = (reinterpret_cast<unsigned long long>(x) & 15u) == 0;
-    lnp_load_rows<T>(raw, ld, D, rows, vec, [&](int p) { return x + (p0 + p) * D; });
-  }
-};
-
-// ln_project's epilogue of the projection. a and b (the gate's 8 columns and
-// the projection's 8 of the same channels, in turn) into [B, D, N, NP]: a
-// thread a position, so that a warp's stores run along y; the out gate into
-// [positions, D]: a thread 8 columns of a position, 32-byte stores along rows.
-template <typename T>
-struct GatedPair {
-  const float* b_in;
-  const float* mask;
-  T* a_t;
-  T* b_t;
-  float* gate;
-  int N, NP, D;
-
-  __device__ __forceinline__ void operator()(const float* tile, long long p0, int rows,
-                                             int c0) const {
-    constexpr int kGroups = kLnpThreads / kLnpRows;  // threads a position
-    const int p = threadIdx.x % kLnpRows;
-    if (c0 < 4 * D && p < rows) {
-      const long long pos = p0 + p;
-      // pos = (bb, x, y) of the [B, N, N] pair grid; B N < 2^32 within trimul_fits
-      const long long bx = pos / N;
-      const int y = (int)(pos - bx * N);
-      const unsigned bb = (unsigned)bx / (unsigned)N;
-      const int x = (int)((unsigned)bx - bb * (unsigned)N);
-      const float m = mask[pos];
-      for (int j = threadIdx.x / kLnpRows; j < kLnpCols / 16; j += kGroups) {
-        const int col = c0 + 16 * j;  // gate columns [col, col + 8), projection [col + 8, col + 16)
-        if (col >= 4 * D) break;
-        float bias[16], v[16];  // the loads before any store
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          bias[e] = b_in[col + e];
-          v[e] = tile[p * kLnpLdT + 16 * j + e];
-        }
-        const int ch = (col >> 4) * 8;  // of the 2D a | b channels
-        T* dst = ch < D ? a_t : b_t;
-        const int c = ch < D ? ch : ch - D;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          T* row = dst + (((long long)bb * D + c + e) * N + x) * NP;
-          row[y] = Io<T>::cast(sigmoid_f(v[e] + bias[e]) * (v[8 + e] + bias[8 + e]) * m);
-          if (y == N - 1)
-            for (int yy = N; yy < NP; ++yy) row[yy] = Io<T>::cast(0.f);
-        }
-      }
-    }
-    if (c0 + kLnpCols <= 4 * D) return;
-    for (int i = threadIdx.x; i < kLnpRows * (kLnpCols / 8); i += kLnpThreads) {
-      const int col = c0 + (i & 7) * 8;
-      if ((i >> 3) >= rows || col < 4 * D || col >= 5 * D) continue;  // D % 8 == 0: whole chunks
-      float o[8];
-      load8(tile + (i >> 3) * kLnpLdT + (i & 7) * 8, o);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = sigmoid_f(o[e] + b_in[col + e]);
-      store8(gate + (p0 + (i >> 3)) * D + col - 4 * D, o);
-    }
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks) trimul_project_mma_kernel(const TmArgs a) {
@@ -328,71 +249,6 @@ __global__ void __launch_bounds__(kCThreads)
     }
   }
 }
-
-// ln_project's loader for the out kernel: 64 positions of the channel-major
-// f32 product [B, D, N, N], read along the positions.
-struct ProductRows {
-  const float* prod;
-  int N, D;
-
-  // A thread a position (one 64-bit division), its group of threads along
-  // d, 16 loads in flight before their stores.
-  __device__ __forceinline__ void operator()(float* raw, int ld, long long p0, int rows) const {
-    constexpr int kStep = kLnpThreads / kLnpRows, kBatch = 16;
-    const long long nn = (long long)N * N;
-    const int p = threadIdx.x % kLnpRows;
-    const long long pos = p0 + p;
-    const long long bb = pos / nn;
-    const float* src = prod + bb * D * nn + (pos - bb * nn);
-    for (int d0 = threadIdx.x / kLnpRows; d0 < D; d0 += kStep * kBatch) {
-      float v[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i)
-        v[i] = p < rows && d0 + kStep * i < D ? src[(d0 + kStep * i) * nn] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i)
-        if (d0 + kStep * i < D) raw[p * ld + d0 + kStep * i] = v[i];
-    }
-  }
-};
-
-// ln_project's epilogue of the out kernel: out = gate * (acc + bop) in T, a
-// thread 8 columns of a position, 16- or 32-byte stores along rows.
-template <typename T>
-struct GatedOut {
-  const float* gate;
-  const float* bop;
-  T* out;
-  int D;
-
-  __device__ __forceinline__ void operator()(const float* tile, long long p0, int rows,
-                                             int c0) const {
-    constexpr int kItems = kLnpRows * (kLnpCols / 8) / kLnpThreads;
-    float v[kItems][8], g[kItems][8];  // the loads before any store
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + kLnpThreads * k;
-      const int p = i >> 3, col = c0 + (i & 7) * 8;
-      const bool ok = p < rows && col < D;  // D % 8 == 0: the whole chunk
-#pragma unroll
-      for (int e = 0; e < 8; ++e) g[k][e] = 0.f;
-      if (ok) load8(gate + (p0 + p) * D + col, g[k]);
-      load8(tile + p * kLnpLdT + (i & 7) * 8, v[k]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[k][e] += ok ? bop[col + e] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = threadIdx.x + kLnpThreads * k;
-      const int p = i >> 3, col = c0 + (i & 7) * 8;
-      if (p >= rows || col >= D) continue;
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = g[k][e] * v[k][e];
-      store8(out + (p0 + p) * D + col, o);
-    }
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kLnpThreads, kLnpMinBlocks) trimul_out_mma_kernel(const TmArgs a) {
@@ -637,8 +493,11 @@ cudaError_t launch(const TmArgs& a, bool incoming, cudaStream_t stream) {
   const long long blocks = (positions + kLnpRows - 1) / kLnpRows;
   const long long tiles = (a.N + kCt - 1) / kCt;
   if (blocks > 0x7fffffffLL || tiles * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = lnp_smem_bytes<T>(a.D);
-  cudaError_t e = launch_rows(trimul_project_mma_kernel<T>, smem, blocks, a, stream);
+  const bool wide = a.D > kLnpMaxD;  // past the block's whole-row tiles: trimul_wide_mma.cu's
+  const int dtype = sizeof(T) == 2;
+  const size_t smem = lnp_smem_bytes<T>(a.D);  // the block's (unused where wide)
+  cudaError_t e = wide ? (cudaError_t)prd_trimul_mma_wide_stage(&a, 0, dtype, stream)
+                       : launch_rows(trimul_project_mma_kernel<T>, smem, blocks, a, stream);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)(tiles * tiles), a.D, a.B);
   const T* at = static_cast<const T*>(a.a_t);
@@ -649,6 +508,7 @@ cudaError_t launch(const TmArgs& a, bool incoming, cudaStream_t stream) {
     trimul_contract_kernel<T, false><<<grid, kCThreads, 0, stream>>>(at, bt, a.prod, a.N, a.D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if (wide) return (cudaError_t)prd_trimul_mma_wide_stage(&a, 1, dtype, stream);
   return launch_rows(trimul_out_mma_kernel<T>, smem, blocks, a, stream);
 }
 
@@ -657,7 +517,8 @@ cudaError_t launch(const TmArgs& a, bool incoming, cudaStream_t stream) {
 extern "C" {
 
 // K9 on the tensor cores, dtype 0 f32 (3xTF32), 1 bf16; mode 0 outgoing,
-// 1 incoming. Takes D a multiple of 8 up to 128 and B up to 65535.
+// 1 incoming. Takes D a multiple of 8 up to 512 (past 128 the LN +
+// projection stages of trimul_wide_mma.cu) and B up to 65535.
 int prd_trimul_mma(const void* pair, const void* mask, const void* w_in, const void* b_in,
                    const void* wop_t, const void* bop, void* a_t, void* b_t, void* gate,
                    void* prod, void* out, int dtype, int mode, int B, int N, int D, void* stream) {

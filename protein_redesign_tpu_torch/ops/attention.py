@@ -1173,17 +1173,62 @@ def fused_gated_reference(x, mask, wq, wk, wv, wg, bg, wo, bo, num_heads: int) -
 # C a multiple of 8 up to 128 (the P.V accumulators hold 64 channels a
 # slice) with H C up to 512 (the block's gated-heads tile), D up to 512 (the
 # out-projection in slices of 128 columns; past 128 the LN + projection is
-# fused_gated.cu's, in K slices of 128 weight rows). The CUDA-core body,
-# fused_gated.cu: C = 4 mod 8 up to 32 (one head channel a lane in P.V), H C
-# up to 128 and D up to 128 (W_o in shared memory, four output channels a
-# lane). The split route takes every other shape the JAX kernel takes, D up
-# to MAX_FUSED_PAIR_DIM, C a multiple of 4 up to MAX_HEAD_DIM and H C up to
-# MAX_FUSED_WIDTH: fused_gated.cu's projection into the scratch, the K-chunk
-# forward (K3's bodies) over the scratch's heads, then fused_gated.cu's gate
-# and out-projection kernel (counted as K8's one launch).
+# fused_gated_wide.cu's, on ln_project.cuh's wide block). The CUDA-core
+# body, fused_gated.cu: C = 4 mod 8 up to 32 (one head channel a lane in
+# P.V), H C up to 128 and D up to 128 (W_o in shared memory, four output
+# channels a lane). The split route takes every other shape the JAX kernel
+# takes, D up to MAX_FUSED_PAIR_DIM, C a multiple of 4 up to MAX_HEAD_DIM
+# and H C up to MAX_FUSED_WIDTH, on the tensor cores: the body's LN +
+# projection into the scratch (prd_fused_gated_project_mma, on the block
+# split_projection_block picks), the K-chunk forward (K3's bodies) over the
+# scratch's heads, then fused_gated_wide.cu's gate and out-projection kernel
+# (all counted as K8's one launch).
 MAX_FUSED_PAIR_DIM, MAX_FUSED_WIDTH = 512, 4096
 MAX_FUSED_HEAD_DIM, MAX_FUSED_TC_WIDTH = 128, 512  # the tensor-core body
 MAX_FUSED_CORE_PAIR_DIM, MAX_FUSED_CORE_HEAD_DIM, MAX_FUSED_CORE_WIDTH = 128, 32, 128
+
+
+# ln_project.cuh's LN + projection block (K8's and K9's projections): up to
+# D = LNP_MAX_D the block, past it the wide block.
+LNP_MAX_D = 128
+
+
+def ln_project_smem_bytes(D: int, dtype: torch.dtype, wide: Optional[bool] = None) -> int:
+    """Shared memory of ln_project.cuh's block at width D (``lnp_smem_bytes``;
+    ``lnw_smem_bytes`` where ``wide``, by default past LNP_MAX_D): the A tile
+    of 64 rows of DP + pad elements in ``dtype`` (DP = D rounded up to the
+    MMA's depth, 16 in bf16 and 8 in f32; pad 8 and 4) and a [64, 68] f32
+    output tile; the block adds two whole-D weight slices [DP, 72] and the
+    raw f32 rows [64, D + 1] (which the output tile reuses), the wide block
+    a ring of three K slices of 128 bytes a column [128 / size, 72] and a
+    raw f32 chunk [64, 65]."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    depth, pad = (16, 8) if size == 2 else (8, 4)
+    dp = -(-D // depth) * depth
+    a, tile = size * 64 * (dp + pad), 4 * 64 * 68
+    if not (D > LNP_MAX_D if wide is None else wide):
+        return a + size * 2 * dp * 72 + max(4 * 64 * (D + 1), tile)
+    return a + size * 3 * (128 // size) * 72 + max(4 * 64 * 65, tile)
+
+
+def lnp_blocks_per_sm(smem: int) -> int:
+    """Blocks of ln_project.cuh's LN + projection a SM holds: its 228 KB of
+    shared memory (1 KB of it reserved a block), at most kLnpMinBlocks = 4
+    (the blocks' 128-register cap)."""
+    return min(4, 233_472 // (smem + 1024))
+
+
+def split_projection_block(D: int, dtype: torch.dtype) -> str:
+    """The block of K8's split-route LN + projection at pair width D: "wide"
+    past LNP_MAX_D, and where the narrow block's shared memory (two whole-D
+    weight slices, the raw rows) leaves fewer blocks a SM than the wide
+    block's (f32 past 64, bf16 past 112): the block is latency-bound, so
+    blocks a SM decide; else "narrow" (its one LN pass beats two)."""
+    if D > LNP_MAX_D:
+        return "wide"
+    narrow = lnp_blocks_per_sm(ln_project_smem_bytes(D, dtype, wide=False))
+    wide = lnp_blocks_per_sm(ln_project_smem_bytes(D, dtype, wide=True))
+    return "wide" if wide > narrow else "narrow"
 
 
 def fused_gated_takes_tensor_cores(D: int, H: int, C: int) -> bool:
@@ -1226,22 +1271,29 @@ def fused_gated_fits(R: int, N: int, D: int, H: int, C: int, dtype: torch.dtype)
 
 
 def _fused_gated_split(lib, x4, maskf, w_in, bg_f, wo_t, bo_f, qkv, gate, out, H: int, C: int):
-    """The split route: the projection into the scratch, the K-chunk forward
-    over each head (q is scaled already), the gate and out-projection."""
+    """The split route: the tensor-core projection into the scratch (on the
+    block ``split_projection_block`` picks), the K-chunk forward over each
+    head (q is scaled already), the tensor-core gate and out-projection
+    (W_o's columns padded with zeros to a multiple of 8, the kernel's
+    16-byte rows)."""
     R1, R2, N, D = x4.shape
     R, HC, dt = R1 * R2, H * C, x4.dtype
     with torch.cuda.device(x4.device):
         stream = stream_of(x4)
-        code = lib.lib.prd_fused_gated_project(
+        code = lib.lib.prd_fused_gated_project_mma(
             x4.data_ptr(), w_in.data_ptr(), bg_f.data_ptr(), qkv.data_ptr(), gate.data_ptr(),
-            _DTYPE_CODES[dt], R1, R2, N, D, HC, 1.0 / math.sqrt(C), *x4.stride()[:3], stream)
+            _DTYPE_CODES[dt], R1, R2, N, D, HC, 1.0 / math.sqrt(C), *x4.stride()[:3],
+            int(split_projection_block(D, dt) == "wide"), stream)
     lib.check(code, "fused_gated_rows_attention")
     q, k, v = (t.view(R, N, H, C) for t in qkv)
     o = _launch_kchunk(q, k, v, maskf, 1.0, stats=False, count=False)
+    dw = -(-D // 8) * 8
+    if dw != D:
+        wo_t = torch.nn.functional.pad(wo_t, (0, dw - D))
     with torch.cuda.device(x4.device):
-        code = lib.lib.prd_fused_gated_out(o.data_ptr(), gate.data_ptr(), wo_t.data_ptr(),
-                                           bo_f.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],
-                                           R * N, D, HC, stream_of(x4))
+        code = lib.lib.prd_fused_gated_out_mma(o.data_ptr(), gate.data_ptr(), wo_t.data_ptr(),
+                                               bo_f.data_ptr(), out.data_ptr(), _DTYPE_CODES[dt],
+                                               R * N, D, dw, HC, stream_of(x4))
     lib.check(code, "fused_gated_rows_attention")
 
 

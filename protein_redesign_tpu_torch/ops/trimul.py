@@ -5,10 +5,11 @@ Port of ``protein_redesign_tpu/ops/pallas_trimul.py``: ``triangle_multiply``
 replaces the Pallas kernel K9 (``fused_triangle_multiply`` :145 ->
 ``_trimul_kernel`` :76) with ``kernels/csrc/trimul_mma.cu`` (tensor cores:
 mma.sync in bf16, 3xTF32 in f32, at pair widths that are multiples of 8 up
-to 128; ``trimul.cu``, the CUDA-core body it replaced, stays callable
-through ``trimul_takes_tensor_cores`` to time the two side by side; every
-other width up to 512 takes ``trimul_mma.cu``'s wide body, see
-``trimul_body``); its backward
+to 512, past 128 with the LN + projection stages of ``trimul_wide_mma.cu``;
+``trimul.cu``, the CUDA-core body it replaced up to 128, and
+``trimul_mma.cu``'s CUDA-core wide body past it stay callable through
+``trimul_takes_tensor_cores`` to time them side by side; every other width
+up to 512 takes the wide body, see ``trimul_body``); its backward
 differentiates the plain version, as ``_tm_bwd`` (:288) differentiates
 ``_reference_impl``. The whole module op:
 
@@ -46,12 +47,13 @@ from .attention import (
 )
 
 MODES = ("outgoing", "incoming")
-# trimul_mma.cu: the LN + projection block's four values of a row a lane, the
-# contraction a block per (b, d, 64 x 64 tile); trimul.cu (CUDA cores): 8 warps
-# of D / 8 channels, D / 32 values per lane in the epilogue
-MAX_TC_PAIR_DIM = 128
-# the wide body: a [D, 68] f32 LN tile and a [128, 128] weight slice in
-# shared memory (200 KB at 512)
+# trimul.cu (CUDA cores): 8 warps of D / 8 channels, D / 32 values per lane in
+# the epilogue
+MAX_CORE_PAIR_DIM = 128
+# trimul_mma.cu: ln_project.cuh's blocks (the wide one past 128, whose A tile
+# [64, D] is what grows with D: ``attention.ln_project_smem_bytes``), the
+# contraction a block per (b, d, 64 x 64 tile); the wide body: a [D, 68] f32
+# LN tile and a [128, 128] weight slice in shared memory (200 KB at 512)
 MAX_PAIR_DIM = 512
 MAX_N = 65535 * 16  # trimul.cu's grid.y: one block per 16 x 16 output tile
 MAX_POSITIONS = 64 * (2**31 - 1)  # one projection block per 64 of the B N^2 positions
@@ -67,20 +69,21 @@ def trimul_fits(B: int, N: int, D: int, dtype: torch.dtype) -> bool:
 
 def trimul_takes_tensor_cores(D: int) -> bool:
     """Whether K9 runs its tensor-core body (trimul_mma.cu, either dtype) at
-    pair width D: a multiple of 8 up to MAX_TC_PAIR_DIM. Where this is
-    patched to False those widths take the CUDA-core body (trimul.cu), to
-    time the two."""
-    return 0 < D <= MAX_TC_PAIR_DIM and D % 8 == 0
+    pair width D: a multiple of 8 up to MAX_PAIR_DIM. Where this is patched
+    to False those widths take the CUDA-core bodies (trimul.cu up to 128,
+    the wide body past it), to time them."""
+    return 0 < D <= MAX_PAIR_DIM and D % 8 == 0
 
 
 def trimul_body(D: int) -> str:
     """K9's body at pair width D: "tensor cores" (trimul_mma.cu), "cuda
-    cores" (trimul.cu, the same widths with ``trimul_takes_tensor_cores``
-    patched False) or "wide" (trimul_mma.cu's CUDA-core LN + projection
-    kernels around its contraction: every other width up to 512)."""
+    cores" (trimul.cu: multiples of 8 up to 128 with
+    ``trimul_takes_tensor_cores`` patched False) or "wide" (trimul_mma.cu's
+    CUDA-core LN + projection kernels around its contraction: every other
+    width up to 512)."""
     if trimul_takes_tensor_cores(D):
         return "tensor cores"
-    return "cuda cores" if 0 < D <= MAX_TC_PAIR_DIM and D % 8 == 0 else "wide"
+    return "cuda cores" if 0 < D <= MAX_CORE_PAIR_DIM and D % 8 == 0 else "wide"
 
 
 def _interleaved(gate, proj):

@@ -1461,11 +1461,15 @@ def test_wide_head_kchunk_forward_f32_matches_plain(device, N, C):
 @pytest.mark.parametrize("mode", ["outgoing", "incoming"])
 @pytest.mark.parametrize("B,N,D", [(1, 17, 1), (2, 45, 36), (1, 33, 136), (1, 20, 192),
                                    (1, 9, 512)])
-def test_trimul_wide_body_matches_plain(device, dtype, mode, B, N, D):
-    """K9 at widths past its tensor-core body (not a multiple of 8, or past
-    128): the wide body, one launch, within FUSED_TOL of the plain version."""
+def test_trimul_wide_body_matches_plain(device, dtype, mode, B, N, D, monkeypatch):
+    """K9's CUDA-core wide body: at widths not a multiple of 8 as routed, and
+    past 128 with ``trimul_takes_tensor_cores`` patched False (as chip_smoke
+    times it beside the tensor-core body); one launch, within FUSED_TOL of
+    the plain version."""
     from protein_redesign_tpu_torch.ops import trimul as M
 
+    if D % 8 == 0:
+        monkeypatch.setattr(M, "trimul_takes_tensor_cores", lambda D: False)
     assert M.trimul_body(D) == "wide"
     pair = _randn(B, N, N, D, seed=7, device=device).to(dtype)
     mask = _pair_mask(B, N, device, masked_rows=3)
@@ -1704,3 +1708,139 @@ def test_fused_gated_new_edges_match_plain(device, dtype, N, D, H, C):
     assert got.shape == want.shape and torch.isfinite(got.float()).all()
     assert _rel(got, want) <= FUSED_TOL[dtype]
     assert _rel(got[0, :3], want[0, :3]) <= FUSED_TOL[dtype]
+
+
+# K8 and K9 on ln_project.cuh's wide block past pair width 128, and K8's split
+# route (projection and gate + out-projection) on the tensor cores ----------
+
+# the tensor-core kernels each route must show on the profiler, and the
+# CUDA-core ones they replaced, which must not run (substrings of the
+# profiler's names)
+K8_CORE_KERNELS = ("fused_gated_project_kernel", "fused_gated_out_kernel")
+K9_CORE_KERNELS = ("trimul_project_wide_kernel", "trimul_out_wide_kernel")
+
+
+def _gated_inputs(N, D, H, C, dtype, device, view, seed=30):
+    pair = _randn(2, N, N, D, seed=seed, device=device).to(dtype)
+    mask = _pair_mask(2, N, device, masked_rows=3)
+    if view == "ending":  # the transposed view, read through strides
+        pair, mask = pair.transpose(1, 2), mask.transpose(1, 2)
+    ws = [_randn(H * C, D, seed=seed + 1 + i, scale=D ** -0.5, device=device) for i in range(4)]
+    ws += [_randn(H * C, seed=seed + 5, scale=0.3, device=device), *_linear(D, H * C, device,
+                                                                           seed + 6)]
+    return pair, mask, ws
+
+
+@DTYPES
+@pytest.mark.parametrize("view", ["starting", "ending"])
+@pytest.mark.parametrize("N,D,H,C,body", [
+    (70, 136, 4, 16, "tensor cores"), (20, 192, 4, 16, "tensor cores"),
+    (33, 256, 2, 32, "tensor cores"), (20, 512, 1, 128, "tensor cores"),
+    (17, 140, 2, 16, "tensor cores"), (24, 64, 1, 256, "split"), (16, 128, 8, 128, "split"),
+    (20, 64, 4, 36, "split"), (20, 136, 4, 12, "split"), (12, 36, 1, 36, "split"),
+    (12, 260, 1, 36, "split"), (12, 512, 2, 132, "split")])
+def test_fused_gated_wide_routes_match_plain(device, dtype, view, N, D, H, C, body):
+    """K8 past pair width 128 (the wide block's projection; D = 140 not a
+    multiple of 8) and on the split route (the tensor-core projection at
+    every D, K3's bodies, the tensor-core gate + out-projection; D = 36 and
+    260 pad W_o's columns to a multiple of 8, H C = 36 takes the
+    projection's element-wise epilogue), both views, ragged N, fully masked
+    rows: one K8 launch, within FUSED_TOL of the plain version."""
+    assert A.fused_gated_body(D, H, C) == body
+    pair, mask, ws = _gated_inputs(N, D, H, C, dtype, device, view)
+    before = dict(A.LAUNCHES)
+    got = A.fused_gated(pair, mask, *ws, H)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {**before, "fused_gated_rows_attention":
+                          before["fused_gated_rows_attention"] + 1}
+    want = A.fused_gated_reference(pair, mask, *ws, H)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= FUSED_TOL[dtype]
+    if view == "starting":
+        assert _rel(got[0, :3], want[0, :3]) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("mode", ["outgoing", "incoming"])
+@pytest.mark.parametrize("B,N,D", [(1, 33, 136), (1, 70, 192), (2, 20, 256), (1, 9, 512),
+                                   (1, 65, 512)])
+def test_trimul_wide_tensor_cores_match_plain(device, dtype, mode, B, N, D):
+    """K9 past pair width 128 on the tensor cores (the wide block's LN +
+    projection stages around the contraction), ragged N, fully masked rows:
+    one launch, within FUSED_TOL of the plain version."""
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    assert M.trimul_body(D) == "tensor cores"
+    pair = _randn(B, N, N, D, seed=7, device=device).to(dtype)
+    mask = _pair_mask(B, N, device, masked_rows=3)
+    ws = [*_linear(2 * D, D, device, 8), *_linear(2 * D, D, device, 10),
+          *_linear(D, D, device, 12), *_linear(D, D, device, 14)]
+    before = A.LAUNCHES["triangle_multiply"]
+    got = M.trimul(pair, mask, *ws, mode)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["triangle_multiply"] == before + 1
+    assert _rel(got, M.trimul_reference(pair, mask, *ws, mode)) <= FUSED_TOL[dtype]
+
+
+@DTYPES
+@pytest.mark.parametrize("what,shape,kernels", [
+    ("k8", (192, 4, 16), ("fused_gated_project_mma_wide_kernel",
+                          "fused_gated_attention_")),
+    ("k8", (64, 1, 256), ("fused_gated_project_mma_kernel", "fused_gated_out_mma_kernel")),
+    ("k8", (512, 1, 128), ("fused_gated_project_mma_wide_kernel",)),
+    ("k8", (512, 2, 132), ("fused_gated_project_mma_wide_kernel", "fused_gated_out_mma_kernel")),
+    ("k9", (192,), ("trimul_project_mma_wide_kernel", "trimul_out_mma_wide_kernel"))],
+    ids=["k8_d192", "k8_split_c256", "k8_d512", "k8_split_d512", "k9_d192"])
+def test_wide_fused_routes_run_tensor_core_kernels(device, dtype, what, shape, kernels):
+    """The profiler shows the tensor-core kernels of K8's wide block and
+    split route and of K9's wide block, and none of the CUDA-core kernels
+    they replaced."""
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    if what == "k8":
+        D, H, C = shape
+        pair, mask, ws = _gated_inputs(12, D, H, C, dtype, device, "starting")
+        fn = lambda: A.fused_gated(pair, mask, *ws, H)  # noqa: E731
+        core = K8_CORE_KERNELS
+    else:
+        D = shape[0]
+        pair = _randn(1, 12, 12, D, seed=7, device=device).to(dtype)
+        ws = [*_linear(2 * D, D, device, 8), *_linear(2 * D, D, device, 10),
+              *_linear(D, D, device, 12), *_linear(D, D, device, 14)]
+        fn = lambda: M.trimul(pair, _pair_mask(1, 12, device), *ws, "outgoing")  # noqa: E731
+        core = K9_CORE_KERNELS
+    _, names = _kernel_names(fn)
+    for kernel in kernels:
+        assert any(kernel in n for n in names), (kernel, names)
+    assert not any(c in n for c in core for n in names), names
+
+
+def test_wide_fused_routes_raise_and_do_not_fall_back(device, monkeypatch):
+    """A failed launch of K8's split-route out-projection, of K8's wide
+    projection or of K9's tensor-core body past 128 raises: no CUDA-core
+    body and no plain version runs in its place, and no launch is
+    counted."""
+    from protein_redesign_tpu_torch.kernels import build
+    from protein_redesign_tpu_torch.ops import trimul as M
+
+    lib = build()
+    calls = []
+    monkeypatch.setattr(lib.lib, "prd_fused_gated_out_mma", lambda *a: calls.append("out") or 1)
+    monkeypatch.setattr(lib.lib, "prd_fused_gated_mma", lambda *a: calls.append("mma") or 1)
+    monkeypatch.setattr(lib.lib, "prd_fused_gated", lambda *a: calls.append("core") or 0)
+    monkeypatch.setattr(lib.lib, "prd_trimul_mma", lambda *a: calls.append("k9 mma") or 1)
+    monkeypatch.setattr(lib.lib, "prd_trimul_wide", lambda *a: calls.append("k9 wide") or 0)
+    monkeypatch.setattr(A, "fused_gated_reference", lambda *a: calls.append("plain"))
+    monkeypatch.setattr(M, "trimul_reference", lambda *a: calls.append("plain"))
+    before = dict(A.LAUNCHES)
+    for D, H, C, want in ((64, 1, 256, "out"), (192, 4, 16, "mma")):
+        pair, mask, ws = _gated_inputs(8, D, H, C, torch.bfloat16, device, "starting")
+        with pytest.raises(RuntimeError, match="fused_gated_rows_attention"):
+            A.fused_gated(pair, mask, *ws, H)
+        assert calls[-1] == want and "core" not in calls and "plain" not in calls
+    pair = _randn(1, 8, 8, 192, seed=7, device=device).to(torch.bfloat16)
+    ws = [*_linear(384, 192, device, 8), *_linear(384, 192, device, 10),
+          *_linear(192, 192, device, 12), *_linear(192, 192, device, 14)]
+    with pytest.raises(RuntimeError, match="triangle_multiply"):
+        M.trimul(pair, _pair_mask(1, 8, device), *ws, "outgoing")
+    assert calls == ["out", "mma", "k9 mma"] and A.LAUNCHES == before

@@ -290,6 +290,10 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (M.trimul_fits, (1, 300_000, 64, BF16), True),
     (M.trimul_fits, (1, 400_000, 64, BF16), False),
     (M.trimul_takes_tensor_cores, (72,), True),
+    # past 128 on ln_project.cuh's wide block: every multiple of 8 up to 512
+    *[(M.trimul_takes_tensor_cores, (D,), ok) for D, ok in ((36, False), (136, True), (192, True),
+                                                            (508, False), (512, True),
+                                                            (520, False))],
     # K1 fast in f32: 3xTF32 at multiples of 8 up to 1024 (its wide body past
     # 128), bf16 never; its bound unchanged at the edges
     *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32 and C in (8, 128, 136))
@@ -319,29 +323,34 @@ def test_bound_predicate_edges(fits, args, ok):
 
 @pytest.mark.parametrize("D,H,C,body", [
     (64, 4, 16, "tensor cores"), (192, 4, 16, "tensor cores"), (512, 1, 128, "tensor cores"),
+    (136, 4, 16, "tensor cores"), (36, 4, 16, "tensor cores"),
     (64, 5, 128, "split"), (64, 1, 136, "split"), (64, 2, 36, "split"), (136, 4, 12, "split"),
-    (64, 1, 1024, "split"), (512, 1024, 4, "split"), (64, 9, 12, "cuda cores"),
+    (64, 1, 1024, "split"), (512, 1024, 4, "split"), (64, 4, 36, "split"), (36, 1, 36, "split"),
+    (512, 2, 132, "split"), (128, 8, 128, "split"), (64, 9, 12, "cuda cores"),
     (128, 2, 28, "cuda cores"), (513, 4, 16, None), (64, 1, 1028, None), (64, 1025, 4, None),
 ])
 def test_k8_route_by_shape(D, H, C, body):
     """K8's route: the tensor-core body (C a multiple of 8 up to 128, H C up
-    to 512, D up to 512), the CUDA-core body (C = 4 mod 8 up to 32, H C up
-    to 128, D up to 128), the split route over the rest of the JAX kernel's
-    reach, none past it."""
+    to 512, D up to 512: past 128 its projection on ln_project.cuh's wide
+    block), the CUDA-core body (C = 4 mod 8 up to 32, H C up to 128, D up to
+    128), the split route over the rest of the JAX kernel's reach (on the
+    tensor cores at every D: H C = 4 mod 8 and D = 4 mod 8 included), none
+    past it."""
     assert A.fused_gated_body(D, H, C) == body
     assert A.fused_gated_fits(4, 16, D, H, C, BF16) is (body is not None)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("D", [1, 36, 128, 136, 512, 513])
+@pytest.mark.parametrize("D", [1, 36, 128, 136, 192, 508, 512, 513])
 def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
     """K9 and K11 take every pair width from 1 to 512, the JAX kernels'
-    reach at these sizes: multiples of 8 up to 128 on the tensor-core bodies
-    (unchanged), every other width on K9's wide body and K11's CUDA-core one;
-    513 raises."""
+    reach at these sizes: K9 every multiple of 8 on its tensor-core body
+    (past 128 on ln_project.cuh's wide block), every other width on its wide
+    body; K11 multiples of 8 up to 128 on its tensor-core body, every other
+    width on its CUDA-core one; 513 raises."""
     assert M.trimul_fits(2, 16, D, dtype) is (D <= 512)
     assert O.outer_fits(2, 16, D, dtype) is (D <= 512)
-    assert M.trimul_body(D) == ("tensor cores" if D == 128 else "wide")
+    assert M.trimul_body(D) == ("tensor cores" if D % 8 == 0 and D <= 512 else "wide")
     assert O.outer_takes_tensor_cores(512, D, dtype) is (D == 128)
 
 
