@@ -440,6 +440,9 @@ ESM2_650M = dict(vocab_size=33, hidden_size=1280, num_hidden_layers=33, num_atte
                  emb_layer_norm_before=False, layer_norm_eps=1e-5, pad_token_id=1,
                  mask_token_id=32, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 ESM_MASKS, ESM_LONG = 10, 1022
+# DDPM steps of phase 21's generate runs (ESM-2 on the card in each; cut
+# from STEPS: the sampler's steps are phase 5's)
+ESM_GENERATE_STEPS = 8
 ESM_F32_TOL, ESM_BF16_TOL = 1e-5, 2e-2
 # The installed copy (phase 24): DDPM steps of its generate CLI run.
 INSTALLED_STEPS = 4
@@ -531,19 +534,18 @@ def device_ms(fn, iters: int = 3, spin: int = 100_000_000) -> float:
 def body_times(name, q, k, v, mask, bias, scale, **backward) -> str:
     """The two bodies of K1, K1 fast, K2, K3, K5, K7 (``dout`` given) or K6
     (``dout``, ``out``, ``m`` and ``logs`` given) on the same inputs (bf16
-    or f32), each one launch without autograd: CUDA-event ms per call and
-    device ms per call."""
+    or f32), each one launch without autograd: the tensor-core body's
+    CUDA-event ms per call and device ms per call; the CUDA-core body's
+    device ms of one call after a warm one (PERF.md §6 keeps its earlier
+    times; at 2048 a K-chunk call takes 0.45-1.2 s)."""
     from protein_redesign_tpu_torch.ops import attention as A
 
-    # the K-chunk CUDA-core bodies: up to ~0.45 s a call (K6 in bf16 at 2048 ~1.2 s)
     iters = 2 if name in A.KCHUNK_FORWARDS + ("rows_attention_kchunk_bwd",) else 10
-    parts = []
-    for mma, label in ((True, "tensor-core"), (False, "CUDA-core")):
-        fn = lambda: A.attention_body(name, q, k, v, mask, bias, scale, mma=mma,  # noqa: E731
-                                      **backward)
-        parts.append(f"{label} body {cuda_ms(fn, 1, iters):.4f} ms, on the device "
-                     f"{device_ms(fn, min(iters, 3)):.4f} ms")
-    return "; ".join(parts)
+    fn = lambda mma: lambda: A.attention_body(name, q, k, v, mask, bias, scale,  # noqa: E731
+                                              mma=mma, **backward)
+    return (f"tensor-core body {cuda_ms(fn(True), 1, iters):.4f} ms, on the device "
+            f"{device_ms(fn(True), min(iters, 3)):.4f} ms; CUDA-core body on the device "
+            f"{device_ms(fn(False), 1):.4f} ms")
 
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
@@ -589,12 +591,14 @@ def attention_bound(q, mask, bias, products: int, operands: int, extra_bytes: fl
     return bound(products * 2 * H * C * pairs, nbytes, q.dtype)
 
 
-def library_ms(q, k, v, mask, bias, scale, dout=None):
+def library_ms(q, k, v, mask, bias, scale, dout=None, report: bool = False):
     """ms of one torch.nn.functional.scaled_dot_product_attention call on the
     same inputs (the memory-efficient backend, or the cuDNN one where it
-    refuses the inputs; the key mask as an additive -2^15 term), forward and
-    backward when ``dout`` is given: the library yardstick, which the port
-    never calls. None where both refuse the inputs."""
+    refuses the inputs, or the math one where both do, as they do a bf16
+    head of C = 4 mod 8; the key mask as an additive -2^15 term), forward
+    and backward when ``dout`` is given: the library yardstick, which the
+    port never calls. None where all three refuse the inputs. ``report``:
+    (ms, the backend's name)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -610,7 +614,7 @@ def library_ms(q, k, v, mask, bias, scale, dout=None):
         if dout is not None:
             torch.autograd.grad(out, (qt, kt, vt), dout.transpose(1, 2))
 
-    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel(backend):
                 ms = cuda_ms(call, 1, 3)
@@ -618,10 +622,10 @@ def library_ms(q, k, v, mask, bias, scale, dout=None):
             print(f"[library] scaled_dot_product_attention ({backend.name}) refused "
                   f"{tuple(q.shape)} {q.dtype}: {str(e).splitlines()[0][:160]}")
             continue
-        if backend != SDPBackend.EFFICIENT_ATTENTION:
+        if backend != SDPBackend.EFFICIENT_ATTENTION and not report:
             print(f"[library] {tuple(q.shape)} {q.dtype}: timed the {backend.name} backend")
-        return ms
-    return None
+        return (ms, backend.name) if report else ms
+    return (None, "none") if report else None
 
 
 def phase_device() -> tuple:
@@ -1037,9 +1041,9 @@ def device_time_by_kernel(fn, iters: int = 5) -> dict:
 GENERATED: dict = {}
 
 
-def phase_generate(net, flags=(), tag: str = "generate", cfg=None) -> dict:
+def phase_generate(net, flags=(), tag: str = "generate", cfg=None, steps: int = STEPS) -> dict:
     """The generate CLI on ``net``'s weights with ``flags``: lysozyme and
-    imatinib, 2 samples in one batch, STEPS DDPM steps unless the flags
+    imatinib, 2 samples in one batch, ``steps`` DDPM steps unless the flags
     choose another sampler; the output files and the exact launches of
     every forward under ``cfg`` (default: the net's config with each
     switch in ``flags`` on)."""
@@ -1051,7 +1055,7 @@ def phase_generate(net, flags=(), tag: str = "generate", cfg=None) -> dict:
         tmp = Path(tmp)
         save_checkpoint(tmp / "ckpt", net.state_dict(), net.cfg)
         argv = ["-c", str(tmp / "ckpt"), "-o", str(tmp / "out"), "-p", SEQUENCE, "-l", LIGAND,
-                "-n", "2", "--batch_size", "2", "--num_steps", str(STEPS), "--device", "cuda",
+                "-n", "2", "--batch_size", "2", "--num_steps", str(steps), "--device", "cuda",
                 *flags]
         A.reset_launch_counts()
         began = time.perf_counter()
@@ -1205,40 +1209,20 @@ def micro_step(net, batch: dict, noise):
     return value.detach()
 
 
-@contextlib.contextmanager
-def cuda_core_bodies(*names):
-    """Inside the block, kernels ``names`` in f32 take their CUDA-core bodies
-    (attention.cu), the route before their 3xTF32 bodies came, so that a
-    path can be timed on both in one run. Launch counts are the same."""
-    from protein_redesign_tpu_torch.ops import attention as A
-
-    takes = A.takes_tf32x3
-    A.takes_tf32x3 = lambda name, dtype, C: name not in names and takes(name, dtype, C)
-    try:
-        yield
-    finally:
-        A.takes_tf32x3 = takes
-
-
-def time_micro_step(tag: str, step, bodies=("tensor-core",)) -> None:
+def time_micro_step(tag: str, step) -> None:
     """One micro-step's time on the kernel route and the plain route, and the
-    kernel route's device time by kernel group; with "CUDA-core" in
-    ``bodies`` also with K1 and K2 in f32 on their CUDA-core bodies."""
+    kernel route's device time by kernel group."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     with A.plain_route():
         plain_ms = cuda_ms(step, 1, 2)
-    for body in bodies:
-        ctx = (cuda_core_bodies("rows_attention", "tiled_attention") if body == "CUDA-core"
-               else contextlib.nullcontext())
-        with ctx:
-            kernel_ms = cuda_ms(step, 1, 3)
-            busy = device_time_by_group(step, iters=3)
-        total = sum(busy.values())
-        print(f"[grad] {tag} (loss + backward, remat), {body} bodies: kernel route "
-              f"{kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms; kernel route device time "
-              f"{total:.2f} ms busy ({1 - total / kernel_ms:.1%} idle); "
-              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
+    kernel_ms = cuda_ms(step, 1, 3)
+    busy = device_time_by_group(step, iters=3)
+    total = sum(busy.values())
+    print(f"[grad] {tag} (loss + backward, remat), tensor-core bodies: kernel route "
+          f"{kernel_ms:.2f} ms, plain route {plain_ms:.2f} ms; kernel route device time "
+          f"{total:.2f} ms busy ({1 - total / kernel_ms:.1%} idle); "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(busy.items(), key=lambda kv: -kv[1])))
 
 
 def grad_check(net, batch: dict, noise, tag: str) -> None:
@@ -1275,8 +1259,9 @@ def phase_grad(seed: int) -> None:
     """Paper-width parameter gradients, kernel route vs plain route, at
     bucket 192 (B=2) in f32 and bf16 and at 512 (B=1) in f32, below the f32
     K-chunk switch (K1, K7 and K2 on their tensor-core bodies), and the
-    kernel route's time per micro-step, by kernel group: f32 at 192 and 512
-    on both of K1's and K2's f32 bodies, bf16 at 192 and 384."""
+    kernel route's time per micro-step, by kernel group: f32 at 192 and 512,
+    bf16 at 192 and 384 (the f32 steps on K1's and K2's CUDA-core bodies
+    are in PERF.md §5, PR 10's; phase 3 still times those bodies)."""
     from protein_redesign_tpu_torch.config import ModelConfig
 
     for dtype in ("float32", "bfloat16"):
@@ -1287,15 +1272,13 @@ def phase_grad(seed: int) -> None:
         noise = fixed_noise(batch, seed)
         grad_check(net, batch, noise, "paper width")
         if dtype == "float32":
-            time_micro_step("f32 micro-step, B=2, bucket 192",
-                            lambda: micro_step(net, batch, noise), ("tensor-core", "CUDA-core"))
+            time_micro_step("f32 micro-step, B=2, bucket 192", lambda: micro_step(net, batch, noise))
             bucket, residues = TRAIN_F32_512
             b = collated([synthetic_complex(long_sequence(seed + 25, residues), seed + 25,
                                             net.cfg.esm_dim)], bucket)
             n = fixed_noise(b, seed)
             grad_check(net, b, n, "paper width")
-            time_micro_step(f"f32 micro-step, B=1, bucket {bucket}", lambda: micro_step(net, b, n),
-                            ("tensor-core", "CUDA-core"))
+            time_micro_step(f"f32 micro-step, B=1, bucket {bucket}", lambda: micro_step(net, b, n))
         else:
             long_batch = collated([synthetic_complex(long_sequence(seed + s), seed + s,
                                                      net.cfg.esm_dim) for s in (3, 4)], 384)
@@ -1913,7 +1896,8 @@ def phase_kchunk_kernels() -> dict:
             if dout is not None and (torch.count_nonzero(got[0][n_valid:])
                                      or torch.count_nonzero(got[1][n_valid:])):
                 raise AssertionError(f"{name}: fully masked rows have nonzero dq or dk")
-            ms, plain_ms = cuda_ms(kernel, 1, 3), cuda_ms(plain, 1, 2)
+            # the plain version: one call, warm from the check above (0.8-1.6 s at 2048)
+            ms, plain_ms = cuda_ms(kernel, 1, 3), cuda_ms(plain, 0, 1)
             rec = record[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
             # the record: K3 on generation at 2048 (bf16), K5 and K6 on
@@ -3364,13 +3348,14 @@ def _esm_generate(esm_dir: Path, seed: int) -> None:
     from protein_redesign_tpu_torch.config import ModelConfig
 
     net = perturbed_net(ModelConfig(), seed).to("cuda").eval()
-    phase_generate(net, tag="esm-generate-without")  # no weights under the default name: zeros
+    # no weights under the default name: zeros
+    phase_generate(net, tag="esm-generate-without", steps=ESM_GENERATE_STEPS)
     features = {}
     for backend in ("jax", "torch"):
         with recorded_embedders() as made:
             phase_generate(net, flags=["--esm_model", str(esm_dir), "--esm_backend", backend,
                                        "--require_esm"], tag=f"esm-generate-{backend}",
-                           cfg=net.cfg)
+                           cfg=net.cfg, steps=ESM_GENERATE_STEPS)
         (embedder,) = made
         model = embedder._encoder.model if backend == "jax" else embedder._model
         device = next(model.parameters()).device
@@ -3390,10 +3375,10 @@ def _esm_generate(esm_dir: Path, seed: int) -> None:
                                                       "esm-generate-without")}
     phase5 = (f"{GENERATED['generate']['wall']:.2f} s" if "generate" in GENERATED
               else "not run in this process")
-    print(f"[esm-generate] main() wall: --esm_backend jax {walls['esm-generate-jax']:.2f} s, "
-          f"torch {walls['esm-generate-torch']:.2f} s (each loading the 650M weights onto the "
-          f"card); without ESM just before {walls['esm-generate-without']:.2f} s, in phase 5 "
-          f"{phase5}")
+    print(f"[esm-generate] main() wall, {ESM_GENERATE_STEPS} DDPM steps: --esm_backend jax "
+          f"{walls['esm-generate-jax']:.2f} s, torch {walls['esm-generate-torch']:.2f} s (each "
+          f"loading the 650M weights onto the card); without ESM just before "
+          f"{walls['esm-generate-without']:.2f} s; phase 5 ({STEPS} steps) {phase5}")
 
 
 def _use_pallas_generate(seed: int) -> None:
@@ -3961,15 +3946,18 @@ WIDE_CORE_KERNELS = ("rows_attention_kchunk_kernel", "rows_attention_bwd_wide_dq
                      "rows_attention_bwd_wide_dkdv_kernel", "rows_attention_kernel",
                      "rows_attention_fast_kernel", "rows_attention_kchunk_dq_kernel",
                      "rows_attention_kchunk_dkdv_kernel")
-# the paper-width rows the wide bodies must leave alone (PERF.md §6, on the
-# device, H = 4, C = 16, R = 2N up to 384 and R = N at 1024): K7 bf16 at
-# 192, K3 f32 at 1024, K1 f32 at 192, K1 fast f32 at 384, K6 f32 at 1024
+# the paper-width rows the wide and the C = 4 mod 8 bodies must leave alone
+# (PERF.md §6, on the device, H = 4, C = 16, R = 2N up to 384 and R = N from
+# 1024): K7 bf16 at 192, K3 f32 at 1024, K1 f32 at 192, K1 fast f32 at 384,
+# K6 f32 at 1024, K1 bf16 at 192, K3 bf16 at 2048
 PAPER_ATTENTION_MS = {("rows_attention_bwd", 192, torch.bfloat16): 0.2126,
                       ("rows_attention_kchunk", 1024, torch.float32): 7.990,
                       ("rows_attention", 192, torch.float32): 0.1316,
                       ("rows_attention_fast", 384, torch.float32): 2.711,
-                      ("rows_attention_kchunk_bwd", 1024, torch.float32): 28.71}
-PAPER_VALID = {192: 147, 384: 360, 1024: 997}
+                      ("rows_attention_kchunk_bwd", 1024, torch.float32): 28.71,
+                      ("rows_attention", 192, torch.bfloat16): 0.0801,
+                      ("rows_attention_kchunk", 2048, torch.bfloat16): 20.22}
+PAPER_VALID = {192: 147, 384: 360, 1024: 997, 2048: 2037}
 
 
 # Phase 23's kernel names, read by torch.profiler in one fresh process: late
@@ -3980,7 +3968,9 @@ PAPER_VALID = {192: 147, 384: 360, 1024: 997}
 # stays open 0.1 s after the calls, as the CUDA tests' _kernel_names does.
 # "attention": K1, K1 fast, K3, K5 (f32), K6 and K7 (both dtypes) at head
 # width C; "fused": K8 at K8_WIDTHS and K8_WIDE, K9 at 192 and K9_WIDE, both
-# dtypes, and one forward of the bf16 fused net at pair width 192 (2 blocks).
+# dtypes, and one forward of the bf16 fused net at pair width 192 (2 blocks);
+# "narrow": K1, K1 fast, K3 and K5 at NARROW_C and NARROW_C + 4 (R = 384, N =
+# 192, H = 4), both dtypes, and one forward of narrow_net.
 _WIDTH_NAMES = r"""
 import json, sys, time
 import torch
@@ -4032,15 +4022,29 @@ with torch.inference_mode():
     net = c.fused_net(pair_dim=192, num_blocks=2).to("cuda").eval()
     inputs = c.forward_inputs(net)
     fused["net"] = names(lambda: net(*inputs))
-print(json.dumps({"attention": attention, "fused": fused}))
+    del net
+narrow = {}
+for dt in ("bfloat16", "float32"):
+    for Cn in (c.NARROW_C, c.NARROW_C + 4):
+        q, k, v, mask, _ = c._attention_case(384, 192, 4, Cn, getattr(torch, dt), 147, True, False,
+                                             True, 0)
+        for name in c.NARROW_NAMES:
+            narrow[f"{name} {dt} {Cn}"] = names(lambda: getattr(A, name)(q, k, v, mask, 0.2))
+with torch.inference_mode():
+    net = c.narrow_net().to("cuda").eval()
+    inputs = c.forward_inputs(net)
+    narrow["net"] = names(lambda: net(*inputs))
+print(json.dumps({"attention": attention, "fused": fused, "narrow": narrow}))
 """
 _WIDTH_NAMES_RAN: dict = {}
 
 
 def _width_kernel_names() -> dict:
     """_WIDTH_NAMES's {"attention": {(name, dtype): kernels}, "fused": {tag:
-    kernels}} at head width MODEL_AXIS_HEAD_WIDTH, from one fresh process
-    (the library is built already), run by the first caller."""
+    kernels}, "narrow": {tag: kernels}} ("attention" at head width
+    MODEL_AXIS_HEAD_WIDTH, "narrow" at NARROW_C and NARROW_C + 4 and the
+    narrow_net forward), from one fresh process (the library is built
+    already), run by the first caller."""
     if not _WIDTH_NAMES_RAN:
         proc = subprocess.run([sys.executable, "-c", _WIDTH_NAMES, str(REPO),
                                str(MODEL_AXIS_HEAD_WIDTH)], capture_output=True, text=True,
@@ -4050,6 +4054,7 @@ def _width_kernel_names() -> dict:
                                  f"{proc.stderr[-3000:]}")
         ran = json.loads(proc.stdout.strip().splitlines()[-1])
         _WIDTH_NAMES_RAN["fused"] = ran["fused"]
+        _WIDTH_NAMES_RAN["narrow"] = ran["narrow"]
         _WIDTH_NAMES_RAN["attention"] = {(key.split()[0], getattr(torch, key.split()[1])): v
                                          for key, v in ran["attention"].items()}
     return _WIDTH_NAMES_RAN
@@ -4201,6 +4206,215 @@ def _widths_attention() -> None:
               f"({'held' if abs(drift) <= PAPER_DRIFT else 'missed'}, 5%)")
 
 
+# Head widths C = 4 mod 8 on the tensor cores (K1, K1 fast, K3, K5): the
+# rows at NARROW_C beside NARROW_C + 4, the multiple of 8 that pads to the
+# same width, at bucket 192, B = 2 (R = 384, N = 192, H = 4, 147 nodes
+# valid); each C = 36 body within NARROW_SLOWDOWN of its C = 40 time in the
+# same run. The CUDA-core kernels they replaced (substrings of the
+# profiler's names), which must not run at C = 36 nor in narrow_net.
+NARROW_C, NARROW_SLOWDOWN = 36, 1.15
+NARROW_NAMES = ("rows_attention", "rows_attention_fast", "rows_attention_kchunk",
+                "rows_attention_kchunk_stats")
+NARROW_CORE_KERNELS = ("rows_attention_kernel", "rows_attention_fast_kernel",
+                       "rows_attention_kchunk_kernel")
+
+
+def narrow_net():
+    """ModelConfig() at head width NARROW_C, 2 blocks, seeded and perturbed
+    weights (bf16): its triangle attentions take K1 at C = 36, its single
+    attentions K2's CUDA-core body."""
+    from protein_redesign_tpu_torch.models.prdiff import ModelConfig
+
+    return perturbed_net(ModelConfig(head_dim=NARROW_C, num_blocks=2))
+
+
+def _narrow_fns(name, q, k, v, mask, scale):
+    """``name``'s wrapper call, its plain version and its CUDA-core body."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    plain = {"rows_attention": lambda: A.attention_reference(q, k, v, mask, None, scale),
+             "rows_attention_fast": lambda: A.rows_attention_fast_reference(q, k, v, mask, scale),
+             "rows_attention_kchunk": lambda: A.rows_attention_kchunk_reference(q, k, v, mask,
+                                                                               scale),
+             "rows_attention_kchunk_stats": lambda: A.rows_attention_kchunk_reference(
+                 q, k, v, mask, scale, stats=True)}[name]
+    return (lambda: getattr(A, name)(q, k, v, mask, scale), plain,
+            lambda: A.attention_body(name, q, k, v, mask, None, scale, mma=False))
+
+
+def _narrow_err(tag: str, name: str, got, want, dtype) -> float:
+    """Max abs error against the plain version, held to phase 23's gates
+    (bf16 and K1 fast 2e-2, f32 1e-5; K5's m and log s 1e-5) times max(1,
+    max|plain|)."""
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    errs = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = (TOL_F32 if i or (dtype == torch.float32 and name != "rows_attention_fast")
+               else TOL_BF16)
+        scale_b = max(float(b.float().abs().max()), 1.0)
+        err = float((a.float() - b.float()).abs().max())
+        if not (torch.isfinite(a).all() and err <= tol * scale_b):
+            raise AssertionError(f"[narrow] {tag}: max abs err {err} > {tol} x {scale_b}")
+        errs.append(err)
+    return max(errs)
+
+
+def _short_name(names, want: str) -> str:
+    """The profiler's name of the kernel that contains ``want``, without its
+    namespace and parameters."""
+    hits = [re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", n) for n in names if want in n]
+    return hits[0] if hits else "none"
+
+
+def _narrow_library(ms: float, q, k, v, mask, bias, scale, dout=None) -> str:
+    """SDPA's time on the same inputs, its backend and ms / SDPA; where only
+    the math backend takes them (bf16 at C = 4 mod 8), also the
+    memory-efficient one on q, k, v (and dO) zero-padded to a multiple of 8,
+    which gives the same function."""
+    lib, backend = library_ms(q, k, v, mask, bias, scale, dout=dout, report=True)
+    text = f"SDPA ({backend}) " + ("refused" if lib is None else f"{lib:.4f} ms, {ms / lib:.2f}x")
+    if backend == "MATH":
+        pad = -q.shape[-1] % 8
+        padded = [torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)]
+        g = None if dout is None else torch.nn.functional.pad(dout, (0, pad))
+        lib_p, backend_p = library_ms(*padded, mask, bias, scale, dout=g, report=True)
+        text += (f"; SDPA ({backend_p}) on the head zero-padded to {q.shape[-1] + pad} "
+                 + ("refused" if lib_p is None else f"{lib_p:.4f} ms, {ms / lib_p:.2f}x"))
+    return text
+
+
+def _widths_narrow() -> None:
+    """K1, K1 fast, K3 and K5 at C = 36 (4 mod 8) on their tensor-core bodies
+    beside C = 40, both dtypes: against the plain versions, the kernel the
+    profiler showed (a fresh process), device ms against C = 40's, the
+    CUDA-core body's at 36 (one warm call), SDPA's and its backend, the
+    bound. Then parity only at C = 260 (H = 1) in both dtypes and at N =
+    1024 (f32, R = 1024) for K3 and K5; K2, K6 and K7 at C = 36, timing only
+    (their CUDA-core bodies against SDPA); and narrow_net, kernel route
+    against plain route, exact launches, no CUDA-core K1 or K3 kernel on
+    the profiler."""
+    from protein_redesign_tpu_torch.ops import attention as A
+
+    ran = _width_kernel_names()["narrow"]
+    kernels = {torch.bfloat16: {"rows_attention": "rows_attention_mma_kernel",
+                                "rows_attention_fast": "rows_attention_fast_mma_kernel"},
+               torch.float32: {"rows_attention": "rows_attention_tf32x3_kernel",
+                               "rows_attention_fast": "rows_attention_fast_tf32x3_kernel"}}
+    for dtype, kchunk in ((torch.bfloat16, "rows_attention_kchunk_mma_kernel"),
+                          (torch.float32, "rows_attention_kchunk_tf32x3_kernel")):
+        label = str(dtype).replace("torch.", "")
+        times = {}
+        for C in (NARROW_C + 4, NARROW_C):
+            q, k, v, mask, _ = _attention_case(384, 192, 4, C, dtype, 147, True, False, True,
+                                               780 + C)
+            scale = C ** -0.5
+            for name in NARROW_NAMES:
+                tag = f"{name} C={C} {label}"
+                if not A.takes_tensor_cores(name, dtype, C):
+                    raise AssertionError(f"[narrow] {tag}: not on its tensor-core body")
+                names = ran[f"{name} {label} {C}"]
+                want_kernel = kernels[dtype].get(name, kchunk)
+                if (not any(want_kernel in n for n in names)
+                        or any(c in n for n in names for c in NARROW_CORE_KERNELS)):
+                    raise AssertionError(f"[narrow] {tag} ran {names}")
+                kernel, plain, core = _narrow_fns(name, q, k, v, mask, scale)
+                before = A.LAUNCHES[name]
+                got = kernel()
+                torch.cuda.synchronize()
+                if A.LAUNCHES[name] != before + 1:
+                    raise AssertionError(f"[narrow] {tag}: no launch")
+                err = _narrow_err(tag, name, got, plain(), dtype)
+                # ten calls behind the spin: the C = 36 / 40 ratio is the gate
+                ms, plain_ms = device_ms(kernel, 10), device_ms(plain, 1)
+                times[(name, C)] = ms
+                extra = 2 * q.shape[0] * 4 * 192 * 4 if name.endswith("stats") else 0.0
+                bnd = attention_bound(q, mask, None, products=2, operands=4, extra_bytes=extra)
+                line = (f"[narrow] {name} R=384 H=4 N=192 C={C} {label} on "
+                        f"{_short_name(names, want_kernel)}: max abs err {err:.3e}; on the device "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                        f"({bnd['bound_by']}), " + _narrow_library(ms, q, k, v, mask, None, scale))
+                if C == NARROW_C:
+                    core_err = _narrow_err(f"{tag} CUDA-core body", name, core(), plain(), dtype)
+                    core_ms = device_ms(core, 1)
+                    ratio = ms / times[(name, C + 4)]
+                    line += (f"; its CUDA-core body {core_ms:.4f} ms (max abs err {core_err:.3e}, "
+                             f"{core_ms / ms:.1f}x); against C={C + 4} {ratio:.3f}x ("
+                             f"{'held' if ratio <= NARROW_SLOWDOWN else 'missed'}, "
+                             f"{NARROW_SLOWDOWN})")
+                print(line)
+            del q, k, v, mask
+    # parity only: C = 260 (one head, as the C = 256 rows), and K3 and K5 at
+    # N = 1024 in f32 (R = 1024, 997 nodes valid)
+    for dtype, R, N, H, C, n_valid, names in (
+            (torch.bfloat16, 384, 192, 1, 260, 147, NARROW_NAMES),
+            (torch.float32, 384, 192, 1, 260, 147, NARROW_NAMES),
+            (torch.float32, 1024, 1024, 4, NARROW_C, 997, NARROW_NAMES[2:])):
+        label = str(dtype).replace("torch.", "")
+        q, k, v, mask, _ = _attention_case(R, N, H, C, dtype, n_valid, True, False, True, 790 + C)
+        errs = []
+        for name in names:
+            kernel, plain, _ = _narrow_fns(name, q, k, v, mask, C ** -0.5)
+            err = _narrow_err(f"{name} N={N} C={C} {label}", name, kernel(), plain(), dtype)
+            errs.append(f"{name} {err:.3e}")
+        print(f"[narrow] parity R={R} H={H} N={N} C={C} {label} on the tensor cores, max abs err: "
+              + ", ".join(errs))
+        del q, k, v, mask
+    # K2, K6 and K7 at C = 36: their CUDA-core bodies (timing only), K2 at
+    # its main-path shape (single attention: R = B = 2, key mask and bias)
+    for dtype in (torch.bfloat16, torch.float32):
+        label = str(dtype).replace("torch.", "")
+        C = NARROW_C
+        scale = C ** -0.5
+        q, k, v, mask, _ = _attention_case(384, 192, 4, C, dtype, 147, True, False, True, 800)
+        g = torch.randn(q.shape, generator=torch.Generator("cuda").manual_seed(801),
+                        device="cuda").to(dtype)
+        out, m, logs = A.rows_attention_kchunk_reference(q, k, v, mask, scale, stats=True)
+        q2, k2, v2, mask2, bias2 = _attention_case(2, 192, 4, C, dtype, 147, True, True, False,
+                                                   802)
+        for name, fn, lib_args, bnd in (
+                ("tiled_attention", lambda: A.tiled_attention(q2, k2, v2, mask2, bias2, scale),
+                 (q2, k2, v2, mask2, bias2, scale), attention_bound(q2, mask2, bias2, 2, 4)),
+                ("rows_attention_bwd", lambda: A.rows_attention_bwd(q, k, v, mask, g, scale),
+                 (q, k, v, mask, None, scale, g), attention_bound(q, mask, None, 5, 7)),
+                ("rows_attention_kchunk_bwd",
+                 lambda: A.rows_attention_kchunk_bwd(q, k, v, mask, g, out, m, logs, scale),
+                 (q, k, v, mask, None, scale, g),
+                 attention_bound(q, mask, None, 5, 8, 3 * m.numel() * 4))):
+            if A.takes_tensor_cores(name, dtype, C):
+                raise AssertionError(f"[narrow] {name} C={C} {label} took a tensor-core body")
+            ms = device_ms(fn, 1)
+            R = lib_args[0].shape[0]
+            print(f"[narrow] {name} R={R} H=4 N=192 C={C} {label} on its CUDA-core body: on the "
+                  f"device {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                  + _narrow_library(ms, *lib_args))
+        del q, k, v, mask, g, out, m, logs, q2, k2, v2, mask2, bias2
+    # narrow_net: the kernel route against the plain route, launches, kernels
+    names = ran["net"]
+    core = [n for n in names if any(c in n for c in NARROW_CORE_KERNELS)]
+    if core or not any("rows_attention_mma_kernel" in n for n in names):
+        raise AssertionError(f"[narrow] the C={NARROW_C} net ran {names}")
+    net = narrow_net().to("cuda").eval()
+    inputs = forward_inputs(net)
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        kernel_out = net(*inputs)
+        torch.cuda.synchronize()
+        launches = main_path_launches()
+        with A.plain_route():
+            plain_out = net(*inputs)
+    if launches != forward_launches(net.cfg):
+        raise AssertionError(f"[narrow] the C={NARROW_C} net launched {launches}")
+    rels = [_width_check(f"C={NARROW_C} net output {i}", a, b, FORWARD_REL_TOL)
+            for i, (a, b) in enumerate(zip(kernel_out, plain_out))]
+    print(f"[narrow] bf16 net at head width {NARROW_C}, 2 blocks, bucket 192, B=2: noise_pred and "
+          f"seq_pred {rels[0]:.3e}, {rels[1]:.3e} from the plain route (tol {FORWARD_REL_TOL:g}); "
+          f"launches {({k: n for k, n in launches.items() if n})}; the profiler shows "
+          f"{_short_name(names, 'rows_attention_mma_kernel')} and "
+          f"{_short_name(names, 'tiled_attention_kernel')} (K2's CUDA-core body), none of "
+          f"{list(NARROW_CORE_KERNELS)}")
+    del net
+
+
 # K8 past its old bound of 128: (D, H, C) on the tensor-core body at pair
 # width 192, and on the split route one head of 256, C = 36 (4 mod 8, past
 # 32) and H C = 1024; the paper-width row it must leave alone (0.157 ms on
@@ -4208,6 +4422,10 @@ def _widths_attention() -> None:
 K8_WIDTHS = ((192, 4, 16), (64, 1, 256), (64, 4, 36), (128, 8, 128))
 K8_WIDE = (512, 1, 128)  # the widest pair width, bf16, on ln_project.cuh's wide block
 K8_PAPER_MS = 0.157
+# the split route at C = 36 runs K3's tensor-core body since C = 4 mod 8
+# came to it: under K8_NARROW_MS in bf16 (1.538 on the CUDA-core K3), under
+# its plain version in f32
+K8_NARROW, K8_NARROW_MS = (64, 4, 36), 0.6
 # The CUDA-core projection kernels that K8's and K9's tensor-core routes
 # replaced past pair width 128 and on K8's split route (substrings of the
 # profiler's kernel names): none may run in the pair-192 net or on any of
@@ -4221,14 +4439,19 @@ def k8_tensor_core_kernels(D: int, H: int, C: int, dtype) -> tuple:
     (substrings of the profiler's names): the LN + projection
     (ln_project.cuh's block up to D = 128, its wide block past it, and on
     the split route where ``split_projection_block`` picks it), then the
-    fused attention body, or on the split route K3's bodies (unnamed here)
-    and the gate + out-projection."""
+    fused attention body, or on the split route K3's tensor-core body and
+    the gate + out-projection."""
     from protein_redesign_tpu_torch.ops import attention as A
 
     split = A.fused_gated_body(D, H, C) == "split"
     wide = D > 128 or (split and A.split_projection_block(D, dtype) == "wide")
     project = "fused_gated_project_mma_wide_kernel" if wide else "fused_gated_project_mma_kernel"
-    return (project, "fused_gated_out_mma_kernel" if split else "fused_gated_attention_")
+    if not split:
+        return (project, "fused_gated_attention_")
+    k3 = ("rows_attention_kchunk_mma_kernel" if dtype == torch.bfloat16 else
+          "rows_attention_kchunk_tf32x3_kernel" if C <= A.MAX_TC_HEAD_DIM else
+          "rows_attention_kchunk_wide_tf32x3_kernel")
+    return (project, k3, "fused_gated_out_mma_kernel")
 
 
 K9_TC_KERNELS = {True: ("trimul_project_mma_wide_kernel", "trimul_contract_kernel",
@@ -4257,8 +4480,11 @@ def _widths_mask2d(N: int = 192, n_valid: int = 147):
 
 
 def _check_kernel_names(tag: str, names: list, want: tuple) -> None:
+    """``want`` all ran, and none of CORE_PROJECTIONS nor K3's CUDA-core
+    kernel (K8's split route at C = 4 mod 8 takes K3's tensor cores)."""
     missing = [k for k in want if not any(k in n for n in names)]
-    core = [n for n in names if any(k in n for k in CORE_PROJECTIONS)]
+    core = [n for n in names
+            if any(k in n for k in CORE_PROJECTIONS + ("rows_attention_kchunk_kernel",))]
     if missing or core:
         raise AssertionError(f"[widths] {tag}: missing {missing}, CUDA-core projections {core} "
                              f"(ran {names})")
@@ -4323,6 +4549,11 @@ def _widths_fused_gated() -> None:
             drift = ms / K8_PAPER_MS - 1
             line += (f"; the paper-width row was {K8_PAPER_MS} ms: {drift:+.1%} "
                      f"({'held' if abs(drift) <= PAPER_DRIFT else 'missed'}, 5%)")
+        if (D, H, C) == K8_NARROW:
+            target = K8_NARROW_MS if dtype == torch.bfloat16 else plain_ms
+            line += (f"; {'held' if ms < target else 'missed'} against "
+                     f"{'its plain version' if dtype == torch.float32 else 'the limit'} "
+                     f"{target:.4f} ms")
         print(line)
 
 
@@ -4607,13 +4838,15 @@ def phase_model_axis(seed: int, tmp: Path, trained: dict) -> None:
     """Phase 23: the model axis on one card, and the widths the JAX kernels
     take."""
     began = time.perf_counter()
-    _widths_fused()
-    _widths_fused_gated()
-    _widths_attention()
-    _widths_forward(seed)
-    _fsdp(tmp, seed, trained)
-    _param_dtype(tmp, seed)
-    _sequence_parallel(seed)
+    for label, step in (("K9 and K11 widths", _widths_fused), ("K8 widths", _widths_fused_gated),
+                        ("attention widths", _widths_attention),
+                        ("C = 4 mod 8", _widths_narrow),
+                        ("fused nets", lambda: _widths_forward(seed)),
+                        ("FSDP", lambda: _fsdp(tmp, seed, trained)),
+                        ("param dtype", lambda: _param_dtype(tmp, seed)),
+                        ("sequence parallel", lambda: _sequence_parallel(seed))):
+        with wall(f"model axis, {label}"):
+            step()
     print(f"[model-axis] one card: FSDP and sequence parallelism share it, so their times are "
           f"overhead of sharing, not scaling; phase wall {time.perf_counter() - began:.1f} s")
 

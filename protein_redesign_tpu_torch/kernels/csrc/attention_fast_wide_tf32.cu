@@ -1,14 +1,14 @@
 // Hand-written Hopper (sm_90a) tensor-core body of K1 fast, the rows
 // attention with its softmax rounded as bf16 (cfg.fast_softmax; serving an
-// f32 checkpoint), in float32 past head width 128, for C a multiple of 8 in
+// f32 checkpoint), in float32 past head width 128, for C a multiple of 4 in
 // (128, 1024]:
 //
 //   rows_attention_fast_wide_tf32x3_kernel<STORE, NC>
 //       <- _rows_attention_impl with fast=True / _make_rowhead_kernel (K1 fast)
 //
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, at those
-// widths, the CUDA-core body of attention.cu (kept for C = 4 mod 8 and
-// callable to time it beside this one), which spills at 8 channels a lane:
+// widths, the CUDA-core body of attention.cu (kept callable to time it
+// beside this one), which spills at 8 channels a lane:
 // 10.3 ms at R = 384, N = 192, C = 256, 22x SDPA.
 //
 // The function is rows_attention_fast_reference's, point by point, as the
@@ -463,7 +463,7 @@ extern "C" {
 
 // K1 fast in f32 on the tensor cores (3xTF32 logits, P.V in two TF32
 // products): masked attention without bias, the softmax rounded as bf16.
-// C a multiple of 8 in (128, 1024].
+// C a multiple of 4 in (128, 1024].
 int prd_rows_attention_fast_wide_tf32x3(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, int R, int N, int H, int C,
                                         float scale, long long q_sr, long long q_sn,
@@ -474,7 +474,7 @@ int prd_rows_attention_fast_wide_tf32x3(const void* q, const void* k, const void
                   static_cast<const float*>(v), static_cast<const float*>(mask), nullptr,
                   static_cast<float*>(out), nullptr, nullptr, R, N, H, C, scale,
                   {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}, false};
-  if (!f32_operands_ok(a) || C <= 128 || C > 1024 || mask == nullptr)
+  if (!f32_operands_ok(a, 4) || C <= 128 || C > 1024 || mask == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 256) return (int)launch<2>(a, s);

@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) tensor-core body of K3 and K5 in float32 past
-// head width 128, for C a multiple of 8 in (128, 1024]:
+// head width 128, for C a multiple of 4 in (128, 1024]:
 //
 //   rows_attention_kchunk_wide_tf32x3_kernel<STATS = false, NC>
 //       <- _rows_attention_kchunk_grid_cn / _make_rowhead_kchunk_grid_cn_kernel (K3)
@@ -7,8 +7,8 @@
 //       <- _kchunk_grid_cn_stats_call / _make_rowhead_kchunk_grid_cn_stats_kernel (K5)
 //
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, at those
-// widths, the CUDA-core body of attention_kchunk.cu (kept for C = 4 mod 8
-// and callable to time it beside this one), which spills at 8 channels a
+// widths, the CUDA-core body of attention_kchunk.cu (kept callable to time
+// it beside this one), which spills at 8 channels a
 // lane: 6.75 ms at R = 384, N = 192, C = 256, 14x SDPA.
 //
 // The function is the narrow f32 body's (attention_tf32.cu): f32 logits of
@@ -64,7 +64,7 @@ cudaError_t dispatch_width(const F32Args& a, cudaStream_t stream) {
 extern "C" {
 
 // K3 (m and logs null) or K5 (both given) in f32 on the tensor cores
-// (3xTF32), C a multiple of 8 in (128, 1024].
+// (3xTF32), C a multiple of 4 in (128, 1024].
 int prd_rows_attention_kchunk_wide_tf32x3(const void* q, const void* k, const void* v,
                                           const void* mask, void* out, void* m, void* logs,
                                           int R, int N, int H, int C, float scale,
@@ -77,7 +77,7 @@ int prd_rows_attention_kchunk_wide_tf32x3(const void* q, const void* k, const vo
                   static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(logs),
                   R, N, H, C, scale, {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh},
                   false};
-  if (!f32_operands_ok(a) || C <= 128 || C > 1024 || mask == nullptr ||
+  if (!f32_operands_ok(a, 4) || C <= 128 || C > 1024 || mask == nullptr ||
       (m == nullptr) != (logs == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

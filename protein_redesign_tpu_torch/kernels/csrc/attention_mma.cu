@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) tensor-core bodies of five attention kernels,
-// for bf16 inputs with a head width that is a multiple of 8. They replace,
-// for those inputs, the CUDA-core bodies of attention.cu and
-// attention_kchunk.cu (kept there for float32 and for other head widths; K3
-// and K5 in float32 take attention_tf32.cu):
+// for bf16 inputs with a head width that is a multiple of 8, and for K1, K1
+// fast, K3 and K5 any multiple of 4. They replace, for those inputs, the
+// CUDA-core bodies of attention.cu and attention_kchunk.cu (kept there for
+// K2 at C = 4 mod 8 and callable to time them; in float32 these kernels take
+// attention_tf32.cu and its wide siblings):
 //
 //   tiled_attention_mma_kernel    <- _tiled_attention_impl / _attn_kernel and
 //                                    _attn_kernel_nomask (K2: single attention
@@ -87,10 +88,27 @@
 // (the running max) and log s, f32 [R, H, N], kept split; its output is
 // K3's bit for bit. A fully masked row gets m = -2^15 and log s = log N.
 //
+// Head widths C = 4 mod 8 (K1, K1 fast, K3, K5: the NARROW instantiations).
+// A head of 36 bf16 is 72 bytes, so in an [R, N, H, C] tensor every other
+// head and row starts on 8 bytes, not 16: those instantiations stage Q, K
+// and V in 8-byte pieces of 4 channels (cp.async.ca with an 8-byte size and
+// zero fill past N; 8-byte loads for the pre-scaled Q tile). A piece lies
+// wholly inside C or wholly past it. The K and V buffers' channels past C
+// are zeroed once a block (zero_tails) and never copied to: each tile
+// copies only its pieces inside C, a thread stepping through them without
+// a division, which keeps the extra copies of a latency-bound pass cheap.
+// So the head is padded in shared memory to CP with exact zeros as at C a
+// multiple of 8, and the shared tiles, the products and the stores are the
+// same code. K1 fast's near-midpoint chain sums the C real channels in
+// order and stops there (logit_chain). The multiple-of-8 instantiations
+// (NARROW false) are the code they were.
+//
 // Layout: q, k, v are [R, N, H, C] bf16 with the head dimension contiguous,
 // the other strides given in elements, every row 16-byte aligned (C and the
-// strides multiples of 8, checked by the wrapper); mask is contiguous f32
-// [R, N]; bias contiguous bf16 [R, H, N, N]; out contiguous [R, N, H, C].
+// strides multiples of 8), or at C = 4 mod 8 in K1, K1 fast, K3 and K5
+// 8-byte aligned (the strides multiples of 4), checked by the wrapper and
+// the entry points; mask is contiguous f32 [R, N]; bias contiguous bf16
+// [R, H, N, N]; out contiguous [R, N, H, C].
 // Shared memory: 2 (TQ + 2 BK) (CP + 8) + 4 BK (CS + 8) bytes, TQ the block's
 // queries (64; K3 and K5 128 up to CP = 128, else 64), CP = C rounded up to
 // 16, CS the 16..64-channel slice; at most 227 KB bounds C.
@@ -112,11 +130,15 @@ __device__ __forceinline__ bool near_bf16_midpoint(float x) {
   return (__float_as_uint(x) & 0xffffu) - (0x8000u - kNear) <= 2 * kNear;
 }
 
-// One logit as a chain of f32 FMAs over the channels in order. Rows are
-// 16-byte aligned and C a multiple of 8: 8 channels per pair of 16-byte loads.
+// One logit as a chain of f32 FMAs over the C channels in order, from the
+// staged rows (16-byte aligned): 8 channels per pair of 16-byte loads, and
+// at C = 4 mod 8 (NARROW) the last 4 by a pair of 8-byte loads, so the
+// chain stops at channel C - 1 and no padded zero enters it.
+template <bool NARROW>
 __device__ __forceinline__ float logit_chain(const bf16* q_row, const bf16* k_row, int C) {
   float acc = 0.f;
-  for (int c = 0; c < C; c += 8) {
+  const int c8 = NARROW ? C - 4 : C;
+  for (int c = 0; c < c8; c += 8) {
     const uint4 qv = *reinterpret_cast<const uint4*>(q_row + c);
     const uint4 kv = *reinterpret_cast<const uint4*>(k_row + c);
     const bf16* qe = reinterpret_cast<const bf16*>(&qv);
@@ -124,7 +146,24 @@ __device__ __forceinline__ float logit_chain(const bf16* q_row, const bf16* k_ro
 #pragma unroll
     for (int t = 0; t < 8; ++t) acc = fmaf(__bfloat162float(qe[t]), __bfloat162float(ke[t]), acc);
   }
+  if (NARROW) {
+    const uint2 qv = *reinterpret_cast<const uint2*>(q_row + c8);
+    const uint2 kv = *reinterpret_cast<const uint2*>(k_row + c8);
+    const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc = fmaf(__bfloat162float(qe[t]), __bfloat162float(ke[t]), acc);
+  }
   return acc;
+}
+
+// A NARROW kernel's K and V buffers (two tiles of BK rows each, CP and CS
+// channels, rows CP + 8 and CS + 8 long) past C, zeroed once: the padded
+// channels of every tile its passes stage.
+template <int BK, int CS>
+__device__ __forceinline__ void zero_tails(int C, const Block& b, int CP, bf16* k_s, bf16* v_s) {
+  zero_tail(k_s, 2 * BK, C, CP, CP + 8);
+  if (C - b.cs0 < CS) zero_tail(v_s, 2 * BK, C - b.cs0, CS, CS + 8);
 }
 
 template <bool HAS_MASK, int BK, int NT>
@@ -236,7 +275,8 @@ struct FastRows {
 // One of K1 fast's passes over every key tile (PASS 0: the row max of the
 // bf16 logits; 1: the sum of their rounded exp; 2: p and P.V), each its own
 // instantiation, so a pass's unrolled loop holds only its own arithmetic.
-template <int PASS, int BK, int NT>
+// NARROW: C = 4 mod 8 (stage_keys, logit_chain).
+template <int PASS, int BK, int NT, bool NARROW>
 __device__ __forceinline__ void fast_pass(const Args& a, const Block& b, const bf16* q_w,
                                           bf16* k_s, bf16* v_s, int CP, FastRows<NT>& st,
                                           int lane) {
@@ -246,16 +286,17 @@ __device__ __forceinline__ void fast_pass(const Args& a, const Block& b, const b
   const bf16* v_base = a.v + b.r * a.vs.r + b.h * a.vs.h;
   const float* mask_row = a.mask + (long long)b.r * N;
   const int tiles = (N + BK - 1) / BK;
-  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
-  if (PASS == 2) stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
+  stage_keys<NARROW>(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
+  if (PASS == 2) stage_keys<NARROW>(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
   cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
+      stage_keys<NARROW>(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS,
+                         k_s + (buf ^ 1) * BK * QS);
       if (PASS == 2)
-        stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
-                   v_s + (buf ^ 1) * BK * VS);
+        stage_keys<NARROW>(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
+                           v_s + (buf ^ 1) * BK * VS);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -300,8 +341,8 @@ __device__ __forceinline__ void fast_pass(const Args& a, const Block& b, const b
       const int i = __ffs(near) - 1;
       near &= near - 1;
       const int n = i >> 2, e = i & 3;
-      const float l = logit_chain(q_w + ((lane >> 2) + 8 * (e >> 1)) * QS,
-                                  k_t + (n * 8 + (lane & 3) * 2 + (e & 1)) * QS, C);
+      const float l = logit_chain<NARROW>(q_w + ((lane >> 2) + 8 * (e >> 1)) * QS,
+                                          k_t + (n * 8 + (lane & 3) * 2 + (e & 1)) * QS, C);
 #pragma unroll
       for (int j = 0; j < 4 * NS; ++j)
         if (j == i) s[j >> 2][j & 3] = l;
@@ -338,7 +379,7 @@ __device__ __forceinline__ void fast_pass(const Args& a, const Block& b, const b
   }
 }
 
-template <int BK, int NT>
+template <int BK, int NT, bool NARROW>
 __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(const Args a) {
   constexpr int CS = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -350,7 +391,8 @@ __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(co
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const Block b = block_of(a.N, CS);
-  stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  stage_q<kTQ, NARROW>(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  if constexpr (NARROW) zero_tails<BK, CS>(a.C, b, CP, k_s, v_s);
   const bf16* q_w = q_s + warp * 16 * QS;
   FastRows<NT> st;
   st.m_a = st.m_b = neg_inf();
@@ -358,13 +400,13 @@ __global__ void __launch_bounds__(kWarps * 32) rows_attention_fast_mma_kernel(co
 #pragma unroll
   for (int n = 0; n < NT; ++n) st.acc[n][0] = st.acc[n][1] = st.acc[n][2] = st.acc[n][3] = 0.f;
 
-  fast_pass<0, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  fast_pass<0, BK, NT, NARROW>(a, b, q_w, k_s, v_s, CP, st, lane);
   st.m_a = quad_max(st.m_a);
   st.m_b = quad_max(st.m_b);
-  fast_pass<1, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  fast_pass<1, BK, NT, NARROW>(a, b, q_w, k_s, v_s, CP, st, lane);
   st.s_a = bf16_round(quad_sum(st.s_a));
   st.s_b = bf16_round(quad_sum(st.s_b));
-  fast_pass<2, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  fast_pass<2, BK, NT, NARROW>(a, b, q_w, k_s, v_s, CP, st, lane);
   store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
 }
 
@@ -380,8 +422,8 @@ constexpr int kRowsMinBlocks = BK < 64 ? 1 : (NT <= 2 ? 24 : 16) / WARPS;
 // K3 and K5 in bf16: one pass of online softmax; out = acc / s. WARPS warps
 // of 16 queries share each staged K and V tile. STATS (K5) also writes the
 // row max m and log s, f32 [R, H, N], kept split; the output is K3's bit for
-// bit.
-template <bool STATS, int WARPS, int BK, int NT>
+// bit. NARROW: C = 4 mod 8 (stage_q, stage_keys).
+template <bool STATS, int WARPS, int BK, int NT, bool NARROW>
 __global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
     rows_attention_kchunk_mma_kernel(const Args a, float* __restrict__ m_out,
                                      float* __restrict__ logs_out) {
@@ -395,10 +437,11 @@ __global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const Block b = block_of<TQ>(a.N, CS);
-  stage_q<TQ>(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  stage_q<TQ, NARROW>(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  if constexpr (NARROW) zero_tails<BK, CS>(a.C, b, CP, k_s, v_s);
   RowsState<NT> st;
   init_rows(st);
-  rows_pass<kOnline, BK, NT>(a, b, q_s + warp * 16 * QS, k_s, v_s, CP, st, lane);
+  rows_pass<kOnline, BK, NT, NARROW>(a, b, q_s + warp * 16 * QS, k_s, v_s, CP, st, lane);
   const float s_a = quad_sum(st.s_a), s_b = quad_sum(st.s_b);
   const int row_a = b.q0 + warp * 16 + (lane >> 2);
   store_out<NT>(a, b, row_a, st.acc, s_a, s_b, lane);
@@ -417,8 +460,8 @@ __global__ void __launch_bounds__(WARPS * 32, kRowsMinBlocks<WARPS, BK, NT>)
 
 // K1 in bf16: the row max and sum online (pass 1), then the normalised
 // probabilities rounded to bf16 times V (pass 2), as the plain version
-// rounds softmax(l) before P.V.
-template <int BK, int NT>
+// rounds softmax(l) before P.V. NARROW: C = 4 mod 8.
+template <int BK, int NT, bool NARROW>
 __global__ void __launch_bounds__(kWarps * 32, kRowsMinBlocks<kWarps, BK, NT>)
     rows_attention_mma_kernel(const Args a) {
   constexpr int CS = 8 * NT;
@@ -431,14 +474,15 @@ __global__ void __launch_bounds__(kWarps * 32, kRowsMinBlocks<kWarps, BK, NT>)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const Block b = block_of(a.N, CS);
-  stage_q(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  stage_q<kTQ, NARROW>(a, a.q + b.r * a.qs.r + b.h * a.qs.h, b.q0, CP, QS, q_s);
+  if constexpr (NARROW) zero_tails<BK, CS>(a.C, b, CP, k_s, v_s);
   const bf16* q_w = q_s + warp * 16 * QS;
   RowsState<NT> st;
   init_rows(st);
-  rows_pass<kStats, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  rows_pass<kStats, BK, NT, NARROW>(a, b, q_w, k_s, v_s, CP, st, lane);
   st.s_a = quad_sum(st.s_a);
   st.s_b = quad_sum(st.s_b);
-  rows_pass<kNormalized, BK, NT>(a, b, q_w, k_s, v_s, CP, st, lane);
+  rows_pass<kNormalized, BK, NT, NARROW>(a, b, q_w, k_s, v_s, CP, st, lane);
   store_out<NT>(a, b, b.q0 + warp * 16 + (lane >> 2), st.acc, 1.f, 1.f, lane);
 }
 
@@ -490,48 +534,59 @@ cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
   return launch_kernel(tiled_attention_mma_kernel<HAS_MASK, 16, 8>, 16, a, stream);
 }
 
+template <bool NARROW>
 cudaError_t launch_fast(const Args& a, cudaStream_t stream) {
   const int CP = (a.C + 15) & ~15;
-  if (CP <= 16) return launch_kernel(rows_attention_fast_mma_kernel<32, 2>, 32, a, stream);
-  if (CP <= 32) return launch_kernel(rows_attention_fast_mma_kernel<32, 4>, 32, a, stream);
-  if (CP <= 512) return launch_kernel(rows_attention_fast_mma_kernel<32, 8>, 32, a, stream);
-  return launch_kernel(rows_attention_fast_mma_kernel<16, 8>, 16, a, stream);
+  if (CP <= 16) return launch_kernel(rows_attention_fast_mma_kernel<32, 2, NARROW>, 32, a, stream);
+  if (CP <= 32) return launch_kernel(rows_attention_fast_mma_kernel<32, 4, NARROW>, 32, a, stream);
+  if (CP <= 512)
+    return launch_kernel(rows_attention_fast_mma_kernel<32, 8, NARROW>, 32, a, stream);
+  return launch_kernel(rows_attention_fast_mma_kernel<16, 8, NARROW>, 16, a, stream);
 }
 
+template <bool NARROW>
 cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   const int CP = (a.C + 15) & ~15;
-  if (CP <= 16) return launch_kernel(rows_attention_mma_kernel<64, 2>, 64, a, stream);
-  if (CP <= 32) return launch_kernel(rows_attention_mma_kernel<64, 4>, 64, a, stream);
-  if (CP <= 128) return launch_kernel(rows_attention_mma_kernel<64, 8>, 64, a, stream);
-  if (CP <= 512) return launch_kernel(rows_attention_mma_kernel<32, 8>, 32, a, stream);
-  return launch_kernel(rows_attention_mma_kernel<16, 8>, 16, a, stream);
+  if (CP <= 16) return launch_kernel(rows_attention_mma_kernel<64, 2, NARROW>, 64, a, stream);
+  if (CP <= 32) return launch_kernel(rows_attention_mma_kernel<64, 4, NARROW>, 64, a, stream);
+  if (CP <= 128) return launch_kernel(rows_attention_mma_kernel<64, 8, NARROW>, 64, a, stream);
+  if (CP <= 512) return launch_kernel(rows_attention_mma_kernel<32, 8, NARROW>, 32, a, stream);
+  return launch_kernel(rows_attention_mma_kernel<16, 8, NARROW>, 16, a, stream);
 }
 
-template <bool STATS, int WARPS>
+// K3 or K5 (STATS): 8 warps (128 queries) a block up to CP = 128, 4 above.
+template <bool STATS, bool NARROW>
 cudaError_t launch_kchunk(const Args& a, cudaStream_t stream, float* m, float* logs) {
   const int CP = (a.C + 15) & ~15;
   if (CP <= 16)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 2>, 64, a,
-                                stream, m, logs);
+    return launch_kernel<8>(rows_attention_kchunk_mma_kernel<STATS, 8, 64, 2, NARROW>, 64, a,
+                            stream, m, logs);
   if (CP <= 32)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 4>, 64, a,
-                                stream, m, logs);
+    return launch_kernel<8>(rows_attention_kchunk_mma_kernel<STATS, 8, 64, 4, NARROW>, 64, a,
+                            stream, m, logs);
   if (CP <= 128)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 64, 8>, 64, a,
-                                stream, m, logs);
+    return launch_kernel<8>(rows_attention_kchunk_mma_kernel<STATS, 8, 64, 8, NARROW>, 64, a,
+                            stream, m, logs);
   if (CP <= 512)
-    return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 32, 8>, 32, a,
-                                stream, m, logs);
-  return launch_kernel<WARPS>(rows_attention_kchunk_mma_kernel<STATS, WARPS, 16, 8>, 16, a,
-                              stream, m, logs);
+    return launch_kernel<4>(rows_attention_kchunk_mma_kernel<STATS, 4, 32, 8, NARROW>, 32, a,
+                            stream, m, logs);
+  return launch_kernel<4>(rows_attention_kchunk_mma_kernel<STATS, 4, 16, 8, NARROW>, 16, a,
+                          stream, m, logs);
 }
 
-bool valid(const Args& a, int TQ = kTQ) {
-  const bool strides = a.qs.r % 8 == 0 && a.qs.n % 8 == 0 && a.qs.h % 8 == 0 &&
-                       a.ks.r % 8 == 0 && a.ks.n % 8 == 0 && a.ks.h % 8 == 0 &&
-                       a.vs.r % 8 == 0 && a.vs.n % 8 == 0 && a.vs.h % 8 == 0;
-  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % 8 == 0 && strides &&
-         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+// The operands a body takes: rows of q, k and v on 16 bytes (C and the
+// strides multiples of 8, 16-byte aligned bases); with ``narrow`` (K1, K1
+// fast, K3 and K5) also C = 4 mod 8 with rows on 8 bytes (strides multiples
+// of 4, 8-byte aligned bases), which their NARROW instantiations stage.
+bool valid(const Args& a, int TQ = kTQ, bool narrow = false) {
+  const int piece = narrow && a.C % 8 == 4 ? 4 : 8;  // elements a staging copy moves
+  const auto fits = [piece](const Strides& s) {
+    return s.r % piece == 0 && s.n % piece == 0 && s.h % piece == 0;
+  };
+  const unsigned bytes = 2 * piece;
+  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % piece == 0 &&
+         fits(a.qs) && fits(a.ks) && fits(a.vs) && aligned_to(a.q, bytes) &&
+         aligned_to(a.k, bytes) && aligned_to(a.v, bytes) &&
          smem_bytes(a.C, key_tile((a.C + 15) & ~15), TQ) <= kMaxSmem;
 }
 
@@ -556,7 +611,7 @@ int prd_tiled_attention_mma(const void* q, const void* k, const void* v, const v
 }
 
 // K1 fast on the tensor cores (bf16): masked attention without bias, the
-// softmax rounded as bf16. C a multiple of 8 up to the shared-memory bound.
+// softmax rounded as bf16. C a multiple of 4 up to the shared-memory bound.
 int prd_rows_attention_fast_mma(const void* q, const void* k, const void* v, const void* mask,
                                 void* out, int R, int N, int H, int C, float scale,
                                 long long q_sr, long long q_sn, long long q_sh, long long k_sr,
@@ -566,13 +621,14 @@ int prd_rows_attention_fast_mma(const void* q, const void* k, const void* v, con
                static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
                static_cast<bf16*>(out), R, N, H, C, scale,
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
-  if (!valid(a) || mask == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_fast(a, static_cast<cudaStream_t>(stream));
+  if (!valid(a, kTQ, true) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(C % 8 ? launch_fast<true>(a, s) : launch_fast<false>(a, s));
 }
 
 // K1 on the tensor cores (bf16): masked attention without bias, softmax in
 // f32, the normalised probabilities rounded to bf16 for P.V. C a multiple
-// of 8 up to the shared-memory bound.
+// of 4 up to the shared-memory bound.
 int prd_rows_attention_mma(const void* q, const void* k, const void* v, const void* mask,
                            void* out, int R, int N, int H, int C, float scale, long long q_sr,
                            long long q_sn, long long q_sh, long long k_sr, long long k_sn,
@@ -582,15 +638,16 @@ int prd_rows_attention_mma(const void* q, const void* k, const void* v, const vo
                static_cast<const bf16*>(v), static_cast<const float*>(mask), nullptr,
                static_cast<bf16*>(out), R, N, H, C, scale,
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
-  if (!valid(a) || mask == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch_rows(a, static_cast<cudaStream_t>(stream));
+  if (!valid(a, kTQ, true) || mask == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(C % 8 ? launch_rows<true>(a, s) : launch_rows<false>(a, s));
 }
 
 // K3 (m and logs null) or K5 (both given) on the tensor cores (bf16): K1's
 // function by one pass of online softmax over key tiles, K5 also writing the
 // row max m and log s (f32 [R, H, N]); 128 queries per block up to C = 128
 // (a (row, head)'s K and V are read from L2 once per query tile), 64 above it
-// (shared memory). C a multiple of 8 up to the shared-memory bound.
+// (shared memory). C a multiple of 4 up to the shared-memory bound.
 int prd_rows_attention_kchunk_mma(const void* q, const void* k, const void* v, const void* mask,
                                   void* out, void* m, void* logs, int R, int N, int H, int C,
                                   float scale, long long q_sr, long long q_sn, long long q_sh,
@@ -601,16 +658,16 @@ int prd_rows_attention_kchunk_mma(const void* q, const void* k, const void* v, c
                static_cast<bf16*>(out), R, N, H, C, scale,
                {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}};
   const bool wide = ((C + 15) & ~15) > 128;
-  if (!valid(a, wide ? 64 : 128) || mask == nullptr || (m == nullptr) != (logs == nullptr))
+  if (!valid(a, wide ? 64 : 128, true) || mask == nullptr || (m == nullptr) != (logs == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(logs);
   if (m != nullptr)
-    return (int)(wide ? launch_kchunk<true, 4>(a, s, mf, lf)
-                      : launch_kchunk<true, 8>(a, s, mf, lf));
-  return (int)(wide ? launch_kchunk<false, 4>(a, s, mf, lf)
-                    : launch_kchunk<false, 8>(a, s, mf, lf));
+    return (int)(C % 8 ? launch_kchunk<true, true>(a, s, mf, lf)
+                       : launch_kchunk<true, false>(a, s, mf, lf));
+  return (int)(C % 8 ? launch_kchunk<false, true>(a, s, mf, lf)
+                     : launch_kchunk<false, false>(a, s, mf, lf));
 }
 
 }  // extern "C"

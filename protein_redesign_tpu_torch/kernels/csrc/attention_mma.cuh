@@ -34,9 +34,29 @@ struct Args {
 
 // The block's TQ-query tile into shared memory, multiplied by the scale and
 // rounded to bf16 (the pre-scaled q), rows past N and channels past C zero.
-template <int TQ = kTQ>
+// NARROW (K1, K1 fast, K3 and K5 at C = 4 mod 8): the rows start on 8
+// bytes, so 8-byte pieces of 4 channels (C a multiple of 4: a piece is
+// wholly inside C or wholly past it); else 16-byte pieces of 8.
+template <int TQ = kTQ, bool NARROW = false>
 __device__ __forceinline__ void stage_q(const Args& a, const bf16* q_base, int q0, int CP, int ld,
                                         bf16* q_s) {
+  if constexpr (NARROW) {
+    const int chunks = CP / 4;
+    for (int e = threadIdx.x; e < TQ * chunks; e += blockDim.x) {
+      const int i = e / chunks;
+      const int c = (e - i * chunks) * 4;
+      const int qi = q0 + i;
+      uint2 raw = make_uint2(0u, 0u);
+      if (qi < a.N && c < a.C) {
+        raw = *reinterpret_cast<const uint2*>(q_base + (long long)qi * a.qs.n + c);
+        bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) x[t] = __float2bfloat16_rn(__bfloat162float(x[t]) * a.scale);
+      }
+      *reinterpret_cast<uint2*>(q_s + i * ld + c) = raw;
+    }
+    return;
+  }
   const int chunks = CP / 8;
   for (int e = threadIdx.x; e < TQ * chunks; e += blockDim.x) {
     const int i = e / chunks;
@@ -55,9 +75,30 @@ __device__ __forceinline__ void stage_q(const Args& a, const bf16* q_base, int q
 
 // Rows [k0, k0 + rows) and channels [c0, c0 + width) of one head of K or V
 // into shared memory by cp.async (row stride ld); rows past N and channels
-// past C are zero-filled.
+// past C are zero-filled. NARROW: 8-byte pieces, as stage_q's, and only
+// those inside C (channels [C - c0, width) of the tile stay as zero_tail
+// left them), each thread stepping through its pieces without a division.
+template <bool NARROW = false>
 __device__ __forceinline__ void stage_keys(const bf16* base, long long stride_n, int k0, int rows,
                                            int N, int C, int c0, int width, int ld, bf16* dst) {
+  if constexpr (NARROW) {
+    const int chunks = min(width, C - c0) / 4;  // c0 < C: a slice holds a channel below C
+    const int dj = blockDim.x / chunks, dc = blockDim.x - dj * chunks;
+    int j = threadIdx.x / chunks, cc = threadIdx.x - j * chunks;
+    while (j < rows) {
+      const int key = k0 + j;
+      const bool ok = key < N;
+      cp_async8(dst + j * ld + 4 * cc, ok ? base + (long long)key * stride_n + c0 + 4 * cc : base,
+                ok);
+      j += dj;
+      cc += dc;
+      if (cc >= chunks) {
+        cc -= chunks;
+        ++j;
+      }
+    }
+    return;
+  }
   const int chunks = width / 8;
   for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
     const int j = e / chunks;
@@ -65,6 +106,17 @@ __device__ __forceinline__ void stage_keys(const bf16* base, long long stride_n,
     const int key = k0 + j;
     const bool ok = key < N && c0 + cc < C;
     cp_async16(dst + j * ld + cc, ok ? base + (long long)key * stride_n + c0 + cc : base, ok);
+  }
+}
+
+// Zeros in channels [from, width) of ``rows`` rows of a staged tile (row
+// stride ld; from and width multiples of 4): a NARROW kernel's K and V
+// buffers past C once, before its first copies, which never write there.
+__device__ __forceinline__ void zero_tail(bf16* tile, int rows, int from, int width, int ld) {
+  const int pieces = (width - from) / 4;
+  for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
+    const int j = e / pieces;
+    *reinterpret_cast<uint2*>(tile + j * ld + from + 4 * (e - j * pieces)) = make_uint2(0u, 0u);
   }
 }
 
@@ -304,8 +356,8 @@ __device__ __forceinline__ void exp_rows(float (&s)[NS][4], RowsState<NT>& st, f
 
 // One pass of triangle attention (no bias) over the key tiles of the
 // block's (row, head), K and V tiles double-buffered by cp.async; the tile's
-// mask bits are read while the copies land.
-template <int MODE, int BK, int NT>
+// mask bits are read while the copies land. NARROW: C = 4 mod 8 (stage_keys).
+template <int MODE, int BK, int NT, bool NARROW = false>
 __device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const bf16* q_w,
                                           bf16* k_s, bf16* v_s, int CP, RowsState<NT>& st,
                                           int lane) {
@@ -320,16 +372,17 @@ __device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const b
   float nm_a = -st.m_a * kLog2e, nm_b = -st.m_b * kLog2e;
   const float inv_a = MODE == kNormalized ? 1.f / st.s_a : 1.f;
   const float inv_b = MODE == kNormalized ? 1.f / st.s_b : 1.f;
-  stage_keys(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
-  if (PV) stage_keys(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
+  stage_keys<NARROW>(k_base, a.ks.n, 0, BK, N, C, 0, CP, QS, k_s);
+  if (PV) stage_keys<NARROW>(v_base, a.vs.n, 0, BK, N, C, b.cs0, CS, VS, v_s);
   cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < tiles) {
-      stage_keys(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS, k_s + (buf ^ 1) * BK * QS);
+      stage_keys<NARROW>(k_base, a.ks.n, (t + 1) * BK, BK, N, C, 0, CP, QS,
+                         k_s + (buf ^ 1) * BK * QS);
       if (PV)
-        stage_keys(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
-                   v_s + (buf ^ 1) * BK * VS);
+        stage_keys<NARROW>(v_base, a.vs.n, (t + 1) * BK, BK, N, C, b.cs0, CS, VS,
+                           v_s + (buf ^ 1) * BK * VS);
     }
     cp_async_commit();
     const TileMask<BK> tm = tile_mask<BK>(mask_row, t * BK, N, lane);
@@ -355,8 +408,12 @@ __device__ __forceinline__ void rows_pass(const Args& a, const Block& b, const b
   }
 }
 
-// Whether an operand starts on 16 bytes (cp.async, 16-byte loads).
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
+// Whether an operand starts on 16 bytes (cp.async, 16-byte loads), or on
+// ``bytes``.
+bool aligned_to(const void* p, unsigned bytes) {
+  return (reinterpret_cast<unsigned long long>(p) & (bytes - 1)) == 0;
+}
+bool aligned16(const void* p) { return aligned_to(p, 16); }
 
 // The softmax stats of one query as the backward kernels stage them: nm =
 // -m log2 e and the normaliser inv, so that p = exp2(l log2 e + nm) inv in

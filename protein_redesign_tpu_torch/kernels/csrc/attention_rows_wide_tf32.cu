@@ -1,13 +1,13 @@
 // Hand-written Hopper (sm_90a) tensor-core body of K1, the rows attention
 // (key mask, no bias), in float32 past head width 128, for C a multiple of
-// 8 in (128, 1024]:
+// 4 in (128, 1024]:
 //
 //   rows_attention_wide_tf32x3_kernel<NC>
 //       <- _rows_attention_impl / _make_rowhead_kernel (K1)
 //
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, at those
-// widths, the CUDA-core body of attention.cu (kept for C = 4 mod 8 and
-// callable to time it beside this one), which spills at 8 channels a lane:
+// widths, the CUDA-core body of attention.cu (kept callable to time it
+// beside this one), which spills at 8 channels a lane:
 // 8.5 ms at R = 384, N = 192, C = 256, 18x SDPA.
 //
 // In f32 K1's function is K3's (attention_tf32.cu's header: the two-pass
@@ -48,7 +48,7 @@ cudaError_t launch(const F32Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// K1 in f32 on the tensor cores (3xTF32), C a multiple of 8 in (128, 1024].
+// K1 in f32 on the tensor cores (3xTF32), C a multiple of 4 in (128, 1024].
 int prd_rows_attention_wide_tf32x3(const void* q, const void* k, const void* v, const void* mask,
                                    void* out, int R, int N, int H, int C, float scale,
                                    long long q_sr, long long q_sn, long long q_sh, long long k_sr,
@@ -58,7 +58,7 @@ int prd_rows_attention_wide_tf32x3(const void* q, const void* k, const void* v, 
                   static_cast<const float*>(v), static_cast<const float*>(mask), nullptr,
                   static_cast<float*>(out), nullptr, nullptr, R, N, H, C, scale,
                   {q_sr, q_sn, q_sh}, {k_sr, k_sn, k_sh}, {v_sr, v_sn, v_sh}, false};
-  if (!f32_operands_ok(a) || C <= 128 || C > 1024 || mask == nullptr)
+  if (!f32_operands_ok(a, 4) || C <= 128 || C > 1024 || mask == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 256) return (int)launch<2>(a, s);

@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) tensor-core body of the rows attention in
-// float32, for head widths that are a multiple of 8 up to 128:
+// float32, for head widths that are a multiple of 4 up to 128:
 //
 //   rows_attention_tf32x3_kernel
 //       <- _rows_attention_impl / _make_rowhead_kernel (K1: triangle
@@ -20,8 +20,12 @@
 //
 // of protein_redesign_tpu/ops/pallas_attention.py. It replaces, for those
 // widths, the CUDA-core bodies of attention.cu (K1, K1 fast) and
-// attention_kchunk.cu (K3, K5), kept for C = 4 mod 8 and callable to time
-// them beside this one.
+// attention_kchunk.cu (K3, K5), kept callable to time them beside this
+// one. A head of C = 4 mod 8 needs no path of its own in f32: a row of C
+// floats is a multiple of 16 bytes, stage_f32 copies 4 channels a piece and
+// zero-fills the pieces past C up to CP, and the sums over the padded
+// channels add exact zeros (K1 fast's near-midpoint chain, dot_smem, stops
+// at channel C - 1).
 //
 // The function is K3's and K5's f32 plain version (_kchunk_forward_block):
 // f32 logits of the pre-scaled q (q * scale in f32), -2^15 at masked keys,
@@ -92,8 +96,8 @@
 // the other strides given in elements, every row 16-byte aligned (C and the
 // strides multiples of 4, checked by the wrapper); mask is contiguous f32
 // [R, N]; out is contiguous [R, N, H, C]; m and log s contiguous [R, H, N].
-// Heads are padded in shared memory to CP = 8 NT channels (8, 16, 32, 64 or
-// 128). Shared memory: 4 (TQ + 4 BK) (CP + 4) bytes, 30 KB at C = 16 and
+// Heads are padded in shared memory with zeros to CP = 8 NT channels (8,
+// 16, 32, 64 or 128). Shared memory: 4 (TQ + 4 BK) (CP + 4) bytes, 30 KB at C = 16 and
 // 132 KB at C = 128 with TQ = 128; K1 fast with STORE 4 (64 + 2 BK)
 // (CP + 4) bytes plus 128 N (64.5 KB at C = 16, N = 384). The entry points
 // return cudaGetLastError() after their launch.
@@ -444,13 +448,13 @@ int prd_rows_attention_tf32x3(const void* q, const void* k, const void* v, const
                               void* stream) {
   const F32Args a = rows_args(q, k, v, mask, out, nullptr, nullptr, R, N, H, C, scale, q_sr,
                               q_sn, q_sh, k_sr, k_sn, k_sh, v_sr, v_sn, v_sh);
-  if (!f32_operands_ok(a) || C > 128 || mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (!f32_operands_ok(a, 4) || C > 128 || mask == nullptr) return (int)cudaErrorInvalidValue;
   return (int)dispatch_width<true, false>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K1 fast in f32 on the tensor cores (3xTF32 logits, P.V in two TF32
 // products): masked attention without bias, the softmax rounded as bf16.
-// C a multiple of 8 up to 128.
+// C a multiple of 4 up to 128.
 int prd_rows_attention_fast_tf32x3(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, int R, int N, int H, int C,
                                    float scale, long long q_sr, long long q_sn, long long q_sh,
@@ -458,7 +462,7 @@ int prd_rows_attention_fast_tf32x3(const void* q, const void* k, const void* v,
                                    long long v_sn, long long v_sh, void* stream) {
   const F32Args a = rows_args(q, k, v, mask, out, nullptr, nullptr, R, N, H, C, scale, q_sr,
                               q_sn, q_sh, k_sr, k_sn, k_sh, v_sr, v_sn, v_sh);
-  if (!f32_operands_ok(a) || C > 128 || mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (!f32_operands_ok(a, 4) || C > 128 || mask == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C <= 8) return (int)launch_fast<1>(a, s);
   if (C <= 16) return (int)launch_fast<2>(a, s);
@@ -469,7 +473,7 @@ int prd_rows_attention_fast_tf32x3(const void* q, const void* k, const void* v,
 
 // K3 (m and logs null) or K5 (both given) in f32 on the tensor cores
 // (3xTF32): masked attention without bias by online softmax over key tiles.
-// C a multiple of 8 up to 128 (past it attention_kchunk_wide_tf32.cu).
+// C a multiple of 4 up to 128 (past it attention_kchunk_wide_tf32.cu).
 int prd_rows_attention_kchunk_tf32x3(const void* q, const void* k, const void* v,
                                      const void* mask, void* out, void* m, void* logs, int R,
                                      int N, int H, int C, float scale, long long q_sr,
@@ -478,7 +482,7 @@ int prd_rows_attention_kchunk_tf32x3(const void* q, const void* k, const void* v
                                      long long v_sn, long long v_sh, void* stream) {
   const F32Args a = rows_args(q, k, v, mask, out, m, logs, R, N, H, C, scale, q_sr, q_sn, q_sh,
                               k_sr, k_sn, k_sh, v_sr, v_sn, v_sh);
-  if (!f32_operands_ok(a) || C > 128 || mask == nullptr || (m == nullptr) != (logs == nullptr))
+  if (!f32_operands_ok(a, 4) || C > 128 || mask == nullptr || (m == nullptr) != (logs == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(m != nullptr ? dispatch_width<false, true>(a, s)

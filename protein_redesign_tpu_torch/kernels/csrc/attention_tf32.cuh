@@ -359,14 +359,19 @@ cudaError_t launch_f32(Kernel kern, int threads, int queries, size_t smem, const
 }
 
 // The operands every f32 forward entry point takes: [R, N, H, C] with C a
-// multiple of 8 and 16-byte aligned rows, H within grid.y.
-bool f32_operands_ok(const F32Args& a) {
-  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % 8 == 0 &&
+// multiple of ``multiple`` (8; 4 for K1, K1 fast, K3 and K5, whose tiles are
+// staged in 16-byte pieces of 4 channels and zero-filled past C to CP = 8
+// NT, or in the wide bodies past each 128-channel chunk's C - c0, so a
+// 4 mod 8 tail is padded with exact zeros) and 16-byte aligned rows, H
+// within grid.y.
+bool f32_operands_ok(const F32Args& a, int multiple = 8) {
+  return a.R > 0 && a.N > 0 && a.H > 0 && a.H <= 65535 && a.C > 0 && a.C % multiple == 0 &&
          strides4(a.qs) && strides4(a.ks) && strides4(a.vs) && aligned16(a.q) &&
          aligned16(a.k) && aligned16(a.v);
 }
 
-// The wide body (C > 128, a multiple of 8 up to 1024): one pass of online
+// The wide body (C > 128, a multiple of 8 up to 1024; K1, K3 and K5 a
+// multiple of 4, the last chunk zero-padded by stage_f32): one pass of online
 // softmax in which each (query tile, key tile) logit is computed once,
 // streaming the Q K^T contraction over C in 128-channel chunks as a GEMM's
 // K loop (attention_tiled_tf32.cu's header describes it in full). K2 runs it

@@ -39,6 +39,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                : "memory");
 }
 
+// 8 bytes the same way (cp.async.ca: the .cg form moves 16 bytes only), for
+// bf16 heads of width C = 4 mod 8, whose rows start on 8 bytes.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -17,13 +17,14 @@ kernels the denoiser's main path runs:
   SPAttention).
 
 K1, K1 fast, K2, K3, K5, K6 and K7 have two bodies (``takes_mma``): on bf16
-inputs with C a multiple of 8 a tensor-core one (``attention_mma.cu``;
-K6's and K7's ``attention_bwd_mma.cu``: mma.sync, ldmatrix, cp.async; K6
-and K7 up to 1024 with their wide body past 128,
-``attention_kchunk_bwd_wide_mma.cu`` and ``attention_bwd_wide_mma.cu``),
-else the CUDA-core one of ``attention.cu``, ``attention_kchunk.cu``,
-``attention_kchunk_bwd.cu`` or ``attention_bwd.cu``. In f32 with C a
-multiple of 8 every kernel takes a tensor-core body too (``takes_tf32x3``):
+inputs with C a multiple of 8 (K1, K1 fast, K3 and K5: of 4) a tensor-core
+one (``attention_mma.cu``; K6's and K7's ``attention_bwd_mma.cu``:
+mma.sync, ldmatrix, cp.async; K6 and K7 up to 1024 with their wide body
+past 128, ``attention_kchunk_bwd_wide_mma.cu`` and
+``attention_bwd_wide_mma.cu``), else the CUDA-core one of ``attention.cu``,
+``attention_kchunk.cu``, ``attention_kchunk_bwd.cu`` or
+``attention_bwd.cu``. In f32 with C a multiple of 8 (K1, K1 fast, K3 and
+K5: of 4) every kernel takes a tensor-core body too (``takes_tf32x3``):
 K1, K3 and K5 ``attention_tf32.cu`` (one body up to C = 128; past it up to
 1024 the wide body they share with K2, ``attention_rows_wide_tf32.cu`` for
 K1 and ``attention_kchunk_wide_tf32.cu`` for K3 and K5), K1 fast its own
@@ -35,7 +36,12 @@ past it up to 1024, which streams the head in 128-channel chunks), K2
 ``attention_kchunk_bwd_wide_tf32.cu`` and ``attention_bwd_wide_tf32.cu``):
 every product in 3xTF32, three TF32 products of split operands, which keeps
 the 1e-5 parity that one TF32 product would break. C = 4 mod 8 keeps the
-CUDA-core bodies in both dtypes.
+CUDA-core bodies of K2, K6 and K7 in both dtypes; K1, K1 fast, K3 and K5
+take it on their tensor-core bodies (``NARROW_BODIES``: in bf16 the heads'
+rows then start on 8 bytes, which attention_mma.cu stages in 8-byte
+pieces; in f32 a row of C floats is a multiple of 16 bytes anyway), and
+their CUDA-core bodies stay callable (``attention_body(..., mma=False)``)
+to time them beside the tensor-core ones.
 - ``rows_attention_bwd`` (K7) <- ``_rows_attention_bwd_impl`` /
   ``_make_rowhead_bwd_kernel``: the flash backward of K1.
 - ``rows_attention_kchunk`` (K3, and K4 and the fori variant, which differ
@@ -119,13 +125,24 @@ NEG_INF = -(2.0**15)  # the reference's padding fill (`pallas_attention.py:33`)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The tensor-core bodies (attention_mma.cu: K1, K1 fast, K2, K3, K5;
-# attention_bwd_mma.cu: K6, K7; bf16, C a multiple of 8): a block's queries
-# and two K and V tiles in shared memory.
+# attention_bwd_mma.cu: K6, K7; bf16, C a multiple of 8, or of 4 in
+# NARROW_BODIES): a block's queries and two K and V tiles in shared memory.
 MMA_SMEM_BYTES = 227 * 1024
 MMA_BODIES = ("rows_attention", "rows_attention_fast", "tiled_attention", "rows_attention_kchunk",
               "rows_attention_kchunk_stats", "rows_attention_bwd", "rows_attention_kchunk_bwd")
 KCHUNK_FORWARDS = ("rows_attention_kchunk", "rows_attention_kchunk_stats")  # K3, K5
 BACKWARDS = ("rows_attention_bwd", "rows_attention_kchunk_bwd")  # K7, K6
+# The tensor-core bodies that take C = 4 mod 8 as well (K1, K1 fast, K3, K5):
+# any multiple of 4; the others (K2, K6, K7) a multiple of 8.
+NARROW_BODIES = ("rows_attention", "rows_attention_fast") + KCHUNK_FORWARDS
+
+
+def tc_width(name: str, C: int) -> bool:
+    """Whether head width C is one kernel ``name``'s tensor-core bodies
+    stage: a positive multiple of 4 for ``NARROW_BODIES``, of 8 else."""
+    return C > 0 and C % (4 if name in NARROW_BODIES else 8) == 0
+
+
 # K3's tensor-core body takes 128 queries per block up to head width 128 (a
 # (row, head)'s K and V are read from L2 once per query tile), 64 above it
 # (shared memory).
@@ -139,7 +156,8 @@ MIN_QUERY_TILE, MAX_BLOCKS = 16, 2**31 - 1
 def mma_smem_bytes(C: int, queries: int = 64) -> int:
     """Shared memory of a tensor-core block (``smem_bytes`` in attention_mma.cu):
     ``queries`` query rows and two tiles of BK keys of the padded width CP = C
-    rounded up to 16, plus two V tiles of the CS-channel output slice, in bf16."""
+    rounded up to 16 (C = 4 mod 8 pads as C + 4 does), plus two V tiles of
+    the CS-channel output slice, in bf16."""
     cp = -(-C // 16) * 16
     bk = 64 if cp <= 128 else (32 if cp <= 512 else 16)
     cs = 16 if cp <= 16 else (32 if cp <= 32 else 64)
@@ -272,13 +290,14 @@ def _takes_wide(name: str, dtype: torch.dtype, C: int) -> bool:
 
 def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its bf16 tensor-core body at head width C
-    in ``dtype``: K1, K1 fast, K2, K3 and K5 in bf16 when C is a multiple of
-    8 (an mma operand row is 8 bf16) whose tiles fit shared memory; K6 and K7
-    in bf16 when C is a multiple of 8 up to MAX_HEAD_DIM (their accumulators
-    hold the whole head up to MAX_TC_HEAD_DIM, their wide body streams it
-    past 128). Else the CUDA-core body, or in f32 the 3xTF32 body where
-    ``takes_tf32x3``."""
-    if name not in MMA_BODIES or dtype != torch.bfloat16 or C <= 0 or C % 8:
+    in ``dtype``: K2 in bf16 when C is a multiple of 8 (an mma operand row
+    is 8 bf16), K1, K1 fast, K3 and K5 when it is a multiple of 4 (the head
+    padded with zeros to CP in shared memory), whose tiles fit shared
+    memory; K6 and K7 in bf16 when C is a multiple of 8 up to MAX_HEAD_DIM
+    (their accumulators hold the whole head up to MAX_TC_HEAD_DIM, their
+    wide body streams it past 128). Else the CUDA-core body, or in f32 the
+    3xTF32 body where ``takes_tf32x3``."""
+    if name not in MMA_BODIES or dtype != torch.bfloat16 or not tc_width(name, C):
         return False
     if name in BACKWARDS:
         if C > MAX_TC_HEAD_DIM:
@@ -290,15 +309,16 @@ def takes_mma(name: str, dtype: torch.dtype, C: int) -> bool:
 
 def takes_tf32x3(name: str, dtype: torch.dtype, C: int) -> bool:
     """Whether kernel ``name`` runs its f32 tensor-core body (3xTF32) at head
-    width C in ``dtype``: f32 with C a multiple of 8, K1, K1 fast, K3 and K5
-    (attention_tf32.cu) and K6 and K7 (attention_bwd_tf32.cu) up to
+    width C in ``dtype``: f32 with C a multiple of 8 (K1, K1 fast, K3 and
+    K5: of 4, ``tc_width``), K1, K1 fast, K3 and K5 (attention_tf32.cu) and
+    K6 and K7 (attention_bwd_tf32.cu) up to
     MAX_TC_HEAD_DIM (the accumulators hold the whole head), all six past it
     up to MAX_HEAD_DIM (their wide bodies stream the head), K2
     (attention_tiled_tf32.cu) up to MAX_HEAD_DIM (its wide body, which K1,
     K3 and K5 share), each within its shared memory (K1 fast keeps its
     logits in shared memory where they fit and recomputes them past that,
     so N bounds nothing)."""
-    if dtype != torch.float32 or C <= 0 or C % 8:
+    if dtype != torch.float32 or not tc_width(name, C):
         return False
     if name == "tiled_attention":
         return C <= MAX_HEAD_DIM and tiled_tf32x3_smem_bytes(C) <= MMA_SMEM_BYTES
@@ -663,9 +683,12 @@ def rows_attention_kchunk_bwd_reference(q, k, v, mask, dout, out, m, logs, scale
 
 
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if every [.., C] row starts on 16 bytes (cp.async and 16-byte
-    loads), else a contiguous copy."""
-    if t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3]):
+    """``t`` if every [.., C] row starts where the tensor-core bodies' copies
+    need it (cp.async and vector loads): on 16 bytes, or on 8 for a bf16 head
+    of C = 4 mod 8 (8-byte pieces), else a contiguous copy."""
+    align = 8 if t.dtype == torch.bfloat16 and t.shape[-1] % 8 else 16
+    if t.data_ptr() % align == 0 and all(st * t.element_size() % align == 0
+                                         for st in t.stride()[:3]):
         return t
     return t.contiguous() if not t.is_contiguous() else t.clone()
 
@@ -708,9 +731,9 @@ def _check(q, k, v, mask, bias, fits: bool, bound: str) -> None:
             raise ValueError(f"{name} must be contiguous along the head dimension")
 
 
-_MMA_BOUND = (f"the tensor-core body needs a multiple of 8 whose tiles fit {MMA_SMEM_BYTES} "
-              f"bytes (up to {MAX_HEAD_DIM}; in bf16 K1, K1 fast, K2, K3 and K5 to the "
-              f"widths whose tiles fit)")
+_MMA_BOUND = (f"the tensor-core body needs a multiple of 8 (K1, K1 fast, K3 and K5: of 4) whose "
+              f"tiles fit {MMA_SMEM_BYTES} bytes (up to {MAX_HEAD_DIM}; in bf16 K1, K1 fast, "
+              f"K2, K3 and K5 to the widths whose tiles fit)")
 
 
 def _launch(name: str, q, k, v, mask, bias, scale: float,
@@ -943,8 +966,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
     ("rows_attention_kchunk_bwd", given ``dout`` and K5's ``out``, ``m`` and
     ``logs``) on CUDA tensors through the body ``mma`` names, without
     autograd: the CUDA-core body (``mma`` False), which a tensor-core one
-    replaced (both dtypes, C a multiple of 8), stays callable only to time
-    the two side by side."""
+    replaced (both dtypes, C a multiple of 8, or of 4 for K1, K1 fast, K3 and
+    K5), stays callable only to time the two side by side."""
     if name == "rows_attention_bwd":
         return _launch_bwd(q, k, v, mask, dout, scale, mma=mma)
     if name == "rows_attention_kchunk_bwd":
@@ -957,8 +980,8 @@ def attention_body(name: str, q, k, v, mask, bias, scale: float, mma: bool, dout
 def rows_attention_fast(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
     """K1 fast: ``rows_attention_fast_reference``'s function; the plain
     version for CPU tensors, the kernel for CUDA ones: the tensor-core body
-    with C a multiple of 8 (bf16 to the widths whose tiles fit; f32 up to
-    1024), else the CUDA-core body (C <= 1024).
+    with C a multiple of 4 (bf16 to the widths whose tiles fit; f32 up to
+    1024).
     Forward only: its callers differentiate the f32 reference instead."""
     if mask is None:
         raise ValueError("rows_attention_fast needs a key mask")

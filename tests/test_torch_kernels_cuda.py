@@ -56,10 +56,10 @@ def _tol(dtype, C):
 @pytest.mark.parametrize("N", [16, 45, 192])
 @pytest.mark.parametrize("C", [8, 12, 16, 64, 128])
 def test_rows_kernel_matches_plain(device, dtype, N, C):
-    """K1 through its wrapper: the tensor-core bodies at C a multiple of 8
-    (bf16 attention_mma.cu, f32 3xTF32 attention_tf32.cu), the CUDA-core
-    body at C = 12."""
-    assert A.takes_tensor_cores("rows_attention", dtype, C) == (C % 8 == 0)
+    """K1 through its wrapper: the tensor-core bodies at every C here (bf16
+    attention_mma.cu, C = 12 by its 8-byte staging; f32 3xTF32
+    attention_tf32.cu)."""
+    assert A.takes_tensor_cores("rows_attention", dtype, C)
     q, k, v, mask, _ = _inputs(6, N, 2, C, dtype, device, masked_rows=2)
     before = A.LAUNCHES["rows_attention"]
     out = A.rows_attention(q, k, v, mask, 0.35)
@@ -168,8 +168,8 @@ def test_more_rows_than_a_grid_dimension_holds(device, name):
 def test_rows_fast_kernel_matches_plain(device, dtype, N, C):
     """K1 fast against its plain version: the same bf16 rounding points, the
     f32 logits summed in another order (a flip of a bf16 rounding moves a
-    probability by 2^-8), so 2e-2 in both dtypes. C a multiple of 8 takes
-    the tensor-core bodies (f32: 3xTF32), C = 12 the CUDA-core one."""
+    probability by 2^-8), so 2e-2 in both dtypes. Every C here takes the
+    tensor-core bodies (f32: 3xTF32; bf16 C = 12 by the 8-byte staging)."""
     q, k, v, mask, _ = _inputs(6, N, 4, C, dtype, device, masked_rows=2)
     q = 3.0 * q  # logits of |l| ~ 5 at C = 16
     before = A.LAUNCHES["rows_attention_fast"]
@@ -1334,8 +1334,8 @@ def test_rows_and_kchunk_bodies_stay_callable(device, name):
         _close_to_scale(got, refb)
     got = A.attention_body(name, q, k, v, mask, None, 0.3, mma=True)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(ValueError):  # no tensor-core body at C = 4 mod 8
-        A.attention_body(name, q[..., :12], k[..., :12], v[..., :12], mask, None, 0.3, mma=True)
+    with pytest.raises(ValueError):  # no tensor-core body at C = 6, not a multiple of 4
+        A.attention_body(name, q[..., :6], k[..., :6], v[..., :6], mask, None, 0.3, mma=True)
 
 
 FOUR_SWITCHES = dict(use_pallas_trimul=True, use_pallas_transition=True, use_pallas_outer=True,
@@ -1382,10 +1382,10 @@ WIDE_F32_ROWS = {"rows_attention": ("rows_attention_wide_tf32x3_kernel", "rows_a
 def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
     """K2, K1 and K1 fast in f32 past C = 128 on the CUDA-core body (past C
     = 512 its last pass stages V into K's buffer), and through the wrapper:
-    K2 at C a multiple of 8 on its wide 3xTF32 body, K1 and K1 fast on
-    theirs (the profiler shows the wide kernel and not the CUDA-core one), C
-    = 132 and 516 on the CUDA-core bodies; N = 70, not a multiple of the key
-    tile. Against the plain version at 1e-4 at C >= 512 and 1e-5 below (K1
+    K2 at C a multiple of 8 on its wide 3xTF32 body (C = 132 and 516 on the
+    CUDA-core body), K1 and K1 fast on theirs at every C here (the profiler
+    shows the wide kernel and not the CUDA-core one); N = 70, not a
+    multiple of the key tile. Against the plain version at 1e-4 at C >= 512 and 1e-5 below (K1
     fast 2e-2, its bf16 softmax), fully masked rows included; C = 1028 is
     refused."""
     q, k, v, mask, bias = _inputs(2, 70, 1, C, torch.float32, device, seed=50, masked_rows=1)
@@ -1397,15 +1397,16 @@ def test_wide_f32_heads_on_the_cuda_core_body(device, name, C):
         ref, tol = A.attention_reference(q, k, v, mask, b, scale), _tol(torch.float32, C)
     out = A.attention_body(name, q, k, v, mask, b, scale, mma=False)
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
-    assert A.takes_tensor_cores(name, torch.float32, C) is (C % 8 == 0)
+    tensor_cores = C % 8 == 0 or name != "tiled_attention"
+    assert A.takes_tensor_cores(name, torch.float32, C) is tensor_cores
     if name == "tiled_attention":
         out = A.tiled_attention(q, k, v, mask, bias, scale)
     else:
         fn = A.rows_attention_fast if name == "rows_attention_fast" else A.rows_attention
         out, names = _kernel_names(lambda: fn(q, k, v, mask, scale))
         wide_kernel, core_kernel = WIDE_F32_ROWS[name]
-        assert any((wide_kernel if C % 8 == 0 else core_kernel) in n for n in names), names
-        assert not any((core_kernel if C % 8 == 0 else wide_kernel) in n for n in names), names
+        assert any(wide_kernel in n for n in names), names
+        assert not any(core_kernel in n for n in names), names
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
     mean_v = v[:1].mean(1, keepdim=True).expand_as(out[:1])
     torch.testing.assert_close(out[:1], mean_v, atol=tol, rtol=tol)
@@ -1441,10 +1442,10 @@ def test_wide_head_backwards_match_plain(device, dtype, name, N, C):
 
 @pytest.mark.parametrize("N,C", [(45, 132), (40, 256), (33, 516), (20, 1024)])
 def test_wide_head_kchunk_forward_f32_matches_plain(device, N, C):
-    """K3 and K5 in f32 past 128: the wide 3xTF32 body at multiples of 8
-    (256, 1024), the CUDA-core body at C = 4 mod 8 (V staged into K's buffer
-    past 512): against the plain version, K5's output K3's."""
-    assert A.takes_tensor_cores("rows_attention_kchunk", torch.float32, C) is (C % 8 == 0)
+    """K3 and K5 in f32 past 128 on the wide 3xTF32 body at every multiple
+    of 4 (C = 132 and 516: the last 128-channel chunk zero-padded past C):
+    against the plain version, K5's output K3's."""
+    assert A.takes_tensor_cores("rows_attention_kchunk", torch.float32, C)
     q, k, v, mask, _ = _inputs(4, N, 2, C, torch.float32, device, seed=23, masked_rows=1)
     out = A.rows_attention_kchunk(q, k, v, mask, C ** -0.5)
     out_s, m, logs = A.rows_attention_kchunk_stats(q, k, v, mask, C ** -0.5)
@@ -1844,3 +1845,195 @@ def test_wide_fused_routes_raise_and_do_not_fall_back(device, monkeypatch):
     with pytest.raises(RuntimeError, match="triangle_multiply"):
         M.trimul(pair, _pair_mask(1, 8, device), *ws, "outgoing")
     assert calls == ["out", "mma", "k9 mma"] and A.LAUNCHES == before
+
+
+# head widths C = 4 mod 8 on the tensor cores: K1, K1 fast, K3 and K5 ---------
+
+NARROW_NAMES = ("rows_attention", "rows_attention_fast", "rows_attention_kchunk",
+                "rows_attention_kchunk_stats")
+# each name's tensor-core kernel by dtype, and the CUDA-core kernel it
+# replaced at C = 4 mod 8 (none is a substring of another kernel's name)
+NARROW_KERNELS = {
+    "rows_attention": ("rows_attention_mma_kernel", "rows_attention_tf32x3_kernel",
+                       "rows_attention_kernel"),
+    "rows_attention_fast": ("rows_attention_fast_mma_kernel", "rows_attention_fast_tf32x3_kernel",
+                            "rows_attention_fast_kernel"),
+    "rows_attention_kchunk": ("rows_attention_kchunk_mma_kernel",
+                              "rows_attention_kchunk_tf32x3_kernel",
+                              "rows_attention_kchunk_kernel"),
+    "rows_attention_kchunk_stats": ("rows_attention_kchunk_mma_kernel",
+                                    "rows_attention_kchunk_tf32x3_kernel",
+                                    "rows_attention_kchunk_kernel"),
+}
+
+
+def _narrow_case(name, q, k, v, mask, scale):
+    """The wrapper call of ``name`` and its plain version (K1 fast's logits
+    to |l| ~ 5 by the caller)."""
+    plain = {"rows_attention": lambda: A.attention_reference(q, k, v, mask, None, scale),
+             "rows_attention_fast": lambda: A.rows_attention_fast_reference(q, k, v, mask, scale),
+             "rows_attention_kchunk": lambda: A.rows_attention_kchunk_reference(q, k, v, mask,
+                                                                               scale),
+             "rows_attention_kchunk_stats": lambda: A.rows_attention_kchunk_reference(
+                 q, k, v, mask, scale, stats=True)}[name]
+    return (lambda: getattr(A, name)(q, k, v, mask, scale)), plain
+
+
+def _narrow_close(name, got, want, dtype, C):
+    """The gates of the multiple-of-8 rows: bf16 2e-2 to scale, f32 1e-5
+    (1e-4 from C = 512), K1 fast 2e-2 (its bf16 softmax); K5's m and log s
+    1e-5."""
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.isfinite(a).all()
+        if i:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+        elif name == "rows_attention_fast":
+            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+        elif dtype == torch.bfloat16:
+            _close_to_scale(a, b)
+        else:
+            torch.testing.assert_close(a, b, atol=_tol(dtype, C), rtol=_tol(dtype, C))
+
+
+@DTYPES
+@pytest.mark.parametrize("name", NARROW_NAMES)
+@pytest.mark.parametrize("C", [4, 12, 36, 132, 260, 1020])
+def test_narrow_heads_match_plain(device, dtype, name, C):
+    """K1, K1 fast, K3 and K5 at C = 4 mod 8 on their tensor-core bodies
+    (bf16: attention_mma.cu's NARROW instantiations, 8-byte staging; f32:
+    attention_tf32.cu up to 128, the wide bodies past it, the last chunk
+    zero-padded), N = 70 (not a multiple of any key tile) with a fully
+    masked row at the mean of v, against the plain version within the
+    multiple-of-8 rows' gates; K5's output K3's bit for bit; the profiler
+    shows the tensor-core kernel (bf16: its NARROW instantiation) and not
+    the CUDA-core one."""
+    assert A.takes_tensor_cores(name, dtype, C)
+    q, k, v, mask, _ = _inputs(3, 70, 2, C, dtype, device, seed=100 + C, masked_rows=1)
+    if name == "rows_attention_fast":
+        q = (5.0 * q.float()).to(dtype)  # |l| ~ 5
+    scale = C ** -0.5
+    fn, plain = _narrow_case(name, q, k, v, mask, scale)
+    before = A.LAUNCHES[name]
+    got, names = _kernel_names(fn)
+    assert A.LAUNCHES[name] == before + 3
+    want = plain()
+    _narrow_close(name, got, want, dtype, C)
+    out = got[0] if isinstance(got, tuple) else got
+    torch.testing.assert_close(out[:1].float(), v[:1].float().mean(1, keepdim=True).expand_as(
+        out[:1]), atol=2e-2, rtol=2e-2)
+    if name == "rows_attention_kchunk_stats":
+        torch.testing.assert_close(out, A.rows_attention_kchunk(q, k, v, mask, scale), atol=0,
+                                   rtol=0)
+    bf16_kernel, f32_kernel, core = NARROW_KERNELS[name]
+    if dtype == torch.bfloat16:
+        assert any(bf16_kernel in n and "true>" in n for n in names), names
+    else:
+        wide = {"rows_attention": "rows_attention_wide_tf32x3_kernel",
+                "rows_attention_fast": "rows_attention_fast_wide_tf32x3_kernel"}.get(
+                    name, "rows_attention_kchunk_wide_tf32x3_kernel")
+        assert any((wide if C > 128 else f32_kernel) in n for n in names), names
+    assert not any(core in n for n in names), names
+
+
+@pytest.mark.parametrize("name", NARROW_NAMES)
+def test_narrow_heads_off_16_bytes(device, name):
+    """bf16, C = 36, H = 3: heads 72 bytes apart, so head 1 of every
+    position and every head of the odd positions start on 8 bytes, not 16;
+    in the 'ending' layout (q, k and v through strides) too. The wrapper
+    passes them to the kernel in place (8-byte rows suffice), which gives
+    the bits it gives on contiguous copies and agrees with the plain
+    version; the fully masked rows give the mean of v."""
+    N, H, C = 40, 3, 36
+    q, k, v, mask, _ = _inputs(N, N, H, C, torch.bfloat16, device, seed=110, masked_rows=2)
+    qt, kt, vt = (x.transpose(0, 1) for x in (q, k, v))
+    assert not kt.is_contiguous() and kt.stride(2) * 2 % 16 == 8 and kt.stride(0) * 2 % 16 == 8
+    assert all(A._aligned_rows(x) is x for x in (qt, kt, vt))
+    fn, plain = _narrow_case(name, qt, kt, vt, mask, 0.2)
+    got = fn()
+    dense_fn, _ = _narrow_case(name, *(x.contiguous() for x in (qt, kt, vt)), mask, 0.2)
+    dense = dense_fn()
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, dense))):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    _narrow_close(name, got, plain(), torch.bfloat16, C)
+    out = got[0] if isinstance(got, tuple) else got
+    mean_v = vt[:2].float().mean(1, keepdim=True).expand_as(out[:2])
+    torch.testing.assert_close(out[:2].float(), mean_v, atol=2e-2, rtol=2e-2)
+
+
+def _template_args(names, kernel):
+    """The template arguments of ``kernel`` in the profiler's names."""
+    import re
+
+    found = [re.search(kernel + r"<([^>]*)>", n) for n in names]
+    return [tuple(a.strip() for a in m.group(1).split(",")) for m in found if m]
+
+
+@DTYPES
+@pytest.mark.parametrize("name", NARROW_NAMES)
+def test_multiple_of_8_keeps_its_kernel(device, dtype, name):
+    """C = 40, the multiple of 8 that pads to C = 36's width (48 in bf16, 64
+    in f32), runs the instantiation it ran before C = 4 mod 8 came to the
+    tensor cores: in bf16 the NARROW flag false, at C = 36 true, the other
+    template arguments alike; in f32 one instantiation for both widths."""
+    bf16_kernel, f32_kernel, _ = NARROW_KERNELS[name]
+    kernel = bf16_kernel if dtype == torch.bfloat16 else f32_kernel
+    args = {}
+    for C in (36, 40):
+        q, k, v, mask, _ = _inputs(4, 64, 2, C, dtype, device, seed=120)
+        fn, _ = _narrow_case(name, q, k, v, mask, 0.2)
+        _, names = _kernel_names(fn)
+        (args[C],) = set(_template_args(names, kernel))
+    if dtype == torch.bfloat16:
+        assert args[40][-1] == "false" and args[36][-1] == "true", args
+        assert args[40][:-1] == args[36][:-1], args
+    else:
+        assert args[40] == args[36], args
+
+
+@pytest.mark.parametrize("entry,name,dtype,C", [
+    ("prd_rows_attention_mma", "rows_attention", torch.bfloat16, 36),
+    ("prd_rows_attention_fast_mma", "rows_attention_fast", torch.bfloat16, 36),
+    ("prd_rows_attention_kchunk_mma", "rows_attention_kchunk", torch.bfloat16, 36),
+    ("prd_rows_attention_tf32x3", "rows_attention", torch.float32, 36),
+    ("prd_rows_attention_fast_tf32x3", "rows_attention_fast", torch.float32, 36),
+    ("prd_rows_attention_kchunk_tf32x3", "rows_attention_kchunk", torch.float32, 36),
+    ("prd_rows_attention_kchunk_wide_tf32x3", "rows_attention_kchunk", torch.float32, 260)])
+def test_narrow_heads_raise_and_do_not_fall_back(device, monkeypatch, entry, name, dtype, C):
+    """A failed launch of a tensor-core body at C = 4 mod 8 raises: neither
+    the CUDA-core body nor the plain version runs in its place, and no
+    launch is counted."""
+    from protein_redesign_tpu_torch.kernels import build
+
+    lib = build()
+    calls = []
+    monkeypatch.setattr(lib.lib, entry, lambda *a: calls.append("tc") or 1)
+    monkeypatch.setattr(lib.lib, f"prd_{name}", lambda *a: calls.append("core") or 0)
+    plain = {"rows_attention": "attention_reference",
+             "rows_attention_fast": "rows_attention_fast_reference"}.get(
+                 name, "rows_attention_kchunk_reference")
+    monkeypatch.setattr(A, plain, lambda *a, **kw: calls.append("plain"))
+    q, k, v, mask, _ = _inputs(2, 20, 1, C, dtype, device, seed=93)
+    before = A.LAUNCHES[name]
+    with pytest.raises(RuntimeError, match=name):
+        getattr(A, name)(q, k, v, mask, 0.1)
+    assert calls == ["tc"] and A.LAUNCHES[name] == before
+
+
+@DTYPES
+def test_k8_split_route_at_c36_runs_k3s_tensor_cores(device, dtype):
+    """K8's split route at (D, H, C) = (64, 4, 36) runs K3's tensor-core
+    kernel over the scratch's heads (72 bytes apart in bf16), not K3's
+    CUDA-core one, and matches its plain version; one K8 launch, no K3
+    launch counted."""
+    D, H, C = 64, 4, 36
+    assert A.fused_gated_body(D, H, C) == "split"
+    pair, mask, ws = _gated_inputs(20, D, H, C, dtype, device, "starting")
+    before = dict(A.LAUNCHES)
+    got, names = _kernel_names(lambda: A.fused_gated(pair, mask, *ws, H))
+    bf16_kernel, f32_kernel, core = NARROW_KERNELS["rows_attention_kchunk"]
+    assert any((bf16_kernel if dtype == torch.bfloat16 else f32_kernel) in n for n in names), names
+    assert not any(core in n for n in names), names
+    assert A.LAUNCHES == {**before, "fused_gated_rows_attention":
+                          before["fused_gated_rows_attention"] + 3}
+    assert _rel(got, A.fused_gated_reference(pair, mask, *ws, H)) <= FUSED_TOL[dtype]

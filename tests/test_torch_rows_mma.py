@@ -48,12 +48,13 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("name", ["rows_attention", "rows_attention_kchunk"])
 @pytest.mark.parametrize("C,dtype,mma", [
     (8, BF16, True), (16, BF16, True), (64, BF16, True), (1168, BF16, True),
-    (1176, BF16, False), (12, BF16, False), (4, BF16, False), (16, F32, False),
-    (64, F32, False),
+    (1176, BF16, False), (12, BF16, True), (4, BF16, True), (16, F32, False),
+    (64, F32, False), (1164, BF16, True), (1172, BF16, False), (6, BF16, False),
 ])
 def test_k1_and_k3_body_choice(name, C, dtype, mma):
-    """bf16 with C a multiple of 8 up to the shared-memory bound: the bf16
-    tensor-core body; otherwise not (f32 K3 is ``takes_tf32x3``'s)."""
+    """bf16 with C a multiple of 4 up to the shared-memory bound: the bf16
+    tensor-core body (C = 4 mod 8 padded as C + 4); otherwise not (f32 K3 is
+    ``takes_tf32x3``'s)."""
     assert A.takes_mma(name, dtype, C) is mma
     queries = A.kchunk_queries(C) if name == "rows_attention_kchunk" else 64
     assert (A.mma_smem_bytes(C, queries) <= A.MMA_SMEM_BYTES) is (C <= 1168)
@@ -77,25 +78,26 @@ def _body(name, dtype, C):
     # K5 and K7 in bf16: the tensor cores at C a multiple of 8
     *[(name, BF16, C, "bf16 mma") for name in ("rows_attention_kchunk_stats", "rows_attention_bwd")
       for C in (8, 16, 64, 128)],
-    ("rows_attention_kchunk_stats", BF16, 12, "cuda cores"),
+    ("rows_attention_kchunk_stats", BF16, 12, "bf16 mma"),
     ("rows_attention_bwd", BF16, 12, "cuda cores"),
     # K7 in f32: 3xTF32 at C a multiple of 8, else the CUDA cores
     *[("rows_attention_bwd", F32, C, "3xtf32") for C in (8, 16, 64, 128)],
     ("rows_attention_bwd", F32, 12, "cuda cores"),
-    # K3 and K5 in f32: 3xTF32 at C a multiple of 8, else the CUDA cores
+    # K3 and K5 in f32: 3xTF32 at C a multiple of 4
     *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats")
       for C in (8, 16, 64, 128)],
-    ("rows_attention_kchunk", F32, 12, "cuda cores"),
-    ("rows_attention_kchunk_stats", F32, 20, "cuda cores"),
+    ("rows_attention_kchunk", F32, 12, "3xtf32"),
+    ("rows_attention_kchunk_stats", F32, 20, "3xtf32"),
     # past 128: K3 and K5 in f32 and K6 and K7 in both dtypes on their wide
-    # tensor-core bodies (attention_tf32.cuh, attention_bwd_wide.cuh), C = 4
-    # mod 8 on the CUDA cores
+    # tensor-core bodies (attention_tf32.cuh, attention_bwd_wide.cuh); C = 4
+    # mod 8 K3 and K5 on them too, K7 on the CUDA cores
     *[(name, F32, C, "3xtf32") for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats",
                                             "rows_attention_bwd") for C in (256, 1024)],
     *[("rows_attention_bwd", BF16, C, "bf16 mma") for C in (256, 1024)],
     *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
       for dtype in (BF16, F32) for C in (256, 1024)],
-    *[(name, F32, 132, "cuda cores") for name in ("rows_attention_kchunk", "rows_attention_bwd")],
+    ("rows_attention_kchunk", F32, 132, "3xtf32"),
+    ("rows_attention_bwd", F32, 132, "cuda cores"),
     # K6: the bf16 tensor cores and 3xTF32 at C a multiple of 8, else the CUDA cores
     *[("rows_attention_kchunk_bwd", dtype, C, "bf16 mma" if dtype == BF16 else "3xtf32")
       for dtype in (BF16, F32) for C in (8, 16, 64, 128)],
@@ -106,8 +108,8 @@ def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
     K5, K6 and K7 the bf16 tensor cores (attention_mma.cu,
     attention_bwd_mma.cu; K6 and K7 past 128 their wide body), K3, K5, K6
     and K7 in f32 the 3xTF32 bodies (attention_tf32.cu,
-    attention_bwd_tf32.cu; past 128 the wide ones); every other width keeps
-    its CUDA-core body."""
+    attention_bwd_tf32.cu; past 128 the wide ones); at C = 4 mod 8 K3 and
+    K5 keep their tensor-core bodies and K6 and K7 their CUDA-core ones."""
     assert _body(name, dtype, C) == body
 
 
@@ -115,10 +117,11 @@ def test_k5_k6_k7_keep_their_cuda_core_body(name, dtype, C, body):
 @pytest.mark.parametrize("C", [8, 12, 16, 64, 128, 512, 768, 1024, 1028])
 def test_k1_k2_f32_body_choice_and_bound(name, C):
     """K1, K1 fast and K2 in f32: the 3xTF32 body at C a multiple of 8 up to
-    1024 (past 128 the wide bodies, which stream the head in 128-channel
-    chunks); C = 12 and every other width keep the CUDA-core body, whose
-    bound, C <= 1024 a multiple of 4, attention_fits keeps."""
-    tf32 = C % 8 == 0 and C <= 1024
+    1024, for K1 and K1 fast of 4 (past 128 the wide bodies, which stream
+    the head in 128-channel chunks); K2 at C = 12 and every other width
+    keep the CUDA-core body, whose bound, C <= 1024 a multiple of 4,
+    attention_fits keeps."""
+    tf32 = C % (8 if name == "tiled_attention" else 4) == 0 and C <= 1024
     assert A.takes_tf32x3(name, F32, C) is tf32
     assert A.takes_tensor_cores(name, F32, C) is tf32
     assert _body(name, F32, C) == ("3xtf32" if tf32 else "cuda cores")
@@ -256,7 +259,7 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 136), True),
     (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 1024), True),
     (A.takes_tf32x3, ("rows_attention_kchunk_stats", F32, 1032), False),
-    (A.takes_tf32x3, ("rows_attention_kchunk", F32, 124), False),
+    (A.takes_tf32x3, ("rows_attention_kchunk", F32, 124), True),
     (A.takes_tf32x3, ("rows_attention_kchunk", BF16, 16), False),
     (A.takes_tf32x3, ("rows_attention_kchunk_bwd", F32, 12), False),
     (A.kchunk_fits, ("rows_attention_kchunk", 2, 16, 4, 124, F32), True),
@@ -294,12 +297,14 @@ def test_k3_key_tile_of_64_matches_jax_chunk_of_256():
     *[(M.trimul_takes_tensor_cores, (D,), ok) for D, ok in ((36, False), (136, True), (192, True),
                                                             (508, False), (512, True),
                                                             (520, False))],
-    # K1 fast in f32: 3xTF32 at multiples of 8 up to 1024 (its wide body past
-    # 128), bf16 never; its bound unchanged at the edges
-    *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32 and C in (8, 128, 136))
+    # K1 fast in f32: 3xTF32 at multiples of 4 up to 1024 (its wide body past
+    # 128), bf16 never; its bound at the edges: 1024 in f32, in bf16 the
+    # tensor-core tiles' 1168 (C = 4 mod 8 past 1024 too since it takes them)
+    *[(A.takes_tf32x3, ("rows_attention_fast", dtype, C), dtype == F32)
       for C in (4, 8, 124, 128, 136) for dtype in (BF16, F32)],
-    *[(A.attention_fits, ("rows_attention_fast", 2, 16, 4, C, dtype), C <= 1024)
-      for C in (4, 8, 124, 128, 136, 1024, 1028) for dtype in (BF16, F32)],
+    *[(A.attention_fits, ("rows_attention_fast", 2, 16, 4, C, dtype),
+       C <= 1024 or (dtype == BF16 and C <= 1168))
+      for C in (4, 8, 124, 128, 136, 1024, 1028, 1164, 1172) for dtype in (BF16, F32)],
     # K10's tensor-core body: D, Hd and Dout multiples of 8 in bf16, 4 in f32
     *[(T.transition_takes_tensor_cores, (D, 4 * D, D, dtype), ok)
       for D, dtype, ok in ((8, BF16, True), (4, BF16, False), (12, BF16, False),
@@ -359,8 +364,8 @@ def test_k9_k11_take_any_pair_width_up_to_512(D, dtype):
 def test_k3_k5_k6_k7_take_head_widths_up_to_1024(C, dtype):
     """K6 and K7 in both dtypes, and K3 and K5 in f32, take every multiple
     of 4 up to MAX_HEAD_DIM, as K1 and K2 do: on their tensor-core bodies at
-    every multiple of 8 up to 1024 (the wide bodies past 128) and on the
-    CUDA-core bodies at C = 4 mod 8."""
+    every multiple of 8 up to 1024 (the wide bodies past 128), and K6 and K7
+    on the CUDA-core bodies at C = 4 mod 8, where K3 and K5 keep theirs."""
     ok = C <= A.MAX_HEAD_DIM
     wide_ok = ok and C % 8 == 0
     assert A.bwd_fits(2, 16, 4, C, dtype) is ok
@@ -370,7 +375,162 @@ def test_k3_k5_k6_k7_take_head_widths_up_to_1024(C, dtype):
     if dtype == F32:
         for name in ("rows_attention_kchunk", "rows_attention_kchunk_stats"):
             assert A.kchunk_fits(name, 2, 16, 4, C, dtype) is ok
-            assert _body(name, dtype, C) == ("3xtf32" if wide_ok else "cuda cores")
+            assert _body(name, dtype, C) == ("3xtf32" if ok else "cuda cores")
+
+
+# head widths C = 4 mod 8 -------------------------------------------------------
+
+NARROW_WIDTHS = (4, 12, 36, 124, 132, 1020)
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("C", NARROW_WIDTHS)
+@pytest.mark.parametrize("name", A.MMA_BODIES)
+def test_tensor_cores_at_head_widths_4_mod_8(name, C, dtype):
+    """K1, K1 fast, K3 and K5 take C = 4 mod 8 on their tensor-core bodies in
+    both dtypes, up to 1020 (bf16 attention_mma.cu's 8-byte staging, f32
+    attention_tf32.cu and the wide bodies past 128); K2, K6 and K7 keep
+    their CUDA-core bodies there, and every bound still admits the shape."""
+    narrow = name in A.NARROW_BODIES
+    assert A.tc_width(name, C) is narrow
+    assert A.takes_mma(name, dtype, C) is (narrow and dtype == BF16)
+    assert A.takes_tf32x3(name, dtype, C) is (narrow and dtype == F32)
+    assert A.takes_tensor_cores(name, dtype, C) is narrow
+    if name in A.BACKWARDS:
+        assert A.kchunk_fits(name, 2, 16, 4, C, dtype) and A.bwd_fits(2, 16, 4, C, dtype)
+    elif name in A.KCHUNK_FORWARDS:
+        assert A.kchunk_fits(name, 2, 16, 4, C, dtype)
+    else:
+        assert A.attention_fits(name, 2, 16, 4, C, dtype)
+
+
+@pytest.mark.parametrize("C", NARROW_WIDTHS)
+def test_shared_memory_at_head_widths_4_mod_8(C):
+    """A head of C = 4 mod 8 pads in shared memory as C + 4 does: in bf16 to
+    CP = C rounded up to 16, in f32 to 8 NT channels up to 128 and past it to
+    128-channel chunks; so each body's shared memory, and K3's and the wide
+    bodies' queries a block, are C + 4's, and the padded width covers C."""
+    cp = -(-C // 16) * 16
+    assert C < cp <= C + 12 and cp == -(-(C + 4) // 16) * 16
+    for queries in (64, 128):
+        assert A.mma_smem_bytes(C, queries) == A.mma_smem_bytes(C + 4, queries)
+    assert A.kchunk_queries(C) == A.kchunk_queries(C + 4)
+    if C <= A.MAX_TC_HEAD_DIM:
+        nt = A._padded_tiles(C)
+        assert 8 * nt >= C and nt == A._padded_tiles(C + 4)
+        for queries in (64, 128):
+            assert A.tf32x3_smem_bytes(C, queries) == A.tf32x3_smem_bytes(C + 4, queries)
+    else:
+        assert A.wide_queries(C) == A.wide_queries(C + 4)
+        assert A.kchunk_wide_tf32x3_smem_bytes(C) == A.kchunk_wide_tf32x3_smem_bytes(C + 4)
+        for N, store in ((192, True), (1024, True), (1024, False)):
+            assert (A.fast_wide_tf32x3_smem_bytes(C, N, store)
+                    == A.fast_wide_tf32x3_smem_bytes(C + 4, N, store))
+
+
+def test_shared_memory_at_head_width_36():
+    """The bytes of attention_mma.cu's smem_bytes at C = 36 (CP = 48, 64-key
+    tiles, a 64-channel V slice): 2 (TQ + 128) 56 + 4 64 72 for 64 queries
+    (K1) and 128 (K3, K5); attention_tf32.cu's rows_tf32x3_smem at CP = 64
+    (32-key tiles): 4 (TQ + 128) 68."""
+    assert A.mma_smem_bytes(36, 64) == 2 * (192 * 56 + 2 * 64 * 72) == 39_936
+    assert A.mma_smem_bytes(36, A.kchunk_queries(36)) == 2 * (256 * 56 + 2 * 64 * 72) == 47_104
+    assert A.tf32x3_smem_bytes(36, 128) == 4 * (256 * 68) == 69_632
+
+
+def _narrow_inputs(C, jdt, R=3, N=24, H=2, seed=0):
+    """q, k, v rounded to ``jdt`` (numpy f32) with |logits| ~ 4, mask [R, N]
+    with row 1 fully masked."""
+    rng = np.random.RandomState(seed)
+    q, k = ((16.0 / C) ** 0.5 * 2.0 * rng.randn(R, N, H, C).astype(np.float32) for _ in range(2))
+    v = rng.randn(R, N, H, C).astype(np.float32)
+    mask = (rng.rand(R, N) > 0.3).astype(np.float32)
+    mask[1] = 0.0
+    q, k, v = (np.array(jnp.asarray(x, jdt).astype(jnp.float32)) for x in (q, k, v))
+    return q, k, v, mask
+
+
+NARROW_DTYPES = {"f32": (jnp.float32, F32, 1e-5), "bf16": (jnp.bfloat16, BF16, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(NARROW_DTYPES))
+@pytest.mark.parametrize("fast", [False, True], ids=["k1", "k1_fast"])
+@pytest.mark.parametrize("C", [12, 36])
+def test_k1_plain_matches_jax_at_head_widths_4_mod_8(one_thread, C, fast, dtype):
+    """K1 and K1 fast at C = 12 and 36: the port's CPU route (its plain
+    version, which the card's kernels are held to) against the JAX
+    ``_rows_attention_impl`` (Pallas in interpret mode), the fully masked
+    row at the mean of v; K1 within 1e-5 (f32) or 2e-2 (bf16) of max|out|,
+    K1 fast within 1e-2 (its bf16 softmax, as test_torch_fast_softmax)."""
+    jdt, tdt, tol = NARROW_DTYPES[dtype]
+    q, k, v, mask = _narrow_inputs(C, jdt, seed=C)
+    scale = C ** -0.5
+    t = lambda x: jnp.swapaxes(jnp.asarray(x, jdt), 1, 2)  # noqa: E731
+    want = pa._rows_attention_impl(t(q) * jnp.asarray(scale, jdt), t(k), t(v), jnp.asarray(mask),
+                                   True, fast=fast)
+    want = np.asarray(jnp.swapaxes(want, 1, 2).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    fn = A.rows_attention_fast if fast else A.rows_attention
+    before = dict(A.LAUNCHES)
+    got = fn(tq, tk, tv, torch.from_numpy(mask), scale)
+    assert A.LAUNCHES == before and got.dtype == tdt
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    tol = 1e-2 if fast else tol
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got[1], np.broadcast_to(v[1].mean(0), got[1].shape),
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", sorted(NARROW_DTYPES))
+@pytest.mark.parametrize("stats", [False, True], ids=["k3", "k5"])
+@pytest.mark.parametrize("C", [12, 36])
+def test_k3_k5_plain_matches_jax_at_head_widths_4_mod_8(one_thread, monkeypatch, C, stats, dtype):
+    """K3 and K5 at C = 12 and 36 in the K-chunk regime (the switch lowered
+    to N = 16 and the chunk to 8 on both sides, as tests/test_torch_kchunk.py
+    lowers them): the port's plain K3 and K5 (the CPU route) against the JAX
+    ``_rows_attention_kchunk_grid_cn`` and ``_rows_attention_fwd_stats_impl``
+    (Pallas in interpret mode), out within 1e-5 (f32) or 2e-2 (bf16) of
+    max|out|; K5's m and log s within 1e-5, the fully masked row's m the
+    fill and its log s log N."""
+    for mod in (A, pa):
+        monkeypatch.setattr(mod, "ROWS_KCHUNK_MIN_N", 16)
+        monkeypatch.setattr(mod, "ROWS_KCHUNK_MIN_N_F32", 16)
+    monkeypatch.setattr(A, "KCHUNK", 8)
+    monkeypatch.setattr(pa, "_KCHUNK_TARGET", 8)
+    jdt, tdt, tol = NARROW_DTYPES[dtype]
+    q, k, v, mask = _narrow_inputs(C, jdt, R=2, N=24, seed=40 + C)
+    R, N = mask.shape
+    scale = C ** -0.5
+    t = lambda x: jnp.swapaxes(jnp.asarray(x, jdt), 1, 2)  # noqa: E731
+    jq, jk, jv, jm = t(q) * jnp.asarray(scale, jdt), t(k), t(v), jnp.asarray(mask)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    before = dict(A.LAUNCHES)
+    if stats:
+        j_out, j_m, j_logs = pa._rows_attention_fwd_stats_impl(jq, jk, jv, jm, True)
+        out, m, logs = A.rows_attention_kchunk_stats(tq, tk, tv, torch.from_numpy(mask), scale)
+    else:
+        j_out = pa._rows_attention_kchunk_grid_cn(jq, jk, jv, jm, 8, pa._kchunk_rb(R), True)
+        out = A.rows_attention_kchunk(tq, tk, tv, torch.from_numpy(mask), scale)
+    assert A.LAUNCHES == before
+    want = np.asarray(jnp.swapaxes(j_out, 1, 2).astype(jnp.float32))
+    got = out.float().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+    if stats:
+        np.testing.assert_allclose(m.numpy(), np.asarray(j_m), rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(m.abs().max())))
+        np.testing.assert_allclose(logs.numpy(), np.asarray(j_logs), atol=1e-5, rtol=1e-5)
+        assert (m[1] == A.NEG_INF).all()
+        np.testing.assert_allclose(logs[1].numpy(), np.log(float(N)), rtol=1e-6)
 
 
 @pytest.mark.parametrize("D,Hd,Dout,dtype,layout", [
